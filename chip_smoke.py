@@ -1,0 +1,448 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``lz4_tpu_torch``) on one GPU and hold each of
+its kernels against its plain version.
+
+Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught):
+
+1. the card's name and power limit, torch and CUDA versions;
+2. build of every kernel from ``lz4_tpu_torch/csrc`` (set-up, timed);
+3. each kernel against its plain version on edge-case batches: block sizes
+   around the format's limits, data kinds from zeros to incompressible, a
+   tight ``dest_cap``, a fuzz batch of malformed blocks with a guard region
+   behind each output row, ragged hash lengths and two seeds;
+4. the main path: ``roundtrip_step`` on 4096 blocks of 64 KiB (256 MiB),
+   3 iterations with launch counts reset just before and read just after,
+   every block OK, the packed frame body equal to the one assembled on the
+   host; then each kernel against its plain version at those shapes, with
+   the kernel's time (CUDA events), the plain version's time and the bound
+   (bytes the function must move over 3.35 TB/s);
+5. ``compress_frame_packed`` on about 64 MiB, verified by decoding its
+   blocks through the decode kernel and re-hashing on the host;
+6. the launch counts, the per-kernel JSON line and the final JSON line.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from lz4_tpu_torch import testing
+from lz4_tpu_torch.core.constants import max_compressed_length
+from lz4_tpu_torch.dist import sharded
+from lz4_tpu_torch.entry import entry, example_blocks
+from lz4_tpu_torch.formats.frame import (
+    INCOMPRESSIBLE_MASK, frame_header, xxh32_bytes)
+from lz4_tpu_torch.kernels import build, codec, layout, xxhash
+
+SEED = 1234
+N_BLOCKS = 4096
+BLOCK_LEN = 1 << 16
+ITERS = 3
+TIMED_REPS = 5
+FRAME_BYTES = (64 << 20) - 777      # a short last block
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
+EDGE_SIZES = (0, 5, 12, 13, 1000, 65536, 70000)
+GUARD = 64
+GUARD_BYTE = 0xA5
+
+KERNELS = {  # Kernel.name -> (source, TPU kernel it replaces)
+    "lz4_compress": ("lz4_tpu_torch/csrc/lz4_compress.cu",
+                     "lz4_tpu/kernels/lz4_pallas.py:676"),
+    "lz4_decode": ("lz4_tpu_torch/csrc/lz4_decode.cu",
+                   "lz4_tpu/kernels/lz4_pallas.py:309"),
+    "xxh32": ("lz4_tpu_torch/csrc/xxh32.cu",
+              "lz4_tpu/kernels/xxhash_pallas.py:156"),
+}
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# comparisons
+# ---------------------------------------------------------------------------
+
+def _row_diff(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor,
+              rows: torch.Tensor, width: int) -> int:
+    """Largest |a - b| over bytes [0, lens[i]) of the selected rows."""
+    worst = 0
+    if width == 0:
+        return worst
+    idx = torch.nonzero(rows).flatten()
+    col = torch.arange(width, device=a.device)
+    for c in range(0, idx.numel(), 256):
+        r = idx[c:c + 256]
+        mask = col < lens[r].unsqueeze(1)
+        d = (a[r, :width].to(torch.int16) - b[r, :width].to(torch.int16)).abs()
+        worst = max(worst, int((d * mask).max()) if r.numel() else 0)
+    return worst
+
+
+def compare_codec(what: str, kern, plain, width: int,
+                  all_lens: bool = True) -> int:
+    """Hold a kernel's ``(data, lens, err)`` against the plain version's:
+    error codes on every row, lengths (on every row unless ``all_lens`` is
+    off) and bytes ``[0, len)`` on OK rows. Returns the largest difference."""
+    kd, kl, ke = kern
+    pd, pl, pe = (t.to(kd.device) for t in plain)
+    if not torch.equal(ke, pe):
+        bad = torch.nonzero(ke != pe).flatten()[:8].tolist()
+        fail(f"{what}: error codes differ at rows {bad}: "
+             f"kernel {ke[bad].tolist()} plain {pe[bad].tolist()}")
+    ok = ke == 0
+    lens_rows = torch.ones_like(ok) if all_lens else ok
+    if not torch.equal(kl[lens_rows], pl[lens_rows]):
+        bad = torch.nonzero(lens_rows & (kl != pl)).flatten()[:8].tolist()
+        fail(f"{what}: lengths differ at rows {bad}: "
+             f"kernel {kl[bad].tolist()} plain {pl[bad].tolist()}")
+    worst = _row_diff(kd, pd, kl, ok, width)
+    if worst:
+        fail(f"{what}: bytes differ on OK rows (max abs diff {worst})")
+    return worst
+
+
+def compare_compress(what, src, lens, dest_cap) -> int:
+    kern = codec.compress_fast_batch(src, lens, dest_cap)
+    plain = codec.compress_fast_plain(src, lens, dest_cap)
+    sync()
+    return compare_codec(what, kern, plain, dest_cap)
+
+
+def compare_decode(what, comp, comp_lens, out_max, guard: bool = False) -> int:
+    """Decode kernel vs plain. With ``guard``, both decode into buffers of
+    ``out_max + GUARD`` bytes a row filled with ``GUARD_BYTE``, and the
+    bytes from ``out_max`` on must come back unchanged."""
+    bufs = [None, None]
+    if guard:
+        bufs = [torch.full((comp.shape[0], out_max + GUARD), GUARD_BYTE,
+                           dtype=torch.uint8, device=comp.device)
+                for _ in range(2)]
+    kern = codec.decompress_safe_batch(comp, comp_lens, out_max, out=bufs[0])
+    plain = codec.decompress_safe_plain(comp, comp_lens, out_max, out=bufs[1])
+    sync()
+    if guard:
+        for name, buf in (("kernel", bufs[0]), ("plain", bufs[1])):
+            if not bool((buf[:, out_max:] == GUARD_BYTE).all()):
+                fail(f"{what}: {name} wrote past out_max={out_max}")
+    return compare_codec(what, kern, plain, out_max, all_lens=False)
+
+
+def compare_xxh32(what, data, lens, seed) -> int:
+    kern = xxhash.xxh32_batch(data, lens, seed)
+    plain = xxhash.xxh32_plain(data, lens, seed)
+    sync()
+    if not torch.equal(kern, plain):
+        bad = torch.nonzero(kern != plain).flatten()[:8].tolist()
+        fail(f"{what}: hashes differ at rows {bad}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_card() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    return card
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    log(f"build: {len(libs)} kernels in {time.perf_counter() - t0:.2f} s "
+        f"({build.build_dir()})")
+    for name in sorted(libs):
+        report = (build.build_dir() / f"{name}.log").read_text()
+        for line in report.splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+
+def phase_edge_cases(dev) -> None:
+    rng = np.random.default_rng(SEED)
+    blocks = testing.mixed_blocks(rng, EDGE_SIZES)
+    src, lens = layout.to_device_layout(blocks, device=dev)
+    cap = max_compressed_length(max(EDGE_SIZES))
+    compare_compress("K2 edge sizes", src, lens, cap)
+    comp, comp_lens, err = codec.compress_fast_batch(src, lens, cap)
+    if bool(err.any()):
+        fail("K2 edge sizes: a block failed to compress")
+    tight = codec.compress_fast_batch(src, lens, 600)[2]
+    if not bool((tight == codec.ERR_DEST_TOO_SMALL).any()):
+        fail("K2 tight dest_cap: no ERR_DEST_TOO_SMALL")
+    compare_compress("K2 tight dest_cap", src, lens, 600)
+    log(f"K2 == plain on {len(blocks)} edge blocks, and with dest_cap=600 "
+        f"({int((tight != 0).sum())} ERR_DEST_TOO_SMALL)")
+
+    compare_decode("K1 on K2 output", comp, comp_lens, max(EDGE_SIZES),
+                   guard=True)
+    out, out_lens, derr = codec.decompress_safe_batch(comp, comp_lens,
+                                                      max(EDGE_SIZES))
+    if layout.from_device_layout(out, out_lens) != blocks or bool(derr.any()):
+        fail("K1 did not restore the edge blocks")
+    fuzz = testing.fuzz_blocks(rng, layout.from_device_layout(comp, comp_lens),
+                               512)
+    fsrc, flens = layout.to_device_layout(fuzz, device=dev)
+    codes = {}
+    for out_max in (0, 1, 64, 1000, 70000):
+        compare_decode(f"K1 fuzz out_max={out_max}", fsrc, flens, out_max,
+                       guard=True)
+        e = codec.decompress_safe_batch(fsrc, flens, out_max)[2]
+        codes[out_max] = torch.bincount(e.long(), minlength=3).tolist()
+    log(f"K1 == plain on K2 output and {len(fuzz)} fuzzed blocks; "
+        f"guard intact; OK/MALFORMED/DEST_TOO_SMALL by out_max: {codes}")
+
+    hash_lens = list(range(101)) + [1000, 65536]
+    hsrc, hl = layout.to_device_layout(
+        [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in hash_lens],
+        device=dev)
+    for seed in (0, 0xFFFFFFFF):
+        compare_xxh32(f"K3 seed={seed:#x}", hsrc, hl, seed)
+    one = rng.integers(0, 256, 4099, dtype=np.uint8).tobytes()
+    osrc, ol = layout.to_device_layout([one], device=dev)
+    compare_xxh32("K3 n=1", osrc, ol, 0)
+    if int(xxhash.xxh32_batch(osrc, ol, 0)[0]) != xxh32_bytes(one):
+        fail("K3 n=1 differs from the host hash")
+    log(f"K3 == plain on lengths 0..100, 1000, 65536 (seeds 0, 0xFFFFFFFF) "
+        f"and n=1")
+
+    fn, args = entry(device=dev)
+    out, out_lens, err = fn(*args)
+    if bool(err.any()) or layout.from_device_layout(out, out_lens) != \
+            example_blocks():
+        fail("entry(): decode did not restore the example blocks")
+    log("entry(): decode OK")
+
+
+def _host_body(data: np.ndarray, comp: np.ndarray,
+               comp_lens: list[int]) -> bytes:
+    parts = []
+    for i, cl in enumerate(comp_lens):
+        raw = data[i].tobytes()
+        if cl >= len(raw):
+            parts += [struct.pack("<I", len(raw) | INCOMPRESSIBLE_MASK), raw]
+        else:
+            parts += [struct.pack("<I", cl), comp[i, :cl].tobytes()]
+    return b"".join(parts)
+
+
+def _time_kernel(fn) -> float:
+    """Milliseconds per call of ``fn`` on the card (CUDA events)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TIMED_REPS):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / TIMED_REPS
+
+
+def _time_plain(fn):
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_main_path(dev) -> list[dict]:
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    gib = N_BLOCKS * BLOCK_LEN / 2 ** 30
+    st = None
+    for i in range(ITERS):
+        del st                          # one step's tensors live at a time
+        t0 = time.perf_counter()
+        st = sharded.roundtrip_step(N_BLOCKS, BLOCK_LEN, SEED, dev)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        n_ok = int(st.ok.sum())
+        if n_ok != N_BLOCKS:
+            fail(f"main path step {i}: {N_BLOCKS - n_ok} blocks not OK")
+        rates = ", ".join(f"{k} {v:.3f} ms ({gib * 2 ** 30 / v / 1e6:.2f} GB/s)"
+                          for k, v in st.phase_ms.items())
+        log(f"step {i}: {N_BLOCKS} x {BLOCK_LEN} B OK, compressed "
+            f"{st.compressed_total} B "
+            f"({st.compressed_total / (gib * 2 ** 30):.4f}), body "
+            f"{st.body_total} B; {rates}; step wall {wall:.1f} ms "
+            f"(data made on the host included)")
+    launches = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"main path launches: {launches}")
+    log(f"peak device memory in the main path: {peak / 2 ** 30:.3f} GiB")
+    for k in KERNELS:
+        if launches.get(k, 0) < 1:
+            fail(f"kernel {k} was not launched on the main path")
+
+    data = sharded.make_blocks(N_BLOCKS, BLOCK_LEN, SEED)
+    src, lens = sharded.upload_blocks(data, dev)
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sharded.frame_body_packed(src, lens, st.comp, st.comp_lens)
+    log(f"frame_body_packed temporaries: "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 30:.3f} GiB "
+        f"(the body included)")
+    comp_lens = st.comp_lens.cpu().tolist()
+    offsets = np.cumsum([0] + comp_lens[:-1])
+    if st.offsets.cpu().numpy().tolist() != offsets.tolist():
+        fail("pack offsets are not the exclusive scan of compressed lengths")
+    body = st.body[:st.body_total].cpu().numpy().tobytes()
+    if body != _host_body(data, st.comp.cpu().numpy(), comp_lens):
+        fail("packed frame body differs from the host-assembled body")
+    log("offsets and packed body equal the host's")
+
+    cap = max_compressed_length(BLOCK_LEN)
+    n = N_BLOCKS
+    in_bytes = int(lens.sum())
+    comp_bytes = int(st.comp_lens.sum())
+    rows = []
+
+    def row(name, max_err, ms, plain_ms, nbytes):
+        src_file, replaces = KERNELS[name]
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({"name": name, "route": "cuda", "source": src_file,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": "bytes",
+                     "library_ms": None})
+        log(f"{name}: {ms:.3f} ms on the card ({in_bytes / ms / 1e6:.2f} GB/s "
+            f"of input), plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms, "
+            f"max abs err {max_err}")
+
+    # K2: input bytes + compressed bytes + lengths in, lengths and codes out
+    kern = codec.compress_fast_batch(src, lens, cap)
+    plain, plain_ms = _time_plain(
+        lambda: codec.compress_fast_plain(src, lens, cap))
+    err = compare_codec("K2 main path", kern, plain, cap)
+    ms = _time_kernel(lambda: codec.compress_fast_batch(src, lens, cap))
+    row("lz4_compress", err, ms, plain_ms, in_bytes + comp_bytes + 12 * n)
+    del kern, plain
+
+    # K1: compressed bytes + decoded bytes + lengths in, lengths, codes out
+    comp, clens = st.comp, st.comp_lens
+    kern = codec.decompress_safe_batch(comp, clens, BLOCK_LEN)
+    plain, plain_ms = _time_plain(
+        lambda: codec.decompress_safe_plain(comp, clens, BLOCK_LEN))
+    err = compare_codec("K1 main path", kern, plain, BLOCK_LEN,
+                        all_lens=False)
+    if not torch.equal(kern[0][:, :BLOCK_LEN], src[:, :BLOCK_LEN]):
+        fail("K1 main path: decoded blocks differ from the input")
+    ms = _time_kernel(lambda: codec.decompress_safe_batch(comp, clens,
+                                                          BLOCK_LEN))
+    row("lz4_decode", err, ms, plain_ms, comp_bytes + in_bytes + 12 * n)
+    del kern, plain
+
+    # K3: input bytes + lengths in, hashes out
+    kern = xxhash.xxh32_batch(src, lens, 0)
+    plain, plain_ms = _time_plain(lambda: xxhash.xxh32_plain(src, lens, 0))
+    if not torch.equal(kern, plain) or not torch.equal(kern, st.hashes):
+        fail("K3 main path: hashes differ from the plain version")
+    ms = _time_kernel(lambda: xxhash.xxh32_batch(src, lens, 0))
+    row("xxh32", 0, ms, plain_ms, in_bytes + 8 * n)
+    return rows
+
+
+def phase_frame(dev) -> dict:
+    raw = sharded.make_blocks(-(-FRAME_BYTES // BLOCK_LEN), BLOCK_LEN,
+                              SEED + 1).tobytes()[:FRAME_BYTES]
+    build.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    frame = sharded.compress_frame_packed(raw, BLOCK_LEN, True, dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = build.launch_counts()
+
+    if frame[:7] != frame_header(BLOCK_LEN, True):
+        fail("frame header differs")
+    pos, blocks, kinds = 7, [], []
+    while True:
+        (word,) = struct.unpack_from("<I", frame, pos)
+        pos += 4
+        if word == 0:
+            break
+        size = word & ~INCOMPRESSIBLE_MASK
+        blocks.append(frame[pos:pos + size])
+        kinds.append(bool(word & INCOMPRESSIBLE_MASK))
+        pos += size
+    (checksum,) = struct.unpack_from("<I", frame, pos)
+    if pos + 4 != len(frame):
+        fail("frame has bytes after its content checksum")
+    packed = [b for b, r in zip(blocks, kinds) if not r]
+    comp, comp_lens = layout.to_device_layout(packed, device=dev)
+    out, out_lens, err = codec.decompress_safe_batch(comp, comp_lens,
+                                                     BLOCK_LEN)
+    if bool(err.any()):
+        fail("frame: a block did not decode")
+    decoded = iter(layout.from_device_layout(out, out_lens))
+    restored = b"".join(b if r else next(decoded)
+                        for b, r in zip(blocks, kinds))
+    if restored != raw:
+        fail("frame: decoded content differs from the input")
+    if checksum != xxh32_bytes(raw):
+        fail("frame: content checksum differs from the host hash")
+    flat = torch.zeros((1, layout.row_stride(len(raw))), dtype=torch.uint8,
+                       device=dev)
+    flat[0, :len(raw)] = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    n1 = torch.tensor([len(raw)], dtype=torch.int32, device=dev)
+    n1_ms = _time_kernel(lambda: xxhash.xxh32_batch(flat, n1, 0))
+    log(f"K3 with n=1 over {len(raw)} B (the content checksum): "
+        f"{n1_ms:.3f} ms ({len(raw) / n1_ms / 1e6:.2f} GB/s)")
+    log(f"compress_frame_packed: {len(raw)} B -> {len(frame)} B in "
+        f"{wall:.1f} ms host wall ({len(blocks)} blocks, {sum(kinds)} raw); "
+        f"decoded through K1 and re-hashed on the host: OK; launches {counts}")
+    return counts
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    card = phase_card()
+    phase_build()
+    phase_edge_cases(dev)
+    rows = phase_main_path(dev)
+    phase_frame(dev)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    log("kernels: " + json.dumps({r["name"]: r["launches"] for r in rows}))
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

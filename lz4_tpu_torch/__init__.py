@@ -1,0 +1,16 @@
+"""tpu-lz4 on PyTorch and CUDA: the device codec of ``lz4_tpu`` with
+hand-written Hopper kernels.
+
+Imports ``torch`` and ``numpy``, never ``jax`` or ``lz4_tpu``. Entry points
+run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``, which runs the kernels' plain versions; a missing card is
+an error. Kernels are built with ``nvcc`` at first use.
+"""
+
+from .dist.sharded import compress_frame_packed, roundtrip_step
+from .entry import entry
+from .kernels.codec import compress_fast_batch, decompress_safe_batch
+from .kernels.xxhash import xxh32_batch
+
+__all__ = ["compress_fast_batch", "compress_frame_packed",
+           "decompress_safe_batch", "entry", "roundtrip_step", "xxh32_batch"]

@@ -1,0 +1,234 @@
+"""The device codec step of ``lz4_tpu/dist/sharded.py``, on one device.
+
+Same names as the JAX module so a reader finds each counterpart:
+``pack_offsets``, ``frame_body_packed`` (``_frame_body_packed``,
+``sharded.py:271-306``), ``compress_frame_packed``
+(``compress_frame_sharded_packed``, ``:324-369``) and ``roundtrip_step``
+(``sharded_roundtrip_step``, ``:372-422``): compress, block checksums, the
+exclusive scan of compressed lengths, decode and verify, and packing of the
+frame body, all on the device. Spreading blocks over several GPUs is not
+part of this module yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import struct
+
+import numpy as np
+import torch
+
+from ..core.constants import max_compressed_length
+from ..core.device import resolve_device
+from ..core.errors import Lz4Error
+from ..formats.frame import INCOMPRESSIBLE_MASK, frame_header
+from ..kernels.codec import compress_fast_batch, decompress_safe_batch
+from ..kernels.layout import row_stride
+from ..kernels.xxhash import xxh32_batch
+
+# Output bytes packed per step of frame_body_packed: its int32/int64 index
+# temporaries stay near 40 bytes per packed byte of a chunk (about 1/3 GiB)
+# whatever the batch size.
+_PACK_CHUNK = 1 << 23
+
+
+def pack_offsets(comp_lens: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sum of per-block compressed lengths (int32)."""
+    return torch.cumsum(comp_lens, 0, dtype=torch.int32) - comp_lens
+
+
+def frame_body_packed(src: torch.Tensor, lens: torch.Tensor,
+                      comp: torch.Tensor, comp_lens: torch.Tensor):
+    """Pack per-block payloads into one contiguous LZ4 frame body.
+
+    For each block with ``lens > 0``: a little-endian size word, then the
+    compressed payload, or the raw block with ``INCOMPRESSIBLE_MASK`` set
+    when compressing did not make it smaller
+    (``LZ4FrameOutputStream.java:215-222``). Output bytes are gathered on
+    the device in chunks of whole blocks, with int32 positions.
+
+    Returns (body uint8[total], total).
+    """
+    n = lens.shape[0]
+    dev = src.device
+    use_raw = comp_lens >= lens
+    payload = torch.where(use_raw, lens, comp_lens)
+    emit = torch.where(lens > 0, payload + 4, torch.zeros_like(payload))
+    ends = torch.cumsum(emit, 0, dtype=torch.int64)
+    total = int(ends[-1]) if n else 0
+    if total >= 2 ** 31:
+        raise ValueError("frame body of 2 GiB or more")
+    ends = ends.to(torch.int32)
+    offs = ends - emit
+    # INCOMPRESSIBLE_MASK as an int32 bit pattern
+    size_word = torch.where(use_raw, lens | (INCOMPRESSIBLE_MASK - 2 ** 32),
+                            comp_lens)
+    src_flat = src.reshape(-1)
+    comp_flat = comp.reshape(-1)
+    body = torch.empty((total,), dtype=torch.uint8, device=dev)
+
+    ends_host = ends.cpu().tolist()
+    b0 = 0
+    while b0 < n:
+        base = ends_host[b0 - 1] if b0 else 0
+        b1 = b0 + 1
+        while b1 < n and ends_host[b1] - base <= _PACK_CHUNK:
+            b1 += 1
+        size = ends_host[b1 - 1] - base
+        if size:
+            j = torch.arange(base, base + size, dtype=torch.int32, device=dev)
+            blk = torch.searchsorted(ends[b0:b1], j, right=True,
+                                     out_int32=True) + b0
+            rel = j - offs.index_select(0, blk)
+            k = torch.clamp(rel - 4, min=0).to(torch.int64)
+            blk64 = blk.to(torch.int64)
+            raw_b = src_flat.index_select(
+                0, blk64 * src.shape[1] + torch.clamp(k, max=src.shape[1] - 1))
+            comp_b = comp_flat.index_select(
+                0, blk64 * comp.shape[1] + torch.clamp(k, max=comp.shape[1] - 1))
+            shift = torch.clamp(rel, max=3) * 8
+            size_b = (size_word.index_select(0, blk) >> shift) & 0xFF
+            byte = torch.where(rel < 4, size_b.to(torch.uint8),
+                               torch.where(use_raw.index_select(0, blk),
+                                           raw_b, comp_b))
+            body[base:base + size] = byte
+        b0 = b1
+    return body, total
+
+
+def compress_frame_packed(data, block_size: int = 1 << 16,
+                          content_checksum: bool = True,
+                          device: str | torch.device = "cuda") -> bytes:
+    """Compress ``data`` into a standard LZ4 frame of independent blocks.
+
+    Blocks are compressed and the frame body packed on the device; the host
+    adds the 7-byte header, the end mark and the content checksum, which is
+    XXH32 over the whole input as one block on the device. The output is
+    byte-identical to ``lz4_tpu.formats.frame.compress_frame`` with the
+    same block size and ``(BLOCK_INDEPENDENCE[, CONTENT_CHECKSUM])``.
+    """
+    dev = resolve_device(device)
+    header = frame_header(block_size, content_checksum)
+    raw = np.frombuffer(bytes(data), np.uint8)
+    n = -(-raw.size // block_size)
+    flat = torch.zeros((max(n * block_size, 16),), dtype=torch.uint8, device=dev)
+    flat[:raw.size] = torch.from_numpy(raw.copy()).to(dev)
+    out = bytearray(header)
+    if n:
+        blocks = torch.zeros((n, row_stride(block_size)), dtype=torch.uint8,
+                             device=dev)
+        blocks[:, :block_size] = flat[:n * block_size].view(n, block_size)
+        lens = torch.full((n,), block_size, dtype=torch.int32, device=dev)
+        lens[-1] = raw.size - (n - 1) * block_size
+        comp, comp_lens, err = compress_fast_batch(
+            blocks, lens, max_compressed_length(block_size))
+        if bool(err.any()):
+            raise Lz4Error("device compression failed")
+        body, _ = frame_body_packed(blocks, lens, comp, comp_lens)
+        out += body.cpu().numpy().tobytes()
+    out += struct.pack("<I", 0)
+    if content_checksum:
+        length = torch.tensor([raw.size], dtype=torch.int32, device=dev)
+        h = xxh32_batch(flat.view(1, -1), length, 0)
+        out += struct.pack("<I", int(h.cpu().numpy()[0]))
+    return bytes(out)
+
+
+# ---------------------------------------------------------------------------
+# the roundtrip step
+# ---------------------------------------------------------------------------
+
+def make_blocks(n_blocks: int, block_len: int, seed: int = 0) -> np.ndarray:
+    """Seeded test data, uint8[n_blocks, block_len], in three kinds:
+
+    - half alphabet-4 bytes (the generator of ``sharded.py:381-383``);
+    - a quarter repeated phrases from a small vocabulary with about one
+      byte in 64 mutated, standing in for log and text data;
+    - the rest incompressible bytes, which the frame stores raw.
+
+    Kinds are spread over the batch by a seeded permutation.
+    """
+    rng = np.random.default_rng(seed)
+    n_a4 = n_blocks // 2
+    n_text = n_blocks // 4
+    kinds = rng.permutation(np.repeat(
+        [0, 1, 2], [n_a4, n_text, n_blocks - n_a4 - n_text]))
+    out = np.empty((n_blocks, block_len), np.uint8)
+    out[kinds == 0] = rng.integers(0, 4, (n_a4, block_len), dtype=np.uint8)
+    out[kinds == 2] = rng.integers(0, 256, (n_blocks - n_a4 - n_text, block_len),
+                                   dtype=np.uint8)
+    vocab = [rng.integers(32, 127, int(k), dtype=np.uint8).tobytes()
+             for k in rng.integers(4, 48, 512)]
+    n_words = block_len // 4 + 1
+    for i in np.flatnonzero(kinds == 1):
+        words = rng.integers(0, len(vocab), n_words)
+        row = np.frombuffer(b"".join(vocab[w] for w in words)[:block_len],
+                            np.uint8).copy()
+        hits = rng.integers(0, block_len, block_len // 64)
+        row[hits] = rng.integers(0, 256, hits.size, dtype=np.uint8)
+        out[i] = row
+    return out
+
+
+@dataclasses.dataclass
+class Roundtrip:
+    """What one roundtrip step leaves on the device, and its phase times."""
+    ok: torch.Tensor            # bool[N]: compressed, decoded and equal
+    compressed_total: int
+    offsets: torch.Tensor       # int32[N], pack_offsets(comp_lens)
+    hashes: torch.Tensor        # uint32[N], XXH32 of each block, seed 0
+    comp: torch.Tensor
+    comp_lens: torch.Tensor
+    body: torch.Tensor          # uint8[body_total], the packed frame body
+    body_total: int
+    phase_ms: dict              # CUDA-event times per phase; empty on the CPU
+
+
+def upload_blocks(data: np.ndarray, device: torch.device):
+    """uint8[N, L] host blocks -> the port's layout on ``device``."""
+    n, block_len = data.shape
+    src = torch.zeros((n, row_stride(block_len)), dtype=torch.uint8,
+                      device=device)
+    src[:, :block_len] = torch.from_numpy(data).to(device)
+    lens = torch.full((n,), block_len, dtype=torch.int32, device=device)
+    return src, lens
+
+
+def roundtrip_step(n_blocks: int, block_len: int, seed: int = 0,
+                   device: str | torch.device = "cuda") -> Roundtrip:
+    """Make ``n_blocks`` seeded blocks of ``block_len`` bytes
+    (:func:`make_blocks`), move them to the device, then compress,
+    checksum, decode and verify, and pack them there. On the card each
+    phase is timed with CUDA events."""
+    dev = resolve_device(device)
+    src, lens = upload_blocks(make_blocks(n_blocks, block_len, seed), dev)
+    timed = dev.type == "cuda"
+    marks = []
+
+    def mark():
+        if timed:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+
+    mark()
+    comp, comp_lens, cerr = compress_fast_batch(
+        src, lens, max_compressed_length(block_len))
+    offsets = pack_offsets(comp_lens)
+    mark()
+    hashes = xxh32_batch(src, lens, 0)
+    mark()
+    out, out_lens, derr = decompress_safe_batch(comp, comp_lens, block_len)
+    ok = ((cerr == 0) & (derr == 0) & (out_lens == lens)
+          & (out[:, :block_len] == src[:, :block_len]).all(1))
+    mark()
+    body, body_total = frame_body_packed(src, lens, comp, comp_lens)
+    mark()
+    phase_ms = {}
+    if timed:
+        torch.cuda.synchronize(dev)
+        for name, a, b in zip(("compress", "checksum", "decode", "pack"),
+                              marks, marks[1:]):
+            phase_ms[name] = a.elapsed_time(b)
+    return Roundtrip(ok, int(comp_lens.sum()), offsets, hashes, comp,
+                     comp_lens, body, body_total, phase_ms)

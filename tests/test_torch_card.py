@@ -1,0 +1,109 @@
+"""The port's CUDA kernels on the card, held against their plain versions.
+
+Every test here needs a CUDA card and ``nvcc``; without one it skips. The
+file imports nothing from the JAX package, so on a machine without JAX it
+runs alone, without ``tests/conftest.py``::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_card.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lz4_tpu_torch import compress_frame_packed, roundtrip_step, testing
+from lz4_tpu_torch.core.constants import max_compressed_length
+from lz4_tpu_torch.kernels import build, codec, layout, xxhash
+
+pytestmark = pytest.mark.cuda
+
+EDGE_SIZES = (0, 5, 12, 13, 1000, 65536, 70000)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _assert_codec_equal(kern, plain, all_lens=True):
+    assert torch.equal(kern[2], plain[2])
+    ok = kern[2] == 0
+    rows = torch.ones_like(ok) if all_lens else ok
+    assert torch.equal(kern[1][rows], plain[1][rows])
+    for i in torch.nonzero(ok).flatten().tolist():
+        n = int(kern[1][i])
+        assert torch.equal(kern[0][i, :n], plain[0][i, :n]), i
+
+
+@pytest.mark.parametrize("dest_cap", [max_compressed_length(70000), 600])
+def test_compress_kernel_matches_plain(cuda_device, dest_cap):
+    rng = np.random.default_rng(dest_cap)
+    src, lens = layout.to_device_layout(
+        testing.mixed_blocks(rng, EDGE_SIZES), device=cuda_device)
+    before = codec.COMPRESS.launches
+    kern = codec.compress_fast_batch(src, lens, dest_cap)
+    assert codec.COMPRESS.launches == before + 1
+    _assert_codec_equal(kern, codec.compress_fast_plain(src, lens, dest_cap))
+
+
+@pytest.mark.parametrize("out_max", [0, 1, 64, 1000, 70000])
+def test_decode_kernel_matches_plain(cuda_device, out_max):
+    rng = np.random.default_rng(out_max)
+    blocks = testing.mixed_blocks(rng, EDGE_SIZES)
+    src, lens = layout.to_device_layout(blocks, device=cuda_device)
+    comp, comp_lens, _ = codec.compress_fast_batch(
+        src, lens, max_compressed_length(70000))
+    comp_blocks = layout.from_device_layout(comp, comp_lens)
+    c, cl = layout.to_device_layout(
+        comp_blocks + testing.fuzz_blocks(rng, comp_blocks, 256),
+        device=cuda_device)
+    bufs = [torch.full((c.shape[0], out_max + 64), 0xA5, dtype=torch.uint8,
+                       device=cuda_device) for _ in range(2)]
+    kern = codec.decompress_safe_batch(c, cl, out_max, out=bufs[0])
+    plain = codec.decompress_safe_plain(c, cl, out_max, out=bufs[1])
+    _assert_codec_equal(kern, plain, all_lens=False)
+    for buf in bufs:
+        assert bool((buf[:, out_max:] == 0xA5).all())
+    if out_max == 70000:
+        assert layout.from_device_layout(kern[0], kern[1])[:len(blocks)] == \
+            blocks
+
+
+@pytest.mark.parametrize("seed", [0, 0xFFFFFFFF])
+def test_xxh32_kernel_matches_plain(cuda_device, seed):
+    rng = np.random.default_rng(seed & 0xFF)
+    sizes = list(range(101)) + [1000, 65536]
+    data, lens = layout.to_device_layout(
+        [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in sizes],
+        device=cuda_device)
+    assert torch.equal(xxhash.xxh32_batch(data, lens, seed),
+                       xxhash.xxh32_plain(data, lens, seed))
+
+
+def test_roundtrip_step_matches_cpu(cuda_device):
+    build.reset_launch_counts()
+    gpu = roundtrip_step(64, 65536, seed=5, device=cuda_device)
+    assert all(v == 1 for v in build.launch_counts().values())
+    cpu = roundtrip_step(64, 65536, seed=5, device="cpu")
+    assert bool(gpu.ok.all()) and bool(cpu.ok.all())
+    assert gpu.compressed_total == cpu.compressed_total
+    assert gpu.offsets.cpu().tolist() == cpu.offsets.tolist()
+    assert gpu.hashes.cpu().tolist() == cpu.hashes.tolist()
+    assert torch.equal(gpu.body.cpu(), cpu.body)
+    assert set(gpu.phase_ms) == {"compress", "checksum", "decode", "pack"}
+
+
+def test_compress_frame_packed_matches_cpu(cuda_device):
+    data = np.random.default_rng(8).integers(0, 8, 300_000, dtype=np.uint8)
+    data = data.tobytes()
+    assert compress_frame_packed(data, device=cuda_device) == \
+        compress_frame_packed(data, device="cpu")
+
+
+def test_wrappers_reject_unaligned_hash_rows(cuda_device):
+    data = torch.zeros((2, 40), dtype=torch.uint8, device=cuda_device)
+    lens = torch.tensor([3, 40], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        xxhash.xxh32_batch(data, lens)

@@ -1,0 +1,164 @@
+"""The port's batched LZ4 block codec (``lz4_tpu_torch.kernels.codec``)
+against the JAX package: ``jax_codec`` and the Pallas kernels in interpret
+mode, on the same inputs, compared exactly (bytes, lengths, error codes).
+On the CPU the port runs its plain versions (``test_torch_card.py`` holds
+the CUDA kernels against them)."""
+
+import numpy as np
+import pytest
+import torch
+
+from lz4_tpu.core.constants import LZ4_64K_LIMIT, max_compressed_length
+from lz4_tpu.core.lz4_block_ref import compress_fast_alloc
+from lz4_tpu.kernels import jax_codec
+from lz4_tpu.kernels.lz4_pallas import (
+    PAD as KPAD, compress_fast_pallas, decompress_safe_pallas)
+from lz4_tpu_torch import testing
+from lz4_tpu_torch.kernels import codec, layout
+
+
+def _alphabet_blocks(rng, spec):
+    return [rng.integers(0, a, n, dtype=np.uint8).tobytes() for a, n in spec]
+
+
+# (alphabet, size) of test_jax_kernels.py's fixture (:19) and of :189
+FIXTURE_SPEC = [(1, 100), (4, 1000), (16, 3000), (256, 500), (2, 0), (8, 13),
+                (3, 64)]
+PALLAS_SPEC = [(4, 1000), (256, 300), (1, 500), (8, 13), (3, 0)]
+
+# test_jax_kernels.py:42 and :128 (ends with a match; null matchDec) and
+# :144 (4 literals, a null-offset match of 7, 14 literals)
+ENDS_WITH_MATCH = bytes([96, 42, 43, 44, 45, 46, 47, 5, 0])
+NULL_MATCH_DEC = bytes([16, 42, 0, 0, 128] + [42] * 8)
+NULL_MATCH_ZEROS = (bytes([0x43]) + bytes(range(65, 69)) + bytes([0, 0, 0xE0])
+                    + bytes(range(80, 94)))
+
+
+def _jax(t, lens, pad=jax_codec.PAD):
+    return layout.to_jax_layout(t, lens, pad)
+
+
+def _assert_same(port, ref, ok_rows_only_lens=False):
+    """port: (uint8 tensor, lens, err); ref: JAX (int32 rows, lens, err)."""
+    data, lens, err = port
+    rdata, rlens, rerr = (np.asarray(x) for x in ref)
+    assert err.tolist() == rerr.tolist()
+    for i, (e, n) in enumerate(zip(err.tolist(), lens.tolist())):
+        if ok_rows_only_lens and e != codec.OK:
+            continue
+        assert n == int(rlens[i]), i
+        if e == codec.OK:
+            assert data[i, :n].numpy().tobytes() == \
+                rdata[i, :n].astype(np.uint8).tobytes(), i
+
+
+def _decode_batch(rng):
+    blocks = _alphabet_blocks(rng, FIXTURE_SPEC)
+    comp = [compress_fast_alloc(b) for b in blocks]
+    fuzz = testing.fuzz_blocks(rng, comp, 64)
+    batch = comp + fuzz + [ENDS_WITH_MATCH, NULL_MATCH_DEC, NULL_MATCH_ZEROS,
+                           b"", b"\x00", b"\x10\x41"]
+    return layout.to_device_layout(batch, device="cpu"), blocks
+
+
+@pytest.mark.parametrize("out_max", [0, 20, 3000])
+def test_decode_matches_jax_codec(out_max):
+    (comp, comp_lens), blocks = _decode_batch(np.random.default_rng(out_max))
+    port = codec.decompress_safe_batch(comp, comp_lens, out_max)
+    ref = jax_codec.decompress_safe_batch(*_jax(comp, comp_lens), out_max)
+    # on an error the JAX codec may count the literals it refused
+    _assert_same(port, ref, ok_rows_only_lens=True)
+    err = port[2].tolist()
+    if out_max == 3000:
+        assert err[:len(blocks)] == [codec.OK] * len(blocks)
+        assert layout.from_device_layout(port[0], port[1])[:len(blocks)] == \
+            blocks
+    if out_max == 20:
+        assert err[-6] == codec.ERR_MALFORMED     # ends with a match
+        assert err[-5] == codec.OK                # null matchDec
+    assert codec.ERR_MALFORMED in err or out_max == 0
+
+
+def test_decode_matches_pallas_interpret():
+    (comp, comp_lens), _ = _decode_batch(np.random.default_rng(7))
+    for out_max in (20, 3000):
+        port = codec.decompress_safe_batch(comp, comp_lens, out_max)
+        ref = decompress_safe_pallas(*_jax(comp, comp_lens, KPAD), out_max,
+                                     interpret=True)
+        _assert_same(port, ref, ok_rows_only_lens=True)
+
+
+def test_null_match_bytes_are_zeros():
+    comp, lens = layout.to_device_layout([NULL_MATCH_ZEROS], device="cpu")
+    out = torch.full((1, 64), 0xA5, dtype=torch.uint8)
+    out, out_lens, err = codec.decompress_safe_batch(comp, lens, 25, out=out)
+    assert err.tolist() == [codec.OK] and out_lens.tolist() == [25]
+    assert out[0, :25].numpy().tobytes() == (
+        bytes(range(65, 69)) + bytes(7) + bytes(range(80, 94)))
+    assert bool((out[0, 25:] == 0xA5).all())     # nothing past out_max
+
+
+def _compress_batch(rng):
+    blocks = (_alphabet_blocks(rng, FIXTURE_SPEC + PALLAS_SPEC)
+              + testing.mixed_blocks(rng, (5, 12, 13, 777)))
+    return layout.to_device_layout(blocks, device="cpu"), blocks
+
+
+@pytest.mark.parametrize("dest_cap", [max_compressed_length(3000), 120])
+def test_compress_matches_jax_codec(dest_cap):
+    (src, lens), blocks = _compress_batch(np.random.default_rng(dest_cap))
+    port = codec.compress_fast_batch(src, lens, dest_cap)
+    ref = jax_codec.compress_fast_batch(*_jax(src, lens), dest_cap)
+    _assert_same(port, ref)
+    err = port[2].tolist()
+    if dest_cap == 120:
+        assert codec.ERR_DEST_TOO_SMALL in err
+    else:
+        assert err == [codec.OK] * len(blocks)
+        assert layout.from_device_layout(port[0], port[1]) == \
+            [compress_fast_alloc(b) for b in blocks]
+
+
+def test_compress_matches_pallas_interpret():
+    (src, lens), blocks = _compress_batch(np.random.default_rng(3))
+    dest_cap = max_compressed_length(3000)
+    port = codec.compress_fast_batch(src, lens, dest_cap)
+    ref = compress_fast_pallas(*_jax(src, lens, KPAD), dest_cap,
+                               interpret=True)
+    _assert_same(port, ref)
+    assert not port[2].any()
+
+
+def test_compress_per_block_variant_above_64k_limit():
+    """A block from LZ4_64K_LIMIT on takes the 12-bit windowed variant and
+    a short block in the same batch the 13-bit one, as the reference does."""
+    rng = np.random.default_rng(11)
+    big = rng.integers(0, 4, LZ4_64K_LIMIT + 4453, dtype=np.uint8).tobytes()
+    period = (bytes(range(7)) * 20000)[:LZ4_64K_LIMIT + 100]
+    small = rng.integers(0, 4, 3000, dtype=np.uint8).tobytes()
+    blocks = [big, small, period]
+    src, lens = layout.to_device_layout(blocks, device="cpu")
+    comp, comp_lens, err = codec.compress_fast_batch(
+        src, lens, max_compressed_length(len(big)))
+    assert err.tolist() == [codec.OK] * 3
+    assert layout.from_device_layout(comp, comp_lens) == \
+        [compress_fast_alloc(b) for b in blocks]
+    out, out_lens, derr = codec.decompress_safe_batch(comp, comp_lens,
+                                                      len(big))
+    assert derr.tolist() == [codec.OK] * 3
+    assert layout.from_device_layout(out, out_lens) == blocks
+
+
+def test_decode_reports_dest_too_small_and_empty_dest():
+    data = bytes(range(200)) * 5
+    comp, lens = layout.to_device_layout([compress_fast_alloc(data)],
+                                         device="cpu")
+    assert codec.decompress_safe_batch(comp, lens, 999)[2].tolist() == \
+        [codec.ERR_DEST_TOO_SMALL]
+    assert codec.decompress_safe_batch(comp, lens, 1000)[2].tolist() == \
+        [codec.OK]
+    empty, elen = layout.to_device_layout([b"\x00", b"\x00\x00", b""],
+                                          device="cpu")
+    assert codec.decompress_safe_batch(empty, elen, 0)[2].tolist() == \
+        [codec.OK, codec.ERR_DEST_TOO_SMALL, codec.ERR_DEST_TOO_SMALL]
+
