@@ -12,17 +12,25 @@ Phases (any failure exits non-zero; nothing is caught):
 2. build of every kernel from ``lz4_tpu_torch/csrc`` (set-up, timed);
 3. each kernel against its plain version on edge-case batches: block sizes
    around the format's limits, data kinds from zeros to incompressible, a
-   tight ``dest_cap``, a fuzz batch of malformed blocks with a guard region
-   behind each output row, ragged hash lengths and two seeds;
+   tight ``dest_cap``, fuzz batches of malformed blocks with a guard region
+   behind each output row (the safe and the fast decode), ragged hash
+   lengths with two XXH32 and three XXH64 seeds, and n = 1 against the host
+   hashes;
 4. the main path: ``roundtrip_step`` on 4096 blocks of 64 KiB (256 MiB),
    3 iterations with launch counts reset just before and read just after,
    every block OK, the packed frame body equal to the one assembled on the
-   host; then each kernel against its plain version at those shapes, with
-   the kernel's time (CUDA events), the plain version's time and the bound
-   (bytes the function must move over 3.35 TB/s);
-5. ``compress_frame_packed`` on about 64 MiB, verified by decoding its
+   host; then K1, K2 and K3 against their plain versions at those shapes,
+   with the kernel's time (CUDA events), the plain version's time and the
+   bound (bytes the function must move over 3.35 TB/s);
+5. the ``cuda`` tier at the same width, through ``Lz4Factory`` and
+   ``XXHashFactory``: the factories are built (their self-tests run on the
+   card), then ``compress_batch``, ``decompress_batch``, the fast
+   decompressor and both ``hash_batch`` calls on the main path's 256 MiB,
+   with launch counts reset just before and read just after; then K4 and
+   the fast decode against their plain versions at those shapes, timed;
+6. ``compress_frame_packed`` on about 64 MiB, verified by decoding its
    blocks through the decode kernel and re-hashing on the host;
-6. the launch counts, the per-kernel JSON line and the final JSON line.
+7. the launch counts, the per-kernel JSON line and the final JSON line.
 """
 
 from __future__ import annotations
@@ -36,7 +44,8 @@ import time
 import numpy as np
 import torch
 
-from lz4_tpu_torch import testing
+from lz4_tpu_torch import Lz4Factory, XXHashFactory, testing
+from lz4_tpu_torch.core import xxhash_ref
 from lz4_tpu_torch.core.constants import max_compressed_length
 from lz4_tpu_torch.dist import sharded
 from lz4_tpu_torch.entry import entry, example_blocks
@@ -49,6 +58,7 @@ N_BLOCKS = 4096
 BLOCK_LEN = 1 << 16
 ITERS = 3
 TIMED_REPS = 5
+PLAIN_FAST_ROWS = 1024              # rows the plain fast decode is timed on
 FRAME_BYTES = (64 << 20) - 777      # a short last block
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 EDGE_SIZES = (0, 5, 12, 13, 1000, 65536, 70000)
@@ -62,7 +72,15 @@ KERNELS = {  # Kernel.name -> (source, TPU kernel it replaces)
                    "lz4_tpu/kernels/lz4_pallas.py:309"),
     "xxh32": ("lz4_tpu_torch/csrc/xxh32.cu",
               "lz4_tpu/kernels/xxhash_pallas.py:156"),
+    "xxh64": ("lz4_tpu_torch/csrc/xxh64.cu",
+              "lz4_tpu/kernels/xxhash64_pallas.py:222"),
+    # K1's second entry point: the fast contract of the pure-JAX
+    # jax_codec.decompress_fast_batch, which has no Pallas kernel of its own
+    "lz4_decode_fast": ("lz4_tpu_torch/csrc/lz4_decode.cu",
+                        "lz4_tpu/kernels/lz4_pallas.py:309"),
 }
+MAIN_PATH = ("lz4_compress", "lz4_decode", "xxh32")   # roundtrip_step
+XXH64_SEEDS = (0, (1 << 64) - 1, 0xCAFEBABE12345678)
 
 
 def fail(msg: str):
@@ -156,6 +174,42 @@ def compare_xxh32(what, data, lens, seed) -> int:
     return 0
 
 
+def compare_xxh64(what, data, lens, seed) -> int:
+    kern = xxhash.xxh64_batch(data, lens, seed)
+    plain = xxhash.xxh64_plain(data, lens, seed)
+    sync()
+    if not torch.equal(kern, plain):
+        bad = torch.nonzero(kern != plain).flatten()[:8].tolist()
+        fail(f"{what}: hashes differ at rows {bad}")
+    return 0
+
+
+def compare_decode_fast(what, comp, avail, dest_len, rows=None) -> int:
+    """Fast decode kernel vs plain, both into buffers of ``dest_len +
+    GUARD`` bytes a row filled with ``GUARD_BYTE``: error codes on every
+    row, bytes read and the ``dest_len`` bytes on OK rows, and the guard
+    unchanged. ``rows`` (a slice) limits the plain version to some rows."""
+    rows = rows or slice(None)
+    bufs = [torch.full((comp.shape[0], dest_len + GUARD), GUARD_BYTE,
+                       dtype=torch.uint8, device=comp.device)
+            for _ in range(2)]
+    kern = codec.decompress_fast_batch(comp, avail, dest_len, out=bufs[0])
+    plain = codec.decompress_fast_plain(comp[rows], avail[rows], dest_len,
+                                        out=bufs[1][rows])
+    sync()
+    for name, buf in (("kernel", bufs[0]), ("plain", bufs[1][rows])):
+        if not bool((buf[:, dest_len:] == GUARD_BYTE).all()):
+            fail(f"{what}: {name} wrote past dest_len={dest_len}")
+    kern = (bufs[0][rows], kern[1][rows], kern[2][rows])
+    full = torch.full_like(kern[1], dest_len)
+    compare_codec(what, (kern[0], full, kern[2]), (plain[0], full, plain[2]),
+                  dest_len)
+    ok = kern[2] == 0
+    if not torch.equal(kern[1][ok], plain[1].to(ok.device)[ok]):
+        fail(f"{what}: bytes read differ on OK rows")
+    return 0
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -219,6 +273,30 @@ def phase_edge_cases(dev) -> None:
     log(f"K1 == plain on K2 output and {len(fuzz)} fuzzed blocks; "
         f"guard intact; OK/MALFORMED/DEST_TOO_SMALL by out_max: {codes}")
 
+    # the fast contract: exact blocks, the same with trailing bytes (more
+    # available than the block needs), and fuzz
+    comp_blocks = layout.from_device_layout(comp, comp_lens)
+    trailing = [c + rng.integers(0, 256, 9, dtype=np.uint8).tobytes()
+                for c in comp_blocks]
+    fast = comp_blocks + trailing + fuzz
+    fsrc, favail = layout.to_device_layout(fast, device=dev)
+    codes = {}
+    for dest_len in (0, 1, 64, 1000, 65536, 70000):
+        compare_decode_fast(f"K1 fast dest_len={dest_len}", fsrc, favail,
+                            dest_len)
+        _, read, e = codec.decompress_fast_batch(fsrc, favail, dest_len)
+        exact = [i for i, b in enumerate(blocks) if len(b) == dest_len]
+        exact += [i + len(blocks) for i in exact]
+        if exact and (bool(e[exact].any()) or read[exact].tolist()
+                      != [len(comp_blocks[i % len(blocks)]) for i in exact]):
+            fail(f"K1 fast dest_len={dest_len}: an exact block failed or "
+                 f"read other than its compressed length")
+        codes[dest_len] = torch.bincount(e.long(), minlength=3).tolist()[:2]
+    log(f"K1 fast == plain on K2 output, the same with 9 trailing bytes and "
+        f"{len(fuzz)} fuzzed blocks; exact blocks OK with bytes read equal "
+        f"to their compressed length; guard intact; OK/MALFORMED by "
+        f"dest_len: {codes}")
+
     hash_lens = list(range(101)) + [1000, 65536]
     hsrc, hl = layout.to_device_layout(
         [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in hash_lens],
@@ -232,6 +310,15 @@ def phase_edge_cases(dev) -> None:
         fail("K3 n=1 differs from the host hash")
     log(f"K3 == plain on lengths 0..100, 1000, 65536 (seeds 0, 0xFFFFFFFF) "
         f"and n=1")
+
+    for seed in XXH64_SEEDS:
+        compare_xxh64(f"K4 seed={seed:#x}", hsrc, hl, seed)
+        compare_xxh64(f"K4 n=1 seed={seed:#x}", osrc, ol, seed)
+        got = xxhash_ref.as_u64(int(xxhash.xxh64_batch(osrc, ol, seed)[0]))
+        if got != xxhash_ref.xxh64(one, 0, len(one), seed):
+            fail(f"K4 n=1 seed={seed:#x} differs from the host hash")
+    log("K4 == plain on lengths 0..100, 1000, 65536 and n=1 (seeds 0, "
+        "2^64-1, 0xCAFEBABE12345678); n=1 == the host hash")
 
     fn, args = entry(device=dev)
     out, out_lens, err = fn(*args)
@@ -274,7 +361,30 @@ def _time_plain(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def phase_main_path(dev) -> list[dict]:
+def kernel_row(name: str, launches: dict, max_err: int, ms: float,
+               plain_ms: float, nbytes: int, in_bytes: int,
+               plain_rows: int | None = None) -> dict:
+    """One entry of the ``kernels`` JSON line; the bound is ``nbytes`` (each
+    input read once, each output written once) over the HBM rate.
+    ``plain_rows`` is the rows the plain version was timed on (all of
+    them unless given)."""
+    plain_rows = plain_rows or N_BLOCKS
+    src_file, replaces = KERNELS[name]
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"{name}: {ms:.3f} ms on the card ({in_bytes / ms / 1e6:.2f} GB/s "
+        f"of input), plain {plain_ms:.1f} ms on {plain_rows} of {N_BLOCKS} "
+        f"rows, bound {bound_ms:.4f} ms, max abs err {max_err}, "
+        f"{launches[name]} launches")
+    return {"name": name, "route": "cuda", "source": src_file,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "plain_rows": plain_rows, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
+
+
+def phase_main_path(dev):
+    """The main path; returns its kernel rows and what the tier phase
+    compares with: the blocks and their K2 output."""
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     gib = N_BLOCKS * BLOCK_LEN / 2 ** 30
@@ -299,7 +409,7 @@ def phase_main_path(dev) -> list[dict]:
     peak = torch.cuda.max_memory_allocated()
     log(f"main path launches: {launches}")
     log(f"peak device memory in the main path: {peak / 2 ** 30:.3f} GiB")
-    for k in KERNELS:
+    for k in MAIN_PATH:
         if launches.get(k, 0) < 1:
             fail(f"kernel {k} was not launched on the main path")
 
@@ -328,16 +438,8 @@ def phase_main_path(dev) -> list[dict]:
     rows = []
 
     def row(name, max_err, ms, plain_ms, nbytes):
-        src_file, replaces = KERNELS[name]
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        rows.append({"name": name, "route": "cuda", "source": src_file,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": "bytes",
-                     "library_ms": None})
-        log(f"{name}: {ms:.3f} ms on the card ({in_bytes / ms / 1e6:.2f} GB/s "
-            f"of input), plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms, "
-            f"max abs err {max_err}")
+        rows.append(kernel_row(name, launches, max_err, ms, plain_ms, nbytes,
+                               in_bytes))
 
     # K2: input bytes + compressed bytes + lengths in, lengths and codes out
     kern = codec.compress_fast_batch(src, lens, cap)
@@ -369,7 +471,128 @@ def phase_main_path(dev) -> list[dict]:
         fail("K3 main path: hashes differ from the plain version")
     ms = _time_kernel(lambda: xxhash.xxh32_batch(src, lens, 0))
     row("xxh32", 0, ms, plain_ms, in_bytes + 8 * n)
+    return rows, {"data": data, "comp": st.comp, "comp_lens": st.comp_lens}
+
+
+def phase_tier(dev, main) -> list[dict]:
+    """The ``cuda`` tier at the main path's width, through the factories a
+    user calls; returns the K4 and fast-decode rows."""
+    data = main["data"]
+    n = data.shape[0]
+    blocks = [r.tobytes() for r in data]
+    lens_np = np.full((n,), BLOCK_LEN, np.int32)
+    seed64 = XXH64_SEEDS[2]
+    wall = {}
+
+    def timed(what, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall[what] = round((time.perf_counter() - t0) * 1e3, 1)
+        return out
+
+    build.reset_launch_counts()
+    lz4 = timed("Lz4Factory.cuda_instance", Lz4Factory.cuda_instance)
+    xxh = timed("XXHashFactory.cuda_instance", XXHashFactory.cuda_instance)
+    comp = timed("compress_batch",
+                 lambda: lz4.fast_compressor().compress_batch(blocks))
+    restored = timed("decompress_batch",
+                     lambda: lz4.safe_decompressor().decompress_batch(
+                         comp, BLOCK_LEN))
+    fast_out, src_read = timed(
+        "fast decompress_batch",
+        lambda: lz4.fast_decompressor().decompress_batch(comp, BLOCK_LEN))
+    h32 = timed("hash32 hash_batch",
+                lambda: xxh.hash32().hash_batch(data, lens_np, SEED))
+    hi, lo = timed("hash64 hash_batch",
+                   lambda: xxh.hash64().hash_batch(data, lens_np, seed64))
+    # the host roles, on small inputs: HC and the streaming hashes
+    hc = timed("high_compressor(9) on 4 KiB",
+               lambda: lz4.high_compressor(9).compress_batch(
+                   [blocks[0][:4096]]))
+    stream = timed("streaming XXH64 of one block in 1000-byte updates",
+                   lambda: _stream64(xxh, blocks[0], seed64))
+    launches = build.launch_counts()
+    log(f"tier launches: {launches}")
+    log(f"tier host wall, ms (layout copies and transfers included): {wall}")
+    log(f"tier roles on the card: fast_compressor (K2), safe_decompressor "
+        f"(K1), fast_decompressor (K1 fast), hash32 (K3), hash64 (K4); on "
+        f"the host: high_compressor and the streaming hashes "
+        f"(core/lz4_hc_ref.py, core/xxhash_ref.py)")
+    for k in KERNELS:
+        if launches.get(k, 0) < 1:
+            fail(f"kernel {k} was not launched on the tier path")
+
+    if comp != layout.from_device_layout(main["comp"], main["comp_lens"]):
+        fail("tier compress_batch differs from the main path's K2 output")
+    if restored != blocks:
+        fail("tier decompress_batch did not restore every block")
+    if fast_out != blocks or src_read != [len(c) for c in comp]:
+        fail("tier fast decompressor: blocks or bytes read differ")
+    hash0 = (int(hi[0]) << 32) | int(lo[0])
+    if stream != hash0:
+        fail("streaming XXH64 differs from hash64().hash_batch")
+    if lz4.safe_decompressor().decompress_alloc(
+            hc[0], 0, len(hc[0]), 4096) != blocks[0][:4096]:
+        fail("HC output does not decode")
+    log(f"tier: {n} x {BLOCK_LEN} B compressed byte-identical to the main "
+        f"path, every block restored by the safe and the fast decompressor, "
+        f"bytes read equal to the compressed lengths; HC and streaming "
+        f"XXH64 agree")
+
+    src, lens = sharded.upload_blocks(data, dev)
+    in_bytes = int(lens.sum())
+    rows = []
+
+    # K4: input bytes + lengths in, hashes out
+    kern = xxhash.xxh64_batch(src, lens, seed64)
+    plain, plain_ms = _time_plain(
+        lambda: xxhash.xxh64_plain(src, lens, seed64))
+    if not torch.equal(kern, plain):
+        fail("K4 main path: hashes differ from the plain version")
+    phi, plo = xxhash.split_u64(plain)
+    if not (torch.equal(phi, hi) and torch.equal(plo, lo)):
+        fail("tier hash64().hash_batch differs from the plain version")
+    if not torch.equal(h32, xxhash.xxh32_plain(src, lens, SEED)):
+        fail("tier hash32().hash_batch differs from the plain version")
+    ms = _time_kernel(lambda: xxhash.xxh64_batch(src, lens, seed64))
+    rows.append(kernel_row("xxh64", launches, 0, ms, plain_ms,
+                           in_bytes + 12 * n, in_bytes))
+    del kern, plain
+
+    # fast decode: compressed bytes + decoded bytes + lengths in, bytes read
+    # and codes out; the plain version on every (N / PLAIN_FAST_ROWS)-th row
+    comp_t, clens = main["comp"], main["comp_lens"]
+    comp_bytes = int(clens.sum())
+    kern = codec.decompress_fast_batch(comp_t, clens, BLOCK_LEN)
+    sub = slice(None, None, n // PLAIN_FAST_ROWS)
+    csub, lsub = comp_t[sub].contiguous(), clens[sub].contiguous()
+    plain, plain_ms = _time_plain(
+        lambda: codec.decompress_fast_plain(csub, lsub, BLOCK_LEN))
+    full = torch.full_like(lsub, BLOCK_LEN)
+    err = compare_codec("K1 fast main path",
+                        (kern[0][sub], full, kern[2][sub]),
+                        (plain[0], full, plain[2]), BLOCK_LEN)
+    if not torch.equal(kern[1][sub], plain[1].to(dev)):
+        fail("K1 fast main path: bytes read differ from the plain version")
+    if bool(kern[2].any()) or not torch.equal(kern[1], clens) or \
+            not torch.equal(kern[0][:, :BLOCK_LEN], src[:, :BLOCK_LEN]):
+        fail("K1 fast main path: a block failed, read other than its "
+             "compressed length or decoded to other bytes")
+    ms = _time_kernel(lambda: codec.decompress_fast_batch(comp_t, clens,
+                                                          BLOCK_LEN))
+    rows.append(kernel_row("lz4_decode_fast", launches, err, ms, plain_ms,
+                           comp_bytes + in_bytes + 12 * n, in_bytes,
+                           plain_rows=csub.shape[0]))
     return rows
+
+
+def _stream64(xxh, block: bytes, seed: int) -> int:
+    s = xxh.new_streaming_hash64(seed)
+    for off in range(0, len(block), 1000):
+        s.update(block, off, min(1000, len(block) - off))
+    return xxhash_ref.as_u64(s.get_value())
 
 
 def phase_frame(dev) -> dict:
@@ -432,7 +655,9 @@ def main() -> int:
     card = phase_card()
     phase_build()
     phase_edge_cases(dev)
-    rows = phase_main_path(dev)
+    rows, main_out = phase_main_path(dev)
+    rows += phase_tier(dev, main_out)
+    del main_out
     phase_frame(dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -97,3 +97,23 @@ LZ4TT_HD uint32_t lz4tt_read32(const uint8_t* p, int64_t i) {
 LZ4TT_HD uint32_t lz4tt_rotl32(uint32_t v, int n) {
   return (v << n) | (v >> (32 - n));
 }
+
+// An aligned 16-byte load: one vector load through the read-only cache on
+// the card.
+struct lz4tt_u4 {
+  uint32_t x, y, z, w;
+};
+
+LZ4TT_HD lz4tt_u4 lz4tt_load16(const uint8_t* p) {
+  lz4tt_u4 r;
+#ifdef __CUDA_ARCH__
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  r.x = v.x;
+  r.y = v.y;
+  r.z = v.z;
+  r.w = v.w;
+#else
+  memcpy(&r, p, 16);  // the host build runs on little-endian machines
+#endif
+  return r;
+}

@@ -14,24 +14,6 @@
 #define LZ4TT_P4 668265263u
 #define LZ4TT_P5 374761393u
 
-struct lz4tt_u4 {
-  uint32_t x, y, z, w;
-};
-
-LZ4TT_HD lz4tt_u4 lz4tt_load16(const uint8_t* p) {
-  lz4tt_u4 r;
-#ifdef __CUDA_ARCH__
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  r.x = v.x;
-  r.y = v.y;
-  r.z = v.z;
-  r.w = v.w;
-#else
-  memcpy(&r, p, 16);  // the host build runs on little-endian machines
-#endif
-  return r;
-}
-
 LZ4TT_HD uint32_t lz4tt_xxh_round(uint32_t v, uint32_t x) {
   return lz4tt_rotl32(v + x * LZ4TT_P2, 13) * LZ4TT_P1;
 }

@@ -1,9 +1,10 @@
 """Batched LZ4 block codec: the K1 (decode) and K2 (compress) kernels and
 their plain versions.
 
-``decompress_safe_batch`` and ``compress_fast_batch`` keep the contract of
-``lz4_tpu/kernels/jax_codec.py`` (``:239`` and ``:563``): a batch in, the
-output batch, its lengths and one error code per block out (``OK``,
+``decompress_safe_batch``, ``decompress_fast_batch`` and
+``compress_fast_batch`` keep the contract of ``lz4_tpu/kernels/jax_codec.py``
+(``:239``, ``:256`` and ``:563``): a batch in, the output batch, its lengths
+(bytes read, for the fast decode) and one error code per block out (``OK``,
 ``ERR_MALFORMED``, ``ERR_DEST_TOO_SMALL``; kernels cannot throw). Batches are
 in the port's layout (``kernels/layout.py``). A CUDA tensor goes to the
 kernel; a CPU tensor goes to the plain version in this module. There is no
@@ -37,6 +38,8 @@ ERR_DEST_TOO_SMALL = 2
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 DECODE = Kernel("lz4_decode", "lz4_decode", "lz4tt_decompress_safe",
                 [_P, _I64, _P, _P, _I64, _I32, _P, _P, _I32, _P])
+DECODE_FAST = Kernel("lz4_decode_fast", "lz4_decode", "lz4tt_decompress_fast",
+                     [_P, _I64, _P, _P, _I64, _I32, _P, _P, _I32, _P])
 COMPRESS = Kernel("lz4_compress", "lz4_compress", "lz4tt_compress_fast",
                   [_P, _I64, _P, _P, _I64, _I32, _P, _P, _I32, _P])
 
@@ -98,39 +101,53 @@ def _len_ext(src: bytes, s: int, src_end: int, length: int):
     return s, length + b
 
 
-def _decode_row(comp: bytes, src_end: int, out: bytearray, dest_cap: int):
-    """Decode one block into ``out[:dest_cap]``; returns (out_len, err).
+def _decode_row(comp: bytes, src_end: int, out: bytearray, dest_cap: int,
+                fast: bool = False):
+    """Decode one block into ``out[:dest_cap]``; returns (out_len, src_read,
+    err).
 
-    The classification of ``jax_codec._decompress_one`` (safe variant); a
-    null match offset writes zeros.
+    The classification of ``jax_codec._decompress_one``, safe or fast
+    variant (see ``csrc/lz4_decode.cuh``); a null match offset writes zeros.
+    In the fast variant ``src_end`` is the bytes available and ``dest_cap``
+    the exact decoded length. ``src_read`` counts only on OK rows.
     """
     if dest_cap == 0:
+        if fast:
+            return 0, 1, OK if comp[0] == 0 else ERR_MALFORMED
         ok = src_end == 1 and comp[0] == 0
-        return 0, OK if ok else ERR_DEST_TOO_SMALL
+        return 0, 1, OK if ok else ERR_DEST_TOO_SMALL
     s = d = 0
     while True:
         if s >= src_end:
-            return d, ERR_MALFORMED
+            return d, s, ERR_MALFORMED
         token = comp[s]
         s += 1
         lit_len = token >> ML_BITS
         if lit_len == RUN_MASK:
             s, lit_len = _len_ext(comp, s, src_end, lit_len)
         lit_end = d + lit_len
-        if (lit_end > dest_cap - COPY_LENGTH
+        if fast:
+            if s + lit_len > src_end:
+                return d, s, ERR_MALFORMED
+            if lit_end > dest_cap - COPY_LENGTH:
+                if lit_end != dest_cap:
+                    return d, s, ERR_MALFORMED
+                out[d:lit_end] = comp[s:s + lit_len]
+                return lit_end, s + lit_len, OK
+        elif (lit_end > dest_cap - COPY_LENGTH
                 or s + lit_len > src_end - COPY_LENGTH):
             if lit_end > dest_cap:
-                return d, ERR_DEST_TOO_SMALL
+                return d, s, ERR_DEST_TOO_SMALL
             if s + lit_len != src_end:
-                return d, ERR_MALFORMED
+                return d, s, ERR_MALFORMED
             out[d:lit_end] = comp[s:src_end]
-            return lit_end, OK
+            return lit_end, src_end, OK
         out[d:lit_end] = comp[s:s + lit_len]
         s += lit_len
         d = lit_end
 
         if s + 2 > src_end:
-            return d, ERR_MALFORMED
+            return d, s, ERR_MALFORMED
         dist = comp[s] | (comp[s + 1] << 8)
         s += 2
         m_len = token & ML_MASK
@@ -139,7 +156,7 @@ def _decode_row(comp: bytes, src_end: int, out: bytearray, dest_cap: int):
         m_len += MIN_MATCH
         m_end = d + m_len
         if d - dist < 0 or m_end > dest_cap:
-            return d, ERR_MALFORMED
+            return d, s, ERR_MALFORMED
         if dist == 0:
             out[d:m_end] = bytes(m_len)
         elif dist >= m_len:
@@ -162,12 +179,73 @@ def decompress_safe_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
     err = np.zeros((len(lens),), np.int32)
     for i, n in enumerate(lens):
         buf = bytearray(rows[i].tobytes())
-        out_lens[i], err[i] = _decode_row(comp_np[i, :n].tobytes(), n, buf,
-                                          out_max)
+        out_lens[i], _, err[i] = _decode_row(comp_np[i, :n].tobytes(), n, buf,
+                                             out_max)
         rows[i] = np.frombuffer(buf, np.uint8)
     out[:, :out_max] = torch.from_numpy(rows).to(out.device)
     dev = comp.device
     return (out, torch.from_numpy(out_lens).to(dev),
+            torch.from_numpy(err).to(dev))
+
+
+# ---------------------------------------------------------------------------
+# fast decode (exact decompressed size known)
+# ---------------------------------------------------------------------------
+
+def decompress_fast_batch(comp: torch.Tensor, comp_avail: torch.Tensor,
+                          dest_len: int, out: torch.Tensor | None = None):
+    """Batched fast decompression: every block decodes to exactly
+    ``dest_len`` bytes, and the bytes it consumed are reported.
+
+    Args:
+      comp: uint8[N, S] compressed blocks, S >= 1 (``dest_len == 0`` reads
+        the first byte of a row whatever ``comp_avail`` says, as
+        ``jax_codec`` does).
+      comp_avail: int32[N] bytes available in each row; not necessarily the
+        exact compressed length (the fast contract's point).
+      dest_len: the exact decoded length of every block.
+      out: optional uint8[N, >= dest_len] buffer to decode into; bytes at
+        and past ``dest_len`` in each row are never written.
+
+    Returns:
+      (out uint8[N, row_stride(dest_len)] (or ``out``), src_read int32[N]
+      (meaningful on OK rows), err int32[N]).
+    """
+    check_batch(comp, comp_avail)
+    if comp.shape[1] == 0:
+        raise ValueError("rows of comp must hold at least one byte")
+    out = _decode_out(comp, dest_len, out)
+    if comp.device.type == "cpu":
+        return decompress_fast_plain(comp, comp_avail, dest_len, out)
+    n = comp.shape[0]
+    src_read = torch.empty((n,), dtype=torch.int32, device=comp.device)
+    err = torch.empty((n,), dtype=torch.int32, device=comp.device)
+    DECODE_FAST(comp.data_ptr(), comp.stride(0), comp_avail.data_ptr(),
+                out.data_ptr(), out.stride(0), dest_len, src_read.data_ptr(),
+                err.data_ptr(), n, cuda_stream(comp))
+    return out, src_read, err
+
+
+def decompress_fast_plain(comp: torch.Tensor, comp_avail: torch.Tensor,
+                          dest_len: int, out: torch.Tensor | None = None):
+    """Plain version of :func:`decompress_fast_batch`, on any device."""
+    check_batch(comp, comp_avail)
+    if comp.shape[1] == 0:
+        raise ValueError("rows of comp must hold at least one byte")
+    out = _decode_out(comp, dest_len, out)
+    comp_np = comp.cpu().numpy()
+    avail = comp_avail.cpu().tolist()
+    rows = out[:, :dest_len].cpu().numpy()
+    src_read = np.zeros((len(avail),), np.int32)
+    err = np.zeros((len(avail),), np.int32)
+    for i, n in enumerate(avail):
+        buf = bytearray(rows[i].tobytes())
+        _, src_read[i], err[i] = _decode_row(
+            comp_np[i, :max(n, 1)].tobytes(), n, buf, dest_len, fast=True)
+        rows[i] = np.frombuffer(buf, np.uint8)
+    out[:, :dest_len] = torch.from_numpy(rows).to(out.device)
+    dev = comp.device
+    return (out, torch.from_numpy(src_read).to(dev),
             torch.from_numpy(err).to(dev))
 
 

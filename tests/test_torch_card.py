@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from lz4_tpu_torch import compress_frame_packed, roundtrip_step, testing
+from lz4_tpu_torch import (
+    Lz4Factory, XXHashFactory, compress_frame_packed, roundtrip_step, testing)
+from lz4_tpu_torch.core import xxhash_ref
 from lz4_tpu_torch.core.constants import max_compressed_length
 from lz4_tpu_torch.kernels import build, codec, layout, xxhash
 
@@ -82,10 +84,81 @@ def test_xxh32_kernel_matches_plain(cuda_device, seed):
                        xxhash.xxh32_plain(data, lens, seed))
 
 
+@pytest.mark.parametrize("seed", [0, (1 << 64) - 1, 0xCAFEBABE12345678])
+def test_xxh64_kernel_matches_plain(cuda_device, seed):
+    rng = np.random.default_rng(seed & 0xFF)
+    blocks = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+              for n in list(range(101)) + [1000, 65536]]
+    data, lens = layout.to_device_layout(blocks, device=cuda_device)
+    before = xxhash.XXH64.launches
+    kern = xxhash.xxh64_batch(data, lens, seed)
+    assert xxhash.XXH64.launches == before + 1
+    assert torch.equal(kern, xxhash.xxh64_plain(data, lens, seed))
+    assert [v & ((1 << 64) - 1) for v in kern.tolist()] == \
+        [xxhash_ref.xxh64(b, 0, len(b), seed) for b in blocks]
+
+
+@pytest.mark.parametrize("dest_len", [0, 1, 64, 1000, 65536])
+def test_decode_fast_kernel_matches_plain(cuda_device, dest_len):
+    rng = np.random.default_rng(dest_len)
+    src, lens = layout.to_device_layout(
+        testing.mixed_blocks(rng, EDGE_SIZES), device=cuda_device)
+    comp, comp_lens, _ = codec.compress_fast_batch(
+        src, lens, max_compressed_length(70000))
+    comp_blocks = layout.from_device_layout(comp, comp_lens)
+    c, cl = layout.to_device_layout(
+        comp_blocks + testing.fuzz_blocks(rng, comp_blocks, 256),
+        device=cuda_device)
+    bufs = [torch.full((c.shape[0], dest_len + 64), 0xA5, dtype=torch.uint8,
+                       device=cuda_device) for _ in range(2)]
+    before = codec.DECODE_FAST.launches
+    kern = codec.decompress_fast_batch(c, cl, dest_len, out=bufs[0])
+    assert codec.DECODE_FAST.launches == before + 1
+    plain = codec.decompress_fast_plain(c, cl, dest_len, out=bufs[1])
+    assert torch.equal(kern[2], plain[2])
+    ok = kern[2] == 0
+    assert torch.equal(kern[1][ok], plain[1][ok])
+    assert torch.equal(bufs[0][ok], bufs[1][ok])
+    for buf in bufs:
+        assert bool((buf[:, dest_len:] == 0xA5).all())
+    exact = (lens == dest_len).nonzero().flatten()
+    assert bool((kern[2][exact] == 0).all())
+    assert torch.equal(kern[1][exact], comp_lens[exact])
+
+
+def test_factories_on_the_card(cuda_device):
+    """The cuda tier builds and self-tests on the card, and its batch APIs
+    go through all five kernels."""
+    lz4 = Lz4Factory.cuda_instance()
+    xxh = XXHashFactory.cuda_instance()
+    assert lz4.device.type == xxh.device.type == "cuda"
+    rng = np.random.default_rng(3)
+    blocks = testing.mixed_blocks(rng, (100, 4096))
+    build.reset_launch_counts()
+    comp = lz4.fast_compressor().compress_batch(blocks)
+    assert lz4.safe_decompressor().decompress_batch(comp, 4096) == blocks
+    out, read = lz4.fast_decompressor().decompress_batch(comp[4:], 4096)
+    assert out == blocks[4:] and read == [len(c) for c in comp[4:]]
+    data = rng.integers(0, 256, (8, 4096), dtype=np.uint8)
+    lens = np.array([4096, 0, 1, 63, 64, 4095, 2000, 4096], np.int32)
+    h32 = xxh.hash32().hash_batch(data, lens, 5)
+    hi, lo = xxh.hash64().hash_batch(data, lens, 5)
+    assert all(v >= 1 for v in build.launch_counts().values())
+    assert h32.cpu().tolist() == [xxhash_ref.xxh32(data[i].tobytes(), 0,
+                                                   int(n), 5)
+                                  for i, n in enumerate(lens)]
+    assert [(h << 32) | low for h, low in zip(hi.cpu().tolist(),
+                                                lo.cpu().tolist())] == \
+        [xxhash_ref.xxh64(data[i].tobytes(), 0, int(n), 5)
+         for i, n in enumerate(lens)]
+
+
 def test_roundtrip_step_matches_cpu(cuda_device):
     build.reset_launch_counts()
     gpu = roundtrip_step(64, 65536, seed=5, device=cuda_device)
-    assert all(v == 1 for v in build.launch_counts().values())
+    counts = build.launch_counts()
+    assert counts.pop("xxh64") == counts.pop("lz4_decode_fast") == 0
+    assert all(v == 1 for v in counts.values())
     cpu = roundtrip_step(64, 65536, seed=5, device="cpu")
     assert bool(gpu.ok.all()) and bool(cpu.ok.all())
     assert gpu.compressed_total == cpu.compressed_total
@@ -107,3 +180,5 @@ def test_wrappers_reject_unaligned_hash_rows(cuda_device):
     lens = torch.tensor([3, 40], dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         xxhash.xxh32_batch(data, lens)
+    with pytest.raises(ValueError):
+        xxhash.xxh64_batch(data, lens)

@@ -149,6 +149,77 @@ def test_compress_per_block_variant_above_64k_limit():
     assert layout.from_device_layout(out, out_lens) == blocks
 
 
+def _fast_batch(rng, size=1000):
+    """Blocks that all decode to ``size`` bytes, the same blocks with
+    trailing bytes (more available than the block needs, the fast
+    contract's point), fuzz, and the hand-made edge streams."""
+    blocks = _alphabet_blocks(rng, [(1, size), (4, size), (256, size),
+                                    (16, size)])
+    comp = [compress_fast_alloc(b) for b in blocks]
+    trailing = [c + rng.integers(0, 256, 9, dtype=np.uint8).tobytes()
+                for c in comp]
+    fuzz = testing.fuzz_blocks(rng, comp, 96)
+    batch = comp + trailing + fuzz + [
+        ENDS_WITH_MATCH, NULL_MATCH_DEC, NULL_MATCH_ZEROS, b"", b"\x00",
+        b"\x00\x00", b"\x10\x41", b"\x10"]
+    return layout.to_device_layout(batch, device="cpu"), blocks, comp
+
+
+@pytest.mark.parametrize("dest_len", [0, 1, 13, 25, 1000])
+def test_decode_fast_matches_jax_codec(dest_len):
+    """``decompress_fast_plain`` against ``jax_codec.decompress_fast_batch``:
+    error codes on every row, bytes read and the ``dest_len`` bytes on OK
+    rows."""
+    (comp, avail), blocks, exact = _fast_batch(
+        np.random.default_rng(dest_len))
+    port = codec.decompress_fast_batch(comp, avail, dest_len)
+    assert [t.dtype for t in port] == [torch.uint8, torch.int32, torch.int32]
+    ref = jax_codec.decompress_fast_batch(*_jax(comp, avail), dest_len)
+    out, src_read, err = port
+    rout, rread, rerr = (np.asarray(x) for x in ref)
+    assert err.tolist() == rerr.tolist()
+    for i, e in enumerate(err.tolist()):
+        if e == codec.OK:
+            assert int(src_read[i]) == int(rread[i]), i
+            assert out[i, :dest_len].numpy().tobytes() == \
+                rout[i, :dest_len].astype(np.uint8).tobytes(), i
+    n = len(blocks)
+    if dest_len == 1000:       # exact blocks and the same with trailing bytes
+        assert err[:2 * n].tolist() == [codec.OK] * (2 * n)
+        assert src_read[:2 * n].tolist() == [len(c) for c in exact] * 2
+        assert [out[i, :1000].numpy().tobytes() for i in range(n)] == blocks
+    if dest_len == 25:
+        assert err[-6].tolist() == codec.OK           # NULL_MATCH_ZEROS
+        assert out[-6, :25].numpy().tobytes() == (
+            bytes(range(65, 69)) + bytes(7) + bytes(range(80, 94)))
+    if dest_len == 0:          # b"", b"\x00": comp[0] is 0, one byte read
+        assert err[-5:-3].tolist() == [codec.OK, codec.OK]
+        assert src_read[-5:-3].tolist() == [1, 1]
+    assert codec.ERR_MALFORMED in err.tolist()
+
+
+def test_decode_fast_never_writes_past_dest_len():
+    (comp, avail), _, _ = _fast_batch(np.random.default_rng(4), size=300)
+    for dest_len in (0, 7, 300):
+        out = torch.full((comp.shape[0], dest_len + 32), 0xA5,
+                         dtype=torch.uint8)
+        codec.decompress_fast_batch(comp, avail, dest_len, out=out)
+        assert bool((out[:, dest_len:] == 0xA5).all())
+
+
+def test_decode_fast_rejects_literals_past_the_input():
+    """A fast-mode literal run that would read past the bytes available is
+    malformed (``jax_codec.py:173``), also when it ends the block."""
+    stream = bytes([0x50]) + b"ABCDE"           # 5 literals, the whole block
+    comp, _ = layout.to_device_layout([stream], device="cpu")
+    for avail, want in ((6, codec.OK), (5, codec.ERR_MALFORMED)):
+        _, src_read, err = codec.decompress_fast_batch(
+            comp, torch.tensor([avail], dtype=torch.int32), 5)
+        assert err.tolist() == [want]
+        if want == codec.OK:
+            assert src_read.tolist() == [6]
+
+
 def test_decode_reports_dest_too_small_and_empty_dest():
     data = bytes(range(200)) * 5
     comp, lens = layout.to_device_layout([compress_fast_alloc(data)],

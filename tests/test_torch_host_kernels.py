@@ -19,6 +19,7 @@ HARNESS = r"""
 #include "lz4_compress.cuh"
 #include "lz4_decode.cuh"
 #include "xxh32.cuh"
+#include "xxh64.cuh"
 #include <vector>
 
 extern "C" {
@@ -26,9 +27,22 @@ void host_decode(const uint8_t* comp, long long comp_stride,
                  const int32_t* comp_lens, uint8_t* out, long long out_stride,
                  int out_max, int32_t* out_lens, int32_t* err, int n) {
   HostTeam t;
+  int32_t read;
   for (int b = 0; b < n; b++)
-    lz4tt_decode_block(t, comp + b * comp_stride, comp_lens[b],
-                       out + b * out_stride, out_max, &out_lens[b], &err[b]);
+    lz4tt_decode_block<false>(t, comp + b * comp_stride, comp_lens[b],
+                              out + b * out_stride, out_max, &out_lens[b],
+                              &read, &err[b]);
+}
+void host_decode_fast(const uint8_t* comp, long long comp_stride,
+                      const int32_t* comp_avail, uint8_t* out,
+                      long long out_stride, int dest_len, int32_t* src_read,
+                      int32_t* err, int n) {
+  HostTeam t;
+  int32_t len;
+  for (int b = 0; b < n; b++)
+    lz4tt_decode_block<true>(t, comp + b * comp_stride, comp_avail[b],
+                             out + b * out_stride, dest_len, &len,
+                             &src_read[b], &err[b]);
 }
 void host_compress(const uint8_t* src, long long src_stride,
                    const int32_t* src_lens, uint8_t* dst, long long dst_stride,
@@ -44,6 +58,11 @@ void host_xxh32(const uint8_t* data, long long stride, const int32_t* lens,
                 unsigned seed, uint32_t* out, int n) {
   for (int b = 0; b < n; b++)
     out[b] = lz4tt_xxh32(data + b * stride, lens[b], seed);
+}
+void host_xxh64(const uint8_t* data, long long stride, const int32_t* lens,
+                unsigned long long seed, uint64_t* out, int n) {
+  for (int b = 0; b < n; b++)
+    out[b] = lz4tt_xxh64(data + b * stride, lens[b], seed);
 }
 }
 """
@@ -66,8 +85,10 @@ def lib(tmp_path_factory):
     assert res.returncode == 0, res.stderr
     lib = ctypes.CDLL(str(out / "libhost.so"))
     lib.host_decode.argtypes = [_P, _I64, _P, _P, _I64, _I32, _P, _P, _I32]
+    lib.host_decode_fast.argtypes = lib.host_decode.argtypes
     lib.host_compress.argtypes = [_P, _I64, _P, _P, _I64, _I32, _P, _P, _I32]
     lib.host_xxh32.argtypes = [_P, _I64, _P, ctypes.c_uint, _P, _I32]
+    lib.host_xxh64.argtypes = [_P, _I64, _P, ctypes.c_ulonglong, _P, _I32]
     return lib
 
 
@@ -86,14 +107,18 @@ def _host_codec(fn, data, lens, out_width, out_cap, out=None):
     return out, out_lens, err
 
 
-def _assert_same(host, plain, all_lens=True):
+def _assert_same(host, plain, all_lens=True, out_len=None):
+    """Codes on every row, lengths (all rows or OK rows) and bytes of OK
+    rows: ``[0, len)``, or ``[0, out_len)`` where the length is the bytes
+    read (the fast decode)."""
     assert host[2].tolist() == plain[2].tolist()
     for i, (e, n, m) in enumerate(zip(host[2].tolist(), host[1].tolist(),
                                       plain[1].tolist())):
         if all_lens or e == codec.OK:
             assert n == m, i
         if e == codec.OK:
-            assert torch.equal(host[0][i, :n], plain[0][i, :n]), i
+            w = n if out_len is None else out_len
+            assert torch.equal(host[0][i, :w], plain[0][i, :w]), i
 
 
 @pytest.fixture(scope="module")
@@ -145,3 +170,52 @@ def test_host_xxh32_matches_plain(lib, seed):
                    len(sizes))
     want = xxhash.xxh32_plain(data, lens, seed)
     assert out.view(torch.uint32).tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("dest_len", [0, 1, 64, 1000, 70000])
+def test_host_decode_fast_matches_plain(lib, edge_batch, dest_len):
+    """The fast variant of the decode body on the K2 output of the edge
+    blocks and on fuzz, with a guard region behind every row."""
+    _, (src, lens) = edge_batch
+    comp, comp_lens, _ = codec.compress_fast_batch(
+        src, lens, max_compressed_length(70000))
+    comp_blocks = layout.from_device_layout(comp, comp_lens)
+    batch = comp_blocks + testing.fuzz_blocks(
+        np.random.default_rng(dest_len + 1), comp_blocks, 128)
+    c, cl = layout.to_device_layout(batch, device="cpu")
+    guard = torch.full((len(batch), dest_len + 64), 0xA5, dtype=torch.uint8)
+    host = _host_codec(lib.host_decode_fast, c, cl, None, dest_len, out=guard)
+    plain = codec.decompress_fast_plain(c, cl, dest_len)
+    _assert_same(host, plain, all_lens=False, out_len=dest_len)
+    assert bool((guard[:, dest_len:] == 0xA5).all())
+    ok_sizes = [i for i, n in enumerate(lens.tolist()) if n == dest_len]
+    assert host[2][ok_sizes].tolist() == [codec.OK] * len(ok_sizes)
+    assert host[1][ok_sizes].tolist() == comp_lens[ok_sizes].tolist()
+
+
+@pytest.mark.parametrize("seed", [0, (1 << 64) - 1, 0xCAFEBABE12345678])
+def test_host_xxh64_matches_plain(lib, seed):
+    rng = np.random.default_rng(seed & 0xFF)
+    sizes = list(range(101)) + [1000, 65536]
+    data, lens = layout.to_device_layout(
+        [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in sizes],
+        device="cpu")
+    out = torch.zeros((len(sizes),), dtype=torch.int64)
+    lib.host_xxh64(_ptr(data), data.stride(0), _ptr(lens), seed, _ptr(out),
+                   len(sizes))
+    assert torch.equal(out, xxhash.xxh64_plain(data, lens, seed))
+
+
+def test_build_digest_covers_every_header(tmp_path, monkeypatch):
+    """Editing any ``csrc`` file, a ``.cuh`` header included, gives a new
+    build directory, so a stale library is never loaded."""
+    for p in build.CSRC.iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert {p.name for p in build.sources()} >= {"xxh64.cu", "lz4_decode.cu"}
+    digests = {build.source_digest()}
+    for name in ("xxh64.cuh", "lz4_decode.cuh", "lz4tt_common.cuh"):
+        with open(tmp_path / name, "a") as f:
+            f.write("\n")
+        digests.add(build.source_digest())
+    assert len(digests) == 4

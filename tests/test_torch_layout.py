@@ -98,7 +98,9 @@ def test_port_source_imports_neither_jax_nor_lz4_tpu():
 
 
 def test_import_leaves_jax_and_lz4_tpu_unloaded():
-    code = ("import sys, lz4_tpu_torch, lz4_tpu_torch.testing, chip_smoke; "
+    code = ("import sys, lz4_tpu_torch, lz4_tpu_torch.testing, chip_smoke, "
+            "lz4_tpu_torch.api.cuda_instances, lz4_tpu_torch.core.lz4_hc_ref, "
+            "lz4_tpu_torch.core.xxhash_ref; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lz4_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
