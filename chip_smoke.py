@@ -28,37 +28,64 @@ Phases (any failure exits non-zero; nothing is caught):
    decompressor and both ``hash_batch`` calls on the main path's 256 MiB,
    with launch counts reset just before and read just after; then K4 and
    the fast decode against their plain versions at those shapes, timed;
-6. ``compress_frame_packed`` on about 64 MiB, verified by decoding its
+6. the stream path: first the parser, K5 and the streaming updates
+   against their plain versions on edge cases (edge sizes, periods 1-15,
+   a null-offset block, fuzz, corrupted tables, a block that decodes past
+   its size, random update splits and one 64 MiB update); then the parser
+   and K5 on the main path's K2 output (4096 x 64 KiB), timed, with the
+   plain versions on a subset of rows; then, with launch counts reset just
+   before and read just after, the main path's 256 MiB through
+   ``compress_stream(engine="cuda")`` (equal to ``compress_frame_packed``'s
+   frame), ``decompress_stream`` with the ``segment`` and the ``cuda``
+   engines, and ``python -m lz4_tpu_torch``'s ``xxh32`` and ``xxh64`` in
+   this process; last, the command line in subprocesses: a 64 MiB file
+   compressed with ``--engine cuda`` and restored with ``--engine segment``,
+   and the hashes of a 4 MiB file against the host hashes;
+7. ``compress_frame_packed`` on about 64 MiB, verified by decoding its
    blocks through the decode kernel and re-hashing on the host;
-7. the launch counts, the per-kernel JSON line and the final JSON line.
+8. the launch counts, the per-kernel JSON line and the final JSON line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import pathlib
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from lz4_tpu_torch import Lz4Factory, XXHashFactory, testing
+from lz4_tpu_torch.__main__ import main as cli_main
 from lz4_tpu_torch.core import xxhash_ref
 from lz4_tpu_torch.core.constants import max_compressed_length
+from lz4_tpu_torch.core.errors import Lz4Error
 from lz4_tpu_torch.dist import sharded
 from lz4_tpu_torch.entry import entry, example_blocks
 from lz4_tpu_torch.formats.frame import (
     INCOMPRESSIBLE_MASK, frame_header, xxh32_bytes)
-from lz4_tpu_torch.kernels import build, codec, layout, xxhash
+from lz4_tpu_torch.kernels import (
+    build, codec, layout, segment_decode, sequences, xxhash, xxhash_stream)
+from lz4_tpu_torch.streams import compress_stream, decompress_stream
 
 SEED = 1234
 N_BLOCKS = 4096
 BLOCK_LEN = 1 << 16
 ITERS = 3
 TIMED_REPS = 5
-PLAIN_FAST_ROWS = 1024              # rows the plain fast decode is timed on
+PLAIN_ROWS = 1024                   # rows the plain K1, K2, fast decode run on
+PLAIN_SEG_ROWS = 64                 # rows the plain parser and K5 run on
+STREAM_BATCH = 256                  # compress_stream's default batch_blocks
+CLI_BYTES = 64 << 20
+HASH_FILE_BYTES = 4 << 20
+BIG_UPDATE = 64 << 20
+REPO = pathlib.Path(__file__).resolve().parent
 FRAME_BYTES = (64 << 20) - 777      # a short last block
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 EDGE_SIZES = (0, 5, 12, 13, 1000, 65536, 70000)
@@ -78,8 +105,21 @@ KERNELS = {  # Kernel.name -> (source, TPU kernel it replaces)
     # jax_codec.decompress_fast_batch, which has no Pallas kernel of its own
     "lz4_decode_fast": ("lz4_tpu_torch/csrc/lz4_decode.cu",
                         "lz4_tpu/kernels/lz4_pallas.py:309"),
+    "segment_decode": ("lz4_tpu_torch/csrc/segment_decode.cu",
+                       "lz4_tpu/kernels/segment_decode.py:215"),
+    # not TPU kernels: the native parser the JAX package runs before K5,
+    # and the pure-JAX streaming hash updates
+    "lz4_parse": ("lz4_tpu_torch/csrc/lz4_parse.cu",
+                  "lz4_tpu/native/src/tpulz4.cpp:1683"),
+    "xxh32_stream": ("lz4_tpu_torch/csrc/xxh32.cu",
+                     "lz4_tpu/kernels/xxhash_stream.py:109"),
+    "xxh64_stream": ("lz4_tpu_torch/csrc/xxh64.cu",
+                     "lz4_tpu/kernels/xxhash_stream.py:136"),
 }
 MAIN_PATH = ("lz4_compress", "lz4_decode", "xxh32")   # roundtrip_step
+TIER_PATH = MAIN_PATH + ("xxh64", "lz4_decode_fast")
+STREAM_PATH = ("lz4_compress", "lz4_decode", "lz4_parse", "segment_decode",
+               "xxh32_stream", "xxh64_stream")
 XXH64_SEEDS = (0, (1 << 64) - 1, 0xCAFEBABE12345678)
 
 
@@ -437,32 +477,39 @@ def phase_main_path(dev):
     comp_bytes = int(st.comp_lens.sum())
     rows = []
 
-    def row(name, max_err, ms, plain_ms, nbytes):
-        rows.append(kernel_row(name, launches, max_err, ms, plain_ms, nbytes,
-                               in_bytes))
-
-    # K2: input bytes + compressed bytes + lengths in, lengths and codes out
+    # K2: input bytes + compressed bytes + lengths in, lengths and codes
+    # out; the plain version on every (N / PLAIN_ROWS)-th row
+    sub = slice(None, None, n // PLAIN_ROWS)
     kern = codec.compress_fast_batch(src, lens, cap)
+    ssub, lsub = src[sub].contiguous(), lens[sub].contiguous()
     plain, plain_ms = _time_plain(
-        lambda: codec.compress_fast_plain(src, lens, cap))
-    err = compare_codec("K2 main path", kern, plain, cap)
+        lambda: codec.compress_fast_plain(ssub, lsub, cap))
+    err = compare_codec("K2 main path", tuple(t[sub] for t in kern), plain,
+                        cap)
+    if not (torch.equal(kern[1], st.comp_lens) and bool((kern[2] == 0).all())):
+        fail("K2 main path: lengths or codes differ from the step's")
     ms = _time_kernel(lambda: codec.compress_fast_batch(src, lens, cap))
-    row("lz4_compress", err, ms, plain_ms, in_bytes + comp_bytes + 12 * n)
-    del kern, plain
+    rows.append(kernel_row("lz4_compress", launches, err, ms, plain_ms,
+                           in_bytes + comp_bytes + 12 * n, in_bytes,
+                           plain_rows=ssub.shape[0]))
+    del kern, plain, ssub
 
     # K1: compressed bytes + decoded bytes + lengths in, lengths, codes out
     comp, clens = st.comp, st.comp_lens
     kern = codec.decompress_safe_batch(comp, clens, BLOCK_LEN)
+    csub, clsub = comp[sub].contiguous(), clens[sub].contiguous()
     plain, plain_ms = _time_plain(
-        lambda: codec.decompress_safe_plain(comp, clens, BLOCK_LEN))
-    err = compare_codec("K1 main path", kern, plain, BLOCK_LEN,
-                        all_lens=False)
+        lambda: codec.decompress_safe_plain(csub, clsub, BLOCK_LEN))
+    err = compare_codec("K1 main path", tuple(t[sub] for t in kern), plain,
+                        BLOCK_LEN, all_lens=False)
     if not torch.equal(kern[0][:, :BLOCK_LEN], src[:, :BLOCK_LEN]):
         fail("K1 main path: decoded blocks differ from the input")
     ms = _time_kernel(lambda: codec.decompress_safe_batch(comp, clens,
                                                           BLOCK_LEN))
-    row("lz4_decode", err, ms, plain_ms, comp_bytes + in_bytes + 12 * n)
-    del kern, plain
+    rows.append(kernel_row("lz4_decode", launches, err, ms, plain_ms,
+                           comp_bytes + in_bytes + 12 * n, in_bytes,
+                           plain_rows=csub.shape[0]))
+    del kern, plain, csub
 
     # K3: input bytes + lengths in, hashes out
     kern = xxhash.xxh32_batch(src, lens, 0)
@@ -470,7 +517,8 @@ def phase_main_path(dev):
     if not torch.equal(kern, plain) or not torch.equal(kern, st.hashes):
         fail("K3 main path: hashes differ from the plain version")
     ms = _time_kernel(lambda: xxhash.xxh32_batch(src, lens, 0))
-    row("xxh32", 0, ms, plain_ms, in_bytes + 8 * n)
+    rows.append(kernel_row("xxh32", launches, 0, ms, plain_ms,
+                           in_bytes + 8 * n, in_bytes))
     return rows, {"data": data, "comp": st.comp, "comp_lens": st.comp_lens}
 
 
@@ -517,10 +565,10 @@ def phase_tier(dev, main) -> list[dict]:
     log(f"tier launches: {launches}")
     log(f"tier host wall, ms (layout copies and transfers included): {wall}")
     log(f"tier roles on the card: fast_compressor (K2), safe_decompressor "
-        f"(K1), fast_decompressor (K1 fast), hash32 (K3), hash64 (K4); on "
-        f"the host: high_compressor and the streaming hashes "
-        f"(core/lz4_hc_ref.py, core/xxhash_ref.py)")
-    for k in KERNELS:
+        f"(K1), fast_decompressor (K1 fast), hash32 (K3), hash64 (K4), the "
+        f"streaming hashes (the stream entry points of K3 and K4); on the "
+        f"host: high_compressor (core/lz4_hc_ref.py)")
+    for k in TIER_PATH:
         if launches.get(k, 0) < 1:
             fail(f"kernel {k} was not launched on the tier path")
 
@@ -562,11 +610,11 @@ def phase_tier(dev, main) -> list[dict]:
     del kern, plain
 
     # fast decode: compressed bytes + decoded bytes + lengths in, bytes read
-    # and codes out; the plain version on every (N / PLAIN_FAST_ROWS)-th row
+    # and codes out; the plain version on every (N / PLAIN_ROWS)-th row
     comp_t, clens = main["comp"], main["comp_lens"]
     comp_bytes = int(clens.sum())
     kern = codec.decompress_fast_batch(comp_t, clens, BLOCK_LEN)
-    sub = slice(None, None, n // PLAIN_FAST_ROWS)
+    sub = slice(None, None, n // PLAIN_ROWS)
     csub, lsub = comp_t[sub].contiguous(), clens[sub].contiguous()
     plain, plain_ms = _time_plain(
         lambda: codec.decompress_fast_plain(csub, lsub, BLOCK_LEN))
@@ -593,6 +641,346 @@ def _stream64(xxh, block: bytes, seed: int) -> int:
     for off in range(0, len(block), 1000):
         s.update(block, off, min(1000, len(block) - off))
     return xxhash_ref.as_u64(s.get_value())
+
+# ---------------------------------------------------------------------------
+# the stream path: parser, K5, streaming updates, pipeline, command line
+# ---------------------------------------------------------------------------
+
+def compare_parse(what, comp, comp_lens, max_seq=None, rows=slice(None)):
+    """Parse kernel vs plain (the plain version on ``rows``): tables, codes
+    and totals equal. Returns the kernel's output and the plain version's
+    milliseconds."""
+    kern = sequences.parse_sequences(comp, comp_lens, max_seq)
+    csub, lsub = comp[rows].contiguous(), comp_lens[rows].contiguous()
+    plain, plain_ms = _time_plain(
+        lambda: sequences.parse_plain(csub, lsub, kern[0].shape[2]))
+    for name, k, p in zip(("tables", "n_seq", "out_total"),
+                          (kern[0][:, rows], kern[1][rows], kern[2][rows]),
+                          plain):
+        if not torch.equal(k, p.to(k.device)):
+            fail(f"{what}: parse {name} differ from the plain version")
+    return kern, plain_ms
+
+
+def compare_segments(what, comp, comp_lens, n_seq, tables, out_max,
+                     rows=slice(None)):
+    """K5 vs plain (the plain version on ``rows``), both into buffers of
+    ``out_max + GUARD`` bytes a row filled with ``GUARD_BYTE``: codes equal,
+    every byte below ``out_max`` equal (error rows are zeros), the guard
+    unchanged. Returns the kernel's (buffer, err) and the plain version's
+    milliseconds."""
+    n = comp.shape[0]
+    buf = torch.full((n, out_max + GUARD), GUARD_BYTE, dtype=torch.uint8,
+                     device=comp.device)
+    pbuf = buf[rows].clone()
+    _, err = segment_decode.decompress_segments(comp, comp_lens, n_seq, tables,
+                                                out_max, out=buf)
+    args = (comp[rows].contiguous(), comp_lens[rows].contiguous(),
+            n_seq[rows].contiguous(), tables[:, rows].contiguous())
+    (_, perr), plain_ms = _time_plain(
+        lambda: segment_decode.decompress_segments_plain(*args, out_max,
+                                                         out=pbuf))
+    if not torch.equal(err[rows], perr.to(err.device)):
+        bad = torch.nonzero(err[rows] != perr).flatten()[:8].tolist()
+        fail(f"{what}: K5 codes differ from the plain version at rows {bad}")
+    if not torch.equal(buf[rows], pbuf):
+        fail(f"{what}: K5 bytes differ from the plain version")
+    if not bool((buf[:, out_max:] == GUARD_BYTE).all()):
+        fail(f"{what}: K5 wrote past out_max={out_max}")
+    return (buf, err), plain_ms
+
+
+def _stream_splits(rng, data: bytes) -> list[bytes]:
+    cuts, pos = [], 0
+    while pos < len(data):
+        n = int(rng.choice([int(rng.integers(0, 41)), 1000, 65536]))
+        cuts.append(data[pos:pos + n])
+        pos += n
+    return cuts
+
+
+def _one_shot(data: bytes, bits: int, seed: int, dev) -> int:
+    """K3/K4 with n = 1 over ``data``, unsigned."""
+    flat = torch.zeros((1, layout.row_stride(len(data))), dtype=torch.uint8,
+                       device=dev)
+    flat[0, :len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    n1 = torch.tensor([len(data)], dtype=torch.int32, device=dev)
+    if bits == 32:
+        return int(xxhash.xxh32_batch(flat, n1, seed)[0])
+    return xxhash_ref.as_u64(int(xxhash.xxh64_batch(flat, n1, seed)[0]))
+
+
+def _stream_edge_cases(dev, rng) -> None:
+    """The streaming updates against their plain versions and the host
+    hash on random update splits, and on one 64 MiB update."""
+    data = rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
+    big = rng.integers(0, 256, BIG_UPDATE, dtype=np.uint8).tobytes()
+    cases = [(32, xxhash_stream.StreamState32, s) for s in (0, 0xFFFFFFFF)]
+    cases += [(64, xxhash_stream.StreamState64, s) for s in XXH64_SEEDS]
+    ref = {32: xxhash_ref.xxh32, 64: xxhash_ref.xxh64}
+    for i, (bits, cls, seed) in enumerate(cases):
+        kern, plain = cls(seed, dev), cls(seed, "cpu")
+        for cut in _stream_splits(rng, data):
+            kern.update(cut)
+            plain.update(cut)
+            if kern.lanes.cpu().tolist() != plain.lanes.tolist():
+                fail(f"XXH{bits} stream seed={seed:#x}: lanes differ from "
+                     f"the plain version")
+        if kern.digest() != plain.digest() or \
+                kern.digest() != ref[bits](data, 0, len(data), seed):
+            fail(f"XXH{bits} stream seed={seed:#x}: digest differs")
+        kern, plain = cls(seed, dev), cls(seed, "cpu")
+        kern.update(big)
+        if i in (0, 2):         # the plain and host 64 MiB once per width
+            plain.update(big)
+            if kern.lanes.cpu().tolist() != plain.lanes.tolist() or \
+                    kern.digest() != ref[bits](big, 0, len(big), seed):
+                fail(f"XXH{bits} stream seed={seed:#x}: 64 MiB lanes or "
+                     f"digest differ from the plain version or host hash")
+        if kern.digest() != _one_shot(big, bits, seed, dev):
+            fail(f"XXH{bits} stream seed={seed:#x}: 64 MiB digest differs "
+                 f"from the one-shot kernel")
+    log("stream updates == plain on random splits (lengths 0..40, 1000, "
+        "65536) of 1 MiB, XXH32 seeds 0, 0xFFFFFFFF and XXH64 seeds 0, "
+        "2^64-1, 0xCAFEBABE12345678, digests == host hash; one 64 MiB "
+        "update == plain and host hash (first seed of each width) and == "
+        "the one-shot kernel (every seed)")
+
+
+def _segment_edge_cases(dev, rng) -> None:
+    blocks = testing.mixed_blocks(rng, EDGE_SIZES)
+    for size in (1024, 65536):
+        blocks += [(rng.integers(0, 256, p, dtype=np.uint8).tobytes()
+                    * (size // p + 1))[:size] for p in range(1, 16)]
+    src, lens = layout.to_device_layout(blocks, device=dev)
+    comp, comp_lens, err = codec.compress_fast_batch(
+        src, lens, max_compressed_length(max(EDGE_SIZES)))
+    if bool(err.any()):
+        fail("stream edge cases: a block failed to compress")
+    comp_blocks = layout.from_device_layout(comp, comp_lens)
+    out_max = max(EDGE_SIZES)
+
+    c, cl = layout.to_device_layout(comp_blocks + testing.boundary_blocks(),
+                                    device=dev)
+    (tables, n_seq, total), _ = compare_parse("parse edge blocks", c, cl)
+    if n_seq[-2:].tolist() != [-2, -2] or bool((n_seq[:-2] < 0).any()):
+        fail("parse edge blocks: a valid block was refused, or a boundary "
+             "block accepted")
+    (buf, err), _ = compare_segments("K5 edge blocks", c, cl, n_seq, tables,
+                                     out_max)
+    got = layout.from_device_layout(buf, total)
+    if err[:-2].any() or got[:len(blocks)] != blocks or \
+            got[len(blocks):-2] != [b"*" + bytes(4) + b"*" * 8, b"AAAAABBBBB"]:
+        fail("K5 did not restore the edge blocks, the null-offset hole and "
+             "the match reaching the output start")
+
+    fuzz = testing.fuzz_blocks(rng, comp_blocks, 512)
+    f, fl = layout.to_device_layout(fuzz, device=dev)
+    (tables, n_seq, _), _ = compare_parse("parse fuzz", f, fl)
+    narrow = compare_parse("parse fuzz, 40 sequences", f, fl, 40)[0][1]
+    (_, ferr), _ = compare_segments("K5 fuzz", f, fl, n_seq, tables, out_max)
+    codes = torch.bincount(n_seq.clamp(min=-3).long() + 3).tolist()[:2]
+    log(f"parse == plain on {len(blocks)} edge blocks (periods 1-15 at 1 KiB "
+        f"and 64 KiB included), 4 boundary blocks and {len(fuzz)} fuzzed "
+        f"blocks (-3/-2 codes: {codes}, with 40 sequences: "
+        f"{int((narrow == -3).sum())} x -3); K5 == plain on them, guard "
+        f"intact, {int(ferr.sum())} fuzzed rows MALFORMED")
+
+    bad = tables.clone()
+    rows = torch.nonzero(n_seq > 1).flatten()[:16]
+    bad[1, rows, 0] = f.shape[1]               # literals past the block
+    (_, berr), _ = compare_segments("K5 corrupted tables", f, fl, n_seq, bad,
+                                    out_max)
+    if not bool((berr[rows] == codec.ERR_MALFORMED).all()):
+        fail("K5 corrupted tables: a corrupted row was not MALFORMED")
+    long_block = Lz4Factory.cuda_instance(dev).fast_compressor() \
+        .compress_batch([bytes(range(16)) * 250])
+    try:
+        segment_decode.decompress_blocks(long_block, 64, dev)
+    except Lz4Error:
+        pass
+    else:
+        fail("decompress_blocks returned a block that decodes past out_len")
+    log(f"K5 on {rows.numel()} corrupted table rows: MALFORMED in both, "
+        f"guard intact; a block decoding past out_len raises")
+
+
+def _stream_rows(dev, main, launches) -> list[dict]:
+    """The parser and K5 on the main path's K2 output, and the streaming
+    updates on one batch of it; timed, with their bounds. ``launches`` are
+    the stream path's counts."""
+    comp, clens = main["comp"], main["comp_lens"]
+    n = comp.shape[0]
+    comp_bytes = int(clens.sum())
+    src, lens = sharded.upload_blocks(main["data"], dev)
+    in_bytes = int(lens.sum())
+    sub = slice(None, None, n // PLAIN_SEG_ROWS)
+    rows = []
+
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tables, n_seq, total = sequences.parse_sequences(comp, clens)
+    out, err = segment_decode.decompress_segments(comp, clens, n_seq, tables,
+                                                  BLOCK_LEN)
+    sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    k1 = codec.decompress_safe_batch(comp, clens, BLOCK_LEN)[0]
+    if bool((n_seq < 0).any()) or not bool((total == BLOCK_LEN).all()) or \
+            bool(err.any()) or \
+            not torch.equal(out[:, :BLOCK_LEN], src[:, :BLOCK_LEN]) or \
+            not torch.equal(out[:, :BLOCK_LEN], k1[:, :BLOCK_LEN]):
+        fail("parse + K5 main path: a block was refused or differs from the "
+             "input or from K1's output")
+    del out, k1
+    seqs = int(n_seq.sum())
+    lit_bytes = int(tables[2].sum(dtype=torch.int64))
+    s = tables.shape[2]
+    log(f"parse + K5 on {n} x {BLOCK_LEN} B: {seqs} sequences "
+        f"({seqs / n:.1f} a block), {lit_bytes} literal bytes, tables "
+        f"{6 * 4 * n * s / 2 ** 30:.3f} GiB (S = {s}); every block equals "
+        f"the input and K1's output; peak device memory of parse + K5 "
+        f"{peak / 2 ** 30:.3f} GiB above the {base / 2 ** 30:.3f} GiB held")
+
+    _, plain_ms = compare_parse("parse main path", comp, clens, rows=sub)
+    ms = _time_kernel(lambda: sequences.parse_sequences(comp, clens))
+    # compressed bytes + lengths in; tables, counts and totals out
+    rows.append(kernel_row("lz4_parse", launches, 0, ms, plain_ms,
+                           comp_bytes + 4 * n + 24 * n * s + 8 * n, in_bytes,
+                           plain_rows=PLAIN_SEG_ROWS))
+    _, plain_ms = compare_segments("K5 main path", comp, clens, n_seq, tables,
+                                   BLOCK_LEN, rows=sub)
+    ms = _time_kernel(lambda: segment_decode.decompress_segments(
+        comp, clens, n_seq, tables, BLOCK_LEN))
+    # literal bytes, 24 B of table a sequence, lengths and counts in; the
+    # rows and codes out
+    rows.append(kernel_row("segment_decode", launches, 0, ms, plain_ms,
+                           lit_bytes + 24 * seqs + n * BLOCK_LEN + 12 * n,
+                           in_bytes, plain_rows=PLAIN_SEG_ROWS))
+    del tables
+
+    # one update of a stream batch: STREAM_BATCH blocks of the input
+    batch = src[:STREAM_BATCH, :BLOCK_LEN].contiguous().view(-1)
+    host_batch = batch.cpu()
+    for name, cls, absorb in (
+            ("xxh32_stream", xxhash_stream.StreamState32,
+             xxhash_stream.absorb32),
+            ("xxh64_stream", xxhash_stream.StreamState64,
+             xxhash_stream.absorb64)):
+        kern, plain = cls(SEED, dev), cls(SEED, "cpu")
+        absorb(kern.lanes, batch)
+        _, plain_ms = _time_plain(lambda: absorb(plain.lanes, host_batch))
+        if kern.lanes.cpu().tolist() != plain.lanes.tolist():
+            fail(f"{name} main path: lanes differ from the plain version")
+        ms = _time_kernel(lambda: absorb(kern.lanes, batch))
+        # the batch's bytes and the lanes in, the lanes out
+        rows.append(kernel_row(name, launches, 0, ms, plain_ms,
+                               batch.numel() + 64, batch.numel(),
+                               plain_rows=STREAM_BATCH))
+    return rows
+
+
+def _cli(*args) -> str:
+    res = subprocess.run([sys.executable, "-m", "lz4_tpu_torch", *args],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=REPO, check=False)
+    if res.returncode != 0:
+        fail(f"python -m lz4_tpu_torch {' '.join(args)}: exit "
+             f"{res.returncode}\n{res.stderr[-2000:]}")
+    return res.stdout
+
+
+def phase_stream(dev, main) -> list[dict]:
+    """The stream path; returns the rows of the parser, K5 and the two
+    streaming updates."""
+    rng = np.random.default_rng(SEED + 2)
+    _segment_edge_cases(dev, rng)
+    _stream_edge_cases(dev, rng)
+
+    raw = main["data"].tobytes()
+    work = REPO / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        tmp = pathlib.Path(tmp)
+        cli_in = tmp / "cli.bin"
+        cli_in.write_bytes(raw[:CLI_BYTES])
+        wall = {}
+
+        def timed(what, nbytes, fn):
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            dt = time.perf_counter() - t0
+            wall[what] = f"{dt * 1e3:.1f} ms, {nbytes / dt / 1e6:.1f} MB/s"
+            return out
+
+        def decode(engine):
+            out = io.BytesIO()
+            decompress_stream(io.BytesIO(frame), out, engine=engine)
+            return out.getvalue()
+
+        build.reset_launch_counts()
+        sink = io.BytesIO()
+        timed("compress_stream(cuda)", len(raw), lambda: compress_stream(
+            io.BytesIO(raw), sink, engine="cuda", batch_blocks=STREAM_BATCH))
+        frame = sink.getvalue()
+        del sink
+        restored = {e: timed(f"decompress_stream({e})", len(raw),
+                             lambda e=e: decode(e))
+                    for e in ("segment", "cuda")}
+        hashes = {}
+        for cmd in ("xxh32", "xxh64"):
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                timed(f"main(['{cmd}']) on {CLI_BYTES >> 20} MiB", CLI_BYTES,
+                      lambda cmd=cmd: cli_main([cmd, str(cli_in)]))
+            hashes[cmd] = int(text.getvalue().split()[0], 16)
+        launches = build.launch_counts()
+        log(f"stream path launches: {launches}")
+        log(f"stream path host wall ({len(raw) >> 20} MiB, "
+            f"{len(raw) // BLOCK_LEN} blocks in batches of {STREAM_BATCH}): "
+            f"{wall}")
+        for k in STREAM_PATH:
+            if launches.get(k, 0) < 1:
+                fail(f"kernel {k} was not launched on the stream path")
+
+        if frame != sharded.compress_frame_packed(raw, BLOCK_LEN, True, dev):
+            fail("compress_stream(cuda) differs from compress_frame_packed")
+        for engine, got in restored.items():
+            if got != raw:
+                fail(f"decompress_stream({engine}) did not restore the input")
+        cli_raw = raw[:CLI_BYTES]
+        if hashes["xxh32"] != _one_shot(cli_raw, 32, 0, dev) or \
+                hashes["xxh64"] != _one_shot(cli_raw, 64, 0, dev):
+            fail("the command line's hashes differ from the one-shot kernels")
+        log(f"stream path: {len(raw)} B -> {len(frame)} B frame, equal to "
+            f"compress_frame_packed's; restored exactly by the segment and "
+            f"the cuda engines; xxh32/xxh64 of {CLI_BYTES >> 20} MiB equal "
+            f"the one-shot kernels")
+        del restored, frame
+
+        t0 = time.perf_counter()
+        cli_lz4, cli_back = tmp / "cli.lz4", tmp / "cli.back"
+        log(_cli("compress", str(cli_in), str(cli_lz4), "--engine", "cuda")
+            .strip())
+        log(_cli("decompress", str(cli_lz4), str(cli_back), "--engine",
+                 "segment").strip())
+        if cli_back.read_bytes() != raw[:CLI_BYTES]:
+            fail("the command line's round trip differs from the input")
+        small = tmp / "hash.bin"
+        small.write_bytes(raw[:HASH_FILE_BYTES])
+        data = raw[:HASH_FILE_BYTES]
+        got32 = _cli("xxh32", str(small)).split()[0]
+        got64 = _cli("xxh64", str(small), "--seed", "0x123").split()[0]
+        if got32 != f"{xxhash_ref.xxh32(data, 0, len(data), 0):08x}" or \
+                got64 != f"{xxhash_ref.xxh64(data, 0, len(data), 0x123):016x}":
+            fail("the command line's hashes differ from the host hashes")
+        log(f"command line in subprocesses: {CLI_BYTES >> 20} MiB round trip "
+            f"(compress --engine cuda, decompress --engine segment) equal; "
+            f"xxh32/xxh64 of {HASH_FILE_BYTES >> 20} MiB equal the host "
+            f"hashes; {time.perf_counter() - t0:.1f} s")
+    return _stream_rows(dev, main, launches)
 
 
 def phase_frame(dev) -> dict:
@@ -657,6 +1045,7 @@ def main() -> int:
     phase_edge_cases(dev)
     rows, main_out = phase_main_path(dev)
     rows += phase_tier(dev, main_out)
+    rows += phase_stream(dev, main_out)
     del main_out
     phase_frame(dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -8,16 +8,18 @@ methods run a batch of one on the device, as the JAX tier does.
 Where each role runs:
 
 - on the card: ``FastCompressor`` (K2), ``SafeDecompressor`` (K1),
-  ``FastDecompressor`` (K1's fast entry point), ``XXH32`` (K3) and
-  ``XXH64`` (K4). Each takes a ``device``, ``"cuda"`` by default; with
-  ``"cpu"`` the kernels' plain versions run instead, which is what the CPU
-  tests do. Every batch goes to the kernel, ragged or not: the kernels
-  have no tile restriction, so there is no uniform-batch branch.
-- on the host: ``HighCompressor`` and the streaming hashes. Their JAX
-  counterparts (``kernels/jax_hc.py``, ``kernels/xxhash_stream.py``) are
-  pure JAX, not Pallas kernels; until they are ported to the card these
-  classes run the port's own host code (``core/lz4_hc_ref.py``,
-  ``core/xxhash_ref.py``). Nothing switches between host and card at run
+  ``FastDecompressor`` (K1's fast entry point), ``XXH32`` (K3), ``XXH64``
+  (K4) and the streaming hashes ``StreamingXXH32``/``StreamingXXH64``
+  (their lane state on the card, updated by the stream entry points of K3
+  and K4; ``kernels/xxhash_stream.py``). Each takes a ``device``,
+  ``"cuda"`` by default; with ``"cpu"`` the kernels' plain versions run
+  instead, which is what the CPU tests do. Every batch goes to the kernel,
+  ragged or not: the kernels have no tile restriction, so there is no
+  uniform-batch branch.
+- on the host: ``HighCompressor``. Its JAX counterpart
+  (``kernels/jax_hc.py``) is pure JAX, not a Pallas kernel; until it is
+  ported to the card this class runs the port's own host code
+  (``core/lz4_hc_ref.py``). Nothing switches between host and card at run
   time.
 """
 
@@ -31,7 +33,7 @@ from ..core.constants import (
 from ..core.device import resolve_device
 from ..core.errors import Lz4Error
 from ..core.lz4_hc_ref import check_range, compress_hc, compress_hc_alloc
-from ..kernels import codec
+from ..kernels import codec, xxhash_stream
 from ..kernels.layout import from_device_layout, row_stride, to_device_layout
 from ..kernels.xxhash import split_u64, xxh32_batch, xxh64_batch
 from .abstract import (
@@ -204,37 +206,50 @@ class XXH64(_OnDevice, XXHash64):
                                      int(seed) & U64))
 
 
-class StreamingXXH32(StreamingXXHash32):
-    """Streaming XXH32 on the host (``core/xxhash_ref.py``). The JAX tier
-    keeps this state on its device (``kernels/xxhash_stream.py``)."""
+def _stream_range(buf, off: int, length: int | None) -> memoryview:
+    """``buf[off:off + length]`` as bytes, checked as
+    ``core/xxhash_ref.py``'s streaming classes check it."""
+    if length is None:
+        length = len(buf) - off
+    if off < 0 or length < 0 or off + length > len(buf):
+        raise IndexError("range out of bounds")
+    return memoryview(buf).cast("B")[off:off + length]
 
-    def __init__(self, seed: int):
+
+class StreamingXXH32(StreamingXXHash32):
+    """Streaming XXH32 with its lane state on ``device``
+    (``kernels/xxhash_stream.py``): an update that completes a stripe is one
+    upload and one launch of K3's stream entry point. The JAX tier keeps
+    the same state on its device (``kernels/xxhash_stream.py``)."""
+
+    def __init__(self, seed: int, device: str | torch.device = "cuda"):
         super().__init__(seed)
-        self._state = xxhash_ref.StreamingXXH32(seed)
+        self._state = xxhash_stream.StreamState32(seed, device)
 
     def update(self, buf, off: int = 0, length: int | None = None):
-        self._state.update(buf, off, length)
+        self._state.update(_stream_range(buf, off, length))
 
     def get_value(self) -> int:
-        return xxhash_ref.as_s32(self._state.get_value())
+        return xxhash_ref.as_s32(self._state.digest())
 
     def reset(self) -> None:
         self._state.reset()
 
 
 class StreamingXXH64(StreamingXXHash64):
-    """Streaming XXH64 on the host (``core/xxhash_ref.py``). The JAX tier
-    keeps this state on its device (``kernels/xxhash_stream.py``)."""
+    """Streaming XXH64 with its lane state on ``device``
+    (``kernels/xxhash_stream.py``): an update that completes a stripe is one
+    upload and one launch of K4's stream entry point."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, device: str | torch.device = "cuda"):
         super().__init__(seed)
-        self._state = xxhash_ref.StreamingXXH64(seed)
+        self._state = xxhash_stream.StreamState64(seed, device)
 
     def update(self, buf, off: int = 0, length: int | None = None):
-        self._state.update(buf, off, length)
+        self._state.update(_stream_range(buf, off, length))
 
     def get_value(self) -> int:
-        return xxhash_ref.as_s64(self._state.get_value())
+        return xxhash_ref.as_s64(self._state.digest())
 
     def reset(self) -> None:
         self._state.reset()

@@ -171,10 +171,10 @@ class XXHashFactory:
         return self._hash64
 
     def new_streaming_hash32(self, seed: int = 0) -> StreamingXXHash32:
-        return self._streaming32_cls(seed)
+        return self._streaming32_cls(seed, self.device)
 
     def new_streaming_hash64(self, seed: int = 0) -> StreamingXXHash64:
-        return self._streaming64_cls(seed)
+        return self._streaming64_cls(seed, self.device)
 
     # one-shot against streaming (XXHashFactory.java:184-203)
     def _self_test(self) -> None:
@@ -182,12 +182,12 @@ class XXHashFactory:
         data = bytes(rng.randrange(256) for _ in range(100))
         seed = rng.randrange(-1 << 31, 1 << 31)
         h1 = self._hash32.hash(data, 0, len(data), seed)
-        s32 = self._streaming32_cls(seed)
+        s32 = self.new_streaming_hash32(seed)
         s32.update(data, 0, len(data))
         if h1 != s32.get_value():
             raise Lz4Error(f"{self.impl} xxhash32 instance is broken")
         h2 = self._hash64.hash(data, 0, len(data), seed)
-        s64 = self._streaming64_cls(seed)
+        s64 = self.new_streaming_hash64(seed)
         s64.update(data, 0, len(data))
         if h2 != s64.get_value():
             raise Lz4Error(f"{self.impl} xxhash64 instance is broken")

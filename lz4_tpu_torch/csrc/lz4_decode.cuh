@@ -44,6 +44,26 @@ LZ4TT_HD int64_t lz4tt_read_len_ext(const uint8_t* comp, int32_t& s,
   return len + b;
 }
 
+// out[d, d + m_len) = the match of distance dist >= 1, with overlap: byte j
+// repeats byte (j mod dist) of the period just before d, so every lane
+// reads only bytes below d and the team copies with no hazard. The copy may
+// read bytes other lanes wrote since the last sync, so it syncs before it
+// reads; a match that follows syncs again, so none is needed after it.
+// Shared by K1 and K5 (segment_decode.cuh).
+template <class Team>
+LZ4TT_HD void lz4tt_copy_match(const Team& t, uint8_t* out, int32_t d,
+                               int32_t dist, int64_t m_len) {
+  t.sync();
+  const uint8_t* period = out + (d - dist);
+  int32_t r = t.lane() % dist;
+  const int32_t step = t.size() % dist;
+  for (int64_t j = t.lane(); j < m_len; j += t.size()) {
+    out[d + j] = period[r];
+    r += step;
+    if (r >= dist) r -= dist;
+  }
+}
+
 template <bool kFast, class Team>
 LZ4TT_HD void lz4tt_decode_block(const Team& t, const uint8_t* comp,
                                  int32_t src_end, uint8_t* out,
@@ -119,22 +139,10 @@ LZ4TT_HD void lz4tt_decode_block(const Team& t, const uint8_t* comp,
       e = LZ4TT_ERR_MALFORMED;
       break;
     }
-    // the match may read bytes other lanes wrote since the last sync; each
-    // match syncs before it reads, so none is needed after it
-    t.sync();
     if (dist == 0) {
       for (int64_t j = t.lane(); j < m_len; j += t.size()) out[d + j] = 0;
     } else {
-      // byte j of an overlapping copy repeats byte (j mod dist) of the
-      // period just before d, so every lane reads only bytes below d
-      const uint8_t* period = out + (d - dist);
-      int32_t r = t.lane() % dist;
-      const int32_t step = t.size() % dist;
-      for (int64_t j = t.lane(); j < m_len; j += t.size()) {
-        out[d + j] = period[r];
-        r += step;
-        if (r >= dist) r -= dist;
-      }
+      lz4tt_copy_match(t, out, d, dist, m_len);
     }
     d += (int32_t)m_len;
   }

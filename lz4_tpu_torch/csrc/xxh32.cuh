@@ -3,7 +3,8 @@
 // lane accumulators, then up to three 4-byte words, up to three bytes, and
 // the avalanche. The input must start 16-byte aligned on the card, where
 // stripes are read as aligned 16-byte loads, a group of them in flight
-// before the rounds use them.
+// before the rounds use them. The stripe loop is shared with the streaming
+// update (lz4tt_xxh32_stream_update in xxh32.cu).
 #pragma once
 
 #include "lz4tt_common.cuh"
@@ -20,12 +21,10 @@ LZ4TT_HD uint32_t lz4tt_xxh_round(uint32_t v, uint32_t x) {
 
 #define LZ4TT_XXH_GROUP 8  // stripes loaded together
 
-LZ4TT_HD uint32_t lz4tt_xxh32(const uint8_t* p, int64_t len, uint32_t seed) {
-  uint32_t v1 = seed + LZ4TT_P1 + LZ4TT_P2;
-  uint32_t v2 = seed + LZ4TT_P2;
-  uint32_t v3 = seed;
-  uint32_t v4 = seed - LZ4TT_P1;
-  const int64_t n_stripes = len / 16;
+// Absorb n_stripes 16-byte stripes of p into the lane accumulators v[4]:
+// the stripe loop of the one-shot hash and of the streaming update.
+LZ4TT_HD void lz4tt_xxh32_stripes(const uint8_t* p, int64_t n_stripes, uint32_t* v) {
+  uint32_t v1 = v[0], v2 = v[1], v3 = v[2], v4 = v[3];
   int64_t i = 0;
   for (; i + LZ4TT_XXH_GROUP <= n_stripes; i += LZ4TT_XXH_GROUP) {
     lz4tt_u4 w[LZ4TT_XXH_GROUP];
@@ -46,6 +45,17 @@ LZ4TT_HD uint32_t lz4tt_xxh32(const uint8_t* p, int64_t len, uint32_t seed) {
     v3 = lz4tt_xxh_round(v3, w.z);
     v4 = lz4tt_xxh_round(v4, w.w);
   }
+  v[0] = v1;
+  v[1] = v2;
+  v[2] = v3;
+  v[3] = v4;
+}
+
+LZ4TT_HD uint32_t lz4tt_xxh32(const uint8_t* p, int64_t len, uint32_t seed) {
+  uint32_t v[4] = {seed + LZ4TT_P1 + LZ4TT_P2, seed + LZ4TT_P2, seed, seed - LZ4TT_P1};
+  const int64_t n_stripes = len / 16;
+  lz4tt_xxh32_stripes(p, n_stripes, v);
+  const uint32_t v1 = v[0], v2 = v[1], v3 = v[2], v4 = v[3];
   uint32_t h = len >= 16 ? lz4tt_rotl32(v1, 1) + lz4tt_rotl32(v2, 7) +
                                lz4tt_rotl32(v3, 12) + lz4tt_rotl32(v4, 18)
                          : seed + LZ4TT_P5;

@@ -16,6 +16,14 @@
 // loads, four stripes' loads issued before the rounds that use them. The
 // hash is written as a u64 bit pattern (the wrapper's int64 tensor); the
 // tier API splits it into (hi, lo).
+//
+// lz4tt_xxh64_stream_update is the streaming hash's update on the card:
+// the counterpart of lz4_tpu/kernels/xxhash_stream.py::stream64_update
+// (:136, pure JAX on (hi, lo) u32 pairs). The lane state v1..v4 stays in a
+// u64[4] tensor on the card between updates; the host keeps the <32-byte
+// remainder and the total length, and hands over whole stripes only. One
+// thread absorbs them from the carried state with the stripe loop of the
+// one-shot hash; the bound is the latency of the lanes' serial chains.
 #include "xxh64.cuh"
 
 #include <cuda_runtime.h>
@@ -46,5 +54,27 @@ extern "C" int lz4tt_xxh64_batch(const void* data, long long stride, const void*
         (const uint8_t*)data, stride, (const int32_t*)lens, (uint64_t)seed,
         (uint64_t*)out, n);
   }
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+__global__ void __launch_bounds__(1)
+    xxh64_stream_kernel(const uint8_t* __restrict__ data, int64_t n_stripes,
+                        uint64_t* __restrict__ state) {
+  uint64_t v[4] = {state[0], state[1], state[2], state[3]};
+  lz4tt_xxh64_stripes(data, n_stripes, v);
+  for (int k = 0; k < 4; k++) state[k] = v[k];
+}
+
+}  // namespace
+
+// data: n_stripes * 32 bytes, 16-byte aligned; state: u64[4], the lane
+// accumulators, updated in place. Returns cudaGetLastError().
+extern "C" int lz4tt_xxh64_stream_update(const void* data, long long n_stripes,
+                                         void* state, void* stream) {
+  if (n_stripes > 0)
+    xxh64_stream_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)data, n_stripes, (uint64_t*)state);
   return (int)cudaGetLastError();
 }

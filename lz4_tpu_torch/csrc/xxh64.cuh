@@ -4,7 +4,9 @@
 // one 4-byte word, up to three bytes, and the avalanche. Arithmetic is native
 // uint64_t; a multiply keeps the low 64 bits of the product. The input must
 // start 16-byte aligned on the card, where a stripe is two aligned 16-byte
-// loads, a group of stripes in flight before the rounds use them.
+// loads, a group of stripes in flight before the rounds use them. The
+// stripe loop is shared with the streaming update
+// (lz4tt_xxh64_stream_update in xxh64.cu).
 #pragma once
 
 #include "lz4tt_common.cuh"
@@ -41,12 +43,10 @@ LZ4TT_HD uint64_t lz4tt_hi64(const lz4tt_u4& w) {
 
 #define LZ4TT_XXH64_GROUP 4  // stripes loaded together: eight 16-byte loads
 
-LZ4TT_HD uint64_t lz4tt_xxh64(const uint8_t* p, int64_t len, uint64_t seed) {
-  uint64_t v1 = seed + LZ4TT_Q1 + LZ4TT_Q2;
-  uint64_t v2 = seed + LZ4TT_Q2;
-  uint64_t v3 = seed;
-  uint64_t v4 = seed - LZ4TT_Q1;
-  const int64_t n_stripes = len / 32;
+// Absorb n_stripes 32-byte stripes of p into the lane accumulators v[4]:
+// the stripe loop of the one-shot hash and of the streaming update.
+LZ4TT_HD void lz4tt_xxh64_stripes(const uint8_t* p, int64_t n_stripes, uint64_t* v) {
+  uint64_t v1 = v[0], v2 = v[1], v3 = v[2], v4 = v[3];
   int64_t i = 0;
   for (; i + LZ4TT_XXH64_GROUP <= n_stripes; i += LZ4TT_XXH64_GROUP) {
     lz4tt_u4 w[2 * LZ4TT_XXH64_GROUP];
@@ -68,6 +68,17 @@ LZ4TT_HD uint64_t lz4tt_xxh64(const uint8_t* p, int64_t len, uint64_t seed) {
     v3 = lz4tt_xxh64_round(v3, lz4tt_lo64(b));
     v4 = lz4tt_xxh64_round(v4, lz4tt_hi64(b));
   }
+  v[0] = v1;
+  v[1] = v2;
+  v[2] = v3;
+  v[3] = v4;
+}
+
+LZ4TT_HD uint64_t lz4tt_xxh64(const uint8_t* p, int64_t len, uint64_t seed) {
+  uint64_t v[4] = {seed + LZ4TT_Q1 + LZ4TT_Q2, seed + LZ4TT_Q2, seed, seed - LZ4TT_Q1};
+  const int64_t n_stripes = len / 32;
+  lz4tt_xxh64_stripes(p, n_stripes, v);
+  const uint64_t v1 = v[0], v2 = v[1], v3 = v[2], v4 = v[3];
   uint64_t h;
   if (len >= 32) {
     h = lz4tt_rotl64(v1, 1) + lz4tt_rotl64(v2, 7) + lz4tt_rotl64(v3, 12) +

@@ -1,13 +1,18 @@
-"""LZ4 Frame v1.5.1, writer side: header bytes and frame constants.
+"""LZ4 Frame v1.5.1: header bytes, frame constants and the header parsers.
 
-Own copies of ``lz4_tpu/formats/frame.py:33-82`` (``MAGIC``,
-``INCOMPRESSIBLE_MASK``, ``FrameFlag``, ``BlockSize``, ``_flg_to_byte``) and
-the header checksum byte (:func:`xxh32_bytes`), so the port imports
-nothing from the JAX package. There is no frame reader here.
+Own copies of ``lz4_tpu/formats/frame.py:33-112`` (``MAGIC``,
+``MAGIC_SKIPPABLE_BASE``, ``INCOMPRESSIBLE_MASK``, ``FrameFlag``,
+``BlockSize``, ``DEFAULT_FEATURES``, ``_flg_to_byte``, ``_flg_from_byte``,
+``_bd_from_byte``), of ``make_skippable_frame`` (``:587``) and of the header
+checksum byte (:func:`xxh32_bytes`), so the port imports nothing from the
+JAX package. The frame reader of independent-block frames is
+``streams/pipeline.py::decompress_stream``; the serial reader of
+dependent-block and dictionary frames is not ported yet.
 
-frame  = magic(4, LE 0x184D2204) FLG BD HC block* endmark(4 x 0)
-         [content_checksum(4)]
+frame  = magic(4, LE 0x184D2204) FLG BD [content_size(8)] HC
+         block* endmark(4 x 0) [content_checksum(4)]
 block  = size(4 LE; high bit set => stored uncompressed) payload
+         [block_checksum(4)]
 """
 
 from __future__ import annotations
@@ -18,10 +23,13 @@ import struct
 import numpy as np
 
 from ..core.constants import PRIME1, PRIME2, PRIME3, PRIME4, PRIME5
+from ..core.errors import Lz4FrameError
 
 MAGIC = 0x184D2204
+MAGIC_SKIPPABLE_BASE = 0x184D2A50
 INCOMPRESSIBLE_MASK = 0x80000000
 _VERSION = 1
+_U32 = struct.Struct("<I")
 
 
 class FrameFlag(enum.IntEnum):
@@ -44,12 +52,61 @@ class BlockSize(enum.IntEnum):
     def num_bytes(self) -> int:
         return 1 << (2 * self.value + 8)
 
+    @classmethod
+    def from_indicator(cls, indicator: int) -> "BlockSize":
+        try:
+            return cls(indicator)
+        except ValueError:
+            raise Lz4FrameError(
+                f"Block size must be 4-7. Cannot use value of [{indicator}]")
+
+
+DEFAULT_FEATURES = (FrameFlag.BLOCK_INDEPENDENCE,)
+_NO_SERIAL_READER = ("the serial frame reader, which lz4_tpu_torch does not "
+                     "have yet")
+
 
 def _flg_to_byte(flags: frozenset[FrameFlag]) -> int:
     b = (_VERSION & 3) << 6
     for f in flags:
         b |= 1 << f.value
     return b
+
+
+def _flg_from_byte(b: int, allow_dependent: bool = False) -> frozenset[FrameFlag]:
+    """FLG byte -> flags; raises on a version other than 1, on reserved
+    bits, on the DictID bit and, unless ``allow_dependent``, on linked
+    blocks. The messages are the JAX package's, with the reader that
+    dictionary and linked-block frames would need named."""
+    version = (b >> 6) & 3
+    if version != _VERSION:
+        raise Lz4FrameError(f"Version {version} is unsupported")
+    if b & 0b10:
+        raise Lz4FrameError("Reserved bits must be 0")
+    if b & 0b01:
+        raise Lz4FrameError(
+            "Reserved bits must be 0 (bit 0 is DictID in frame spec v1.6+; "
+            f"dictionary frames need {_NO_SERIAL_READER})")
+    flags = frozenset(f for f in FrameFlag if b & (1 << f.value))
+    if FrameFlag.BLOCK_INDEPENDENCE not in flags and not allow_dependent:
+        raise Lz4FrameError(
+            "Dependent block stream is unsupported (BLOCK_INDEPENDENCE must "
+            f"be set; linked-block frames need {_NO_SERIAL_READER})")
+    return flags
+
+
+def _bd_from_byte(b: int) -> BlockSize:
+    if b & 0x8F:
+        raise Lz4FrameError("Reserved fields must be 0")
+    return BlockSize.from_indicator((b >> 4) & 7)
+
+
+def make_skippable_frame(payload: bytes, subtype: int = 0) -> bytes:
+    """A skippable frame (magic 0x184D2A5x) wrapping arbitrary bytes."""
+    if not 0 <= subtype <= 0xF:
+        raise ValueError("subtype must be 0..15")
+    return (_U32.pack(MAGIC_SKIPPABLE_BASE + subtype)
+            + _U32.pack(len(payload)) + payload)
 
 
 def _rotl32(v: int, r: int) -> int:
@@ -106,4 +163,4 @@ def frame_header(block_size: int, content_checksum: bool) -> bytes:
     desc = bytes([_flg_to_byte(frozenset(flags)),
                   (sizes[block_size].value & 7) << 4])
     hc = (xxh32_bytes(desc) >> 8) & 0xFF
-    return struct.pack("<I", MAGIC) + desc + bytes([hc])
+    return _U32.pack(MAGIC) + desc + bytes([hc])

@@ -52,3 +52,14 @@ def fuzz_blocks(rng: np.random.Generator, comp_blocks: list[bytes],
                 0, 256, int(rng.integers(1, 65)), dtype=np.uint8).tobytes())
         out.append(bytes(base))
     return out
+
+
+def boundary_blocks() -> list[bytes]:
+    """Hand-built compressed blocks at the bounds of the decoders and the
+    parser: a null match offset (its bytes decode as zeros), a match
+    reaching exactly the output start (valid) and one byte before it
+    (malformed), and a match length cut off by the end (malformed)."""
+    return [bytes([0x10, 42, 0, 0, 0x80]) + b"*" * 8,   # b"*" + 4 zeros + 8 "*"
+            bytes([0x10, 65, 1, 0, 0x50]) + b"BBBBB",    # b"AAAAABBBBB"
+            bytes([0x10, 65, 2, 0, 0x50]) + b"BBBBB",
+            bytes([0x1F, 65, 1, 0]) + b"\xff" * 3]

@@ -13,11 +13,15 @@ import torch
 
 from lz4_tpu_torch import testing
 from lz4_tpu_torch.core.constants import max_compressed_length
-from lz4_tpu_torch.kernels import build, codec, layout, xxhash
+from lz4_tpu_torch.kernels import (
+    build, codec, layout, segment_decode, sequences, xxhash, xxhash_stream)
+from test_torch_segment import CORRUPTIONS, corrupt
 
 HARNESS = r"""
 #include "lz4_compress.cuh"
 #include "lz4_decode.cuh"
+#include "lz4_parse.cuh"
+#include "segment_decode.cuh"
 #include "xxh32.cuh"
 #include "xxh64.cuh"
 #include <vector>
@@ -64,6 +68,49 @@ void host_xxh64(const uint8_t* data, long long stride, const int32_t* lens,
   for (int b = 0; b < n; b++)
     out[b] = lz4tt_xxh64(data + b * stride, lens[b], seed);
 }
+// the parse kernel's body, one block after the other; tables zeroed
+void host_parse(const uint8_t* comp, long long comp_stride,
+                const int32_t* comp_lens, int max_seq, int32_t* tables,
+                int32_t* n_seq, int32_t* out_total, int n) {
+  const int64_t f = (int64_t)n * max_seq;
+  for (int b = 0; b < n; b++) {
+    int32_t* r = tables + (int64_t)b * max_seq;
+    const Lz4ttSeqRow row = {r, r + f, r + 2 * f, r + 3 * f, r + 4 * f,
+                             r + 5 * f};
+    int32_t written;
+    n_seq[b] = lz4tt_parse_block(comp + b * comp_stride, comp_lens[b], max_seq,
+                                 row, &written, &out_total[b]);
+  }
+}
+// K5's phases in the kernel's order, by a one-lane team
+void host_segment(const uint8_t* comp, long long comp_stride,
+                  const int32_t* comp_lens, const int32_t* n_seq,
+                  const int32_t* tables, int max_seq, uint8_t* out,
+                  long long out_stride, int out_max, int32_t* err, int n) {
+  HostTeam t;
+  for (int b = 0; b < n; b++) {
+    const Lz4ttSeqTables s = lz4tt_seq_tables(tables, n, max_seq, b);
+    uint8_t* row = out + b * out_stride;
+    const int32_t ns = n_seq[b];
+    lz4tt_segment_zero(t, row, out_max);
+    bool bad = ns < 0 || ns > max_seq;
+    for (int32_t k = 0; !bad && k < ns; k++)
+      bad = !lz4tt_segment_ok(s, k, comp_lens[b], out_max);
+    err[b] = bad ? LZ4TT_ERR_MALFORMED : LZ4TT_OK;
+    if (bad) continue;
+    for (int32_t k = 0; k < ns; k++)
+      lz4tt_segment_literal(t, comp + b * comp_stride, row, s, k);
+    lz4tt_segment_matches(t, row, s, ns);
+  }
+}
+void host_xxh32_stripes(const uint8_t* data, long long n_stripes,
+                        uint32_t* lanes) {
+  lz4tt_xxh32_stripes(data, n_stripes, lanes);
+}
+void host_xxh64_stripes(const uint8_t* data, long long n_stripes,
+                        uint64_t* lanes) {
+  lz4tt_xxh64_stripes(data, n_stripes, lanes);
+}
 }
 """
 
@@ -89,6 +136,11 @@ def lib(tmp_path_factory):
     lib.host_compress.argtypes = [_P, _I64, _P, _P, _I64, _I32, _P, _P, _I32]
     lib.host_xxh32.argtypes = [_P, _I64, _P, ctypes.c_uint, _P, _I32]
     lib.host_xxh64.argtypes = [_P, _I64, _P, ctypes.c_ulonglong, _P, _I32]
+    lib.host_parse.argtypes = [_P, _I64, _P, _I32, _P, _P, _P, _I32]
+    lib.host_segment.argtypes = [_P, _I64, _P, _P, _P, _I32, _P, _I64, _I32,
+                                 _P, _I32]
+    lib.host_xxh32_stripes.argtypes = [_P, _I64, _P]
+    lib.host_xxh64_stripes.argtypes = [_P, _I64, _P]
     return lib
 
 
@@ -206,16 +258,103 @@ def test_host_xxh64_matches_plain(lib, seed):
     assert torch.equal(out, xxhash.xxh64_plain(data, lens, seed))
 
 
+def _comp_batch(seed, n_fuzz):
+    """K2's plain output of the edge blocks and periods 1-15, the
+    boundary blocks, then ``n_fuzz`` malformed variants."""
+    rng = np.random.default_rng(seed)
+    blocks = testing.mixed_blocks(rng, (0, 5, 13, 1000, 65536, 70000))
+    blocks += [bytes(rng.integers(0, 256, p, dtype=np.uint8)) * (1024 // p)
+               for p in range(1, 16)]
+    src, lens = layout.to_device_layout(blocks, device="cpu")
+    comp, comp_lens, _ = codec.compress_fast_batch(
+        src, lens, max_compressed_length(70000))
+    comp_blocks = layout.from_device_layout(comp, comp_lens)
+    comp_blocks += testing.boundary_blocks()
+    comp_blocks += testing.fuzz_blocks(rng, comp_blocks, n_fuzz)
+    return layout.to_device_layout(comp_blocks, device="cpu")
+
+
+def _host_parse(lib, c, cl, max_seq):
+    n = c.shape[0]
+    tables = torch.zeros((6, n, max_seq), dtype=torch.int32)
+    n_seq = torch.zeros((n,), dtype=torch.int32)
+    total = torch.zeros((n,), dtype=torch.int32)
+    lib.host_parse(_ptr(c), c.stride(0), _ptr(cl), max_seq, _ptr(tables),
+                   _ptr(n_seq), _ptr(total), n)
+    return tables, n_seq, total
+
+
+@pytest.mark.parametrize("max_seq", [None, 40])
+def test_host_parse_matches_plain(lib, max_seq):
+    """The parser body on K2 output and fuzz, tables entry for entry, with
+    the default width and one narrow enough to give ``-3``."""
+    c, cl = _comp_batch(5, 256)
+    want = sequences.parse_plain(c, cl, max_seq)
+    got = _host_parse(lib, c, cl, want[0].shape[2])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    codes = set(got[1].tolist())
+    assert sequences.PARSE_MALFORMED in codes
+    assert (sequences.PARSE_TOO_MANY in codes) == (max_seq == 40)
+
+
+@pytest.mark.parametrize("out_max", [64, 1000, 70000])
+def test_host_segment_matches_plain(lib, out_max):
+    """K5's phases on parsed tables and on corrupted ones, against the plain
+    version, with a guard region behind every row."""
+    c, cl = _comp_batch(6, 64)
+    tables, n_seq, _ = sequences.parse_plain(c, cl)
+    bad = tables.clone()
+    rows = torch.nonzero((n_seq > 1) & (cl < out_max)).flatten()[:6]
+    for row, kind in zip(rows.tolist(), CORRUPTIONS):
+        corrupt(bad, row, kind, int(cl[row]), out_max)
+    guard = torch.full((c.shape[0], out_max + 64), 0xA5, dtype=torch.uint8)
+    for t in (tables, bad):
+        err = torch.zeros((c.shape[0],), dtype=torch.int32)
+        guard[:, :out_max] = 0x5A
+        lib.host_segment(_ptr(c), c.stride(0), _ptr(cl), _ptr(n_seq), _ptr(t),
+                         t.shape[2], _ptr(guard), guard.stride(0), out_max,
+                         _ptr(err), c.shape[0])
+        out, want_err = segment_decode.decompress_segments_plain(
+            c, cl, n_seq, t, out_max)
+        assert torch.equal(err, want_err)
+        assert torch.equal(guard[:, :out_max], out[:, :out_max])
+        assert bool((guard[:, out_max:] == 0xA5).all())
+    assert bool((want_err[rows] == codec.ERR_MALFORMED).all())
+
+
+@pytest.mark.parametrize("seed", [0, 0xFFFFFFFF, (1 << 64) - 1])
+def test_host_stream_stripes_match_plain(lib, seed):
+    """The stripe loops the streaming updates launch, from a carried state,
+    against the plain absorbs."""
+    rng = np.random.default_rng(seed & 0xFF)
+    data = torch.from_numpy(rng.integers(0, 256, 32 * 77, dtype=np.uint8))
+    s32 = xxhash_stream.StreamState32(seed, "cpu")
+    s64 = xxhash_stream.StreamState64(seed, "cpu")
+    lanes32 = s32.lanes.view(torch.int32).clone()
+    lanes64 = s64.lanes.clone()
+    for n in (1, 7, 8, 9, 77):
+        lib.host_xxh32_stripes(_ptr(data), 2 * n, _ptr(lanes32))
+        lib.host_xxh64_stripes(_ptr(data), n, _ptr(lanes64))
+        xxhash_stream.absorb32_plain(s32.lanes, data[:32 * n])
+        xxhash_stream.absorb64_plain(s64.lanes, data[:32 * n])
+        assert lanes32.view(torch.uint32).tolist() == s32.lanes.tolist()
+        assert torch.equal(lanes64, s64.lanes)
+
+
 def test_build_digest_covers_every_header(tmp_path, monkeypatch):
     """Editing any ``csrc`` file, a ``.cuh`` header included, gives a new
     build directory, so a stale library is never loaded."""
     for p in build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
-    assert {p.name for p in build.sources()} >= {"xxh64.cu", "lz4_decode.cu"}
+    assert {p.name for p in build.sources()} >= {
+        "xxh64.cu", "lz4_decode.cu", "lz4_parse.cu", "segment_decode.cu"}
     digests = {build.source_digest()}
-    for name in ("xxh64.cuh", "lz4_decode.cuh", "lz4tt_common.cuh"):
+    headers = ("xxh64.cuh", "lz4_decode.cuh", "lz4tt_common.cuh",
+               "lz4_parse.cuh", "segment_decode.cuh")
+    for name in headers:
         with open(tmp_path / name, "a") as f:
             f.write("\n")
         digests.add(build.source_digest())
-    assert len(digests) == 4
+    assert len(digests) == len(headers) + 1

@@ -78,6 +78,29 @@ def _port_files():
     return files + [REPO / "chip_smoke.py"]
 
 
+def test_port_files_cover_the_stream_pipeline_and_cli():
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {"lz4_tpu_torch/streams/pipeline.py", "lz4_tpu_torch/__main__.py",
+            "lz4_tpu_torch/kernels/segment_decode.py",
+            "lz4_tpu_torch/kernels/sequences.py",
+            "lz4_tpu_torch/kernels/xxhash_stream.py"} <= names
+
+
+def test_cli_module_runs_without_jax():
+    """``python -m lz4_tpu_torch`` parses its arguments with neither
+    ``jax`` nor ``lz4_tpu`` loaded."""
+    code = ("import runpy, sys; sys.argv = ['lz4_tpu_torch', '--help']\n"
+            "try:\n    runpy.run_module('lz4_tpu_torch', run_name='__main__')\n"
+            "except SystemExit as e:\n    assert e.code == 0, e.code\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'lz4_tpu'))\nprint(bad)\n"
+            "sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "compress" in res.stdout
+
+
 def test_port_source_imports_neither_jax_nor_lz4_tpu():
     offenders = []
     for path in _port_files():
@@ -100,7 +123,10 @@ def test_port_source_imports_neither_jax_nor_lz4_tpu():
 def test_import_leaves_jax_and_lz4_tpu_unloaded():
     code = ("import sys, lz4_tpu_torch, lz4_tpu_torch.testing, chip_smoke, "
             "lz4_tpu_torch.api.cuda_instances, lz4_tpu_torch.core.lz4_hc_ref, "
-            "lz4_tpu_torch.core.xxhash_ref; "
+            "lz4_tpu_torch.core.xxhash_ref, lz4_tpu_torch.streams, "
+            "lz4_tpu_torch.__main__, lz4_tpu_torch.kernels.segment_decode, "
+            "lz4_tpu_torch.kernels.sequences, "
+            "lz4_tpu_torch.kernels.xxhash_stream; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lz4_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
