@@ -9,19 +9,24 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
 Phases (any failure exits non-zero; nothing is caught):
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build of every kernel from ``lz4_tpu_torch/csrc`` (set-up, timed);
+2. build of every kernel from ``lz4_tpu_torch/csrc`` (set-up, timed), with
+   nvcc's registers and spills, and K1's and K2's resident CTAs per SM;
 3. each kernel against its plain version on edge-case batches: block sizes
    around the format's limits, data kinds from zeros to incompressible, a
    tight ``dest_cap``, fuzz batches of malformed blocks with a guard region
-   behind each output row (the safe and the fast decode), ragged hash
-   lengths with two XXH32 and three XXH64 seeds, and n = 1 against the host
-   hashes;
+   behind each output row (the safe and the fast decode), hand-built
+   blocks for the decode's one-lane path and ring (periods 1-40, dist about
+   len, runs about 16 and 32 bytes, null offsets, matches at the ring's
+   edge), ragged hash lengths with two XXH32 and three XXH64 seeds, and
+   n = 1 against the host hashes;
 4. the main path: ``roundtrip_step`` on 4096 blocks of 64 KiB (256 MiB),
    3 iterations with launch counts reset just before and read just after,
    every block OK, the packed frame body equal to the one assembled on the
    host; then K1, K2 and K3 against their plain versions at those shapes,
    with the kernel's time (CUDA events), the plain version's time and the
-   bound (bytes the function must move over 3.35 TB/s);
+   bound (bytes the function must move over 3.35 TB/s); then K2, K1 and K1
+   fast on the a4, text and random rows apart, and K1 on 132, 1056 and
+   4096 a4 rows;
 5. the ``cuda`` tier at the same width, through ``Lz4Factory`` and
    ``XXHashFactory``: the factories are built (their self-tests run on the
    card), then ``compress_batch``, ``decompress_batch``, the fast
@@ -88,7 +93,7 @@ BIG_UPDATE = 64 << 20
 REPO = pathlib.Path(__file__).resolve().parent
 FRAME_BYTES = (64 << 20) - 777      # a short last block
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
-EDGE_SIZES = (0, 5, 12, 13, 1000, 65536, 70000)
+EDGE_SIZES = (0, 5, 12, 13, 1000, 65536, 65546, 65547, 70000)
 GUARD = 64
 GUARD_BYTE = 0xA5
 
@@ -121,6 +126,10 @@ TIER_PATH = MAIN_PATH + ("xxh64", "lz4_decode_fast")
 STREAM_PATH = ("lz4_compress", "lz4_decode", "lz4_parse", "segment_decode",
                "xxh32_stream", "xxh64_stream")
 XXH64_SEEDS = (0, (1 << 64) - 1, 0xCAFEBABE12345678)
+OCCUPANCY = (("lz4_compress", "lz4tt_compress_occupancy"),
+             ("lz4_decode", "lz4tt_decode_occupancy"))
+KIND_NAMES = ("a4", "text", "random")    # sharded.block_kinds 0, 1, 2
+A4_ROWS = (132, 1056, 4096)              # one block an SM, 8, 31
 
 
 def fail(msg: str):
@@ -277,6 +286,10 @@ def phase_build() -> None:
         for line in report.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    for source, symbol in OCCUPANCY:
+        ctas, threads = build.occupancy(source, symbol)
+        log(f"occupancy {source}: {ctas} resident CTAs of {threads} threads "
+            f"an SM ({ctas * threads // 32} warps)")
 
 
 def phase_edge_cases(dev) -> None:
@@ -337,6 +350,8 @@ def phase_edge_cases(dev) -> None:
         f"to their compressed length; guard intact; OK/MALFORMED by "
         f"dest_len: {codes}")
 
+    _short_sequence_cases(dev, rng)
+
     hash_lens = list(range(101)) + [1000, 65536]
     hsrc, hl = layout.to_device_layout(
         [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in hash_lens],
@@ -366,6 +381,37 @@ def phase_edge_cases(dev) -> None:
             example_blocks():
         fail("entry(): decode did not restore the example blocks")
     log("entry(): decode OK")
+
+
+def _short_sequence_cases(dev, rng) -> None:
+    """K1 (both entry points) on hand-built blocks for its one-lane path and
+    its ring: periods 1-40, dist about len, runs about 16 and 32, null
+    offsets, matches at the ring's edge; against the plain versions and
+    the expected bytes, guard intact."""
+    blocks = [b for case in testing.SHORT_CASES
+              for b in testing.short_sequence_blocks(case, rng)]
+    comp = [testing.encode_block(*b) for b in blocks]
+    want = [testing.expand_block(*b) for b in blocks]
+    c, cl = layout.to_device_layout(comp, device=dev)
+    out_max = max(map(len, want))
+    compare_decode("K1 short sequences", c, cl, out_max, guard=True)
+    out, out_lens, err = codec.decompress_safe_batch(c, cl, out_max)
+    if bool(err.any()) or layout.from_device_layout(out, out_lens) != want:
+        fail("K1 short sequences: a block did not decode to its bytes")
+    by_len = {}
+    for i, w in enumerate(want):
+        by_len.setdefault(len(w), []).append(i)
+    for n, idx in by_len.items():
+        rows = torch.tensor(idx, device=dev)
+        fc, fl = c[rows].contiguous(), cl[rows].contiguous()
+        compare_decode_fast(f"K1 fast short sequences ({n} B)", fc, fl, n)
+        fout, read, ferr = codec.decompress_fast_batch(fc, fl, n)
+        got = [r[:n].cpu().numpy().tobytes() for r in fout]
+        if bool(ferr.any()) or not torch.equal(read, fl) or \
+                got != [want[i] for i in idx]:
+            fail(f"K1 fast short sequences ({n} B): a block failed")
+    log(f"K1 and K1 fast == plain and the expected bytes on {len(blocks)} "
+        f"hand-built blocks ({', '.join(testing.SHORT_CASES)}); guard intact")
 
 
 def _host_body(data: np.ndarray, comp: np.ndarray,
@@ -420,6 +466,37 @@ def kernel_row(name: str, launches: dict, max_err: int, ms: float,
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "plain_rows": plain_rows, "bound_ms": bound_ms,
             "bound_by": "bytes", "library_ms": None}
+
+
+def time_by_kind(src, lens, comp, clens) -> dict:
+    """K2, K1 and K1 fast on the a4, text and random rows of the main path
+    apart; then K1 on ``A4_ROWS`` a4 rows (repeated past the 2048 there
+    are): a time that does not grow with the rows is set by one block's
+    chain, one that grows by issue slots. Returns ms by name."""
+    kinds = torch.from_numpy(sharded.block_kinds(src.shape[0], SEED)).to(
+        src.device)
+    cap = max_compressed_length(BLOCK_LEN)
+    ms = {}
+    for k, name in enumerate(KIND_NAMES):
+        idx = torch.nonzero(kinds == k).flatten()
+        s, sl = src[idx].contiguous(), lens[idx].contiguous()
+        c, cl = comp[idx].contiguous(), clens[idx].contiguous()
+        ms[f"K2 {name}"] = _time_kernel(
+            lambda: codec.compress_fast_batch(s, sl, cap))
+        ms[f"K1 {name}"] = _time_kernel(
+            lambda: codec.decompress_safe_batch(c, cl, BLOCK_LEN))
+        ms[f"K1 fast {name}"] = _time_kernel(
+            lambda: codec.decompress_fast_batch(c, cl, BLOCK_LEN))
+    a4 = torch.nonzero(kinds == 0).flatten()
+    for rows in A4_ROWS:
+        pick = a4.repeat(-(-rows // a4.numel()))[:rows]
+        c, cl = comp[pick].contiguous(), clens[pick].contiguous()
+        ms[f"K1 {rows} a4 rows"] = _time_kernel(
+            lambda: codec.decompress_safe_batch(c, cl, BLOCK_LEN))
+    counts = torch.bincount(kinds, minlength=3).tolist()
+    log(f"by kind (rows {dict(zip(KIND_NAMES, counts))}), ms on the card: "
+        + json.dumps(ms))
+    return ms
 
 
 def phase_main_path(dev):
@@ -519,6 +596,7 @@ def phase_main_path(dev):
     ms = _time_kernel(lambda: xxhash.xxh32_batch(src, lens, 0))
     rows.append(kernel_row("xxh32", launches, 0, ms, plain_ms,
                            in_bytes + 8 * n, in_bytes))
+    time_by_kind(src, lens, st.comp, st.comp_lens)
     return rows, {"data": data, "comp": st.comp, "comp_lens": st.comp_lens}
 
 

@@ -6,17 +6,27 @@
 // the table variant is chosen per block from the block's own length
 // (jax_codec.py:579-588 and the reference), not from the row capacity.
 //
-// Bound on the card: bytes. Each input byte is read once and each output
-// byte written once, over 3.35 TB/s of HBM. In practice the scan is serial
-// per block (skip acceleration makes each probe depend on the last), so the
-// kernel is latency-bound and lives on block parallelism.
+// Bound on the card: bytes (each input byte read once, each output byte
+// written once, over 3.35 TB/s of HBM). In practice the scan is serial per
+// block: skip acceleration makes each probe depend on the last, and each
+// sequence on the table entry the one before it wrote. On the main path's
+// alphabet-4 blocks (about 15,100 sequences of 4.3 bytes) it is one lane's
+// chain of about a hundred dependent instructions a sequence (byte loads,
+// hash, table, compare, bookkeeping), so what bounds the kernel is that
+// chain's latency times the blocks that do not fit on the card at once:
+// 2048 such blocks over 13 x 132 slots run in two rounds.
 //
-// Design: one CTA of one warp per block. The hash table sits in shared
-// memory as int32 entries (32 KB for the 13-bit table, the first 16 KB of
-// it for the 12-bit one) and is zeroed per block. The whole warp walks the
-// scan in lockstep; only lane 0 reads and writes the table and broadcasts
-// the old entry. Literal runs are copied by the 32 lanes, and matches are
-// extended 32 bytes per step by one compare per lane and a __ballot_sync.
+// Design: one CTA of one warp per block, with the block's 16 KiB hash table
+// in dynamic shared memory (uint16_t entries below LZ4_64K_LIMIT, int32_t
+// from it on), which lets 13 CTAs share an SM where the former 32 KiB
+// table let 6; the carve-out asks for the most shared memory. Lane 0 runs
+// the scan alone and the other lanes wait at one shuffle, joining only for
+// literal runs above 16 bytes and matches that run past 32 bytes; a match
+// is extended 4 bytes a step by XOR and __ffs, and a run of matches with
+// no literals between them stays in one loop. Measured on the card
+// (PERF.md): staging the row in shared memory (80 KiB a CTA, 2 CTAs an SM)
+// was 3x slower, and words joined by a funnel shift were 2 % slower than
+// four byte loads through L1.
 #include "lz4_compress.cuh"
 
 #include <cuda_runtime.h>
@@ -28,7 +38,7 @@ __global__ void __launch_bounds__(32)
                     const int32_t* __restrict__ src_lens, uint8_t* __restrict__ dst,
                     int64_t dst_stride, int32_t dest_cap,
                     int32_t* __restrict__ out_lens, int32_t* __restrict__ err) {
-  __shared__ int32_t table[1 << LZ4TT_HASH_LOG_64K];
+  extern __shared__ uint4 table[];
   const int64_t b = blockIdx.x;
   WarpTeam t;
   int32_t len = 0;
@@ -41,6 +51,13 @@ __global__ void __launch_bounds__(32)
   }
 }
 
+cudaError_t prepare() {
+  static cudaError_t done = cudaFuncSetAttribute(
+      compress_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  return done;
+}
+
 }  // namespace
 
 // src: uint8[n, src_stride], src_lens: int32[n] within [0, src_stride];
@@ -51,10 +68,19 @@ extern "C" int lz4tt_compress_fast(const void* src, long long src_stride,
                                    long long dst_stride, int dest_cap,
                                    void* out_lens, void* err, int n,
                                    void* stream) {
+  if (const cudaError_t e = prepare()) return (int)e;
   if (n > 0) {
-    compress_kernel<<<n, 32, 0, (cudaStream_t)stream>>>(
+    compress_kernel<<<n, 32, LZ4TT_TABLE_BYTES, (cudaStream_t)stream>>>(
         (const uint8_t*)src, src_stride, (const int32_t*)src_lens, (uint8_t*)dst,
         dst_stride, dest_cap, (int32_t*)out_lens, (int32_t*)err);
   }
   return (int)cudaGetLastError();
+}
+
+// Resident CTAs per SM and threads per CTA of the kernel as launched.
+extern "C" int lz4tt_compress_occupancy(int* ctas_per_sm, int* threads) {
+  *threads = 32;
+  if (const cudaError_t e = prepare()) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, compress_kernel, 32, LZ4TT_TABLE_BYTES);
 }

@@ -9,17 +9,26 @@
 // the counterpart of the pure-JAX jax_codec.py::decompress_fast_batch
 // (:255-270), which has no Pallas kernel of its own.
 //
-// Bound on the card: bytes. The work is to read each compressed byte once
-// and write each decoded byte once, over 3.35 TB/s of HBM. The token walk
-// of a block is serial, so the kernel lives on block parallelism.
+// Bound on the card: bytes (each compressed byte read once, each decoded
+// byte written once, over 3.35 TB/s of HBM). In practice the token walk of
+// a block is serial: on the main path's alphabet-4 blocks a sequence is 3
+// compressed bytes for 4.3 decoded ones, and one lane's chain of
+// dependent instructions a sequence bounds the kernel, with every block
+// resident at once.
 //
-// Design: one warp per block, four blocks per CTA. Every lane walks the
-// same tokens (the length bytes are one broadcast load); literal runs and
-// matches are copied by the 32 lanes, one byte each per step. An
-// overlapping match (distance below its length) is copied as
-// byte j = period[j mod dist], so every lane reads only bytes that exist
-// before the match starts: no serial replication and no hazard inside a
-// copy. A __syncwarp before each match orders it after the writes it reads.
+// Design: one warp per block, four blocks per CTA, at most 64 registers so
+// that 8 CTAs (all 4096 blocks of the main path) are resident, each warp
+// with a 4 KiB ring of its latest output and a queue of 32 copies in
+// shared memory (lz4_decode.cuh). Lane 0 walks the tokens alone and only
+// checks and queues: a literal run or match of up to 64 bytes becomes one
+// queued copy, and four tokens with no literals and a short match are read
+// at once, since such sequences are 3 bytes each. The 32 lanes then run
+// the queued copies one a lane, in waves that respect the order in which
+// they read each other's output, into the ring (a match within 3 KiB reads
+// shared memory, not bytes just stored to the row); they write the ring out
+// with 16-byte stores once 2 KiB wait, and copy longer runs and matches
+// together. Writes are exactly the decoded bytes: nothing is written past
+// a run and later overwritten.
 #include "lz4_decode.cuh"
 
 #include <cuda_runtime.h>
@@ -27,25 +36,31 @@
 namespace {
 
 constexpr int kWarpsPerCta = 4;
+// enough for every block of a 4096-block batch to be resident (132 SMs)
+constexpr int kCtasPerSm = 8;
 
 // Safe: lens[b] is the exact compressed length and out_max the capacity;
 // writes the decoded length. Fast: lens[b] is the bytes available and
 // out_max the exact decoded length; writes the bytes read.
 template <bool kFast>
-__global__ void __launch_bounds__(32 * kWarpsPerCta)
+__global__ void __launch_bounds__(32 * kWarpsPerCta, kCtasPerSm)
     decode_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
                   const int32_t* __restrict__ lens, uint8_t* out,
                   int64_t out_stride, int32_t out_max,
                   int32_t* __restrict__ out_lens, int32_t* __restrict__ err,
                   int32_t n) {
-  const int64_t b = (int64_t)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
+  __shared__ __align__(16) uint8_t rings[kWarpsPerCta][LZ4TT_RING];
+  __shared__ Lz4ttCopies queues[kWarpsPerCta];
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerCta + warp;
   if (b >= n) return;  // uniform across the warp
   WarpTeam t;
   int32_t len = 0;
   int32_t read = 0;
   int32_t e = 0;
   lz4tt_decode_block<kFast>(t, comp + b * comp_stride, lens[b],
-                            out + b * out_stride, out_max, &len, &read, &e);
+                            out + b * out_stride, out_max, rings[warp],
+                            queues[warp], &len, &read, &e);
   if (t.leader()) {
     out_lens[b] = kFast ? read : len;
     err[b] = e;
@@ -90,4 +105,12 @@ extern "C" int lz4tt_decompress_fast(const void* comp, long long comp_stride,
                                      void* stream) {
   return launch<true>(comp, comp_stride, comp_avail, out, out_stride, dest_len,
                       src_read, err, n, stream);
+}
+
+// Resident CTAs per SM and threads per CTA of the kernel as launched (the
+// two entry points are one body).
+extern "C" int lz4tt_decode_occupancy(int* ctas_per_sm, int* threads) {
+  *threads = 32 * kWarpsPerCta;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, decode_kernel<false>, 32 * kWarpsPerCta, 0);
 }

@@ -2,11 +2,12 @@
 //
 // Each kernel keeps its per-block body in a header, written against a
 // "team" of lanes: a warp on the card (WarpTeam), one thread in the host
-// build (HostTeam) that the CPU tests compile with g++. Control flow is
-// uniform across a team: every lane walks the same tokens and positions,
-// and only byte copies and compares are split across lanes. State that
-// must have one writer (the compressor's hash table, single output bytes)
-// is touched by the leader lane alone.
+// build (HostTeam) that the CPU tests compile with g++. In the block codec
+// the serial walk (the compressor's scan, the decoder's tokens) runs on the
+// leader lane alone, which hands the whole team jobs (Lz4ttJob): copies,
+// compares and writes that split across lanes; between jobs the team
+// waits at one broadcast. The other bodies keep a team's control flow
+// uniform and split only copies across lanes.
 #pragma once
 
 #include <stdint.h>
@@ -43,6 +44,7 @@ struct HostTeam {
   LZ4TT_HD bool leader() const { return true; }
   LZ4TT_HD void sync() const {}
   LZ4TT_HD unsigned ballot(bool p) const { return p ? 1u : 0u; }
+  LZ4TT_HD int32_t shfl(int32_t v, int) const { return v; }
   LZ4TT_HD int32_t bcast(int32_t v) const { return v; }
 };
 
@@ -71,9 +73,11 @@ struct WarpTeam {
 #endif
   }
   // value of v on the leader lane, on every lane
-  LZ4TT_HD int32_t bcast(int32_t v) const {
+  LZ4TT_HD int32_t bcast(int32_t v) const { return shfl(v, 0); }
+  // value of v on lane src, on every lane
+  LZ4TT_HD int32_t shfl(int32_t v, int src) const {
 #ifdef __CUDA_ARCH__
-    return __shfl_sync(0xffffffffu, v, 0);
+    return __shfl_sync(0xffffffffu, v, src);
 #else
     return v;
 #endif
@@ -116,4 +120,72 @@ LZ4TT_HD lz4tt_u4 lz4tt_load16(const uint8_t* p) {
   memcpy(&r, p, 16);  // the host build runs on little-endian machines
 #endif
   return r;
+}
+
+// An aligned 16-byte store.
+LZ4TT_HD void lz4tt_store16(uint8_t* dst, const uint8_t* src) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+#else
+  memcpy(dst, src, 16);
+#endif
+}
+
+// The low 32 bits of (hi:lo) >> (sh & 31): __funnelshift_r.
+LZ4TT_HD uint32_t lz4tt_funnel_r(uint32_t lo, uint32_t hi, int sh) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_r(lo, hi, sh);
+#else
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> (sh & 31));
+#endif
+}
+
+// One aligned 32-bit word.
+LZ4TT_HD uint32_t lz4tt_ld32(const uint8_t* p) {
+#ifdef __CUDA_ARCH__
+  return *reinterpret_cast<const uint32_t*>(p);
+#else
+  uint32_t v;
+  memcpy(&v, p, 4);
+  return v;
+#endif
+}
+
+// Byte k (0..3) of the word, as an int.
+LZ4TT_HD uint32_t lz4tt_byte(uint32_t w, int k) { return (w >> (8 * k)) & 0xFF; }
+
+// The n bytes p[i, i + n), 1 <= n <= 16, little-endian in a[0..3] (bytes
+// past n are unspecified), from at most five aligned word loads and funnel
+// shifts. Only words that hold one of the n bytes are read, so the loads
+// never leave the memory those bytes lie in.
+LZ4TT_HD void lz4tt_load_upto16(const uint8_t* p, int64_t i, int32_t n,
+                                uint32_t a[4]) {
+  const uintptr_t addr = (uintptr_t)(p + i);
+  const uint8_t* w = (const uint8_t*)(addr & ~(uintptr_t)3);
+  const int mis = (int)(addr & 3);
+  const int last = (mis + n - 1) >> 2;  // the last word that holds a byte
+  uint32_t v[5];
+#pragma unroll
+  for (int k = 0; k < 5; k++) v[k] = k <= last ? lz4tt_ld32(w + 4 * k) : 0u;
+#pragma unroll
+  for (int k = 0; k < 4; k++) a[k] = lz4tt_funnel_r(v[k], v[k + 1], 8 * mis);
+}
+
+// Byte r (0..15) of four little-endian words by selects, not an indexed
+// (local-memory) array; a constant r folds to one shift.
+LZ4TT_HD uint32_t lz4tt_byte16(const uint32_t a[4], int r) {
+  const uint32_t w = r < 8 ? (r < 4 ? a[0] : a[1]) : (r < 12 ? a[2] : a[3]);
+  return lz4tt_byte(w, r & 3);
+}
+
+// A unit of work the leader lane hands to its whole team (see the
+// compress and decode bodies): its kind, a count and three operands.
+struct Lz4ttJob {
+  int32_t kind, n, a, b, c;
+};
+
+template <class Team>
+LZ4TT_HD Lz4ttJob lz4tt_bcast_job(const Team& t, Lz4ttJob j) {
+  return {t.bcast(j.kind), t.bcast(j.n), t.bcast(j.a), t.bcast(j.b),
+          t.bcast(j.c)};
 }

@@ -138,6 +138,18 @@ def compress_frame_packed(data, block_size: int = 1 << 16,
 # the roundtrip step
 # ---------------------------------------------------------------------------
 
+def _kinds(rng: np.random.Generator, n_blocks: int) -> np.ndarray:
+    n_a4, n_text = n_blocks // 2, n_blocks // 4
+    return rng.permutation(np.repeat(
+        [0, 1, 2], [n_a4, n_text, n_blocks - n_a4 - n_text]))
+
+
+def block_kinds(n_blocks: int, seed: int = 0) -> np.ndarray:
+    """The kind of each block of ``make_blocks(n_blocks, ..., seed)``: 0
+    alphabet-4, 1 text, 2 incompressible."""
+    return _kinds(np.random.default_rng(seed), n_blocks)
+
+
 def make_blocks(n_blocks: int, block_len: int, seed: int = 0) -> np.ndarray:
     """Seeded test data, uint8[n_blocks, block_len], in three kinds:
 
@@ -146,13 +158,13 @@ def make_blocks(n_blocks: int, block_len: int, seed: int = 0) -> np.ndarray:
       byte in 64 mutated, standing in for log and text data;
     - the rest incompressible bytes, which the frame stores raw.
 
-    Kinds are spread over the batch by a seeded permutation.
+    Kinds are spread over the batch by a seeded permutation
+    (:func:`block_kinds`).
     """
     rng = np.random.default_rng(seed)
-    n_a4 = n_blocks // 2
-    n_text = n_blocks // 4
-    kinds = rng.permutation(np.repeat(
-        [0, 1, 2], [n_a4, n_text, n_blocks - n_a4 - n_text]))
+    kinds = _kinds(rng, n_blocks)
+    n_a4 = int((kinds == 0).sum())
+    n_text = int((kinds == 1).sum())
     out = np.empty((n_blocks, block_len), np.uint8)
     out[kinds == 0] = rng.integers(0, 4, (n_a4, block_len), dtype=np.uint8)
     out[kinds == 2] = rng.integers(0, 256, (n_blocks - n_a4 - n_text, block_len),

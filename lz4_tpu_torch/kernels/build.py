@@ -132,6 +132,19 @@ class Kernel:
         self.launches += 1
 
 
+def occupancy(source: str, symbol: str) -> tuple[int, int]:
+    """(resident CTAs per SM, threads per CTA) of a kernel of
+    ``csrc/<source>.cu``, from its C entry point ``symbol``; no launch."""
+    fn = getattr(_library(source), symbol)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    ctas, threads = ctypes.c_int(0), ctypes.c_int(0)
+    rc = fn(ctypes.byref(ctas), ctypes.byref(threads))
+    if rc != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {rc}")
+    return ctas.value, threads.value
+
+
 def launch_counts() -> dict[str, int]:
     return {k.name: k.launches for k in Kernel.registry}
 

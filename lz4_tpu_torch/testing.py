@@ -9,6 +9,11 @@ from __future__ import annotations
 import numpy as np
 
 KINDS = ("zeros", "period3", "alphabet4", "incompressible")
+SHORT_CASES = ("periods", "dist_vs_len", "runs", "null", "ring_edge")
+# The block decode's ring of recent output and the farthest match it
+# serves (LZ4TT_RING, LZ4TT_RING_NEAR in csrc/lz4_decode.cuh).
+RING = 4096
+RING_NEAR = 3072
 
 
 def block_of(rng: np.random.Generator, kind: str, size: int) -> bytes:
@@ -63,3 +68,77 @@ def boundary_blocks() -> list[bytes]:
             bytes([0x10, 65, 1, 0, 0x50]) + b"BBBBB",    # b"AAAAABBBBB"
             bytes([0x10, 65, 2, 0, 0x50]) + b"BBBBB",
             bytes([0x1F, 65, 1, 0]) + b"\xff" * 3]
+
+
+def encode_block(seqs, tail: bytes) -> bytes:
+    """An LZ4 block of ``(literals, dist, match_len)`` sequences and the
+    last literals."""
+    out = bytearray()
+
+    def ext(n):
+        while n >= 255:
+            out.append(255)
+            n -= 255
+        out.append(n)
+
+    for lit, dist, ml in seqs:
+        out.append((min(len(lit), 15) << 4) | min(ml - 4, 15))
+        if len(lit) >= 15:
+            ext(len(lit) - 15)
+        out.extend(lit)
+        out.extend((dist & 0xFF, dist >> 8))
+        if ml - 4 >= 15:
+            ext(ml - 19)
+    out.append(min(len(tail), 15) << 4)
+    if len(tail) >= 15:
+        ext(len(tail) - 15)
+    return bytes(out + tail)
+
+
+def expand_block(seqs, tail: bytes) -> bytes:
+    """What ``encode_block``'s block decodes to; a null offset writes zeros."""
+    out = bytearray()
+    for lit, dist, ml in seqs:
+        out += lit
+        for _ in range(ml):
+            out.append(out[-dist] if dist else 0)
+    return bytes(out + tail)
+
+
+def short_sequence_blocks(case: str, rng: np.random.Generator):
+    """``(sequences, tail)`` blocks of one of ``SHORT_CASES`` for the block
+    decode's one-lane copies (literal runs and matches of at most 64 bytes,
+    written into its ring of recent output) and its team copies (longer
+    ones); ``encode_block`` makes them blocks."""
+    def rb(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    tail = rb(8)
+    if case == "periods":          # overlapping matches, periods 1-40
+        return [([(rb(p), p, 4)]
+                 + [(b"", p, n) for n in (7, 16, 17, 40, 100)], tail)
+                for p in range(1, 41)]
+    if case == "dist_vs_len":      # dist one below, equal to, one above len
+        return [([(rb(40), d, n)], tail)
+                for n in (4, 5, 8, 15, 16, 17, 31, 32, 33)
+                for d in (n - 1, n, n + 1)]
+    if case == "runs":             # literal runs and matches about 16, 32, 64
+        sizes = (15, 16, 17, 31, 32, 33, 63, 64, 65)
+        return ([([(rb(n), 9, 4), (rb(3), 20, n)], rb(n)) for n in sizes]
+                + [([(rb(40), 33, 4), (b"", 33, n), (rb(n), 1, n)], tail)
+                   for n in sizes])
+    if case == "null":             # null offsets, short and long
+        return [([(rb(5), 0, n), (rb(2), 3, 4), (b"", 0, n)], tail)
+                for n in (4, 5, 16, 17, 40, 65, 100)]
+    # the ring's edge: a long literal run, then short sequences across
+    # several write-outs, then one match at the farthest distance the ring
+    # serves and past it, short and long
+    blocks = []
+    for dist in (RING_NEAR - 1, RING_NEAR, RING_NEAR + 1, RING - 1, RING,
+                 RING + 1, RING + 16, 9000):
+        for n in (4, 13, 16, 17):
+            seqs = [(rb(5000), 7, 4)]
+            seqs += [(rb(int(rng.integers(0, 4))), int(rng.integers(1, 3000)),
+                      int(rng.integers(4, 17))) for _ in range(700)]
+            blocks.append((seqs + [(b"", dist, n), (rb(1), dist, n)], tail))
+    return blocks

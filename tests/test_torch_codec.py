@@ -14,6 +14,7 @@ from lz4_tpu.kernels import jax_codec
 from lz4_tpu.kernels.lz4_pallas import (
     PAD as KPAD, compress_fast_pallas, decompress_safe_pallas)
 from lz4_tpu_torch import testing
+from lz4_tpu_torch.dist import sharded
 from lz4_tpu_torch.kernels import codec, layout
 
 
@@ -146,6 +147,28 @@ def test_compress_per_block_variant_above_64k_limit():
     out, out_lens, derr = codec.decompress_safe_batch(comp, comp_lens,
                                                       len(big))
     assert derr.tolist() == [codec.OK] * 3
+    assert layout.from_device_layout(out, out_lens) == blocks
+
+
+@pytest.mark.parametrize("size", [65535, 65536, 65546, 65547])
+def test_compress_table_edges_match_jax_codec(size):
+    """Block lengths at the edge of the 13-bit table (65,546 B, the largest
+    block of the 64K variant) and the first of the 12-bit one (65,547 B),
+    on the main path's three kinds of data (``make_blocks``: random, a4,
+    text, a4), against ``jax_codec`` a block at a time (its batched loop
+    is far slower on the CPU at this size); the blocks decode back."""
+    rows = sharded.make_blocks(4, LZ4_64K_LIMIT, 5)[:, :size]
+    blocks = [r.tobytes() for r in rows]
+    src, lens = layout.to_device_layout(blocks, device="cpu")
+    cap = max_compressed_length(size)
+    port = codec.compress_fast_batch(src, lens, cap)
+    for i in range(len(blocks)):
+        ref = jax_codec.compress_fast_batch(*_jax(src[i:i + 1], lens[i:i + 1]),
+                                            cap)
+        _assert_same(tuple(t[i:i + 1] for t in port), ref)
+    assert port[2].tolist() == [codec.OK] * 4
+    out, out_lens, err = codec.decompress_safe_batch(port[0], port[1], size)
+    assert err.tolist() == [codec.OK] * 4
     assert layout.from_device_layout(out, out_lens) == blocks
 
 

@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from lz4_tpu_torch import testing
+from lz4_tpu_torch import design_variants, testing
 from lz4_tpu_torch.core.constants import max_compressed_length
+from lz4_tpu_torch.dist import sharded
 from lz4_tpu_torch.kernels import (
     build, codec, layout, segment_decode, sequences, xxhash, xxhash_stream)
 from test_torch_segment import CORRUPTIONS, corrupt
@@ -31,28 +32,32 @@ void host_decode(const uint8_t* comp, long long comp_stride,
                  const int32_t* comp_lens, uint8_t* out, long long out_stride,
                  int out_max, int32_t* out_lens, int32_t* err, int n) {
   HostTeam t;
+  alignas(16) uint8_t ring[LZ4TT_RING];
+  Lz4ttCopies q;
   int32_t read;
   for (int b = 0; b < n; b++)
     lz4tt_decode_block<false>(t, comp + b * comp_stride, comp_lens[b],
-                              out + b * out_stride, out_max, &out_lens[b],
-                              &read, &err[b]);
+                              out + b * out_stride, out_max, ring, q,
+                              &out_lens[b], &read, &err[b]);
 }
 void host_decode_fast(const uint8_t* comp, long long comp_stride,
                       const int32_t* comp_avail, uint8_t* out,
                       long long out_stride, int dest_len, int32_t* src_read,
                       int32_t* err, int n) {
   HostTeam t;
+  alignas(16) uint8_t ring[LZ4TT_RING];
+  Lz4ttCopies q;
   int32_t len;
   for (int b = 0; b < n; b++)
     lz4tt_decode_block<true>(t, comp + b * comp_stride, comp_avail[b],
-                             out + b * out_stride, dest_len, &len,
+                             out + b * out_stride, dest_len, ring, q, &len,
                              &src_read[b], &err[b]);
 }
 void host_compress(const uint8_t* src, long long src_stride,
                    const int32_t* src_lens, uint8_t* dst, long long dst_stride,
                    int dest_cap, int32_t* out_lens, int32_t* err, int n) {
   HostTeam t;
-  std::vector<int32_t> table(1 << LZ4TT_HASH_LOG_64K);
+  std::vector<uint32_t> table(LZ4TT_TABLE_BYTES / 4);
   for (int b = 0; b < n; b++)
     lz4tt_compress_block(t, src + b * src_stride, src_lens[b],
                          dst + b * dst_stride, dest_cap, dst_stride,
@@ -103,6 +108,8 @@ void host_segment(const uint8_t* comp, long long comp_stride,
     lz4tt_segment_matches(t, row, s, ns);
   }
 }
+// the decode ring's size (k = 0) and the farthest match it serves (k = 1)
+int host_ring(int k) { return k ? (int)LZ4TT_RING_NEAR : (int)LZ4TT_RING; }
 void host_xxh32_stripes(const uint8_t* data, long long n_stripes,
                         uint32_t* lanes) {
   lz4tt_xxh32_stripes(data, n_stripes, lanes);
@@ -139,6 +146,7 @@ def lib(tmp_path_factory):
     lib.host_parse.argtypes = [_P, _I64, _P, _I32, _P, _P, _P, _I32]
     lib.host_segment.argtypes = [_P, _I64, _P, _P, _P, _I32, _P, _I64, _I32,
                                  _P, _I32]
+    lib.host_ring.argtypes = [_I32]
     lib.host_xxh32_stripes.argtypes = [_P, _I64, _P]
     lib.host_xxh64_stripes.argtypes = [_P, _I64, _P]
     return lib
@@ -190,6 +198,62 @@ def test_host_compress_matches_plain(lib, edge_batch, dest_cap):
     assert torch.equal(host[0], plain[0])   # writes past the lengths too
     if dest_cap == 600:
         assert codec.ERR_DEST_TOO_SMALL in host[2].tolist()
+
+
+@pytest.mark.parametrize("size", [65535, 65536, 65546, 65547])
+def test_host_compress_table_edges(lib, size):
+    """The 16-bit table up to its largest block (65,546 B) and the first
+    12-bit block (65,547 B), on the main path's three kinds of data
+    (``make_blocks``: random, a4, text, a4), whole rows against the plain
+    version and the reference."""
+    rows = sharded.make_blocks(4, 65547, 5)[:, :size]
+    src, lens = layout.to_device_layout([r.tobytes() for r in rows],
+                                        device="cpu")
+    cap = max_compressed_length(size)
+    host = _host_codec(lib.host_compress, src, lens, layout.row_stride(cap),
+                       cap)
+    plain = codec.compress_fast_batch(src, lens, cap)
+    _assert_same(host, plain)
+    assert torch.equal(host[0], plain[0])
+    assert host[2].tolist() == [codec.OK] * 4
+    assert host[1][0] > size > max(host[1][1:].tolist())
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["safe", "fast"])
+@pytest.mark.parametrize("case", testing.SHORT_CASES)
+def test_host_decode_short_sequences(lib, case, fast):
+    """Hand-built blocks through both contracts of the decode body, against
+    the plain version and the expected bytes, with a guard region behind
+    every row (rows misaligned by the guard's width)."""
+    rng = np.random.default_rng(len(case))
+    assert (lib.host_ring(0), lib.host_ring(1)) == (testing.RING,
+                                                    testing.RING_NEAR)
+    blocks = testing.short_sequence_blocks(case, rng)
+    comp = [testing.encode_block(*b) for b in blocks]
+    want = [testing.expand_block(*b) for b in blocks]
+    c, cl = layout.to_device_layout(comp, device="cpu")
+    out_max = max(map(len, want))
+    if not fast:
+        guard = torch.full((len(comp), out_max + 37), 0xA5, dtype=torch.uint8)
+        host = _host_codec(lib.host_decode, c, cl, None, out_max, out=guard)
+        _assert_same(host, codec.decompress_safe_plain(c, cl, out_max))
+        assert host[1].tolist() == [len(w) for w in want]
+        got = layout.from_device_layout(guard, host[1])
+        assert bool((guard[:, out_max:] == 0xA5).all())
+    else:
+        got = []
+        for i, w in enumerate(want):
+            guard = torch.full((1, len(w) + 37), 0xA5, dtype=torch.uint8)
+            host = _host_codec(lib.host_decode_fast, c[i:i + 1], cl[i:i + 1],
+                               None, len(w), out=guard)
+            plain = codec.decompress_fast_plain(c[i:i + 1], cl[i:i + 1],
+                                                len(w))
+            _assert_same(host, plain, out_len=len(w))
+            assert host[1].tolist() == [len(comp[i])]
+            assert bool((guard[:, len(w):] == 0xA5).all())
+            got.append(guard[0, :len(w)].numpy().tobytes())
+    assert host[2].tolist() == [codec.OK] * host[2].numel()
+    assert got == want
 
 
 @pytest.mark.parametrize("out_max", [0, 1, 64, 1000, 70000])
@@ -358,3 +422,13 @@ def test_build_digest_covers_every_header(tmp_path, monkeypatch):
             f.write("\n")
         digests.add(build.source_digest())
     assert len(digests) == len(headers) + 1
+
+
+@pytest.mark.parametrize("name", list(design_variants.VARIANTS))
+def test_design_variants_apply(name):
+    """Every design variant that ``PERF.md`` reports is still a set of
+    edits to the shipped sources: each replaced text is present."""
+    source, edits = design_variants.VARIANTS[name]
+    assert (build.CSRC / f"{source}.cu").exists()
+    for fname, old, new in edits:
+        assert old in (build.CSRC / fname).read_text() and old != new

@@ -63,6 +63,9 @@ def test_make_blocks_kinds():
         max_compressed_length(4096))[1]
     assert (comp >= 4096).sum() == 2                # a quarter incompressible
     np.testing.assert_array_equal(data, sharded.make_blocks(8, 4096, 0))
+    kinds = sharded.block_kinds(8, 0)
+    assert ((data.max(1) < 4) == (kinds == 0)).all()
+    assert ((comp >= 4096) == torch.from_numpy(kinds == 2)).all()
 
 
 def test_frame_body_packed_matches_jax_in_chunks(monkeypatch):
