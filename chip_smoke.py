@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build of every kernel from ``lz4_tpu_torch/csrc`` (set-up, timed), with
-   nvcc's registers and spills, and K1's and K2's resident CTAs per SM;
+   nvcc's registers and spills, and K1's, K2's and K5's resident CTAs per
+   SM;
 3. each kernel against its plain version on edge-case batches: block sizes
    around the format's limits, data kinds from zeros to incompressible, a
    tight ``dest_cap``, fuzz batches of malformed blocks with a guard region
@@ -35,11 +36,14 @@ Phases (any failure exits non-zero; nothing is caught):
    the fast decode against their plain versions at those shapes, timed;
 6. the stream path: first the parser, K5 and the streaming updates
    against their plain versions on edge cases (edge sizes, periods 1-15,
-   a null-offset block, fuzz, corrupted tables, a block that decodes past
-   its size, random update splits and one 64 MiB update); then the parser
+   a null-offset block, fuzz, corrupted and out-of-order tables, a block
+   that decodes past its size, random update splits, single updates around
+   the XXH32 update's stage size and one 64 MiB update); then the parser
    and K5 on the main path's K2 output (4096 x 64 KiB), timed, with the
-   plain versions on a subset of rows; then, with launch counts reset just
-   before and read just after, the main path's 256 MiB through
+   plain versions on a subset of rows, K5 on the a4, text and random rows
+   apart, and the XXH32 and XXH64 updates beside their chain bounds (the
+   rounds with no loads) in cycles a stripe; then, with launch counts
+   reset just before and read just after, the main path's 256 MiB through
    ``compress_stream(engine="cuda")`` (equal to ``compress_frame_packed``'s
    frame), ``decompress_stream`` with the ``segment`` and the ``cuda``
    engines, and ``python -m lz4_tpu_torch``'s ``xxh32`` and ``xxh64`` in
@@ -54,6 +58,7 @@ Phases (any failure exits non-zero; nothing is caught):
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import pathlib
@@ -84,7 +89,7 @@ N_BLOCKS = 4096
 BLOCK_LEN = 1 << 16
 ITERS = 3
 TIMED_REPS = 5
-PLAIN_ROWS = 1024                   # rows the plain K1, K2, fast decode run on
+PLAIN_ROWS = 512                    # rows the plain K1, K2, fast decode run on
 PLAIN_SEG_ROWS = 64                 # rows the plain parser and K5 run on
 STREAM_BATCH = 256                  # compress_stream's default batch_blocks
 CLI_BYTES = 64 << 20
@@ -127,7 +132,8 @@ STREAM_PATH = ("lz4_compress", "lz4_decode", "lz4_parse", "segment_decode",
                "xxh32_stream", "xxh64_stream")
 XXH64_SEEDS = (0, (1 << 64) - 1, 0xCAFEBABE12345678)
 OCCUPANCY = (("lz4_compress", "lz4tt_compress_occupancy"),
-             ("lz4_decode", "lz4tt_decode_occupancy"))
+             ("lz4_decode", "lz4tt_decode_occupancy"),
+             ("segment_decode", "lz4tt_segment_occupancy"))
 KIND_NAMES = ("a4", "text", "random")    # sharded.block_kinds 0, 1, 2
 A4_ROWS = (132, 1056, 4096)              # one block an SM, 8, 31
 
@@ -262,6 +268,14 @@ def compare_decode_fast(what, comp, avail, dest_len, rows=None) -> int:
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
+
+def sm_clock_mhz() -> int:
+    """The SM clock ``nvidia-smi`` reads now, in MHz."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return int(smi.stdout.split()[0])
+
 
 def phase_card() -> str:
     smi = subprocess.run(
@@ -788,9 +802,35 @@ def _one_shot(data: bytes, bits: int, seed: int, dev) -> int:
     return xxhash_ref.as_u64(int(xxhash.xxh64_batch(flat, n1, seed)[0]))
 
 
+def _stage_edge_updates(dev, rng) -> list[int]:
+    """Single XXH32 updates around the update kernel's stage size: 1
+    stripe, a stage less one stripe, a stage, a stage and one stripe, the
+    whole ring, one stripe past it, nine stages and a part (the ring twice
+    and more), each with 7 bytes left over; lanes against the plain
+    version, digests against the host hash. Returns the sizes."""
+    st = xxhash_stream.STAGE_BYTES
+    ring = 4 * st                      # LZ4TT_XXH_STAGES stages
+    sizes = [16, st - 16, st, st + 16, ring, ring + 16, 9 * st + 8272]
+    for n in sizes:
+        data = rng.integers(0, 256, n + 7, dtype=np.uint8).tobytes()
+        for seed in (0, 0xFFFFFFFF):
+            kern = xxhash_stream.StreamState32(seed, dev)
+            plain = xxhash_stream.StreamState32(seed, "cpu")
+            kern.update(data)
+            plain.update(data)
+            if kern.lanes.cpu().tolist() != plain.lanes.tolist() or \
+                    kern.digest() != xxhash_ref.xxh32(data, 0, len(data), seed):
+                fail(f"XXH32 stream update of {n + 7} B seed={seed:#x}: "
+                     f"lanes or digest differ from the plain version or the "
+                     f"host hash")
+    return sizes
+
+
 def _stream_edge_cases(dev, rng) -> None:
     """The streaming updates against their plain versions and the host
-    hash on random update splits, and on one 64 MiB update."""
+    hash on random update splits, single XXH32 updates around the stage
+    size, and one 64 MiB update."""
+    sizes = _stage_edge_updates(dev, rng)
     data = rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
     big = rng.integers(0, 256, BIG_UPDATE, dtype=np.uint8).tobytes()
     cases = [(32, xxhash_stream.StreamState32, s) for s in (0, 0xFFFFFFFF)]
@@ -822,7 +862,9 @@ def _stream_edge_cases(dev, rng) -> None:
         "65536) of 1 MiB, XXH32 seeds 0, 0xFFFFFFFF and XXH64 seeds 0, "
         "2^64-1, 0xCAFEBABE12345678, digests == host hash; one 64 MiB "
         "update == plain and host hash (first seed of each width) and == "
-        "the one-shot kernel (every seed)")
+        "the one-shot kernel (every seed); single XXH32 updates of "
+        f"{[n + 7 for n in sizes]} B (stage {xxhash_stream.STAGE_BYTES} B) "
+        "== plain and host hash, seeds 0, 0xFFFFFFFF")
 
 
 def _segment_edge_cases(dev, rng) -> None:
@@ -871,6 +913,15 @@ def _segment_edge_cases(dev, rng) -> None:
                                     out_max)
     if not bool((berr[rows] == codec.ERR_MALFORMED).all()):
         fail("K5 corrupted tables: a corrupted row was not MALFORMED")
+    ooo = tables.clone()
+    # the second sequence's literals one byte before the first one's end:
+    # in bounds, out of order
+    ooo[0, rows, 1] = ooo[3, rows, 0] + ooo[5, rows, 0] - 1
+    (obuf, oerr), _ = compare_segments("K5 out-of-order tables", f, fl, n_seq,
+                                       ooo, out_max)
+    if not bool((oerr[rows] == codec.ERR_MALFORMED).all()) or \
+            bool(obuf[rows, :out_max].any()):
+        fail("K5 out-of-order tables: a row was not MALFORMED with zeros")
     long_block = Lz4Factory.cuda_instance(dev).fast_compressor() \
         .compress_batch([bytes(range(16)) * 250])
     try:
@@ -879,8 +930,9 @@ def _segment_edge_cases(dev, rng) -> None:
         pass
     else:
         fail("decompress_blocks returned a block that decodes past out_len")
-    log(f"K5 on {rows.numel()} corrupted table rows: MALFORMED in both, "
-        f"guard intact; a block decoding past out_len raises")
+    log(f"K5 on {rows.numel()} corrupted and {rows.numel()} out-of-order "
+        f"table rows: MALFORMED in both, rows zeros, guard intact; a block "
+        f"decoding past out_len raises")
 
 
 def _stream_rows(dev, main, launches) -> list[dict]:
@@ -935,7 +987,18 @@ def _stream_rows(dev, main, launches) -> list[dict]:
     rows.append(kernel_row("segment_decode", launches, 0, ms, plain_ms,
                            lit_bytes + 24 * seqs + n * BLOCK_LEN + 12 * n,
                            in_bytes, plain_rows=PLAIN_SEG_ROWS))
+    kinds = torch.from_numpy(sharded.block_kinds(n, SEED)).to(dev)
+    by_kind = {}
+    for k, name in enumerate(KIND_NAMES):
+        idx = torch.nonzero(kinds == k).flatten()
+        args = (comp[idx].contiguous(), clens[idx].contiguous(),
+                n_seq[idx].contiguous(), tables[:, idx].contiguous())
+        by_kind[f"K5 {name}"] = _time_kernel(
+            lambda: segment_decode.decompress_segments(*args, BLOCK_LEN))
+        del args
+    log(f"K5 by kind, ms on the card: {json.dumps(by_kind)}")
     del tables
+    _time_at_stream_sizes(src, lens, comp, clens)
 
     # one update of a stream batch: STREAM_BATCH blocks of the input
     batch = src[:STREAM_BATCH, :BLOCK_LEN].contiguous().view(-1)
@@ -955,7 +1018,71 @@ def _stream_rows(dev, main, launches) -> list[dict]:
         rows.append(kernel_row(name, launches, 0, ms, plain_ms,
                                batch.numel() + 64, batch.numel(),
                                plain_rows=STREAM_BATCH))
+    for row, bits in zip(rows[-2:], (32, 64)):       # stripes of bits / 2 B
+        row.update(_chain_bound(dev, bits, row, batch.numel() * 2 // bits))
     return rows
+
+
+def _time_at_stream_sizes(src, lens, comp, clens) -> dict:
+    """The stream path's kernels at the sizes it launches them: K2, K1,
+    the parser and K5 on one batch (the first ``STREAM_BATCH`` rows), the
+    updates on 1 MiB (the command line's chunks). Returns ms by name."""
+    b = slice(0, STREAM_BATCH)
+    s, sl = src[b].contiguous(), lens[b].contiguous()
+    c, cl = comp[b].contiguous(), clens[b].contiguous()
+    tables, n_seq, _ = sequences.parse_sequences(c, cl)
+    cap = max_compressed_length(BLOCK_LEN)
+    chunk = src[:16, :BLOCK_LEN].contiguous().view(-1)
+    ms = {"lz4_compress": _time_kernel(
+              lambda: codec.compress_fast_batch(s, sl, cap)),
+          "lz4_decode": _time_kernel(
+              lambda: codec.decompress_safe_batch(c, cl, BLOCK_LEN)),
+          "lz4_parse": _time_kernel(lambda: sequences.parse_sequences(c, cl)),
+          "segment_decode": _time_kernel(
+              lambda: segment_decode.decompress_segments(c, cl, n_seq, tables,
+                                                         BLOCK_LEN))}
+    for name, cls, absorb in (
+            ("xxh32_stream 1 MiB", xxhash_stream.StreamState32,
+             xxhash_stream.absorb32),
+            ("xxh64_stream 1 MiB", xxhash_stream.StreamState64,
+             xxhash_stream.absorb64)):
+        lanes = cls(SEED, src.device).lanes
+        ms[name] = _time_kernel(lambda: absorb(lanes, chunk))
+    log(f"at the stream path's sizes ({STREAM_BATCH} rows a batch, 1 MiB "
+        f"updates), ms on the card: {json.dumps(ms)}")
+    return ms
+
+
+def _chain_bound(dev, bits: int, row: dict, n_stripes: int) -> dict:
+    """The XXH``bits`` update's chain bound: ``lz4tt_xxh<bits>_chain``, the
+    rounds on register data with no loads, one warp a lane, over
+    ``n_stripes`` stripes, timed with CUDA events; the SM clock
+    ``nvidia-smi`` reads while it runs; cycles a stripe at that clock of
+    the chain and of the update (``row``, its kernel row)."""
+    chain = build.c_function(f"xxh{bits}", f"lz4tt_xxh{bits}_chain",
+                             [ctypes.c_longlong, ctypes.c_void_p,
+                              ctypes.c_void_p])
+    state = torch.zeros((4,), dtype=torch.uint32 if bits == 32 else torch.int64,
+                        device=dev)
+    stream = layout.cuda_stream(state)
+
+    def call():
+        if chain(n_stripes, state.data_ptr(), stream):
+            fail(f"lz4tt_xxh{bits}_chain: CUDA error at launch")
+
+    ms = _time_kernel(call)
+    for _ in range(40):                 # the card busy while nvidia-smi reads
+        call()
+    mhz = sm_clock_mhz()
+    sync()
+    out = {"chain_bound_ms": ms, "sm_clock_mhz": mhz,
+           "chain_cycles_per_stripe": ms * 1e-3 * mhz * 1e6 / n_stripes,
+           "cycles_per_stripe": row["ms"] * 1e-3 * mhz * 1e6 / n_stripes}
+    log(f"{row['name']} over {n_stripes} stripes: {row['ms']:.3f} ms, chain "
+        f"bound {ms:.3f} ms (the rounds alone); at {mhz} MHz "
+        f"{out['cycles_per_stripe']:.2f} cycles a stripe against the chain's "
+        f"{out['chain_cycles_per_stripe']:.2f}")
+    return out
 
 
 def _cli(*args) -> str:
@@ -1119,14 +1246,22 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = phase_card()
-    phase_build()
-    phase_edge_cases(dev)
-    rows, main_out = phase_main_path(dev)
-    rows += phase_tier(dev, main_out)
-    rows += phase_stream(dev, main_out)
+    secs = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed("build", phase_build)
+    timed("edge cases", phase_edge_cases, dev)
+    rows, main_out = timed("main path", phase_main_path, dev)
+    rows += timed("tier", phase_tier, dev, main_out)
+    rows += timed("stream", phase_stream, dev, main_out)
     del main_out
-    phase_frame(dev)
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    timed("frame", phase_frame, dev)
+    log(f"total {time.perf_counter() - t_start:.1f} s; by phase, s: {secs}")
     log(card)
     log("kernels: " + json.dumps({r["name"]: r["launches"] for r in rows}))
     log(json.dumps({"kernels": rows}))

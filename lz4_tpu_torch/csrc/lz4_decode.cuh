@@ -79,26 +79,6 @@ LZ4TT_HD int64_t lz4tt_read_len_ext(const uint8_t* comp, int32_t& s,
   return len + b;
 }
 
-// out[d, d + m_len) = the match of distance dist >= 1, with overlap: byte j
-// repeats byte (j mod dist) of the period just before d, so every lane
-// reads only bytes below d and the team copies with no hazard. The copy may
-// read bytes other lanes wrote since the last sync, so it syncs before it
-// reads; a match that follows syncs again, so none is needed after it.
-// K5's match copy (segment_decode.cuh).
-template <class Team>
-LZ4TT_HD void lz4tt_copy_match(const Team& t, uint8_t* out, int32_t d,
-                               int32_t dist, int64_t m_len) {
-  t.sync();
-  const uint8_t* period = out + (d - dist);
-  int32_t r = t.lane() % dist;
-  const int32_t step = t.size() % dist;
-  for (int64_t j = t.lane(); j < m_len; j += t.size()) {
-    out[d + j] = period[r];
-    r += step;
-    if (r >= dist) r -= dist;
-  }
-}
-
 // Where output position pos lives in the ring: the ring is offset like the
 // row's address, so a 16-byte aligned piece of the row is one of the ring.
 struct Lz4ttRing {
@@ -137,8 +117,8 @@ LZ4TT_HD void lz4tt_ring_flush(const Team& t, const Lz4ttRing& r, uint8_t* out,
 
 // A literal run or match of more than LZ4TT_LANE_COPY bytes by the team,
 // into the row and, for its last LZ4TT_RING bytes, the ring. A match reads
-// the row (written out before this job): byte j is period[j mod dist], as
-// in lz4tt_copy_match; dist 0 writes zeros.
+// the row (written out before this job): byte j is period[j mod dist], so
+// every lane reads only bytes below d; dist 0 writes zeros.
 // The literals are read eight a lane before they are written, so a long
 // run waits for memory once per eight steps, not once per step.
 template <class Team>

@@ -93,6 +93,15 @@ LZ4TT_HD int lz4tt_ffs(unsigned x) {
 #endif
 }
 
+// Number of set bits.
+LZ4TT_HD int lz4tt_popc(unsigned x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
 LZ4TT_HD uint32_t lz4tt_read32(const uint8_t* p, int64_t i) {
   return (uint32_t)p[i] | ((uint32_t)p[i + 1] << 8) |
          ((uint32_t)p[i + 2] << 16) | ((uint32_t)p[i + 3] << 24);
@@ -128,6 +137,15 @@ LZ4TT_HD void lz4tt_store16(uint8_t* dst, const uint8_t* src) {
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
 #else
   memcpy(dst, src, 16);
+#endif
+}
+
+// Sixteen zero bytes at an aligned address.
+LZ4TT_HD void lz4tt_zero16(uint8_t* dst) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+#else
+  memset(dst, 0, 16);
 #endif
 }
 

@@ -7,74 +7,51 @@
 // sequence's literal run and match with 128-lane windows, one sequence
 // after the other.
 //
-// Bound on the card: bytes. The work is to read the literal bytes and the
-// 24 bytes of table a sequence once and to write each output byte once,
-// over 3.35 TB/s of HBM. Matches depend on earlier output, so they run in
-// order within a block; the kernel lives on block parallelism.
+// Bound on the card: bytes, in principle. The work is to read the literal
+// bytes and the 24 bytes of table a sequence once and to write each output
+// byte once, over 3.35 TB/s of HBM. In practice it is the instructions a
+// sequence: the main path's alphabet-4 blocks hold about 15,100 sequences
+// of 4.3 bytes each, and every one is a copy that reads earlier output.
 //
-// Design: one CTA of eight warps per block. The CTA zeroes the row, checks
-// every sequence against the row (lz4tt_segment_ok; the JAX kernel trusts
-// its tables, this one does not), then each warp takes every eighth
-// literal run, whose destination is absolute, and copies it with its 32
-// lanes. After a barrier, warp 0 runs the matches in sequence order with
-// K1's overlap copy (lz4tt_copy_match in lz4_decode.cuh). Shared-memory
-// staging of the row, and matches in parallel across independent chains,
-// are left for later.
+// Design: one warp per block, four blocks per CTA and at most 64
+// registers, so that 8 CTAs an SM (all 4096 blocks of the main path) are
+// resident, each warp with K1's 4 KiB ring of its latest output and queue
+// of 32 copies in shared memory (segment_decode.cuh, lz4_decode.cuh). The
+// tables need no serial walk: lane i loads sequence k0 + i's six words
+// (coalesced, the next window's loads in flight while this one decodes),
+// the 32 lanes check their sequences at once, and a warp scan places each
+// lane's short pieces in the queue, which the lanes run one a lane in
+// dependency waves into the ring, written out with 16-byte stores. Long
+// pieces go to the whole warp. Gaps that no sequence writes are queued as
+// zero copies and the tail is zeroed once, so the row is written exactly
+// once and never zeroed first.
 #include "segment_decode.cuh"
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarpsPerCta = 4;
+// enough for every block of a 4096-block batch to be resident (132 SMs)
+constexpr int kCtasPerSm = 8;
 
-// The whole CTA as a team, for the zeroing (only the device side runs).
-struct CtaTeam {
-  LZ4TT_HD int lane() const {
-#ifdef __CUDA_ARCH__
-    return threadIdx.x;
-#else
-    return 0;
-#endif
-  }
-  LZ4TT_HD int size() const {
-#ifdef __CUDA_ARCH__
-    return blockDim.x;
-#else
-    return 1;
-#endif
-  }
-};
-
-__global__ void __launch_bounds__(32 * kWarps)
+__global__ void __launch_bounds__(32 * kWarpsPerCta, kCtasPerSm)
     segment_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
                    const int32_t* __restrict__ comp_lens,
                    const int32_t* __restrict__ n_seq,
                    const int32_t* __restrict__ tables, int32_t max_seq,
                    uint8_t* out, int64_t out_stride, int32_t out_max,
                    int32_t* __restrict__ err, int32_t n) {
-  const int64_t b = blockIdx.x;
-  uint8_t* row = out + b * out_stride;
-  const uint8_t* src = comp + b * comp_stride;
-  const int32_t comp_len = comp_lens[b];
-  const int32_t ns = n_seq[b];
-  const Lz4ttSeqTables s = lz4tt_seq_tables(tables, n, max_seq, b);
-
-  lz4tt_segment_zero(CtaTeam(), row, out_max);
-  bool bad = ns < 0 || ns > max_seq;
-  for (int32_t k = threadIdx.x; !bad && k < ns; k += blockDim.x)
-    bad = !lz4tt_segment_ok(s, k, comp_len, out_max);
-  // also orders the zeroing before the copies
-  if (__syncthreads_or(bad)) {
-    if (threadIdx.x == 0) err[b] = LZ4TT_ERR_MALFORMED;
-    return;
-  }
+  __shared__ __align__(16) uint8_t rings[kWarpsPerCta][LZ4TT_RING];
+  __shared__ Lz4ttCopies queues[kWarpsPerCta];
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerCta + warp;
+  if (b >= n) return;  // uniform across the warp
   WarpTeam t;
-  for (int32_t k = threadIdx.x >> 5; k < ns; k += kWarps)
-    lz4tt_segment_literal(t, src, row, s, k);
-  __syncthreads();
-  if (threadIdx.x < 32) lz4tt_segment_matches(t, row, s, ns);
-  if (threadIdx.x == 0) err[b] = LZ4TT_OK;
+  const int32_t e = lz4tt_segment_block(
+      t, comp + b * comp_stride, comp_lens[b], lz4tt_seq_tables(tables, n, max_seq, b),
+      n_seq[b], max_seq, out + b * out_stride, out_max, rings[warp], queues[warp]);
+  if (t.leader()) err[b] = e;
 }
 
 }  // namespace
@@ -89,10 +66,19 @@ extern "C" int lz4tt_decompress_segments(const void* comp, long long comp_stride
                                          const void* tables, int max_seq, void* out,
                                          long long out_stride, int out_max, void* err,
                                          int n, void* stream) {
-  if (n > 0)
-    segment_kernel<<<n, 32 * kWarps, 0, (cudaStream_t)stream>>>(
+  if (n > 0) {
+    const int grid = (n + kWarpsPerCta - 1) / kWarpsPerCta;
+    segment_kernel<<<grid, 32 * kWarpsPerCta, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)comp, comp_stride, (const int32_t*)comp_lens,
         (const int32_t*)n_seq, (const int32_t*)tables, max_seq, (uint8_t*)out,
         out_stride, out_max, (int32_t*)err, n);
+  }
   return (int)cudaGetLastError();
+}
+
+// Resident CTAs per SM and threads per CTA of the kernel as launched.
+extern "C" int lz4tt_segment_occupancy(int* ctas_per_sm, int* threads) {
+  *threads = 32 * kWarpsPerCta;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, segment_kernel, 32 * kWarpsPerCta, 0);
 }

@@ -67,6 +67,24 @@ __global__ void __launch_bounds__(1)
   for (int k = 0; k < 4; k++) state[k] = v[k];
 }
 
+// The chain bound of the update's rounds, as the XXH32 update measures its
+// own (xxh32.cu): lane k's rounds on register data (its word of stripe i
+// is i + k), one warp a lane, no loads.
+__global__ void __launch_bounds__(128)
+    xxh64_chain_kernel(int64_t n_stripes, uint64_t* __restrict__ state) {
+  if (threadIdx.x % 32) return;
+  const int k = threadIdx.x / 32;
+  uint64_t v = state[k], x = (uint64_t)k;
+  int64_t i = 0;
+  for (; i + LZ4TT_XXH64_GROUP <= n_stripes; i += LZ4TT_XXH64_GROUP) {
+#pragma unroll
+    for (int j = 0; j < LZ4TT_XXH64_GROUP; j++) v = lz4tt_xxh64_round(v, x + j);
+    x += LZ4TT_XXH64_GROUP;
+  }
+  for (; i < n_stripes; i++) v = lz4tt_xxh64_round(v, x++);
+  state[k] = v;
+}
+
 }  // namespace
 
 // data: n_stripes * 32 bytes, 16-byte aligned; state: u64[4], the lane
@@ -76,5 +94,14 @@ extern "C" int lz4tt_xxh64_stream_update(const void* data, long long n_stripes,
   if (n_stripes > 0)
     xxh64_stream_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)data, n_stripes, (uint64_t*)state);
+  return (int)cudaGetLastError();
+}
+
+// The chain bound of an update of n_stripes stripes: the rounds alone, one
+// warp a lane, from and into state (u64[4]). Returns cudaGetLastError().
+extern "C" int lz4tt_xxh64_chain(long long n_stripes, void* state, void* stream) {
+  if (n_stripes > 0)
+    xxh64_chain_kernel<<<1, 128, 0, (cudaStream_t)stream>>>(n_stripes,
+                                                           (uint64_t*)state);
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,18 @@
-"""Time design variants of block compress (K2) and block decode (K1)
-against the shipped kernels, on the card.
+"""Time design variants of block compress (K2), block decode (K1),
+segment decode (K5) and the streaming XXH32 update against the shipped
+kernels, on the card.
 
 Each variant is the shipped ``csrc`` with a few text replacements: the
 design options ``PERF.md`` reports as tried and lost. Every variant is
 built with ``nvcc`` (in parallel, into ``build/lz4_tpu_torch/variants/``)
 and timed with CUDA events on the main path's rows (``make_blocks(4096,
-65536, 1234)``, and its K2 output for K1): all rows, then the a4 and the
-text rows apart. Each variant's output is held against the shipped
-kernel's. Run from the root of a checkout, on a machine with a card::
+65536, 1234)``, its K2 output for K1, and the parser's tables of that for
+K5): all rows, then the a4 and the text rows apart; the update on the
+first 16 MiB of those rows, a stream batch. Each variant's output is held
+against the shipped kernel's. Run from the root of a checkout, on a
+machine with a card, for all of them or those of some sources::
 
-    python -m lz4_tpu_torch.design_variants
+    python -m lz4_tpu_torch.design_variants [lz4_compress lz4_decode segment_decode xxh32]
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 from .core.constants import max_compressed_length
 from .dist import sharded
-from .kernels import build, codec
+from .kernels import build, codec, sequences, xxhash_stream
 
 SEED, N_BLOCKS, BLOCK_LEN, REPS = 1234, 4096, 1 << 16, 5
 
@@ -42,6 +45,101 @@ LZ4TT_HD uint32_t lz4tt_load32u(const uint8_t* p, int64_t i) {
   return lz4tt_funnel_r(lz4tt_ld32(w), mis ? lz4tt_ld32(w + 4) : 0u, 8 * mis);
 }
 """
+_STAGES = "#define LZ4TT_XXH_STAGE 32768\n#define LZ4TT_XXH_STAGES 4"
+# the first version of the update: one consumer carrying all four lanes
+_ONE_CONSUMER_BODY = """LZ4TT_HD lz4tt_u4 lz4tt_lds16(const uint8_t* p) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  return {v.x, v.y, v.z, v.w};
+}
+
+LZ4TT_HD void lz4tt_xxh32_stage4(const uint8_t* p, int32_t n, uint32_t* v) {
+  uint32_t v1 = v[0], v2 = v[1], v3 = v[2], v4 = v[3];
+  const int32_t groups = n / LZ4TT_XXH_GROUP;
+  lz4tt_u4 w[LZ4TT_XXH_GROUP];
+  if (groups > 0)
+    for (int k = 0; k < LZ4TT_XXH_GROUP; k++) w[k] = lz4tt_lds16(p + 16 * k);
+  for (int32_t g = 0; g < groups; g++) {
+    lz4tt_u4 x[LZ4TT_XXH_GROUP];
+    const uint8_t* next = p + 16 * LZ4TT_XXH_GROUP * (g + 1 < groups ? g + 1 : g);
+#pragma unroll
+    for (int k = 0; k < LZ4TT_XXH_GROUP; k++) x[k] = lz4tt_lds16(next + 16 * k);
+#pragma unroll
+    for (int k = 0; k < LZ4TT_XXH_GROUP; k++) {
+      v1 = lz4tt_xxh_round(v1, w[k].x);
+      v2 = lz4tt_xxh_round(v2, w[k].y);
+      v3 = lz4tt_xxh_round(v3, w[k].z);
+      v4 = lz4tt_xxh_round(v4, w[k].w);
+    }
+#pragma unroll
+    for (int k = 0; k < LZ4TT_XXH_GROUP; k++) w[k] = x[k];
+  }
+  for (int32_t i = groups * LZ4TT_XXH_GROUP; i < n; i++) {
+    const lz4tt_u4 y = lz4tt_lds16(p + 16 * i);
+    v1 = lz4tt_xxh_round(v1, y.x);
+    v2 = lz4tt_xxh_round(v2, y.y);
+    v3 = lz4tt_xxh_round(v3, y.z);
+    v4 = lz4tt_xxh_round(v4, y.w);
+  }
+  v[0] = v1;
+  v[1] = v2;
+  v[2] = v3;
+  v[3] = v4;
+}
+"""
+_ONE_CONSUMER_LOOP = """  } else if (threadIdx.x == 0) {
+    uint32_t v[4] = {state[0], state[1], state[2], state[3]};
+    for (int64_t i = 0; i < stages; i++) {
+      const int s = (int)(i % LZ4TT_XXH_STAGES);
+      mbar_wait(&full[s], (uint32_t)(i / LZ4TT_XXH_STAGES) & 1);
+      lz4tt_xxh32_stage4(ring + s * LZ4TT_XXH_STAGE,
+                         lz4tt_xxh32_stage_stripes(n_stripes, i), v);
+      mbar_arrive(&empty[s]);
+    }
+    for (int k = 0; k < 4; k++) state[k] = v[k];
+  }"""
+_CONSUMER_LOOP = """  } else if (threadIdx.x % 32 == 0) {  // consumer k, lane k
+    const int k = threadIdx.x / 32;
+    uint32_t v = state[k];
+    for (int64_t i = 0; i < stages; i++) {
+      const int s = (int)(i % LZ4TT_XXH_STAGES);
+      mbar_wait(&full[s], (uint32_t)(i / LZ4TT_XXH_STAGES) & 1);
+      v = lz4tt_xxh32_stage_lane(ring + s * LZ4TT_XXH_STAGE,
+                                 lz4tt_xxh32_stage_stripes(n_stripes, i), k, v);
+      mbar_arrive(&empty[s]);
+    }
+    state[k] = v;
+  }"""
+# one thread reading global memory, 16 stripes loaded before the rounds of
+# the 16 before them
+_GLOBAL_KERNEL = """__global__ void __launch_bounds__(1)
+    xxh32_global_kernel(const uint8_t* __restrict__ data, int64_t n,
+                        uint32_t* __restrict__ state) {
+  uint32_t v1 = state[0], v2 = state[1], v3 = state[2], v4 = state[3];
+  const int64_t groups = n / 16;
+  lz4tt_u4 a[16];
+  if (groups > 0)
+    for (int k = 0; k < 16; k++) a[k] = lz4tt_load16(data + 16 * k);
+  for (int64_t g = 0; g < groups; g++) {
+    const int64_t next = 16 * (g + 1 < groups ? g + 1 : g);
+    lz4tt_u4 b[16];
+#pragma unroll
+    for (int k = 0; k < 16; k++) b[k] = lz4tt_load16(data + 16 * (next + k));
+#pragma unroll
+    for (int k = 0; k < 16; k++) {
+      v1 = lz4tt_xxh_round(v1, a[k].x);
+      v2 = lz4tt_xxh_round(v2, a[k].y);
+      v3 = lz4tt_xxh_round(v3, a[k].z);
+      v4 = lz4tt_xxh_round(v4, a[k].w);
+    }
+#pragma unroll
+    for (int k = 0; k < 16; k++) a[k] = b[k];
+  }
+  uint32_t v[4] = {v1, v2, v3, v4};
+  lz4tt_xxh32_stripes(data + 16 * 16 * groups, n - 16 * groups, v);
+  for (int k = 0; k < 4; k++) state[k] = v[k];
+}
+
+cudaError_t prepare_stream() {"""
 _RING = "  LZ4TT_RING = 4096,"
 _NEAR = "enum { LZ4TT_RING_FLUSH = 2048, LZ4TT_RING_NEAR = 3072 };"
 
@@ -81,18 +179,72 @@ VARIANTS = {
         ("lz4_decode.cuh", _RING, "  LZ4TT_RING = 8192,"),
         ("lz4_decode.cuh", _NEAR,
          "enum { LZ4TT_RING_FLUSH = 4096, LZ4TT_RING_NEAR = 6144 };")]),
+    "K5": ("segment_decode", []),
+    "K5, each window's tables loaded when it starts": ("segment_decode", [
+        ("segment_decode.cuh",
+         "    const Lz4ttSeq cur = next;  // sequence k0 + lane; the next "
+         "window's loads fly",
+         "    const Lz4ttSeq cur = k0 + lane < ns ? lz4tt_seq_load(s, k0 + lane)"
+         " : next;"),
+        ("segment_decode.cuh",
+         "    if (k0 + w + lane < ns) next = lz4tt_seq_load(s, k0 + w + lane);",
+         "")]),
+    "update": ("xxh32", []),
+    "update, 8 stages of 8 KiB": ("xxh32", [
+        ("xxh32.cuh", _STAGES,
+         "#define LZ4TT_XXH_STAGE 8192\n#define LZ4TT_XXH_STAGES 8")]),
+    "update, 4 stages of 16 KiB": ("xxh32", [
+        ("xxh32.cuh", _STAGES,
+         "#define LZ4TT_XXH_STAGE 16384\n#define LZ4TT_XXH_STAGES 4")]),
+    "update, 3 stages of 64 KiB": ("xxh32", [
+        ("xxh32.cuh", _STAGES,
+         "#define LZ4TT_XXH_STAGE 65536\n#define LZ4TT_XXH_STAGES 3")]),
+    "update, 2 stages of 4 KiB": ("xxh32", [
+        ("xxh32.cuh", _STAGES,
+         "#define LZ4TT_XXH_STAGE 4096\n#define LZ4TT_XXH_STAGES 2")]),
+    "update, rounds as rotl(v + x * P2, 13) * P1": ("xxh32", [
+        ("xxh32.cuh", "  uint32_t w = v + lz4tt_ld32(q) * LZ4TT_P2;",
+         "  uint32_t w = lz4tt_xxh_round(v, lz4tt_ld32(q));"),
+        ("xxh32.cuh", "      w = lz4tt_xxh32_step(w, a[j] * LZ4TT_P2);",
+         "      w = lz4tt_xxh_round(w, a[j]);"),
+        ("xxh32.cuh",
+         "    w = lz4tt_xxh32_step(w, lz4tt_ld32(q + 16 * i) * LZ4TT_P2);",
+         "    w = lz4tt_xxh_round(w, lz4tt_ld32(q + 16 * i));"),
+        ("xxh32.cuh", "  return lz4tt_rotl32(w, 13) * LZ4TT_P1;\n}", "  return w;\n}")]),
+    "update, carried form in plain C (no explicit multiply-add)": ("xxh32", [
+        ("xxh32.cuh", "      w = lz4tt_xxh32_step(w, a[j] * LZ4TT_P2);",
+         "      w = lz4tt_rotl32(w, 13) * LZ4TT_P1 + a[j] * LZ4TT_P2;")]),
+    "update, one consumer carrying the four lanes": ("xxh32", [
+        ("xxh32.cuh", "LZ4TT_HD uint32_t lz4tt_xxh32(const uint8_t* p,",
+         _ONE_CONSUMER_BODY + "\nLZ4TT_HD uint32_t lz4tt_xxh32(const uint8_t* p,"),
+        ("xxh32.cu", "constexpr int kConsumers = 4;", "constexpr int kConsumers = 1;"),
+        ("xxh32.cu", _CONSUMER_LOOP, _ONE_CONSUMER_LOOP)]),
+    "update, one thread loading from global memory": ("xxh32", [
+        ("xxh32.cu", "cudaError_t prepare_stream() {", _GLOBAL_KERNEL),
+        ("xxh32.cu", "    xxh32_stream_kernel<<<1, kStreamThreads, kRingBytes, "
+         "(cudaStream_t)stream>>>(",
+         "    xxh32_global_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(")]),
 }
 
-_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_void_p]
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ARGS = [_P, _I64, _P, _P, _I64, _I32, _P, _P, _I32, _P]
+SYMBOLS = {  # source -> (C entry point, its argtypes)
+    "lz4_compress": ("lz4tt_compress_fast", _ARGS),
+    "lz4_decode": ("lz4tt_decompress_safe", _ARGS),
+    "segment_decode": ("lz4tt_decompress_segments",
+                       [_P, _I64, _P, _P, _P, _I32, _P, _I64, _I32, _P, _I32, _P]),
+    "xxh32": ("lz4tt_xxh32_stream_update", [_P, _I64, _P, _P]),
+}
 
 
-def build_variants() -> dict:
-    """name -> (source, .so path, nvcc's register lines); all at once."""
+def build_variants(sources: set[str]) -> dict:
+    """name -> (source, .so path, nvcc's register lines) of the variants of
+    ``sources``; all at once."""
     root = build.build_dir().parent / "variants"
     procs = []
     for i, (name, (source, edits)) in enumerate(VARIANTS.items()):
+        if source not in sources:
+            continue
         d = root / str(i)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(build.CSRC, d)
@@ -128,52 +280,113 @@ def _time(call) -> float:
     return start.elapsed_time(end) / REPS
 
 
-def main() -> int:
+class _Rows:
+    """The main path's rows on the card, what each source is timed on."""
+
+    def __init__(self, dev):
+        self.src, self.lens = sharded.upload_blocks(
+            sharded.make_blocks(N_BLOCKS, BLOCK_LEN, SEED), dev)
+        self.cap = max_compressed_length(BLOCK_LEN)
+        self.comp, self.clens, _ = codec.compress_fast_batch(
+            self.src, self.lens, self.cap)
+        self.tables, self.n_seq, _ = sequences.parse_sequences(self.comp,
+                                                               self.clens)
+        kinds = torch.from_numpy(sharded.block_kinds(N_BLOCKS, SEED)).to(dev)
+        self.sets = {"all": torch.arange(N_BLOCKS, device=dev),
+                     "a4": torch.nonzero(kinds == 0).flatten(),
+                     "text": torch.nonzero(kinds == 1).flatten()}
+        # one stream batch: 256 blocks, 16 MiB
+        self.batch = self.src[:256, :BLOCK_LEN].contiguous().view(-1)
+        self.init = xxhash_stream.StreamState32(SEED, dev).lanes
+        want = self.init.clone()
+        xxhash_stream.absorb32(want, self.batch)
+        self.lanes = want
+
+
+def _calls(fn, source: str, rows: _Rows, idx, stream):
+    """(call, check) of one variant's entry point on the rows ``idx``:
+    ``call`` launches it once; ``check`` runs it on fresh buffers and says
+    whether its output equals the shipped kernel's."""
+    dev = rows.src.device
+
+    def launch(*args):
+        rc = fn(*args)
+        if rc:
+            raise RuntimeError(f"CUDA error {rc}")
+
+    if source == "xxh32":
+        lanes = rows.init.clone()
+        n_stripes = rows.batch.numel() // 16
+
+        def call():
+            launch(rows.batch.data_ptr(), n_stripes, lanes.data_ptr(), stream)
+
+        def check():
+            lanes.copy_(rows.init)
+            call()
+            return torch.equal(lanes, rows.lanes)
+        return call, check
+    n = idx.numel()
+    if source == "segment_decode":
+        c, cl = rows.comp[idx].contiguous(), rows.clens[idx].contiguous()
+        ns, t = rows.n_seq[idx].contiguous(), rows.tables[:, idx].contiguous()
+        out = torch.zeros((n, BLOCK_LEN), dtype=torch.uint8, device=dev)
+        err = torch.empty((n,), dtype=torch.int32, device=dev)
+
+        def call():
+            launch(c.data_ptr(), c.stride(0), cl.data_ptr(), ns.data_ptr(),
+                   t.data_ptr(), t.shape[2], out.data_ptr(), out.stride(0),
+                   BLOCK_LEN, err.data_ptr(), n, stream)
+
+        def check():
+            out.zero_()
+            call()
+            return not bool(err.any()) and torch.equal(
+                out, rows.src[idx][:, :BLOCK_LEN])
+        return call, check
+    compress = source == "lz4_compress"
+    a, la = (rows.src, rows.lens) if compress else (rows.comp, rows.clens)
+    a, la = a[idx].contiguous(), la[idx].contiguous()
+    width = rows.comp.shape[1] if compress else rows.src.shape[1]
+    out = torch.zeros((n, width), dtype=torch.uint8, device=dev)
+    ol = torch.empty((n,), dtype=torch.int32, device=dev)
+    err = torch.empty_like(ol)
+    w = rows.cap if compress else BLOCK_LEN
+
+    def call():
+        launch(a.data_ptr(), a.stride(0), la.data_ptr(), out.data_ptr(),
+               out.stride(0), w, ol.data_ptr(), err.data_ptr(), n, stream)
+
+    def check():
+        call()
+        want = (rows.comp[idx], rows.clens[idx]) if compress else \
+            (rows.src[idx], rows.lens[idx])
+        return not bool(err.any()) and torch.equal(ol, want[1]) and \
+            torch.equal(out[:, :w], want[0][:, :w])
+    return call, check
+
+
+def main(argv: list[str]) -> int:
+    """Build and time every variant, or those of the sources named in
+    ``argv`` (``lz4_compress``, ``lz4_decode``, ``segment_decode``,
+    ``xxh32``)."""
     if not torch.cuda.is_available():
         print("design_variants: CUDA is not available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    libs = build_variants()
-    src, lens = sharded.upload_blocks(
-        sharded.make_blocks(N_BLOCKS, BLOCK_LEN, SEED), dev)
-    cap = max_compressed_length(BLOCK_LEN)
-    comp, clens, _ = codec.compress_fast_batch(src, lens, cap)
-    kinds = torch.from_numpy(sharded.block_kinds(N_BLOCKS, SEED)).to(dev)
-    rows = {"all": torch.arange(N_BLOCKS, device=dev),
-            "a4": torch.nonzero(kinds == 0).flatten(),
-            "text": torch.nonzero(kinds == 1).flatten()}
+    libs = build_variants(set(argv) or set(SYMBOLS))
+    rows = _Rows(dev)
     stream = torch.cuda.current_stream().cuda_stream
     result = {}
     for rnd in range(2):            # two rounds, every variant in each
         for name, (source, so, regs) in libs.items():
-            compress = source == "lz4_compress"
-            fn = getattr(ctypes.CDLL(str(so)), "lz4tt_compress_fast" if compress
-                         else "lz4tt_decompress_safe")
-            fn.argtypes, fn.restype = _ARGS, ctypes.c_int
-            for set_name, idx in rows.items():
-                a, la = ((src, lens) if compress else (comp, clens))
-                a, la = a[idx].contiguous(), la[idx].contiguous()
-                n = a.shape[0]
-                width = comp.shape[1] if compress else src.shape[1]
-                out = torch.zeros((n, width), dtype=torch.uint8, device=dev)
-                ol = torch.empty((n,), dtype=torch.int32, device=dev)
-                err = torch.empty_like(ol)
-
-                def call():
-                    rc = fn(a.data_ptr(), a.stride(0), la.data_ptr(),
-                            out.data_ptr(), out.stride(0),
-                            cap if compress else BLOCK_LEN, ol.data_ptr(),
-                            err.data_ptr(), n, stream)
-                    if rc:
-                        raise RuntimeError(f"{name}: CUDA error {rc}")
-
-                call()
-                torch.cuda.synchronize()
-                want = (comp[idx], clens[idx]) if compress else \
-                    (src[idx], lens[idx])
-                w = cap if compress else BLOCK_LEN
-                if bool(err.any()) or not torch.equal(ol, want[1]) or \
-                        not torch.equal(out[:, :w], want[0][:, :w]):
+            symbol, argtypes = SYMBOLS[source]
+            fn = getattr(ctypes.CDLL(str(so)), symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            sets = {"batch": None} if source == "xxh32" else rows.sets
+            for set_name, idx in sets.items():
+                call, check = _calls(fn, source, rows, idx, stream)
+                if not check():
                     raise SystemExit(f"design_variants: {name} differs from "
                                      f"the shipped kernel on {set_name} rows")
                 ms = _time(call)
@@ -186,4 +399,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

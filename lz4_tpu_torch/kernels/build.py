@@ -132,12 +132,19 @@ class Kernel:
         self.launches += 1
 
 
+def c_function(source: str, symbol: str, argtypes: list):
+    """The C function ``symbol`` of ``csrc/<source>.cu``, returning int,
+    with no launch count: for measurements beside the kernels."""
+    fn = getattr(_library(source), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def occupancy(source: str, symbol: str) -> tuple[int, int]:
     """(resident CTAs per SM, threads per CTA) of a kernel of
     ``csrc/<source>.cu``, from its C entry point ``symbol``; no launch."""
-    fn = getattr(_library(source), symbol)
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-    fn.restype = ctypes.c_int
+    fn = c_function(source, symbol, [ctypes.POINTER(ctypes.c_int)] * 2)
     ctas, threads = ctypes.c_int(0), ctypes.c_int(0)
     rc = fn(ctypes.byref(ctas), ctypes.byref(threads))
     if rc != 0:

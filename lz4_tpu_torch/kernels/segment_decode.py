@@ -9,10 +9,13 @@ parser (``kernels/sequences.py``).
 
 Two differences from the JAX package, both on inputs it does not define:
 
-- The JAX kernel trusts its tables. K5 holds every sequence to its row
-  (its literals inside the compressed block and the output row, its match
-  inside the output row and after its source); a block with a sequence that
-  fails is ``ERR_MALFORMED`` and decodes to zeros.
+- The JAX kernel trusts its tables. K5 holds every sequence to its row and
+  to the order of the output: each record's positions ``lit_out``,
+  ``lit_out + lit_len``, ``m_out``, ``m_out + m_len`` may not go back, nor
+  start before the previous record's ``m_out + m_len``; its literals stay
+  inside the compressed block, its match after its source and inside the
+  row. A block with a sequence that fails is ``ERR_MALFORMED`` and decodes
+  to zeros. Tables from the parser always pass.
 - ``decompress_blocks`` raises ``Lz4Error`` when a block decodes past
   ``out_len``. The JAX one never compares the parser's total with
   ``out_len`` and returns the row cut at ``out_len + PAD`` bytes.
@@ -69,7 +72,8 @@ def decompress_segments(comp: torch.Tensor, comp_lens: torch.Tensor,
     Returns:
       (out uint8[N, row_stride(out_max)] (or ``out``), err int32[N]):
       ``OK``, or ``ERR_MALFORMED`` for a block whose ``n_seq`` is negative
-      or above S, or with a sequence that leaves its row.
+      or above S, or with a sequence that leaves its row or goes back in
+      it.
     """
     check_batch(comp, comp_lens)
     _check_tables(comp, n_seq, tables)
@@ -90,20 +94,22 @@ def decompress_segments(comp: torch.Tensor, comp_lens: torch.Tensor,
 def _segment_row(comp: bytes, seq: np.ndarray, n_seq: int, out: bytearray,
                  out_max: int) -> int:
     """Decode one row into ``out[:out_max]`` from ``seq`` (int32[6, S]);
-    returns the error code. The kernel's phases, in order."""
+    returns the error code. Every sequence is checked first; then all
+    literal runs, then the matches in order, which with ordered sequences
+    gives the bytes of a front-to-back decode."""
     out[:out_max] = bytes(out_max)
     if not 0 <= n_seq <= seq.shape[1]:
         return ERR_MALFORMED
     lit_out, lit_src, lit_len, m_out, m_dist, m_len = \
         (seq[f, :n_seq].tolist() for f in range(6))
+    prev = 0
     for k in range(n_seq):
-        ll, ml = lit_len[k], m_len[k]
-        if ll and (ll < 0 or lit_src[k] < 0 or lit_out[k] < 0
-                   or lit_src[k] + ll > len(comp) or lit_out[k] + ll > out_max):
+        lo, ll, mo, ml = lit_out[k], lit_len[k], m_out[k], m_len[k]
+        if (ll < 0 or ml < 0 or lo < prev or lo + ll > mo or mo + ml > out_max
+                or ll and (lit_src[k] < 0 or lit_src[k] + ll > len(comp))
+                or ml and (m_dist[k] < 1 or mo - m_dist[k] < 0)):
             return ERR_MALFORMED
-        if ml and (ml < 0 or m_dist[k] < 1 or m_out[k] - m_dist[k] < 0
-                   or m_out[k] + ml > out_max):
-            return ERR_MALFORMED
+        prev = mo + ml
     for k in range(n_seq):
         ll = lit_len[k]
         out[lit_out[k]:lit_out[k] + ll] = comp[lit_src[k]:lit_src[k] + ll]

@@ -46,6 +46,9 @@ XXH32_STREAM = Kernel("xxh32_stream", "xxh32", "lz4tt_xxh32_stream_update",
                       [_P, _I64, _P, _P])
 XXH64_STREAM = Kernel("xxh64_stream", "xxh64", "lz4tt_xxh64_stream_update",
                       [_P, _I64, _P, _P])
+# Bytes a stage of the XXH32 update's shared-memory ring holds
+# (LZ4TT_XXH_STAGE in csrc/xxh32.cuh).
+STAGE_BYTES = 32768
 
 
 def _check_absorb(lanes: torch.Tensor, dtype, stripes: torch.Tensor,

@@ -226,8 +226,10 @@ def test_segment_kernel_matches_plain(cuda_device, out_max):
     blocks, (c, cl) = _comp_batch(cuda_device, rng, 64)
     tables, n_seq, _ = sequences.parse_sequences(c, cl)
     bad = tables.clone()
-    rows = torch.nonzero(n_seq > 1).flatten()[:6]
-    bad[1, rows, 0] = c.shape[1]
+    rows = torch.nonzero(n_seq > 1).flatten()[:12]
+    bad[1, rows[:6], 0] = c.shape[1]          # literals past the block
+    # the second sequence's literals before the first one's end
+    bad[0, rows[6:], 1] = bad[3, rows[6:], 0] + bad[5, rows[6:], 0] - 1
     for t in (tables, bad):
         bufs = [torch.full((c.shape[0], out_max + 64), 0xA5, dtype=torch.uint8,
                            device=cuda_device) for _ in range(2)]
@@ -251,7 +253,9 @@ def test_segment_kernel_matches_plain(cuda_device, out_max):
 def test_stream_update_kernels_match_plain(cuda_device, seed):
     rng = np.random.default_rng(seed & 0xFF)
     data = rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
-    cuts = [0, 1, 15, 16, 17, 31, 32, 33, 40, 1000, 65536]
+    stage = xxhash_stream.STAGE_BYTES
+    cuts = [0, 1, 15, 16, 17, 31, 32, 33, 40, 1000, 65536, stage - 16, stage,
+            stage + 16, 4 * stage + 16]
     for state_cls, ref in ((xxhash_stream.StreamState32, xxhash_ref.xxh32),
                            (xxhash_stream.StreamState64, xxhash_ref.xxh64)):
         kern = state_cls(seed, cuda_device)

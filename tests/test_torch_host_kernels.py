@@ -25,7 +25,66 @@ HARNESS = r"""
 #include "segment_decode.cuh"
 #include "xxh32.cuh"
 #include "xxh64.cuh"
+#include <pthread.h>
 #include <vector>
+
+// A team of n host threads that meet at a barrier for every collective, as
+// a warp's lanes do: it runs a body's multi-lane logic (the lane split,
+// ballots, shuffles, the queue) on the host. Nothing here models the
+// card's memory; the barrier orders all memory.
+struct ThreadTeamShared {
+  pthread_barrier_t bar;
+  int32_t slot[32];
+};
+struct ThreadTeam {
+  ThreadTeamShared* sh;
+  int id, n;
+  int lane() const { return id; }
+  int size() const { return n; }
+  bool leader() const { return id == 0; }
+  void sync() const { pthread_barrier_wait(&sh->bar); }
+  unsigned ballot(bool p) const {
+    sh->slot[id] = p;
+    sync();
+    unsigned m = 0;
+    for (int i = 0; i < n; i++) m |= sh->slot[i] ? 1u << i : 0u;
+    sync();
+    return m;
+  }
+  int32_t shfl(int32_t v, int src) const {
+    sh->slot[id] = v;
+    sync();
+    const int32_t r = sh->slot[src];
+    sync();
+    return r;
+  }
+  int32_t bcast(int32_t v) const { return shfl(v, 0); }
+};
+
+struct SegmentJob {
+  const uint8_t* comp;
+  int32_t comp_len, ns, max_seq, out_max;
+  Lz4ttSeqTables s;
+  uint8_t* out;
+  uint8_t* ring;
+  Lz4ttCopies* q;
+  ThreadTeamShared* sh;
+  int lanes;
+  int32_t err[32];
+};
+struct SegmentLane {
+  SegmentJob* job;
+  int id;
+};
+static void* segment_lane(void* arg) {
+  SegmentLane* l = (SegmentLane*)arg;
+  SegmentJob* j = l->job;
+  ThreadTeam t = {j->sh, l->id, j->lanes};
+  j->err[l->id] = lz4tt_segment_block(t, j->comp, j->comp_len, j->s, j->ns,
+                                      j->max_seq, j->out, j->out_max, j->ring,
+                                      *j->q);
+  return nullptr;
+}
 
 extern "C" {
 void host_decode(const uint8_t* comp, long long comp_stride,
@@ -87,32 +146,63 @@ void host_parse(const uint8_t* comp, long long comp_stride,
                                  row, &written, &out_total[b]);
   }
 }
-// K5's phases in the kernel's order, by a one-lane team
+// K5's body, one block after the other, by a one-lane team
 void host_segment(const uint8_t* comp, long long comp_stride,
                   const int32_t* comp_lens, const int32_t* n_seq,
                   const int32_t* tables, int max_seq, uint8_t* out,
                   long long out_stride, int out_max, int32_t* err, int n) {
   HostTeam t;
-  for (int b = 0; b < n; b++) {
-    const Lz4ttSeqTables s = lz4tt_seq_tables(tables, n, max_seq, b);
-    uint8_t* row = out + b * out_stride;
-    const int32_t ns = n_seq[b];
-    lz4tt_segment_zero(t, row, out_max);
-    bool bad = ns < 0 || ns > max_seq;
-    for (int32_t k = 0; !bad && k < ns; k++)
-      bad = !lz4tt_segment_ok(s, k, comp_lens[b], out_max);
-    err[b] = bad ? LZ4TT_ERR_MALFORMED : LZ4TT_OK;
-    if (bad) continue;
-    for (int32_t k = 0; k < ns; k++)
-      lz4tt_segment_literal(t, comp + b * comp_stride, row, s, k);
-    lz4tt_segment_matches(t, row, s, ns);
-  }
+  alignas(16) uint8_t ring[LZ4TT_RING];
+  Lz4ttCopies q;
+  for (int b = 0; b < n; b++)
+    err[b] = lz4tt_segment_block(t, comp + b * comp_stride, comp_lens[b],
+                                 lz4tt_seq_tables(tables, n, max_seq, b),
+                                 n_seq[b], max_seq, out + b * out_stride,
+                                 out_max, ring, q);
 }
 // the decode ring's size (k = 0) and the farthest match it serves (k = 1)
 int host_ring(int k) { return k ? (int)LZ4TT_RING_NEAR : (int)LZ4TT_RING; }
-void host_xxh32_stripes(const uint8_t* data, long long n_stripes,
-                        uint32_t* lanes) {
-  lz4tt_xxh32_stripes(data, n_stripes, lanes);
+// the streaming XXH32 update as its kernel runs it: stage by stage, each
+// copied into an aligned buffer, the lanes carried
+void host_xxh32_stream(const uint8_t* data, long long n_stripes,
+                       uint32_t* lanes) {
+  alignas(16) uint8_t stage[LZ4TT_XXH_STAGE];
+  for (int64_t i = 0; i * LZ4TT_XXH_STAGE < n_stripes * 16; i++) {
+    const int32_t n = lz4tt_xxh32_stage_stripes(n_stripes, i);
+    memcpy(stage, data + i * LZ4TT_XXH_STAGE, 16 * n);
+    for (int k = 0; k < 4; k++)
+      lanes[k] = lz4tt_xxh32_stage_lane(stage, n, k, lanes[k]);
+  }
+}
+int host_xxh32_stage_bytes() { return LZ4TT_XXH_STAGE; }
+// K5's body, one block after the other, by a team of `lanes` threads;
+// returns -1 if the lanes disagree on a block's code
+int host_segment_team(const uint8_t* comp, long long comp_stride,
+                      const int32_t* comp_lens, const int32_t* n_seq,
+                      const int32_t* tables, int max_seq, uint8_t* out,
+                      long long out_stride, int out_max, int32_t* err, int n,
+                      int lanes) {
+  ThreadTeamShared sh;
+  pthread_barrier_init(&sh.bar, nullptr, lanes);
+  alignas(16) static uint8_t ring[LZ4TT_RING];
+  Lz4ttCopies q;
+  for (int b = 0; b < n; b++) {
+    SegmentJob job = {comp + b * comp_stride, comp_lens[b], n_seq[b], max_seq,
+                      out_max, lz4tt_seq_tables(tables, n, max_seq, b),
+                      out + b * out_stride, ring, &q, &sh, lanes, {}};
+    pthread_t th[32];
+    SegmentLane ls[32];
+    for (int i = 0; i < lanes; i++) {
+      ls[i] = {&job, i};
+      pthread_create(&th[i], nullptr, segment_lane, &ls[i]);
+    }
+    for (int i = 0; i < lanes; i++) pthread_join(th[i], nullptr);
+    err[b] = job.err[0];
+    for (int i = 1; i < lanes; i++)
+      if (job.err[i] != job.err[0]) return -1;
+  }
+  pthread_barrier_destroy(&sh.bar);
+  return 0;
 }
 void host_xxh64_stripes(const uint8_t* data, long long n_stripes,
                         uint64_t* lanes) {
@@ -132,7 +222,8 @@ def lib(tmp_path_factory):
     out = tmp_path_factory.mktemp("host_kernels")
     (out / "harness.cpp").write_text(HARNESS)
     res = subprocess.run(
-        [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-Wall", "-Werror",
+        [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-pthread", "-Wall",
+         "-Werror",
          "-Wno-unknown-pragmas", "-I", str(build.CSRC), "-o",
          str(out / "libhost.so"), str(out / "harness.cpp")],
         capture_output=True, text=True, timeout=300)
@@ -146,8 +237,9 @@ def lib(tmp_path_factory):
     lib.host_parse.argtypes = [_P, _I64, _P, _I32, _P, _P, _P, _I32]
     lib.host_segment.argtypes = [_P, _I64, _P, _P, _P, _I32, _P, _I64, _I32,
                                  _P, _I32]
+    lib.host_segment_team.argtypes = lib.host_segment.argtypes + [_I32]
     lib.host_ring.argtypes = [_I32]
-    lib.host_xxh32_stripes.argtypes = [_P, _I64, _P]
+    lib.host_xxh32_stream.argtypes = [_P, _I64, _P]
     lib.host_xxh64_stripes.argtypes = [_P, _I64, _P]
     return lib
 
@@ -362,47 +454,101 @@ def test_host_parse_matches_plain(lib, max_seq):
     assert (sequences.PARSE_TOO_MANY in codes) == (max_seq == 40)
 
 
+def _host_segment(lib, c, cl, n_seq, tables, out_max, lanes=1):
+    """K5's body by a team of ``lanes`` (1: one lane; else host threads)
+    into rows of ``out_max`` bytes filled with 0x5A and a guard of 64
+    bytes of 0xA5 behind each; returns (buffer, codes)."""
+    guard = torch.full((c.shape[0], out_max + 64), 0xA5, dtype=torch.uint8)
+    guard[:, :out_max] = 0x5A
+    err = torch.zeros((c.shape[0],), dtype=torch.int32)
+    args = (_ptr(c), c.stride(0), _ptr(cl), _ptr(n_seq), _ptr(tables),
+            tables.shape[2], _ptr(guard), guard.stride(0), out_max, _ptr(err),
+            c.shape[0])
+    if lanes == 1:
+        lib.host_segment(*args)
+    else:
+        assert lib.host_segment_team(*args, lanes) == 0
+    assert bool((guard[:, out_max:] == 0xA5).all())
+    return guard, err
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
 @pytest.mark.parametrize("out_max", [64, 1000, 70000])
-def test_host_segment_matches_plain(lib, out_max):
-    """K5's phases on parsed tables and on corrupted ones, against the plain
-    version, with a guard region behind every row."""
+def test_host_segment_matches_plain(lib, out_max, lanes):
+    """K5's body on parsed tables and on corrupted ones (one row of each
+    corruption, the out-of-order one included), against the plain
+    version, with a guard region behind every row; by one lane and by a
+    team of 8 host threads."""
     c, cl = _comp_batch(6, 64)
     tables, n_seq, _ = sequences.parse_plain(c, cl)
     bad = tables.clone()
-    rows = torch.nonzero((n_seq > 1) & (cl < out_max)).flatten()[:6]
+    rows = torch.nonzero((n_seq > 1) & (cl < out_max)).flatten()
+    rows = rows[:len(CORRUPTIONS)]
     for row, kind in zip(rows.tolist(), CORRUPTIONS):
         corrupt(bad, row, kind, int(cl[row]), out_max)
-    guard = torch.full((c.shape[0], out_max + 64), 0xA5, dtype=torch.uint8)
     for t in (tables, bad):
-        err = torch.zeros((c.shape[0],), dtype=torch.int32)
-        guard[:, :out_max] = 0x5A
-        lib.host_segment(_ptr(c), c.stride(0), _ptr(cl), _ptr(n_seq), _ptr(t),
-                         t.shape[2], _ptr(guard), guard.stride(0), out_max,
-                         _ptr(err), c.shape[0])
+        got, err = _host_segment(lib, c, cl, n_seq, t, out_max, lanes)
         out, want_err = segment_decode.decompress_segments_plain(
             c, cl, n_seq, t, out_max)
         assert torch.equal(err, want_err)
-        assert torch.equal(guard[:, :out_max], out[:, :out_max])
-        assert bool((guard[:, out_max:] == 0xA5).all())
+        assert torch.equal(got[:, :out_max], out[:, :out_max])
     assert bool((want_err[rows] == codec.ERR_MALFORMED).all())
+    assert not got[rows, :out_max].any()
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+@pytest.mark.parametrize("case", testing.SHORT_CASES + ("boundary",))
+def test_host_segment_short_sequences(lib, case, lanes):
+    """K5's body on hand-built blocks for its lane copies, team copies and
+    ring: overlap periods 1-40, dist around len, literal runs and matches
+    of 63, 64 and 65 bytes, null-offset holes, matches at the ring's edge,
+    and the boundary blocks (a null-offset hole, a match reaching the row
+    start); rows longer than the blocks, so the zero tail is written too.
+    By one lane and by 32 host threads, against the plain version and the
+    expected bytes."""
+    rng = np.random.default_rng(len(case) + 100)
+    if case == "boundary":
+        comp = testing.boundary_blocks()[:2]
+        want = [b"*" + bytes(4) + b"*" * 8, b"AAAAABBBBB"]
+    else:
+        blocks = testing.short_sequence_blocks(case, rng)
+        comp = [testing.encode_block(*b) for b in blocks]
+        want = [testing.expand_block(*b) for b in blocks]
+    c, cl = layout.to_device_layout(comp, device="cpu")
+    tables, n_seq, total = sequences.parse_plain(c, cl)
+    assert total.tolist() == [len(w) for w in want]
+    out_max = max(map(len, want)) + 37
+    got, err = _host_segment(lib, c, cl, n_seq, tables, out_max, lanes)
+    out, want_err = segment_decode.decompress_segments_plain(
+        c, cl, n_seq, tables, out_max)
+    assert err.tolist() == want_err.tolist() == [codec.OK] * len(comp)
+    assert torch.equal(got[:, :out_max], out[:, :out_max])
+    assert [bytes(r[:out_max].numpy()) for r in got] == \
+        [w + bytes(out_max - len(w)) for w in want]
 
 
 @pytest.mark.parametrize("seed", [0, 0xFFFFFFFF, (1 << 64) - 1])
 def test_host_stream_stripes_match_plain(lib, seed):
-    """The stripe loops the streaming updates launch, from a carried state,
-    against the plain absorbs."""
+    """The streaming updates' bodies from a carried state, against the
+    plain absorbs: XXH32 stage by stage as its kernel runs it, over
+    updates of 1 stripe, one stage less one, one stage, one more, and three
+    stages and a part; XXH64's stripe loop."""
+    assert lib.host_xxh32_stage_bytes() == xxhash_stream.STAGE_BYTES
+    stage = xxhash_stream.STAGE_BYTES // 16
     rng = np.random.default_rng(seed & 0xFF)
-    data = torch.from_numpy(rng.integers(0, 256, 32 * 77, dtype=np.uint8))
+    data = torch.from_numpy(rng.integers(0, 256, 16 * (3 * stage + 517),
+                                         dtype=np.uint8))
     s32 = xxhash_stream.StreamState32(seed, "cpu")
     s64 = xxhash_stream.StreamState64(seed, "cpu")
     lanes32 = s32.lanes.view(torch.int32).clone()
     lanes64 = s64.lanes.clone()
+    for n in (1, stage - 1, stage, stage + 1, 3 * stage + 517):
+        lib.host_xxh32_stream(_ptr(data), n, _ptr(lanes32))
+        xxhash_stream.absorb32_plain(s32.lanes, data[:16 * n])
+        assert lanes32.view(torch.uint32).tolist() == s32.lanes.tolist(), n
     for n in (1, 7, 8, 9, 77):
-        lib.host_xxh32_stripes(_ptr(data), 2 * n, _ptr(lanes32))
         lib.host_xxh64_stripes(_ptr(data), n, _ptr(lanes64))
-        xxhash_stream.absorb32_plain(s32.lanes, data[:32 * n])
         xxhash_stream.absorb64_plain(s64.lanes, data[:32 * n])
-        assert lanes32.view(torch.uint32).tolist() == s32.lanes.tolist()
         assert torch.equal(lanes64, s64.lanes)
 
 

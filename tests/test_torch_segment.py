@@ -194,9 +194,14 @@ def test_block_decoding_past_out_len_raises():
 
 
 def corrupt(tables, row, kind, comp_len, out_max):
-    """Move one sequence of ``row`` just out of bounds: the smallest change
-    that must make the block MALFORMED."""
+    """Move one sequence of ``row`` just out of bounds, or (``out_of_order``)
+    its second sequence's literals one byte before the first one's end:
+    the smallest change that must make the block MALFORMED (``row`` has at
+    least two sequences)."""
     t = tables[:, row]
+    if kind == "out_of_order":   # literals one byte before the last end
+        t[0, 1] = t[3, 0] + t[5, 0] - 1
+        return
     k = int(torch.nonzero((t[2] > 0) & (t[5] > 0)).flatten()[0])
     lit_len, m_out, m_len = int(t[2, k]), int(t[3, k]), int(t[5, k])
     field, value = {
@@ -211,7 +216,7 @@ def corrupt(tables, row, kind, comp_len, out_max):
 
 
 CORRUPTIONS = ["lit_src", "lit_out", "m_dist", "m_out", "zero_dist",
-               "negative"]
+               "negative", "out_of_order"]
 
 
 @pytest.mark.parametrize("kind", CORRUPTIONS)
