@@ -10,22 +10,26 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build of every kernel from ``lz4_tpu_torch/csrc`` (set-up, timed), with
-   nvcc's registers and spills, and K1's, K2's and K5's resident CTAs per
-   SM;
+   nvcc's registers and spills, and K1's, K2's, K3's, K4's and K5's
+   resident CTAs per SM;
 3. each kernel against its plain version on edge-case batches: block sizes
    around the format's limits, data kinds from zeros to incompressible, a
    tight ``dest_cap``, fuzz batches of malformed blocks with a guard region
    behind each output row (the safe and the fast decode), hand-built
    blocks for the decode's one-lane path and ring (periods 1-40, dist about
    len, runs about 16 and 32 bytes, null offsets, matches at the ring's
-   edge), ragged hash lengths with two XXH32 and three XXH64 seeds, and
-   n = 1 against the host hashes;
+   edge), ragged hash lengths with two XXH32 and three XXH64 seeds, n = 1
+   against the host hashes, and K3 and K4 on the launch shapes that change
+   how their CTAs split the rows (n = 1, 2, 131, 132, 133 and 4096, ragged
+   lengths around the ring's stage and whole size) against the plain
+   versions, and on rows of 1 MiB against the host hashes;
 4. the main path: ``roundtrip_step`` on 4096 blocks of 64 KiB (256 MiB),
    3 iterations with launch counts reset just before and read just after,
    every block OK, the packed frame body equal to the one assembled on the
    host; then K1, K2 and K3 against their plain versions at those shapes,
    with the kernel's time (CUDA events), the plain version's time and the
-   bound (bytes the function must move over 3.35 TB/s); then K2, K1 and K1
+   bound (bytes the function must move over 3.35 TB/s), and for K3 the
+   chain bound of one row and the rows a CTA; then K2, K1 and K1
    fast on the a4, text and random rows apart, and K1 on 132, 1056 and
    4096 a4 rows;
 5. the ``cuda`` tier at the same width, through ``Lz4Factory`` and
@@ -33,16 +37,19 @@ Phases (any failure exits non-zero; nothing is caught):
    card), then ``compress_batch``, ``decompress_batch``, the fast
    decompressor and both ``hash_batch`` calls on the main path's 256 MiB,
    with launch counts reset just before and read just after; then K4 and
-   the fast decode against their plain versions at those shapes, timed;
+   the fast decode against their plain versions at those shapes, timed (K4
+   also beside one row's chain bound);
 6. the stream path: first the parser, K5 and the streaming updates
    against their plain versions on edge cases (edge sizes, periods 1-15,
    a null-offset block, fuzz, corrupted and out-of-order tables, a block
-   that decodes past its size, random update splits, single updates around
-   the XXH32 update's stage size and one 64 MiB update); then the parser
+   that decodes past its size, random update splits, single updates of
+   both widths around the ring's stage size and one 64 MiB update, also
+   held against K3 and K4 with n = 1); then the parser
    and K5 on the main path's K2 output (4096 x 64 KiB), timed, with the
    plain versions on a subset of rows, K5 on the a4, text and random rows
-   apart, and the XXH32 and XXH64 updates beside their chain bounds (the
-   rounds with no loads) in cycles a stripe; then, with launch counts
+   apart, and the XXH32 and XXH64 updates on 16 MiB and 1 MiB beside
+   their chain bounds (the rounds with no loads) in cycles a stripe; then,
+   with launch counts
    reset just before and read just after, the main path's 256 MiB through
    ``compress_stream(engine="cuda")`` (equal to ``compress_frame_packed``'s
    frame), ``decompress_stream`` with the ``segment`` and the ``cuda``
@@ -51,7 +58,9 @@ Phases (any failure exits non-zero; nothing is caught):
    compressed with ``--engine cuda`` and restored with ``--engine segment``,
    and the hashes of a 4 MiB file against the host hashes;
 7. ``compress_frame_packed`` on about 64 MiB, verified by decoding its
-   blocks through the decode kernel and re-hashing on the host;
+   blocks through the decode kernel and re-hashing on the host; then K3
+   and K4 with n = 1 on that input, timed beside the byte and chain
+   bounds;
 8. the launch counts, the per-kernel JSON line and the final JSON line.
 """
 
@@ -133,7 +142,9 @@ STREAM_PATH = ("lz4_compress", "lz4_decode", "lz4_parse", "segment_decode",
 XXH64_SEEDS = (0, (1 << 64) - 1, 0xCAFEBABE12345678)
 OCCUPANCY = (("lz4_compress", "lz4tt_compress_occupancy"),
              ("lz4_decode", "lz4tt_decode_occupancy"),
-             ("segment_decode", "lz4tt_segment_occupancy"))
+             ("segment_decode", "lz4tt_segment_occupancy"),
+             ("xxh32", "lz4tt_xxh32_occupancy"),
+             ("xxh64", "lz4tt_xxh64_occupancy"))
 KIND_NAMES = ("a4", "text", "random")    # sharded.block_kinds 0, 1, 2
 A4_ROWS = (132, 1056, 4096)              # one block an SM, 8, 31
 
@@ -388,6 +399,7 @@ def phase_edge_cases(dev) -> None:
             fail(f"K4 n=1 seed={seed:#x} differs from the host hash")
     log("K4 == plain on lengths 0..100, 1000, 65536 and n=1 (seeds 0, "
         "2^64-1, 0xCAFEBABE12345678); n=1 == the host hash")
+    _hash_shape_cases(dev, rng)
 
     fn, args = entry(device=dev)
     out, out_lens, err = fn(*args)
@@ -395,6 +407,60 @@ def phase_edge_cases(dev) -> None:
             example_blocks():
         fail("entry(): decode did not restore the example blocks")
     log("entry(): decode OK")
+
+
+def rows_a_cta(bits: int, n: int) -> int:
+    """Rows a CTA of K3 (``bits`` 32) or K4 (64) takes in a launch of
+    ``n`` rows (``lz4tt_xxh32_rows``/``lz4tt_xxh64_rows``)."""
+    fn = build.c_function(f"xxh{bits}", f"lz4tt_xxh{bits}_rows",
+                          [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    rows = ctypes.c_int(0)
+    if fn(n, ctypes.byref(rows)):
+        fail(f"lz4tt_xxh{bits}_rows: CUDA error")
+    return rows.value
+
+
+def _hash_shape_cases(dev, rng) -> None:
+    """K3 and K4 on the launch shapes that change how their CTAs split
+    the rows (n = 1, 2, 131, 132, 133 and 4096: one CTA a row while the
+    rows fit on the card at once, then more), with ragged lengths around
+    the ring's edges (0, 15, 16, a stage +- 16, the ring +- 16, 64 KiB),
+    against the plain versions; then two rows of about 1 MiB against the
+    host hashes (the plain versions take minutes at that length)."""
+    st = xxhash_stream.STAGE_BYTES
+    ring = 4 * st                          # LZ4TT_XXH_STAGES stages
+    edges = [ring + 16, 0, 15, 16, 17, 31, 32, 33, 100, 1000, st - 16, st,
+             st + 16, ring - 16, ring, 65536, 65547]
+    seeds32 = (0, 0xFFFFFFFF)
+    split = {}
+    for i, n in enumerate((1, 2, 131, 132, 133, 4096)):
+        if n == 4096:
+            lens = rng.integers(0, BLOCK_LEN + 1, n)
+            lens[:4] = (0, 15, 16, BLOCK_LEN)
+        else:
+            lens = np.array((edges * (n // len(edges) + 1))[:n])
+            lens[len(edges):] = rng.integers(0, ring + 17,
+                                             max(0, n - len(edges)))
+        width = layout.row_stride(int(lens.max()))
+        data = torch.from_numpy(rng.integers(0, 256, (n, width),
+                                             dtype=np.uint8)).to(dev)
+        lt = torch.from_numpy(lens.astype(np.int32)).to(dev)
+        compare_xxh32(f"K3 n={n}", data, lt, seeds32[i % 2])
+        compare_xxh64(f"K4 n={n}", data, lt, XXH64_SEEDS[i % 3])
+        split[n] = (rows_a_cta(32, n), rows_a_cta(64, n))
+    big = [rng.integers(0, 256, (1 << 20) + k, dtype=np.uint8).tobytes()
+           for k in (0, 7)]
+    bsrc, bl = layout.to_device_layout(big, device=dev)
+    h32 = xxhash.xxh32_batch(bsrc, bl, 0).tolist()
+    h64 = [xxhash_ref.as_u64(h)
+           for h in xxhash.xxh64_batch(bsrc, bl, 0).tolist()]
+    if h32 != [xxhash_ref.xxh32(b, 0, len(b), 0) for b in big] or \
+            h64 != [xxhash_ref.xxh64(b, 0, len(b), 0) for b in big]:
+        fail("K3/K4 on 1 MiB rows: differ from the host hashes")
+    log(f"K3 and K4 == plain on n = 1, 2, 131, 132, 133 (lengths {edges} "
+        f"and random up to {ring + 16}) and 4096 (random up to {BLOCK_LEN}); "
+        f"rows a CTA of K3, K4 by n: {split}; rows of 1 MiB and 1 MiB + 7 "
+        f"== the host hashes (seed 0)")
 
 
 def _short_sequence_cases(dev, rng) -> None:
@@ -610,6 +676,7 @@ def phase_main_path(dev):
     ms = _time_kernel(lambda: xxhash.xxh32_batch(src, lens, 0))
     rows.append(kernel_row("xxh32", launches, 0, ms, plain_ms,
                            in_bytes + 8 * n, in_bytes))
+    rows[-1].update(_hash_batch_bounds(dev, 32, rows[-1], n))
     time_by_kind(src, lens, st.comp, st.comp_lens)
     return rows, {"data": data, "comp": st.comp, "comp_lens": st.comp_lens}
 
@@ -699,6 +766,7 @@ def phase_tier(dev, main) -> list[dict]:
     ms = _time_kernel(lambda: xxhash.xxh64_batch(src, lens, seed64))
     rows.append(kernel_row("xxh64", launches, 0, ms, plain_ms,
                            in_bytes + 12 * n, in_bytes))
+    rows[-1].update(_hash_batch_bounds(dev, 64, rows[-1], n))
     del kern, plain
 
     # fast decode: compressed bytes + decoded bytes + lengths in, bytes read
@@ -803,24 +871,28 @@ def _one_shot(data: bytes, bits: int, seed: int, dev) -> int:
 
 
 def _stage_edge_updates(dev, rng) -> list[int]:
-    """Single XXH32 updates around the update kernel's stage size: 1
+    """Single XXH32 and XXH64 updates around the ring's stage size: 1
     stripe, a stage less one stripe, a stage, a stage and one stripe, the
     whole ring, one stripe past it, nine stages and a part (the ring twice
     and more), each with 7 bytes left over; lanes against the plain
     version, digests against the host hash. Returns the sizes."""
     st = xxhash_stream.STAGE_BYTES
     ring = 4 * st                      # LZ4TT_XXH_STAGES stages
-    sizes = [16, st - 16, st, st + 16, ring, ring + 16, 9 * st + 8272]
+    sizes = [16, 32, st - 32, st - 16, st, st + 16, st + 32, ring - 32,
+             ring, ring + 16, ring + 32, 9 * st + 8272]
+    cases = [(32, xxhash_stream.StreamState32, xxhash_ref.xxh32, s)
+             for s in (0, 0xFFFFFFFF)]
+    cases += [(64, xxhash_stream.StreamState64, xxhash_ref.xxh64, s)
+              for s in XXH64_SEEDS[1:]]
     for n in sizes:
         data = rng.integers(0, 256, n + 7, dtype=np.uint8).tobytes()
-        for seed in (0, 0xFFFFFFFF):
-            kern = xxhash_stream.StreamState32(seed, dev)
-            plain = xxhash_stream.StreamState32(seed, "cpu")
+        for bits, cls, ref, seed in cases:
+            kern, plain = cls(seed, dev), cls(seed, "cpu")
             kern.update(data)
             plain.update(data)
             if kern.lanes.cpu().tolist() != plain.lanes.tolist() or \
-                    kern.digest() != xxhash_ref.xxh32(data, 0, len(data), seed):
-                fail(f"XXH32 stream update of {n + 7} B seed={seed:#x}: "
+                    kern.digest() != ref(data, 0, len(data), seed):
+                fail(f"XXH{bits} stream update of {n + 7} B seed={seed:#x}: "
                      f"lanes or digest differ from the plain version or the "
                      f"host hash")
     return sizes
@@ -862,9 +934,10 @@ def _stream_edge_cases(dev, rng) -> None:
         "65536) of 1 MiB, XXH32 seeds 0, 0xFFFFFFFF and XXH64 seeds 0, "
         "2^64-1, 0xCAFEBABE12345678, digests == host hash; one 64 MiB "
         "update == plain and host hash (first seed of each width) and == "
-        "the one-shot kernel (every seed); single XXH32 updates of "
-        f"{[n + 7 for n in sizes]} B (stage {xxhash_stream.STAGE_BYTES} B) "
-        "== plain and host hash, seeds 0, 0xFFFFFFFF")
+        "K3/K4 with n = 1 on those 64 MiB (every seed); single XXH32 and "
+        f"XXH64 updates of {[n + 7 for n in sizes]} B (stage "
+        f"{xxhash_stream.STAGE_BYTES} B) == plain and host hash, seeds 0, "
+        "0xFFFFFFFF and 2^64-1, 0xCAFEBABE12345678")
 
 
 def _segment_edge_cases(dev, rng) -> None:
@@ -998,7 +1071,7 @@ def _stream_rows(dev, main, launches) -> list[dict]:
         del args
     log(f"K5 by kind, ms on the card: {json.dumps(by_kind)}")
     del tables
-    _time_at_stream_sizes(src, lens, comp, clens)
+    at_sizes = _time_at_stream_sizes(src, lens, comp, clens)
 
     # one update of a stream batch: STREAM_BATCH blocks of the input
     batch = src[:STREAM_BATCH, :BLOCK_LEN].contiguous().view(-1)
@@ -1020,6 +1093,11 @@ def _stream_rows(dev, main, launches) -> list[dict]:
                                plain_rows=STREAM_BATCH))
     for row, bits in zip(rows[-2:], (32, 64)):       # stripes of bits / 2 B
         row.update(_chain_bound(dev, bits, row, batch.numel() * 2 // bits))
+        small = {"name": f"{row['name']} 1 MiB",
+                 "ms": at_sizes[f"{row['name']} 1 MiB"]}
+        chain = _chain_bound(dev, bits, small, (1 << 20) * 2 // bits)
+        row.update({"ms_1mib": small["ms"],
+                    "chain_bound_ms_1mib": chain["chain_bound_ms"]})
     return rows
 
 
@@ -1054,11 +1132,12 @@ def _time_at_stream_sizes(src, lens, comp, clens) -> dict:
 
 
 def _chain_bound(dev, bits: int, row: dict, n_stripes: int) -> dict:
-    """The XXH``bits`` update's chain bound: ``lz4tt_xxh<bits>_chain``, the
-    rounds on register data with no loads, one warp a lane, over
-    ``n_stripes`` stripes, timed with CUDA events; the SM clock
+    """The chain bound of one XXH``bits`` row of ``n_stripes`` stripes:
+    ``lz4tt_xxh<bits>_chain``, the shipped rounds on register data with no
+    loads, one warp a lane, timed with CUDA events; the SM clock
     ``nvidia-smi`` reads while it runs; cycles a stripe at that clock of
-    the chain and of the update (``row``, its kernel row)."""
+    the chain and of the kernel (``row``, its kernel row: an update, or a
+    one-shot hash of that one row)."""
     chain = build.c_function(f"xxh{bits}", f"lz4tt_xxh{bits}_chain",
                              [ctypes.c_longlong, ctypes.c_void_p,
                               ctypes.c_void_p])
@@ -1083,6 +1162,21 @@ def _chain_bound(dev, bits: int, row: dict, n_stripes: int) -> dict:
         f"{out['cycles_per_stripe']:.2f} cycles a stripe against the chain's "
         f"{out['chain_cycles_per_stripe']:.2f}")
     return out
+
+
+def _hash_batch_bounds(dev, bits: int, row: dict, n: int) -> dict:
+    """K3's (``bits`` 32) or K4's (64) kernel row at ``n`` rows of
+    ``BLOCK_LEN``: the chain bound of one row (the least time if every row
+    ran at once) beside the byte bound, and the rows a CTA takes."""
+    ms = _chain_bound(dev, bits, {"name": f"one row of {row['name']}",
+                                  "ms": row["ms"]},
+                      BLOCK_LEN * 2 // bits)["chain_bound_ms"]
+    split = rows_a_cta(bits, n)
+    log(f"{row['name']} at {n} x {BLOCK_LEN} B: {row['ms']:.4f} ms against "
+        f"the byte bound {row['bound_ms']:.4f} ms "
+        f"({row['ms'] / row['bound_ms']:.2f}x) and one row's chain "
+        f"{ms:.4f} ms; {split} rows a CTA, {-(-n // split)} CTAs")
+    return {"chain_bound_ms": ms, "rows_a_cta": split}
 
 
 def _cli(*args) -> str:
@@ -1230,13 +1324,25 @@ def phase_frame(dev) -> dict:
                        device=dev)
     flat[0, :len(raw)] = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
     n1 = torch.tensor([len(raw)], dtype=torch.int32, device=dev)
-    n1_ms = _time_kernel(lambda: xxhash.xxh32_batch(flat, n1, 0))
-    log(f"K3 with n=1 over {len(raw)} B (the content checksum): "
-        f"{n1_ms:.3f} ms ({len(raw) / n1_ms / 1e6:.2f} GB/s)")
+    one_row = {}
+    for name, bits, fn in (("xxh32", 32, xxhash.xxh32_batch),
+                           ("xxh64", 64, xxhash.xxh64_batch)):
+        ms = _time_kernel(lambda: fn(flat, n1, 0))
+        bound = (len(raw) + 16) / HBM_BYTES_PER_S * 1e3
+        chain = _chain_bound(dev, bits, {"name": f"{name} n=1", "ms": ms},
+                             len(raw) * 2 // bits)
+        log(f"{name} with n=1 over {len(raw)} B: {ms:.3f} ms "
+            f"({len(raw) / ms / 1e6:.2f} GB/s) against the byte bound "
+            f"{bound:.4f} ms and the chain bound "
+            f"{chain['chain_bound_ms']:.3f} ms "
+            f"({ms / chain['chain_bound_ms']:.3f}x)")
+        one_row[name] = {"n1_bytes": len(raw), "n1_ms": ms,
+                         "n1_bound_ms": bound,
+                         "n1_chain_bound_ms": chain["chain_bound_ms"]}
     log(f"compress_frame_packed: {len(raw)} B -> {len(frame)} B in "
         f"{wall:.1f} ms host wall ({len(blocks)} blocks, {sum(kinds)} raw); "
         f"decoded through K1 and re-hashed on the host: OK; launches {counts}")
-    return counts
+    return one_row
 
 
 def main() -> int:
@@ -1260,7 +1366,9 @@ def main() -> int:
     rows += timed("tier", phase_tier, dev, main_out)
     rows += timed("stream", phase_stream, dev, main_out)
     del main_out
-    timed("frame", phase_frame, dev)
+    one_row = timed("frame", phase_frame, dev)
+    for r in rows:
+        r.update(one_row.get(r["name"], {}))
     log(f"total {time.perf_counter() - t_start:.1f} s; by phase, s: {secs}")
     log(card)
     log("kernels: " + json.dumps({r["name"]: r["launches"] for r in rows}))

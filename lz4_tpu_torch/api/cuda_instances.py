@@ -207,13 +207,15 @@ class XXH64(_OnDevice, XXHash64):
 
 
 def _stream_range(buf, off: int, length: int | None) -> memoryview:
-    """``buf[off:off + length]`` as bytes, checked as
-    ``core/xxhash_ref.py``'s streaming classes check it."""
+    """``buf[off:off + length]`` as bytes, checked as the ``pallas`` tier's
+    streaming classes check it: ``ValueError`` for a negative length,
+    ``IndexError`` for a non-empty range out of bounds, and an empty range
+    at any offset."""
     if length is None:
         length = len(buf) - off
-    if off < 0 or length < 0 or off + length > len(buf):
-        raise IndexError("range out of bounds")
-    return memoryview(buf).cast("B")[off:off + length]
+    check_range(buf, off, length)
+    return memoryview(buf).cast("B")[off:off + length] if length else \
+        memoryview(b"")
 
 
 class StreamingXXH32(StreamingXXHash32):

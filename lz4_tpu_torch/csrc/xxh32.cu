@@ -1,18 +1,11 @@
-// K3: batched XXH32 over ragged blocks on Hopper (sm_90a).
+// K3: batched XXH32 over ragged rows on Hopper (sm_90a), and the streaming
+// hash's update.
 //
 // Replaces lz4_tpu/kernels/xxhash_pallas.py::xxh32_words_pallas (pallas_call
 // at xxhash_pallas.py:156; body _kernel :53-100; also
 // xxh32_words_pallas_dynseed :113 and xxh32_uniform_pallas :188), which
 // hashed 1024 equal-length blocks per (8, 128) tile from a word-major
 // layout and carried the four accumulators across grid chunks.
-//
-// Bound on the card: bytes. Each input byte is read once, over 3.35 TB/s of
-// HBM; the rounds are a few integer operations per 4 bytes.
-//
-// Design: one thread per block, any lengths, no tile layout. Rows start
-// 16-byte aligned (the layout's row stride is a multiple of 16), so stripes
-// are aligned 16-byte loads, eight of them issued before the rounds that
-// use them. The frame content checksum is this kernel with n = 1.
 //
 // lz4tt_xxh32_stream_update is the streaming hash's update on the card:
 // the counterpart of lz4_tpu/kernels/xxhash_stream.py::stream32_update
@@ -21,154 +14,83 @@
 // the <16-byte remainder and the total length, and hands over whole
 // stripes only.
 //
-// Bound on the card: not bytes. XXH32 is four serial chains, one a lane,
-// of rounds v = rotl(v + x * P2, 13) * P1, so an update of n stripes takes
-// at least n times one round's dependent latency, however many threads
-// read the input. One thread that carries all four lanes does worse: its
-// eight 32-bit multiplies a stripe go through one sub-partition's
-// 16-lane multiply pipe, two cycles each, and it measured 21.6 cycles a
-// stripe on this card (PERF.md). lz4tt_xxh32_chain runs the shipped rounds
-// on register data, no loads, to measure the floor.
+// Bound on the card: a row's chain, or bytes. XXH32 is four serial chains
+// a row, one a lane, of rounds v = rotl(v + x * P2, 13) * P1, so a row of
+// n stripes takes at least n times one round's dependent latency, however
+// many threads read it: a long row (the frame's content checksum is K3
+// with n = 1, a streaming update one row) is chain-bound. Many rows run
+// their chains side by side and are bound by the bytes, each read once
+// over 3.35 TB/s of HBM. lz4tt_xxh32_chain runs the shipped rounds on
+// register data, no loads, to measure the chain.
 //
-// Design: one CTA of five warps, one thread of each working. The producer
-// (warp 4) streams the input into a ring of LZ4TT_XXH_STAGES stages of
-// LZ4TT_XXH_STAGE bytes in dynamic shared memory with bulk asynchronous
-// copies (cp.async.bulk, a 1-D TMA copy), one "full" and one "empty"
-// mbarrier a stage. Consumer k (warp k, k < 4, so on sub-partition k)
-// carries lane k in a register: it waits for a stage, absorbs its words
-// with lz4tt_xxh32_stage_lane (xxh32.cuh: two dependent instructions a
-// stripe, the next group's shared-memory loads issued before the current
-// group's rounds), and hands the stage back. So no consumer waits for
-// device memory, and each runs at its chain's pace. Stripes are 16 bytes
-// and the input 16-byte aligned, so every stage, the last partial one
-// included, meets the bulk copy's 16-byte rules.
+// Design: both entry points run the ring of lz4tt_xxh_ring.cuh, one device
+// function: a producer warp's bulk copies into a shared-memory ring, one
+// consumer warp a lane, each lane in a register (lz4tt_xxh32_stage_lane in
+// xxh32.cuh: a funnel shift and one multiply-add a stripe). K3 runs it
+// over blockIdx's rows, lz4tt_xxh_rows(n) of them (one a CTA while every
+// row fits on the card at once), then hands the lanes through shared
+// memory to thread j of warp 0, which finishes row j (lz4tt_xxh32_finish:
+// the merge, the length, the tail read from device memory, the
+// avalanche). The update runs it over its one row from the carried lanes,
+// and writes them back.
 #include "xxh32.cuh"
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 32;
+struct Xxh32Lanes {
+  typedef uint32_t T;
+  enum { kStripe = 16 };
+  static __device__ __forceinline__ T stage(const uint8_t* p, int32_t n, int k, T v) {
+    return lz4tt_xxh32_stage_lane(p, n, k, v);
+  }
+};
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kXxhThreads, 1)
     xxh32_kernel(const uint8_t* __restrict__ data, int64_t stride,
                  const int32_t* __restrict__ lens, uint32_t seed,
-                 uint32_t* __restrict__ out, int32_t n) {
-  const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (b >= n) return;
-  out[b] = lz4tt_xxh32(data + b * stride, lens[b], seed);
+                 uint32_t* __restrict__ out, int32_t n, int rows) {
+  __shared__ uint32_t lanes[LZ4TT_XXH_ROWS][4];
+  const int warp = threadIdx.x / 32, j = threadIdx.x % 32;
+  const int64_t b = (int64_t)blockIdx.x * rows + j;
+  const bool mine = j < rows && b < n;
+  const uint8_t* row = data + (mine ? b : 0) * stride;
+  const int32_t len = mine ? lens[b] : 0;
+  const uint32_t v = lz4tt_xxh_ring<Xxh32Lanes>(
+      row, len / 16, rows, lz4tt_xxh32_lane_init(seed, warp));
+  if (warp < kXxhConsumers && mine) lanes[j][warp] = v;
+  __syncthreads();
+  if (warp == 0 && mine) out[b] = lz4tt_xxh32_finish(lanes[j], row, len, seed);
 }
 
-}  // namespace
-
-// data: uint8[n, stride], 16-byte aligned, stride a multiple of 16;
-// lens: int32[n] within [0, stride]. Returns cudaGetLastError().
-extern "C" int lz4tt_xxh32_batch(const void* data, long long stride, const void* lens,
-                                 unsigned seed, void* out, int n, void* stream) {
-  if (n > 0) {
-    const int grid = (n + kThreads - 1) / kThreads;
-    xxh32_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)data, stride, (const int32_t*)lens, seed, (uint32_t*)out, n);
-  }
-  return (int)cudaGetLastError();
-}
-
-namespace {
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One arrival that also expects `bytes` from the bulk copy of `src` into
-// `dst`, which completes the phase when they have landed.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-constexpr int kConsumers = 4;  // one a lane, warps 0-3; the producer is warp 4
-constexpr int kStreamThreads = 32 * (kConsumers + 1);
-constexpr int kRingBytes = LZ4TT_XXH_STAGES * LZ4TT_XXH_STAGE;
-
-__global__ void __launch_bounds__(kStreamThreads, 1)
+__global__ void __launch_bounds__(kXxhThreads, 1)
     xxh32_stream_kernel(const uint8_t* __restrict__ data, int64_t n_stripes,
                         uint32_t* __restrict__ state) {
-  extern __shared__ __align__(128) uint8_t ring[];
-  __shared__ uint64_t full[LZ4TT_XXH_STAGES], empty[LZ4TT_XXH_STAGES];
-  const int64_t stages = (n_stripes * 16 + LZ4TT_XXH_STAGE - 1) / LZ4TT_XXH_STAGE;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < LZ4TT_XXH_STAGES; s++) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumers);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 32 * kConsumers) {  // the producer
-    for (int64_t i = 0; i < stages; i++) {
-      const int s = (int)(i % LZ4TT_XXH_STAGES);
-      const uint32_t use = (uint32_t)(i / LZ4TT_XXH_STAGES);
-      if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
-      bulk_load(ring + s * LZ4TT_XXH_STAGE, data + i * LZ4TT_XXH_STAGE,
-                16u * lz4tt_xxh32_stage_stripes(n_stripes, i), &full[s]);
-    }
-  } else if (threadIdx.x % 32 == 0) {  // consumer k, lane k
-    const int k = threadIdx.x / 32;
-    uint32_t v = state[k];
-    for (int64_t i = 0; i < stages; i++) {
-      const int s = (int)(i % LZ4TT_XXH_STAGES);
-      mbar_wait(&full[s], (uint32_t)(i / LZ4TT_XXH_STAGES) & 1);
-      v = lz4tt_xxh32_stage_lane(ring + s * LZ4TT_XXH_STAGE,
-                                 lz4tt_xxh32_stage_stripes(n_stripes, i), k, v);
-      mbar_arrive(&empty[s]);
-    }
-    state[k] = v;
-  }
+  const int warp = threadIdx.x / 32, j = threadIdx.x % 32;
+  const bool lane = warp < kXxhConsumers && j == 0;
+  const uint32_t v = lz4tt_xxh_ring<Xxh32Lanes>(data, j == 0 ? n_stripes : 0, 1,
+                                                lane ? state[warp] : 0u);
+  if (lane) state[warp] = v;
 }
 
-cudaError_t prepare_stream() {
-  static cudaError_t done = cudaFuncSetAttribute(
-      xxh32_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
+// The kernels' shared memory allowed once; the CTAs of K3 the card holds.
+cudaError_t prepare(int64_t* slots) {
+  static int64_t n_slots = 0;
+  static const cudaError_t done = [] {
+    cudaError_t e = lz4tt_xxh_prepare(xxh32_kernel, &n_slots);
+    int64_t unused;
+    if (!e) e = lz4tt_xxh_prepare(xxh32_stream_kernel, &unused);
+    return e;
+  }();
+  *slots = n_slots;
   return done;
 }
 
 // The update's chains alone: the consumers' rounds on register data (lane
 // k's word of stripe i is i + k), in the same groups, with no loads and no
 // barriers.
-__global__ void __launch_bounds__(32 * kConsumers)
+__global__ void __launch_bounds__(32 * kXxhConsumers)
     xxh32_chain_kernel(int64_t n_stripes, uint32_t* __restrict__ state) {
   if (threadIdx.x % 32) return;
   const int k = threadIdx.x / 32;
@@ -187,13 +109,45 @@ __global__ void __launch_bounds__(32 * kConsumers)
 
 }  // namespace
 
+// data: uint8[n, stride], 16-byte aligned, stride a multiple of 16;
+// lens: int32[n] within [0, stride]. Returns cudaGetLastError().
+extern "C" int lz4tt_xxh32_batch(const void* data, long long stride, const void* lens,
+                                 unsigned seed, void* out, int n, void* stream) {
+  int64_t slots;
+  if (const cudaError_t e = prepare(&slots)) return (int)e;
+  if (n > 0) {
+    const int rows = lz4tt_xxh_rows(n, slots);
+    xxh32_kernel<<<(n + rows - 1) / rows, kXxhThreads, lz4tt_xxh_smem(rows),
+                   (cudaStream_t)stream>>>((const uint8_t*)data, stride, (const int32_t*)lens,
+                                           seed, (uint32_t*)out, n, rows);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Rows a CTA of K3 takes in a launch of n rows, and the CTAs an SM holds.
+extern "C" int lz4tt_xxh32_rows(int n, int* rows) {
+  int64_t slots;
+  const cudaError_t e = prepare(&slots);
+  *rows = lz4tt_xxh_rows(n, slots);
+  return (int)e;
+}
+
+extern "C" int lz4tt_xxh32_occupancy(int* ctas_per_sm, int* threads) {
+  int64_t slots;
+  if (const cudaError_t e = prepare(&slots)) return (int)e;
+  *threads = kXxhThreads;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, xxh32_kernel,
+                                                            kXxhThreads, kXxhRingBytes);
+}
+
 // data: n_stripes * 16 bytes, 16-byte aligned; state: u32[4], the lane
 // accumulators, updated in place. Returns cudaGetLastError().
 extern "C" int lz4tt_xxh32_stream_update(const void* data, long long n_stripes,
                                          void* state, void* stream) {
-  if (const cudaError_t e = prepare_stream()) return (int)e;
+  int64_t slots;
+  if (const cudaError_t e = prepare(&slots)) return (int)e;
   if (n_stripes > 0)
-    xxh32_stream_kernel<<<1, kStreamThreads, kRingBytes, (cudaStream_t)stream>>>(
+    xxh32_stream_kernel<<<1, kXxhThreads, lz4tt_xxh_smem(1), (cudaStream_t)stream>>>(
         (const uint8_t*)data, n_stripes, (uint32_t*)state);
   return (int)cudaGetLastError();
 }
@@ -202,7 +156,7 @@ extern "C" int lz4tt_xxh32_stream_update(const void* data, long long n_stripes,
 // from and into state (u32[4]). Returns cudaGetLastError().
 extern "C" int lz4tt_xxh32_chain(long long n_stripes, void* state, void* stream) {
   if (n_stripes > 0)
-    xxh32_chain_kernel<<<1, 32 * kConsumers, 0, (cudaStream_t)stream>>>(
+    xxh32_chain_kernel<<<1, 32 * kXxhConsumers, 0, (cudaStream_t)stream>>>(
         n_stripes, (uint32_t*)state);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// K4: batched XXH64 over ragged blocks on Hopper (sm_90a).
+// K4: batched XXH64 over ragged rows on Hopper (sm_90a), and the streaming
+// hash's update.
 //
 // Replaces lz4_tpu/kernels/xxhash64_pallas.py::xxh64_words_pallas
 // (pallas_call at xxhash64_pallas.py:222; body _kernel :112-171; also
@@ -7,38 +8,96 @@
 // across grid chunks, and emulated each u64 as a (hi, lo) pair of u32 with
 // 16-bit limb multiplies, since the TPU has no 64-bit integers.
 //
-// Bound on the card: bytes. Each input byte is read once, over 3.35 TB/s of
-// HBM; a 64-bit multiply per 8 bytes is far below the integer rate.
-//
-// Design: K3's shape with native uint64_t. One thread per block, any
-// lengths, no tile layout. Rows start 16-byte aligned (the layout's row
-// stride is a multiple of 16), so a 32-byte stripe is two aligned 16-byte
-// loads, four stripes' loads issued before the rounds that use them. The
-// hash is written as a u64 bit pattern (the wrapper's int64 tensor); the
-// tier API splits it into (hi, lo).
-//
 // lz4tt_xxh64_stream_update is the streaming hash's update on the card:
 // the counterpart of lz4_tpu/kernels/xxhash_stream.py::stream64_update
 // (:136, pure JAX on (hi, lo) u32 pairs). The lane state v1..v4 stays in a
 // u64[4] tensor on the card between updates; the host keeps the <32-byte
-// remainder and the total length, and hands over whole stripes only. One
-// thread absorbs them from the carried state with the stripe loop of the
-// one-shot hash; the bound is the latency of the lanes' serial chains.
+// remainder and the total length, and hands over whole stripes only.
+//
+// Bound on the card: as K3's (xxh32.cu), a row's chain or bytes. A 32-byte
+// stripe is one round a lane, rotl(v + x * Q2, 31) * Q1 in 64 bits: a
+// long row is bound by that chain, many rows by the bytes over 3.35 TB/s.
+// lz4tt_xxh64_chain runs the shipped rounds on register data, no loads.
+//
+// Design: K3's, with 64-bit lanes: both entry points run the ring of
+// lz4tt_xxh_ring.cuh (a producer warp's bulk copies into a shared-memory
+// ring, one consumer warp a lane; lz4tt_xxh64_stage_lane in xxh64.cuh,
+// the rounds carried as w = rotl(w, 31) * Q1 + x' * Q2). K4 then finishes
+// each row on thread j of warp 0 (lz4tt_xxh64_finish) and writes the hash
+// as a u64 bit pattern (the wrapper's int64 tensor; the tier API splits it
+// into (hi, lo)); the update writes the lanes back.
 #include "xxh64.cuh"
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 32;
+struct Xxh64Lanes {
+  typedef uint64_t T;
+  enum { kStripe = 32 };
+  static __device__ __forceinline__ T stage(const uint8_t* p, int32_t n, int k, T v) {
+    return lz4tt_xxh64_stage_lane(p, n, k, v);
+  }
+};
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kXxhThreads, 1)
     xxh64_kernel(const uint8_t* __restrict__ data, int64_t stride,
                  const int32_t* __restrict__ lens, uint64_t seed,
-                 uint64_t* __restrict__ out, int32_t n) {
-  const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (b >= n) return;
-  out[b] = lz4tt_xxh64(data + b * stride, lens[b], seed);
+                 uint64_t* __restrict__ out, int32_t n, int rows) {
+  __shared__ uint64_t lanes[LZ4TT_XXH_ROWS][4];
+  const int warp = threadIdx.x / 32, j = threadIdx.x % 32;
+  const int64_t b = (int64_t)blockIdx.x * rows + j;
+  const bool mine = j < rows && b < n;
+  const uint8_t* row = data + (mine ? b : 0) * stride;
+  const int32_t len = mine ? lens[b] : 0;
+  const uint64_t v = lz4tt_xxh_ring<Xxh64Lanes>(
+      row, len / 32, rows, lz4tt_xxh64_lane_init(seed, warp));
+  if (warp < kXxhConsumers && mine) lanes[j][warp] = v;
+  __syncthreads();
+  if (warp == 0 && mine) out[b] = lz4tt_xxh64_finish(lanes[j], row, len, seed);
+}
+
+__global__ void __launch_bounds__(kXxhThreads, 1)
+    xxh64_stream_kernel(const uint8_t* __restrict__ data, int64_t n_stripes,
+                        uint64_t* __restrict__ state) {
+  const int warp = threadIdx.x / 32, j = threadIdx.x % 32;
+  const bool lane = warp < kXxhConsumers && j == 0;
+  const uint64_t v = lz4tt_xxh_ring<Xxh64Lanes>(data, j == 0 ? n_stripes : 0, 1,
+                                                lane ? state[warp] : 0ull);
+  if (lane) state[warp] = v;
+}
+
+// The kernels' shared memory allowed once; the CTAs of K4 the card holds.
+cudaError_t prepare(int64_t* slots) {
+  static int64_t n_slots = 0;
+  static const cudaError_t done = [] {
+    cudaError_t e = lz4tt_xxh_prepare(xxh64_kernel, &n_slots);
+    int64_t unused;
+    if (!e) e = lz4tt_xxh_prepare(xxh64_stream_kernel, &unused);
+    return e;
+  }();
+  *slots = n_slots;
+  return done;
+}
+
+// The update's chains alone: the consumers' rounds in their carried form
+// on register data (lane k's word of stripe i is i + k), in the same
+// groups, with no loads and no barriers.
+__global__ void __launch_bounds__(32 * kXxhConsumers)
+    xxh64_chain_kernel(int64_t n_stripes, uint64_t* __restrict__ state) {
+  if (threadIdx.x % 32) return;
+  const int k = threadIdx.x / 32;
+  uint64_t x = (uint64_t)k;
+  uint64_t w = state[k] + x * LZ4TT_Q2;
+  int64_t i = 1;
+  for (; i + LZ4TT_XXH64_GROUP <= n_stripes; i += LZ4TT_XXH64_GROUP) {
+#pragma unroll
+    for (int j = 1; j <= LZ4TT_XXH64_GROUP; j++)
+      w = lz4tt_xxh64_step(w, (x + j) * LZ4TT_Q2);
+    x += LZ4TT_XXH64_GROUP;
+  }
+  for (; i < n_stripes; i++) w = lz4tt_xxh64_step(w, ++x * LZ4TT_Q2);
+  state[k] = lz4tt_rotl64(w, 31) * LZ4TT_Q1;
 }
 
 }  // namespace
@@ -48,51 +107,41 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int lz4tt_xxh64_batch(const void* data, long long stride, const void* lens,
                                  unsigned long long seed, void* out, int n,
                                  void* stream) {
+  int64_t slots;
+  if (const cudaError_t e = prepare(&slots)) return (int)e;
   if (n > 0) {
-    const int grid = (n + kThreads - 1) / kThreads;
-    xxh64_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)data, stride, (const int32_t*)lens, (uint64_t)seed,
-        (uint64_t*)out, n);
+    const int rows = lz4tt_xxh_rows(n, slots);
+    xxh64_kernel<<<(n + rows - 1) / rows, kXxhThreads, lz4tt_xxh_smem(rows),
+                   (cudaStream_t)stream>>>((const uint8_t*)data, stride, (const int32_t*)lens,
+                                           (uint64_t)seed, (uint64_t*)out, n, rows);
   }
   return (int)cudaGetLastError();
 }
 
-namespace {
-
-__global__ void __launch_bounds__(1)
-    xxh64_stream_kernel(const uint8_t* __restrict__ data, int64_t n_stripes,
-                        uint64_t* __restrict__ state) {
-  uint64_t v[4] = {state[0], state[1], state[2], state[3]};
-  lz4tt_xxh64_stripes(data, n_stripes, v);
-  for (int k = 0; k < 4; k++) state[k] = v[k];
+// Rows a CTA of K4 takes in a launch of n rows.
+extern "C" int lz4tt_xxh64_rows(int n, int* rows) {
+  int64_t slots;
+  const cudaError_t e = prepare(&slots);
+  *rows = lz4tt_xxh_rows(n, slots);
+  return (int)e;
 }
 
-// The chain bound of the update's rounds, as the XXH32 update measures its
-// own (xxh32.cu): lane k's rounds on register data (its word of stripe i
-// is i + k), one warp a lane, no loads.
-__global__ void __launch_bounds__(128)
-    xxh64_chain_kernel(int64_t n_stripes, uint64_t* __restrict__ state) {
-  if (threadIdx.x % 32) return;
-  const int k = threadIdx.x / 32;
-  uint64_t v = state[k], x = (uint64_t)k;
-  int64_t i = 0;
-  for (; i + LZ4TT_XXH64_GROUP <= n_stripes; i += LZ4TT_XXH64_GROUP) {
-#pragma unroll
-    for (int j = 0; j < LZ4TT_XXH64_GROUP; j++) v = lz4tt_xxh64_round(v, x + j);
-    x += LZ4TT_XXH64_GROUP;
-  }
-  for (; i < n_stripes; i++) v = lz4tt_xxh64_round(v, x++);
-  state[k] = v;
+extern "C" int lz4tt_xxh64_occupancy(int* ctas_per_sm, int* threads) {
+  int64_t slots;
+  if (const cudaError_t e = prepare(&slots)) return (int)e;
+  *threads = kXxhThreads;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, xxh64_kernel,
+                                                            kXxhThreads, kXxhRingBytes);
 }
-
-}  // namespace
 
 // data: n_stripes * 32 bytes, 16-byte aligned; state: u64[4], the lane
 // accumulators, updated in place. Returns cudaGetLastError().
 extern "C" int lz4tt_xxh64_stream_update(const void* data, long long n_stripes,
                                          void* state, void* stream) {
+  int64_t slots;
+  if (const cudaError_t e = prepare(&slots)) return (int)e;
   if (n_stripes > 0)
-    xxh64_stream_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+    xxh64_stream_kernel<<<1, kXxhThreads, lz4tt_xxh_smem(1), (cudaStream_t)stream>>>(
         (const uint8_t*)data, n_stripes, (uint64_t*)state);
   return (int)cudaGetLastError();
 }
@@ -101,7 +150,7 @@ extern "C" int lz4tt_xxh64_stream_update(const void* data, long long n_stripes,
 // warp a lane, from and into state (u64[4]). Returns cudaGetLastError().
 extern "C" int lz4tt_xxh64_chain(long long n_stripes, void* state, void* stream) {
   if (n_stripes > 0)
-    xxh64_chain_kernel<<<1, 128, 0, (cudaStream_t)stream>>>(n_stripes,
-                                                           (uint64_t*)state);
+    xxh64_chain_kernel<<<1, 32 * kXxhConsumers, 0, (cudaStream_t)stream>>>(
+        n_stripes, (uint64_t*)state);
   return (int)cudaGetLastError();
 }

@@ -1,18 +1,20 @@
 """Time design variants of block compress (K2), block decode (K1),
-segment decode (K5) and the streaming XXH32 update against the shipped
-kernels, on the card.
+segment decode (K5) and the hashes (K3, K4 and their streaming updates)
+against the shipped kernels, on the card.
 
 Each variant is the shipped ``csrc`` with a few text replacements: the
 design options ``PERF.md`` reports as tried and lost. Every variant is
 built with ``nvcc`` (in parallel, into ``build/lz4_tpu_torch/variants/``)
 and timed with CUDA events on the main path's rows (``make_blocks(4096,
 65536, 1234)``, its K2 output for K1, and the parser's tables of that for
-K5): all rows, then the a4 and the text rows apart; the update on the
-first 16 MiB of those rows, a stream batch. Each variant's output is held
-against the shipped kernel's. Run from the root of a checkout, on a
-machine with a card, for all of them or those of some sources::
+K5): all rows, then the a4 and the text rows apart. A hash variant is timed
+on three launches: the one-shot entry point on the 4096 rows and on one
+16 MiB row (the first 256 rows end to end), and the update on the same 16
+MiB, a stream batch. Each variant's output is held against the shipped
+kernel's. Run from the root of a checkout, on a machine with a card, for
+all of them or those of some sources::
 
-    python -m lz4_tpu_torch.design_variants [lz4_compress lz4_decode segment_decode xxh32]
+    python -m lz4_tpu_torch.design_variants [lz4_compress lz4_decode segment_decode xxh32 xxh64]
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from .core.constants import max_compressed_length
 from .dist import sharded
-from .kernels import build, codec, sequences, xxhash_stream
+from .kernels import build, codec, sequences, xxhash, xxhash_stream
 
 SEED, N_BLOCKS, BLOCK_LEN, REPS = 1234, 4096, 1 << 16, 5
 
@@ -46,8 +48,14 @@ LZ4TT_HD uint32_t lz4tt_load32u(const uint8_t* p, int64_t i) {
 }
 """
 _STAGES = "#define LZ4TT_XXH_STAGE 32768\n#define LZ4TT_XXH_STAGES 4"
+_ROWS = "#define LZ4TT_XXH_ROWS 32"
+_ROUND = """LZ4TT_HD uint32_t lz4tt_xxh_round(uint32_t v, uint32_t x) {
+  return lz4tt_rotl32(v + x * LZ4TT_P2, 13) * LZ4TT_P1;
+}
+"""
 # the first version of the update: one consumer carrying all four lanes
-_ONE_CONSUMER_BODY = """LZ4TT_HD lz4tt_u4 lz4tt_lds16(const uint8_t* p) {
+_ONE_CONSUMER_BODY = _ROUND + """
+LZ4TT_HD lz4tt_u4 lz4tt_lds16(const uint8_t* p) {
   const uint4 v = *reinterpret_cast<const uint4*>(p);
   return {v.x, v.y, v.z, v.w};
 }
@@ -85,33 +93,91 @@ LZ4TT_HD void lz4tt_xxh32_stage4(const uint8_t* p, int32_t n, uint32_t* v) {
   v[2] = v3;
   v[3] = v4;
 }
+
 """
-_ONE_CONSUMER_LOOP = """  } else if (threadIdx.x == 0) {
+_ONE_CONSUMER_KERNEL = """__global__ void __launch_bounds__(64, 1)
+    xxh32_one_consumer_kernel(const uint8_t* __restrict__ data, int64_t n_stripes,
+                              uint32_t* __restrict__ state) {
+  extern __shared__ __align__(128) uint8_t ring[];
+  __shared__ uint64_t full[LZ4TT_XXH_STAGES], empty[LZ4TT_XXH_STAGES];
+  const int32_t per = LZ4TT_XXH_STAGE / 16;
+  const int64_t stages = (n_stripes + per - 1) / per;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < LZ4TT_XXH_STAGES; s++) {
+      lz4tt_mbar_init(&full[s], 1);
+      lz4tt_mbar_init(&empty[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 32) {  // the producer
+    for (int64_t i = 0; i < stages; i++) {
+      const int s = (int)(i % LZ4TT_XXH_STAGES);
+      const uint32_t use = (uint32_t)(i / LZ4TT_XXH_STAGES);
+      const uint32_t bytes = 16u * lz4tt_xxh_stage_stripes(n_stripes, i, per);
+      if (use > 0) lz4tt_mbar_wait(&empty[s], (use - 1) & 1);
+      lz4tt_mbar_expect(&full[s], bytes);
+      lz4tt_bulk_copy(ring + s * LZ4TT_XXH_STAGE, data + i * LZ4TT_XXH_STAGE, bytes,
+                      &full[s]);
+    }
+  } else if (threadIdx.x == 0) {
     uint32_t v[4] = {state[0], state[1], state[2], state[3]};
     for (int64_t i = 0; i < stages; i++) {
       const int s = (int)(i % LZ4TT_XXH_STAGES);
-      mbar_wait(&full[s], (uint32_t)(i / LZ4TT_XXH_STAGES) & 1);
+      lz4tt_mbar_wait(&full[s], (uint32_t)(i / LZ4TT_XXH_STAGES) & 1);
       lz4tt_xxh32_stage4(ring + s * LZ4TT_XXH_STAGE,
-                         lz4tt_xxh32_stage_stripes(n_stripes, i), v);
-      mbar_arrive(&empty[s]);
+                         lz4tt_xxh_stage_stripes(n_stripes, i, per), v);
+      lz4tt_mbar_arrive(&empty[s]);
     }
     for (int k = 0; k < 4; k++) state[k] = v[k];
-  }"""
-_CONSUMER_LOOP = """  } else if (threadIdx.x % 32 == 0) {  // consumer k, lane k
-    const int k = threadIdx.x / 32;
-    uint32_t v = state[k];
-    for (int64_t i = 0; i < stages; i++) {
-      const int s = (int)(i % LZ4TT_XXH_STAGES);
-      mbar_wait(&full[s], (uint32_t)(i / LZ4TT_XXH_STAGES) & 1);
-      v = lz4tt_xxh32_stage_lane(ring + s * LZ4TT_XXH_STAGE,
-                                 lz4tt_xxh32_stage_stripes(n_stripes, i), k, v);
-      mbar_arrive(&empty[s]);
+  }
+}
+
+// The kernels' shared memory allowed once; the CTAs of K3 the card holds."""
+_STREAM_LAUNCH32 = """  if (n_stripes > 0)
+    xxh32_stream_kernel<<<1, kXxhThreads, lz4tt_xxh_smem(1), (cudaStream_t)stream>>>("""
+_PREPARED = "// The kernels' shared memory allowed once; the CTAs of K3 the card holds."
+# one thread carrying the four lanes of a row (K3 before this design), in
+# the textbook round, eight stripes' 16-byte loads from device memory ahead
+_THREAD_ROWS32 = _ROUND + """
+__device__ void thread_stripes32(const uint8_t* p, int64_t n, uint32_t* v) {
+  int64_t i = 0;
+  for (; i + 8 <= n; i += 8) {
+    lz4tt_u4 w[8];
+#pragma unroll
+    for (int k = 0; k < 8; k++) w[k] = lz4tt_load16(p + 16 * (i + k));
+#pragma unroll
+    for (int k = 0; k < 8; k++) {
+      v[0] = lz4tt_xxh_round(v[0], w[k].x);
+      v[1] = lz4tt_xxh_round(v[1], w[k].y);
+      v[2] = lz4tt_xxh_round(v[2], w[k].z);
+      v[3] = lz4tt_xxh_round(v[3], w[k].w);
     }
-    state[k] = v;
-  }"""
-# one thread reading global memory, 16 stripes loaded before the rounds of
-# the 16 before them
-_GLOBAL_KERNEL = """__global__ void __launch_bounds__(1)
+  }
+  for (; i < n; i++) {
+    const lz4tt_u4 w = lz4tt_load16(p + 16 * i);
+    v[0] = lz4tt_xxh_round(v[0], w.x);
+    v[1] = lz4tt_xxh_round(v[1], w.y);
+    v[2] = lz4tt_xxh_round(v[2], w.z);
+    v[3] = lz4tt_xxh_round(v[3], w.w);
+  }
+}
+
+__global__ void __launch_bounds__(32)
+    xxh32_thread_kernel(const uint8_t* __restrict__ data, int64_t stride,
+                        const int32_t* __restrict__ lens, uint32_t seed,
+                        uint32_t* __restrict__ out, int32_t n) {
+  const int64_t b = (int64_t)blockIdx.x * 32 + threadIdx.x;
+  if (b >= n) return;
+  uint32_t v[4];
+  for (int k = 0; k < 4; k++) v[k] = lz4tt_xxh32_lane_init(seed, k);
+  thread_stripes32(data + b * stride, lens[b] / 16, v);
+  out[b] = lz4tt_xxh32_finish(v, data + b * stride, lens[b], seed);
+}
+
+// one thread loading global memory, 16 stripes loaded before the rounds of
+// the 16 before them
+__global__ void __launch_bounds__(1)
     xxh32_global_kernel(const uint8_t* __restrict__ data, int64_t n,
                         uint32_t* __restrict__ state) {
   uint32_t v1 = state[0], v2 = state[1], v3 = state[2], v4 = state[3];
@@ -135,11 +201,61 @@ _GLOBAL_KERNEL = """__global__ void __launch_bounds__(1)
     for (int k = 0; k < 16; k++) a[k] = b[k];
   }
   uint32_t v[4] = {v1, v2, v3, v4};
-  lz4tt_xxh32_stripes(data + 16 * 16 * groups, n - 16 * groups, v);
+  thread_stripes32(data + 16 * 16 * groups, n - 16 * groups, v);
   for (int k = 0; k < 4; k++) state[k] = v[k];
 }
 
-cudaError_t prepare_stream() {"""
+""" + _PREPARED
+_BATCH_LAUNCH32 = """    xxh32_kernel<<<(n + rows - 1) / rows, kXxhThreads, lz4tt_xxh_smem(rows),
+                   (cudaStream_t)stream>>>((const uint8_t*)data, stride, (const int32_t*)lens,
+                                           seed, (uint32_t*)out, n, rows);"""
+# K4 and the XXH64 update before this design: one thread carrying the four
+# lanes, four stripes' loads from device memory ahead
+_THREAD64 = """__device__ void thread_stripes64(const uint8_t* p, int64_t n, uint64_t* v) {
+  int64_t i = 0;
+  for (; i + 4 <= n; i += 4) {
+    lz4tt_u4 w[8];
+#pragma unroll
+    for (int k = 0; k < 8; k++) w[k] = lz4tt_load16(p + 32 * i + 16 * k);
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+      v[0] = lz4tt_xxh64_round(v[0], (uint64_t)w[2 * k].x | ((uint64_t)w[2 * k].y << 32));
+      v[1] = lz4tt_xxh64_round(v[1], (uint64_t)w[2 * k].z | ((uint64_t)w[2 * k].w << 32));
+      v[2] = lz4tt_xxh64_round(v[2], (uint64_t)w[2 * k + 1].x | ((uint64_t)w[2 * k + 1].y << 32));
+      v[3] = lz4tt_xxh64_round(v[3], (uint64_t)w[2 * k + 1].z | ((uint64_t)w[2 * k + 1].w << 32));
+    }
+  }
+  for (; i < n; i++)
+    for (int k = 0; k < 4; k++) v[k] = lz4tt_xxh64_round(v[k], lz4tt_read64(p, 32 * i + 8 * k));
+}
+
+__global__ void __launch_bounds__(32)
+    xxh64_thread_kernel(const uint8_t* __restrict__ data, int64_t stride,
+                        const int32_t* __restrict__ lens, uint64_t seed,
+                        uint64_t* __restrict__ out, int32_t n) {
+  const int64_t b = (int64_t)blockIdx.x * 32 + threadIdx.x;
+  if (b >= n) return;
+  uint64_t v[4];
+  for (int k = 0; k < 4; k++) v[k] = lz4tt_xxh64_lane_init(seed, k);
+  thread_stripes64(data + b * stride, lens[b] / 32, v);
+  out[b] = lz4tt_xxh64_finish(v, data + b * stride, lens[b], seed);
+}
+
+__global__ void __launch_bounds__(1)
+    xxh64_thread_stream_kernel(const uint8_t* __restrict__ data, int64_t n_stripes,
+                               uint64_t* __restrict__ state) {
+  uint64_t v[4] = {state[0], state[1], state[2], state[3]};
+  thread_stripes64(data, n_stripes, v);
+  for (int k = 0; k < 4; k++) state[k] = v[k];
+}
+
+// The kernels' shared memory allowed once; the CTAs of K4 the card holds."""
+_PREPARED64 = "// The kernels' shared memory allowed once; the CTAs of K4 the card holds."
+_BATCH_LAUNCH64 = """    xxh64_kernel<<<(n + rows - 1) / rows, kXxhThreads, lz4tt_xxh_smem(rows),
+                   (cudaStream_t)stream>>>((const uint8_t*)data, stride, (const int32_t*)lens,
+                                           (uint64_t)seed, (uint64_t*)out, n, rows);"""
+_STREAM_LAUNCH64 = """    xxh64_stream_kernel<<<1, kXxhThreads, lz4tt_xxh_smem(1), (cudaStream_t)stream>>>("""
+_RING_H = "lz4tt_xxh_ring.cuh"
 _RING = "  LZ4TT_RING = 4096,"
 _NEAR = "enum { LZ4TT_RING_FLUSH = 2048, LZ4TT_RING_NEAR = 3072 };"
 
@@ -191,39 +307,85 @@ VARIANTS = {
          "")]),
     "update": ("xxh32", []),
     "update, 8 stages of 8 KiB": ("xxh32", [
-        ("xxh32.cuh", _STAGES,
+        (_RING_H, _STAGES,
          "#define LZ4TT_XXH_STAGE 8192\n#define LZ4TT_XXH_STAGES 8")]),
     "update, 4 stages of 16 KiB": ("xxh32", [
-        ("xxh32.cuh", _STAGES,
+        (_RING_H, _STAGES,
          "#define LZ4TT_XXH_STAGE 16384\n#define LZ4TT_XXH_STAGES 4")]),
     "update, 3 stages of 64 KiB": ("xxh32", [
-        ("xxh32.cuh", _STAGES,
+        (_RING_H, _STAGES,
          "#define LZ4TT_XXH_STAGE 65536\n#define LZ4TT_XXH_STAGES 3")]),
     "update, 2 stages of 4 KiB": ("xxh32", [
-        ("xxh32.cuh", _STAGES,
+        (_RING_H, _STAGES,
          "#define LZ4TT_XXH_STAGE 4096\n#define LZ4TT_XXH_STAGES 2")]),
     "update, rounds as rotl(v + x * P2, 13) * P1": ("xxh32", [
+        ("xxh32.cuh", "#define LZ4TT_XXH_GROUP 8  // stripes loaded together\n",
+         "#define LZ4TT_XXH_GROUP 8\n" + _ROUND),
         ("xxh32.cuh", "  uint32_t w = v + lz4tt_ld32(q) * LZ4TT_P2;",
          "  uint32_t w = lz4tt_xxh_round(v, lz4tt_ld32(q));"),
-        ("xxh32.cuh", "      w = lz4tt_xxh32_step(w, a[j] * LZ4TT_P2);",
-         "      w = lz4tt_xxh_round(w, a[j]);"),
-        ("xxh32.cuh",
-         "    w = lz4tt_xxh32_step(w, lz4tt_ld32(q + 16 * i) * LZ4TT_P2);",
-         "    w = lz4tt_xxh_round(w, lz4tt_ld32(q + 16 * i));"),
+        ("xxh32.cuh", "w = lz4tt_xxh32_step(w, a[j] * LZ4TT_P2);",
+         "w = lz4tt_xxh_round(w, a[j]);"),
         ("xxh32.cuh", "  return lz4tt_rotl32(w, 13) * LZ4TT_P1;\n}", "  return w;\n}")]),
     "update, carried form in plain C (no explicit multiply-add)": ("xxh32", [
         ("xxh32.cuh", "      w = lz4tt_xxh32_step(w, a[j] * LZ4TT_P2);",
          "      w = lz4tt_rotl32(w, 13) * LZ4TT_P1 + a[j] * LZ4TT_P2;")]),
     "update, one consumer carrying the four lanes": ("xxh32", [
-        ("xxh32.cuh", "LZ4TT_HD uint32_t lz4tt_xxh32(const uint8_t* p,",
-         _ONE_CONSUMER_BODY + "\nLZ4TT_HD uint32_t lz4tt_xxh32(const uint8_t* p,"),
-        ("xxh32.cu", "constexpr int kConsumers = 4;", "constexpr int kConsumers = 1;"),
-        ("xxh32.cu", _CONSUMER_LOOP, _ONE_CONSUMER_LOOP)]),
+        ("xxh32.cuh", "// The hash of the len bytes at p",
+         _ONE_CONSUMER_BODY + "// The hash of the len bytes at p"),
+        ("xxh32.cu", _PREPARED, _ONE_CONSUMER_KERNEL),
+        ("xxh32.cu", _STREAM_LAUNCH32,
+         "  cudaFuncSetAttribute(xxh32_one_consumer_kernel, "
+         "cudaFuncAttributeMaxDynamicSharedMemorySize, lz4tt_xxh_smem(1));\n"
+         "  if (n_stripes > 0)\n"
+         "    xxh32_one_consumer_kernel<<<1, 64, lz4tt_xxh_smem(1), "
+         "(cudaStream_t)stream>>>(")]),
     "update, one thread loading from global memory": ("xxh32", [
-        ("xxh32.cu", "cudaError_t prepare_stream() {", _GLOBAL_KERNEL),
-        ("xxh32.cu", "    xxh32_stream_kernel<<<1, kStreamThreads, kRingBytes, "
-         "(cudaStream_t)stream>>>(",
+        ("xxh32.cu", _PREPARED, _THREAD_ROWS32),
+        ("xxh32.cu", _STREAM_LAUNCH32,
+         "  if (n_stripes > 0)\n"
          "    xxh32_global_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(")]),
+    "K3, one thread a row (the kernel before the ring)": ("xxh32", [
+        ("xxh32.cu", _PREPARED, _THREAD_ROWS32),
+        ("xxh32.cu", _BATCH_LAUNCH32,
+         "    xxh32_thread_kernel<<<(n + 31) / 32, 32, 0, (cudaStream_t)stream>>>("
+         "(const uint8_t*)data, stride, (const int32_t*)lens, seed, "
+         "(uint32_t*)out, n);")]),
+    "K3, one CTA a row (4 stages of 32 KiB)": ("xxh32", [
+        (_RING_H, _ROWS, "#define LZ4TT_XXH_ROWS 1")]),
+    "K3, one CTA a row, 4 stages of 4 KiB": ("xxh32", [
+        (_RING_H, _ROWS, "#define LZ4TT_XXH_ROWS 1"),
+        (_RING_H, _STAGES,
+         "#define LZ4TT_XXH_STAGE 4096\n#define LZ4TT_XXH_STAGES 4")]),
+    "K3, 4 stages of 8 KiB, up to 32 rows a CTA": ("xxh32", [
+        (_RING_H, _STAGES,
+         "#define LZ4TT_XXH_STAGE 8192\n#define LZ4TT_XXH_STAGES 4")]),
+    "K4": ("xxh64", []),
+    "K4, one thread a row (the kernels before the ring)": ("xxh64", [
+        ("xxh64.cu", _PREPARED64, _THREAD64),
+        ("xxh64.cu", _BATCH_LAUNCH64,
+         "    xxh64_thread_kernel<<<(n + 31) / 32, 32, 0, (cudaStream_t)stream>>>("
+         "(const uint8_t*)data, stride, (const int32_t*)lens, (uint64_t)seed, "
+         "(uint64_t*)out, n);"),
+        ("xxh64.cu", _STREAM_LAUNCH64,
+         "    xxh64_thread_stream_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(")]),
+    "K4, rounds as rotl(v + x * Q2, 31) * Q1": ("xxh64", [
+        ("xxh64.cuh", "  uint64_t w = v + lz4tt_ld64(q) * LZ4TT_Q2;",
+         "  uint64_t w = lz4tt_xxh64_round(v, lz4tt_ld64(q));"),
+        ("xxh64.cuh", "w = lz4tt_xxh64_step(w, a[j] * LZ4TT_Q2);",
+         "w = lz4tt_xxh64_round(w, a[j]);"),
+        ("xxh64.cuh", "  return lz4tt_rotl64(w, 31) * LZ4TT_Q1;\n}", "  return w;\n}")]),
+    "K4, carried form in plain C (no explicit multiply-add)": ("xxh64", [
+        ("xxh64.cuh", "      w = lz4tt_xxh64_step(w, a[j] * LZ4TT_Q2);",
+         "      w = lz4tt_rotl64(w, 31) * LZ4TT_Q1 + a[j] * LZ4TT_Q2;")]),
+    "K4, one CTA a row (4 stages of 32 KiB)": ("xxh64", [
+        (_RING_H, _ROWS, "#define LZ4TT_XXH_ROWS 1")]),
+    "K4, one CTA a row, 4 stages of 4 KiB": ("xxh64", [
+        (_RING_H, _ROWS, "#define LZ4TT_XXH_ROWS 1"),
+        (_RING_H, _STAGES,
+         "#define LZ4TT_XXH_STAGE 4096\n#define LZ4TT_XXH_STAGES 4")]),
+    "K4, 3 stages of 64 KiB": ("xxh64", [
+        (_RING_H, _STAGES,
+         "#define LZ4TT_XXH_STAGE 65536\n#define LZ4TT_XXH_STAGES 3")]),
 }
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -233,8 +395,13 @@ SYMBOLS = {  # source -> (C entry point, its argtypes)
     "lz4_decode": ("lz4tt_decompress_safe", _ARGS),
     "segment_decode": ("lz4tt_decompress_segments",
                        [_P, _I64, _P, _P, _P, _I32, _P, _I64, _I32, _P, _I32, _P]),
-    "xxh32": ("lz4tt_xxh32_stream_update", [_P, _I64, _P, _P]),
+    "xxh32": ("lz4tt_xxh32_batch", [_P, _I64, _P, ctypes.c_uint, _P, _I32, _P]),
+    "xxh64": ("lz4tt_xxh64_batch",
+              [_P, _I64, _P, ctypes.c_ulonglong, _P, _I32, _P]),
 }
+# the hash sources' launches, each timed: the one-shot entry point on the
+# 4096 rows and on one 16 MiB row, the update on the same 16 MiB
+HASH_SETS = ("4096 rows", "one 16 MiB row", "update, 16 MiB")
 
 
 def build_variants(sources: set[str]) -> dict:
@@ -295,12 +462,70 @@ class _Rows:
         self.sets = {"all": torch.arange(N_BLOCKS, device=dev),
                      "a4": torch.nonzero(kinds == 0).flatten(),
                      "text": torch.nonzero(kinds == 1).flatten()}
-        # one stream batch: 256 blocks, 16 MiB
+        # one stream batch: 256 blocks, 16 MiB, also hashed as one row
         self.batch = self.src[:256, :BLOCK_LEN].contiguous().view(-1)
-        self.init = xxhash_stream.StreamState32(SEED, dev).lanes
-        want = self.init.clone()
-        xxhash_stream.absorb32(want, self.batch)
-        self.lanes = want
+        self.one = self.batch.view(1, -1)
+        self.one_len = torch.tensor([self.batch.numel()], dtype=torch.int32,
+                                    device=dev)
+        self.hashes = {}
+
+    def hash_sets(self, bits: int) -> dict:
+        """set name -> (input, the shipped kernel's output) of the XXH
+        ``bits`` launches; the update's input is its starting lanes."""
+        if bits not in self.hashes:
+            batch, state, absorb = (
+                (xxhash.xxh32_batch, xxhash_stream.StreamState32,
+                 xxhash_stream.absorb32) if bits == 32 else
+                (xxhash.xxh64_batch, xxhash_stream.StreamState64,
+                 xxhash_stream.absorb64))
+            lanes = state(SEED, self.src.device).lanes
+            after = lanes.clone()
+            absorb(after, self.batch)
+            self.hashes[bits] = {
+                "4096 rows": ((self.src, self.lens),
+                              batch(self.src, self.lens, SEED)),
+                "one 16 MiB row": ((self.one, self.one_len),
+                                   batch(self.one, self.one_len, SEED)),
+                "update, 16 MiB": (lanes, after)}
+        return self.hashes[bits]
+
+
+def _hash_calls(lib, source: str, rows: _Rows, set_name: str, stream):
+    """(call, check) of one hash variant's launch ``set_name`` (one of
+    ``HASH_SETS``), as :func:`_calls`."""
+    bits = 32 if source == "xxh32" else 64
+    arg, want = rows.hash_sets(bits)[set_name]
+    if set_name.startswith("update"):
+        fn = getattr(lib, f"lz4tt_xxh{bits}_stream_update")
+        fn.argtypes, fn.restype = [_P, _I64, _P, _P], ctypes.c_int
+        lanes = arg.clone()
+        n_stripes = rows.batch.numel() * 2 // bits
+
+        def call():
+            if fn(rows.batch.data_ptr(), n_stripes, lanes.data_ptr(), stream):
+                raise RuntimeError("CUDA error")
+
+        def check():
+            lanes.copy_(arg)
+            call()
+            return torch.equal(lanes, want)
+        return call, check
+    symbol, argtypes = SYMBOLS[source]
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    data, lens = arg
+    out = torch.empty_like(want)
+
+    def call():
+        if fn(data.data_ptr(), data.stride(0), lens.data_ptr(), SEED,
+              out.data_ptr(), data.shape[0], stream):
+            raise RuntimeError("CUDA error")
+
+    def check():
+        out.zero_()
+        call()
+        return torch.equal(out, want)
+    return call, check
 
 
 def _calls(fn, source: str, rows: _Rows, idx, stream):
@@ -314,18 +539,6 @@ def _calls(fn, source: str, rows: _Rows, idx, stream):
         if rc:
             raise RuntimeError(f"CUDA error {rc}")
 
-    if source == "xxh32":
-        lanes = rows.init.clone()
-        n_stripes = rows.batch.numel() // 16
-
-        def call():
-            launch(rows.batch.data_ptr(), n_stripes, lanes.data_ptr(), stream)
-
-        def check():
-            lanes.copy_(rows.init)
-            call()
-            return torch.equal(lanes, rows.lanes)
-        return call, check
     n = idx.numel()
     if source == "segment_decode":
         c, cl = rows.comp[idx].contiguous(), rows.clens[idx].contiguous()
@@ -369,7 +582,7 @@ def _calls(fn, source: str, rows: _Rows, idx, stream):
 def main(argv: list[str]) -> int:
     """Build and time every variant, or those of the sources named in
     ``argv`` (``lz4_compress``, ``lz4_decode``, ``segment_decode``,
-    ``xxh32``)."""
+    ``xxh32``, ``xxh64``)."""
     if not torch.cuda.is_available():
         print("design_variants: CUDA is not available", file=sys.stderr)
         return 1
@@ -380,19 +593,25 @@ def main(argv: list[str]) -> int:
     result = {}
     for rnd in range(2):            # two rounds, every variant in each
         for name, (source, so, regs) in libs.items():
-            symbol, argtypes = SYMBOLS[source]
-            fn = getattr(ctypes.CDLL(str(so)), symbol)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-            sets = {"batch": None} if source == "xxh32" else rows.sets
-            for set_name, idx in sets.items():
-                call, check = _calls(fn, source, rows, idx, stream)
+            lib = ctypes.CDLL(str(so))
+            hashed = source in ("xxh32", "xxh64")
+            for set_name in HASH_SETS if hashed else rows.sets:
+                if hashed:
+                    call, check = _hash_calls(lib, source, rows, set_name,
+                                              stream)
+                else:
+                    symbol, argtypes = SYMBOLS[source]
+                    fn = getattr(lib, symbol)
+                    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                    call, check = _calls(fn, source, rows,
+                                         rows.sets[set_name], stream)
                 if not check():
                     raise SystemExit(f"design_variants: {name} differs from "
-                                     f"the shipped kernel on {set_name} rows")
+                                     f"the shipped kernel on {set_name}")
                 ms = _time(call)
                 result.setdefault(name, {"registers": regs}).setdefault(
                     set_name, []).append(ms)
-                print(f"round {rnd}: {name}, {set_name} rows: {ms:.3f} ms",
+                print(f"round {rnd}: {name}, {set_name}: {ms:.3f} ms",
                       flush=True)
     print(json.dumps(result))
     return 0

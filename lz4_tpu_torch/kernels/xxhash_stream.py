@@ -46,8 +46,8 @@ XXH32_STREAM = Kernel("xxh32_stream", "xxh32", "lz4tt_xxh32_stream_update",
                       [_P, _I64, _P, _P])
 XXH64_STREAM = Kernel("xxh64_stream", "xxh64", "lz4tt_xxh64_stream_update",
                       [_P, _I64, _P, _P])
-# Bytes a stage of the XXH32 update's shared-memory ring holds
-# (LZ4TT_XXH_STAGE in csrc/xxh32.cuh).
+# Bytes a stage of the updates' shared-memory ring holds
+# (LZ4TT_XXH_STAGE in csrc/lz4tt_xxh_ring.cuh).
 STAGE_BYTES = 32768
 
 

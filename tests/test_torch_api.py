@@ -292,3 +292,23 @@ def test_streaming_in_odd_chunks_equals_one_shot(xxh, seed):
     s64.reset()
     s64.update(data[:10])
     assert s64.get_value() == xxh.hash64().hash(data, 0, 10, seed)
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+@pytest.mark.parametrize("off, length", [(5, 0), (0, -1), (-1, 0), (1, None),
+                                         (0, 3), (2, 2)])
+def test_streaming_update_range_matches_pallas_tier(xxh, bits, off, length):
+    """``update(buf, off, length)`` raises what the ``pallas`` tier raises
+    (or nothing), and the digest after it is the same."""
+    ours = (xxh.new_streaming_hash32 if bits == 32
+            else xxh.new_streaming_hash64)(7)
+    ref = (pi.StreamingXXH32 if bits == 32 else pi.StreamingXXH64)(7)
+    results = []
+    for s in (ours, ref):
+        try:
+            s.update(b"abc", off, length)
+            results.append(None)
+        except Exception as e:     # the type is what is compared
+            results.append(type(e))
+    assert results[0] is results[1]
+    assert ours.get_value() == ref.get_value()

@@ -104,6 +104,22 @@ def test_xxh64_kernel_matches_plain(cuda_device, seed):
         [xxhash_ref.xxh64(b, 0, len(b), seed) for b in blocks]
 
 
+@pytest.mark.parametrize("n", [1, 133, 3000])
+def test_hash_kernels_split_rows_as_plain(cuda_device, n):
+    """K3 and K4 with one CTA a row (n = 1) and several rows a CTA (133,
+    3000 rows), ragged lengths up to 3000 bytes, against the plain
+    versions."""
+    rng = np.random.default_rng(n)
+    lens = rng.integers(0, 3001, n).astype(np.int32)
+    data = torch.from_numpy(rng.integers(0, 256, (n, 3008),
+                                         dtype=np.uint8)).to(cuda_device)
+    lt = torch.from_numpy(lens).to(cuda_device)
+    assert torch.equal(xxhash.xxh32_batch(data, lt, 5),
+                       xxhash.xxh32_plain(data, lt, 5))
+    assert torch.equal(xxhash.xxh64_batch(data, lt, 5),
+                       xxhash.xxh64_plain(data, lt, 5))
+
+
 @pytest.mark.parametrize("dest_len", [0, 1, 64, 1000, 65536])
 def test_decode_fast_kernel_matches_plain(cuda_device, dest_len):
     rng = np.random.default_rng(dest_len)

@@ -86,6 +86,20 @@ static void* segment_lane(void* arg) {
   return nullptr;
 }
 
+// Absorb a row's n_stripes stripes into its lanes v[4] as a CTA does: in
+// stages of `per` stripes (lz4tt_xxh_stage_stripes), each copied into an
+// aligned buffer, every lane absorbed from it by `stage`.
+template <int kStripe, class T, class Stage>
+static void host_stages(const uint8_t* data, int64_t n_stripes, int32_t per, T* v,
+                        Stage stage) {
+  alignas(16) uint8_t buf[LZ4TT_XXH_STAGE];
+  for (int64_t i = 0; i * per < n_stripes; i++) {
+    const int32_t n = lz4tt_xxh_stage_stripes(n_stripes, i, per);
+    memcpy(buf, data + i * per * kStripe, kStripe * n);
+    for (int k = 0; k < 4; k++) v[k] = stage(buf, n, k, v[k]);
+  }
+}
+
 extern "C" {
 void host_decode(const uint8_t* comp, long long comp_stride,
                  const int32_t* comp_lens, uint8_t* out, long long out_stride,
@@ -122,16 +136,32 @@ void host_compress(const uint8_t* src, long long src_stride,
                          dst + b * dst_stride, dest_cap, dst_stride,
                          table.data(), &out_lens[b], &err[b]);
 }
+// The hashes as a CTA of K3 or K4 computes them when it takes `rows` rows:
+// each row's whole stripes in stages of lz4tt_xxh_seg(rows) bytes, each
+// stage copied into an aligned buffer and every lane absorbed from it by
+// the stage body, then the row's finish.
 void host_xxh32(const uint8_t* data, long long stride, const int32_t* lens,
-                unsigned seed, uint32_t* out, int n) {
-  for (int b = 0; b < n; b++)
-    out[b] = lz4tt_xxh32(data + b * stride, lens[b], seed);
+                unsigned seed, uint32_t* out, int n, int rows) {
+  for (int b = 0; b < n; b++) {
+    uint32_t v[4];
+    for (int k = 0; k < 4; k++) v[k] = lz4tt_xxh32_lane_init(seed, k);
+    host_stages<16>(data + b * stride, lens[b] / 16, lz4tt_xxh_seg(rows) / 16, v,
+                    lz4tt_xxh32_stage_lane);
+    out[b] = lz4tt_xxh32_finish(v, data + b * stride, lens[b], seed);
+  }
 }
 void host_xxh64(const uint8_t* data, long long stride, const int32_t* lens,
-                unsigned long long seed, uint64_t* out, int n) {
-  for (int b = 0; b < n; b++)
-    out[b] = lz4tt_xxh64(data + b * stride, lens[b], seed);
+                unsigned long long seed, uint64_t* out, int n, int rows) {
+  for (int b = 0; b < n; b++) {
+    uint64_t v[4];
+    for (int k = 0; k < 4; k++) v[k] = lz4tt_xxh64_lane_init(seed, k);
+    host_stages<32>(data + b * stride, lens[b] / 32, lz4tt_xxh_seg(rows) / 32, v,
+                    lz4tt_xxh64_stage_lane);
+    out[b] = lz4tt_xxh64_finish(v, data + b * stride, lens[b], seed);
+  }
 }
+// rows a CTA takes in a launch of n rows when `slots` CTAs fit at once
+int host_xxh_rows(long long n, long long slots) { return lz4tt_xxh_rows(n, slots); }
 // the parse kernel's body, one block after the other; tables zeroed
 void host_parse(const uint8_t* comp, long long comp_stride,
                 const int32_t* comp_lens, int max_seq, int32_t* tables,
@@ -162,17 +192,17 @@ void host_segment(const uint8_t* comp, long long comp_stride,
 }
 // the decode ring's size (k = 0) and the farthest match it serves (k = 1)
 int host_ring(int k) { return k ? (int)LZ4TT_RING_NEAR : (int)LZ4TT_RING; }
-// the streaming XXH32 update as its kernel runs it: stage by stage, each
-// copied into an aligned buffer, the lanes carried
+// the streaming updates as their kernels run them: one row, stage by stage
+// (the whole stage), the lanes carried
 void host_xxh32_stream(const uint8_t* data, long long n_stripes,
                        uint32_t* lanes) {
-  alignas(16) uint8_t stage[LZ4TT_XXH_STAGE];
-  for (int64_t i = 0; i * LZ4TT_XXH_STAGE < n_stripes * 16; i++) {
-    const int32_t n = lz4tt_xxh32_stage_stripes(n_stripes, i);
-    memcpy(stage, data + i * LZ4TT_XXH_STAGE, 16 * n);
-    for (int k = 0; k < 4; k++)
-      lanes[k] = lz4tt_xxh32_stage_lane(stage, n, k, lanes[k]);
-  }
+  host_stages<16>(data, n_stripes, lz4tt_xxh_seg(1) / 16, lanes,
+                  lz4tt_xxh32_stage_lane);
+}
+void host_xxh64_stream(const uint8_t* data, long long n_stripes,
+                       uint64_t* lanes) {
+  host_stages<32>(data, n_stripes, lz4tt_xxh_seg(1) / 32, lanes,
+                  lz4tt_xxh64_stage_lane);
 }
 int host_xxh32_stage_bytes() { return LZ4TT_XXH_STAGE; }
 // K5's body, one block after the other, by a team of `lanes` threads;
@@ -204,10 +234,6 @@ int host_segment_team(const uint8_t* comp, long long comp_stride,
   pthread_barrier_destroy(&sh.bar);
   return 0;
 }
-void host_xxh64_stripes(const uint8_t* data, long long n_stripes,
-                        uint64_t* lanes) {
-  lz4tt_xxh64_stripes(data, n_stripes, lanes);
-}
 }
 """
 
@@ -232,15 +258,17 @@ def lib(tmp_path_factory):
     lib.host_decode.argtypes = [_P, _I64, _P, _P, _I64, _I32, _P, _P, _I32]
     lib.host_decode_fast.argtypes = lib.host_decode.argtypes
     lib.host_compress.argtypes = [_P, _I64, _P, _P, _I64, _I32, _P, _P, _I32]
-    lib.host_xxh32.argtypes = [_P, _I64, _P, ctypes.c_uint, _P, _I32]
-    lib.host_xxh64.argtypes = [_P, _I64, _P, ctypes.c_ulonglong, _P, _I32]
+    lib.host_xxh32.argtypes = [_P, _I64, _P, ctypes.c_uint, _P, _I32, _I32]
+    lib.host_xxh64.argtypes = [_P, _I64, _P, ctypes.c_ulonglong, _P, _I32,
+                               _I32]
+    lib.host_xxh_rows.argtypes = [_I64, _I64]
     lib.host_parse.argtypes = [_P, _I64, _P, _I32, _P, _P, _P, _I32]
     lib.host_segment.argtypes = [_P, _I64, _P, _P, _P, _I32, _P, _I64, _I32,
                                  _P, _I32]
     lib.host_segment_team.argtypes = lib.host_segment.argtypes + [_I32]
     lib.host_ring.argtypes = [_I32]
     lib.host_xxh32_stream.argtypes = [_P, _I64, _P]
-    lib.host_xxh64_stripes.argtypes = [_P, _I64, _P]
+    lib.host_xxh64_stream.argtypes = [_P, _I64, _P]
     return lib
 
 
@@ -375,7 +403,7 @@ def test_host_xxh32_matches_plain(lib, seed):
         device="cpu")
     out = torch.zeros((len(sizes),), dtype=torch.int32)
     lib.host_xxh32(_ptr(data), data.stride(0), _ptr(lens), seed, _ptr(out),
-                   len(sizes))
+                   len(sizes), 1)
     want = xxhash.xxh32_plain(data, lens, seed)
     assert out.view(torch.uint32).tolist() == want.tolist()
 
@@ -410,7 +438,7 @@ def test_host_xxh64_matches_plain(lib, seed):
         device="cpu")
     out = torch.zeros((len(sizes),), dtype=torch.int64)
     lib.host_xxh64(_ptr(data), data.stride(0), _ptr(lens), seed, _ptr(out),
-                   len(sizes))
+                   len(sizes), 1)
     assert torch.equal(out, xxhash.xxh64_plain(data, lens, seed))
 
 
@@ -530,26 +558,87 @@ def test_host_segment_short_sequences(lib, case, lanes):
 @pytest.mark.parametrize("seed", [0, 0xFFFFFFFF, (1 << 64) - 1])
 def test_host_stream_stripes_match_plain(lib, seed):
     """The streaming updates' bodies from a carried state, against the
-    plain absorbs: XXH32 stage by stage as its kernel runs it, over
-    updates of 1 stripe, one stage less one, one stage, one more, and three
-    stages and a part; XXH64's stripe loop."""
+    plain absorbs, stage by stage as their kernels run them, over updates
+    of 1 stripe, one stage less one, one stage, one more, the ring less
+    one, the ring, one more, and three stages and a part."""
     assert lib.host_xxh32_stage_bytes() == xxhash_stream.STAGE_BYTES
-    stage = xxhash_stream.STAGE_BYTES // 16
     rng = np.random.default_rng(seed & 0xFF)
-    data = torch.from_numpy(rng.integers(0, 256, 16 * (3 * stage + 517),
-                                         dtype=np.uint8))
+    data = torch.from_numpy(rng.integers(
+        0, 256, xxhash_stream.STAGE_BYTES * 4 + 32 * 517, dtype=np.uint8))
     s32 = xxhash_stream.StreamState32(seed, "cpu")
     s64 = xxhash_stream.StreamState64(seed, "cpu")
     lanes32 = s32.lanes.view(torch.int32).clone()
     lanes64 = s64.lanes.clone()
-    for n in (1, stage - 1, stage, stage + 1, 3 * stage + 517):
-        lib.host_xxh32_stream(_ptr(data), n, _ptr(lanes32))
-        xxhash_stream.absorb32_plain(s32.lanes, data[:16 * n])
-        assert lanes32.view(torch.uint32).tolist() == s32.lanes.tolist(), n
-    for n in (1, 7, 8, 9, 77):
-        lib.host_xxh64_stripes(_ptr(data), n, _ptr(lanes64))
-        xxhash_stream.absorb64_plain(s64.lanes, data[:32 * n])
-        assert torch.equal(lanes64, s64.lanes)
+    for stripe, lanes, state, host, plain in (
+            (16, lanes32, s32, lib.host_xxh32_stream,
+             xxhash_stream.absorb32_plain),
+            (32, lanes64, s64, lib.host_xxh64_stream,
+             xxhash_stream.absorb64_plain)):
+        stage = xxhash_stream.STAGE_BYTES // stripe
+        for n in (1, stage - 1, stage, stage + 1, 4 * stage - 1, 4 * stage,
+                  4 * stage + 1, 3 * stage + 517):
+            host(_ptr(data), n, _ptr(lanes))
+            plain(state.lanes, data[:stripe * n])
+            got = lanes.view(torch.uint32) if stripe == 16 else lanes
+            assert got.tolist() == state.lanes.tolist(), (stripe, n)
+
+
+def _hash_batch(stripe):
+    """Rows of the lengths the kernels' edges give: 0-100, 1000, one stage
+    and the ring of a one-row CTA each +- one stripe, 65536, 65547."""
+    st = xxhash_stream.STAGE_BYTES
+    sizes = list(range(101)) + [1000, st - stripe, st, st + stripe,
+                                4 * st - stripe, 4 * st, 4 * st + stripe,
+                                65536, 65547]
+    rng = np.random.default_rng(stripe)
+    return layout.to_device_layout(
+        [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in sizes],
+        device="cpu")
+
+
+_PLAIN = {}
+
+
+def _plain_hashes(bits, seed):
+    """The plain version's hashes of ``_hash_batch``, once per width and
+    seed (the plain XXH64 takes seconds at these lengths)."""
+    if (bits, seed) not in _PLAIN:
+        data, lens = _hash_batch(bits // 2)
+        fn = xxhash.xxh32_plain if bits == 32 else xxhash.xxh64_plain
+        _PLAIN[bits, seed] = fn(data, lens, seed)
+    return _PLAIN[bits, seed]
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 32])
+@pytest.mark.parametrize("bits, seed", [(32, 0), (32, 0xFFFFFFFF),
+                                        (64, (1 << 64) - 1),
+                                        (64, 0xCAFEBABE12345678)])
+def test_host_hash_rows_match_plain(lib, bits, seed, rows):
+    """K3's and K4's bodies as a CTA of ``rows`` rows runs them (every
+    lane's stage body over the row's share of each stage, then the row's
+    finish), against the plain version, at the lengths around a stage and
+    the ring."""
+    data, lens = _hash_batch(bits // 2)
+    n = lens.numel()
+    if bits == 32:
+        out = torch.zeros((n,), dtype=torch.int32)
+        lib.host_xxh32(_ptr(data), data.stride(0), _ptr(lens), seed,
+                       _ptr(out), n, rows)
+        out = out.view(torch.uint32)
+    else:
+        out = torch.zeros((n,), dtype=torch.int64)
+        lib.host_xxh64(_ptr(data), data.stride(0), _ptr(lens), seed,
+                       _ptr(out), n, rows)
+    assert out.tolist() == _plain_hashes(bits, seed).tolist()
+
+
+@pytest.mark.parametrize("n, slots, rows", [(1, 132, 1), (132, 132, 1),
+                                            (133, 132, 2), (4096, 132, 32),
+                                            (10 ** 6, 132, 32), (5, 1, 5)])
+def test_host_rows_a_cta(lib, n, slots, rows):
+    """One CTA a row while every row fits on the card at once, then as
+    many rows a CTA as spread them over it, at most 32."""
+    assert lib.host_xxh_rows(n, slots) == rows
 
 
 def test_build_digest_covers_every_header(tmp_path, monkeypatch):
