@@ -6,12 +6,15 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --pack-parse`` times only the main path's steps,
+pack and the parser; see :func:`pack_parse_only`.)
+
 Phases (any failure exits non-zero; nothing is caught):
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build of every kernel from ``lz4_tpu_torch/csrc`` (set-up, timed), with
-   nvcc's registers and spills, and K1's, K2's, K3's, K4's and K5's
-   resident CTAs per SM;
+   nvcc's registers and spills, and K1's, K2's, K3's, K4's, K5's, the
+   parser's and pack's resident CTAs per SM;
 3. each kernel against its plain version on edge-case batches: block sizes
    around the format's limits, data kinds from zeros to incompressible, a
    tight ``dest_cap``, fuzz batches of malformed blocks with a guard region
@@ -26,7 +29,8 @@ Phases (any failure exits non-zero; nothing is caught):
 4. the main path: ``roundtrip_step`` on 4096 blocks of 64 KiB (256 MiB),
    3 iterations with launch counts reset just before and read just after,
    every block OK, the packed frame body equal to the one assembled on the
-   host; then K1, K2 and K3 against their plain versions at those shapes,
+   host; then pack (``frame_body_packed``, one ``frame_pack`` launch), K1,
+   K2 and K3 against their plain versions at those shapes,
    with the kernel's time (CUDA events), the plain version's time and the
    bound (bytes the function must move over 3.35 TB/s), and for K3 the
    chain bound of one row and the rows a CTA; then K2, K1 and K1
@@ -41,13 +45,15 @@ Phases (any failure exits non-zero; nothing is caught):
    also beside one row's chain bound);
 6. the stream path: first the parser, K5 and the streaming updates
    against their plain versions on edge cases (edge sizes, periods 1-15,
-   a null-offset block, fuzz, corrupted and out-of-order tables, a block
+   a null-offset block, fuzz, the parser's run and chain edges with table
+   widths down to 1, corrupted and out-of-order tables, a block
    that decodes past its size, random update splits, single updates of
    both widths around the ring's stage size and one 64 MiB update, also
    held against K3 and K4 with n = 1); then the parser
    and K5 on the main path's K2 output (4096 x 64 KiB), timed, with the
-   plain versions on a subset of rows, K5 on the a4, text and random rows
-   apart, and the XXH32 and XXH64 updates on 16 MiB and 1 MiB beside
+   plain versions on a subset of rows, K5 and the parser on the a4, text
+   and random rows apart (the parser at 256 rows and at all rows of a
+   kind), and the XXH32 and XXH64 updates on 16 MiB and 1 MiB beside
    their chain bounds (the rounds with no loads) in cycles a stripe; then,
    with launch counts
    reset just before and read just after, the main path's 256 MiB through
@@ -134,15 +140,21 @@ KERNELS = {  # Kernel.name -> (source, TPU kernel it replaces)
                      "lz4_tpu/kernels/xxhash_stream.py:109"),
     "xxh64_stream": ("lz4_tpu_torch/csrc/xxh64.cu",
                      "lz4_tpu/kernels/xxhash_stream.py:136"),
+    # the pure-JAX _frame_body_packed, which runs in the compress jit
+    "frame_pack": ("lz4_tpu_torch/csrc/frame_pack.cu",
+                   "lz4_tpu/dist/sharded.py:271"),
 }
-MAIN_PATH = ("lz4_compress", "lz4_decode", "xxh32")   # roundtrip_step
-TIER_PATH = MAIN_PATH + ("xxh64", "lz4_decode_fast")
+MAIN_PATH = ("lz4_compress", "lz4_decode", "xxh32",   # roundtrip_step
+             "frame_pack")
+TIER_PATH = ("lz4_compress", "lz4_decode", "xxh32", "xxh64", "lz4_decode_fast")
 STREAM_PATH = ("lz4_compress", "lz4_decode", "lz4_parse", "segment_decode",
                "xxh32_stream", "xxh64_stream")
 XXH64_SEEDS = (0, (1 << 64) - 1, 0xCAFEBABE12345678)
 OCCUPANCY = (("lz4_compress", "lz4tt_compress_occupancy"),
              ("lz4_decode", "lz4tt_decode_occupancy"),
              ("segment_decode", "lz4tt_segment_occupancy"),
+             ("lz4_parse", "lz4tt_parse_occupancy"),
+             ("frame_pack", "lz4tt_frame_pack_occupancy"),
              ("xxh32", "lz4tt_xxh32_occupancy"),
              ("xxh64", "lz4tt_xxh64_occupancy"))
 KIND_NAMES = ("a4", "text", "random")    # sharded.block_kinds 0, 1, 2
@@ -634,6 +646,21 @@ def phase_main_path(dev):
     comp_bytes = int(st.comp_lens.sum())
     rows = []
 
+    # pack: the kernel against the plain version (torch gathers on the
+    # card) on every row; payload bytes and lengths in, the body out
+    kern = sharded.frame_body_packed(src, lens, st.comp, st.comp_lens)
+    plain, plain_ms = _time_plain(lambda: sharded.frame_body_packed_plain(
+        src, lens, st.comp, st.comp_lens))
+    if kern[1] != plain[1] or not torch.equal(kern[0], plain[0]) or \
+            not torch.equal(kern[0], st.body[:st.body_total]):
+        fail("frame_pack main path: the body differs from the plain "
+             "version's or the step's")
+    del kern, plain
+    pack = time_pack(src, lens, st.comp, st.comp_lens)
+    rows.append(kernel_row("frame_pack", launches, 0, pack["pack_ms"],
+                           plain_ms, 2 * pack["body_bytes"] + 4 * n,
+                           pack["body_bytes"]))
+
     # K2: input bytes + compressed bytes + lengths in, lengths and codes
     # out; the plain version on every (N / PLAIN_ROWS)-th row
     sub = slice(None, None, n // PLAIN_ROWS)
@@ -808,8 +835,15 @@ def _stream64(xxh, block: bytes, seed: int) -> int:
 
 def compare_parse(what, comp, comp_lens, max_seq=None, rows=slice(None)):
     """Parse kernel vs plain (the plain version on ``rows``): tables, codes
-    and totals equal. Returns the kernel's output and the plain version's
+    and totals equal. Memory of the tables' size is filled with garbage
+    and freed just before the launch, so that the caching allocator hands
+    it to the wrapper's ``torch.empty``: the kernel must write every
+    entry. Returns the kernel's output and the plain version's
     milliseconds."""
+    s = max_seq or sequences.max_seq_for(int(comp_lens.max()))
+    junk = torch.full((6, comp.shape[0], s), 0x5A5A5A5A, dtype=torch.int32,
+                      device=comp.device)
+    del junk
     kern = sequences.parse_sequences(comp, comp_lens, max_seq)
     csub, lsub = comp[rows].contiguous(), comp_lens[rows].contiguous()
     plain, plain_ms = _time_plain(
@@ -979,6 +1013,8 @@ def _segment_edge_cases(dev, rng) -> None:
         f"{int((narrow == -3).sum())} x -3); K5 == plain on them, guard "
         f"intact, {int(ferr.sum())} fuzzed rows MALFORMED")
 
+    _parse_run_cases(dev)
+
     bad = tables.clone()
     rows = torch.nonzero(n_seq > 1).flatten()[:16]
     bad[1, rows, 0] = f.shape[1]               # literals past the block
@@ -1006,6 +1042,34 @@ def _segment_edge_cases(dev, rng) -> None:
     log(f"K5 on {rows.numel()} corrupted and {rows.numel()} out-of-order "
         f"table rows: MALFORMED in both, rows zeros, guard intact; a block "
         f"decoding past out_len raises")
+
+
+def _parse_run_cases(dev) -> None:
+    """The parser at the edges of its runs of 3-byte sequences and its
+    chains of short ones (``testing.run_blocks``): a malformed offset at
+    lanes 0, 1 and 31 of a step and at lanes 0 and 1 of the next, and at
+    several places of a chain, runs and chains ending exactly at the block
+    end or closed by last literals, length extensions of one byte and
+    more, and table widths of 1, 2, 31, 32 and 33 inside a run and 101,
+    102 around a 102-sequence block; against the plain version, then K5
+    on them."""
+    blocks = testing.run_blocks()
+    c, cl = layout.to_device_layout(blocks, device=dev)
+    for max_seq in (None, 1, 2, 31, 32, 33, 101, 102):
+        (tables, n_seq, total), _ = compare_parse(
+            f"parse run edges, max_seq={max_seq}", c, cl, max_seq)
+        if max_seq is None:
+            bad = testing.RUN_MALFORMED
+            if n_seq[:bad].tolist() != [sequences.PARSE_MALFORMED] * bad or \
+                    bool((n_seq[bad:] <= 0).any()):
+                fail("parse run edges: a malformed row was accepted or a "
+                     "valid one refused")
+            out_max = int(total.max())
+            compare_segments("K5 run edges", c, cl, n_seq, tables, out_max)
+    log(f"parse == plain on {len(blocks)} run- and chain-edge blocks "
+        f"(malformed offsets at run lanes {testing.RUN_BAD_AT} and chain "
+        f"places {testing.CHAIN_BAD_AT}, ends at the block end) with widths "
+        f"default, 1, 2, 31, 32, 33, 101, 102; K5 == plain on them")
 
 
 def _stream_rows(dev, main, launches) -> list[dict]:
@@ -1070,6 +1134,7 @@ def _stream_rows(dev, main, launches) -> list[dict]:
             lambda: segment_decode.decompress_segments(*args, BLOCK_LEN))
         del args
     log(f"K5 by kind, ms on the card: {json.dumps(by_kind)}")
+    time_parse_by_kind(comp, clens)
     del tables
     at_sizes = _time_at_stream_sizes(src, lens, comp, clens)
 
@@ -1099,6 +1164,49 @@ def _stream_rows(dev, main, launches) -> list[dict]:
         row.update({"ms_1mib": small["ms"],
                     "chain_bound_ms_1mib": chain["chain_bound_ms"]})
     return rows
+
+
+def time_parse_by_kind(comp, clens) -> dict:
+    """The parser on the a4, text and random rows of the main path's K2
+    output apart, at the stream path's launch size (the first
+    ``STREAM_BATCH`` rows of the kind) and at all rows of the kind, with
+    the main path's table width; and, apart from any launch, the
+    ``torch.zeros`` of tables of 256 and 4096 rows at that width (what
+    the parser's wrapper did before its kernel wrote the zero tails).
+    Returns ms by name."""
+    n = comp.shape[0]
+    kinds = torch.from_numpy(sharded.block_kinds(n, SEED)).to(comp.device)
+    s = sequences.max_seq_for(int(clens.max()))
+    ms = {}
+    for k, name in enumerate(KIND_NAMES):
+        idx = torch.nonzero(kinds == k).flatten()
+        for rows in (STREAM_BATCH, idx.numel()):
+            c = comp[idx[:rows]].contiguous()
+            cl = clens[idx[:rows]].contiguous()
+            ms[f"parse {name} {rows} rows"] = _time_kernel(
+                lambda: sequences.parse_sequences(c, cl, s))
+    for rows in (STREAM_BATCH, n):
+        ms[f"torch.zeros of {rows} rows' tables"] = _time_kernel(
+            lambda: torch.zeros((6, rows, s), dtype=torch.int32,
+                                device=comp.device))
+    log(f"parse by kind (S = {s}), ms on the card: {json.dumps(ms)}")
+    return ms
+
+
+def time_pack(src, lens, comp, clens) -> dict:
+    """``frame_body_packed`` alone on the main path's blocks, beside its
+    byte bound: each payload byte read once, the body written once, the
+    lengths read."""
+    n = src.shape[0]
+    ms = _time_kernel(lambda: sharded.frame_body_packed(src, lens, comp,
+                                                        clens))
+    total = int(sharded.frame_body_packed(src, lens, comp, clens)[1])
+    nbytes = 2 * total + 4 * n
+    out = {"pack_ms": ms, "pack_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "body_bytes": total}
+    log(f"frame_body_packed on {n} blocks: {ms:.4f} ms for a body of {total} "
+        f"B, bound {out['pack_bound_ms']:.4f} ms")
+    return out
 
 
 def _time_at_stream_sizes(src, lens, comp, clens) -> dict:
@@ -1345,10 +1453,53 @@ def phase_frame(dev) -> dict:
     return one_row
 
 
+def pack_parse_only(dev) -> None:
+    """``--pack-parse``: the main path's steps, ``frame_body_packed`` and
+    the parser (by kind, at a stream batch and at all rows) on the main
+    path's blocks, two rounds, and each kind's sequences: how many, and
+    how many are 3-byte ones (no literals, a match of 4-18 bytes). No
+    kernel is checked here; the full run does that. It uses only what
+    the parser and pack had before their redesign, so it also runs
+    against the earlier package."""
+    build.build_all()
+    data = sharded.make_blocks(N_BLOCKS, BLOCK_LEN, SEED)
+    src, lens = sharded.upload_blocks(data, dev)
+    comp, clens, _ = codec.compress_fast_batch(
+        src, lens, max_compressed_length(BLOCK_LEN))
+    for i in range(ITERS):
+        st = sharded.roundtrip_step(N_BLOCKS, BLOCK_LEN, SEED, dev)
+        log(f"step {i}: {json.dumps(st.phase_ms)}, "
+            f"{sum(st.phase_ms.values()):.3f} ms in all")
+        del st
+    batch = slice(0, STREAM_BATCH)
+    c, cl = comp[batch].contiguous(), clens[batch].contiguous()
+    for _ in range(2):
+        time_pack(src, lens, comp, clens)
+        time_parse_by_kind(comp, clens)
+        log(f"parse through its wrapper: {STREAM_BATCH} rows "
+            f"{_time_kernel(lambda: sequences.parse_sequences(c, cl)):.4f} "
+            f"ms, {N_BLOCKS} rows "
+            f"{_time_kernel(lambda: sequences.parse_sequences(comp, clens)):.4f}"
+            f" ms")
+    tables, n_seq, _ = sequences.parse_sequences(comp, clens)
+    kinds = torch.from_numpy(sharded.block_kinds(N_BLOCKS, SEED)).to(dev)
+    live = torch.arange(tables.shape[2], device=dev) < n_seq[:, None]
+    short = live & (tables[2] == 0) & (tables[5] >= 4) & (tables[5] <= 18)
+    for k, name in enumerate(KIND_NAMES):
+        rows = kinds == k
+        ns = n_seq[rows]
+        log(f"{name}: {int(ns.min())}-{int(ns.max())} sequences a block, "
+            f"{int(short[rows].sum())} of {int(ns.sum())} 3-byte")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--pack-parse"]:
+        phase_card()
+        pack_parse_only(torch.device("cuda"))
+        return 0
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = phase_card()

@@ -93,6 +93,15 @@ LZ4TT_HD int lz4tt_ffs(unsigned x) {
 #endif
 }
 
+// Index of the highest set bit, for x != 0.
+LZ4TT_HD int lz4tt_fls(unsigned x) {
+#ifdef __CUDA_ARCH__
+  return 31 - __clz(x);
+#else
+  return 31 - __builtin_clz(x);
+#endif
+}
+
 // Number of set bits.
 LZ4TT_HD int lz4tt_popc(unsigned x) {
 #ifdef __CUDA_ARCH__
@@ -137,6 +146,15 @@ LZ4TT_HD void lz4tt_store16(uint8_t* dst, const uint8_t* src) {
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
 #else
   memcpy(dst, src, 16);
+#endif
+}
+
+// Four little-endian words as one aligned 16-byte store.
+LZ4TT_HD void lz4tt_store16w(uint8_t* dst, const uint32_t a[4]) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint4*>(dst) = make_uint4(a[0], a[1], a[2], a[3]);
+#else
+  memcpy(dst, a, 16);  // the host build runs on little-endian machines
 #endif
 }
 
@@ -194,6 +212,17 @@ LZ4TT_HD void lz4tt_load_upto16(const uint8_t* p, int64_t i, int32_t n,
 LZ4TT_HD uint32_t lz4tt_byte16(const uint32_t a[4], int r) {
   const uint32_t w = r < 8 ? (r < 4 ? a[0] : a[1]) : (r < 12 ? a[2] : a[3]);
   return lz4tt_byte(w, r & 3);
+}
+
+// Inclusive sum of v over the team's lanes up to this one.
+template <class Team>
+LZ4TT_HD int32_t lz4tt_team_scan(const Team& t, int32_t v) {
+  const int lane = t.lane();
+  for (int o = 1; o < t.size(); o <<= 1) {
+    const int32_t u = t.shfl(v, lane >= o ? lane - o : 0);
+    if (lane >= o) v += u;
+  }
+  return v;
 }
 
 // A unit of work the leader lane hands to its whole team (see the

@@ -162,11 +162,7 @@ LZ4TT_HD int32_t lz4tt_segment_block(const Team& t, const uint8_t* comp,
       }
       // inclusive scan of (copies << 16 | bytes) over the lanes
       const int32_t own = (cnt << 16) | bytes;
-      int32_t incl = own;
-      for (int o = 1; o < w; o <<= 1) {
-        const int32_t u = t.shfl(incl, lane >= o ? lane - o : 0);
-        if (lane >= o) incl += u;
-      }
+      const int32_t incl = lz4tt_team_scan(t, own);
       const int32_t ex = incl - own;
       const bool in = mine && lane <= lj && (ex >> 16) + cnt <= LZ4TT_BATCH &&
                       (ex & 0xFFFF) < LZ4TT_BATCH_BYTES;

@@ -1,20 +1,22 @@
 """Time design variants of block compress (K2), block decode (K1),
-segment decode (K5) and the hashes (K3, K4 and their streaming updates)
-against the shipped kernels, on the card.
+segment decode (K5), the hashes (K3, K4 and their streaming updates), the
+sequence parser and frame-body packing against the shipped kernels, on
+the card.
 
 Each variant is the shipped ``csrc`` with a few text replacements: the
 design options ``PERF.md`` reports as tried and lost. Every variant is
 built with ``nvcc`` (in parallel, into ``build/lz4_tpu_torch/variants/``)
 and timed with CUDA events on the main path's rows (``make_blocks(4096,
-65536, 1234)``, its K2 output for K1, and the parser's tables of that for
-K5): all rows, then the a4 and the text rows apart. A hash variant is timed
+65536, 1234)``, its K2 output for K1, the parser and pack, and the
+parser's tables of that for K5): all rows, the a4 and the text rows apart,
+then the first 256 rows (a stream batch). A hash variant is timed
 on three launches: the one-shot entry point on the 4096 rows and on one
 16 MiB row (the first 256 rows end to end), and the update on the same 16
 MiB, a stream batch. Each variant's output is held against the shipped
 kernel's. Run from the root of a checkout, on a machine with a card, for
 all of them or those of some sources::
 
-    python -m lz4_tpu_torch.design_variants [lz4_compress lz4_decode segment_decode xxh32 xxh64]
+    python -m lz4_tpu_torch.design_variants [lz4_compress lz4_decode segment_decode lz4_parse frame_pack xxh32 xxh64]
 """
 
 from __future__ import annotations
@@ -259,6 +261,130 @@ _RING_H = "lz4tt_xxh_ring.cuh"
 _RING = "  LZ4TT_RING = 4096,"
 _NEAR = "enum { LZ4TT_RING_FLUSH = 2048, LZ4TT_RING_NEAR = 3072 };"
 
+# the parser: its launch, the six zero tails, the kernel's call of the body
+_PARSE_LAUNCH = """    parse_kernel<<<grid, 32 * kWarpsPerCta, 0, (cudaStream_t)stream>>>("""
+_PARSE_MEMSET = """    cudaMemsetAsync(tables, 0, sizeof(int32_t) * 6 * (size_t)n * max_seq,
+                    (cudaStream_t)stream);
+""" + _PARSE_LAUNCH
+_ZERO_TAILS = """  lz4tt_team_zero32(t, row.lit_out, at.n + at.lit, max_seq);
+  lz4tt_team_zero32(t, row.lit_src, at.n + at.lit, max_seq);
+  lz4tt_team_zero32(t, row.lit_len, at.n + at.lit, max_seq);
+  lz4tt_team_zero32(t, row.m_out, at.n, max_seq);
+  lz4tt_team_zero32(t, row.m_dist, at.n, max_seq);
+  lz4tt_team_zero32(t, row.m_len, at.n, max_seq);
+"""
+_PARSE_NS = "}  // namespace"
+# the parser before this design: one thread a block, 32 blocks a CTA, the
+# whole walk by the serial rules from device memory, into zeroed tables
+_PARSE_THREAD = """__global__ void __launch_bounds__(32)
+    parse_thread_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
+                        const int32_t* __restrict__ comp_lens, int32_t max_seq,
+                        int32_t* tables, int32_t* __restrict__ n_seq,
+                        int32_t* __restrict__ out_total, int32_t n) {
+  const int64_t b = (int64_t)blockIdx.x * 32 + threadIdx.x;
+  if (b >= n) return;
+  const Lz4ttParseSrc src = {comp + b * comp_stride, nullptr, 0, 0};
+  const Lz4ttSeqRow row = lz4tt_seq_row(tables, n, max_seq, b);
+  Lz4ttParseAt at = {0, 0, 0, 0};
+  int32_t code;
+  do {
+    code = lz4tt_parse_seq(src, comp_lens[b], max_seq, row, at);
+  } while (code == LZ4TT_PARSE_MORE);
+  n_seq[b] = code == LZ4TT_PARSE_DONE ? at.n : code;
+  out_total[b] = code == LZ4TT_PARSE_DONE ? at.d : 0;
+}
+
+}  // namespace"""
+_PARSE_THREAD_LAUNCH = """    cudaMemsetAsync(tables, 0, sizeof(int32_t) * 6 * (size_t)n * max_seq,
+                    (cudaStream_t)stream);
+    parse_thread_kernel<<<(n + 31) / 32, 32, 0, (cudaStream_t)stream>>>("""
+# lane 0 walks the whole block, 3-byte sequences four at a time (K1's run)
+# staged in shared memory and written out by the warp with coalesced
+# stores, any other sequence by the serial rules
+_PARSE_BODY = "// Parse one block into its row of the tables by the team, the zero tails"
+_PARSE_LEADER = """template <class Team>
+LZ4TT_HD int32_t lz4tt_parse_block_leader(const Team& t, const uint8_t* block,
+                                          int32_t src_len, int32_t max_seq,
+                                          const Lz4ttSeqRow& row, uint8_t* win,
+                                          int32_t* stage, int32_t* out_total) {
+  Lz4ttParseSrc src = {block, win, 0, 0};
+  Lz4ttParseAt at = {0, 0, 0, 0};
+  int32_t code = LZ4TT_PARSE_MORE;
+  while (code == LZ4TT_PARSE_MORE) {
+    if (src.hi < src_len && at.s + LZ4TT_PARSE_AHEAD > src.hi)
+      lz4tt_parse_fill(t, src, at.s, src_len, win);
+    int32_t k = 0;
+    const int32_t n0 = at.n;
+    if (t.leader()) {
+      while (k <= 28 && at.s + 12 <= src_len && at.n + k + 4 <= max_seq) {
+        int32_t tk[4], ds[4];
+#pragma unroll
+        for (int j = 0; j < 4; j++) {
+          tk[j] = src[at.s + 3 * j];
+          ds[j] = src[at.s + 3 * j + 1] | (src[at.s + 3 * j + 2] << 8);
+        }
+        int j = 0;
+        for (; j < 4; j++) {
+          if (tk[j] > 14 || at.d < ds[j]) break;
+          const int32_t m = tk[j] + LZ4TT_MIN_MATCH;
+          stage[k] = at.d;
+          stage[32 + k] = at.s + 1;
+          stage[64 + k] = 0;
+          stage[96 + k] = at.d;
+          stage[128 + k] = ds[j];
+          stage[160 + k] = ds[j] ? m : 0;
+          k++;
+          at.d += m;
+          at.s += 3;
+        }
+        if (j < 4) break;
+      }
+    }
+    k = t.bcast(k);
+    t.sync();
+    for (int32_t i = t.lane(); i < k; i += t.size()) {
+      row.lit_out[n0 + i] = stage[i];
+      row.lit_src[n0 + i] = stage[32 + i];
+      row.lit_len[n0 + i] = stage[64 + i];
+      row.m_out[n0 + i] = stage[96 + i];
+      row.m_dist[n0 + i] = stage[128 + i];
+      row.m_len[n0 + i] = stage[160 + i];
+    }
+    t.sync();
+    at.n = n0 + k;
+    if (t.leader() && k <= 28) code = lz4tt_parse_seq(src, src_len, max_seq, row, at);
+    code = t.bcast(code);
+    at = {t.bcast(at.s), t.bcast(at.d), t.bcast(at.n), t.bcast(at.lit)};
+  }
+""" + _ZERO_TAILS + """  *out_total = code == LZ4TT_PARSE_DONE ? at.d : 0;
+  return code == LZ4TT_PARSE_DONE ? at.n : code;
+}
+
+""" + _PARSE_BODY
+_PARSE_WINS = "  __shared__ __align__(16) uint8_t wins[kWarpsPerCta][LZ4TT_PARSE_WIN];"
+_PARSE_CALL = "wins[warp], &total);"
+_PARSE_CHAIN = "    if (lz4tt_parse_chain(t, src, src_len, max_seq, row, at)) continue;\n"
+_PARSE_CHUNK = "// The 16 bytes src[i, i + 16) into a"
+# lane 0 walks on by the serial rules until the next two sequences look
+# like 3-byte ones, or its window runs short
+_PARSE_WALK = """LZ4TT_HD int32_t lz4tt_parse_walk(const Lz4ttParseSrc& src, int32_t src_len,
+                                  int32_t max_seq, const Lz4ttSeqRow& row,
+                                  Lz4ttParseAt& w) {
+  int32_t code;
+  do {
+    code = lz4tt_parse_seq(src, src_len, max_seq, row, w);
+  } while (code == LZ4TT_PARSE_MORE &&
+           (src.hi == src_len || w.s + LZ4TT_PARSE_AHEAD <= src.hi) &&
+           !(w.s + 4 <= src_len && src.near(w.s) < LZ4TT_ML_MASK &&
+             src.near(w.s + 3) < LZ4TT_ML_MASK));
+  return code;
+}
+
+"""
+_PARSE_NEAR = "    return win[i - lo];\n  }\n};"
+_PARSE_NEAR_GLOBAL = "    return src[i];\n  }\n};"
+_PACK_ALIGNED = "  const int32_t a1 = head + ((n - head) & ~15);"
+
 # name -> (source, [(file, old, new)]): every occurrence of old is replaced
 VARIANTS = {
     "K2": ("lz4_compress", []),
@@ -305,6 +431,39 @@ VARIANTS = {
         ("segment_decode.cuh",
          "    if (k0 + w + lane < ns) next = lz4tt_seq_load(s, k0 + w + lane);",
          "")]),
+    "parser": ("lz4_parse", []),
+    "parser, one thread a block from device memory (the kernel before)": (
+        "lz4_parse", [
+            ("lz4_parse.cuh", _PARSE_NEAR, _PARSE_NEAR_GLOBAL),
+            ("lz4_parse.cu", _PARSE_NS, _PARSE_THREAD),
+            ("lz4_parse.cu", _PARSE_LAUNCH, _PARSE_THREAD_LAUNCH)]),
+    "parser, lane 0 walks, four-token runs staged and written by the warp": (
+        "lz4_parse", [
+            ("lz4_parse.cuh", _PARSE_BODY, _PARSE_LEADER),
+            ("lz4_parse.cu", _PARSE_WINS, _PARSE_WINS
+             + "\n  __shared__ int32_t stages[kWarpsPerCta][6 * 32];"),
+            ("lz4_parse.cu", "lz4tt_parse_block(t, comp",
+             "lz4tt_parse_block_leader(t, comp"),
+            ("lz4_parse.cu", _PARSE_CALL, "wins[warp], stages[warp], &total);")]),
+    "parser, tables zeroed by the wrapper": ("lz4_parse", [
+        ("lz4_parse.cuh", _ZERO_TAILS, ""),
+        ("lz4_parse.cu", _PARSE_LAUNCH, _PARSE_MEMSET)]),
+    "parser, the block read from device memory (no window)": ("lz4_parse", [
+        ("lz4_parse.cuh", _PARSE_NEAR, _PARSE_NEAR_GLOBAL),
+        ("lz4_parse.cuh", "  if (r.hi < src_len && s + LZ4TT_PARSE_AHEAD > r.hi)",
+         "  if (false)")]),
+    "parser, no chain: lane 0 walks one sequence a step": ("lz4_parse", [
+        ("lz4_parse.cuh", _PARSE_CHAIN, "")]),
+    "parser, no chain: lane 0 walks until two 3-byte tokens": ("lz4_parse", [
+        ("lz4_parse.cuh", _PARSE_CHAIN, ""),
+        ("lz4_parse.cuh", _PARSE_CHUNK, _PARSE_WALK + _PARSE_CHUNK),
+        ("lz4_parse.cuh", "if (t.leader()) code = lz4tt_parse_seq(",
+         "if (t.leader()) code = lz4tt_parse_walk(")]),
+    "pack": ("frame_pack", []),
+    "pack, byte-wise stores": ("frame_pack", [
+        ("frame_pack.cuh", _PACK_ALIGNED, "  const int32_t a1 = head;")]),
+    "pack, one 16-byte store a lane in flight": ("frame_pack", [
+        ("frame_pack.cuh", "#define LZ4TT_PACK_UNROLL 4", "#define LZ4TT_PACK_UNROLL 1")]),
     "update": ("xxh32", []),
     "update, 8 stages of 8 KiB": ("xxh32", [
         (_RING_H, _STAGES,
@@ -395,6 +554,8 @@ SYMBOLS = {  # source -> (C entry point, its argtypes)
     "lz4_decode": ("lz4tt_decompress_safe", _ARGS),
     "segment_decode": ("lz4tt_decompress_segments",
                        [_P, _I64, _P, _P, _P, _I32, _P, _I64, _I32, _P, _I32, _P]),
+    "lz4_parse": ("lz4tt_parse_sequences", [_P, _I64, _P, _I32, _P, _P, _P, _I32, _P]),
+    "frame_pack": ("lz4tt_frame_pack", [_P, _I64, _P, _P, _I64, _P, _P, _P, _I32, _P]),
     "xxh32": ("lz4tt_xxh32_batch", [_P, _I64, _P, ctypes.c_uint, _P, _I32, _P]),
     "xxh64": ("lz4tt_xxh64_batch",
               [_P, _I64, _P, ctypes.c_ulonglong, _P, _I32, _P]),
@@ -456,12 +617,13 @@ class _Rows:
         self.cap = max_compressed_length(BLOCK_LEN)
         self.comp, self.clens, _ = codec.compress_fast_batch(
             self.src, self.lens, self.cap)
-        self.tables, self.n_seq, _ = sequences.parse_sequences(self.comp,
-                                                               self.clens)
+        self.tables, self.n_seq, self.total = sequences.parse_sequences(
+            self.comp, self.clens)
         kinds = torch.from_numpy(sharded.block_kinds(N_BLOCKS, SEED)).to(dev)
         self.sets = {"all": torch.arange(N_BLOCKS, device=dev),
                      "a4": torch.nonzero(kinds == 0).flatten(),
-                     "text": torch.nonzero(kinds == 1).flatten()}
+                     "text": torch.nonzero(kinds == 1).flatten(),
+                     "256 rows": torch.arange(256, device=dev)}
         # one stream batch: 256 blocks, 16 MiB, also hashed as one row
         self.batch = self.src[:256, :BLOCK_LEN].contiguous().view(-1)
         self.one = self.batch.view(1, -1)
@@ -540,6 +702,44 @@ def _calls(fn, source: str, rows: _Rows, idx, stream):
             raise RuntimeError(f"CUDA error {rc}")
 
     n = idx.numel()
+    if source == "lz4_parse":
+        c, cl = rows.comp[idx].contiguous(), rows.clens[idx].contiguous()
+        s = rows.tables.shape[2]
+        tables = torch.empty((6, n, s), dtype=torch.int32, device=dev)
+        ns, total = (torch.empty((n,), dtype=torch.int32, device=dev)
+                     for _ in range(2))
+
+        def call():
+            launch(c.data_ptr(), c.stride(0), cl.data_ptr(), s,
+                   tables.data_ptr(), ns.data_ptr(), total.data_ptr(), n,
+                   stream)
+
+        def check():   # garbage first: every entry must be written
+            tables.fill_(0x5A5A5A5A)
+            call()
+            return torch.equal(ns, rows.n_seq[idx]) and \
+                torch.equal(total, rows.total[idx]) and \
+                torch.equal(tables, rows.tables[:, idx])
+        return call, check
+    if source == "frame_pack":
+        s, sl = rows.src[idx].contiguous(), rows.lens[idx].contiguous()
+        c, cl = rows.comp[idx].contiguous(), rows.clens[idx].contiguous()
+        want, total = sharded.frame_body_packed(s, sl, c, cl)
+        use_raw = cl >= sl
+        emit = torch.where(sl > 0, torch.where(use_raw, sl, cl) + 4, 0)
+        offs = (torch.cumsum(emit, 0) - emit).to(torch.int32)
+        body = torch.empty_like(want)
+
+        def call():
+            launch(s.data_ptr(), s.stride(0), sl.data_ptr(), c.data_ptr(),
+                   c.stride(0), cl.data_ptr(), offs.data_ptr(),
+                   body.data_ptr(), n, stream)
+
+        def check():
+            body.fill_(0xA5)
+            call()
+            return torch.equal(body, want)
+        return call, check
     if source == "segment_decode":
         c, cl = rows.comp[idx].contiguous(), rows.clens[idx].contiguous()
         ns, t = rows.n_seq[idx].contiguous(), rows.tables[:, idx].contiguous()
@@ -582,7 +782,7 @@ def _calls(fn, source: str, rows: _Rows, idx, stream):
 def main(argv: list[str]) -> int:
     """Build and time every variant, or those of the sources named in
     ``argv`` (``lz4_compress``, ``lz4_decode``, ``segment_decode``,
-    ``xxh32``, ``xxh64``)."""
+    ``lz4_parse``, ``frame_pack``, ``xxh32``, ``xxh64``)."""
     if not torch.cuda.is_available():
         print("design_variants: CUDA is not available", file=sys.stderr)
         return 1

@@ -2,7 +2,8 @@
 
 Same names as the JAX module so a reader finds each counterpart:
 ``pack_offsets``, ``frame_body_packed`` (``_frame_body_packed``,
-``sharded.py:271-306``), ``compress_frame_packed``
+``sharded.py:271-306``; the kernel ``csrc/frame_pack.cu``),
+``compress_frame_packed``
 (``compress_frame_sharded_packed``, ``:324-369``) and ``roundtrip_step``
 (``sharded_roundtrip_step``, ``:372-422``): compress, block checksums, the
 exclusive scan of compressed lengths, decode and verify, and packing of the
@@ -12,6 +13,7 @@ part of this module yet.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import struct
 
@@ -23,18 +25,35 @@ from ..core.device import resolve_device
 from ..core.errors import Lz4Error
 from ..formats.frame import INCOMPRESSIBLE_MASK, frame_header
 from ..kernels.codec import compress_fast_batch, decompress_safe_batch
-from ..kernels.layout import row_stride
+from ..kernels.build import Kernel
+from ..kernels.layout import cuda_stream, row_stride
 from ..kernels.xxhash import xxh32_batch
 
-# Output bytes packed per step of frame_body_packed: its int32/int64 index
-# temporaries stay near 40 bytes per packed byte of a chunk (about 1/3 GiB)
-# whatever the batch size.
+# Output bytes packed per step of frame_body_packed_plain: its int32/int64
+# index temporaries stay near 40 bytes per packed byte of a chunk (about 1/3
+# GiB) whatever the batch size.
 _PACK_CHUNK = 1 << 23
+
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+FRAME_PACK = Kernel("frame_pack", "frame_pack", "lz4tt_frame_pack",
+                    [_P, _I64, _P, _P, _I64, _P, _P, _P, _I32, _P])
 
 
 def pack_offsets(comp_lens: torch.Tensor) -> torch.Tensor:
     """Exclusive prefix sum of per-block compressed lengths (int32)."""
     return torch.cumsum(comp_lens, 0, dtype=torch.int32) - comp_lens
+
+
+def _check_pack_batch(data: torch.Tensor, lens: torch.Tensor) -> None:
+    """Shapes, types and devices of one ``(uint8[N, W], int32[N])`` input
+    of :func:`frame_body_packed`, without reading the lengths."""
+    if data.dtype != torch.uint8 or data.dim() != 2 or data.stride(1) != 1:
+        raise ValueError("expected a uint8[N, W] tensor with contiguous rows")
+    if (lens.dtype != torch.int32 or lens.dim() != 1
+            or lens.shape[0] != data.shape[0] or not lens.is_contiguous()):
+        raise ValueError("expected contiguous int32[N] lengths")
+    if lens.device != data.device:
+        raise ValueError("data and lengths must be on one device")
 
 
 def frame_body_packed(src: torch.Tensor, lens: torch.Tensor,
@@ -44,8 +63,46 @@ def frame_body_packed(src: torch.Tensor, lens: torch.Tensor,
     For each block with ``lens > 0``: a little-endian size word, then the
     compressed payload, or the raw block with ``INCOMPRESSIBLE_MASK`` set
     when compressing did not make it smaller
-    (``LZ4FrameOutputStream.java:215-222``). Output bytes are gathered on
-    the device in chunks of whole blocks, with int32 positions.
+    (``LZ4FrameOutputStream.java:215-222``). On the card the offsets are
+    scanned there, the body's size is the one value read back, and one
+    launch of ``csrc/frame_pack.cu`` copies every block; on the CPU this
+    is :func:`frame_body_packed_plain`. Lengths must lie within the rows
+    (``ValueError`` otherwise).
+
+    Returns (body uint8[total], total).
+    """
+    if src.device.type == "cpu":
+        return frame_body_packed_plain(src, lens, comp, comp_lens)
+    _check_pack_batch(src, lens)
+    _check_pack_batch(comp, comp_lens)
+    n = lens.shape[0]
+    if comp.shape[0] != n or comp.device != src.device:
+        raise ValueError("src and comp must hold the same blocks on one device")
+    dev = src.device
+    if not n:
+        return torch.empty((0,), dtype=torch.uint8, device=dev), 0
+    # each block's payload is the smaller of its two lengths (the raw one
+    # when comp_lens >= lens); few torch calls, as each costs host time
+    emit = torch.where(lens > 0, torch.minimum(lens, comp_lens) + 4, 0)
+    ends = torch.cumsum(emit, 0)            # int64
+    offs = (ends - emit).to(torch.int32)    # wraps only where total is refused
+    total, lens_max, comp_min, comp_max = torch.stack(
+        (ends[-1], lens.max(), comp_lens.min(), comp_lens.max())).tolist()
+    if lens_max > src.shape[1] or comp_min < 0 or comp_max > comp.shape[1]:
+        raise ValueError("lengths must lie within the rows")
+    if total >= 2 ** 31:
+        raise ValueError("frame body of 2 GiB or more")
+    body = torch.empty((total,), dtype=torch.uint8, device=dev)
+    FRAME_PACK(src.data_ptr(), src.stride(0), lens.data_ptr(), comp.data_ptr(),
+               comp.stride(0), comp_lens.data_ptr(), offs.data_ptr(),
+               body.data_ptr(), n, cuda_stream(src))
+    return body, total
+
+
+def frame_body_packed_plain(src: torch.Tensor, lens: torch.Tensor,
+                            comp: torch.Tensor, comp_lens: torch.Tensor):
+    """Plain version of :func:`frame_body_packed`, on any device: output
+    bytes gathered in chunks of whole blocks, with int32 positions.
 
     Returns (body uint8[total], total).
     """

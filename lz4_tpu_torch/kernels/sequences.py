@@ -5,8 +5,9 @@ Counterpart of ``lz4_tpu/kernels/gather_decode.py::parse_packed``
 (``:50-103``) and ``parse_blocks`` (``:106-124``), which run the JAX
 package's native C++ parser (``tpulz4_parse_sequences_batch``,
 ``lz4_tpu/native/src/tpulz4.cpp:1683-1805``) with zeroed tails. The port
-parses on the card (``csrc/lz4_parse.cu``): the tables are about 8x the
-compressed bytes, and the compressed bytes are on the card already.
+parses on the card (``csrc/lz4_parse.cu``, one warp a block, 32 three-byte
+sequences a step): the tables are about 8x the compressed bytes, and the
+compressed bytes are on the card already.
 
 Tables: ``int32[6, N, S]`` in the order of :data:`TABLES`, so that
 ``tables[i]`` is the JAX package's ``arrs[TABLES[i]]``. ``n_seq[i]`` is the
@@ -66,9 +67,10 @@ def parse_sequences(comp: torch.Tensor, comp_lens: torch.Tensor,
     if comp.device.type == "cpu":
         return parse_plain(comp, comp_lens, max_seq)
     dev = comp.device
-    tables = torch.zeros((6, n, max_seq), dtype=torch.int32, device=dev)
+    # the kernel writes every entry, the zero tails included
+    tables = torch.empty((6, n, max_seq), dtype=torch.int32, device=dev)
     n_seq = torch.empty((n,), dtype=torch.int32, device=dev)
-    out_total = torch.zeros((n,), dtype=torch.int32, device=dev)
+    out_total = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
         PARSE(comp.data_ptr(), comp.stride(0), comp_lens.data_ptr(), max_seq,
               tables.data_ptr(), n_seq.data_ptr(), out_total.data_ptr(), n,

@@ -142,3 +142,98 @@ def short_sequence_blocks(case: str, rng: np.random.Generator):
                       int(rng.integers(4, 17))) for _ in range(700)]
             blocks.append((seqs + [(b"", dist, n), (rb(1), dist, n)], tail))
     return blocks
+
+
+def run_block(n_run: int, bad_at: int | None = None,
+              tail: bytes | None = b"tail!", lits: int = 0,
+              mls: int = 15) -> bytes:
+    """A block for the parser's runs and chains: one sequence with 8
+    literals, then ``n_run`` sequences (with ``lits`` 0, no literals: 3
+    bytes each; else 1 to ``lits`` literals; matches of 4 to ``mls`` + 3
+    bytes, offsets 1-8, a null offset every 16), the one at ``bad_at``
+    with an offset past the output start, then the last literals
+    ``tail``; with ``tail=None`` the block ends on the last of those
+    sequences."""
+    seqs = [(b"12345678", 1, 4)]
+    for i in range(n_run):
+        dist = 0xFFFF if i == bad_at else (0 if i % 16 == 7 else 1 + i % 8)
+        seqs.append((b"x" * (1 + i % lits if lits else 0), dist, 4 + i % mls))
+    blk = encode_block(seqs, tail or b"")
+    return blk[:-1] if tail is None else blk
+
+
+# where RUN_BLOCKS put a malformed offset: in runs of 3-byte sequences,
+# lanes 0, 1 and 31 of a 32-lane step, lanes 0 and 1 of the next, lane 31
+# of that; in chains of sequences with literals, the 1st, 2nd, 3rd, 6th
+# and 32nd, with and without length-extension bytes
+RUN_BAD_AT = (0, 1, 31, 32, 33, 63)
+CHAIN_BAD_AT = (0, 1, 2, 5, 31)
+RUN_MALFORMED = 23      # the malformed rows, first in run_blocks()
+
+
+def run_blocks() -> list[bytes]:
+    """Blocks at the edges of the parser's runs and chains: a malformed
+    offset at ``RUN_BAD_AT`` and ``CHAIN_BAD_AT``, runs and chains that end
+    exactly at the block end with no last literals (malformed too); then
+    runs and chains closed by empty and by 5 last literals, three blocks
+    of runs broken at every distance from the window's refills
+    (``broken_runs_block``), and last a run of 102 sequences for narrow
+    table widths."""
+    blocks = [run_block(80, bad_at=j) for j in RUN_BAD_AT]
+    blocks += [run_block(80, bad_at=j, lits=14) for j in CHAIN_BAD_AT]
+    blocks += [run_block(80, bad_at=j, lits=20, mls=40) for j in CHAIN_BAD_AT]
+    blocks += [run_block(n, tail=None) for n in (31, 32, 33, 64)]
+    blocks += [run_block(n, tail=None, lits=14) for n in (1, 2, 5)]
+    blocks += [run_block(n, tail=t) for n in (0, 31, 32, 33)
+               for t in (b"", b"tail!")]
+    blocks += [run_block(n, tail=t, lits=14) for n in (1, 5, 40)
+               for t in (b"", b"tail!")]
+    blocks += [run_block(60, lits=20, mls=40), run_block(60, lits=30, mls=300)]
+    # extensions of two bytes and more, literals past the window
+    blocks += [encode_block([(b"12345678", 1, 4), (b"y" * 300, 5, 4),
+                             (b"", 3, 300), (b"z" * 200, 7, 30),
+                             (b"", 2, 4), (b"w" * 16, 9, 19)], b"end")]
+    rng = np.random.default_rng(7)
+    blocks += [broken_runs_block(rng) for _ in range(3)]
+    blocks += [run_block(100)]
+    return blocks
+
+
+def broken_runs_block(rng: np.random.Generator, size: int = 60000) -> bytes:
+    """A block of runs of 1-40 3-byte sequences, each broken by a sequence
+    with 16-30 literals and a match of 19-60 bytes (one length-extension
+    byte each), about ``size`` bytes: the breaks fall at every distance
+    from the parser's window refills."""
+    seqs, n, d = [(b"12345678", 1, 4)], 12, 12
+    while n < size:
+        for _ in range(int(rng.integers(1, 41))):
+            ml = int(rng.integers(4, 19))
+            seqs.append((b"", int(rng.integers(1, min(d, 65535) + 1)), ml))
+            n, d = n + 3, d + ml
+        lit = bytes(rng.integers(0, 256, int(rng.integers(16, 31)),
+                                 dtype=np.uint8))
+        ml = int(rng.integers(19, 61))
+        seqs.append((lit, int(rng.integers(1, min(d + len(lit), 65535) + 1)),
+                     ml))
+        n, d = n + len(lit) + 5, d + len(lit) + ml
+    return encode_block(seqs, b"tail!")
+
+
+def pack_cases() -> list[tuple[int, int]]:
+    """``(lens, comp_lens)`` of rows for frame-body packing: 16 blocks
+    each of payloads of 13, 173, 653 and 4109 bytes, which emit 1 more
+    than a multiple of 16, so that their destinations take every
+    misalignment 0-15 in turn; payloads of 0-40 bytes, compressed and
+    raw; payloads around multiples of 16 up to 4096; ``comp_lens ==
+    lens`` and ``comp_lens > lens`` (raw by the ``>=`` rule); ``lens ==
+    0`` padding rows; rows of 65,547 bytes. Rows of 70,000 bytes hold
+    every payload."""
+    cases = [(70000, p) for p in (13, 173, 653, 4109) for _ in range(16)]
+    cases += [(1000, p) for p in range(41)]
+    cases += [(n, n + r) for n in range(1, 41) for r in (0, 3)]
+    for m in (16, 32, 48, 64, 128, 256, 512, 1024, 2048, 4096):
+        cases += [(5000, m + r) for r in (-1, 0, 1)]
+        cases += [(m + r, m + r) for r in (-1, 0, 1)]
+    cases += [(0, 7), (0, 0), (0, 65547)]
+    cases += [(65547, 65547), (65547, 65546), (65547, 70000), (65547, 13)]
+    return cases

@@ -17,6 +17,7 @@ from lz4_tpu_torch import (
     Lz4Factory, XXHashFactory, compress_frame_packed, roundtrip_step, testing)
 from lz4_tpu_torch.core import xxhash_ref
 from lz4_tpu_torch.core.constants import max_compressed_length
+from lz4_tpu_torch.dist import sharded
 from lz4_tpu_torch.kernels import (
     build, codec, layout, segment_decode, sequences, xxhash, xxhash_stream)
 from lz4_tpu_torch.streams import compress_stream, decompress_stream
@@ -180,9 +181,9 @@ def test_roundtrip_step_matches_cpu(cuda_device):
     build.reset_launch_counts()
     gpu = roundtrip_step(64, 65536, seed=5, device=cuda_device)
     counts = build.launch_counts()
-    assert [counts[k] for k in ("lz4_compress", "lz4_decode", "xxh32")] == \
-        [1, 1, 1]
-    assert sum(counts.values()) == 3
+    assert [counts[k] for k in ("lz4_compress", "lz4_decode", "xxh32",
+                                "frame_pack")] == [1, 1, 1, 1]
+    assert sum(counts.values()) == 4
     cpu = roundtrip_step(64, 65536, seed=5, device="cpu")
     assert bool(gpu.ok.all()) and bool(cpu.ok.all())
     assert gpu.compressed_total == cpu.compressed_total
@@ -234,6 +235,62 @@ def test_parse_kernel_matches_plain(cuda_device, max_seq):
     for k, p in zip(kern, plain):
         assert torch.equal(k, p)
     assert sequences.PARSE_MALFORMED in kern[1].tolist()
+
+
+@pytest.mark.parametrize("max_seq", [None, 1, 2, 31, 32, 33, 101, 102])
+def test_parse_kernel_run_edges(cuda_device, max_seq):
+    """The parser's runs of 3-byte sequences and chains of short ones at
+    their edges: malformed offsets inside them, runs and chains ending
+    exactly at the block end, length extensions, and widths inside a
+    run. Memory of the tables' size is
+    filled with garbage and freed first, so the caching allocator hands
+    it to the wrapper's ``torch.empty``: the kernel writes every entry."""
+    c, cl = layout.to_device_layout(testing.run_blocks(), device=cuda_device)
+    s = max_seq or sequences.max_seq_for(int(cl.max()))
+    junk = torch.full((6, c.shape[0], s), 0x5A5A5A5A, dtype=torch.int32,
+                      device=cuda_device)
+    del junk
+    kern = sequences.parse_sequences(c, cl, max_seq)
+    plain = sequences.parse_plain(c, cl, kern[0].shape[2])
+    for k, p in zip(kern, plain):
+        assert torch.equal(k, p)
+    if max_seq is None:
+        bad = testing.RUN_MALFORMED
+        assert kern[1][:bad].tolist() == [sequences.PARSE_MALFORMED] * bad
+
+
+def _pack_rows(device, shift):
+    """``testing.pack_cases`` as rows of random bytes, the source rows
+    ``shift`` bytes into a wider buffer."""
+    rng = np.random.default_rng(shift)
+    cases = testing.pack_cases()
+    n, width = len(cases), layout.row_stride(70000)
+    raw = torch.from_numpy(rng.integers(0, 256, (n, width + 16),
+                                        dtype=np.uint8)).to(device)
+    comp = torch.from_numpy(rng.integers(0, 256, (n, width),
+                                         dtype=np.uint8)).to(device)
+    lens, comp_lens = (torch.tensor(c, dtype=torch.int32, device=device)
+                       for c in zip(*cases))
+    return raw[:, shift:shift + width], lens, comp, comp_lens
+
+
+@pytest.mark.parametrize("shift", [0, 3])
+def test_frame_pack_kernel_matches_plain(cuda_device, shift):
+    src, lens, comp, comp_lens = _pack_rows(cuda_device, shift)
+    before = sharded.FRAME_PACK.launches
+    body, total = sharded.frame_body_packed(src, lens, comp, comp_lens)
+    assert sharded.FRAME_PACK.launches == before + 1
+    want, want_total = sharded.frame_body_packed_plain(src, lens, comp,
+                                                       comp_lens)
+    assert total == want_total and torch.equal(body, want)
+
+
+def test_frame_pack_rejects_lengths_past_rows(cuda_device):
+    src, lens, comp, comp_lens = _pack_rows(cuda_device, 0)
+    for bad in ((src[:, :1000], lens, comp, comp_lens),
+                (src, lens, comp[:, :1000], comp_lens)):
+        with pytest.raises(ValueError):
+            sharded.frame_body_packed(*bad)
 
 
 @pytest.mark.parametrize("out_max", [64, 4096, 70000])
@@ -294,12 +351,13 @@ def test_stream_pipeline_on_the_card(cuda_device):
     build.reset_launch_counts()
     out = io.BytesIO()
     compress_stream(io.BytesIO(data), out, engine="cuda", batch_blocks=2)
-    assert out.getvalue() == compress_frame_packed(data, device="cpu")
+    assert out.getvalue() == compress_frame_packed(data, device="cpu") == \
+        compress_frame_packed(data, device=cuda_device)
     for engine in ("segment", "cuda"):
         back = io.BytesIO()
         decompress_stream(io.BytesIO(out.getvalue()), back, engine=engine)
         assert back.getvalue() == data
     counts = build.launch_counts()
     for k in ("lz4_compress", "lz4_decode", "lz4_parse", "segment_decode",
-              "xxh32_stream"):
+              "xxh32_stream", "frame_pack"):
         assert counts[k] >= 1, k

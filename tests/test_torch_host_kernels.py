@@ -4,6 +4,7 @@ versions on the same seeded inputs. This catches logic faults in the
 kernels' code without a card; the package never uses this build."""
 
 import ctypes
+import functools
 import shutil
 import subprocess
 
@@ -19,6 +20,11 @@ from lz4_tpu_torch.kernels import (
 from test_torch_segment import CORRUPTIONS, corrupt
 
 HARNESS = r"""
+// every read of the parser's window is held to the window's promise
+static int window_faults = 0;
+#define LZ4TT_PARSE_CHECK(i, lo, hi) \
+  if ((i) < (lo) || (i) >= (hi)) __atomic_add_fetch(&window_faults, 1, __ATOMIC_RELAXED)
+#include "frame_pack.cuh"
 #include "lz4_compress.cuh"
 #include "lz4_decode.cuh"
 #include "lz4_parse.cuh"
@@ -84,6 +90,86 @@ static void* segment_lane(void* arg) {
                                       j->max_seq, j->out, j->out_max, j->ring,
                                       *j->q);
   return nullptr;
+}
+
+// One block of a batch by a team of host threads, one job a launch of
+// host_team: the parser's body or the pack body.
+struct TeamBatch {
+  const uint8_t* a;
+  long long a_stride;
+  const int32_t* a_lens;
+  const uint8_t* b;
+  long long b_stride;
+  const int32_t* b_lens;
+  const int32_t* offs;
+  uint8_t* body;
+  int32_t max_seq;
+  int32_t* tables;
+  int32_t* n_seq;
+  int32_t* out_total;
+  int n;
+  uint8_t* win;
+};
+struct TeamJob {
+  const TeamBatch* batch;
+  long long row;
+  ThreadTeamShared* sh;
+  int lanes;
+  int32_t code[32], total[32];
+};
+struct TeamLane {
+  TeamJob* job;
+  int id;
+};
+template <class Team>
+static void parse_row(const Team& t, const TeamBatch& x, long long b,
+                      int32_t* code, int32_t* total) {
+  *code = lz4tt_parse_block(t, x.a + b * x.a_stride, x.a_lens[b], x.max_seq,
+                            lz4tt_seq_row(x.tables, x.n, x.max_seq, b), x.win,
+                            total);
+}
+template <class Team>
+static void pack_row(const Team& t, const TeamBatch& x, long long b) {
+  lz4tt_pack_block(t, x.a + b * x.a_stride, x.a_lens[b], x.b + b * x.b_stride,
+                   x.b_lens[b], x.body + x.offs[b]);
+}
+static void* parse_lane(void* arg) {
+  TeamLane* l = (TeamLane*)arg;
+  TeamJob* j = l->job;
+  ThreadTeam t = {j->sh, l->id, j->lanes};
+  parse_row(t, *j->batch, j->row, &j->code[l->id], &j->total[l->id]);
+  return nullptr;
+}
+static void* pack_lane(void* arg) {
+  TeamLane* l = (TeamLane*)arg;
+  ThreadTeam t = {l->job->sh, l->id, l->job->lanes};
+  pack_row(t, *l->job->batch, l->job->row);
+  return nullptr;
+}
+// Every row of x by a team of `lanes` host threads running fn; for the
+// parser, returns -1 if the lanes disagree on a row's code or total.
+static int host_team(const TeamBatch& x, int lanes, void* (*fn)(void*)) {
+  ThreadTeamShared sh;
+  pthread_barrier_init(&sh.bar, nullptr, lanes);
+  int rc = 0;
+  for (long long b = 0; b < x.n && rc == 0; b++) {
+    TeamJob job = {&x, b, &sh, lanes, {}, {}};
+    pthread_t th[32];
+    TeamLane ls[32];
+    for (int i = 0; i < lanes; i++) {
+      ls[i] = {&job, i};
+      pthread_create(&th[i], nullptr, fn, &ls[i]);
+    }
+    for (int i = 0; i < lanes; i++) pthread_join(th[i], nullptr);
+    if (fn == parse_lane) {
+      x.n_seq[b] = job.code[0];
+      x.out_total[b] = job.total[0];
+      for (int i = 1; i < lanes; i++)
+        if (job.code[i] != job.code[0] || job.total[i] != job.total[0]) rc = -1;
+    }
+  }
+  pthread_barrier_destroy(&sh.bar);
+  return rc;
 }
 
 // Absorb a row's n_stripes stripes into its lanes v[4] as a CTA does: in
@@ -162,19 +248,34 @@ void host_xxh64(const uint8_t* data, long long stride, const int32_t* lens,
 }
 // rows a CTA takes in a launch of n rows when `slots` CTAs fit at once
 int host_xxh_rows(long long n, long long slots) { return lz4tt_xxh_rows(n, slots); }
-// the parse kernel's body, one block after the other; tables zeroed
-void host_parse(const uint8_t* comp, long long comp_stride,
-                const int32_t* comp_lens, int max_seq, int32_t* tables,
-                int32_t* n_seq, int32_t* out_total, int n) {
-  const int64_t f = (int64_t)n * max_seq;
-  for (int b = 0; b < n; b++) {
-    int32_t* r = tables + (int64_t)b * max_seq;
-    const Lz4ttSeqRow row = {r, r + f, r + 2 * f, r + 3 * f, r + 4 * f,
-                             r + 5 * f};
-    int32_t written;
-    n_seq[b] = lz4tt_parse_block(comp + b * comp_stride, comp_lens[b], max_seq,
-                                 row, &written, &out_total[b]);
+// the parse kernel's body, one block after the other, by a team of `lanes`
+// (1: one lane; else host threads); returns -1 if the lanes disagree
+int host_parse(const uint8_t* comp, long long comp_stride,
+               const int32_t* comp_lens, int max_seq, int32_t* tables,
+               int32_t* n_seq, int32_t* out_total, int n, int lanes) {
+  alignas(16) static uint8_t win[LZ4TT_PARSE_WIN];
+  const TeamBatch x = {comp,    comp_stride, comp_lens, nullptr, 0,
+                       nullptr, nullptr,     nullptr,   max_seq, tables,
+                       n_seq,   out_total,   n,         win};
+  if (lanes > 1) return host_team(x, lanes, parse_lane);
+  for (int b = 0; b < n; b++) parse_row(HostTeam(), x, b, &n_seq[b], &out_total[b]);
+  return 0;
+}
+// the parser's reads outside its window since the last call
+int host_window_faults() { return __atomic_exchange_n(&window_faults, 0, __ATOMIC_RELAXED); }
+// the pack kernel's body, one block after the other, by a team of `lanes`
+void host_pack(const uint8_t* src, long long src_stride, const int32_t* lens,
+               const uint8_t* comp, long long comp_stride,
+               const int32_t* comp_lens, const int32_t* offs, uint8_t* body,
+               int n, int lanes) {
+  const TeamBatch x = {src,  src_stride, lens, comp,    comp_stride,
+                       comp_lens, offs, body, 0, nullptr, nullptr, nullptr,
+                       n,    nullptr};
+  if (lanes > 1) {
+    host_team(x, lanes, pack_lane);
+    return;
   }
+  for (int b = 0; b < n; b++) pack_row(HostTeam(), x, b);
 }
 // K5's body, one block after the other, by a one-lane team
 void host_segment(const uint8_t* comp, long long comp_stride,
@@ -262,7 +363,8 @@ def lib(tmp_path_factory):
     lib.host_xxh64.argtypes = [_P, _I64, _P, ctypes.c_ulonglong, _P, _I32,
                                _I32]
     lib.host_xxh_rows.argtypes = [_I64, _I64]
-    lib.host_parse.argtypes = [_P, _I64, _P, _I32, _P, _P, _P, _I32]
+    lib.host_parse.argtypes = [_P, _I64, _P, _I32, _P, _P, _P, _I32, _I32]
+    lib.host_pack.argtypes = [_P, _I64, _P, _P, _I64, _P, _P, _P, _I32, _I32]
     lib.host_segment.argtypes = [_P, _I64, _P, _P, _P, _I32, _P, _I64, _I32,
                                  _P, _I32]
     lib.host_segment_team.argtypes = lib.host_segment.argtypes + [_I32]
@@ -458,13 +560,24 @@ def _comp_batch(seed, n_fuzz):
     return layout.to_device_layout(comp_blocks, device="cpu")
 
 
-def _host_parse(lib, c, cl, max_seq):
+def _host_parse(lib, c, cl, max_seq, lanes=1, shift=0):
+    """The parser's body by a team of ``lanes`` into tables, counts and
+    totals filled with 0x5A5A5A5A first: the body writes every entry.
+    With ``shift`` the rows start that many bytes past a 16-byte
+    boundary."""
     n = c.shape[0]
-    tables = torch.zeros((6, n, max_seq), dtype=torch.int32)
-    n_seq = torch.zeros((n,), dtype=torch.int32)
-    total = torch.zeros((n,), dtype=torch.int32)
-    lib.host_parse(_ptr(c), c.stride(0), _ptr(cl), max_seq, _ptr(tables),
-                   _ptr(n_seq), _ptr(total), n)
+    if shift:
+        wide = torch.zeros((n, c.shape[1] + 16), dtype=torch.uint8)
+        wide[:, shift:shift + c.shape[1]] = c
+        c = wide[:, shift:]
+    tables = torch.full((6, n, max_seq), 0x5A5A5A5A, dtype=torch.int32)
+    n_seq = torch.full((n,), 0x5A5A5A5A, dtype=torch.int32)
+    total = torch.full((n,), 0x5A5A5A5A, dtype=torch.int32)
+    lib.host_window_faults()
+    assert lib.host_parse(_ptr(c), c.stride(0), _ptr(cl), max_seq,
+                          _ptr(tables), _ptr(n_seq), _ptr(total), n,
+                          lanes) == 0
+    assert lib.host_window_faults() == 0
     return tables, n_seq, total
 
 
@@ -480,6 +593,132 @@ def test_host_parse_matches_plain(lib, max_seq):
     codes = set(got[1].tolist())
     assert sequences.PARSE_MALFORMED in codes
     assert (sequences.PARSE_TOO_MANY in codes) == (max_seq == 40)
+
+
+@functools.cache
+def _text_rows():
+    """K2's plain output of the text blocks of ``make_blocks(8, 65536,
+    3)``."""
+    src, lens = sharded.upload_blocks(sharded.make_blocks(8, 65536, 3),
+                                      torch.device("cpu"))
+    comp, comp_lens, _ = codec.compress_fast_batch(
+        src, lens, max_compressed_length(65536))
+    kinds = sharded.block_kinds(8, 3)
+    return [r for r, k in zip(layout.from_device_layout(comp, comp_lens),
+                              kinds) if k == 1]
+
+
+@pytest.mark.parametrize("lanes, shift", [(1, 5), (8, 5), (32, 0)])
+def test_host_parse_team_matches_plain(lib, lanes, shift):
+    """The parser body by one lane and by a team of 8 or 32 host threads
+    (its ballots, scan, runs of 3-byte sequences, chains of short ones and
+    window refills) on K2 output, periods 1-15, the boundary blocks,
+    fuzz and text blocks (``make_blocks``' phrases), with rows aligned
+    and 5 bytes past a 16-byte boundary, against the plain version with
+    the default width and one narrow enough to give ``-3``."""
+    c, cl = _comp_batch(7, 48)
+    c, cl = layout.to_device_layout(
+        layout.from_device_layout(c, cl) + _text_rows(), device="cpu")
+    for max_seq in (None, 40):
+        want = sequences.parse_plain(c, cl, max_seq)
+        got = _host_parse(lib, c, cl, want[0].shape[2], lanes, shift)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), max_seq
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+def test_host_parse_run_edges(lib, lanes):
+    """The parser body at the edges of its runs and chains, by one lane
+    and by teams of 8 and 32 host threads, against the plain version: a
+    malformed offset inside a run or a chain (the sequence keeps its
+    literal entries, and the zeros start after them), runs and chains
+    that end exactly at the block end, widths of 1, 2, 31, 32 and 33
+    sequences inside a run (``-3``), and the widths that just fit or miss
+    a block of 102 sequences."""
+    c, cl = layout.to_device_layout(testing.run_blocks(), device="cpu")
+    for max_seq in (None, 1, 2, 31, 32, 33, 101, 102):
+        want = sequences.parse_plain(c, cl, max_seq)
+        got = _host_parse(lib, c, cl, want[0].shape[2], lanes)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), max_seq
+        if max_seq is None:
+            codes = got[1].tolist()
+            bad = testing.RUN_MALFORMED
+            assert codes[:bad] == [sequences.PARSE_MALFORMED] * bad
+            assert min(codes[bad:]) > 0
+            # the malformed offset's sequence keeps its literal entries
+            assert testing.RUN_BAD_AT[3] == 32
+            bad = 1 + 32
+            assert got[0][2, 3, bad] == 0 and got[0][0, 3, bad] > 0
+            assert got[0][3, 3, bad] == 0 and not got[0][:, 3, bad + 1:].any()
+    assert got[1][-1] == 102   # under the last width, 102
+
+
+@functools.cache
+def _cap_blocks():
+    """The boundary blocks, then match and literal length extensions one
+    0xFF byte below and at the 0x7E000000 cap (about 8.3 MB of 0xFF
+    each), in the layout, with the plain version's tables of width 4."""
+    blocks = testing.boundary_blocks()
+    blocks += [bytes([0x1F, 65, 1, 0]) + b"\xff" * k + bytes([0, 0])
+               for k in (8_289_918, 8_289_919)]
+    blocks += [bytes([0xF0]) + b"\xff" * k + bytes([0, 0])
+               for k in (8_289_918, 8_289_919)]
+    c, cl = layout.to_device_layout(blocks, device="cpu")
+    return c, cl, sequences.parse_plain(c, cl, 4)
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_host_parse_length_cap(lib, lanes):
+    """The parser body on the boundary blocks and on length extensions
+    below and at the cap, whose bytes run far past the window, by one
+    lane and by 32 host threads, against the plain version."""
+    c, cl, want = _cap_blocks()
+    got = _host_parse(lib, c, cl, 4, lanes)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[1].tolist() == [2, 2, -2, -2, 2, -2, -2, -2]
+
+
+def _pack_batch(rng, shift):
+    """``testing.pack_cases`` as rows of random bytes, the source rows
+    starting ``shift`` bytes into a wider buffer, so that they are
+    misaligned too."""
+    cases = testing.pack_cases()
+    lens = torch.tensor([c[0] for c in cases], dtype=torch.int32)
+    comp_lens = torch.tensor([c[1] for c in cases], dtype=torch.int32)
+    n, width = len(cases), layout.row_stride(70000)
+    raw = torch.from_numpy(rng.integers(0, 256, (n, width + 16),
+                                        dtype=np.uint8))
+    comp = torch.from_numpy(rng.integers(0, 256, (n, width), dtype=np.uint8))
+    return raw[:, shift:shift + width], lens, comp, comp_lens
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+@pytest.mark.parametrize("shift", [0, 3])
+def test_host_pack_matches_plain(lib, shift, lanes):
+    """The pack body by one lane and by teams of 8 and 32 host threads,
+    against ``frame_body_packed_plain``: each block at the offset the
+    wrapper scans, spread by a 16-byte guard behind every block, which
+    must stay as it was."""
+    src, lens, comp, comp_lens = _pack_batch(np.random.default_rng(shift),
+                                             shift)
+    want, total = sharded.frame_body_packed_plain(src, lens, comp, comp_lens)
+    use_raw = comp_lens >= lens
+    emit = torch.where(lens > 0, torch.where(use_raw, lens, comp_lens) + 4, 0)
+    offs = torch.cumsum(emit, 0) - emit
+    spread = (torch.cumsum(emit + 16, 0) - emit - 16).to(torch.int32)
+    assert {int(o + 4) % 16 for o in spread[:16]} == set(range(16))
+    body = torch.full((int(spread[-1] + emit[-1]) + 16,), 0xA5,
+                      dtype=torch.uint8)
+    lib.host_pack(_ptr(src), src.stride(0), _ptr(lens), _ptr(comp),
+                  comp.stride(0), _ptr(comp_lens), _ptr(spread), _ptr(body),
+                  lens.numel(), lanes)
+    expect = torch.full_like(body, 0xA5)
+    for o, g, e in zip(offs.tolist(), spread.tolist(), emit.tolist()):
+        expect[g:g + e] = want[o:o + e]
+    assert int(offs[-1] + emit[-1]) == total
+    assert torch.equal(body, expect)
 
 
 def _host_segment(lib, c, cl, n_seq, tables, out_max, lanes=1):
@@ -648,10 +887,11 @@ def test_build_digest_covers_every_header(tmp_path, monkeypatch):
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
     assert {p.name for p in build.sources()} >= {
-        "xxh64.cu", "lz4_decode.cu", "lz4_parse.cu", "segment_decode.cu"}
+        "xxh64.cu", "lz4_decode.cu", "lz4_parse.cu", "segment_decode.cu",
+        "frame_pack.cu"}
     digests = {build.source_digest()}
     headers = ("xxh64.cuh", "lz4_decode.cuh", "lz4tt_common.cuh",
-               "lz4_parse.cuh", "segment_decode.cuh")
+               "lz4_parse.cuh", "segment_decode.cuh", "frame_pack.cuh")
     for name in headers:
         with open(tmp_path / name, "a") as f:
             f.write("\n")
