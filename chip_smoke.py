@@ -7,7 +7,9 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --pack-parse`` times only the main path's steps,
-pack and the parser; see :func:`pack_parse_only`.)
+pack and the parser; see :func:`pack_parse_only`. ``python3 chip_smoke.py
+--host-split`` runs only phase 7, on whichever package lies beside the
+script, the one before the host data plane included.)
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -40,6 +42,7 @@ Phases (any failure exits non-zero; nothing is caught):
    ``XXHashFactory``: the factories are built (their self-tests run on the
    card), then ``compress_batch``, ``decompress_batch``, the fast
    decompressor and both ``hash_batch`` calls on the main path's 256 MiB,
+   twice,
    with launch counts reset just before and read just after; then K4 and
    the fast decode against their plain versions at those shapes, timed (K4
    also beside one row's chain bound);
@@ -60,14 +63,23 @@ Phases (any failure exits non-zero; nothing is caught):
    ``compress_stream(engine="cuda")`` (equal to ``compress_frame_packed``'s
    frame), ``decompress_stream`` with the ``segment`` and the ``cuda``
    engines, and ``python -m lz4_tpu_torch``'s ``xxh32`` and ``xxh64`` in
-   this process; last, the command line in subprocesses: a 64 MiB file
+   this process, each of them twice; the same at ``batch_blocks=4`` on
+   64 MiB (the frame equal to ``compress_frame_packed``'s), and a
+   hand-built frame with block checksums and short blocks anywhere
+   decoded by both engines at that batch size with one K3 launch a batch;
+   last, the command line in subprocesses: a 64 MiB file
    compressed with ``--engine cuda`` and restored with ``--engine segment``,
    and the hashes of a 4 MiB file against the host hashes;
-7. ``compress_frame_packed`` on about 64 MiB, verified by decoding its
+7. the host split (:func:`host_split`): the three stream calls and the
+   tier's ``compress_batch`` and ``decompress_batch`` on the main path's
+   256 MiB, each twice untraced and once under ``torch.profiler``, with
+   the host time of each part of a batch, what no part covers and the
+   card's busy and idle share;
+8. ``compress_frame_packed`` on about 64 MiB, verified by decoding its
    blocks through the decode kernel and re-hashing on the host; then K3
    and K4 with n = 1 on that input, timed beside the byte and chain
    bounds;
-8. the launch counts, the per-kernel JSON line and the final JSON line.
+9. the launch counts, the per-kernel JSON line and the final JSON line.
 """
 
 from __future__ import annotations
@@ -107,6 +119,7 @@ TIMED_REPS = 5
 PLAIN_ROWS = 512                    # rows the plain K1, K2, fast decode run on
 PLAIN_SEG_ROWS = 64                 # rows the plain parser and K5 run on
 STREAM_BATCH = 256                  # compress_stream's default batch_blocks
+OVERLAP_BATCH = 4                   # buffers reused while the hash overlaps
 CLI_BYTES = 64 << 20
 HASH_FILE_BYTES = 4 << 20
 BIG_UPDATE = 64 << 20
@@ -729,18 +742,19 @@ def phase_tier(dev, main) -> list[dict]:
     build.reset_launch_counts()
     lz4 = timed("Lz4Factory.cuda_instance", Lz4Factory.cuda_instance)
     xxh = timed("XXHashFactory.cuda_instance", XXHashFactory.cuda_instance)
-    comp = timed("compress_batch",
-                 lambda: lz4.fast_compressor().compress_batch(blocks))
-    restored = timed("decompress_batch",
-                     lambda: lz4.safe_decompressor().decompress_batch(
-                         comp, BLOCK_LEN))
-    fast_out, src_read = timed(
-        "fast decompress_batch",
-        lambda: lz4.fast_decompressor().decompress_batch(comp, BLOCK_LEN))
-    h32 = timed("hash32 hash_batch",
-                lambda: xxh.hash32().hash_batch(data, lens_np, SEED))
-    hi, lo = timed("hash64 hash_batch",
-                   lambda: xxh.hash64().hash_batch(data, lens_np, seed64))
+    for rnd in (1, 2):          # the first call also grows the staging buffers
+        comp = timed(f"compress_batch #{rnd}",
+                     lambda: lz4.fast_compressor().compress_batch(blocks))
+        restored = timed(f"decompress_batch #{rnd}",
+                         lambda: lz4.safe_decompressor().decompress_batch(
+                             comp, BLOCK_LEN))
+        fast_out, src_read = timed(
+            f"fast decompress_batch #{rnd}",
+            lambda: lz4.fast_decompressor().decompress_batch(comp, BLOCK_LEN))
+        h32 = timed(f"hash32 hash_batch #{rnd}",
+                    lambda: xxh.hash32().hash_batch(data, lens_np, SEED))
+        hi, lo = timed(f"hash64 hash_batch #{rnd}",
+                       lambda: xxh.hash64().hash_batch(data, lens_np, seed64))
     # the host roles, on small inputs: HC and the streaming hashes
     hc = timed("high_compressor(9) on 4 KiB",
                lambda: lz4.high_compressor(9).compress_batch(
@@ -1297,6 +1311,68 @@ def _cli(*args) -> str:
     return res.stdout
 
 
+def _overlap_cases(dev, raw: bytes) -> None:
+    """The stream path in batches of ``OVERLAP_BATCH`` blocks, so that the
+    pinned and device buffers are reused hundreds of times while the
+    content hash runs on its own stream: ``compress_stream`` on the
+    first ``CLI_BYTES`` of the input against ``compress_frame_packed``,
+    and both engines restoring it; then a hand-built frame with block
+    checksums and short blocks anywhere (``testing.ragged_sizes``,
+    compressed and raw), whose batches leave content-hash remainders,
+    through both engines: restored exactly, one K3 launch a batch."""
+    data = raw[:CLI_BYTES]
+    sink = io.BytesIO()
+    t0 = time.perf_counter()
+    compress_stream(io.BytesIO(data), sink, engine="cuda",
+                    batch_blocks=OVERLAP_BATCH)
+    walls = {"compress": round((time.perf_counter() - t0) * 1e3, 1)}
+    if sink.getvalue() != sharded.compress_frame_packed(data, BLOCK_LEN, True,
+                                                        dev):
+        fail(f"compress_stream at batch_blocks={OVERLAP_BATCH} differs from "
+             "compress_frame_packed")
+    for engine in ("cuda", "segment"):
+        out = io.BytesIO()
+        t0 = time.perf_counter()
+        decompress_stream(io.BytesIO(sink.getvalue()), out, engine=engine,
+                          batch_blocks=OVERLAP_BATCH)
+        walls[engine] = round((time.perf_counter() - t0) * 1e3, 1)
+        if out.getvalue() != data:
+            fail(f"decompress_stream({engine}) at batch_blocks="
+                 f"{OVERLAP_BATCH} did not restore the input")
+
+    rng = np.random.default_rng(SEED + 3)
+    sizes = testing.ragged_sizes(rng, 4 * OVERLAP_BATCH * 10 + 3)
+    pos = np.cumsum([0] + sizes)
+    raw = raw * -(-int(pos[-1]) // len(raw))     # once at the full size
+    raws = [raw[a:b] for a, b in zip(pos[:-1], pos[1:])]
+    comps = Lz4Factory.cuda_instance(dev).fast_compressor().compress_batch(raws)
+    frame = testing.build_frame(raws, comps)
+    n_batches = -(-len(raws) // OVERLAP_BATCH)
+    totals = [sum(sizes[i:i + OVERLAP_BATCH])
+              for i in range(0, len(sizes), OVERLAP_BATCH)]
+    if all(t % 16 == 0 for t in totals):
+        fail("ragged frame: no batch leaves a content-hash remainder")
+    for engine in ("cuda", "segment"):
+        build.reset_launch_counts()
+        out = io.BytesIO()
+        decompress_stream(io.BytesIO(frame), out, engine=engine,
+                          batch_blocks=OVERLAP_BATCH)
+        counts = build.launch_counts()
+        if out.getvalue() != b"".join(raws):
+            fail(f"ragged frame through {engine}: not restored")
+        if counts["xxh32"] != n_batches or counts["xxh32_stream"] < 1:
+            fail(f"ragged frame through {engine}: {counts['xxh32']} K3 "
+                 f"launches for {n_batches} batches")
+    log(f"stream path at batch_blocks={OVERLAP_BATCH}: {len(data)} B "
+        f"compressed equal to compress_frame_packed and restored by both "
+        f"engines (host wall, ms: {walls}); a frame of {len(raws)} blocks "
+        f"with block checksums, {sum(s < BLOCK_LEN for s in sizes)} short "
+        f"and {sum(len(c) >= len(r) for r, c in zip(raws, comps))} raw, "
+        f"restored by both engines with one K3 launch a batch "
+        f"({n_batches}); {sum(t % 16 != 0 for t in totals)} batches left a "
+        f"content-hash remainder")
+
+
 def phase_stream(dev, main) -> list[dict]:
     """The stream path; returns the rows of the parser, K5 and the two
     streaming updates."""
@@ -1305,6 +1381,7 @@ def phase_stream(dev, main) -> list[dict]:
     _stream_edge_cases(dev, rng)
 
     raw = main["data"].tobytes()
+    _overlap_cases(dev, raw)
     work = REPO / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=work) as tmp:
@@ -1328,21 +1405,24 @@ def phase_stream(dev, main) -> list[dict]:
             return out.getvalue()
 
         build.reset_launch_counts()
-        sink = io.BytesIO()
-        timed("compress_stream(cuda)", len(raw), lambda: compress_stream(
-            io.BytesIO(raw), sink, engine="cuda", batch_blocks=STREAM_BATCH))
-        frame = sink.getvalue()
-        del sink
-        restored = {e: timed(f"decompress_stream({e})", len(raw),
-                             lambda e=e: decode(e))
-                    for e in ("segment", "cuda")}
-        hashes = {}
-        for cmd in ("xxh32", "xxh64"):
-            text = io.StringIO()
-            with contextlib.redirect_stdout(text):
-                timed(f"main(['{cmd}']) on {CLI_BYTES >> 20} MiB", CLI_BYTES,
-                      lambda cmd=cmd: cli_main([cmd, str(cli_in)]))
-            hashes[cmd] = int(text.getvalue().split()[0], 16)
+        for rnd in (1, 2):
+            sink = io.BytesIO()
+            timed(f"compress_stream(cuda) #{rnd}", len(raw),
+                  lambda: compress_stream(io.BytesIO(raw), sink, engine="cuda",
+                                          batch_blocks=STREAM_BATCH))
+            frame = sink.getvalue()
+            del sink
+            restored = {e: timed(f"decompress_stream({e}) #{rnd}", len(raw),
+                                 lambda e=e: decode(e))
+                        for e in ("segment", "cuda")}
+            hashes = {}
+            for cmd in ("xxh32", "xxh64"):
+                text = io.StringIO()
+                with contextlib.redirect_stdout(text):
+                    timed(f"main(['{cmd}']) on {CLI_BYTES >> 20} MiB #{rnd}",
+                          CLI_BYTES,
+                          lambda cmd=cmd: cli_main([cmd, str(cli_in)]))
+                hashes[cmd] = int(text.getvalue().split()[0], 16)
         launches = build.launch_counts()
         log(f"stream path launches: {launches}")
         log(f"stream path host wall ({len(raw) >> 20} MiB, "
@@ -1492,6 +1572,209 @@ def pack_parse_only(dev) -> None:
             f"{int(short[rows].sum())} of {int(ns.sum())} 3-byte")
 
 
+# ---------------------------------------------------------------------------
+# the host split of the stream and tier calls
+# ---------------------------------------------------------------------------
+
+SPAN = "lz4tt."                 # the prefix of the parts' spans
+HOST_PARTS = ("read", "upload", "kernels", "check", "download",
+              "content_hash", "write")
+GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+CALL_SPAN = "host_split.call"
+
+
+class _Sink(io.BytesIO):
+    """``dst`` of the traced stream calls: every write a ``write`` span."""
+
+    def write(self, b):
+        with torch.profiler.record_function(SPAN + "write"):
+            return super().write(b)
+
+
+def _patch_parts():
+    """Name the parts of a batch on the timeline in a package that has no
+    spans of its own (the one before ``lz4_tpu_torch.utils``), by wrapping
+    the functions that do them; returns the undo. A no-op for a package
+    with its own spans."""
+    import importlib.util
+    if importlib.util.find_spec("lz4_tpu_torch.utils") is not None:
+        return lambda: None
+    from lz4_tpu_torch.api import cuda_instances as ci
+    from lz4_tpu_torch.streams import pipeline
+    targets = [(pipeline, "_read_full", "read"),
+               (ci, "to_device_layout", "upload"),
+               (segment_decode, "to_device_layout", "upload"),
+               (ci, "from_device_layout", "download"),
+               (segment_decode, "from_device_layout", "download"),
+               (codec, "compress_fast_batch", "kernels"),
+               (codec, "decompress_safe_batch", "kernels"),
+               (segment_decode, "parse_sequences", "kernels"),
+               (segment_decode, "decompress_segments", "kernels"),
+               (segment_decode, "raise_on_parse_error", "check"),
+               (ci, "_raise_on_bad_block", "check"),
+               (xxhash_stream._StreamState, "update", "content_hash"),
+               (ci.XXH32, "hash", "kernels")]
+    saved = []
+    for owner, name, what in targets:
+        fn = getattr(owner, name)
+
+        def wrapped(*args, _fn=fn, _span=SPAN + what, **kw):
+            with torch.profiler.record_function(_span):
+                return _fn(*args, **kw)
+
+        saved.append((owner, name, fn))
+        setattr(owner, name, wrapped)
+
+    def undo():
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    return undo
+
+
+def _union(intervals) -> float:
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def read_trace(path) -> dict:
+    """The host split and the card's busy time of one traced call from its
+    Chrome trace: each part's exclusive time on the host (its spans less
+    the spans nested in them), what no span covers, and the union of the
+    card's kernel, copy and set intervals within the call (ms)."""
+    events = [e for e in json.loads(pathlib.Path(path).read_text())
+              ["traceEvents"] if e.get("ph") == "X"]
+    call = next(e for e in events if e.get("name") == CALL_SPAN)
+    t0, t1 = call["ts"], call["ts"] + call["dur"]
+    spans = sorted(((e["ts"], e["ts"] + e["dur"], e["name"][len(SPAN):],
+                     e.get("tid")) for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e.get("name", "").startswith(SPAN)),
+                   key=lambda x: (x[3], x[0], -x[1]))
+    parts = dict.fromkeys(HOST_PARTS, 0.0)
+    stack = []                  # open spans of one thread: [end, name, tid]
+    for a, b, name, tid in spans:
+        while stack and (stack[-1][2] != tid or stack[-1][0] <= a):
+            stack.pop()
+        if stack:
+            parts[stack[-1][1]] = parts.get(stack[-1][1], 0.0) - (b - a)
+        parts[name] = parts.get(name, 0.0) + (b - a)
+        stack.append([b, name, tid])
+    gpu = [(max(e["ts"], t0), min(e["ts"] + e["dur"], t1)) for e in events
+           if e.get("cat") in GPU_CATS and e["ts"] < t1
+           and e["ts"] + e["dur"] > t0]
+    wall = (t1 - t0) / 1e3
+    busy = _union(gpu) / 1e3
+    parts = {k: round(v / 1e3, 3) for k, v in parts.items()}
+    cats = [e.get("cat") for e in events if e.get("cat") in GPU_CATS]
+    return {"wall_ms": round(wall, 3), "parts_ms": parts,
+            "other_ms": round(wall - sum(parts.values()), 3),
+            "device_busy_ms": round(busy, 3),
+            "device_idle_share": round(1 - busy / wall, 4) if wall else None,
+            "kernels": cats.count("kernel"),
+            "copies": cats.count("gpu_memcpy") + cats.count("gpu_memset")}
+
+
+def _traced(what: str, fn, work: pathlib.Path) -> dict:
+    """``fn()`` once under ``torch.profiler`` (host and card); its split,
+    or, where the trace holds no device time, CUDA events around the call
+    and no split of the card's time."""
+    path = work / f"{what.replace(' ', '_').replace('(', '_').replace(')', '')}.json"
+    undo = _patch_parts()
+    try:
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.record_function(CALL_SPAN):
+                fn()
+                sync()
+        prof.export_chrome_trace(str(path))
+    finally:
+        undo()
+    out = read_trace(path)
+    device_total = sum(getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+                       for e in prof.key_averages())
+    out["key_averages_device_ms"] = round(device_total / 1e3, 3)
+    if not device_total and not out["device_busy_ms"]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        sync()
+        out["cuda_event_ms"] = start.elapsed_time(end)
+        out["device_busy_ms"] = out["device_idle_share"] = "not measured"
+    return out
+
+
+def host_split(dev, main=None) -> dict:
+    """The three stream calls on the main path's 256 MiB in batches of
+    ``STREAM_BATCH`` blocks and the tier's ``compress_batch`` and
+    ``decompress_batch`` on its 4096 blocks: each run twice untraced (the
+    host wall of each), then twice traced, each with its host split by part
+    (``HOST_PARTS``), what no part covers, and the card's busy and idle
+    share (``read_trace``). Runs on the package before the host data
+    plane too (``_patch_parts``). Returns the results by call."""
+    data = main["data"] if main else sharded.make_blocks(N_BLOCKS, BLOCK_LEN,
+                                                         SEED)
+    raw = data.tobytes()
+    blocks = [r.tobytes() for r in data]
+    lz4 = Lz4Factory.cuda_instance(dev)
+    work = REPO / "build" / "chip_smoke" / "host_split"
+    work.mkdir(parents=True, exist_ok=True)
+    got = {}
+
+    def stream_compress():
+        sink = _Sink()
+        compress_stream(io.BytesIO(raw), sink, engine="cuda",
+                        batch_blocks=STREAM_BATCH)
+        got["frame"] = sink.getvalue()
+
+    def stream_decompress(engine):
+        sink = _Sink()
+        decompress_stream(io.BytesIO(got["frame"]), sink, engine=engine,
+                          batch_blocks=STREAM_BATCH)
+        got[engine] = sink.getvalue()
+
+    def tier_compress():
+        got["comp"] = lz4.fast_compressor().compress_batch(blocks)
+
+    def tier_decompress():
+        got["blocks"] = lz4.safe_decompressor().decompress_batch(
+            got["comp"], BLOCK_LEN)
+
+    calls = (("compress_stream(cuda)", stream_compress),
+             ("decompress_stream(cuda)", lambda: stream_decompress("cuda")),
+             ("decompress_stream(segment)",
+              lambda: stream_decompress("segment")),
+             ("compress_batch", tier_compress),
+             ("decompress_batch", tier_decompress))
+    out = {}
+    for what, fn in calls:
+        walls = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            walls.append(round((time.perf_counter() - t0) * 1e3, 1))
+        res = [_traced(what, fn, work) for _ in range(2)]
+        out[what] = {"walls_ms": walls, "traced": res}
+        for r in res:
+            log(f"host split {what}: walls {walls} ms untraced; traced "
+                + json.dumps(r))
+    if got["cuda"] != raw or got["segment"] != raw or got["blocks"] != blocks:
+        fail("host split: a call did not restore the input")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1499,6 +1782,11 @@ def main() -> int:
     if sys.argv[1:] == ["--pack-parse"]:
         phase_card()
         pack_parse_only(torch.device("cuda"))
+        return 0
+    if sys.argv[1:] == ["--host-split"]:
+        log(phase_card())
+        build.build_all()
+        log("host split: " + json.dumps(host_split(torch.device("cuda"))))
         return 0
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1516,6 +1804,7 @@ def main() -> int:
     rows, main_out = timed("main path", phase_main_path, dev)
     rows += timed("tier", phase_tier, dev, main_out)
     rows += timed("stream", phase_stream, dev, main_out)
+    timed("host split", host_split, dev, main_out)
     del main_out
     one_row = timed("frame", phase_frame, dev)
     for r in rows:

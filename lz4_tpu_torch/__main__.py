@@ -65,8 +65,8 @@ def cmd_decompress(args, device) -> None:
 
 def _hash_file(path: str, stream) -> int:
     with open(path, "rb") as fh:
-        while chunk := fh.read(_CHUNK):
-            stream.update(chunk)
+        while stream.update_from(fh, _CHUNK):
+            pass
     return stream.get_value()
 
 

@@ -16,6 +16,11 @@ Where each role runs:
   instead, which is what the CPU tests do. Every batch goes to the kernel,
   ragged or not: the kernels have no tile restriction, so there is no
   uniform-batch branch.
+- the packed entry points :func:`compress_fast_packed` and
+  :func:`decompress_safe_packed` (the contracts of
+  ``lz4_tpu/api/native_instances.py:167,247``: one contiguous buffer each
+  way), over :func:`compress_rows` and :func:`decode_rows`, which keep the
+  batch on the card and are what the stream pipeline's engines run.
 - on the host: ``HighCompressor``. Its JAX counterpart
   (``kernels/jax_hc.py``) is pure JAX, not a Pallas kernel; until it is
   ported to the card this class runs the port's own host code
@@ -25,6 +30,7 @@ Where each role runs:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core import xxhash_ref
@@ -34,8 +40,12 @@ from ..core.device import resolve_device
 from ..core.errors import Lz4Error
 from ..core.lz4_hc_ref import check_range, compress_hc, compress_hc_alloc
 from ..kernels import codec, xxhash_stream
-from ..kernels.layout import from_device_layout, row_stride, to_device_layout
+from ..kernels.layout import (
+    DOWN, UP, from_device_layout, row_stride, staging, to_device_layout,
+    upload_bytes)
 from ..kernels.xxhash import split_u64, xxh32_batch, xxh64_batch
+from ..utils.buffers import read_into
+from ..utils.profiling import part
 from .abstract import (
     Lz4Compressor, Lz4FastDecompressor, Lz4SafeDecompressor,
     StreamingXXHash32, StreamingXXHash64, XXHash32, XXHash64,
@@ -49,13 +59,38 @@ class _OnDevice:
         self.device = resolve_device(device)
 
     def _batch(self, blocks: list[bytes]):
-        return to_device_layout(blocks, device=self.device)
+        with part("upload"):
+            return to_device_layout(blocks, device=self.device)
 
     def _hash_args(self, data, lengths):
         """``uint8[N, L]`` (numpy or torch) and lengths -> a batch on the
-        device. Rows are copied into the port's layout only when the
-        kernels could not take them as they are."""
-        data = torch.as_tensor(data).to(self.device)
+        device. Rows on the device are copied into the port's layout only
+        when the kernels could not take them as they are; rows on the host
+        go through the staging buffer, one upload for the rows and the
+        lengths."""
+        if isinstance(data, torch.Tensor) and data.device.type == "cuda":
+            return self._device_hash_args(data, lengths)
+        arr = np.asarray(data)
+        lens = np.asarray(lengths, np.int32)
+        if arr.dtype != np.uint8 or arr.ndim != 2:
+            raise ValueError("expected uint8[N, L] data")
+        n, width = arr.shape
+        if lens.shape != (n,):
+            raise ValueError("expected int32[N] lengths")
+        if n and (lens.max() > width or lens.min() < 0):
+            raise ValueError(f"lengths must lie in [0, {width}]")
+        stride = width if width and width % 16 == 0 else row_stride(width)
+        st = staging(self.device, UP)
+        with part("upload"):
+            host = st.take(n * stride + 4 * n)
+            buf = host.numpy()
+            buf[:n * stride].reshape(n, stride)[:, :width] = arr
+            buf[n * stride:].view(np.int32)[:] = lens
+            out = st.upload(host, self.device)
+        return (out[:n * stride].view(n, stride),
+                out[n * stride:].view(torch.int32))
+
+    def _device_hash_args(self, data, lengths):
         lens = torch.as_tensor(lengths).to(self.device, torch.int32)
         if data.dtype != torch.uint8 or data.dim() != 2:
             raise ValueError("expected uint8[N, L] data")
@@ -68,6 +103,136 @@ class _OnDevice:
             buf[:, :width] = data
             data = buf
         return data, lens.contiguous()
+
+
+def _read_back(*ts: torch.Tensor) -> np.ndarray:
+    """int32[N] tensors of one batch on the host, as rows of one array:
+    one read-back, which waits for the card."""
+    with part("check"):
+        return torch.stack(ts).cpu().numpy()
+
+
+def _raise_on_bad_block(err: np.ndarray) -> None:
+    bad = np.flatnonzero(err)
+    if bad.size:
+        raise Lz4Error(f"Malformed input in block {int(bad[0])}")
+
+
+def compress_rows(data: torch.Tensor, block_size: int):
+    """Compress ``data`` (a contiguous ``uint8[L]`` tensor) cut into blocks
+    of ``block_size`` bytes, the last possibly short, in one K2 launch on
+    its device: the packed compress of the stream pipeline's engines. It
+    does not read the codes back, so that the caller can queue more work
+    before :func:`check_compressed` does.
+
+    Returns ``(src uint8[N, row_stride(block_size)], lens int32[N], comp
+    uint8[N, row_stride(cap)], comp_lens int32[N], err int32[N])`` on that
+    device, ``cap = max_compressed_length(block_size)``; ``src`` holds the
+    blocks (the frame stores a block raw when compressing does not shrink
+    it).
+    """
+    if data.dtype != torch.uint8 or data.dim() != 1 or not data.is_contiguous():
+        raise ValueError("expected a contiguous uint8[L] tensor")
+    if block_size < 1:
+        raise ValueError("block_size must be >= 1")
+    total = data.numel()
+    n = -(-total // block_size)
+    full = total // block_size
+    dev = data.device
+    with part("kernels"):
+        src = torch.empty((n, row_stride(block_size)), dtype=torch.uint8,
+                          device=dev)
+        src[:full, :block_size] = data[:full * block_size].view(
+            full, block_size)
+        lens = torch.full((n,), block_size, dtype=torch.int32, device=dev)
+        if n > full:
+            src[full, :total - full * block_size] = data[full * block_size:]
+            lens[full] = total - full * block_size
+        return (src, lens) + codec.compress_fast_batch(
+            src, lens, max_compressed_length(block_size))
+
+
+def check_compressed(err: torch.Tensor) -> None:
+    """Raise ``Lz4Error`` if a block of :func:`compress_rows` failed, which
+    its cap rules out; reads the codes back."""
+    with part("check"):
+        if err.numel() and bool(err.any()):
+            raise Lz4Error("device compression failed")
+
+
+def decode_rows(comp: torch.Tensor, comp_lens: torch.Tensor, out_max: int):
+    """Decode a batch in the port's layout in one K1 launch on its device:
+    the packed decode of the ``cuda`` engine. It does not read the codes
+    back: the caller may queue more work before it calls ``finish``.
+
+    Returns ``(out uint8[N, row_stride(out_max)] on the device, finish)``;
+    ``finish()`` reads the lengths and codes back and returns the lengths
+    (``int32[N]`` numpy), or raises ``Lz4Error`` naming the first block
+    that does not decode in ``out_max`` bytes.
+    """
+    with part("kernels"):
+        out, out_lens, err = codec.decompress_safe_batch(comp, comp_lens,
+                                                         out_max)
+
+    def finish() -> np.ndarray:
+        codes, lens = _read_back(err, out_lens)
+        _raise_on_bad_block(codes)
+        return lens
+
+    return out, finish
+
+
+def compress_fast_packed(src, block_size: int,
+                         device: str | torch.device = "cuda"):
+    """Compress the contiguous bytes ``src``, split into blocks of
+    ``block_size`` (the last may be short), in one upload and one K2
+    launch: the contract of ``native_instances.compress_fast_packed``.
+
+    Returns ``(comp bytearray, offsets int64[N], lens int32[N])`` with
+    block i's output at ``comp[offsets[i]:offsets[i] + lens[i]]``; here
+    the blocks lie at a stride of the longest output.
+    """
+    dev = resolve_device(device)
+    if not len(src):
+        return bytearray(), np.zeros(0, np.int64), np.zeros(0, np.int32)
+    data = upload_bytes(src, dev)
+    _, _, comp, comp_lens, err = compress_rows(data, block_size)
+    err, lens = _read_back(err, comp_lens)
+    if err.any():
+        raise Lz4Error("device compression failed")
+    width = int(lens.max())
+    with part("download"):
+        arr = staging(dev, DOWN).download(comp[:, :width])
+        out = bytearray(memoryview(arr).cast("B"))
+    return out, np.arange(len(lens), dtype=np.int64) * width, lens
+
+
+def decompress_safe_packed(comp, offsets, lens, out_max: int,
+                           device: str | torch.device = "cuda"):
+    """Decode the blocks ``comp[offsets[i]:offsets[i] + lens[i]]`` of the
+    contiguous bytes ``comp`` in one upload and one K1 launch: the
+    contract of ``native_instances.decompress_safe_packed``.
+
+    Returns ``(dest bytearray, out_lens int32[N])`` with block i decoded
+    at ``dest[i * out_max:]`` and zeros after its bytes; raises the
+    ``Lz4Error`` of :meth:`SafeDecompressor.decompress_batch` on the first
+    block that does not decode.
+    """
+    dev = resolve_device(device)
+    n = len(lens)
+    if not n:
+        return bytearray(), np.zeros(0, np.int32)
+    mv = memoryview(comp).cast("B")
+    offsets = np.asarray(offsets, np.int64).tolist()
+    blocks = [mv[o:o + k] for o, k in zip(offsets, np.asarray(lens).tolist())]
+    with part("upload"):
+        rows, rlens = to_device_layout(blocks, device=dev)
+    out, finish = decode_rows(rows, rlens, out_max)
+    out_lens = finish()
+    with part("download"):
+        arr = staging(dev, DOWN).download(out[:, :out_max])
+        dest = bytearray(memoryview(arr).cast("B"))
+    return dest, out_lens
 
 
 class FastCompressor(_OnDevice, Lz4Compressor):
@@ -91,11 +256,14 @@ class FastCompressor(_OnDevice, Lz4Compressor):
         if not blocks:
             return []
         src, lens = self._batch(blocks)
-        out, out_lens, err = codec.compress_fast_batch(
-            src, lens, max_compressed_length(max(len(b) for b in blocks)))
-        if bool(err.any()):
+        with part("kernels"):
+            out, out_lens, err = codec.compress_fast_batch(
+                src, lens, max_compressed_length(max(len(b) for b in blocks)))
+        err, out_lens = _read_back(err, out_lens)
+        if err.any():
             raise Lz4Error("device compression failed")
-        return from_device_layout(out, out_lens)
+        with part("download"):
+            return from_device_layout(out, out_lens)
 
 
 class HighCompressor(Lz4Compressor):
@@ -139,17 +307,10 @@ class SafeDecompressor(_OnDevice, Lz4SafeDecompressor):
         block that does not decode."""
         if not blocks:
             return []
-        comp, lens = self._batch(blocks)
-        out, out_lens, err = codec.decompress_safe_batch(comp, lens,
-                                                         max_dest_len)
-        _raise_on_bad_block(err)
-        return from_device_layout(out, out_lens)
-
-
-def _raise_on_bad_block(err: torch.Tensor) -> None:
-    bad = torch.nonzero(err).flatten()
-    if bad.numel():
-        raise Lz4Error(f"Malformed input in block {int(bad[0])}")
+        out, finish = decode_rows(*self._batch(blocks), max_dest_len)
+        out_lens = finish()
+        with part("download"):
+            return from_device_layout(out, out_lens)
 
 
 class FastDecompressor(_OnDevice, Lz4FastDecompressor):
@@ -175,10 +336,14 @@ class FastDecompressor(_OnDevice, Lz4FastDecompressor):
         if not blocks:
             return [], []
         comp, avail = self._batch(blocks)
-        out, src_read, err = codec.decompress_fast_batch(comp, avail, dest_len)
+        with part("kernels"):
+            out, src_read, err = codec.decompress_fast_batch(comp, avail,
+                                                             dest_len)
+        err, src_read = _read_back(err, src_read)
         _raise_on_bad_block(err)
-        rows = out[:, :dest_len].cpu().numpy()
-        return [r.tobytes() for r in rows], src_read.cpu().tolist()
+        with part("download"):
+            return (from_device_layout(out, [dest_len] * len(blocks)),
+                    src_read.tolist())
 
 
 class XXH32(_OnDevice, XXHash32):
@@ -189,7 +354,9 @@ class XXH32(_OnDevice, XXHash32):
 
     def hash_batch(self, data, lengths, seed=0) -> torch.Tensor:
         """uint8[N, L], int32[N] -> uint32[N] on the device, through K3."""
-        return xxh32_batch(*self._hash_args(data, lengths), int(seed) & U32)
+        args = self._hash_args(data, lengths)
+        with part("kernels"):
+            return xxh32_batch(*args, int(seed) & U32)
 
 
 class XXH64(_OnDevice, XXHash64):
@@ -202,8 +369,9 @@ class XXH64(_OnDevice, XXHash64):
         """uint8[N, L], int32[N] -> (hi, lo) uint32[N] pair on the device,
         through K4: the JAX tier's contract; combine on the host with
         ``(int(hi) << 32) | int(lo)``."""
-        return split_u64(xxh64_batch(*self._hash_args(data, lengths),
-                                     int(seed) & U64))
+        args = self._hash_args(data, lengths)
+        with part("kernels"):
+            return split_u64(xxh64_batch(*args, int(seed) & U64))
 
 
 def _stream_range(buf, off: int, length: int | None) -> memoryview:
@@ -218,11 +386,21 @@ def _stream_range(buf, off: int, length: int | None) -> memoryview:
         memoryview(b"")
 
 
+def _update_from(state, src, max_bytes: int) -> int:
+    """Read up to ``max_bytes`` of the binary stream ``src`` straight into
+    the state's staging buffer (``readinto`` where ``src`` has it) and
+    absorb them; returns the bytes read, 0 at the end of ``src``."""
+    n = read_into(src, state.staged(max_bytes))
+    state.update_staged(n)
+    return n
+
+
 class StreamingXXH32(StreamingXXHash32):
     """Streaming XXH32 with its lane state on ``device``
     (``kernels/xxhash_stream.py``): an update that completes a stripe is one
-    upload and one launch of K3's stream entry point. The JAX tier keeps
-    the same state on its device (``kernels/xxhash_stream.py``)."""
+    upload through the pinned staging buffer and one launch of K3's stream
+    entry point, on the state's own CUDA stream. The JAX tier keeps the
+    same state on its device (``kernels/xxhash_stream.py``)."""
 
     def __init__(self, seed: int, device: str | torch.device = "cuda"):
         super().__init__(seed)
@@ -230,6 +408,10 @@ class StreamingXXH32(StreamingXXHash32):
 
     def update(self, buf, off: int = 0, length: int | None = None):
         self._state.update(_stream_range(buf, off, length))
+
+    def update_from(self, src, max_bytes: int = 1 << 20) -> int:
+        """The port's own: :func:`_update_from`."""
+        return _update_from(self._state, src, max_bytes)
 
     def get_value(self) -> int:
         return xxhash_ref.as_s32(self._state.digest())
@@ -249,6 +431,10 @@ class StreamingXXH64(StreamingXXHash64):
 
     def update(self, buf, off: int = 0, length: int | None = None):
         self._state.update(_stream_range(buf, off, length))
+
+    def update_from(self, src, max_bytes: int = 1 << 20) -> int:
+        """The port's own: :func:`_update_from`."""
+        return _update_from(self._state, src, max_bytes)
 
     def get_value(self) -> int:
         return xxhash_ref.as_s64(self._state.digest())

@@ -20,13 +20,13 @@ import struct
 import numpy as np
 import torch
 
+from ..api.cuda_instances import check_compressed, compress_rows
 from ..core.constants import max_compressed_length
 from ..core.device import resolve_device
-from ..core.errors import Lz4Error
 from ..formats.frame import INCOMPRESSIBLE_MASK, frame_header
 from ..kernels.codec import compress_fast_batch, decompress_safe_batch
 from ..kernels.build import Kernel
-from ..kernels.layout import cuda_stream, row_stride
+from ..kernels.layout import DOWN, UP, cuda_stream, row_stride, staging
 from ..kernels.xxhash import xxh32_batch
 
 # Output bytes packed per step of frame_body_packed_plain: its int32/int64
@@ -158,34 +158,33 @@ def compress_frame_packed(data, block_size: int = 1 << 16,
                           device: str | torch.device = "cuda") -> bytes:
     """Compress ``data`` into a standard LZ4 frame of independent blocks.
 
-    Blocks are compressed and the frame body packed on the device; the host
-    adds the 7-byte header, the end mark and the content checksum, which is
+    The batch step of ``compress_stream``: one upload through the pinned
+    staging buffer, the blocks compressed (``cuda_instances.compress_rows``)
+    and the frame body packed on the device, one download; the host adds
+    the 7-byte header, the end mark and the content checksum, which is
     XXH32 over the whole input as one block on the device. The output is
     byte-identical to ``lz4_tpu.formats.frame.compress_frame`` with the
     same block size and ``(BLOCK_INDEPENDENCE[, CONTENT_CHECKSUM])``.
     """
     dev = resolve_device(device)
     header = frame_header(block_size, content_checksum)
-    raw = np.frombuffer(bytes(data), np.uint8)
-    n = -(-raw.size // block_size)
-    flat = torch.zeros((max(n * block_size, 16),), dtype=torch.uint8, device=dev)
-    flat[:raw.size] = torch.from_numpy(raw.copy()).to(dev)
+    raw = memoryview(data).cast("B")
+    n = -(-len(raw) // block_size)
+    st = staging(dev, UP)
+    # one row of a multiple of 16 bytes for the content checksum's K3
+    host = st.take(max(16, -(-n * block_size // 16) * 16))
+    host.numpy()[:len(raw)] = np.frombuffer(raw, np.uint8)
+    flat = st.upload(host, dev)
     out = bytearray(header)
     if n:
-        blocks = torch.zeros((n, row_stride(block_size)), dtype=torch.uint8,
-                             device=dev)
-        blocks[:, :block_size] = flat[:n * block_size].view(n, block_size)
-        lens = torch.full((n,), block_size, dtype=torch.int32, device=dev)
-        lens[-1] = raw.size - (n - 1) * block_size
-        comp, comp_lens, err = compress_fast_batch(
-            blocks, lens, max_compressed_length(block_size))
-        if bool(err.any()):
-            raise Lz4Error("device compression failed")
-        body, _ = frame_body_packed(blocks, lens, comp, comp_lens)
-        out += body.cpu().numpy().tobytes()
+        src, lens, comp, comp_lens, err = compress_rows(flat[:len(raw)],
+                                                        block_size)
+        check_compressed(err)
+        body, _ = frame_body_packed(src, lens, comp, comp_lens)
+        out += memoryview(staging(dev, DOWN).download(body))
     out += struct.pack("<I", 0)
     if content_checksum:
-        length = torch.tensor([raw.size], dtype=torch.int32, device=dev)
+        length = torch.tensor([len(raw)], dtype=torch.int32, device=dev)
         h = xxh32_batch(flat.view(1, -1), length, 0)
         out += struct.pack("<I", int(h.cpu().numpy()[0]))
     return bytes(out)

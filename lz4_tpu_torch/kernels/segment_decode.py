@@ -37,7 +37,8 @@ from ..core.errors import Lz4Error
 from .build import Kernel
 from .codec import ERR_MALFORMED, OK, _decode_out
 from .layout import check_batch, cuda_stream, from_device_layout, to_device_layout
-from .sequences import parse_sequences, raise_on_parse_error
+from .sequences import parse_sequences
+from ..utils.profiling import part
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SEGMENT = Kernel("segment_decode", "segment_decode", "lz4tt_decompress_segments",
@@ -144,27 +145,58 @@ def decompress_segments_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
     return out, torch.from_numpy(err).to(comp.device)
 
 
+def decompress_rows(comp: torch.Tensor, comp_lens: torch.Tensor,
+                    out_len: int):
+    """Parse a batch in the port's layout on its device and decode it there
+    with K5: one parser launch and one K5 launch, the packed decode of the
+    ``segment`` engine. It does not read the codes back: the caller may
+    queue more work before it calls ``finish``.
+
+    Returns ``(out uint8[N, row_stride(out_len)] on the device, finish)``.
+    ``finish()`` reads the counts, totals and codes back in one copy and
+    returns the totals (``int32[N]`` numpy); it raises ``Lz4Error`` on the
+    first block the parser refuses, then on the first that decodes past
+    ``out_len`` (the JAX package truncates it), then on the first K5
+    refuses. K5 checks every sequence, so such blocks are launched as they
+    are.
+    """
+    with part("kernels"):
+        tables, n_seq, out_total = parse_sequences(comp, comp_lens)
+        out, err = decompress_segments(comp, comp_lens, n_seq, tables,
+                                       out_len)
+
+    def finish() -> np.ndarray:
+        with part("check"):
+            counts, totals, codes = torch.stack(
+                (n_seq, out_total, err)).cpu().numpy()
+        bad = np.flatnonzero(counts < 0)
+        if bad.size:
+            i = int(bad[0])
+            raise Lz4Error(f"Malformed input in block {i} "
+                           f"(parse code {int(counts[i])})")
+        over = np.flatnonzero(totals > out_len)
+        if over.size:
+            i = int(over[0])
+            raise Lz4Error(f"Malformed input in block {i}: it decodes to "
+                           f"{int(totals[i])} bytes, past {out_len}")
+        bad = np.flatnonzero(codes)
+        if bad.size:
+            raise Lz4Error(f"Malformed input in block {int(bad[0])}")
+        return totals
+
+    return out, finish
+
+
 def decompress_blocks(blocks: list[bytes], out_len: int,
                       device: str | torch.device = "cuda") -> list[bytes]:
-    """Parse on ``device``, decode there with K5, and return the blocks.
-
-    Raises ``Lz4Error`` on the first block the parser refuses, on a block
-    that decodes past ``out_len`` (the JAX package truncates it), and on a
-    block K5 refuses.
-    """
+    """Parse on ``device``, decode there with K5, and return the blocks
+    (:func:`decompress_rows`, with its errors)."""
     dev = resolve_device(device)
     if not blocks:
         return []
-    comp, comp_lens = to_device_layout(blocks, device=dev)
-    tables, n_seq, out_total = parse_sequences(comp, comp_lens)
-    raise_on_parse_error(n_seq)
-    over = torch.nonzero(out_total > out_len).flatten()
-    if over.numel():
-        i = int(over[0])
-        raise Lz4Error(f"Malformed input in block {i}: it decodes to "
-                       f"{int(out_total[i])} bytes, past {out_len}")
-    out, err = decompress_segments(comp, comp_lens, n_seq, tables, out_len)
-    bad = torch.nonzero(err).flatten()
-    if bad.numel():
-        raise Lz4Error(f"Malformed input in block {int(bad[0])}")
-    return from_device_layout(out, out_total)
+    with part("upload"):
+        comp, comp_lens = to_device_layout(blocks, device=dev)
+    out, finish = decompress_rows(comp, comp_lens, out_len)
+    out_total = finish()
+    with part("download"):
+        return from_device_layout(out, out_total)

@@ -13,12 +13,20 @@ arrays and absorbs chunks with ``lax.fori_loop``/``lax.scan``
 - the remainder (under one stripe) and the total length stay on the host.
 
 An update that does not complete a stripe only grows the remainder. One
-that does joins the remainder and the new bytes' whole stripes into one
-buffer on the host, uploads it, and one kernel launch absorbs its stripes
-from the carried state; the bytes after the last whole stripe become the
-new remainder. The digest is computed on the host from the lanes, the
-remainder and the total length, as ``stream32_digest``/``stream64_digest``
-do, including the total past 2^32 bytes; it does not change the state.
+that does absorbs the remainder and the new bytes' whole stripes in one
+kernel launch from the carried state; the bytes after the last whole
+stripe become the new remainder. Host bytes are copied once into the
+pinned staging buffer (``layout.staging``), behind the remainder, and
+uploaded in one copy; a ``uint8`` tensor already on the card is absorbed
+where it lies (a stripe that joins the remainder to its head is put
+together on the card). On a card every copy and launch of a state runs on
+the state's own CUDA stream, after the work queued so far on the current
+one, so that the hash overlaps what the caller queues next; a tensor it
+reads is kept from the caching allocator until that stream is done with
+it, and :meth:`digest` waits for the stream. The digest is computed on
+the host from the lanes, the remainder and the total length, as
+``stream32_digest``/``stream64_digest`` do, including the total past 2^32
+bytes; it does not change the state.
 
 A state on a CUDA device launches the kernel; a state on the CPU takes the
 plain version, the stripe loop of ``core/xxhash_ref.py``.
@@ -39,7 +47,7 @@ from ..core.constants import (
 )
 from ..core.device import resolve_device
 from .build import Kernel
-from .layout import cuda_stream
+from .layout import UP, cuda_stream, staging
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_longlong
 XXH32_STREAM = Kernel("xxh32_stream", "xxh32", "lz4tt_xxh32_stream_update",
@@ -124,6 +132,15 @@ class _StreamState:
     def __init__(self, seed: int, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.seed = seed
+        self._side = None
+        if self.device.type == "cuda":
+            self._side = torch.cuda.Stream(self.device)
+            # [0, STRIPE): the remainder on its way up; [STRIPE, 2 STRIPE):
+            # a tensor's tail on its way down
+            self._small = torch.empty((2 * self.STRIPE,), dtype=torch.uint8,
+                                      pin_memory=True)
+        self._tail = None       # (length, event) of that tail's copy
+        self._host = None       # what staged() handed out
         self.reset()
 
     def _init_lanes(self) -> torch.Tensor:
@@ -132,27 +149,123 @@ class _StreamState:
     def _absorb(self, stripes: torch.Tensor) -> None:
         raise NotImplementedError
 
+    @property
+    def lanes(self) -> torch.Tensor:
+        """The lane accumulators, once every absorb queued has run."""
+        self._settle()
+        if self._side is not None:
+            self._side.synchronize()
+        return self._v
+
     def reset(self) -> None:
-        self.lanes = self._init_lanes()
+        self._settle()
+        if self._side is not None:
+            self._side.synchronize()
+        self._v = self._init_lanes()
+        if self._side is not None:
+            self._v.record_stream(self._side)
         self.mem = b""
         self.total_len = 0
 
-    def update(self, data) -> None:
-        """Absorb the bytes of ``data`` (any contiguous bytes-like)."""
-        mv = memoryview(data).cast("B")
-        self.total_len += len(mv)
+    def _settle(self) -> None:
+        """The remainder, once the copy of a tensor's tail has landed."""
+        if self._tail is not None:
+            k, done = self._tail
+            done.synchronize()
+            s = self.STRIPE
+            self.mem = self._small.numpy()[s:s + k].tobytes()
+            self._tail = None
+
+    def _split(self, n: int):
+        """Account for ``n`` new bytes; returns ``(held, whole, head)``:
+        the remainder's length, the bytes of the whole stripes that
+        remainder and new bytes make (0 when none completes), and how many
+        of those are new."""
+        self._settle()
+        self.total_len += n
         held = len(self.mem)
-        if held + len(mv) < self.STRIPE:
-            self.mem += bytes(mv)
+        whole = (held + n) // self.STRIPE * self.STRIPE
+        return held, whole, max(0, whole - held)
+
+    def _on_side(self):
+        """The state's stream, after the work queued on the current one."""
+        self._side.wait_stream(torch.cuda.current_stream(self.device))
+        return torch.cuda.stream(self._side)
+
+    def staged(self, nbytes: int) -> np.ndarray:
+        """A writable view of ``nbytes`` of the staging buffer (pinned on a
+        card) for the caller to fill, e.g. with ``readinto``; then
+        :meth:`update_staged` absorbs what was written. Valid until the
+        staging buffer's next use."""
+        self._host = staging(self.device, UP).take(self.STRIPE + nbytes)
+        return self._host.numpy()[self.STRIPE:]
+
+    def update_staged(self, n: int) -> None:
+        """Absorb the first ``n`` bytes written into :meth:`staged`."""
+        host, self._host = self._host, None
+        arr, s = host.numpy(), self.STRIPE
+        held, whole, head = self._split(n)
+        if not whole:
+            self.mem += arr[s:s + n].tobytes()
             return
-        whole = (held + len(mv)) // self.STRIPE * self.STRIPE
-        head = whole - held
-        buf = torch.empty((whole,), dtype=torch.uint8)
-        arr = buf.numpy()
-        arr[:held] = np.frombuffer(self.mem, np.uint8)
-        arr[held:] = np.frombuffer(mv[:head], np.uint8)
-        self._absorb(buf.to(self.device))
-        self.mem = bytes(mv[head:])
+        arr[s - held:s] = np.frombuffer(self.mem, np.uint8)
+        self.mem = arr[s + head:s + n].tobytes()
+        stripes = host[s - held:s - held + whole]
+        if self._side is None:
+            self._absorb(stripes)
+            return
+        with self._on_side():
+            self._absorb(staging(self.device, UP).upload(
+                stripes, self.device, self._side))
+
+    def update(self, data) -> None:
+        """Absorb ``data``: any contiguous bytes-like on the host, or a
+        contiguous ``uint8[n]`` tensor on the state's device, which the
+        caller does not write again until :attr:`lanes` or
+        :meth:`digest` has been read (the state's stream reads it
+        later)."""
+        if isinstance(data, torch.Tensor):
+            self._update_tensor(data)
+            return
+        mv = memoryview(data).cast("B")
+        self.staged(len(mv))[:len(mv)] = np.frombuffer(mv, np.uint8)
+        self.update_staged(len(mv))
+
+    def _update_tensor(self, t: torch.Tensor) -> None:
+        if (t.dtype != torch.uint8 or t.dim() != 1 or not t.is_contiguous()
+                or t.device.type != self.device.type):
+            raise ValueError("expected a contiguous uint8[n] tensor on the "
+                             "state's device")
+        n = t.numel()
+        if not n:
+            return
+        held, whole, head = self._split(n)
+        if not whole:
+            self.mem += t.cpu().numpy().tobytes()
+            return
+        mem, s = self.mem, self.STRIPE
+        if self._side is None:
+            self.mem = t[head:].numpy().tobytes()
+            self._absorb(torch.cat((torch.tensor(list(mem), dtype=torch.uint8),
+                                    t[:head])))
+            return
+        small = self._small
+        with self._on_side():
+            small[s:s + n - head].copy_(t[head:], non_blocking=True)
+            if held or t.data_ptr() % 16:
+                stripes = torch.empty((whole,), dtype=torch.uint8,
+                                      device=self.device)
+                small.numpy()[:held] = np.frombuffer(mem, np.uint8)
+                stripes[:held].copy_(small[:held], non_blocking=True)
+                stripes[held:] = t[:head]
+            else:
+                stripes = t[:head]
+            done = torch.cuda.Event()
+            done.record(self._side)
+            self._absorb(stripes)
+        t.record_stream(self._side)
+        self.mem = b""
+        self._tail = (n - head, done)
 
 
 class StreamState32(_StreamState):
@@ -167,7 +280,7 @@ class StreamState32(_StreamState):
         return torch.tensor(lanes, dtype=torch.uint32, device=self.device)
 
     def _absorb(self, stripes: torch.Tensor) -> None:
-        absorb32(self.lanes, stripes)
+        absorb32(self._v, stripes)
 
     def digest(self) -> int:
         """The unsigned XXH32 of everything absorbed; the state is kept."""
@@ -194,7 +307,7 @@ class StreamState64(_StreamState):
                             dtype=torch.int64, device=self.device)
 
     def _absorb(self, stripes: torch.Tensor) -> None:
-        absorb64(self.lanes, stripes)
+        absorb64(self._v, stripes)
 
     def digest(self) -> int:
         """The unsigned XXH64 of everything absorbed; the state is kept."""

@@ -9,38 +9,64 @@ those of the one-block-at-a-time writer.
 
 Engines, each on one device (the card unless told otherwise):
 
-- ``cuda``: the ``cuda`` tier's ``fast_compressor().compress_batch`` (K2)
-  and ``safe_decompressor().decompress_batch`` (K1); the counterpart of
-  the JAX ``pallas`` engine;
+- ``cuda``: compresses with K2 and decodes with K1 (the ``cuda`` tier); the
+  counterpart of the JAX ``pallas`` engine;
 - ``segment``: compresses as ``cuda`` does (the JAX engine compresses with
   its native tier, byte-identical), and decodes with the sequence parser
-  and K5 (``kernels/segment_decode.decompress_blocks``);
+  and K5 (``kernels/segment_decode.py``);
 - ``fastest``: ``cuda``.
 
-``level`` 1..17 compresses with the tier's ``high_compressor(level)``. The
-content checksum is a streaming XXH32 with its state on the engine's
-device, one update a batch. Frames with linked blocks or a dictionary need
+``level`` 1..17 compresses with the tier's ``high_compressor(level)``, on
+the host. The JAX engines ``native``, ``sharded``, ``safe`` and
+``parallel`` are not ported; frames with linked blocks or a dictionary need
 the serial frame reader, which the port does not have yet: they are
-refused. The JAX engines ``native``, ``sharded``, ``safe`` and
-``parallel`` are not ported.
+refused.
+
+The data plane of a batch (the JAX pipeline's packed fast paths,
+``:231-261,407-456``), when the engine has its packed forms:
+
+- compress: the batch is read straight into the pinned staging buffer
+  (``readinto``), uploaded once, compressed with K2, packed into the frame
+  body on the card (``dist/sharded.py::frame_body_packed``), downloaded once
+  and written with one ``dst.write``; while the card compresses a batch,
+  the host writes the one before and reads the one after;
+- decompress: the frame walk reads each payload into its row of the pinned
+  buffer, the batch is uploaded once, its block checksums are one K3
+  launch, the compressed rows are one decode, and the output is put
+  together on the card in frame order, downloaded once and written with
+  one ``dst.write``.
+
+The content checksum is a streaming XXH32 whose state is on the engine's
+device; it absorbs each batch where it lies, on its own CUDA stream, while
+the card works on what comes next (``kernels/xxhash_stream.py``).
+``dst.write`` is handed a view of the staging buffer, valid during the
+call, as ``io.RawIOBase.write`` allows.
 """
 
 from __future__ import annotations
 
-import functools
+import contextlib
 import struct
 
+import numpy as np
 import torch
 
-from ..api.factory import Lz4Factory, XXHashFactory
+from ..api import cuda_instances
+from ..api.factory import Lz4Factory
 from ..core.constants import U32
 from ..core.device import resolve_device
 from ..core.errors import Lz4FrameError
+from ..dist.sharded import frame_body_packed
 from ..formats.frame import (
     BlockSize, FrameFlag, INCOMPRESSIBLE_MASK, MAGIC, MAGIC_SKIPPABLE_BASE,
     _bd_from_byte, _flg_from_byte, _flg_to_byte, xxh32_bytes,
 )
 from ..kernels import segment_decode
+from ..kernels.layout import DOWN, UP, row_stride, staging
+from ..kernels.xxhash import xxh32_batch
+from ..kernels.xxhash_stream import StreamState32
+from ..utils.buffers import read_into
+from ..utils.profiling import part
 
 ENGINES = ("fastest", "cuda", "segment")
 
@@ -49,16 +75,28 @@ _U64 = struct.Struct("<Q")
 
 
 class BatchEngine:
-    """Batched block codecs on one device: ``compress_batch(list[bytes])
-    -> list[bytes]`` and ``decompress_batch(list[bytes], out_max) ->
-    list[bytes]``."""
+    """Batched block codecs on one device.
+
+    - ``compress_batch(list[bytes]) -> list[bytes]`` and
+      ``decompress_batch(list[bytes], out_max) -> list[bytes]``;
+    - optionally the packed forms, the fields of the JAX engine's names,
+      one contiguous buffer each way, here kept on the engine's device:
+      ``compress_packed(data, block_size) -> (src, lens, comp, comp_lens,
+      err)`` (``cuda_instances.compress_rows``) and ``decompress_packed(comp,
+      comp_lens, out_max) -> (out, out_lens)`` (``cuda_instances.
+      decode_rows``, ``segment_decode.decompress_rows``). The pipeline
+      takes them when they are set.
+    """
 
     def __init__(self, name: str, compress_batch, decompress_batch,
-                 device: torch.device):
+                 device: torch.device, compress_packed=None,
+                 decompress_packed=None):
         self.name = name
         self.compress_batch = compress_batch
         self.decompress_batch = decompress_batch
         self.device = device
+        self.compress_packed = compress_packed
+        self.decompress_packed = decompress_packed
 
     def __repr__(self):
         return f"BatchEngine({self.name}, {self.device})"
@@ -69,8 +107,9 @@ def get_engine(name: str = "fastest", level: int = 0,
     """The engine ``name`` (one of :data:`ENGINES`) on ``device``; raises
     when ``device`` names a card and there is none.
 
-    ``level`` 1..17 compresses with HC at that level; 0 (or below) with
-    the fast scan, as the JAX engines other than ``native`` do.
+    ``level`` 1..17 compresses with HC at that level, on the host, and the
+    engine has no packed compress; 0 (or below) with the fast scan, as the
+    JAX engines other than ``native`` do.
     """
     if name not in ENGINES:
         raise ValueError(
@@ -80,26 +119,21 @@ def get_engine(name: str = "fastest", level: int = 0,
     dev = resolve_device(device)
     name = "cuda" if name == "fastest" else name
     lz4 = Lz4Factory.cuda_instance(dev)
-    comp = (lz4.high_compressor(level) if level > 0
-            else lz4.fast_compressor()).compress_batch
+    if level > 0:
+        comp, comp_packed = lz4.high_compressor(level).compress_batch, None
+    else:
+        comp = lz4.fast_compressor().compress_batch
+        comp_packed = cuda_instances.compress_rows
     if name == "cuda":
         decomp = lz4.safe_decompressor().decompress_batch
+        decomp_packed = cuda_instances.decode_rows
     else:
-        decomp = functools.partial(segment_decode.decompress_blocks,
-                                   device=dev)
+        def decomp(blocks, out_max):
+            return segment_decode.decompress_blocks(blocks, out_max, dev)
+        decomp_packed = segment_decode.decompress_rows
     suffix = f"-hc{level}" if level > 0 else ""
-    return BatchEngine(name + suffix, comp, decomp, dev)
-
-
-def _read_full(src, n: int) -> bytes:
-    """Up to ``n`` bytes; fewer only at the end of ``src``."""
-    data = src.read(n)
-    while data and len(data) < n:
-        more = src.read(n - len(data))
-        if not more:
-            break
-        data += more
-    return data or b""
+    return BatchEngine(name + suffix, comp, decomp, dev, comp_packed,
+                       decomp_packed)
 
 
 def compress_stream(src, dst, block_size: BlockSize = BlockSize.SIZE_64KB,
@@ -118,41 +152,124 @@ def compress_stream(src, dst, block_size: BlockSize = BlockSize.SIZE_64KB,
     elif level > 0:
         hc = Lz4Factory.cuda_instance(engine.device).high_compressor(level)
         engine = BatchEngine(f"{engine.name}-hc{level}", hc.compress_batch,
-                             engine.decompress_batch, engine.device)
+                             engine.decompress_batch, engine.device,
+                             decompress_packed=engine.decompress_packed)
     bs = block_size.num_bytes
     flags = {FrameFlag.BLOCK_INDEPENDENCE}
     if content_checksum:
         flags.add(FrameFlag.CONTENT_CHECKSUM)
     desc = bytes([_flg_to_byte(frozenset(flags)), (block_size.value & 7) << 4])
     header = _U32.pack(MAGIC) + desc + bytes([(xxh32_bytes(desc) >> 8) & 0xFF])
-    content_hash = (XXHashFactory.cuda_instance(engine.device)
-                    .new_streaming_hash32(0) if content_checksum else None)
+    content_hash = (StreamState32(0, engine.device) if content_checksum
+                    else None)
 
     dst.write(header)
     written = len(header)
-    while True:
-        chunk = _read_full(src, bs * batch_blocks)
-        if not chunk:
-            break
-        if content_hash is not None:
-            content_hash.update(chunk)
-        view = memoryview(chunk)
-        blocks = [view[i:i + bs] for i in range(0, len(chunk), bs)]
-        for raw, comp in zip(blocks, engine.compress_batch(blocks)):
-            if len(comp) >= len(raw):
-                parts = (_U32.pack(len(raw) | INCOMPRESSIBLE_MASK), raw)
-            else:
-                parts = (_U32.pack(len(comp)), comp)
-            for p in parts:
-                dst.write(p)
-                written += len(p)
-        if len(chunk) < bs * batch_blocks:
-            break
+    if engine.compress_packed is not None:
+        written += _compress_packed(src, dst, engine, bs, bs * batch_blocks,
+                                    content_hash)
+    else:
+        written += _compress_listed(src, dst, engine, bs, bs * batch_blocks,
+                                    content_hash)
     tail = _U32.pack(0)
     if content_hash is not None:
-        tail += _U32.pack(content_hash.get_value() & U32)
+        tail += _U32.pack(content_hash.digest() & U32)
     dst.write(tail)
     return written + len(tail)
+
+
+def _read_batch(src, up, want: int):
+    """Up to ``want`` bytes of ``src`` in the staging buffer ``up``."""
+    with part("read"):
+        host = up.take(want)
+        return host, read_into(src, host.numpy())
+
+
+def _compress_packed(src, dst, engine, bs, want, content_hash) -> int:
+    """The frame body through the packed compress, two batches in flight:
+    while the card compresses batch i, the host checks, packs, downloads
+    and writes batch i - 1 (on a stream of their own, after that batch's
+    K2) and reads batch i + 1. Returns the bytes written."""
+    dev = engine.device
+    up = staging(dev, UP)
+    emit_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    written, pending = 0, None
+    host, n = _read_batch(src, up, want)
+    while True:
+        batch = None
+        if n:
+            with part("upload"):
+                data = up.upload(host[:n], dev)
+            if content_hash is not None:
+                with part("content_hash"):
+                    content_hash.update(data)
+            batch = engine.compress_packed(data, bs)
+            batch = (batch, _event(dev))
+        if pending is not None:
+            written += _emit_body(dst, dev, emit_stream, *pending)
+        if batch is None:
+            return written
+        pending = batch
+        host, n = _read_batch(src, up, want) if n == want else (None, 0)
+
+
+def _event(dev: torch.device):
+    """An event recorded on the current stream of a card; None on the CPU."""
+    if dev.type != "cuda":
+        return None
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
+    return done
+
+
+def _emit_body(dst, dev, stream, batch, done) -> int:
+    """Check one compressed batch, pack its frame body, download and write
+    it, on ``stream`` once ``done`` (its K2) has completed; returns the
+    body's length."""
+    src, lens, comp, comp_lens, err = batch
+    ctx = contextlib.nullcontext()
+    if stream is not None:
+        stream.wait_event(done)
+        ctx = torch.cuda.stream(stream)
+    with ctx:
+        cuda_instances.check_compressed(err)
+        with part("kernels"):
+            body, total = frame_body_packed(src, lens, comp, comp_lens)
+        with part("download"):
+            out = staging(dev, DOWN).download(body)
+    with part("write"):
+        dst.write(memoryview(out))
+    return total
+
+
+def _compress_listed(src, dst, engine, bs, want, content_hash) -> int:
+    """The frame body through ``engine.compress_batch`` (HC, or an engine
+    with no packed compress), a batch at a time; returns the bytes
+    written."""
+    written = 0
+    while True:
+        with part("read"):
+            chunk = bytearray(want)
+            n = read_into(src, chunk)
+        if not n:
+            return written
+        view = memoryview(chunk)[:n]
+        if content_hash is not None:
+            with part("content_hash"):
+                content_hash.update(view)
+        blocks = [view[i:i + bs] for i in range(0, n, bs)]
+        parts = []
+        for raw, comp in zip(blocks, engine.compress_batch(blocks)):
+            if len(comp) >= len(raw):
+                parts += (_U32.pack(len(raw) | INCOMPRESSIBLE_MASK), raw)
+            else:
+                parts += (_U32.pack(len(comp)), comp)
+        out = b"".join(parts)
+        with part("write"):
+            dst.write(out)
+        written += len(out)
+        if n < want:
+            return written
 
 
 def decompress_stream(src, dst, engine: BatchEngine | str = "fastest",
@@ -164,7 +281,6 @@ def decompress_stream(src, dst, engine: BatchEngine | str = "fastest",
     the decompressed bytes written."""
     if isinstance(engine, str):
         engine = get_engine(engine, device=device)
-    xxh = XXHashFactory.cuda_instance(engine.device)
     written = 0
 
     def read_exact(n: int, eof_ok: bool = False):
@@ -200,44 +316,207 @@ def decompress_stream(src, dst, engine: BatchEngine | str = "fastest",
             expected_size = _U64.unpack(raw8)[0]
         if ((xxh32_bytes(desc) >> 8) & 0xFF) != read_exact(1)[0]:
             raise Lz4FrameError("Frame header checksum mismatch")
-        content_hash = (xxh.new_streaming_hash32(0)
+        content_hash = (StreamState32(0, engine.device)
                         if FrameFlag.CONTENT_CHECKSUM in flags else None)
-        total = 0
-        pending: list[tuple[bool, bytes]] = []
+        frame = _FrameBody(src, dst, engine, bs, max(1, batch_blocks),
+                           FrameFlag.BLOCK_CHECKSUM in flags, content_hash)
+        total = frame.run()
+        written += total
+        if content_hash is not None:
+            expect = _U32.unpack(read_exact(4))[0]
+            if expect != content_hash.digest() & U32:
+                raise Lz4FrameError("Content checksum mismatch")
+        if 0 <= expected_size != total:
+            raise Lz4FrameError("Size check mismatch")
+    return written
 
-        def flush():
-            nonlocal written, total
-            decoded = iter(engine.decompress_batch(
-                [p for is_comp, p in pending if is_comp], bs))
-            raw = b"".join(next(decoded) if is_comp else p
-                           for is_comp, p in pending)
-            pending.clear()
-            if content_hash is not None:
-                content_hash.update(raw)
-            dst.write(raw)
-            written += len(raw)
-            total += len(raw)
 
+def _read_full(src, n: int) -> bytes:
+    """Up to ``n`` bytes; fewer only at the end of ``src``."""
+    data = src.read(n)
+    while data and len(data) < n:
+        more = src.read(n - len(data))
+        if not more:
+            break
+        data += more
+    return data or b""
+
+
+class _FrameBody:
+    """The blocks of one frame, up to its end mark, decoded a batch at a
+    time into ``dst``.
+
+    The walk reads each payload into its row of the pinned staging buffer
+    (``[lens int32[B] | rows uint8[B, row_stride(bs)]]``). It stops at
+    ``B`` blocks, at the end mark, or at a fault of the walk ("Block size
+    ... exceeded max", "Stream ended prematurely"). The block checksums of
+    the blocks read are checked before that fault is raised and before
+    anything of the batch is decoded, so a mismatch wins over both, as it
+    does in the JAX walk, which checks each block as it reads it.
+
+    With a packed decode, two batches are in flight: the card decodes
+    batch i while the host walks batch i + 1, and batch i is checked and
+    written before anything of batch i + 1 is checked or raised, so that
+    ``dst`` and the exception are those of the JAX walk.
+    """
+
+    def __init__(self, src, dst, engine, bs, batch_blocks, block_checksum,
+                 content_hash):
+        self.src, self.dst, self.engine, self.bs = src, dst, engine, bs
+        self.b = batch_blocks
+        self.block_checksum = block_checksum
+        self.content_hash = content_hash
+        self.stride = row_stride(bs)
+        self.rows_at = -(-4 * batch_blocks // 16) * 16
+        self.up = staging(engine.device, UP)
+
+    def run(self) -> int:
+        total, pending = 0, None
         while True:
-            size_word = _U32.unpack(read_exact(4))[0]
+            with part("read"):
+                host = self.up.take(self.rows_at + self.b * self.stride)
+                n, raw, sums, end, fault = self._walk(host.numpy())
+            if pending is not None:
+                total += self._emit(*pending)
+                pending = None
+            if n and (self.block_checksum or not fault):
+                rows, lens = self._upload(host, n)
+                if self.block_checksum:
+                    self._check_sums(rows, lens, sums)
+                if fault is None:
+                    sizes = host.numpy()[:4 * n].view(np.int32).astype(np.int64)
+                    if self.engine.decompress_packed is None:
+                        total += self._flush_listed(host, sizes, raw)
+                    else:
+                        pending = self._launch(rows, lens, sizes, raw)
+            if fault is not None:
+                raise fault
+            if end:
+                return total + (self._emit(*pending) if pending else 0)
+
+    def _walk(self, arr: np.ndarray):
+        """Read blocks into the rows; returns (blocks read, raw flags, the
+        block checksums read, end mark reached, the walk's fault)."""
+        lens = arr[:4 * self.b].view(np.int32)
+        rows = arr[self.rows_at:].reshape(self.b, self.stride)
+        raw, sums = [], []
+        src, bs = self.src, self.bs
+        premature = Lz4FrameError("Stream ended prematurely")
+        n = 0
+        while n < self.b:
+            word = _read_full(src, 4)
+            if len(word) < 4:
+                return n, raw, sums, False, premature
+            size_word = _U32.unpack(word)[0]
             size = size_word & ~INCOMPRESSIBLE_MASK
             if size == 0:
-                flush()
-                if content_hash is not None:
-                    expect = _U32.unpack(read_exact(4))[0]
-                    if expect != content_hash.get_value() & U32:
-                        raise Lz4FrameError("Content checksum mismatch")
-                if 0 <= expected_size != total:
-                    raise Lz4FrameError("Size check mismatch")
-                break
+                return n, raw, sums, True, None
             if size > bs:
-                raise Lz4FrameError(f"Block size {size} exceeded max: {bs}")
-            payload = read_exact(size)
-            if FrameFlag.BLOCK_CHECKSUM in flags:
-                expect = _U32.unpack(read_exact(4))[0]
-                if expect != xxh.hash32().hash(payload, 0, size, 0) & U32:
-                    raise Lz4FrameError("Block checksum mismatch")
-            pending.append((not size_word & INCOMPRESSIBLE_MASK, payload))
-            if len(pending) >= batch_blocks:
-                flush()
-    return written
+                return n, raw, sums, False, Lz4FrameError(
+                    f"Block size {size} exceeded max: {bs}")
+            if read_into(src, rows[n, :size]) < size:
+                return n, raw, sums, False, premature
+            if self.block_checksum:
+                word = _read_full(src, 4)
+                if len(word) < 4:
+                    return n, raw, sums, False, premature
+                sums.append(_U32.unpack(word)[0])
+            lens[n] = size
+            raw.append(bool(size_word & INCOMPRESSIBLE_MASK))
+            n += 1
+        return n, raw, sums, False, None
+
+    def _upload(self, host: torch.Tensor, n: int):
+        """The walked rows and their lengths on the device: one upload."""
+        with part("upload"):
+            buf = self.up.upload(host[:self.rows_at + n * self.stride],
+                                 self.engine.device)
+        return (buf[self.rows_at:].view(n, self.stride),
+                buf[:4 * n].view(torch.int32))
+
+    def _check_sums(self, rows, lens, sums) -> None:
+        """One K3 launch over the payload rows against the checksums read."""
+        with part("kernels"):
+            got = xxh32_batch(rows, lens, 0)
+        with part("check"):
+            got = got.cpu().numpy()
+        if np.flatnonzero(got != np.array(sums, np.uint32)).size:
+            raise Lz4FrameError("Block checksum mismatch")
+
+    def _launch(self, rows, lens, sizes, raw):
+        """Queue the batch's decode; returns what :meth:`_emit` needs."""
+        comp_at = [i for i, r in enumerate(raw) if not r]
+        finish = idx = None
+        if comp_at:
+            with part("kernels"):
+                if len(comp_at) == len(raw):
+                    comp, comp_lens = rows, lens
+                else:
+                    idx = torch.tensor(comp_at, device=rows.device)
+                    comp = rows.index_select(0, idx)
+                    comp_lens = lens.index_select(0, idx)
+            out, finish = self.engine.decompress_packed(comp, comp_lens,
+                                                        self.bs)
+            if idx is None:
+                rows = out
+            else:       # decoded rows over their compressed ones
+                rows.index_copy_(0, idx, out)
+        return rows, sizes, comp_at, finish
+
+    def _emit(self, rows, sizes, comp_at, finish) -> int:
+        """Check the decode, put the batch's output together on the card in
+        frame order, hash it, write it; returns its length."""
+        if finish is not None:
+            sizes[comp_at] = finish()
+        total = int(sizes.sum())
+        with part("kernels"):
+            flat = _join_rows(rows, sizes, self.bs, total)
+        if self.content_hash is not None:
+            with part("content_hash"):
+                self.content_hash.update(flat)
+        if total:
+            with part("download"):
+                data = staging(self.engine.device, DOWN).download(flat)
+            with part("write"):
+                self.dst.write(memoryview(data))
+        return total
+
+    def _flush_listed(self, host, sizes, raw) -> int:
+        """Decode and write the batch through ``engine.decompress_batch``;
+        returns its length."""
+        rows = host.numpy()[self.rows_at:].reshape(self.b, self.stride)
+        payloads = [rows[i, :k].tobytes() for i, k in enumerate(sizes)]
+        comp = [p for p, r in zip(payloads, raw) if not r]
+        decoded = iter(self.engine.decompress_batch(comp, self.bs)
+                       if comp else [])
+        data = b"".join(next(decoded) if not r else p
+                        for r, p in zip(raw, payloads))
+        if self.content_hash is not None:
+            with part("content_hash"):
+                self.content_hash.update(data)
+        with part("write"):
+            self.dst.write(data)
+        return len(data)
+
+
+def _join_rows(rows: torch.Tensor, sizes: np.ndarray, bs: int,
+               total: int) -> torch.Tensor:
+    """The first ``sizes[i]`` bytes of each row, one after the other, as
+    one tensor on the rows' device: one copy for each run of full blocks
+    and one for each shorter block, wherever it lies in the frame."""
+    flat = torch.empty((total,), dtype=torch.uint8, device=rows.device)
+    n, pos, i = len(sizes), 0, 0
+    while i < n:
+        j = i
+        while j < n and sizes[j] == bs:
+            j += 1
+        if j > i:
+            flat[pos:pos + (j - i) * bs].view(j - i, bs).copy_(rows[i:j, :bs])
+            pos += (j - i) * bs
+        if j < n:
+            k = int(sizes[j])
+            flat[pos:pos + k].copy_(rows[j, :k])
+            pos += k
+            j += 1
+        i = j
+    return flat

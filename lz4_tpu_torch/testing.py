@@ -6,7 +6,12 @@ Shared by the CPU tests and ``chip_smoke.py``; every generator takes a
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
+
+from .formats.frame import (
+    FrameFlag, INCOMPRESSIBLE_MASK, MAGIC, _flg_to_byte, xxh32_bytes)
 
 KINDS = ("zeros", "period3", "alphabet4", "incompressible")
 SHORT_CASES = ("periods", "dist_vs_len", "runs", "null", "ring_edge")
@@ -237,3 +242,49 @@ def pack_cases() -> list[tuple[int, int]]:
     cases += [(0, 7), (0, 0), (0, 65547)]
     cases += [(65547, 65547), (65547, 65546), (65547, 70000), (65547, 13)]
     return cases
+
+
+def build_frame(raws, comps, bd: int = 4, block_checksum: bool = True,
+                content_checksum: bool = True) -> bytes:
+    """An LZ4 frame of independent blocks, written by hand: block i is
+    ``comps[i]`` when that is shorter than ``raws[i]``, else ``raws[i]``
+    stored raw, in any mix of sizes (short blocks anywhere in the frame,
+    as other writers emit them); ``bd`` is the block-size indicator
+    (4: 64 KiB); block and content checksums as asked."""
+    flags = {FrameFlag.BLOCK_INDEPENDENCE}
+    if block_checksum:
+        flags.add(FrameFlag.BLOCK_CHECKSUM)
+    if content_checksum:
+        flags.add(FrameFlag.CONTENT_CHECKSUM)
+    desc = bytes([_flg_to_byte(frozenset(flags)), (bd & 7) << 4])
+    out = [struct.pack("<I", MAGIC), desc,
+           bytes([(xxh32_bytes(desc) >> 8) & 0xFF])]
+    for raw, comp in zip(raws, comps):
+        if len(comp) < len(raw):
+            out += [struct.pack("<I", len(comp)), comp]
+        else:
+            out += [struct.pack("<I", len(raw) | INCOMPRESSIBLE_MASK), raw]
+        if block_checksum:
+            out.append(struct.pack("<I", xxh32_bytes(out[-1])))
+    out.append(struct.pack("<I", 0))
+    if content_checksum:
+        out.append(struct.pack("<I", xxh32_bytes(b"".join(raws))))
+    return b"".join(out)
+
+
+def ragged_sizes(rng: np.random.Generator, n: int,
+                 block_size: int = 1 << 16) -> list[int]:
+    """Sizes of ``n`` frame blocks of ``block_size``: full blocks with
+    short ones among them, of 1 to 64 bytes and of a random length below
+    the block size, none a multiple of 16, so that a batch's output
+    leaves a remainder for the content hash."""
+    sizes = []
+    for i in range(n):
+        kind = i % 5
+        if kind in (0, 2):
+            sizes.append(block_size)
+        elif kind == 1:
+            sizes.append(int(rng.integers(1, 65)) | 1)
+        else:
+            sizes.append(int(rng.integers(16, block_size - 16)) | 1)
+    return sizes

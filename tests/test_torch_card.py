@@ -8,6 +8,7 @@ runs alone, without ``tests/conftest.py``::
 """
 
 import io
+import struct
 
 import numpy as np
 import pytest
@@ -361,3 +362,132 @@ def test_stream_pipeline_on_the_card(cuda_device):
     for k in ("lz4_compress", "lz4_decode", "lz4_parse", "segment_decode",
               "xxh32_stream", "frame_pack"):
         assert counts[k] >= 1, k
+
+
+def test_packed_entry_points_match_cpu(cuda_device):
+    from lz4_tpu_torch.api import cuda_instances as ci
+    rng = np.random.default_rng(13)
+    data = (rng.integers(0, 4, 3 * 65536, dtype=np.uint8).tobytes()
+            + rng.integers(0, 256, 70000, dtype=np.uint8).tobytes())
+    got = ci.compress_fast_packed(data, 65536, device=cuda_device)
+    want = ci.compress_fast_packed(data, 65536, device="cpu")
+    assert got[0] == want[0] and got[1].tolist() == want[1].tolist()
+    assert got[2].tolist() == want[2].tolist()
+    dest, lens = ci.decompress_safe_packed(*got, 65536, device=cuda_device)
+    assert (dest, lens.tolist()) == (
+        ci.decompress_safe_packed(*got, 65536, device="cpu")[0],
+        [65536] * 4 + [70000 - 65536])
+    assert ci.compress_fast_packed(b"", 65536, device=cuda_device)[0] == b""
+
+
+def _decode_outcome(frame, engine, batch_blocks, device):
+    out = io.BytesIO()
+    try:
+        decompress_stream(io.BytesIO(frame), out, engine=engine,
+                          batch_blocks=batch_blocks, device=device)
+    except Exception as e:      # noqa: BLE001 - compared with the CPU's
+        return out.getvalue(), f"{type(e).__name__}: {e}"
+    return out.getvalue(), None
+
+
+@pytest.mark.parametrize("batch_blocks", [1, 4])
+def test_stream_buffer_reuse_and_ragged_frames(cuda_device, batch_blocks):
+    """Small batches reuse the pinned and device buffers many times while
+    the content hash runs on its own stream; a hand-built frame with block
+    checksums and short blocks anywhere decodes with one K3 launch a
+    batch, its content-hash remainders carried across batches."""
+    rng = np.random.default_rng(14)
+    data = sharded.make_blocks(24, 65536, 3).tobytes()[:24 * 65536 - 99]
+    out = io.BytesIO()
+    compress_stream(io.BytesIO(data), out, engine="cuda",
+                    batch_blocks=batch_blocks)
+    assert out.getvalue() == compress_frame_packed(data, device=cuda_device)
+    sizes = testing.ragged_sizes(rng, 23)
+    pos = np.cumsum([0] + sizes)
+    raws = [data[a:b] for a, b in zip(pos[:-1], pos[1:])]
+    comps = Lz4Factory.cuda_instance(cuda_device).fast_compressor() \
+        .compress_batch(raws)
+    frame = testing.build_frame(raws, comps)
+    for engine in ("cuda", "segment"):
+        back = io.BytesIO()
+        decompress_stream(io.BytesIO(out.getvalue()), back, engine=engine,
+                          batch_blocks=batch_blocks)
+        assert back.getvalue() == data
+        build.reset_launch_counts()
+        assert _decode_outcome(frame, engine, batch_blocks, cuda_device) == \
+            (b"".join(raws), None)
+        assert build.launch_counts()["xxh32"] == -(-len(raws) // batch_blocks)
+
+
+@pytest.mark.parametrize("after", ["none", "oversized", "premature"])
+def test_block_checksum_mismatch_matches_cpu(cuda_device, after):
+    rng = np.random.default_rng(15)
+    sizes = testing.ragged_sizes(rng, 13)
+    data = sharded.make_blocks(13, 65536, 4).tobytes()
+    pos = np.cumsum([0] + sizes)
+    raws = [data[a:b] for a, b in zip(pos[:-1], pos[1:])]
+    comps = Lz4Factory.cuda_instance("cpu").fast_compressor() \
+        .compress_batch(raws)
+    frame = bytearray(testing.build_frame(raws, comps))
+    at, spans = 7, []
+    while struct.unpack_from("<I", frame, at)[0]:
+        size = struct.unpack_from("<I", frame, at)[0] & 0x7FFFFFFF
+        spans.append((at, at + 4 + size))
+        at += 8 + size
+    frame[spans[5][1]] ^= 1
+    if after == "oversized":
+        struct.pack_into("<I", frame, spans[6][0], 65537)
+    elif after == "premature":
+        frame = frame[:spans[6][1] - 3]
+    for engine in ("cuda", "segment"):
+        got = _decode_outcome(bytes(frame), engine, 4, cuda_device)
+        assert got == _decode_outcome(bytes(frame), engine, 4, "cpu")
+        assert got == (b"".join(raws[:4]),
+                       "Lz4FrameError: Block checksum mismatch")
+
+
+@pytest.mark.parametrize("cls, ref", [
+    (xxhash_stream.StreamState32, xxhash_ref.xxh32),
+    (xxhash_stream.StreamState64, xxhash_ref.xxh64)])
+def test_stream_state_absorbs_tensors_on_its_stream(cuda_device, cls, ref):
+    """Updates from tensors on the card, of every length around a stripe,
+    each freed at once and its memory handed to new tensors that are
+    overwritten: the digest is the host hash of the bytes."""
+    rng = np.random.default_rng(16)
+    data = rng.integers(0, 256, 3 << 20, dtype=np.uint8).tobytes()
+    st, host = cls(5, cuda_device), cls(5, "cpu")
+    pos = 0
+    for k in [1, 15, 16, 17, 31, 33, 1 << 20, 7, (1 << 20) + 5, 100, 3]:
+        piece = data[pos:pos + k]
+        pos += k
+        t = torch.frombuffer(bytearray(piece), dtype=torch.uint8).to(
+            cuda_device)
+        st.update(t)
+        host.update(piece)
+        del t
+        torch.full((k + 64,), 0xEE, dtype=torch.uint8, device=cuda_device)
+    st.update(data[pos:pos + 1000])
+    host.update(data[pos:pos + 1000])
+    pos += 1000
+    assert st.lanes.cpu().tolist() == host.lanes.tolist()
+    assert st.digest() == host.digest() == ref(data[:pos], 0, pos, 5)
+
+
+def test_staging_is_grow_only_and_keeps_empty_rows_readable(cuda_device):
+    st = layout.staging(cuda_device, layout.UP)
+    a = st.take(1000)
+    st.upload(a, cuda_device)
+    b = st.take(500)
+    assert a.data_ptr() == b.data_ptr() and b.is_pinned()
+    rows, lens = layout.to_device_layout([b"", b"abc", b""],
+                                         device=cuda_device)
+    assert rows[[0, 2], 0].tolist() == [0, 0]
+    _, read, err = codec.decompress_fast_batch(rows, lens, 0)
+    assert err[[0, 2]].tolist() == [0, 0]
+    data = np.random.default_rng(17).integers(0, 256, (5, 37), np.uint8)
+    lens_np = np.array([0, 1, 16, 36, 37], np.int32)
+    h = XXHashFactory.cuda_instance(cuda_device).hash32().hash_batch(
+        data, lens_np, 3)
+    assert h.device.type == "cuda"
+    assert h.cpu().tolist() == [xxhash_ref.as_u32(xxhash_ref.xxh32(
+        r.tobytes(), 0, int(k), 3)) for r, k in zip(data, lens_np)]
