@@ -15,8 +15,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build of every kernel from ``lz4_tpu_torch/csrc`` (set-up, timed), with
-   nvcc's registers and spills, and K1's, K2's, K3's, K4's, K5's, the
-   parser's and pack's resident CTAs per SM;
+   nvcc's registers and spills, and K1's, K2's, K3's, K4's, K5's, K6's,
+   the parser's and pack's resident CTAs per SM;
 3. each kernel against its plain version on edge-case batches: block sizes
    around the format's limits, data kinds from zeros to incompressible, a
    tight ``dest_cap``, fuzz batches of malformed blocks with a guard region
@@ -70,9 +70,25 @@ Phases (any failure exits non-zero; nothing is caught):
    last, the command line in subprocesses: a 64 MiB file
    compressed with ``--engine cuda`` and restored with ``--engine segment``,
    and the hashes of a 4 MiB file against the host hashes;
+6b. HC (:func:`phase_hc`): K6 against its plain version (run a row a task
+   in worker processes) on the edge sizes x zeros, a4, text and random at
+   levels 1, 9 and 17, with every row tail 0xA5 too, on
+   ``testing.hc_edge_blocks`` at levels 1-17 and at tight caps (n - 1, n,
+   n + 1), and on 16 main-path rows of each kind at level 1 and 4 at level
+   9; then, with launch counts reset just before and read just after,
+   the tier's ``high_compressor(9).compress_batch`` on the main path's
+   4096 blocks, twice (every block decoded back by K1; compressed sizes
+   beside K2's by kind); K6 timed at levels 1, 9 and 17, at level 9 by
+   kind and on 132, 1056 and 4096 a4 rows, and a4 rows alone (the chain
+   floor); ``compress_stream(level=9)`` on 64 MiB twice, ``main(['compress',
+   '-l', '9'])`` in this process and ``python -m lz4_tpu_torch compress
+   -l 9`` in a subprocess, each frame equal to the one put together on the
+   host from K6's blocks and decoded by both engines, K6 launched and K2
+   never;
 7. the host split (:func:`host_split`): the three stream calls and the
    tier's ``compress_batch`` and ``decompress_batch`` on the main path's
-   256 MiB, each twice untraced and once under ``torch.profiler``, with
+   256 MiB, and ``compress_stream(level=9)`` on 64 MiB of it, each twice
+   untraced and twice under ``torch.profiler``, with
    the host time of each part of a batch, what no part covers and the
    card's busy and idle share;
 8. ``compress_frame_packed`` on about 64 MiB, verified by decoding its
@@ -86,9 +102,13 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import importlib.util
 import io
 import json
+import os
 import pathlib
+import pickle
+import selectors
 import struct
 import subprocess
 import sys
@@ -110,6 +130,11 @@ from lz4_tpu_torch.formats.frame import (
 from lz4_tpu_torch.kernels import (
     build, codec, layout, segment_decode, sequences, xxhash, xxhash_stream)
 from lz4_tpu_torch.streams import compress_stream, decompress_stream
+
+try:    # the package before K6 has no kernels.hc; --host-split runs on it
+    from lz4_tpu_torch.kernels import hc
+except ImportError:
+    hc = None
 
 SEED = 1234
 N_BLOCKS = 4096
@@ -156,12 +181,17 @@ KERNELS = {  # Kernel.name -> (source, TPU kernel it replaces)
     # the pure-JAX _frame_body_packed, which runs in the compress jit
     "frame_pack": ("lz4_tpu_torch/csrc/frame_pack.cu",
                    "lz4_tpu/dist/sharded.py:271"),
+    # not a Pallas kernel: the pure-JAX HC phase machine the pallas tier
+    # runs on its device
+    "lz4_hc": ("lz4_tpu_torch/csrc/lz4_hc.cu",
+               "lz4_tpu/kernels/jax_hc.py:479"),
 }
 MAIN_PATH = ("lz4_compress", "lz4_decode", "xxh32",   # roundtrip_step
              "frame_pack")
 TIER_PATH = ("lz4_compress", "lz4_decode", "xxh32", "xxh64", "lz4_decode_fast")
 STREAM_PATH = ("lz4_compress", "lz4_decode", "lz4_parse", "segment_decode",
                "xxh32_stream", "xxh64_stream")
+HC_PATH = ("lz4_hc", "frame_pack", "xxh32_stream")   # tier, stream, CLI at -l 9
 XXH64_SEEDS = (0, (1 << 64) - 1, 0xCAFEBABE12345678)
 OCCUPANCY = (("lz4_compress", "lz4tt_compress_occupancy"),
              ("lz4_decode", "lz4tt_decode_occupancy"),
@@ -169,9 +199,16 @@ OCCUPANCY = (("lz4_compress", "lz4tt_compress_occupancy"),
              ("lz4_parse", "lz4tt_parse_occupancy"),
              ("frame_pack", "lz4tt_frame_pack_occupancy"),
              ("xxh32", "lz4tt_xxh32_occupancy"),
-             ("xxh64", "lz4tt_xxh64_occupancy"))
+             ("xxh64", "lz4tt_xxh64_occupancy"),
+             ("lz4_hc", "lz4tt_hc_occupancy"))
 KIND_NAMES = ("a4", "text", "random")    # sharded.block_kinds 0, 1, 2
 A4_ROWS = (132, 1056, 4096)              # one block an SM, 8, 31
+HC_LEVEL = 9                             # the default level
+HC_LEVELS = (1, 9, 17)
+HC_PLAIN_ROWS = {1: 16, 9: 4}            # main-path rows of each kind
+HC_FLOOR_ROWS = 8                        # a4 rows timed alone
+HC_REPS = 2
+HC_WORKERS = 7                           # processes of the plain version
 
 
 def fail(msg: str):
@@ -755,10 +792,7 @@ def phase_tier(dev, main) -> list[dict]:
                     lambda: xxh.hash32().hash_batch(data, lens_np, SEED))
         hi, lo = timed(f"hash64 hash_batch #{rnd}",
                        lambda: xxh.hash64().hash_batch(data, lens_np, seed64))
-    # the host roles, on small inputs: HC and the streaming hashes
-    hc = timed("high_compressor(9) on 4 KiB",
-               lambda: lz4.high_compressor(9).compress_batch(
-                   [blocks[0][:4096]]))
+    # the streaming hash on a small input (HC has its own phase)
     stream = timed("streaming XXH64 of one block in 1000-byte updates",
                    lambda: _stream64(xxh, blocks[0], seed64))
     launches = build.launch_counts()
@@ -766,8 +800,8 @@ def phase_tier(dev, main) -> list[dict]:
     log(f"tier host wall, ms (layout copies and transfers included): {wall}")
     log(f"tier roles on the card: fast_compressor (K2), safe_decompressor "
         f"(K1), fast_decompressor (K1 fast), hash32 (K3), hash64 (K4), the "
-        f"streaming hashes (the stream entry points of K3 and K4); on the "
-        f"host: high_compressor (core/lz4_hc_ref.py)")
+        f"streaming hashes (the stream entry points of K3 and K4); "
+        f"high_compressor (K6) in the HC phase")
     for k in TIER_PATH:
         if launches.get(k, 0) < 1:
             fail(f"kernel {k} was not launched on the tier path")
@@ -781,13 +815,10 @@ def phase_tier(dev, main) -> list[dict]:
     hash0 = (int(hi[0]) << 32) | int(lo[0])
     if stream != hash0:
         fail("streaming XXH64 differs from hash64().hash_batch")
-    if lz4.safe_decompressor().decompress_alloc(
-            hc[0], 0, len(hc[0]), 4096) != blocks[0][:4096]:
-        fail("HC output does not decode")
     log(f"tier: {n} x {BLOCK_LEN} B compressed byte-identical to the main "
         f"path, every block restored by the safe and the fast decompressor, "
-        f"bytes read equal to the compressed lengths; HC and streaming "
-        f"XXH64 agree")
+        f"bytes read equal to the compressed lengths; streaming XXH64 "
+        f"agrees")
 
     src, lens = sharded.upload_blocks(data, dev)
     in_bytes = int(lens.sum())
@@ -1470,6 +1501,370 @@ def phase_stream(dev, main) -> list[dict]:
     return _stream_rows(dev, main, launches)
 
 
+# ---------------------------------------------------------------------------
+# HC (K6)
+# ---------------------------------------------------------------------------
+
+_HC_WORKER = """
+import pickle, sys, time
+from lz4_tpu_torch.kernels import hc, layout
+out, sys.stdout = sys.stdout.buffer, sys.stderr
+while True:
+    try:
+        data, dest_cap, level = pickle.load(sys.stdin.buffer)
+    except EOFError:
+        break
+    t0 = time.perf_counter()
+    src, lens = layout.to_device_layout([data], device="cpu")
+    dest, n, err = hc.compress_hc_plain(src, lens, dest_cap, level)
+    pickle.dump((dest[0].numpy().tobytes(), int(n[0]), int(err[0]),
+                 time.perf_counter() - t0), out)
+    out.flush()
+"""
+
+
+class PlainPool:
+    """Worker processes of K6's plain version, a row a task: each one is a
+    ``python -c`` that reads pickled ``(bytes, dest_cap, level)`` jobs on
+    its stdin and writes ``(row bytes, len, code, seconds)`` on its stdout.
+    Leaving the ``with`` ends and reaps every worker (killed if the block
+    raised), so no process outlives the script."""
+
+    def __init__(self, workers: int):
+        self.procs = []
+        try:
+            for _ in range(workers):
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _HC_WORKER], cwd=REPO,
+                    stdin=subprocess.PIPE, stdout=subprocess.PIPE))
+        except BaseException:
+            self.close(kill=True)
+            raise
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, *_):
+        self.close(kill=exc_type is not None)
+
+    def close(self, kill: bool = False) -> None:
+        for p in self.procs:
+            if kill:
+                p.kill()
+            with contextlib.suppress(OSError):
+                p.stdin.close()
+        for p in self.procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+            p.stdout.close()
+        self.procs = []
+
+    def map(self, jobs: list) -> list:
+        """The results of ``jobs`` in order; a free worker takes the next."""
+        res = [None] * len(jobs)
+        todo = list(enumerate(jobs))[::-1]
+        idle, busy = list(self.procs), {}
+        with selectors.DefaultSelector() as sel:
+            for p in self.procs:
+                sel.register(p.stdout, selectors.EVENT_READ, p)
+            while todo or busy:
+                while todo and idle:
+                    p = idle.pop()
+                    i, job = todo.pop()
+                    pickle.dump(job, p.stdin)
+                    p.stdin.flush()
+                    busy[p] = i
+                for key, _ in sel.select():
+                    p = key.data
+                    if p not in busy:
+                        fail(f"plain HC worker exited with {p.poll()}")
+                    try:
+                        res[busy.pop(p)] = pickle.load(p.stdout)
+                    except EOFError:
+                        fail(f"plain HC worker exited with {p.wait()}")
+                    idle.append(p)
+        return res
+
+
+def hc_plain(pool, src, lens, dest_cap, level):
+    """K6's plain version (``hc.compress_hc_plain``) on the rows of a batch,
+    a row a task in the worker processes of ``pool`` (a :class:`PlainPool`);
+    returns its ``(dest, lens, err)`` and the seconds the rows took, summed."""
+    rows = src.cpu().numpy()
+    jobs = [(rows[i, :n].tobytes(), dest_cap, level)
+            for i, n in enumerate(lens.cpu().tolist())]
+    res = pool.map(jobs)
+    dest = np.zeros((len(res), layout.row_stride(dest_cap)), np.uint8)
+    for i, r in enumerate(res):
+        dest[i] = np.frombuffer(r[0], np.uint8)
+    return ((torch.from_numpy(dest),
+             torch.tensor([r[1] for r in res], dtype=torch.int32),
+             torch.tensor([r[2] for r in res], dtype=torch.int32)),
+            sum(r[3] for r in res))
+
+
+def compare_hc(pool, what, src, lens, dest_cap, level, rows=None) -> float:
+    """K6 against its plain version on the rows ``rows`` (an index tensor,
+    all by default) of one launch on the whole batch: codes and lengths
+    on every row, bytes on OK rows. Returns the plain version's seconds."""
+    kern = hc.compress_hc_batch(src, lens, dest_cap, level)
+    if rows is not None:
+        src, lens = src[rows].contiguous(), lens[rows].contiguous()
+        kern = tuple(t[rows] for t in kern)
+    plain, secs = hc_plain(pool, src, lens, dest_cap, level)
+    sync()
+    compare_codec(what, kern, plain, dest_cap)
+    return secs
+
+
+def _tails(src, lens):
+    """``src`` with every byte past a row's length ``GUARD_BYTE``."""
+    col = torch.arange(src.shape[1], device=src.device)
+    return torch.where(col[None, :] >= lens[:, None].long(),
+                       torch.full_like(src, GUARD_BYTE), src)
+
+
+def _hc_edge_cases(dev, pool) -> None:
+    """K6 against its plain version on ``EDGE_SIZES`` x the HC kinds and on
+    ``testing.hc_edge_blocks`` at levels 1, 9 and 17 (the edge blocks at
+    every level), with tight caps (n - 1, n, n + 1 of rows' outputs), and
+    with every row tail ``GUARD_BYTE`` (the same output)."""
+    rng = np.random.default_rng(SEED + 5)
+    src, lens = layout.to_device_layout(
+        [testing.block_of(rng, k, n) for n in EDGE_SIZES
+         for k in testing.HC_KINDS], device=dev)
+    cap = max_compressed_length(max(EDGE_SIZES))
+    tails = _tails(src, lens)
+    for level in HC_LEVELS:
+        compare_hc(pool, f"K6 edge sizes, level {level}", src, lens, cap,
+                   level)
+        a = hc.compress_hc_batch(src, lens, cap, level)
+        b = hc.compress_hc_batch(tails, lens, cap, level)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"K6 level {level}: row tails of {GUARD_BYTE:#x} change "
+                 "the output")
+    edge, elens = layout.to_device_layout(testing.hc_edge_blocks(rng),
+                                          device=dev)
+    ecap = max_compressed_length(int(elens.max()))
+    for level in range(1, 18):
+        compare_hc(pool, f"K6 HC edge blocks, level {level}", edge, elens,
+                   ecap, level)
+    n_tight = 0
+    for level in (1, HC_LEVEL):
+        out_lens = hc.compress_hc_batch(edge, elens, ecap, level)[1]
+        for i in (2, 5, 9, 12, 20):
+            n = int(out_lens[i])
+            for c in (n - 1, n, n + 1):
+                compare_hc(pool, f"K6 cap {c}, level {level}", edge, elens,
+                           c, level)
+                n_tight += 1
+    log(f"K6 == plain on {src.shape[0]} edge blocks at levels {HC_LEVELS} "
+        f"(and with row tails of {GUARD_BYTE:#x}), on {edge.shape[0]} HC "
+        f"edge blocks at levels 1-17, and at {n_tight} tight caps")
+
+
+def _time_hc(fn, reps: int = HC_REPS) -> float:
+    """Milliseconds per call of ``fn`` on the card (CUDA events), after one
+    untimed call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / reps
+
+
+def _hc_timings(src, lens, kinds) -> dict:
+    """K6 at levels 1, 9 and 17 on all rows, at level 9 on the a4, text
+    and random rows apart and on ``A4_ROWS`` a4 rows, and the chain floor:
+    ``HC_FLOOR_ROWS`` a4 rows at level 9 each alone (one team); a batch
+    cannot finish before its slowest row. Returns ms by name."""
+    cap = max_compressed_length(BLOCK_LEN)
+    ms = {}
+    for level in HC_LEVELS:
+        ms[f"level {level}"] = _time_hc(
+            lambda: hc.compress_hc_batch(src, lens, cap, level))
+    for k, name in enumerate(KIND_NAMES):
+        idx = torch.nonzero(kinds == k).flatten()
+        s, sl = src[idx].contiguous(), lens[idx].contiguous()
+        ms[f"level 9 {name}"] = _time_hc(
+            lambda: hc.compress_hc_batch(s, sl, cap, HC_LEVEL))
+    a4 = torch.nonzero(kinds == 0).flatten()
+    for rows in A4_ROWS:
+        pick = a4.repeat(-(-rows // a4.numel()))[:rows]
+        s, sl = src[pick].contiguous(), lens[pick].contiguous()
+        ms[f"level 9 {rows} a4 rows"] = _time_hc(
+            lambda: hc.compress_hc_batch(s, sl, cap, HC_LEVEL))
+    alone = []
+    for i in a4[:HC_FLOOR_ROWS].tolist():
+        s, sl = src[i:i + 1].contiguous(), lens[i:i + 1].contiguous()
+        alone.append(_time_hc(
+            lambda: hc.compress_hc_batch(s, sl, cap, HC_LEVEL), reps=1))
+    ms["a4 rows alone"] = alone
+    ms["chain floor"] = max(alone)
+    log(f"K6 ms on the card: {json.dumps(ms)}")
+    return ms
+
+
+def _host_frame(raws: list[bytes], comps: list[bytes], dev) -> bytes:
+    """A frame of independent 64 KiB blocks with the content checksum,
+    put together on the host from the blocks' compressed forms."""
+    parts = [frame_header(BLOCK_LEN, True)]
+    for raw, comp in zip(raws, comps):
+        if len(comp) >= len(raw):
+            parts += [struct.pack("<I", len(raw) | INCOMPRESSIBLE_MASK), raw]
+        else:
+            parts += [struct.pack("<I", len(comp)), comp]
+    raw = b"".join(raws)
+    parts.append(struct.pack("<II", 0, _one_shot(raw, 32, 0, dev)))
+    return b"".join(parts)
+
+
+def _hc_stream(dev, main, k6_blocks) -> dict:
+    """``compress_stream(level=9)`` on the first ``CLI_BYTES`` of the main
+    path's data in batches of ``STREAM_BATCH``, twice, and the command
+    line's ``compress -l 9`` in this process and in a subprocess, launch
+    counts reset before and read after each call: K6, never K2; the frame
+    equal to the one put together on the host from K6's blocks, decoded
+    by both engines. Returns host walls and launches by call."""
+    raw = main["data"].tobytes()[:CLI_BYTES]
+    nblk = CLI_BYTES // BLOCK_LEN
+    want = _host_frame([raw[i:i + BLOCK_LEN]
+                        for i in range(0, CLI_BYTES, BLOCK_LEN)],
+                       k6_blocks[:nblk], dev)
+    out = {}
+
+    def checked(what, fn):
+        build.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        got = fn()
+        sync()
+        dt = time.perf_counter() - t0
+        counts = build.launch_counts()
+        if counts["lz4_compress"] or min(counts[k] for k in HC_PATH) < 1:
+            fail(f"{what}: launches {counts}: K2 run, or a kernel of "
+                 f"{HC_PATH} not")
+        if got != want:
+            fail(f"{what}: the frame differs from the host's")
+        out[what] = {"wall_ms": round(dt * 1e3, 1),
+                     "MB/s": round(len(raw) / dt / 1e6, 2),
+                     "lz4_hc": counts["lz4_hc"]}
+        return counts
+
+    for rnd in (1, 2):
+        def run():
+            sink = io.BytesIO()
+            compress_stream(io.BytesIO(raw), sink, level=HC_LEVEL,
+                            batch_blocks=STREAM_BATCH)
+            return sink.getvalue()
+        counts = checked(f"compress_stream(level=9) #{rnd}", run)
+    for engine in ("cuda", "segment"):
+        back = io.BytesIO()
+        decompress_stream(io.BytesIO(want), back, engine=engine)
+        if back.getvalue() != raw:
+            fail(f"HC frame: decompress_stream({engine}) did not restore it")
+    work = REPO / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        src, dst = pathlib.Path(tmp) / "in.bin", pathlib.Path(tmp) / "hc.lz4"
+        src.write_bytes(raw)
+
+        def cli_in_process():
+            with contextlib.redirect_stdout(io.StringIO()):
+                if cli_main(["compress", str(src), str(dst), "-l", "9"]):
+                    fail("main(['compress', '-l', '9']) failed")
+            return dst.read_bytes()
+        checked("main(['compress', '-l', '9'])", cli_in_process)
+        dst.unlink()
+        t0 = time.perf_counter()
+        log(_cli("compress", str(src), str(dst), "-l", "9").strip())
+        out["python -m lz4_tpu_torch compress -l 9"] = {
+            "wall_ms": round((time.perf_counter() - t0) * 1e3, 1)}
+        if dst.read_bytes() != want:
+            fail("python -m lz4_tpu_torch compress -l 9: the frame differs "
+                 "from the host's")
+    log(f"HC stream ({CLI_BYTES >> 20} MiB, {nblk} blocks in batches of "
+        f"{STREAM_BATCH}): {json.dumps(out)}; frame {len(want)} B, equal to "
+        f"the host's from K6's blocks, restored by both engines; launches "
+        f"of the last stream call {counts}")
+    return out
+
+
+def phase_hc(dev, main) -> list[dict]:
+    """K6: edge cases, the main path's rows against the plain version, the
+    tier's ``high_compressor(9)`` on all 4096 rows twice (every block
+    decoded back by K1), timings, and the stream and command line at
+    level 9. Returns K6's row."""
+    workers = min(HC_WORKERS, max(1, (os.cpu_count() or 2) - 1))
+    with PlainPool(workers) as pool:
+        _hc_edge_cases(dev, pool)
+        data = main["data"]
+        n = data.shape[0]
+        src, lens = sharded.upload_blocks(data, dev)
+        kinds = torch.from_numpy(sharded.block_kinds(n, SEED)).to(dev)
+        cap = max_compressed_length(BLOCK_LEN)
+        plain_s = {}
+        for level, per_kind in HC_PLAIN_ROWS.items():
+            rows = torch.cat([torch.nonzero(kinds == k).flatten()[:per_kind]
+                              for k in range(3)])
+            plain_s[level] = compare_hc(
+                pool, f"K6 main path, level {level}", src, lens, cap, level,
+                rows)
+            log(f"K6 == plain on {rows.numel()} main-path rows at level "
+                f"{level} ({per_kind} of each kind; the plain version "
+                f"{plain_s[level]:.1f} s in all)")
+
+    blocks = [r.tobytes() for r in data]
+    lz4 = Lz4Factory.cuda_instance(dev)
+    build.reset_launch_counts()
+    walls = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        comp = lz4.high_compressor(HC_LEVEL).compress_batch(blocks)
+        walls.append(round((time.perf_counter() - t0) * 1e3, 1))
+    tier_launches = build.launch_counts()
+    if tier_launches["lz4_hc"] != 2 or tier_launches["lz4_compress"]:
+        fail(f"tier HC: launches {tier_launches}")
+    kern = hc.compress_hc_batch(src, lens, cap, HC_LEVEL)
+    if comp != layout.from_device_layout(kern[0], kern[1]):
+        fail("tier high_compressor(9) differs from K6 on the same rows")
+    out, _, err = codec.decompress_safe_batch(kern[0], kern[1], BLOCK_LEN)
+    if bool(err.any()) or not torch.equal(out[:, :BLOCK_LEN],
+                                          src[:, :BLOCK_LEN]):
+        fail("K6 main path: a block did not decode back to its input")
+    k2_lens = main["comp_lens"]
+    sizes = {name: (int(kern[1][kinds == k].sum()),
+                    int(k2_lens[kinds == k].sum()))
+             for k, name in enumerate(KIND_NAMES)}
+    log(f"tier high_compressor(9).compress_batch of {n} x {BLOCK_LEN} B: "
+        f"host walls {walls} ms; every block decoded by K1 to its input; "
+        f"compressed bytes (K6 level 9, K2) by kind: {sizes}")
+
+    ms = _hc_timings(src, lens, kinds)
+    stream = _hc_stream(dev, main, layout.from_device_layout(kern[0],
+                                                             kern[1]))
+    launches = {"lz4_hc": tier_launches["lz4_hc"] + sum(
+        v.get("lz4_hc", 0) for v in stream.values())}
+    in_bytes = int(lens.sum())
+    comp_bytes = int(kern[1].sum())
+    row = kernel_row("lz4_hc", launches, 0, ms["level 9"],
+                     plain_s[HC_LEVEL] * 1e3, in_bytes + comp_bytes + 12 * n,
+                     in_bytes, plain_rows=3 * HC_PLAIN_ROWS[HC_LEVEL])
+    row.update({"level": HC_LEVEL, "ms_by_level": {
+        lv: ms[f"level {lv}"] for lv in HC_LEVELS},
+        "chain_floor_ms": ms["chain floor"], "tier_walls_ms": walls,
+        "stream": stream})
+    return [row]
+
+
 def phase_frame(dev) -> dict:
     raw = sharded.make_blocks(-(-FRAME_BYTES // BLOCK_LEN), BLOCK_LEN,
                               SEED + 1).tobytes()[:FRAME_BYTES]
@@ -1596,7 +1991,6 @@ def _patch_parts():
     spans of its own (the one before ``lz4_tpu_torch.utils``), by wrapping
     the functions that do them; returns the undo. A no-op for a package
     with its own spans."""
-    import importlib.util
     if importlib.util.find_spec("lz4_tpu_torch.utils") is not None:
         return lambda: None
     from lz4_tpu_torch.api import cuda_instances as ci
@@ -1717,11 +2111,13 @@ def _traced(what: str, fn, work: pathlib.Path) -> dict:
 def host_split(dev, main=None) -> dict:
     """The three stream calls on the main path's 256 MiB in batches of
     ``STREAM_BATCH`` blocks and the tier's ``compress_batch`` and
-    ``decompress_batch`` on its 4096 blocks: each run twice untraced (the
-    host wall of each), then twice traced, each with its host split by part
-    (``HOST_PARTS``), what no part covers, and the card's busy and idle
-    share (``read_trace``). Runs on the package before the host data
-    plane too (``_patch_parts``). Returns the results by call."""
+    ``decompress_batch`` on its 4096 blocks, and, where the package has
+    K6, ``compress_stream(level=9)`` on ``CLI_BYTES`` of them: each run
+    twice untraced (the host wall of each), then twice traced, each with
+    its host split by part (``HOST_PARTS``), what no part covers, and the
+    card's busy and idle share (``read_trace``). Runs on the package before
+    the host data plane too (``_patch_parts``). Returns the results by
+    call."""
     data = main["data"] if main else sharded.make_blocks(N_BLOCKS, BLOCK_LEN,
                                                          SEED)
     raw = data.tobytes()
@@ -1746,6 +2142,12 @@ def host_split(dev, main=None) -> dict:
     def tier_compress():
         got["comp"] = lz4.fast_compressor().compress_batch(blocks)
 
+    def stream_hc():
+        sink = _Sink()
+        compress_stream(io.BytesIO(raw[:CLI_BYTES]), sink, level=HC_LEVEL,
+                        batch_blocks=STREAM_BATCH)
+        got["hc"] = sink.getvalue()
+
     def tier_decompress():
         got["blocks"] = lz4.safe_decompressor().decompress_batch(
             got["comp"], BLOCK_LEN)
@@ -1756,6 +2158,8 @@ def host_split(dev, main=None) -> dict:
               lambda: stream_decompress("segment")),
              ("compress_batch", tier_compress),
              ("decompress_batch", tier_decompress))
+    if hc is not None:
+        calls += (("compress_stream(level=9)", stream_hc),)
     out = {}
     for what, fn in calls:
         walls = []
@@ -1772,6 +2176,11 @@ def host_split(dev, main=None) -> dict:
                 + json.dumps(r))
     if got["cuda"] != raw or got["segment"] != raw or got["blocks"] != blocks:
         fail("host split: a call did not restore the input")
+    if "hc" in got:
+        back = io.BytesIO()
+        decompress_stream(io.BytesIO(got["hc"]), back)
+        if back.getvalue() != raw[:CLI_BYTES]:
+            fail("host split: the HC frame did not restore the input")
     return out
 
 
@@ -1804,6 +2213,7 @@ def main() -> int:
     rows, main_out = timed("main path", phase_main_path, dev)
     rows += timed("tier", phase_tier, dev, main_out)
     rows += timed("stream", phase_stream, dev, main_out)
+    rows += timed("hc", phase_hc, dev, main_out)
     timed("host split", host_split, dev, main_out)
     del main_out
     one_row = timed("frame", phase_frame, dev)

@@ -3,12 +3,14 @@
 LZ4 frame compress and decompress, compatible with the ``lz4`` CLI, file
 hashes and a report of the ``cuda`` tier, as ``python -m lz4_tpu`` has
 them (``lz4_tpu/__main__.py``), with the port's engines (``fastest``,
-``cuda``, ``segment``). It runs on the card; the dictionary (``-D``),
-``--turbo`` and ``--allow-dependent`` options wait for the serial frame
-reader and the native tier, which are not ported.
+``cuda``, ``segment``). It runs on the card, HC (``-l 1..17``) included;
+the dictionary (``-D``), ``--turbo`` and ``--allow-dependent`` options
+wait for the serial frame reader and the native tier, which are not
+ported.
 
 Examples:
   python -m lz4_tpu_torch compress   input.bin out.lz4 --engine cuda -B 64KB
+  python -m lz4_tpu_torch compress   input.bin out.lz4 -l 9
   python -m lz4_tpu_torch decompress out.lz4 restored.bin --engine segment
   python -m lz4_tpu_torch xxh32 input.bin
   python -m lz4_tpu_torch info
@@ -92,6 +94,7 @@ def cmd_info(args, device) -> None:
     print(f"  lz4 tier     : {Lz4Factory.cuda_instance(device)!r}")
     print(f"  hash tier    : {XXHashFactory.cuda_instance(device)!r}")
     print(f"  engines      : {', '.join(ENGINES)}")
+    print("  compressors  : fast scan (K2), HC levels 1-17 (K6)")
 
 
 def main(argv=None, device: str | torch.device = "cuda") -> int:
@@ -108,7 +111,8 @@ def main(argv=None, device: str | torch.device = "cuda") -> int:
     c.add_argument("-B", "--block-size", type=_block_size, default="64KB")
     c.add_argument("--engine", default="fastest", choices=ENGINES)
     c.add_argument("-l", "--level", type=int, default=0,
-                   help="0 = fast scan (default); 1-17 = HC level")
+                   help="0 = fast scan (default); 1-17 = HC at that "
+                   "level, on the card")
     c.add_argument("--no-frame-crc", action="store_true",
                    help="omit the content checksum")
     c.set_defaults(fn=cmd_compress)

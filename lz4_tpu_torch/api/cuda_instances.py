@@ -7,9 +7,10 @@ methods run a batch of one on the device, as the JAX tier does.
 
 Where each role runs:
 
-- on the card: ``FastCompressor`` (K2), ``SafeDecompressor`` (K1),
-  ``FastDecompressor`` (K1's fast entry point), ``XXH32`` (K3), ``XXH64``
-  (K4) and the streaming hashes ``StreamingXXH32``/``StreamingXXH64``
+- on the card: ``FastCompressor`` (K2), ``HighCompressor`` (K6, LZ4 HC
+  at its level), ``SafeDecompressor`` (K1), ``FastDecompressor`` (K1's
+  fast entry point), ``XXH32`` (K3), ``XXH64`` (K4) and the streaming
+  hashes ``StreamingXXH32``/``StreamingXXH64``
   (their lane state on the card, updated by the stream entry points of K3
   and K4; ``kernels/xxhash_stream.py``). Each takes a ``device``,
   ``"cuda"`` by default; with ``"cpu"`` the kernels' plain versions run
@@ -19,13 +20,12 @@ Where each role runs:
 - the packed entry points :func:`compress_fast_packed` and
   :func:`decompress_safe_packed` (the contracts of
   ``lz4_tpu/api/native_instances.py:167,247``: one contiguous buffer each
-  way), over :func:`compress_rows` and :func:`decode_rows`, which keep the
-  batch on the card and are what the stream pipeline's engines run.
-- on the host: ``HighCompressor``. Its JAX counterpart
-  (``kernels/jax_hc.py``) is pure JAX, not a Pallas kernel; until it is
-  ported to the card this class runs the port's own host code
-  (``core/lz4_hc_ref.py``). Nothing switches between host and card at run
-  time.
+  way), over :func:`compress_rows` (K2, or K6 at an HC level) and
+  :func:`decode_rows`, which keep the batch on the card and are what the
+  stream pipeline's engines run.
+
+The host HC (``core/lz4_hc_ref.py``) is only K6's plain version: on the
+card nothing switches to it.
 """
 
 from __future__ import annotations
@@ -38,8 +38,8 @@ from ..core.constants import (
     DEFAULT_COMPRESSION_LEVEL, U32, U64, max_compressed_length)
 from ..core.device import resolve_device
 from ..core.errors import Lz4Error
-from ..core.lz4_hc_ref import check_range, compress_hc, compress_hc_alloc
-from ..kernels import codec, xxhash_stream
+from ..core.lz4_hc_ref import check_range
+from ..kernels import codec, hc, xxhash_stream
 from ..kernels.layout import (
     DOWN, UP, from_device_layout, row_stride, staging, to_device_layout,
     upload_bytes)
@@ -118,12 +118,13 @@ def _raise_on_bad_block(err: np.ndarray) -> None:
         raise Lz4Error(f"Malformed input in block {int(bad[0])}")
 
 
-def compress_rows(data: torch.Tensor, block_size: int):
+def compress_rows(data: torch.Tensor, block_size: int, level: int = 0):
     """Compress ``data`` (a contiguous ``uint8[L]`` tensor) cut into blocks
-    of ``block_size`` bytes, the last possibly short, in one K2 launch on
-    its device: the packed compress of the stream pipeline's engines. It
-    does not read the codes back, so that the caller can queue more work
-    before :func:`check_compressed` does.
+    of ``block_size`` bytes, the last possibly short, in one launch on its
+    device, K2 at ``level`` 0 and K6 (HC) at ``level`` 1..17: the packed
+    compress of the stream pipeline's engines. It does not read the codes
+    back, so that the caller can queue more work before
+    :func:`check_compressed` does.
 
     Returns ``(src uint8[N, row_stride(block_size)], lens int32[N], comp
     uint8[N, row_stride(cap)], comp_lens int32[N], err int32[N])`` on that
@@ -148,8 +149,10 @@ def compress_rows(data: torch.Tensor, block_size: int):
         if n > full:
             src[full, :total - full * block_size] = data[full * block_size:]
             lens[full] = total - full * block_size
-        return (src, lens) + codec.compress_fast_batch(
-            src, lens, max_compressed_length(block_size))
+        cap = max_compressed_length(block_size)
+        if level > 0:
+            return (src, lens) + hc.compress_hc_batch(src, lens, cap, level)
+        return (src, lens) + codec.compress_fast_batch(src, lens, cap)
 
 
 def check_compressed(err: torch.Tensor) -> None:
@@ -235,13 +238,24 @@ def decompress_safe_packed(comp, offsets, lens, out_max: int,
     return dest, out_lens
 
 
-class FastCompressor(_OnDevice, Lz4Compressor):
+class _BlockCompressor(_OnDevice, Lz4Compressor):
+    """A compressor whose batch is one launch of ``_kernel(src, lens,
+    dest_cap)``; ``_failed`` is the message of a batch with a failed
+    block."""
+
+    _failed = "device compression failed"
+
+    def _kernel(self, src, lens, dest_cap):
+        raise NotImplementedError
+
     def compress(self, src, src_off, src_len, dest, dest_off, max_dest_len):
+        """The batch of one, compressed in full, then held to
+        ``max_dest_len`` (``pallas_instances.py:82-97,136-151``)."""
         check_range(src, src_off, src_len)
         check_range(dest, dest_off, max_dest_len)
         blk, lens = self._batch([bytes(src[src_off:src_off + src_len])])
-        out, out_lens, err = codec.compress_fast_batch(
-            blk, lens, max_compressed_length(src_len))
+        out, out_lens, err = self._kernel(blk, lens,
+                                          max_compressed_length(src_len))
         if int(err[0]) == codec.ERR_DEST_TOO_SMALL:
             raise Lz4Error("maxDestLen is too small")
         data = from_device_layout(out, out_lens)[0]
@@ -251,35 +265,42 @@ class FastCompressor(_OnDevice, Lz4Compressor):
         return len(data)
 
     def compress_batch(self, blocks: list[bytes]) -> list[bytes]:
-        """Compress many blocks in one K2 launch; byte-identical to every
+        """Compress many blocks in one launch; byte-identical to every
         other tier."""
         if not blocks:
             return []
         src, lens = self._batch(blocks)
         with part("kernels"):
-            out, out_lens, err = codec.compress_fast_batch(
+            out, out_lens, err = self._kernel(
                 src, lens, max_compressed_length(max(len(b) for b in blocks)))
         err, out_lens = _read_back(err, out_lens)
         if err.any():
-            raise Lz4Error("device compression failed")
+            raise Lz4Error(self._failed)
         with part("download"):
             return from_device_layout(out, out_lens)
 
 
-class HighCompressor(Lz4Compressor):
-    """HC on the host (``core/lz4_hc_ref.py``), byte-identical to every
-    other tier. The JAX tier runs ``kernels/jax_hc.py`` on its device; the
-    port has no HC kernel yet."""
+class FastCompressor(_BlockCompressor):
+    """The fast scan on K2."""
 
-    def __init__(self, level: int = DEFAULT_COMPRESSION_LEVEL):
+    def _kernel(self, src, lens, dest_cap):
+        return codec.compress_fast_batch(src, lens, dest_cap)
+
+
+class HighCompressor(_BlockCompressor):
+    """HC at ``level`` on K6 (``kernels/hc.py``), byte-identical to every
+    other tier; the counterpart of the ``pallas`` tier's device HC
+    (``kernels/jax_hc.py``)."""
+
+    _failed = "device HC compression failed"
+
+    def __init__(self, level: int = DEFAULT_COMPRESSION_LEVEL,
+                 device: str | torch.device = "cuda"):
+        super().__init__(device)
         self.level = level
 
-    def compress(self, src, src_off, src_len, dest, dest_off, max_dest_len):
-        return compress_hc(src, src_off, src_len, dest, dest_off,
-                           max_dest_len, self.level)
-
-    def compress_batch(self, blocks: list[bytes]) -> list[bytes]:
-        return [compress_hc_alloc(b, self.level) for b in blocks]
+    def _kernel(self, src, lens, dest_cap):
+        return hc.compress_hc_batch(src, lens, dest_cap, self.level)
 
     def __repr__(self):
         return f"{type(self).__name__}(level={self.level})"

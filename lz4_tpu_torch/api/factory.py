@@ -70,7 +70,7 @@ class Lz4Factory:
         self._safe_decompressor: Lz4SafeDecompressor = \
             cuda_instances.SafeDecompressor(self.device)
         self._high_compressors: dict[int, Lz4Compressor] = {
-            level: cuda_instances.HighCompressor(level)
+            level: cuda_instances.HighCompressor(level, self.device)
             for level in range(1, MAX_COMPRESSION_LEVEL + 1)
         }
         self._self_test()

@@ -11,8 +11,11 @@ same level. Levels 1..17; the match-finder search is capped at
 Output decompresses with any LZ4 block decompressor.
 
 The port's own copy of ``lz4_tpu/core/lz4_hc_ref.py``, with the helpers it
-takes from ``lz4_tpu/core/lz4_block_ref.py:47-101`` copied in; it runs on
-the host and backs the ``cuda`` tier's ``HighCompressor``.
+takes from ``lz4_tpu/core/lz4_block_ref.py:47-101`` copied in. It is the
+plain version of K6 (``kernels/hc.py::compress_hc_plain``), which the CPU
+tests run and ``chip_smoke.py`` holds K6 against; on the card the
+``cuda`` tier's ``HighCompressor`` runs K6. It is slow (about 6 s for
+64 KiB of alphabet-4 data at level 9), so keep its inputs small.
 """
 
 from __future__ import annotations
@@ -21,12 +24,11 @@ import struct
 
 from .constants import (
     DEFAULT_COMPRESSION_LEVEL, LAST_LITERALS, MAX_DISTANCE,
-    MF_LIMIT, MIN_MATCH, ML_BITS, ML_MASK, OPTIMAL_ML, RUN_MASK,
-    hash_hc, max_compressed_length,
+    MF_LIMIT, MIN_MATCH, ML_BITS, ML_MASK, OPTIMAL_ML, RUN_MASK, hash_hc,
 )
 from .errors import Lz4Error
 
-__all__ = ["check_range", "compress_hc", "compress_hc_alloc"]
+__all__ = ["check_range", "compress_hc"]
 
 _U32 = struct.Struct("<I")
 _MASK = MAX_DISTANCE - 1
@@ -385,10 +387,3 @@ def compress_hc(src, src_off: int, src_len: int, dest, dest_off: int,
 
     d_off = _last_literals(src, anchor, src_end - anchor, dest, d_off, dest_end)
     return d_off - dest_off
-
-
-def compress_hc_alloc(src, level: int = DEFAULT_COMPRESSION_LEVEL) -> bytes:
-    src = bytes(src)
-    dest = bytearray(max_compressed_length(len(src)))
-    n = compress_hc(src, 0, len(src), dest, 0, len(dest), level)
-    return bytes(dest[:n])

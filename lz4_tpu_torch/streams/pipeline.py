@@ -16,19 +16,20 @@ Engines, each on one device (the card unless told otherwise):
   and K5 (``kernels/segment_decode.py``);
 - ``fastest``: ``cuda``.
 
-``level`` 1..17 compresses with the tier's ``high_compressor(level)``, on
-the host. The JAX engines ``native``, ``sharded``, ``safe`` and
-``parallel`` are not ported; frames with linked blocks or a dictionary need
-the serial frame reader, which the port does not have yet: they are
-refused.
+``level`` 1..17 compresses with HC at that level (K6, the tier's
+``high_compressor(level)``), through the same data plane. The JAX engines
+``native``, ``sharded``, ``safe`` and ``parallel`` are not ported; frames
+with linked blocks or a dictionary need the serial frame reader, which
+the port does not have yet: they are refused.
 
 The data plane of a batch (the JAX pipeline's packed fast paths,
 ``:231-261,407-456``), when the engine has its packed forms:
 
 - compress: the batch is read straight into the pinned staging buffer
-  (``readinto``), uploaded once, compressed with K2, packed into the frame
-  body on the card (``dist/sharded.py::frame_body_packed``), downloaded once
-  and written with one ``dst.write``; while the card compresses a batch,
+  (``readinto``), uploaded once, compressed with K2 (K6 at an HC level),
+  packed into the frame body on the card
+  (``dist/sharded.py::frame_body_packed``), downloaded once and written
+  with one ``dst.write``; while the card compresses a batch,
   the host writes the one before and reads the one after;
 - decompress: the frame walk reads each payload into its row of the pinned
   buffer, the batch is uploaded once, its block checksums are one K3
@@ -46,6 +47,7 @@ call, as ``io.RawIOBase.write`` allows.
 from __future__ import annotations
 
 import contextlib
+import functools
 import struct
 
 import numpy as np
@@ -107,9 +109,9 @@ def get_engine(name: str = "fastest", level: int = 0,
     """The engine ``name`` (one of :data:`ENGINES`) on ``device``; raises
     when ``device`` names a card and there is none.
 
-    ``level`` 1..17 compresses with HC at that level, on the host, and the
-    engine has no packed compress; 0 (or below) with the fast scan, as the
-    JAX engines other than ``native`` do.
+    ``level`` 1..17 compresses with HC at that level on K6, packed or
+    listed; 0 (or below) with the fast scan, as the JAX engines other than
+    ``native`` do.
     """
     if name not in ENGINES:
         raise ValueError(
@@ -120,7 +122,7 @@ def get_engine(name: str = "fastest", level: int = 0,
     name = "cuda" if name == "fastest" else name
     lz4 = Lz4Factory.cuda_instance(dev)
     if level > 0:
-        comp, comp_packed = lz4.high_compressor(level).compress_batch, None
+        comp, comp_packed = _hc_forms(lz4, level)
     else:
         comp = lz4.fast_compressor().compress_batch
         comp_packed = cuda_instances.compress_rows
@@ -134,6 +136,14 @@ def get_engine(name: str = "fastest", level: int = 0,
     suffix = f"-hc{level}" if level > 0 else ""
     return BatchEngine(name + suffix, comp, decomp, dev, comp_packed,
                        decomp_packed)
+
+
+def _hc_forms(lz4: Lz4Factory, level: int):
+    """The listed and the packed compress of HC at ``level`` (clamped to
+    1..17 as ``high_compressor`` clamps it), both on K6."""
+    hc = lz4.high_compressor(level)
+    return hc.compress_batch, functools.partial(cuda_instances.compress_rows,
+                                                level=hc.level)
 
 
 def compress_stream(src, dst, block_size: BlockSize = BlockSize.SIZE_64KB,
@@ -150,10 +160,11 @@ def compress_stream(src, dst, block_size: BlockSize = BlockSize.SIZE_64KB,
     if isinstance(engine, str):
         engine = get_engine(engine, level, device)
     elif level > 0:
-        hc = Lz4Factory.cuda_instance(engine.device).high_compressor(level)
-        engine = BatchEngine(f"{engine.name}-hc{level}", hc.compress_batch,
+        comp, comp_packed = _hc_forms(Lz4Factory.cuda_instance(engine.device),
+                                      level)
+        engine = BatchEngine(f"{engine.name}-hc{level}", comp,
                              engine.decompress_batch, engine.device,
-                             decompress_packed=engine.decompress_packed)
+                             comp_packed, engine.decompress_packed)
     bs = block_size.num_bytes
     flags = {FrameFlag.BLOCK_INDEPENDENCE}
     if content_checksum:
@@ -189,7 +200,7 @@ def _compress_packed(src, dst, engine, bs, want, content_hash) -> int:
     """The frame body through the packed compress, two batches in flight:
     while the card compresses batch i, the host checks, packs, downloads
     and writes batch i - 1 (on a stream of their own, after that batch's
-    K2) and reads batch i + 1. Returns the bytes written."""
+    K2 or K6) and reads batch i + 1. Returns the bytes written."""
     dev = engine.device
     up = staging(dev, UP)
     emit_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
@@ -243,9 +254,8 @@ def _emit_body(dst, dev, stream, batch, done) -> int:
 
 
 def _compress_listed(src, dst, engine, bs, want, content_hash) -> int:
-    """The frame body through ``engine.compress_batch`` (HC, or an engine
-    with no packed compress), a batch at a time; returns the bytes
-    written."""
+    """The frame body through ``engine.compress_batch`` (an engine with
+    no packed compress), a batch at a time; returns the bytes written."""
     written = 0
     while True:
         with part("read"):

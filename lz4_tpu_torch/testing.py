@@ -30,12 +30,49 @@ def block_of(rng: np.random.Generator, kind: str, size: int) -> bytes:
         return rng.integers(0, 4, size, dtype=np.uint8).tobytes()
     if kind == "incompressible":
         return rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+    if kind == "text":   # phrases of a small vocabulary
+        words = [rng.integers(32, 127, int(k), dtype=np.uint8).tobytes()
+                 for k in rng.integers(4, 48, 64)]
+        return b"".join(words[int(i)] for i in
+                        rng.integers(0, 64, size // 4 + 1))[:size]
     raise ValueError(f"unknown kind {kind!r}")
 
 
 def mixed_blocks(rng: np.random.Generator, sizes) -> list[bytes]:
     """One block of every kind at every size."""
     return [block_of(rng, kind, size) for size in sizes for kind in KINDS]
+
+
+# The kinds of data and the long block sizes HC is held at: its chains
+# are longest on alphabet-4 data; past 65,536 bytes the chain slots
+# (off & 0xFFFF) wrap and the MAX_DISTANCE window cuts the chains.
+HC_KINDS = ("zeros", "alphabet4", "text", "incompressible")
+HC_BIG_SIZES = (65536, 65547, 70000, 200 << 10)
+
+
+def hc_edge_blocks(rng: np.random.Generator) -> list[bytes]:
+    """Blocks at the edges of the HC compressor's encoding and match
+    finder: a literal run of 14, 15, 269, 270 or 271 bytes before a match
+    (the token's nibble, one and two extension bytes), matches of 18, 19,
+    272, 273 and 274 bytes (OPTIMAL_ML, the extension bytes), runs of one
+    byte (the repetition path and its chain propagation), periods 1-8,
+    and blocks of 0 and 12 bytes (last literals only)."""
+    def rand(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    out = [b"", rand(12)]
+    for lit in (14, 15, 269, 270, 271):
+        p = rand(16)
+        out.append(p + p + rand(lit) + p + rand(16))
+    for m in (18, 19, 272, 273, 274):
+        a = rand(m)
+        out.append(rand(8) + a + b"\x01" + rand(5) + a + b"\x02" + rand(16))
+    for n in (4, 5, 16, 17, 300, 5000):
+        out.append(rand(10) + bytes([7]) * n + rand(10))
+    for period in range(1, 9):
+        out.append(rand(5) + (rand(period) * (3000 // period + 1))[:3000]
+                   + rand(20))
+    return out
 
 
 def fuzz_blocks(rng: np.random.Generator, comp_blocks: list[bytes],

@@ -20,7 +20,7 @@ from lz4_tpu_torch.core import xxhash_ref
 from lz4_tpu_torch.core.constants import max_compressed_length
 from lz4_tpu_torch.dist import sharded
 from lz4_tpu_torch.kernels import (
-    build, codec, layout, segment_decode, sequences, xxhash, xxhash_stream)
+    build, codec, hc, layout, segment_decode, sequences, xxhash, xxhash_stream)
 from lz4_tpu_torch.streams import compress_stream, decompress_stream
 
 pytestmark = pytest.mark.cuda
@@ -491,3 +491,60 @@ def test_staging_is_grow_only_and_keeps_empty_rows_readable(cuda_device):
     assert h.device.type == "cuda"
     assert h.cpu().tolist() == [xxhash_ref.as_u32(xxhash_ref.xxh32(
         r.tobytes(), 0, int(k), 3)) for r, k in zip(data, lens_np)]
+
+
+def _hc_batch(device):
+    rng = np.random.default_rng(43)
+    blocks = testing.hc_edge_blocks(rng) + [
+        testing.block_of(rng, k, n) for k in testing.HC_KINDS
+        for n in (0, 13, 3000, 70000)]
+    return layout.to_device_layout(blocks, device=device)
+
+
+@pytest.mark.parametrize("level", [1, 9, 17])
+def test_hc_kernel_matches_plain(cuda_device, level):
+    """K6 against its plain version on the HC edge blocks and blocks of
+    each kind up to 70,000 bytes: whole rows, one launch."""
+    src, lens = _hc_batch(cuda_device)
+    cap = max_compressed_length(70000)
+    before = hc.HC.launches
+    kern = hc.compress_hc_batch(src, lens, cap, level)
+    assert hc.HC.launches == before + 1
+    plain = hc.compress_hc_plain(src, lens, cap, level)
+    _assert_codec_equal(kern, plain)
+    assert torch.equal(kern[0], plain[0])
+
+
+@pytest.mark.parametrize("dest_cap", [0, 40, 300, 1000])
+def test_hc_kernel_tight_dest_cap(cuda_device, dest_cap):
+    """Caps that some rows do not fit: the same rows fail, with length 0."""
+    src, lens = _hc_batch(cuda_device)
+    for level in (1, 9):
+        kern = hc.compress_hc_batch(src, lens, dest_cap, level)
+        _assert_codec_equal(kern, hc.compress_hc_plain(src, lens, dest_cap,
+                                                       level))
+        assert bool(kern[2].any())
+
+
+def test_hc_on_the_card_never_runs_k2(cuda_device):
+    """The tier's HC and the stream at an HC level run K6 and not K2, and
+    give the CPU's bytes."""
+    rng = np.random.default_rng(44)
+    data = rng.integers(0, 6, 2 * 65536 + 999, dtype=np.uint8).tobytes()
+    blocks = [data[i:i + 65536] for i in range(0, len(data), 65536)]
+    lz4 = Lz4Factory.cuda_instance()     # its self-test runs K2 and K6
+    build.reset_launch_counts()
+    got = lz4.high_compressor(9).compress_batch(blocks)
+    out = io.BytesIO()
+    compress_stream(io.BytesIO(data), out, level=9, batch_blocks=2)
+    counts = build.launch_counts()
+    assert counts["lz4_hc"] >= 3 and counts["lz4_compress"] == 0
+    assert got == Lz4Factory.cuda_instance("cpu").high_compressor(
+        9).compress_batch(blocks)
+    cpu = io.BytesIO()
+    compress_stream(io.BytesIO(data), cpu, level=9, batch_blocks=2,
+                    device="cpu")
+    assert out.getvalue() == cpu.getvalue()
+    back = io.BytesIO()
+    decompress_stream(io.BytesIO(out.getvalue()), back)
+    assert back.getvalue() == data

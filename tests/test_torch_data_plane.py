@@ -92,7 +92,8 @@ def test_engines_carry_the_packed_forms(name):
                                      get_engine("segment", device="cpu")
                                      .decompress_packed)
     hc = get_engine(name, 9, "cpu")
-    assert hc.compress_packed is None
+    assert hc.compress_packed.func is ci.compress_rows
+    assert hc.compress_packed.keywords == {"level": 9}
     assert hc.decompress_packed is eng.decompress_packed
 
 

@@ -16,7 +16,7 @@ from lz4_tpu_torch import design_variants, testing
 from lz4_tpu_torch.core.constants import max_compressed_length
 from lz4_tpu_torch.dist import sharded
 from lz4_tpu_torch.kernels import (
-    build, codec, layout, segment_decode, sequences, xxhash, xxhash_stream)
+    build, codec, hc, layout, segment_decode, sequences, xxhash, xxhash_stream)
 from test_torch_segment import CORRUPTIONS, corrupt
 
 HARNESS = r"""
@@ -27,6 +27,7 @@ static int window_faults = 0;
 #include "frame_pack.cuh"
 #include "lz4_compress.cuh"
 #include "lz4_decode.cuh"
+#include "lz4_hc.cuh"
 #include "lz4_parse.cuh"
 #include "segment_decode.cuh"
 #include "xxh32.cuh"
@@ -89,6 +90,32 @@ static void* segment_lane(void* arg) {
   j->err[l->id] = lz4tt_segment_block(t, j->comp, j->comp_len, j->s, j->ns,
                                       j->max_seq, j->out, j->out_max, j->ring,
                                       *j->q);
+  return nullptr;
+}
+
+// One block of K6's body by a team of host threads.
+struct HcJob {
+  const uint8_t* src;
+  int32_t len;
+  uint8_t* dst;
+  int32_t dest_cap;
+  long long dst_width;
+  int32_t attempts;
+  uint8_t* scratch;
+  ThreadTeamShared* sh;
+  int lanes;
+  int32_t out_len[32], err[32];
+};
+struct HcLane {
+  HcJob* job;
+  int id;
+};
+static void* hc_lane(void* arg) {
+  HcLane* l = (HcLane*)arg;
+  HcJob* j = l->job;
+  ThreadTeam t = {j->sh, l->id, j->lanes};
+  lz4tt_hc_block(t, j->src, j->len, j->dst, j->dest_cap, j->dst_width,
+                 j->attempts, j->scratch, &j->out_len[l->id], &j->err[l->id]);
   return nullptr;
 }
 
@@ -306,6 +333,44 @@ void host_xxh64_stream(const uint8_t* data, long long n_stripes,
                   lz4tt_xxh64_stage_lane);
 }
 int host_xxh32_stage_bytes() { return LZ4TT_XXH_STAGE; }
+// K6's body at `level`, one block after the other in the one team's
+// tables of `scratch` (never cleared here), by a team of `lanes` (1: one
+// lane; else host threads); returns -1 if the lanes disagree on a block
+int host_hc(const uint8_t* src, long long src_stride, const int32_t* src_lens,
+            uint8_t* dst, long long dst_stride, int dest_cap, int level,
+            uint8_t* scratch, int32_t* out_lens, int32_t* err, int n,
+            int lanes) {
+  const int32_t attempts = 1 << (level - 1);
+  if (lanes == 1) {
+    HostTeam t;
+    for (int b = 0; b < n; b++)
+      lz4tt_hc_block(t, src + b * src_stride, src_lens[b], dst + b * dst_stride,
+                     dest_cap, dst_stride, attempts, scratch, &out_lens[b],
+                     &err[b]);
+    return 0;
+  }
+  ThreadTeamShared sh;
+  pthread_barrier_init(&sh.bar, nullptr, lanes);
+  int rc = 0;
+  for (int b = 0; b < n && rc == 0; b++) {
+    HcJob job = {src + b * src_stride, src_lens[b], dst + b * dst_stride,
+                 dest_cap, dst_stride, attempts, scratch, &sh, lanes, {}, {}};
+    pthread_t th[32];
+    HcLane ls[32];
+    for (int i = 0; i < lanes; i++) {
+      ls[i] = {&job, i};
+      pthread_create(&th[i], nullptr, hc_lane, &ls[i]);
+    }
+    for (int i = 0; i < lanes; i++) pthread_join(th[i], nullptr);
+    out_lens[b] = job.out_len[0];
+    err[b] = job.err[0];
+    for (int i = 1; i < lanes; i++)
+      if (job.out_len[i] != job.out_len[0] || job.err[i] != job.err[0]) rc = -1;
+  }
+  pthread_barrier_destroy(&sh.bar);
+  return rc;
+}
+int host_hc_team_bytes() { return LZ4TT_HC_TEAM_BYTES; }
 // K5's body, one block after the other, by a team of `lanes` threads;
 // returns -1 if the lanes disagree on a block's code
 int host_segment_team(const uint8_t* comp, long long comp_stride,
@@ -371,6 +436,8 @@ def lib(tmp_path_factory):
     lib.host_ring.argtypes = [_I32]
     lib.host_xxh32_stream.argtypes = [_P, _I64, _P]
     lib.host_xxh64_stream.argtypes = [_P, _I64, _P]
+    lib.host_hc.argtypes = [_P, _I64, _P, _P, _I64, _I32, _I32, _P, _P, _P,
+                            _I32, _I32]
     return lib
 
 
@@ -880,6 +947,126 @@ def test_host_rows_a_cta(lib, n, slots, rows):
     assert lib.host_xxh_rows(n, slots) == rows
 
 
+def _host_hc(lib, src, lens, dest_cap, level, lanes=1, scratch=None):
+    """K6's body at ``level`` by a team of ``lanes`` over the batch, one
+    block after the other in one team's tables; ``scratch`` (default: one
+    team's tables filled with 0x5A, a poisoned chain) is never cleared, so
+    each block also starts on the chain the one before left."""
+    n = src.shape[0]
+    if scratch is None:
+        scratch = torch.full((lib.host_hc_team_bytes(),), 0x5A,
+                             dtype=torch.uint8)
+    out = torch.zeros((n, layout.row_stride(dest_cap)), dtype=torch.uint8)
+    out_lens = torch.full((n,), -7, dtype=torch.int32)
+    err = torch.full((n,), -7, dtype=torch.int32)
+    assert lib.host_hc(_ptr(src), src.stride(0), _ptr(lens), _ptr(out),
+                       out.stride(0), dest_cap, level, _ptr(scratch),
+                       _ptr(out_lens), _ptr(err), n, lanes) == 0
+    return out, out_lens, err
+
+
+@functools.cache
+def _hc_small():
+    """The HC edge blocks and 3000 bytes of each kind."""
+    rng = np.random.default_rng(41)
+    blocks = testing.hc_edge_blocks(rng) + [
+        testing.block_of(rng, k, 3000) for k in testing.HC_KINDS]
+    return layout.to_device_layout(blocks, device="cpu")
+
+
+@functools.cache
+def _hc_plain(level, dest_cap=None):
+    src, lens = _hc_small()
+    cap = max_compressed_length(int(lens.max())) if dest_cap is None \
+        else dest_cap
+    return cap, hc.compress_hc_plain(src, lens, cap, level)
+
+
+@pytest.mark.parametrize("level", range(1, 18))
+def test_host_hc_levels_match_plain(lib, level):
+    """K6's body by one lane at every level, on the edge blocks (literal
+    runs and matches at the token's and extension bytes' edges, runs of
+    one byte, periods 1-8, empty and 12-byte blocks) and a block of each
+    kind, against the plain version (the host HC): whole rows."""
+    src, lens = _hc_small()
+    cap, plain = _hc_plain(level)
+    host = _host_hc(lib, src, lens, cap, level)
+    _assert_same(host, plain)
+    assert torch.equal(host[0], plain[0])
+    assert host[2].tolist() == [codec.OK] * lens.numel()
+    assert host[0][0, :host[1][0]].tolist() == [0]      # the empty block
+
+
+@pytest.mark.parametrize("level", [1, 9, 17])
+def test_host_hc_team_matches_plain(lib, level):
+    """The same by a team of 32 host threads (its ballots in the compares,
+    the leader's table writes between syncs, the lane-split copies and
+    reset); every lane ends with the same length and code."""
+    src, lens = _hc_small()
+    cap, plain = _hc_plain(level)
+    host = _host_hc(lib, src, lens, cap, level, lanes=32)
+    _assert_same(host, plain)
+    assert torch.equal(host[0], plain[0])
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+@pytest.mark.parametrize("dest_cap", [0, 1, 40, 300, 1000])
+def test_host_hc_tight_dest_cap(lib, dest_cap, lanes):
+    """Caps that some rows do not fit, at levels 1 and 9: the same rows
+    fail as in the plain version (the reference's ``(run_len >> 8)`` and
+    ``(ml >> 8)`` checks), with a length of 0; the others are equal."""
+    src, lens = _hc_small()
+    for level in (1, 9):
+        cap, plain = _hc_plain(level, dest_cap)
+        host = _host_hc(lib, src, lens, cap, level, lanes)
+        _assert_same(host, plain)
+        bad = host[2] != codec.OK
+        assert bool(bad.any()) and not host[1][bad].any()
+        if dest_cap == 1000:
+            assert int(bad.sum()) < lens.numel() // 4
+
+
+@functools.cache
+def _hc_big(size):
+    rng = np.random.default_rng(size)
+    return layout.to_device_layout(
+        [testing.block_of(rng, k, size) for k in testing.HC_KINDS],
+        device="cpu")
+
+
+@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("size", testing.HC_BIG_SIZES)
+def test_host_hc_long_blocks(lib, size, level):
+    """Blocks of 65,536, 65,547, 70,000 and 200 KiB of each kind, where
+    the chain slots (``off & 0xFFFF``) wrap and the ``MAX_DISTANCE``
+    window cuts the chains, one after the other in one team's tables:
+    whole rows against the plain version."""
+    src, lens = _hc_big(size)
+    cap = max_compressed_length(size)
+    host = _host_hc(lib, src, lens, cap, level)
+    plain = hc.compress_hc_plain(src, lens, cap, level)
+    _assert_same(host, plain)
+    assert torch.equal(host[0], plain[0])
+    assert host[1][0] < size // 200 and host[1][3] > size  # zeros, random
+
+
+def test_host_hc_chain_needs_no_reset(lib):
+    """A block's chain slots are written before they are read: the output
+    is the same whatever the chain holds before the block (zeros, 0x5A,
+    0xFF, another block's chain)."""
+    src, lens = _hc_small()
+    cap, plain = _hc_plain(9)
+    nbytes = lib.host_hc_team_bytes()
+    for fill in (0x00, 0x5A, 0xFF):
+        scratch = torch.full((nbytes,), fill, dtype=torch.uint8)
+        for idx in (torch.arange(lens.numel()),
+                    torch.arange(lens.numel() - 1, -1, -1)):
+            host = _host_hc(lib, src[idx].contiguous(), lens[idx].contiguous(),
+                            cap, 9, scratch=scratch)
+            assert torch.equal(host[0], plain[0][idx]), fill
+            assert torch.equal(host[1], plain[1][idx])
+
+
 def test_build_digest_covers_every_header(tmp_path, monkeypatch):
     """Editing any ``csrc`` file, a ``.cuh`` header included, gives a new
     build directory, so a stale library is never loaded."""
@@ -888,10 +1075,11 @@ def test_build_digest_covers_every_header(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC", tmp_path)
     assert {p.name for p in build.sources()} >= {
         "xxh64.cu", "lz4_decode.cu", "lz4_parse.cu", "segment_decode.cu",
-        "frame_pack.cu"}
+        "frame_pack.cu", "lz4_hc.cu"}
     digests = {build.source_digest()}
     headers = ("xxh64.cuh", "lz4_decode.cuh", "lz4tt_common.cuh",
-               "lz4_parse.cuh", "segment_decode.cuh", "frame_pack.cuh")
+               "lz4_parse.cuh", "segment_decode.cuh", "frame_pack.cuh",
+               "lz4_hc.cuh")
     for name in headers:
         with open(tmp_path / name, "a") as f:
             f.write("\n")

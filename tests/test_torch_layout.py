@@ -124,7 +124,8 @@ def test_import_leaves_jax_and_lz4_tpu_unloaded():
     code = ("import sys, lz4_tpu_torch, lz4_tpu_torch.testing, chip_smoke, "
             "lz4_tpu_torch.api.cuda_instances, lz4_tpu_torch.core.lz4_hc_ref, "
             "lz4_tpu_torch.core.xxhash_ref, lz4_tpu_torch.streams, "
-            "lz4_tpu_torch.__main__, lz4_tpu_torch.kernels.segment_decode, "
+            "lz4_tpu_torch.__main__, lz4_tpu_torch.kernels.hc, "
+            "lz4_tpu_torch.kernels.segment_decode, "
             "lz4_tpu_torch.kernels.sequences, "
             "lz4_tpu_torch.kernels.xxhash_stream; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

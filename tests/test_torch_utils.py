@@ -17,13 +17,14 @@ from lz4_tpu.utils import buffers as jax_buffers
 from lz4_tpu_torch import testing
 from lz4_tpu_torch.core.constants import max_compressed_length
 from lz4_tpu_torch.dist import sharded
-from lz4_tpu_torch.kernels import codec, layout, sequences
+from lz4_tpu_torch.kernels import codec, hc, layout, sequences
 from lz4_tpu_torch.utils import (
     DeviceTimer, annotate, as_bytes, chunk_bytes, median_throughput, part,
     trace)
 from lz4_tpu_torch.utils.buffers import read_into
 from lz4_tpu_torch.utils.profiling import TRACE_FILE
-from test_torch_host_kernels import _host_codec, _host_parse, _ptr, lib  # noqa: F401
+from test_torch_host_kernels import (  # noqa: F401
+    _host_codec, _host_hc, _host_parse, _ptr, lib)
 
 
 def test_trace_and_annotate_write_a_chrome_trace(tmp_path):
@@ -109,6 +110,29 @@ def test_host_split_reads_a_trace(tmp_path):
     assert out["kernels"] == 2 and out["copies"] == 1
 
 
+def test_plain_hc_pool_matches_the_plain_version_and_reaps_its_workers():
+    """``chip_smoke.PlainPool`` gives what ``hc.compress_hc_plain`` gives,
+    row by row, and no worker process outlives its ``with``, whether the
+    block ends or raises."""
+    rng = np.random.default_rng(41)
+    blocks = [testing.block_of(rng, k, n) for n in (0, 12, 13, 1000, 5000)
+              for k in testing.HC_KINDS]
+    src, lens = layout.to_device_layout(blocks, device="cpu")
+    cap = max_compressed_length(5000)
+    with chip_smoke.PlainPool(2) as pool:
+        procs = list(pool.procs)
+        for level, dest_cap in ((1, cap), (9, cap), (9, 40)):
+            got, _ = chip_smoke.hc_plain(pool, src, lens, dest_cap, level)
+            want = hc.compress_hc_plain(src, lens, dest_cap, level)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(p.returncode is not None for p in procs)
+    with pytest.raises(RuntimeError):
+        with chip_smoke.PlainPool(2) as pool:
+            procs = list(pool.procs)
+            raise RuntimeError("a phase failed")
+    assert all(p.returncode is not None for p in procs)
+
+
 # --- no kernel reads a row past its length ---------------------------------
 
 def _tails(t: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
@@ -136,7 +160,7 @@ def batches():
 
 
 @pytest.mark.parametrize("kernel", ["compress", "decode", "decode_fast",
-                                    "xxh32", "xxh64", "parse", "pack"])
+                                    "xxh32", "xxh64", "parse", "pack", "hc"])
 def test_row_tails_change_no_kernel_output(lib, batches, kernel):  # noqa: F811
     (src, lens), (c, cl), (comp, comp_lens) = batches
 
@@ -160,6 +184,9 @@ def test_row_tails_change_no_kernel_output(lib, batches, kernel):  # noqa: F811
                                                7, _ptr(h), s.shape[0], rows)
                 out.append(h)
             return out
+        if kernel == "hc":
+            cap = max_compressed_length(65547)
+            return [_host_hc(lib, s, lens, cap, level) for level in (1, 2)]
         if kernel == "parse":
             return _host_parse(lib, k, cl, sequences.max_seq_for(k.shape[1]))
         offs = sharded.pack_offsets(torch.where(
