@@ -1628,10 +1628,11 @@ def _tails(src, lens):
 
 
 def _hc_edge_cases(dev, pool) -> None:
-    """K6 against its plain version on ``EDGE_SIZES`` x the HC kinds and on
-    ``testing.hc_edge_blocks`` at levels 1, 9 and 17 (the edge blocks at
-    every level), with tight caps (n - 1, n, n + 1 of rows' outputs), and
-    with every row tail ``GUARD_BYTE`` (the same output)."""
+    """K6 against its plain version on ``EDGE_SIZES`` x the HC kinds at
+    levels 1, 9 and 17, on ``testing.hc_edge_blocks`` and
+    ``testing.hc_collision_blocks`` (where the speculated walk's links
+    fail) at every level, with tight caps (n - 1, n, n + 1 of rows'
+    outputs), and with every row tail ``GUARD_BYTE`` (the same output)."""
     rng = np.random.default_rng(SEED + 5)
     src, lens = layout.to_device_layout(
         [testing.block_of(rng, k, n) for n in EDGE_SIZES
@@ -1652,6 +1653,12 @@ def _hc_edge_cases(dev, pool) -> None:
     for level in range(1, 18):
         compare_hc(pool, f"K6 HC edge blocks, level {level}", edge, elens,
                    ecap, level)
+    coll, clens = layout.to_device_layout(testing.hc_collision_blocks(rng),
+                                          device=dev)
+    ccap = max_compressed_length(int(clens.max()))
+    for level in range(1, 18):
+        compare_hc(pool, f"K6 HC collision blocks, level {level}", coll,
+                   clens, ccap, level)
     n_tight = 0
     for level in (1, HC_LEVEL):
         out_lens = hc.compress_hc_batch(edge, elens, ecap, level)[1]
@@ -1663,7 +1670,8 @@ def _hc_edge_cases(dev, pool) -> None:
                 n_tight += 1
     log(f"K6 == plain on {src.shape[0]} edge blocks at levels {HC_LEVELS} "
         f"(and with row tails of {GUARD_BYTE:#x}), on {edge.shape[0]} HC "
-        f"edge blocks at levels 1-17, and at {n_tight} tight caps")
+        f"edge blocks and {coll.shape[0]} collision blocks at levels 1-17, "
+        f"and at {n_tight} tight caps")
 
 
 def _time_hc(fn, reps: int = HC_REPS) -> float:

@@ -6,42 +6,48 @@
 // kernel. Byte-identical to it and to the host HC (lz4_hc.cuh).
 //
 // Bound on the card: by bytes, each input byte read once and each output
-// byte written once (3.35 TB/s). In practice the match finder is a serial
-// chain of dependent loads a block: each probe of a hash chain reads the
-// chain slot that names the next probe, and a level-9 search on
-// alphabet-4 data walks some 256 probes (4^4 = 256 distinct keys in a 64
-// KiB window). So a batch takes about as long as its slowest block's
-// chain, and what bounds the kernel is that chain's latency times the
-// blocks that do not fit on the card at once.
+// byte written once (3.35 TB/s). In practice a search waits on memory: a
+// level-9 search on alphabet-4 data reads some 120 candidates (4^4 = 256
+// distinct keys in a 64 KiB window), and the first design read them one
+// dependent chain load at a time.
 //
-// Design (the first, simple one): one warp a block, one warp a CTA, a
-// grid of at most the resident CTAs, each taking blocks by a grid-stride
-// loop. A block's tables (a 15-bit head table of int32 and 65,536 uint16
-// chain deltas, 256 KiB) do not fit in shared memory beside more than
-// one team, so each team keeps them in its slice of a global scratch
-// tensor that the wrapper owns (teams x LZ4TT_HC_TEAM_BYTES), where they
-// stay in L2 as far as they fit. The head table is reset for each block;
-// the chain is not. All 32 lanes run the phase machine on the same state
-// (lz4_hc.cuh); they split only compares, copies and the reset.
+// Design (the second): one warp a block, one warp a CTA, a grid of at
+// most the resident CTAs, each taking blocks by a grid-stride loop. A
+// block's tables (a 15-bit head table of int32, 65,536 uint16 chain
+// deltas, and the bucket index, 65,536 uint16 ranks and 16-byte records:
+// 1.375 MiB) do not fit in shared memory beside more than one team, so
+// each team keeps them in its slice of a global scratch tensor that the
+// wrapper owns (teams x LZ4TT_HC_TEAM_BYTES); the index's 384 counters
+// lie in shared memory. From level 4 on, a block of at most 64 KiB first
+// sorts its positions by hash; each search then reads 32 candidates a
+// step from that index and checks their links against the chain in one
+// ballot, and inserts go 32 positions a step (lz4_hc.cuh). All 32 lanes
+// run the phase machine on the same state.
 #include "lz4_hc.cuh"
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void __launch_bounds__(32)
+// At most 64 registers, so that 32 teams fit an SM: 4,224 on the card,
+// a round for the 4096 rows of the main path. kSpec: the levels whose
+// walks speculate; the others run a kernel without the index's code.
+template <bool kSpec>
+__global__ void __launch_bounds__(32, 32)
     hc_kernel(const uint8_t* __restrict__ src, int64_t src_stride,
               const int32_t* __restrict__ src_lens, uint8_t* __restrict__ dst,
               int64_t dst_stride, int32_t dest_cap, int32_t max_attempts,
               uint8_t* __restrict__ scratch, int32_t* __restrict__ out_lens,
               int32_t* __restrict__ err, int n) {
+  __shared__ uint32_t counts[LZ4TT_HC_COUNTS];
   WarpTeam t;
   uint8_t* tables = scratch + (int64_t)blockIdx.x * LZ4TT_HC_TEAM_BYTES;
   for (int64_t b = blockIdx.x; b < n; b += gridDim.x) {
     int32_t len = 0;
     int32_t e = 0;
-    lz4tt_hc_block(t, src + b * src_stride, src_lens[b], dst + b * dst_stride,
-                   dest_cap, dst_stride, max_attempts, tables, &len, &e);
+    lz4tt_hc_block_as<kSpec>(t, src + b * src_stride, src_lens[b],
+                             dst + b * dst_stride, dest_cap, dst_stride,
+                             max_attempts, tables, counts, &len, &e);
     if (t.leader()) {
       out_lens[b] = len;
       err[b] = e;
@@ -66,10 +72,12 @@ extern "C" int lz4tt_compress_hc(const void* src, long long src_stride,
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int grid = n < teams ? n : teams;
-    hc_kernel<<<grid, 32, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)src, src_stride, (const int32_t*)src_lens,
-        (uint8_t*)dst, dst_stride, dest_cap, 1 << (level - 1),
-        (uint8_t*)scratch, (int32_t*)out_lens, (int32_t*)err, n);
+    const int32_t attempts = 1 << (level - 1);
+    (lz4tt_hc_speculates(attempts) ? hc_kernel<true> : hc_kernel<false>)
+        <<<grid, 32, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)src, src_stride, (const int32_t*)src_lens,
+            (uint8_t*)dst, dst_stride, dest_cap, attempts, (uint8_t*)scratch,
+            (int32_t*)out_lens, (int32_t*)err, n);
   }
   return (int)cudaGetLastError();
 }
@@ -77,9 +85,16 @@ extern "C" int lz4tt_compress_hc(const void* src, long long src_stride,
 // Bytes of scratch a team needs.
 extern "C" int lz4tt_hc_team_bytes() { return LZ4TT_HC_TEAM_BYTES; }
 
-// Resident CTAs per SM and threads per CTA of the kernel as launched.
+// Resident CTAs per SM (the fewer of the two kernels') and threads per CTA
+// as launched.
 extern "C" int lz4tt_hc_occupancy(int* ctas_per_sm, int* threads) {
   *threads = 32;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm,
-                                                             hc_kernel, 32, 0);
+  int spec = 0, serial = 0;
+  cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&spec, hc_kernel<true>, 32, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&serial, hc_kernel<false>,
+                                                      32, 0);
+  *ctas_per_sm = spec < serial ? spec : serial;
+  return (int)e;
 }

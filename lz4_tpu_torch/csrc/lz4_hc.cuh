@@ -12,26 +12,72 @@
 // below its length.
 //
 // Every lane of the team runs the same phase machine on the same scalar
-// state, so control flow stays uniform. The lanes split only byte work:
-// compares past the first 32 (forward) or 8 (backward) bytes, one byte a
-// lane and a ballot a step; literal copies; length extensions; the head
-// table's reset. Table writes (the inserts, the repetition's propagation)
-// are the leader's alone, between two syncs, and every lane reads the
-// tables only between writes. The chain walk stays serial: its order
-// decides which candidate wins a tie.
+// state, so control flow stays uniform. The lanes split the chain walk,
+// the inserts and byte work (long compares, copies, the tables' resets).
+//
+// The chain walk, speculated and checked. A chain built by inserts alone
+// is its hash bucket in position order, newest first. So at the start of
+// a block of at most 64 KiB the team sorts the block's positions by hash
+// (a radix sort, lz4tt_hc_index) into one 16-byte record each, a
+// bucket's records contiguous: the position, its chain delta (a copy of
+// its chain slot, written with it), and the words before, at and after
+// it. rank[p] is p's record, and the head table holds the head's rank
+// beside its position. A walk reads 32 candidates from a true one on as
+// one coalesced load (the next 32 in flight), and lane k checks its link
+// against the chain: c_k - chain[c_k] == c_(k+1), or both ends outside
+// the window.
+// The repetition path's propagation makes a chain leave its bucket's
+// order where two phases of a run share a hash; one ballot finds the
+// first link that fails, the candidates before it are the true chain,
+// and the walk speculates afresh from the true next. The lanes test their
+// candidates from the records' words (8 bytes forward, 4 back; the block
+// past that up to 32 forward and 8 back); candidates equal past that are
+// finished by the team one at a time, in chain order. The winner is the
+// longest, the earliest on a tie, and replaces the match only if strictly
+// longer, as in the serial loop. Below LZ4TT_HC_SPEC_ATTEMPTS attempts a
+// search (where the serial walk measured faster on the card), and in
+// blocks past 64 KiB, the walk stays serial.
+//
+// The inserts go a batch of 32 positions at a time: a position whose
+// bucket has an earlier position in the batch links to the latest of
+// them (match_any), any other reads the head table as it was before the
+// batch, and the bucket's last position of the batch writes the head.
+// That is the serial loop's result, whatever the repetition path wrote.
+// The search's head comes out of its last batch.
 #pragma once
 
 #include "lz4_compress.cuh"  // lz4tt_put, lz4tt_copy, lz4tt_common_*
+
+// Hooks of the host build: a link that failed and was followed into the
+// window (the speculation's misses), and a record's chain copy read
+// against the chain slot it copies.
+#ifndef LZ4TT_HC_FOLLOWED
+#define LZ4TT_HC_FOLLOWED()
+#endif
+#ifndef LZ4TT_HC_CHECK_COPY
+#define LZ4TT_HC_CHECK_COPY(copy, slot)
+#endif
 
 enum {
   LZ4TT_HC_HASH_LOG = 15,
   LZ4TT_HC_OPTIMAL_ML = 18,  // ML_MASK - 1 + MIN_MATCH
   LZ4TT_HC_MASK = LZ4TT_MAX_DISTANCE - 1,
   // One team's tables: the head table int32[1 << 15] (reset to -1 for
-  // each block), then the chain uint16[1 << 16] (never reset: a slot is
-  // written before it is read within a block).
+  // each block), the chain uint16[1 << 16] (never reset: a slot is
+  // written before it is read within a block; these two hold the radix
+  // sort's first pass before that), then the bucket index, rank
+  // uint16[1 << 16] and the records, 16 bytes a position (written for
+  // each block that speculates).
   LZ4TT_HC_HT_BYTES = 4 << LZ4TT_HC_HASH_LOG,
-  LZ4TT_HC_TEAM_BYTES = LZ4TT_HC_HT_BYTES + 2 * LZ4TT_MAX_DISTANCE,
+  LZ4TT_HC_U16_BYTES = 2 * LZ4TT_MAX_DISTANCE,
+  LZ4TT_HC_TEAM_BYTES =
+      LZ4TT_HC_HT_BYTES + 2 * LZ4TT_HC_U16_BYTES + 16 * LZ4TT_MAX_DISTANCE,
+  // the fewest attempts a search (1 << (level - 1)) that speculate: level
+  // 5, where the speculated walk first beats the serial one on the card
+  LZ4TT_HC_SPEC_ATTEMPTS = 16,
+  // the index's counters: of the hash's low 8 bits, then its high 7
+  LZ4TT_HC_LO = 256,
+  LZ4TT_HC_COUNTS = LZ4TT_HC_LO + (1 << (LZ4TT_HC_HASH_LOG - 8)),
 };
 
 struct Lz4ttHcMatch {
@@ -46,17 +92,183 @@ LZ4TT_HD void lz4tt_hc_fix(Lz4ttHcMatch& m, int32_t c) {
   m.len -= c;
 }
 
-// One block's match finder: the tables and the next position to insert.
+// One block's match finder: the tables and the bucket index in the team's
+// scratch, and the next position to insert.
 struct Lz4ttHc {
   const uint8_t* src;
+  uint8_t* tables;  // the team's scratch (one pointer: fewer registers)
   int32_t match_limit, max_attempts;
-  int32_t* ht;
-  uint16_t* chain;
+  bool spec;  // the walk speculates on the bucket index
   int32_t ntu;
+  LZ4TT_HD int32_t* ht() const { return (int32_t*)tables; }
+  LZ4TT_HD uint16_t* chain() const {
+    return (uint16_t*)(tables + LZ4TT_HC_HT_BYTES);
+  }
+  LZ4TT_HD uint16_t* rank() const { return chain() + LZ4TT_MAX_DISTANCE; }
+  LZ4TT_HD uint32_t* rec() const {  // 4 words a record
+    return (uint32_t*)(rank() + LZ4TT_MAX_DISTANCE);
+  }
+};
+
+// A record of the bucket index: the words at p - 4, p and p + 4 (bytes
+// outside the block 0), p << 16 and p's chain delta.
+struct Lz4ttHcRec {
+  uint32_t back, word, ahead;
+  int32_t pos, delta;
 };
 
 LZ4TT_HD uint32_t lz4tt_hc_hash(uint32_t v) {
   return lz4tt_hash(v, LZ4TT_HC_HASH_LOG);
+}
+
+// The word at i with the bytes outside [0, len) 0.
+LZ4TT_HD uint32_t lz4tt_hc_word_in(const uint8_t* src, int32_t i, int32_t len) {
+  if (i >= 0 && i + 4 <= len) return lz4tt_read32(src, i);
+  uint32_t w = 0;
+  for (int k = 0; k < 4; k++)
+    if (i + k >= 0 && i + k < len) w |= (uint32_t)src[i + k] << (8 * k);
+  return w;
+}
+
+// Four words of the team's scratch (16-byte aligned), which the kernel
+// itself writes: not through the read-only cache.
+LZ4TT_HD void lz4tt_hc_load4(const uint32_t* p, uint32_t a[4]) {
+#ifdef __CUDA_ARCH__
+  const uint4 v = __ldcg(reinterpret_cast<const uint4*>(p));
+  a[0] = v.x;
+  a[1] = v.y;
+  a[2] = v.z;
+  a[3] = v.w;
+#else
+  memcpy(a, p, 16);
+#endif
+}
+
+// Record i, or one at position -1 for i < 0.
+LZ4TT_HD Lz4ttHcRec lz4tt_hc_rec(const Lz4ttHc& z, int32_t i) {
+  if (i < 0) return {0u, 0u, 0u, -1, 0};
+  uint32_t a[4];
+  lz4tt_hc_load4(z.rec() + 4 * i, a);
+  return {a[0], a[1], a[2], (int32_t)(a[3] >> 16), (int32_t)(a[3] & 0xFFFF)};
+}
+
+// The chain delta of p into its slot, and into its record's copy.
+LZ4TT_HD void lz4tt_hc_link(const Lz4ttHc& z, int32_t p, int32_t rank,
+                            uint16_t delta) {
+  z.chain()[p & LZ4TT_HC_MASK] = delta;
+  if (z.spec) ((uint16_t*)(z.rec() + 4 * rank + 3))[0] = delta;
+}
+
+// The head table's entry of position p, of rank rk where the walk
+// speculates (both in one word: a walk from the head needs no rank load),
+// and an entry's position (-1: none).
+LZ4TT_HD int32_t lz4tt_hc_head(const Lz4ttHc& z, int32_t p, int32_t rk) {
+  return z.spec ? (int32_t)((uint32_t)rk << 16 | (uint32_t)p) : p;
+}
+
+LZ4TT_HD int32_t lz4tt_hc_head_pos(const Lz4ttHc& z, int32_t e) {
+  return z.spec && e != -1 ? e & 0xFFFF : e;
+}
+
+LZ4TT_HD void lz4tt_hc_count(uint32_t* p) {
+#ifdef __CUDA_ARCH__
+  atomicAdd(p, 1u);
+#else
+  __atomic_fetch_add(p, 1u, __ATOMIC_RELAXED);
+#endif
+}
+
+// The lanes whose `bits`-bit digit d equals this lane's, among those where
+// valid holds: a ballot a bit.
+template <class Team>
+LZ4TT_HD unsigned lz4tt_hc_peers(const Team& t, bool valid, uint32_t d,
+                                 int bits) {
+  unsigned m = t.ballot(valid);
+  for (int b = 0; b < bits; b++) {
+    const unsigned x = t.ballot((d >> b) & 1u);
+    m &= (d >> b) & 1u ? x : ~x;
+  }
+  return m;
+}
+
+// One step of a stable counting sort by a `bits`-bit digit d: this lane's
+// slot among the team's items (valid), from the running bases cnt[d].
+template <class Team>
+LZ4TT_HD int32_t lz4tt_hc_place(const Team& t, uint32_t* cnt, bool valid,
+                                uint32_t d, int bits) {
+  const int lane = t.lane();
+  const unsigned peers = lz4tt_hc_peers(t, valid, d, bits);
+  int32_t slot = 0;
+  if (valid) slot = (int32_t)cnt[d] + lz4tt_popc(peers & ((1u << lane) - 1u));
+  t.sync();  // every lane has read its base
+  if (valid && (peers >> lane) == 1u) cnt[d] = slot + 1;
+  t.sync();
+  return slot;
+}
+
+// The exclusive scan of cnt[0, k) in place, k a multiple of the team's
+// size: each lane a run.
+template <class Team>
+LZ4TT_HD void lz4tt_hc_scan(const Team& t, uint32_t* cnt, int32_t k) {
+  const int32_t per = k / t.size(), at = t.lane() * per;
+  uint32_t sum = 0;
+  for (int32_t j = 0; j < per; j++) sum += cnt[at + j];
+  uint32_t run = (uint32_t)lz4tt_team_scan(t, (int32_t)sum) - sum;
+  for (int32_t j = 0; j < per; j++) {
+    const uint32_t c = cnt[at + j];
+    cnt[at + j] = run;
+    run += c;
+  }
+}
+
+// The bucket index of src[0, len) by the team, len <= 65536: the records
+// of positions [0, len - 3) stably sorted by hash, rank[p] p's record. A
+// radix sort of two stable counting passes, by the hash's low 8 bits
+// into tmp (len words), then by its high 7 bits into the records; the
+// counters (LZ4TT_HC_COUNTS words, shared memory on the card) take one
+// histogram pass for both, and lanes of one digit are ranked by ballots.
+// The records' chain copies are written by the inserts.
+template <class Team>
+LZ4TT_HD void lz4tt_hc_index(const Team& t, const uint8_t* src, int32_t len,
+                             uint32_t* counts, uint32_t* tmp, uint16_t* rank,
+                             uint32_t* rec) {
+  const int lane = t.lane(), size = t.size();
+  const int32_t n = len - (LZ4TT_MIN_MATCH - 1);
+  uint32_t* lo = counts;
+  uint32_t* hi = counts + LZ4TT_HC_LO;
+  for (int32_t i = lane; i < LZ4TT_HC_COUNTS; i += size) counts[i] = 0;
+  t.sync();
+  for (int32_t p = lane; p < n; p += size) {
+    const uint32_t h = lz4tt_hc_hash(lz4tt_read32(src, p));
+    lz4tt_hc_count(&lo[h % LZ4TT_HC_LO]);
+    lz4tt_hc_count(&hi[h / LZ4TT_HC_LO]);
+  }
+  t.sync();
+  lz4tt_hc_scan(t, lo, LZ4TT_HC_LO);
+  lz4tt_hc_scan(t, hi, LZ4TT_HC_COUNTS - LZ4TT_HC_LO);
+  t.sync();
+  for (int32_t b = 0; b < n; b += size) {
+    const int32_t p = b + lane;
+    const uint32_t h = p < n ? lz4tt_hc_hash(lz4tt_read32(src, p)) : 0u;
+    const int32_t slot = lz4tt_hc_place(t, lo, p < n, h % LZ4TT_HC_LO, 8);
+    if (p < n) tmp[slot] = (h / LZ4TT_HC_LO) << 16 | (uint32_t)p;
+  }
+  t.sync();
+  for (int32_t b = 0; b < n; b += size) {
+    const int32_t i = b + lane;
+    const uint32_t v = i < n ? tmp[i] : 0u;
+    const int32_t p = (int32_t)(v & 0xFFFF);
+    const int32_t slot = lz4tt_hc_place(t, hi, i < n, v >> 16,
+                                        LZ4TT_HC_HASH_LOG - 8);
+    if (i < n) {
+      const uint32_t r[4] = {lz4tt_hc_word_in(src, p - 4, len),
+                             lz4tt_read32(src, p),
+                             lz4tt_hc_word_in(src, p + 4, len), (uint32_t)p << 16};
+      lz4tt_store16w((uint8_t*)(rec + 4 * slot), r);
+      rank[p] = (uint16_t)slot;
+    }
+  }
+  t.sync();
 }
 
 // Length of the common prefix of src[o1..] and src[o2..] with o2 + count
@@ -71,15 +283,21 @@ LZ4TT_HD int32_t lz4tt_hc_common(const Team& t, const uint8_t* src, int32_t o1,
   return c;
 }
 
-// commonBytesBackward: the bytes equal before o1 and o2, going no lower
-// than l1 and l2; 8 bytes by every lane alike, then the team.
-template <class Team>
-LZ4TT_HD int32_t lz4tt_hc_back(const Team& t, const uint8_t* src, int32_t o1,
-                               int32_t o2, int32_t l1, int32_t l2) {
-  int32_t c = 0;
+// commonBytesBackward by one lane up to 8 bytes, from c bytes known
+// equal: the bytes equal before o1 and o2, going no lower than l1 and l2.
+LZ4TT_HD int32_t lz4tt_hc_back8(const uint8_t* src, int32_t o1, int32_t o2,
+                                int32_t l1, int32_t l2, int32_t c) {
   for (; c < 8; c++)
     if (o1 - c <= l1 || o2 - c <= l2 || src[o1 - c - 1] != src[o2 - c - 1])
-      return c;
+      break;
+  return c;
+}
+
+// The same by the team from c bytes known equal on.
+template <class Team>
+LZ4TT_HD int32_t lz4tt_hc_back_team(const Team& t, const uint8_t* src,
+                                    int32_t o1, int32_t o2, int32_t l1,
+                                    int32_t l2, int32_t c) {
   for (;;) {
     const int32_t j = c + t.lane();
     const bool stop =
@@ -90,31 +308,176 @@ LZ4TT_HD int32_t lz4tt_hc_back(const Team& t, const uint8_t* src, int32_t o1,
   }
 }
 
-// _insert (jax_hc.py:41-59): the leader adds positions ntu..off-1.
+// commonBytesBackward: 8 bytes by every lane alike, then the team.
 template <class Team>
-LZ4TT_HD void lz4tt_hc_insert(const Team& t, Lz4ttHc& z, int32_t off) {
-  if (z.ntu >= off) return;
+LZ4TT_HD int32_t lz4tt_hc_back(const Team& t, const uint8_t* src, int32_t o1,
+                               int32_t o2, int32_t l1, int32_t l2) {
+  const int32_t c = lz4tt_hc_back8(src, o1, o2, l1, l2, 0);
+  return c < 8 ? c : lz4tt_hc_back_team(t, src, o1, o2, l1, l2, c);
+}
+
+// _insert (jax_hc.py:41-59): positions ntu..off-1, a lane a position;
+// returns the head table's entry of hash hc after them (cur's bucket: no
+// load of the head table after the inserts' stores).
+template <class Team>
+LZ4TT_HD int32_t lz4tt_hc_insert(const Team& t, Lz4ttHc& z, int32_t off,
+                                 uint32_t hc) {
+  if (z.ntu >= off) return z.ht()[hc];
+  const int lane = t.lane(), size = t.size();
+  int32_t head = -1;
   t.sync();
-  if (t.leader()) {
-    for (int32_t p = z.ntu; p < off; p++) {
-      const uint32_t h = lz4tt_hc_hash(lz4tt_read32(z.src, p));
-      int32_t delta = p - z.ht[h];
+  for (int32_t b = z.ntu; b < off; b += size) {
+    const int32_t p = b + lane;
+    // one value for the idle lanes: match_any's time grows with the
+    // distinct values
+    const uint32_t h = p < off ? lz4tt_hc_hash(lz4tt_read32(z.src, p)) : ~0u;
+    const int32_t rk = z.spec && p < off ? z.rank()[p] : 0;
+    const int32_t before = z.ht()[hc];
+    // a batch of one (most searches on incompressible data) needs no match
+    const unsigned group = off - b > 1 ? t.match_any(h) : lane == 0 ? 1u : 0u;
+    const unsigned below = group & ((1u << lane) - 1u);
+    const int32_t prev =
+        below ? b + lz4tt_fls(below) : p < off ? lz4tt_hc_head_pos(z, z.ht()[h]) : 0;
+    t.sync();  // every lane has read the head table
+    if (p < off) {
+      int32_t delta = p - prev;
       if (delta > LZ4TT_MAX_DISTANCE - 1) delta = LZ4TT_MAX_DISTANCE - 1;
-      z.chain[p & LZ4TT_HC_MASK] = (uint16_t)delta;
-      z.ht[h] = p;
+      lz4tt_hc_link(z, p, rk, (uint16_t)delta);
+      if ((group >> lane) == 1u) z.ht()[h] = lz4tt_hc_head(z, p, rk);
     }
+    if (b + size >= off) {  // the last batch: cur's bucket's newest
+      const unsigned mine = t.ballot(h == hc);
+      const int k = mine ? lz4tt_fls(mine) : 0;
+      const int32_t rk_k = t.shfl(rk, k);
+      head = mine ? lz4tt_hc_head(z, b + k, rk_k) : before;
+    }
+    t.sync();
   }
   z.ntu = off;
-  t.sync();
+  return head;
+}
+
+// The speculated walk of the chain from its first candidate c, with the
+// serial loop's result: at most max_attempts candidates, each in the
+// window [lo, off], in chain order (rc: c's rank, or -1 if unknown);
+// kWide: the wider search (a backward length too, no lower than
+// start_limit). m is the match so far.
+template <bool kWide, class Team>
+LZ4TT_HD void lz4tt_hc_walk(const Team& t, const Lz4ttHc& z, int32_t off,
+                            uint32_t cur, int32_t c, int32_t rc, int32_t lo,
+                            int32_t start_limit, Lz4ttHcMatch& m) {
+  if (c < lo || c > off) return;
+  const uint8_t* src = z.src;
+  const int lane = t.lane(), size = t.size();
+  // the words after and before cur; the records' words serve while the
+  // first forward word lies below match_limit
+  const bool ahead = off + 2 * LZ4TT_MIN_MATCH <= z.match_limit;
+  const uint32_t cur_ahead = ahead ? lz4tt_read32(src, off + LZ4TT_MIN_MATCH) : 0u;
+  const uint32_t cur_back = kWide ? lz4tt_hc_word_in(src, off - 4, off) : 0u;
+  // the backward length stops at start_limit on cur's side
+  const int32_t back_max = off - start_limit > 0 ? off - start_limit : 0;
+  int32_t left = z.max_attempts;
+  int32_t r = rc >= 0 ? rc : z.rank()[c];
+  // lane k's candidate of this step (the k-th after the first true one)
+  // and of the next step
+  Lz4ttHcRec x = lz4tt_hc_rec(z, r - lane), x2 = lz4tt_hc_rec(z, r - size - lane);
+  for (;;) {
+    const int32_t s = x.pos;
+    const bool in = s >= lo && s <= off;
+    int32_t next = -1, fwd = 0, bwd = 0;
+    bool more = false;
+    if (in) {
+      LZ4TT_HC_CHECK_COPY(x.delta, z.chain()[s & LZ4TT_HC_MASK]);
+      next = s - x.delta;
+      if (x.word == cur) {
+        const uint32_t d = x.ahead ^ cur_ahead;
+        fwd = LZ4TT_MIN_MATCH +
+              (ahead && d ? (lz4tt_ffs(d) - 1) >> 3
+                          : lz4tt_common_words(src, s + LZ4TT_MIN_MATCH,
+                                               off + LZ4TT_MIN_MATCH,
+                                               z.match_limit, ahead ? 4 : 0));
+        more = fwd == LZ4TT_MIN_MATCH + LZ4TT_SHORT_MATCH;
+        if (kWide) {
+          const uint32_t e = x.back ^ cur_back;
+          const int32_t most = s < back_max ? s : back_max;
+          bwd = e ? (31 - lz4tt_fls(e)) >> 3 : 4;
+          if (bwd > most) bwd = most;
+          if (bwd == 4) bwd = lz4tt_hc_back8(src, s, off, 0, start_limit, 4);
+          more = more || bwd == 8;
+        }
+      }
+    }
+    // lane k's link holds if its true next is lane k + 1's candidate (the
+    // last lane's: the next slice's first), or both leave the window
+    const int32_t after = t.shfl(s, lane + 1 < size ? lane + 1 : 0);
+    const int32_t first2 = t.shfl(x2.pos, 0);
+    const int32_t nx = lane + 1 < size ? after : first2;
+    const bool holds = in && (next == nx || ((next < lo || next > off) &&
+                                             (nx < lo || nx > off)));
+    const unsigned fail = t.ballot(!holds), inside = t.ballot(in);
+    const int kf = fail ? lz4tt_ffs(fail) - 1 : size;
+    const bool kf_in = kf < size && ((inside >> kf) & 1u);
+    // the true candidates: lanes [0, kf], less lane kf if it left the window
+    int32_t p = kf == size ? size : kf + (kf_in ? 1 : 0);
+    bool last = kf < size && !kf_in;
+    if (p >= left) {
+      p = left;
+      last = true;
+    }
+    if (lane >= p) {
+      fwd = bwd = 0;
+      more = false;
+    }
+    // candidates equal past the lanes' bytes: the team, in chain order
+    for (unsigned ms = t.ballot(more); ms; ms &= ms - 1) {
+      const int k = lz4tt_ffs(ms) - 1;
+      const int32_t sk = t.shfl(s, k);
+      const int32_t fk = t.shfl(fwd, k), bk = t.shfl(bwd, k);
+      int32_t f = 0, g = 0;
+      if (fk == LZ4TT_MIN_MATCH + LZ4TT_SHORT_MATCH)
+        f = lz4tt_common_bytes(t, src, sk + fk, off + fk, z.match_limit);
+      if (kWide && bk == 8)
+        g = lz4tt_hc_back_team(t, src, sk, off, 0, start_limit, 8) - 8;
+      if (lane == k) {
+        fwd += f;
+        bwd += g;
+      }
+    }
+    const int32_t len = fwd + bwd;
+    const uint32_t key =
+        len > m.len ? ((uint32_t)len << 5) | (uint32_t)(31 - lane) : 0u;
+    const uint32_t best = t.reduce_max(key);
+    if (best) {
+      const int w = 31 - (int)(best & 31);
+      const int32_t back = t.shfl(bwd, w);
+      m.len = (int32_t)(best >> 5);
+      m.ref = t.shfl(s, w) - back;
+      m.start = off - back;
+    }
+    if (last) return;
+    left -= p;
+    c = t.shfl(next, p - 1);  // the true next of the last true candidate
+    if (c < lo || c > off) return;
+    if (kf == size) {  // every link held: c is the next slice's first
+      r -= size;
+      x = x2;
+    } else {  // a link failed: speculate afresh from c
+      if (t.leader()) LZ4TT_HC_FOLLOWED();
+      r = z.rank()[c];
+      x = lz4tt_hc_rec(z, r - lane);
+    }
+    x2 = lz4tt_hc_rec(z, r - size - lane);
+  }
 }
 
 // insertAndFindBestMatch (jax_hc.py:66-152); a length of 0 is no match.
 template <class Team>
 LZ4TT_HD Lz4ttHcMatch lz4tt_hc_best(const Team& t, Lz4ttHc& z, int32_t off) {
-  lz4tt_hc_insert(t, z, off);
   const uint8_t* src = z.src;
   const uint32_t cur = lz4tt_read32(src, off);
-  int32_t ref = z.ht[lz4tt_hc_hash(cur)];
+  const int32_t head = lz4tt_hc_insert(t, z, off, lz4tt_hc_hash(cur));
+  int32_t ref = lz4tt_hc_head_pos(z, head);
+  int32_t rref = z.spec && head != -1 ? (int32_t)((uint32_t)head >> 16) : -1;
   Lz4ttHcMatch m = {off, 0, 0};
   int32_t rep_len = 0, rep_delta = 0;
   if (ref >= off - 4 && ref <= off && ref >= 0) {  // a repetition
@@ -125,22 +488,27 @@ LZ4TT_HD Lz4ttHcMatch lz4tt_hc_best(const Team& t, Lz4ttHc& z, int32_t off) {
                           z.match_limit);
       m.ref = ref;
     }
-    ref -= z.chain[ref & LZ4TT_HC_MASK];
+    ref -= z.chain()[ref & LZ4TT_HC_MASK];
+    rref = -1;
   }
   const int32_t lo = off - LZ4TT_MAX_DISTANCE + 1 > 0 ? off - LZ4TT_MAX_DISTANCE + 1 : 0;
-  for (int32_t i = 0; i < z.max_attempts; i++) {
-    if (ref < lo || ref > off) break;
-    const int32_t next = ref - z.chain[ref & LZ4TT_HC_MASK];
-    if (lz4tt_read32(src, ref) == cur) {
-      const int32_t len = LZ4TT_MIN_MATCH +
-          lz4tt_hc_common(t, src, ref + LZ4TT_MIN_MATCH, off + LZ4TT_MIN_MATCH,
-                          z.match_limit);
-      if (len > m.len) {
-        m.len = len;
-        m.ref = ref;
+  if (z.spec) {
+    lz4tt_hc_walk<false>(t, z, off, cur, ref, rref, lo, 0, m);
+  } else {
+    for (int32_t i = 0; i < z.max_attempts; i++) {
+      if (ref < lo || ref > off) break;
+      const int32_t next = ref - z.chain()[ref & LZ4TT_HC_MASK];
+      if (lz4tt_read32(src, ref) == cur) {
+        const int32_t len = LZ4TT_MIN_MATCH +
+            lz4tt_hc_common(t, src, ref + LZ4TT_MIN_MATCH, off + LZ4TT_MIN_MATCH,
+                            z.match_limit);
+        if (len > m.len) {
+          m.len = len;
+          m.ref = ref;
+        }
       }
+      ref = next;
     }
-    ref = next;
   }
   if (rep_len != 0) {
     // the repetition's chain propagation (jax_hc.py:120-150): every
@@ -152,10 +520,11 @@ LZ4TT_HD Lz4ttHcMatch lz4tt_hc_best(const Team& t, Lz4ttHc& z, int32_t off) {
     // slots repeat past 65,536 positions, with the same delta
     const int32_t first = end - off > LZ4TT_MAX_DISTANCE ? end - LZ4TT_MAX_DISTANCE : off;
     for (int32_t p = first + t.lane(); p < end; p += t.size())
-      z.chain[p & LZ4TT_HC_MASK] = d16;
+      lz4tt_hc_link(z, p, z.spec ? z.rank()[p] : 0, d16);
     if (t.leader()) {
       for (int32_t p = end - rep_delta > off ? end - rep_delta : off; p < end; p++)
-        z.ht[lz4tt_hc_hash(lz4tt_read32(src, p))] = p;
+        z.ht()[lz4tt_hc_hash(lz4tt_read32(src, p))] =
+            lz4tt_hc_head(z, p, z.spec ? z.rank()[p] : 0);
     }
     z.ntu = end;
     t.sync();
@@ -169,27 +538,33 @@ template <class Team>
 LZ4TT_HD bool lz4tt_hc_wider(const Team& t, Lz4ttHc& z, int32_t off,
                              int32_t start_limit, int32_t min_len,
                              Lz4ttHcMatch* w) {
-  lz4tt_hc_insert(t, z, off);
   const uint8_t* src = z.src;
   const uint32_t cur = lz4tt_read32(src, off);
-  int32_t ref = z.ht[lz4tt_hc_hash(cur)];
+  const int32_t head = lz4tt_hc_insert(t, z, off, lz4tt_hc_hash(cur));
+  int32_t ref = lz4tt_hc_head_pos(z, head);
   const int32_t lo = off - LZ4TT_MAX_DISTANCE + 1 > 0 ? off - LZ4TT_MAX_DISTANCE + 1 : 0;
   Lz4ttHcMatch m = {0, 0, min_len};
-  for (int32_t i = 0; i < z.max_attempts; i++) {
-    if (ref < lo || ref > off) break;
-    const int32_t next = ref - z.chain[ref & LZ4TT_HC_MASK];
-    if (lz4tt_read32(src, ref) == cur) {
-      const int32_t fwd = LZ4TT_MIN_MATCH +
-          lz4tt_hc_common(t, src, ref + LZ4TT_MIN_MATCH, off + LZ4TT_MIN_MATCH,
-                          z.match_limit);
-      const int32_t bwd = lz4tt_hc_back(t, src, ref, off, 0, start_limit);
-      if (fwd + bwd > m.len) {
-        m.len = fwd + bwd;
-        m.ref = ref - bwd;
-        m.start = off - bwd;
+  if (z.spec) {
+    lz4tt_hc_walk<true>(t, z, off, cur, ref,
+                        z.spec && head != -1 ? (int32_t)((uint32_t)head >> 16) : -1,
+                        lo, start_limit, m);
+  } else {
+    for (int32_t i = 0; i < z.max_attempts; i++) {
+      if (ref < lo || ref > off) break;
+      const int32_t next = ref - z.chain()[ref & LZ4TT_HC_MASK];
+      if (lz4tt_read32(src, ref) == cur) {
+        const int32_t fwd = LZ4TT_MIN_MATCH +
+            lz4tt_hc_common(t, src, ref + LZ4TT_MIN_MATCH, off + LZ4TT_MIN_MATCH,
+                            z.match_limit);
+        const int32_t bwd = lz4tt_hc_back(t, src, ref, off, 0, start_limit);
+        if (fwd + bwd > m.len) {
+          m.len = fwd + bwd;
+          m.ref = ref - bwd;
+          m.start = off - bwd;
+        }
       }
+      ref = next;
     }
-    ref = next;
   }
   if (m.len <= min_len) return false;
   *w = m;
@@ -338,23 +713,40 @@ LZ4TT_HD bool lz4tt_hc_sequences(const Team& t, Lz4ttHc& z, int32_t src_len,
   return true;
 }
 
+// Whether the walks at max_attempts speculate (in the blocks that can).
+LZ4TT_HD bool lz4tt_hc_speculates(int32_t max_attempts) {
+  return max_attempts >= LZ4TT_HC_SPEC_ATTEMPTS;
+}
+
 // One block: src[0, src_len) compressed at max_attempts = 1 << (level - 1)
 // into dst[0, dest_cap), no write at or past dst_width; the tables lie in
-// the team's slice of scratch (LZ4TT_HC_TEAM_BYTES, 16-byte aligned).
-// *out_len is the output length, 0 on an error row.
-template <class Team>
-LZ4TT_HD void lz4tt_hc_block(const Team& t, const uint8_t* src, int32_t src_len,
-                             uint8_t* dst, int32_t dest_cap, int64_t dst_width,
-                             int32_t max_attempts, uint8_t* scratch,
-                             int32_t* out_len, int32_t* err) {
+// the team's slice of scratch (LZ4TT_HC_TEAM_BYTES, 16-byte aligned), the
+// index's counters in counts (LZ4TT_HC_COUNTS words). *out_len is the
+// output length, 0 on an error row. kSpec: the body of the levels that
+// speculate (lz4tt_hc_speculates); without it, none of the index's code
+// is compiled in (the card runs the two as two kernels, each with
+// registers of its own).
+template <bool kSpec, class Team>
+LZ4TT_HD void lz4tt_hc_block_as(const Team& t, const uint8_t* src,
+                                int32_t src_len, uint8_t* dst, int32_t dest_cap,
+                                int64_t dst_width, int32_t max_attempts,
+                                uint8_t* scratch, uint32_t* counts,
+                                int32_t* out_len, int32_t* err) {
+  // a block with a search (src_len > MIN_LENGTH) whose positions fit the
+  // index's uint16
+  const bool spec = kSpec && src_len > LZ4TT_MIN_LENGTH &&
+                    src_len <= LZ4TT_MAX_DISTANCE;
+  Lz4ttHc z = {src, scratch, src_len - LZ4TT_LAST_LITERALS, max_attempts, spec,
+               0};
   t.sync();  // every lane is done with the last block's tables
+  if (spec)
+    lz4tt_hc_index(t, src, src_len, counts, (uint32_t*)scratch,
+                   z.rank(), z.rec());
   for (int32_t i = t.lane() * 16; i < LZ4TT_HC_HT_BYTES; i += 16 * t.size()) {
     const uint32_t ones[4] = {~0u, ~0u, ~0u, ~0u};
     lz4tt_store16w(scratch + i, ones);
   }
   t.sync();
-  Lz4ttHc z = {src, src_len - LZ4TT_LAST_LITERALS, max_attempts,
-               (int32_t*)scratch, (uint16_t*)(scratch + LZ4TT_HC_HT_BYTES), 0};
   int32_t d = 0, anchor = 0;
   *out_len = 0;
   *err = LZ4TT_ERR_DEST_TOO_SMALL;
@@ -373,4 +765,17 @@ LZ4TT_HD void lz4tt_hc_block(const Team& t, const uint8_t* src, int32_t src_len,
   lz4tt_copy(t, dst, d, dst_width, src, anchor, run);
   *out_len = d + run;
   *err = LZ4TT_OK;
+}
+
+template <class Team>
+LZ4TT_HD void lz4tt_hc_block(const Team& t, const uint8_t* src, int32_t src_len,
+                             uint8_t* dst, int32_t dest_cap, int64_t dst_width,
+                             int32_t max_attempts, uint8_t* scratch,
+                             uint32_t* counts, int32_t* out_len, int32_t* err) {
+  if (lz4tt_hc_speculates(max_attempts))
+    lz4tt_hc_block_as<true>(t, src, src_len, dst, dest_cap, dst_width,
+                            max_attempts, scratch, counts, out_len, err);
+  else
+    lz4tt_hc_block_as<false>(t, src, src_len, dst, dest_cap, dst_width,
+                             max_attempts, scratch, counts, out_len, err);
 }

@@ -46,6 +46,8 @@ struct HostTeam {
   LZ4TT_HD unsigned ballot(bool p) const { return p ? 1u : 0u; }
   LZ4TT_HD int32_t shfl(int32_t v, int) const { return v; }
   LZ4TT_HD int32_t bcast(int32_t v) const { return v; }
+  LZ4TT_HD unsigned match_any(uint32_t) const { return 1u; }
+  LZ4TT_HD uint32_t reduce_max(uint32_t v) const { return v; }
 };
 
 // One warp. The members are __host__ __device__ so that templates
@@ -78,6 +80,22 @@ struct WarpTeam {
   LZ4TT_HD int32_t shfl(int32_t v, int src) const {
 #ifdef __CUDA_ARCH__
     return __shfl_sync(0xffffffffu, v, src);
+#else
+    return v;
+#endif
+  }
+  // the lanes whose v equals this lane's
+  LZ4TT_HD unsigned match_any(uint32_t v) const {
+#ifdef __CUDA_ARCH__
+    return __match_any_sync(0xffffffffu, v);
+#else
+    return 1u;
+#endif
+  }
+  // the largest v of the team, on every lane
+  LZ4TT_HD uint32_t reduce_max(uint32_t v) const {
+#ifdef __CUDA_ARCH__
+    return __reduce_max_sync(0xffffffffu, v);
 #else
     return v;
 #endif

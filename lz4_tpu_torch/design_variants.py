@@ -1,7 +1,7 @@
 """Time design variants of block compress (K2), block decode (K1),
 segment decode (K5), the hashes (K3, K4 and their streaming updates), the
-sequence parser and frame-body packing against the shipped kernels, on
-the card.
+sequence parser, frame-body packing and LZ4 HC (K6) against the shipped
+kernels, on the card.
 
 Each variant is the shipped ``csrc`` with a few text replacements: the
 design options ``PERF.md`` reports as tried and lost. Every variant is
@@ -12,11 +12,18 @@ parser's tables of that for K5): all rows, the a4 and the text rows apart,
 then the first 256 rows (a stream batch). A hash variant is timed
 on three launches: the one-shot entry point on the 4096 rows and on one
 16 MiB row (the first 256 rows end to end), and the update on the same 16
-MiB, a stream batch. Each variant's output is held against the shipped
-kernel's. Run from the root of a checkout, on a machine with a card, for
-all of them or those of some sources::
+MiB, a stream batch. K6 is timed at levels 1-6, 9 and 17 on the 4096
+rows (where the speculated walk starts to pay) and at levels 1, 9 and 17
+on 1, 132, 1,056 and 4,096 of their a4 rows (its slowest kind). Each
+variant's output is held against the shipped kernel's. Run from the root
+of a checkout, on a machine with a card, for all of them or those of
+some sources::
 
-    python -m lz4_tpu_torch.design_variants [lz4_compress lz4_decode segment_decode lz4_parse frame_pack xxh32 xxh64]
+    python -m lz4_tpu_torch.design_variants [lz4_compress lz4_decode segment_decode lz4_parse frame_pack xxh32 xxh64 lz4_hc]
+
+``--hc-split`` instead builds K6 with ``clock64`` counters in its first
+team's lane 0 and prints the cycles of each part of its searches: on one
+a4 row alone and on team 0 of 4,096 a4 rows, at level 9.
 """
 
 from __future__ import annotations
@@ -31,9 +38,13 @@ import torch
 
 from .core.constants import max_compressed_length
 from .dist import sharded
-from .kernels import build, codec, sequences, xxhash, xxhash_stream
+from .kernels import build, codec, hc, sequences, xxhash, xxhash_stream
 
 SEED, N_BLOCKS, BLOCK_LEN, REPS = 1234, 4096, 1 << 16, 5
+HC_REPS = 2                      # K6's timed launches (the slow ones take 1 s)
+HC_ALL_LEVELS = (1, 2, 3, 4, 5, 6, 9, 17)
+HC_A4_LEVELS = (1, 9, 17)
+HC_A4_ROWS = (1, 132, 1056, 4096)
 
 _STAGED = """  uint4* row = table + LZ4TT_TABLE_BYTES / 16;
   const uint4* g = (const uint4*)(src + b * src_stride);
@@ -386,6 +397,144 @@ _PARSE_NEAR_GLOBAL = "    return src[i];\n  }\n};"
 _PACK_ALIGNED = "  const int32_t a1 = head + ((n - head) & ~15);"
 
 # name -> (source, [(file, old, new)]): every occurrence of old is replaced
+_HC_SPEC = "  LZ4TT_HC_SPEC_ATTEMPTS = 16,"
+_HC_INSERT = """// _insert (jax_hc.py:41-59): positions ntu..off-1, a lane a position;
+// returns the head table's entry of hash hc after them (cur's bucket: no
+// load of the head table after the inserts' stores).
+template <class Team>
+LZ4TT_HD int32_t lz4tt_hc_insert(const Team& t, Lz4ttHc& z, int32_t off,
+                                 uint32_t hc) {
+  if (z.ntu >= off) return z.ht()[hc];
+  const int lane = t.lane(), size = t.size();
+  int32_t head = -1;
+  t.sync();
+  for (int32_t b = z.ntu; b < off; b += size) {
+    const int32_t p = b + lane;
+    // one value for the idle lanes: match_any's time grows with the
+    // distinct values
+    const uint32_t h = p < off ? lz4tt_hc_hash(lz4tt_read32(z.src, p)) : ~0u;
+    const int32_t rk = z.spec && p < off ? z.rank()[p] : 0;
+    const int32_t before = z.ht()[hc];
+    // a batch of one (most searches on incompressible data) needs no match
+    const unsigned group = off - b > 1 ? t.match_any(h) : lane == 0 ? 1u : 0u;
+    const unsigned below = group & ((1u << lane) - 1u);
+    const int32_t prev =
+        below ? b + lz4tt_fls(below) : p < off ? lz4tt_hc_head_pos(z, z.ht()[h]) : 0;
+    t.sync();  // every lane has read the head table
+    if (p < off) {
+      int32_t delta = p - prev;
+      if (delta > LZ4TT_MAX_DISTANCE - 1) delta = LZ4TT_MAX_DISTANCE - 1;
+      lz4tt_hc_link(z, p, rk, (uint16_t)delta);
+      if ((group >> lane) == 1u) z.ht()[h] = lz4tt_hc_head(z, p, rk);
+    }
+    if (b + size >= off) {  // the last batch: cur's bucket's newest
+      const unsigned mine = t.ballot(h == hc);
+      const int k = mine ? lz4tt_fls(mine) : 0;
+      const int32_t rk_k = t.shfl(rk, k);
+      head = mine ? lz4tt_hc_head(z, b + k, rk_k) : before;
+    }
+    t.sync();
+  }
+  z.ntu = off;
+  return head;
+}
+"""
+_HC_SERIAL_INSERT = """// _insert (jax_hc.py:41-59): the leader adds positions ntu..off-1.
+template <class Team>
+LZ4TT_HD int32_t lz4tt_hc_insert(const Team& t, Lz4ttHc& z, int32_t off,
+                                 uint32_t hc) {
+  if (z.ntu < off) {
+    t.sync();
+    if (t.leader()) {
+      for (int32_t p = z.ntu; p < off; p++) {
+        const uint32_t h = lz4tt_hc_hash(lz4tt_read32(z.src, p));
+        const int32_t rk = z.spec ? z.rank()[p] : 0;
+        int32_t delta = p - lz4tt_hc_head_pos(z, z.ht()[h]);
+        if (delta > LZ4TT_MAX_DISTANCE - 1) delta = LZ4TT_MAX_DISTANCE - 1;
+        lz4tt_hc_link(z, p, rk, (uint16_t)delta);
+        z.ht()[h] = lz4tt_hc_head(z, p, rk);
+      }
+    }
+    z.ntu = off;
+    t.sync();
+  }
+  return z.ht()[hc];
+}
+"""
+_HC_FIRST = """  // the words after and before cur; the records' words serve while the
+  // first forward word lies below match_limit
+  const bool ahead = off + 2 * LZ4TT_MIN_MATCH <= z.match_limit;
+  const uint32_t cur_ahead = ahead ? lz4tt_read32(src, off + LZ4TT_MIN_MATCH) : 0u;
+  const uint32_t cur_back = kWide ? lz4tt_hc_word_in(src, off - 4, off) : 0u;
+  // the backward length stops at start_limit on cur's side
+  const int32_t back_max = off - start_limit > 0 ? off - start_limit : 0;
+  int32_t left = z.max_attempts;
+  int32_t r = rc >= 0 ? rc : z.rank()[c];
+  // lane k's candidate of this step (the k-th after the first true one)
+  // and of the next step
+  Lz4ttHcRec x = lz4tt_hc_rec(z, r - lane), x2 = lz4tt_hc_rec(z, r - size - lane);
+"""
+_HC_FIRST_SERIAL = """  // The first candidate as the serial loop probes it, its rank loading
+  // beside it: where chains are short (incompressible data), most walks
+  // end there, and the index costs them nothing.
+  int32_t r = rc >= 0 ? rc : z.rank()[c];
+  int32_t next = c - z.chain()[c & LZ4TT_HC_MASK];
+  if (lz4tt_read32(src, c) == cur) {
+    const int32_t fwd = LZ4TT_MIN_MATCH +
+        lz4tt_hc_common(t, src, c + LZ4TT_MIN_MATCH, off + LZ4TT_MIN_MATCH,
+                        z.match_limit);
+    const int32_t bwd = kWide ? lz4tt_hc_back(t, src, c, off, 0, start_limit) : 0;
+    if (fwd + bwd > m.len) {
+      m.len = fwd + bwd;
+      m.ref = c - bwd;
+      m.start = off - bwd;
+    }
+  }
+  int32_t left = z.max_attempts - 1;
+  if (left == 0 || next < lo || next > off) return;
+  // the words after and before cur; the records' words serve while the
+  // first forward word lies below match_limit
+  const bool ahead = off + 2 * LZ4TT_MIN_MATCH <= z.match_limit;
+  const uint32_t cur_ahead = ahead ? lz4tt_read32(src, off + LZ4TT_MIN_MATCH) : 0u;
+  const uint32_t cur_back = kWide ? lz4tt_hc_word_in(src, off - 4, off) : 0u;
+  // the backward length stops at start_limit on cur's side
+  const int32_t back_max = off - start_limit > 0 ? off - start_limit : 0;
+  // lane k's candidate of this step (the k-th after the true next) and
+  // of the next step, speculated from c's bucket
+  r -= 1;
+  Lz4ttHcRec x = lz4tt_hc_rec(z, r - lane), x2 = lz4tt_hc_rec(z, r - size - lane);
+  if (t.shfl(x.pos, 0) != next) {  // c's own link left its bucket's order
+    if (t.leader()) LZ4TT_HC_FOLLOWED();
+    r = z.rank()[next];
+    x = lz4tt_hc_rec(z, r - lane);
+    x2 = lz4tt_hc_rec(z, r - size - lane);
+  }
+"""
+_HC_LINKS = """    // lane k's link holds if its true next is lane k + 1's candidate, or
+    // both leave the window; the last lane's is checked against the next
+    // slice when the walk goes on
+    const int32_t nx = t.shfl(s, lane + 1 < size ? lane + 1 : lane);
+    const bool holds = in && (lane + 1 == size || next == nx ||
+                              ((next < lo || next > off) && (nx < lo || nx > off)));"""
+_HC_LINKS_OWN = """    // lane k's link holds if its true next is lane k + 1's candidate (the
+    // last lane's: the next slice's first), or both leave the window
+    const int32_t after = t.shfl(s, lane + 1 < size ? lane + 1 : 0);
+    const int32_t first2 = t.shfl(x2.pos, 0);
+    const int32_t nx = lane + 1 < size ? after : first2;
+    const bool holds = in && (next == nx || ((next < lo || next > off) &&
+                                             (nx < lo || nx > off)));"""
+_HC_GRID = "    const int grid = n < teams ? n : teams;"
+_HC_BOUNDS = "__global__ void __launch_bounds__(32, 32)"
+
+
+def _hc_teams_an_sm(k: int) -> str:
+    return f"""    int dev = 0, sms = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int grid = n < teams ? (n < {k} * sms ? n : {k} * sms)
+                               : (teams < {k} * sms ? teams : {k} * sms);"""
+
+
 VARIANTS = {
     "K2": ("lz4_compress", []),
     "K2, row staged in shared memory (2 CTAs an SM)": ("lz4_compress", [
@@ -545,6 +694,43 @@ VARIANTS = {
     "K4, 3 stages of 64 KiB": ("xxh64", [
         (_RING_H, _STAGES,
          "#define LZ4TT_XXH_STAGE 65536\n#define LZ4TT_XXH_STAGES 3")]),
+    "K6": ("lz4_hc", []),
+    "K6, serial walk (the kernel before)": ("lz4_hc", [
+        ("lz4_hc.cuh", _HC_SPEC, "  LZ4TT_HC_SPEC_ATTEMPTS = 1 << 30,"),
+        ("lz4_hc.cuh", _HC_INSERT, _HC_SERIAL_INSERT)]),
+    "K6, serial inserts": ("lz4_hc", [
+        ("lz4_hc.cuh", _HC_INSERT, _HC_SERIAL_INSERT)]),
+    "K6, a walk's first candidate probed serially": ("lz4_hc", [
+        ("lz4_hc.cuh", _HC_FIRST, _HC_FIRST_SERIAL)]),
+    "K6, the index built, the walk serial (the index's cost)": ("lz4_hc", [
+        ("lz4_hc.cuh", "  if (z.spec) {\n    lz4tt_hc_walk<false>",
+         "  if (false) {\n    lz4tt_hc_walk<false>"),
+        ("lz4_hc.cuh", "  if (z.spec) {\n    lz4tt_hc_walk<true>",
+         "  if (false) {\n    lz4tt_hc_walk<true>")]),
+    "K6, the searches and the encoder called, not inlined": ("lz4_hc", [
+        ("lz4_hc.cuh", f"LZ4TT_HD {head}", f"__host__ __device__ __noinline__ {head}")
+        for head in ("Lz4ttHcMatch lz4tt_hc_best(", "bool lz4tt_hc_wider(",
+                     "bool lz4tt_hc_encode(")]),
+    "K6, the last lane's link checked at the next step": ("lz4_hc", [
+        ("lz4_hc.cuh", _HC_LINKS_OWN, _HC_LINKS),
+        ("lz4_hc.cuh", "    if (kf == size) {  // every link held: c is the next slice's first",
+         "    if (p == size && t.shfl(x2.pos, 0) == c) {  // every link held")]),
+    "K6, the head loaded after the inserts": ("lz4_hc", [
+        ("lz4_hc.cuh", "  const int32_t head = lz4tt_hc_insert(t, z, off, lz4tt_hc_hash(cur));",
+         "  lz4tt_hc_insert(t, z, off, lz4tt_hc_hash(cur));\n"
+         "  const int32_t head = z.ht()[lz4tt_hc_hash(cur)];")]),
+    "K6, speculation from level 3": ("lz4_hc", [
+        ("lz4_hc.cuh", _HC_SPEC, "  LZ4TT_HC_SPEC_ATTEMPTS = 4,")]),
+    "K6, speculation from level 4": ("lz4_hc", [
+        ("lz4_hc.cuh", _HC_SPEC, "  LZ4TT_HC_SPEC_ATTEMPTS = 8,")]),
+    "K6, speculation from level 6": ("lz4_hc", [
+        ("lz4_hc.cuh", _HC_SPEC, "  LZ4TT_HC_SPEC_ATTEMPTS = 32,")]),
+    "K6, registers unbounded (fewer teams an SM)": ("lz4_hc", [
+        ("lz4_hc.cu", _HC_BOUNDS, "__global__ void __launch_bounds__(32)")]),
+    "K6, at most 8 teams an SM": ("lz4_hc", [
+        ("lz4_hc.cu", _HC_GRID, _hc_teams_an_sm(8))]),
+    "K6, at most 16 teams an SM": ("lz4_hc", [
+        ("lz4_hc.cu", _HC_GRID, _hc_teams_an_sm(16))]),
 }
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -559,10 +745,127 @@ SYMBOLS = {  # source -> (C entry point, its argtypes)
     "xxh32": ("lz4tt_xxh32_batch", [_P, _I64, _P, ctypes.c_uint, _P, _I32, _P]),
     "xxh64": ("lz4tt_xxh64_batch",
               [_P, _I64, _P, ctypes.c_ulonglong, _P, _I32, _P]),
+    "lz4_hc": ("lz4tt_compress_hc",
+               [_P, _I64, _P, _P, _I64, _I32, _I32, _P, _I32, _P, _P, _I32, _P]),
 }
 # the hash sources' launches, each timed: the one-shot entry point on the
 # 4096 rows and on one 16 MiB row, the update on the same 16 MiB
 HASH_SETS = ("4096 rows", "one 16 MiB row", "update, 16 MiB")
+
+
+# K6 with clock64 counters (--hc-split): the parts of its searches, timed
+# by the first team's lane 0
+_SPLIT_PARTS = ("best: insert and head", "best: walk", "wider: insert and head",
+                "wider: walk", "index", "phase machine, all")
+_SPLIT_EDITS = [
+    ("lz4_hc.cuh", "enum {\n  LZ4TT_HC_HASH_LOG = 15,", """#ifdef __CUDACC__
+__device__ unsigned long long lz4tt_split[16];
+#endif
+#ifdef __CUDA_ARCH__
+#define PT(v) const long long v = clock64()
+#define PA(i, a, b) if (blockIdx.x == 0 && threadIdx.x == 0) { \\
+  lz4tt_split[i] += (b) - (a); lz4tt_split[(i) + 8] += 1; }
+#else
+#define PT(v)
+#define PA(i, a, b)
+#endif
+enum {
+  LZ4TT_HC_HASH_LOG = 15,"""),
+    ("lz4_hc.cuh",
+     "LZ4TT_HD Lz4ttHcMatch lz4tt_hc_best(const Team& t, Lz4ttHc& z, int32_t off) {\n",
+     "LZ4TT_HD Lz4ttHcMatch lz4tt_hc_best(const Team& t, Lz4ttHc& z, int32_t off) {\n"
+     "  PT(b0);\n"),
+    ("lz4_hc.cuh", "  int32_t rref = z.spec && head != -1",
+     "  PT(b1);\n  PA(0, b0, b1);\n  int32_t rref = z.spec && head != -1"),
+    ("lz4_hc.cuh", "    lz4tt_hc_walk<false>(t, z, off, cur, ref, rref, lo, 0, m);",
+     "    PT(b2);\n    lz4tt_hc_walk<false>(t, z, off, cur, ref, rref, lo, 0, m);\n"
+     "    PT(b3);\n    PA(1, b2, b3);"),
+    ("lz4_hc.cuh", "                             Lz4ttHcMatch* w) {\n",
+     "                             Lz4ttHcMatch* w) {\n  PT(w0);\n"),
+    ("lz4_hc.cuh", "  int32_t ref = lz4tt_hc_head_pos(z, head);\n  const int32_t lo",
+     "  PT(w1);\n  PA(2, w0, w1);\n  int32_t ref = lz4tt_hc_head_pos(z, head);\n"
+     "  const int32_t lo"),
+    ("lz4_hc.cuh", "                        lo, start_limit, m);",
+     "                        lo, start_limit, m);\n    PT(w3);\n    PA(3, w1, w3);"),
+    ("lz4_hc.cuh", "  if (spec)\n    lz4tt_hc_index(",
+     "  PT(x0);\n  if (spec)\n    lz4tt_hc_index("),
+    ("lz4_hc.cuh", "                   z.rank(), z.rec());",
+     "                   z.rank(), z.rec());\n  PT(x1);\n  PA(4, x0, x1);"),
+    ("lz4_hc.cuh",
+     "  if (!lz4tt_hc_sequences(t, z, src_len, dst, dest_cap, dst_width, d, anchor))\n",
+     "  PT(q0);\n  const bool all = lz4tt_hc_sequences(t, z, src_len, dst, dest_cap,\n"
+     "                                      dst_width, d, anchor);\n"
+     "  PT(q1);\n  PA(5, q0, q1);\n  if (!all)\n"),
+    ("lz4_hc.cu", "// Bytes of scratch a team needs.", """extern "C" int lz4tt_split_read(unsigned long long* h, int zero) {
+  const unsigned long long none[16] = {};
+  const cudaError_t e = cudaMemcpyFromSymbol(h, lz4tt_split, sizeof(none));
+  return (int)(zero && e == cudaSuccess
+                   ? cudaMemcpyToSymbol(lz4tt_split, none, sizeof(none))
+                   : e);
+}
+
+// Bytes of scratch a team needs."""),
+]
+
+
+def _nvcc_copy(d, edits, source: str):
+    """``csrc`` copied to ``d`` with ``edits``, and the nvcc process that
+    builds ``source`` there."""
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(build.CSRC, d)
+    for fname, old, new in edits:
+        text = (d / fname).read_text()
+        if old not in text:
+            raise ValueError(f"{old!r} is not in {fname}")
+        (d / fname).write_text(text.replace(old, new))
+    so = d / f"lib{source}.so"
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(d), "-o", str(so),
+           str(d / f"{source}.cu")]
+    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+
+def hc_split() -> dict:
+    """Cycles of each part of K6's searches (``_SPLIT_PARTS``) at level 9
+    in the first team's lane 0: one a4 row alone, then team 0 of 4,096 a4
+    rows; each part's total cycles, calls and cycles a call."""
+    so, proc = _nvcc_copy(build.build_dir().parent / "variants" / "split",
+                          _SPLIT_EDITS, "lz4_hc")
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise build.KernelBuildError(log)
+    lib = ctypes.CDLL(str(so))
+    fn = lib.lz4tt_compress_hc
+    fn.argtypes, fn.restype = SYMBOLS["lz4_hc"][1], ctypes.c_int
+    rows = _Rows(torch.device("cuda"))
+    a4 = rows.sets["a4"]
+    teams = hc.resident_teams(rows.src.device.index or 0)
+    scratch = torch.empty((teams * hc.team_bytes(),), dtype=torch.uint8,
+                          device=rows.src.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    counts = (ctypes.c_ulonglong * 16)()
+    out = {}
+    for name, pick in (("1 a4 row", a4[:1]),
+                       ("4096 a4 rows, team 0", a4.repeat(2)[:N_BLOCKS])):
+        src, lens = rows.src[pick].contiguous(), rows.lens[pick].contiguous()
+        want = hc.compress_hc_batch(src, lens, rows.cap, 9)
+        dest, out_lens, err = (torch.empty_like(x) for x in want)
+        lib.lz4tt_split_read(counts, 1)
+        n = src.shape[0]
+        if fn(src.data_ptr(), src.stride(0), lens.data_ptr(), dest.data_ptr(),
+              dest.stride(0), rows.cap, 9, scratch.data_ptr(), min(n, teams),
+              out_lens.data_ptr(), err.data_ptr(), n, stream):
+            raise RuntimeError("CUDA error")
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in
+                   zip((dest, out_lens, err), want)):
+            raise SystemExit(f"design_variants: the split build differs on {name}")
+        lib.lz4tt_split_read(counts, 0)
+        out[name] = {part: {"cycles": counts[i], "calls": counts[i + 8],
+                            "a call": round(counts[i] / max(counts[i + 8], 1), 1)}
+                     for i, part in enumerate(_SPLIT_PARTS)}
+        print(f"K6 split, {name}: {json.dumps(out[name])}", flush=True)
+    return out
 
 
 def build_variants(sources: set[str]) -> dict:
@@ -573,19 +876,11 @@ def build_variants(sources: set[str]) -> dict:
     for i, (name, (source, edits)) in enumerate(VARIANTS.items()):
         if source not in sources:
             continue
-        d = root / str(i)
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(build.CSRC, d)
-        for fname, old, new in edits:
-            text = (d / fname).read_text()
-            if old not in text:
-                raise ValueError(f"{name}: {old!r} is not in {fname}")
-            (d / fname).write_text(text.replace(old, new))
-        so = d / f"lib{source}.so"
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(d), "-o", str(so),
-               str(d / f"{source}.cu")]
-        procs.append((name, source, so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        try:
+            so, proc = _nvcc_copy(root / str(i), edits, source)
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from None
+        procs.append((name, source, so, proc))
     out = {}
     for name, source, so, proc in procs:
         log, _ = proc.communicate()
@@ -596,16 +891,16 @@ def build_variants(sources: set[str]) -> dict:
     return out
 
 
-def _time(call) -> float:
+def _time(call, reps: int = REPS) -> float:
     call()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(REPS):
+    for _ in range(reps):
         call()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / REPS
+    return start.elapsed_time(end) / reps
 
 
 class _Rows:
@@ -630,6 +925,31 @@ class _Rows:
         self.one_len = torch.tensor([self.batch.numel()], dtype=torch.int32,
                                     device=dev)
         self.hashes = {}
+        self.hc = {}
+
+    def hc_sets(self) -> dict:
+        """set name -> (level, rows, lens, the shipped K6's output) of the
+        K6 launches, and one scratch for all of them."""
+        if not self.hc:
+            a4 = self.sets["a4"]
+            for level in HC_ALL_LEVELS:
+                self.hc[f"level {level}, 4096 rows"] = (level, self.src,
+                                                        self.lens)
+            for level in HC_A4_LEVELS:
+                for n in HC_A4_ROWS:
+                    pick = a4.repeat(-(-n // a4.numel()))[:n]
+                    self.hc[f"level {level}, {n} a4 rows"] = (
+                        level, self.src[pick].contiguous(),
+                        self.lens[pick].contiguous())
+            for name, (level, src, lens) in self.hc.items():
+                self.hc[name] = (level, src, lens, hc.compress_hc_batch(
+                    src, lens, self.cap, level))
+            dev = self.src.device
+            self.teams = hc.resident_teams(dev.index or 0)
+            self.hc_scratch = torch.empty(
+                (min(N_BLOCKS, self.teams) * hc.team_bytes(),),
+                dtype=torch.uint8, device=dev)
+        return self.hc
 
     def hash_sets(self, bits: int) -> dict:
         """set name -> (input, the shipped kernel's output) of the XXH
@@ -687,6 +1007,31 @@ def _hash_calls(lib, source: str, rows: _Rows, set_name: str, stream):
         out.zero_()
         call()
         return torch.equal(out, want)
+    return call, check
+
+
+def _hc_calls(fn, rows: _Rows, set_name: str, stream):
+    """(call, check) of one K6 variant's launch ``set_name`` (one of
+    ``rows.hc_sets()``), as :func:`_calls`."""
+    level, src, lens, want = rows.hc_sets()[set_name]
+    n = src.shape[0]
+    teams = min(n, rows.teams)
+    dest, out_lens, err = (torch.empty_like(x) for x in want)
+
+    def call():
+        rc = fn(src.data_ptr(), src.stride(0), lens.data_ptr(),
+                dest.data_ptr(), dest.stride(0), rows.cap, level,
+                rows.hc_scratch.data_ptr(), teams, out_lens.data_ptr(),
+                err.data_ptr(), n, stream)
+        if rc:
+            raise RuntimeError(f"CUDA error {rc}")
+
+    def check():   # the scratch poisoned: no table may need a reset
+        dest.zero_()
+        rows.hc_scratch.fill_(0x5A)
+        call()
+        return all(torch.equal(x, y) for x, y in
+                   zip((dest, out_lens, err), want))
     return call, check
 
 
@@ -782,10 +1127,13 @@ def _calls(fn, source: str, rows: _Rows, idx, stream):
 def main(argv: list[str]) -> int:
     """Build and time every variant, or those of the sources named in
     ``argv`` (``lz4_compress``, ``lz4_decode``, ``segment_decode``,
-    ``lz4_parse``, ``frame_pack``, ``xxh32``, ``xxh64``)."""
+    ``lz4_parse``, ``frame_pack``, ``xxh32``, ``xxh64``, ``lz4_hc``)."""
     if not torch.cuda.is_available():
         print("design_variants: CUDA is not available", file=sys.stderr)
         return 1
+    if argv == ["--hc-split"]:
+        print(json.dumps(hc_split()))
+        return 0
     dev = torch.device("cuda")
     libs = build_variants(set(argv) or set(SYMBOLS))
     rows = _Rows(dev)
@@ -795,10 +1143,19 @@ def main(argv: list[str]) -> int:
         for name, (source, so, regs) in libs.items():
             lib = ctypes.CDLL(str(so))
             hashed = source in ("xxh32", "xxh64")
-            for set_name in HASH_SETS if hashed else rows.sets:
+            sets = HASH_SETS if hashed else rows.hc_sets() \
+                if source == "lz4_hc" else rows.sets
+            for set_name in sets:
+                reps = REPS
                 if hashed:
                     call, check = _hash_calls(lib, source, rows, set_name,
                                               stream)
+                elif source == "lz4_hc":
+                    symbol, argtypes = SYMBOLS[source]
+                    fn = getattr(lib, symbol)
+                    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                    call, check = _hc_calls(fn, rows, set_name, stream)
+                    reps = HC_REPS
                 else:
                     symbol, argtypes = SYMBOLS[source]
                     fn = getattr(lib, symbol)
@@ -808,7 +1165,7 @@ def main(argv: list[str]) -> int:
                 if not check():
                     raise SystemExit(f"design_variants: {name} differs from "
                                      f"the shipped kernel on {set_name}")
-                ms = _time(call)
+                ms = _time(call, reps)
                 result.setdefault(name, {"registers": regs}).setdefault(
                     set_name, []).append(ms)
                 print(f"round {rnd}: {name}, {set_name}: {ms:.3f} ms",

@@ -8,8 +8,8 @@ A CUDA tensor goes to K6 (``csrc/lz4_hc.cu``); a CPU tensor goes to the
 plain version, :func:`compress_hc_plain`. There is no fallback from one
 to the other.
 
-K6 keeps each block's match-finder tables (256 KiB) in a team's slice of a
-scratch tensor on the card. The wrapper owns it: one a card and CUDA
+K6 keeps each block's match-finder tables and bucket index (1.375 MiB) in
+a team's slice of a scratch tensor on the card (5.5 GiB at 4096 teams). The wrapper owns it: one a card and CUDA
 stream, grown to the teams a launch runs (at most the resident CTAs) and
 kept between calls, so that a call allocates nothing once it is large
 enough.

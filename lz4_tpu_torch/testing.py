@@ -75,6 +75,113 @@ def hc_edge_blocks(rng: np.random.Generator) -> list[bytes]:
     return out
 
 
+def hc_hash(words: np.ndarray) -> np.ndarray:
+    """The HC match finder's 15-bit hash of little-endian 4-byte words."""
+    return ((words.astype(np.uint64) * 2654435761) & 0xFFFFFFFF) >> 17
+
+
+def _phase_words(patterns: np.ndarray) -> np.ndarray:
+    """words[i, j]: the 4-byte word at phase j of pattern i repeated
+    (patterns: uint8[n, period])."""
+    period = patterns.shape[1]
+    cols = (np.arange(period)[:, None] + np.arange(4)[None, :]) % period
+    b = patterns[:, cols].astype(np.uint64)        # [n, period, 4]
+    return (b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24)
+
+
+def hc_collision_patterns(rng: np.random.Generator) -> list[bytes]:
+    """Periodic patterns whose runs make the HC chain leave its hash
+    bucket's position order, found by a seeded brute-force search.
+
+    For periods 3 and 4: exactly two phases' 4-byte words share a hash
+    and the others do not, rotated to start on a phase of its own; in a
+    run the repetition path writes the period as every chain delta, where
+    the bucket holds the colliding phase nearer. Period 2 has no such
+    pattern (no two phases of any of the 65,280 collide), so its pattern
+    comes with a foreign word of the same hash as its first phase: the
+    pattern, then that word, 6 bytes in all."""
+    out = []
+    while len(out) < 1:
+        pat = rng.integers(0, 256, (1 << 16, 2), dtype=np.uint8)
+        pat = pat[pat[:, 0] != pat[:, 1]]
+        h = hc_hash(_phase_words(pat)[:, 0])
+        words = rng.integers(0, 1 << 32, pat.shape[0], dtype=np.uint64)
+        hit = np.nonzero(hc_hash(words) == h)[0]
+        if hit.size:
+            i = int(hit[0])
+            out.append(pat[i].tobytes() + int(words[i]).to_bytes(4, "little"))
+    for period in (3, 4):
+        while True:
+            pat = rng.integers(0, 256, (1 << 18, period), dtype=np.uint8)
+            w = _phase_words(pat)
+            h = hc_hash(w)
+            same = (h[:, :, None] == h[:, None, :]).sum(axis=(1, 2)) - period
+            distinct = np.array([len(set(r)) == period for r in w])
+            hit = np.nonzero((same == 2) & distinct)[0]
+            if hit.size:
+                row, hrow = pat[int(hit[0])], h[int(hit[0])]
+                alone = [j for j in range(period)
+                         if (hrow == hrow[j]).sum() == 1][0]
+                out.append(np.roll(row, -alone).tobytes())
+                break
+    return out
+
+
+def hc_collision_blocks(rng: np.random.Generator) -> list[bytes]:
+    """Blocks on which K6's speculated chain walk must fail and follow the
+    true chain (``hc_collision_patterns``), and a bucket whose predecessor
+    lies more than 65,535 positions back.
+
+    Each period's runs come at every rotation in a 1,000-byte block, at
+    the start, the middle and the end of a 65,536-byte block, and at the
+    start, the middle and past 65,536 bytes of a 70,000-byte block; the
+    period-2 runs are followed by their colliding word. The rest is
+    random bytes."""
+    def rand(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    def run(pat, n, rot=0):
+        body = pat[:2] if len(pat) == 6 else pat   # period 2: its word
+        body = body[rot % len(body):] + body[:rot % len(body)]
+        tail = pat[2:] if len(pat) == 6 else b""
+        return (body * (n // len(body) + 1))[:n] + tail
+
+    def place(size, at, parts):
+        buf = bytearray(rand(size))
+        for pos, part in zip(at, parts):
+            buf[pos:pos + len(part)] = part
+        return bytes(buf[:size])
+
+    pats = hc_collision_patterns(rng)
+    out = []
+    for pat in pats:
+        period = 2 if len(pat) == 6 else len(pat)
+        out.append(place(1000, [30 + 240 * r for r in range(period)],
+                         [run(pat, 200, r) for r in range(period)]))
+    runs = b"".join(run(pat, 700) + rand(9) for pat in pats)
+    out.append(place(65536, [0, 32000, 65536 - len(runs)], [runs] * 3))
+    out.append(place(70000, [0, 33000, 66000], [runs] * 3))
+    # a word at 100 and again 66,000 and 66,010 bytes later, with no other
+    # position of its hash between: the insert's delta is capped at 65,535
+    size, marks = 80000, (100, 66100, 66110)
+    buf = np.frombuffer(bytearray(rand(size)), np.uint8).copy()
+    word = rand(4)
+    target = int(hc_hash(np.array([int.from_bytes(word, "little")]))[0])
+    while True:
+        for m in marks:
+            buf[m:m + 4] = np.frombuffer(word, np.uint8)
+        b = buf.astype(np.uint64)
+        w = b[:-3] | b[1:-2] << 8 | b[2:-1] << 16 | b[3:] << 24
+        bad = [int(i) for i in np.nonzero(hc_hash(w) == target)[0]
+               if int(i) not in marks]
+        if not bad:
+            break
+        for i in bad:
+            buf[i] = rng.integers(0, 256)
+    out.append(buf.tobytes())
+    return out
+
+
 def fuzz_blocks(rng: np.random.Generator, comp_blocks: list[bytes],
                 n: int) -> list[bytes]:
     """``n`` malformed variants of valid compressed blocks: bit flips,

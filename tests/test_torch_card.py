@@ -515,6 +515,21 @@ def test_hc_kernel_matches_plain(cuda_device, level):
     assert torch.equal(kern[0], plain[0])
 
 
+@pytest.mark.parametrize("level", [1, 5, 9, 17])
+def test_hc_kernel_collision_blocks(cuda_device, level):
+    """K6 against its plain version on ``testing.hc_collision_blocks``,
+    where the speculated walk's links fail (levels 5 on) and a bucket's
+    predecessor lies more than 65,535 positions back: whole rows."""
+    src, lens = layout.to_device_layout(
+        testing.hc_collision_blocks(np.random.default_rng(43)),
+        device=cuda_device)
+    cap = max_compressed_length(int(lens.max()))
+    kern = hc.compress_hc_batch(src, lens, cap, level)
+    plain = hc.compress_hc_plain(src, lens, cap, level)
+    _assert_codec_equal(kern, plain)
+    assert torch.equal(kern[0], plain[0])
+
+
 @pytest.mark.parametrize("dest_cap", [0, 40, 300, 1000])
 def test_hc_kernel_tight_dest_cap(cuda_device, dest_cap):
     """Caps that some rows do not fit: the same rows fail, with length 0."""

@@ -25,7 +25,7 @@ from lz4_tpu.core.constants import max_compressed_length
 from lz4_tpu.formats import frame as jax_frame
 from lz4_tpu.kernels import jax_codec
 from lz4_tpu.kernels.jax_hc import compress_hc_batch as jax_hc_batch
-from lz4_tpu_torch import Lz4Factory
+from lz4_tpu_torch import Lz4Factory, testing
 from lz4_tpu_torch.api import cuda_instances as ci
 from lz4_tpu_torch.core.errors import Lz4Error
 from lz4_tpu_torch.kernels import codec, hc, layout
@@ -73,6 +73,23 @@ def test_plain_matches_jax_hc(hc_blocks, level):
     port = hc.compress_hc_batch(src, lens, cap, level)
     _assert_same(port, _jax(hc_blocks, cap, level))
     assert port[2].tolist() == [codec.OK] * len(hc_blocks)
+
+
+@pytest.mark.parametrize("level", [1, 9])
+def test_plain_matches_jax_hc_on_collision_blocks(hc_blocks, level):
+    """The plain version against ``jax_hc`` on the 1,000-byte blocks of
+    ``testing.hc_collision_blocks`` (runs whose chains leave their hash
+    buckets' order, where K6's speculated walk must follow the chain),
+    batched with six of the blocks above so that JAX compiles no new
+    shape."""
+    coll = [b for b in testing.hc_collision_blocks(np.random.default_rng(43))
+            if len(b) <= L_CAP]
+    blocks = coll + hc_blocks[:9 - len(coll)]
+    cap = max_compressed_length(L_CAP)
+    src, lens = layout.to_device_layout(blocks, device=CPU)
+    port = hc.compress_hc_batch(src, lens, cap, level)
+    _assert_same(port, _jax(blocks, cap, level))
+    assert port[2].tolist() == [codec.OK] * len(blocks)
 
 
 def test_tight_dest_cap_matches_jax_hc(hc_blocks):

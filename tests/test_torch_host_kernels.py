@@ -24,6 +24,13 @@ HARNESS = r"""
 static int window_faults = 0;
 #define LZ4TT_PARSE_CHECK(i, lo, hi) \
   if ((i) < (lo) || (i) >= (hi)) __atomic_add_fetch(&window_faults, 1, __ATOMIC_RELAXED)
+// K6's speculated walks: the links that failed and were followed
+static long long hc_followed = 0;
+#define LZ4TT_HC_FOLLOWED() __atomic_add_fetch(&hc_followed, 1, __ATOMIC_RELAXED)
+// and every record's chain copy a walk reads, against its chain slot
+static int hc_copy_faults = 0;
+#define LZ4TT_HC_CHECK_COPY(copy, slot) \
+  if ((copy) != (slot)) __atomic_add_fetch(&hc_copy_faults, 1, __ATOMIC_RELAXED)
 #include "frame_pack.cuh"
 #include "lz4_compress.cuh"
 #include "lz4_decode.cuh"
@@ -66,6 +73,23 @@ struct ThreadTeam {
     return r;
   }
   int32_t bcast(int32_t v) const { return shfl(v, 0); }
+  unsigned match_any(uint32_t v) const {
+    sh->slot[id] = (int32_t)v;
+    sync();
+    unsigned m = 0;
+    for (int i = 0; i < n; i++) m |= (uint32_t)sh->slot[i] == v ? 1u << i : 0u;
+    sync();
+    return m;
+  }
+  uint32_t reduce_max(uint32_t v) const {
+    sh->slot[id] = (int32_t)v;
+    sync();
+    uint32_t m = 0;
+    for (int i = 0; i < n; i++)
+      m = (uint32_t)sh->slot[i] > m ? (uint32_t)sh->slot[i] : m;
+    sync();
+    return m;
+  }
 };
 
 struct SegmentJob {
@@ -102,6 +126,7 @@ struct HcJob {
   long long dst_width;
   int32_t attempts;
   uint8_t* scratch;
+  uint32_t* counts;
   ThreadTeamShared* sh;
   int lanes;
   int32_t out_len[32], err[32];
@@ -115,7 +140,8 @@ static void* hc_lane(void* arg) {
   HcJob* j = l->job;
   ThreadTeam t = {j->sh, l->id, j->lanes};
   lz4tt_hc_block(t, j->src, j->len, j->dst, j->dest_cap, j->dst_width,
-                 j->attempts, j->scratch, &j->out_len[l->id], &j->err[l->id]);
+                 j->attempts, j->scratch, j->counts, &j->out_len[l->id],
+                 &j->err[l->id]);
   return nullptr;
 }
 
@@ -341,12 +367,13 @@ int host_hc(const uint8_t* src, long long src_stride, const int32_t* src_lens,
             uint8_t* scratch, int32_t* out_lens, int32_t* err, int n,
             int lanes) {
   const int32_t attempts = 1 << (level - 1);
+  uint32_t counts[LZ4TT_HC_COUNTS];
   if (lanes == 1) {
     HostTeam t;
     for (int b = 0; b < n; b++)
       lz4tt_hc_block(t, src + b * src_stride, src_lens[b], dst + b * dst_stride,
-                     dest_cap, dst_stride, attempts, scratch, &out_lens[b],
-                     &err[b]);
+                     dest_cap, dst_stride, attempts, scratch, counts,
+                     &out_lens[b], &err[b]);
     return 0;
   }
   ThreadTeamShared sh;
@@ -354,7 +381,8 @@ int host_hc(const uint8_t* src, long long src_stride, const int32_t* src_lens,
   int rc = 0;
   for (int b = 0; b < n && rc == 0; b++) {
     HcJob job = {src + b * src_stride, src_lens[b], dst + b * dst_stride,
-                 dest_cap, dst_stride, attempts, scratch, &sh, lanes, {}, {}};
+                 dest_cap, dst_stride, attempts, scratch, counts, &sh, lanes,
+                 {}, {}};
     pthread_t th[32];
     HcLane ls[32];
     for (int i = 0; i < lanes; i++) {
@@ -371,6 +399,9 @@ int host_hc(const uint8_t* src, long long src_stride, const int32_t* src_lens,
   return rc;
 }
 int host_hc_team_bytes() { return LZ4TT_HC_TEAM_BYTES; }
+long long host_hc_followed() { return hc_followed; }
+int host_hc_copy_faults() { return hc_copy_faults; }
+int host_hc_spec_attempts() { return LZ4TT_HC_SPEC_ATTEMPTS; }
 // K5's body, one block after the other, by a team of `lanes` threads;
 // returns -1 if the lanes disagree on a block's code
 int host_segment_team(const uint8_t* comp, long long comp_stride,
@@ -438,6 +469,8 @@ def lib(tmp_path_factory):
     lib.host_xxh64_stream.argtypes = [_P, _I64, _P]
     lib.host_hc.argtypes = [_P, _I64, _P, _P, _I64, _I32, _I32, _P, _P, _P,
                             _I32, _I32]
+    lib.host_hc_followed.restype = ctypes.c_longlong
+    lib.host_hc_spec_attempts.restype = ctypes.c_int
     return lib
 
 
@@ -962,6 +995,8 @@ def _host_hc(lib, src, lens, dest_cap, level, lanes=1, scratch=None):
     assert lib.host_hc(_ptr(src), src.stride(0), _ptr(lens), _ptr(out),
                        out.stride(0), dest_cap, level, _ptr(scratch),
                        _ptr(out_lens), _ptr(err), n, lanes) == 0
+    # every chain copy a speculated walk read equals its chain slot
+    assert lib.host_hc_copy_faults() == 0
     return out, out_lens, err
 
 
@@ -1067,6 +1102,91 @@ def test_host_hc_chain_needs_no_reset(lib):
             assert torch.equal(host[1], plain[1][idx])
 
 
+@functools.cache
+def _hc_collisions():
+    """``testing.hc_collision_blocks``: runs whose chains leave their
+    buckets' order, and a predecessor more than 65,535 positions back."""
+    return layout.to_device_layout(
+        testing.hc_collision_blocks(np.random.default_rng(43)), device="cpu")
+
+
+@functools.cache
+def _hc_collisions_plain(level):
+    src, lens = _hc_collisions()
+    cap = max_compressed_length(int(lens.max()))
+    return cap, hc.compress_hc_plain(src, lens, cap, level)
+
+
+def _speculates(lib, level):
+    return 1 << (level - 1) >= lib.host_hc_spec_attempts()
+
+
+@pytest.mark.parametrize("level", range(1, 18))
+def test_host_hc_collision_blocks(lib, level):
+    """K6's body by one lane, with the scratch poisoned, on the collision
+    blocks at every level against the plain version: whole rows. Where
+    the level speculates, links failed and the walk followed the true
+    chain (the host build's counter)."""
+    src, lens = _hc_collisions()
+    cap, plain = _hc_collisions_plain(level)
+    before = lib.host_hc_followed()
+    host = _host_hc(lib, src, lens, cap, level)
+    _assert_same(host, plain)
+    assert torch.equal(host[0], plain[0])
+    assert host[2].tolist() == [codec.OK] * lens.numel()
+    followed = lib.host_hc_followed() - before
+    assert (followed > 0) == _speculates(lib, level), followed
+
+
+@pytest.mark.parametrize("level", range(1, 18))
+def test_host_hc_collision_blocks_team(lib, level):
+    """The same by a team of 32 host threads on the 1,000-byte blocks
+    (the lanes' link checks, ballots, match_any ranks, the reduction and
+    the team's finishing of long candidates): every lane ends with the
+    same length and code, and links were followed."""
+    src, lens = _hc_collisions()
+    idx = torch.nonzero(lens <= 1000).flatten()
+    src, lens = src[idx].contiguous(), lens[idx].contiguous()
+    cap, plain = _hc_collisions_plain(level)
+    before = lib.host_hc_followed()
+    host = _host_hc(lib, src, lens, cap, level, lanes=32)
+    _assert_same(host, tuple(x[idx] for x in plain))
+    assert (lib.host_hc_followed() > before) == _speculates(lib, level)
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_host_hc_collision_tight_caps(lib, lanes):
+    """Caps of n - 1, n and n + 1 of each small collision block's output
+    at levels 1 and 9: the same rows fail as in the plain version."""
+    src, lens = _hc_collisions()
+    idx = torch.nonzero(lens <= 1000).flatten()
+    src, lens = src[idx].contiguous(), lens[idx].contiguous()
+    for level in (1, 9):
+        n = int(_hc_collisions_plain(level)[1][1][idx].max())
+        for cap in (n - 1, n, n + 1):
+            plain = hc.compress_hc_plain(src, lens, cap, level)
+            _assert_same(_host_hc(lib, src, lens, cap, level, lanes), plain)
+
+
+@pytest.mark.parametrize("level", range(3, 18))
+def test_host_hc_long_blocks_every_level(lib, level):
+    """The blocks of ``testing.HC_BIG_SIZES`` of each kind (65,536 bytes
+    speculates; longer blocks walk serially, over reused slots) at the
+    levels the plain version is too slow for there, against the JAX
+    package's native HC (held to the same reference by
+    ``tests/test_native.py``): whole rows."""
+    from lz4_tpu.api.native_instances import HighCompressor
+    native = HighCompressor(level)
+    for size in testing.HC_BIG_SIZES:
+        src, lens = _hc_big(size)
+        cap = max_compressed_length(size)
+        data, out_lens, err = _host_hc(lib, src, lens, cap, level)
+        assert err.tolist() == [codec.OK] * lens.numel()
+        for i in range(lens.numel()):
+            want = native.compress_alloc(src[i, :size].numpy().tobytes())
+            assert data[i, :out_lens[i]].numpy().tobytes() == want, (size, i)
+
+
 def test_build_digest_covers_every_header(tmp_path, monkeypatch):
     """Editing any ``csrc`` file, a ``.cuh`` header included, gives a new
     build directory, so a stale library is never loaded."""
@@ -1085,6 +1205,13 @@ def test_build_digest_covers_every_header(tmp_path, monkeypatch):
             f.write("\n")
         digests.add(build.source_digest())
     assert len(digests) == len(headers) + 1
+
+
+def test_hc_split_edits_apply():
+    """``design_variants --hc-split``'s counters go in where it says: each
+    replaced text is in the shipped sources once."""
+    for fname, old, new in design_variants._SPLIT_EDITS:
+        assert (build.CSRC / fname).read_text().count(old) == 1 and old != new
 
 
 @pytest.mark.parametrize("name", list(design_variants.VARIANTS))
