@@ -95,6 +95,18 @@ Phases (any failure exits non-zero; nothing is caught):
    blocks through the decode kernel and re-hashing on the host; then K3
    and K4 with n = 1 on that input, timed beside the byte and chain
    bounds;
+8b. the ``dist`` path (:func:`phase_dist`): one rank over NCCL on
+   ``cuda:0`` (a ``file://`` rendezvous, world size 1) runs
+   ``sharded_roundtrip_step`` on 4096 blocks of 64 KiB 3 times, with launch
+   counts reset just before and read just after (K1, K2, K3 and pack once
+   a step), every block OK, its offsets, hashes and body equal to
+   ``roundtrip_step``'s, each phase's CUDA-event time and the exchange's
+   beside ``roundtrip_step``'s; then ``dryrun_multigpu`` with two ranks
+   sharing the card (gloo) on 2 x 512 x 64 KiB and with four on 5 blocks
+   (one rank empty), their frames, HC frame and ``shard_xxh64`` digests
+   equal to one process's (``compress_frame_packed``, the tier's
+   ``high_compressor(9)``, ``xxh64_batch``); and ``cuda_stream`` refusing
+   an index past the card count;
 9. the launch counts, the per-kernel JSON line and the final JSON line.
 """
 
@@ -117,13 +129,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
-from lz4_tpu_torch import Lz4Factory, XXHashFactory, testing
+from lz4_tpu_torch import Lz4Factory, XXHashFactory, dryrun_multigpu, testing
 from lz4_tpu_torch.__main__ import main as cli_main
 from lz4_tpu_torch.core import xxhash_ref
 from lz4_tpu_torch.core.constants import max_compressed_length
 from lz4_tpu_torch.core.errors import Lz4Error
-from lz4_tpu_torch.dist import sharded
+from lz4_tpu_torch.dist import mesh as dist_mesh, multihost, sharded
 from lz4_tpu_torch.entry import entry, example_blocks
 from lz4_tpu_torch.formats.frame import (
     INCOMPRESSIBLE_MASK, frame_header, xxh32_bytes)
@@ -209,6 +222,10 @@ HC_PLAIN_ROWS = {1: 16, 9: 4}            # main-path rows of each kind
 HC_FLOOR_ROWS = 8                        # a4 rows timed alone
 HC_REPS = 2
 HC_WORKERS = 7                           # processes of the plain version
+DIST_PATH = ("lz4_compress", "lz4_decode", "xxh32", "frame_pack")
+DIST_SHARED_BLOCKS = 512                 # blocks a rank, two ranks one card
+DIST_ODD = (4, 4 * BLOCK_LEN + 1234)     # 5 blocks over 4 ranks, one empty
+DIST_TIMEOUT = 240.0                     # seconds a dry run's workers get
 
 
 def fail(msg: str):
@@ -1936,6 +1953,113 @@ def phase_frame(dev) -> dict:
     return one_row
 
 
+def _dist_one_rank(dev) -> dict:
+    """``sharded_roundtrip_step`` on one NCCL rank, held to
+    ``roundtrip_step``; returns the launches of its steps."""
+    for _ in range(2):                  # the second one's times are kept
+        ref = sharded.roundtrip_step(N_BLOCKS, BLOCK_LEN, SEED, dev)
+    ref_body = ref.body[:ref.body_total]
+    with tempfile.TemporaryDirectory() as td:
+        tdist.init_process_group(
+            "nccl", init_method=pathlib.Path(td, "rendezvous").as_uri(),
+            world_size=1, rank=0)
+        try:
+            mesh = dist_mesh.block_mesh(dev)
+            if mesh.backend != "nccl" or mesh.group is None:
+                fail(f"dist: expected a one-rank NCCL mesh, got {mesh}")
+            t0 = time.perf_counter()
+            tdist.barrier(device_ids=[dev.index or 0])  # NCCL's set-up
+            sync()
+            log(f"dist: NCCL communicator set up in "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first barrier)")
+            build.reset_launch_counts()
+            for i in range(ITERS):
+                t0 = time.perf_counter()
+                st = sharded.sharded_roundtrip_step(mesh, N_BLOCKS, BLOCK_LEN,
+                                                    SEED)
+                sync()
+                wall = (time.perf_counter() - t0) * 1e3
+                if not bool(st.ok.all()):
+                    fail(f"dist step {i}: {int((~st.ok).sum())} blocks not OK")
+                if not (torch.equal(st.offsets, ref.offsets)
+                        and torch.equal(st.hashes, ref.hashes)
+                        and torch.equal(st.body, ref_body)
+                        and st.compressed_total == ref.compressed_total):
+                    fail(f"dist step {i}: offsets, hashes or body differ "
+                         "from roundtrip_step's")
+                phases = ", ".join(f"{k} {v:.3f}" for k, v in
+                                   st.phase_ms.items())
+                log(f"dist step {i} (1 NCCL rank, {N_BLOCKS} x {BLOCK_LEN} B):"
+                    f" all OK, equal to roundtrip_step; ms: {phases}; step "
+                    f"wall {wall:.1f} ms (data made and body checked on the "
+                    f"host included)")
+            counts = build.launch_counts()
+        finally:
+            tdist.destroy_process_group()
+    log("dist: roundtrip_step ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ref.phase_ms.items()))
+    log(f"dist one-rank launches: {counts}")
+    for k in DIST_PATH:
+        if counts[k] != ITERS:
+            fail(f"dist: {k} launched {counts[k]} times in {ITERS} steps")
+    return {"phase_ms": st.phase_ms, "ref_phase_ms": ref.phase_ms,
+            "launches": counts}
+
+
+def _dist_shared(dev, n: int, data_bytes: int, blocks_per_rank: int) -> None:
+    """``dryrun_multigpu(n, share_card=True)``, its frames, HC frame and
+    XXH64 digests held to one process's on the same bytes."""
+    t0 = time.perf_counter()
+    out = dryrun_multigpu(n, "cuda", share_card=True, data_bytes=data_bytes,
+                          blocks_per_rank=blocks_per_rank,
+                          block_len=BLOCK_LEN, timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    data = multihost.dryrun_data(data_bytes)
+    if not (out["frame"] == out["packed_frame"]
+            == sharded.compress_frame_packed(data, BLOCK_LEN, True, dev)):
+        fail(f"dist {n} ranks: frames differ from compress_frame_packed's")
+    hc_data = data[:multihost.HC_BYTES]
+    blocks = sharded.split_frame_blocks(hc_data, BLOCK_LEN)
+    comps = Lz4Factory.cuda_instance(dev).high_compressor(9).compress_batch(
+        blocks)
+    if out["hc_frame"] != _host_frame(blocks, comps, dev):
+        fail(f"dist {n} ranks: the HC frame differs from the tier's")
+    frame_blocks = sharded.split_frame_blocks(data, BLOCK_LEN)
+    src, src_lens = layout.to_device_layout(frame_blocks, BLOCK_LEN, dev)
+    h = xxhash.xxh64_batch(src, src_lens, 0).tolist()
+    if out["xxh64"] != [v & (2 ** 64 - 1) for v in h]:
+        fail(f"dist {n} ranks: shard_xxh64 differs from xxh64_batch")
+    one = multihost.run_job(dist_mesh.block_mesh(dev), {
+        "data_bytes": 0, "step": [n * blocks_per_rank, BLOCK_LEN]})
+    if out["step"] != one["step"]:
+        fail(f"dist {n} ranks: the step differs from one rank's")
+    ranges = [dist_mesh.block_range(len(frame_blocks), r, n)
+              for r in range(n)]
+    log(f"dist {n} ranks sharing the card (gloo): {len(data)} B in "
+        f"{len(frame_blocks)} frame blocks, ranges {ranges}; frames, HC "
+        f"frame and XXH64 equal to one process's; step "
+        f"{out['step']['blocks']} blocks OK; {wall:.1f} s wall (worker "
+        f"start-up included); step ms by rank {out['phase_ms']}")
+
+
+def phase_dist(dev, card: str) -> dict:
+    """The ``dist`` path (phase 8b); returns its launches by kernel."""
+    one = _dist_one_rank(dev)
+    _dist_shared(dev, 2, 2 * DIST_SHARED_BLOCKS * BLOCK_LEN,
+                 DIST_SHARED_BLOCKS)
+    _dist_shared(dev, DIST_ODD[0], DIST_ODD[1], 1)
+    layout.cuda_stream(torch.empty(1, device=dev))
+    past = torch.device("cuda", torch.cuda.device_count())
+    try:
+        layout.cuda_stream(past)
+    except ValueError:
+        log(f"dist: cuda_stream refuses {past}")
+    else:
+        fail(f"dist: cuda_stream accepted {past}")
+    log(f"dist: {card}")
+    return one["launches"]
+
+
 def pack_parse_only(dev) -> None:
     """``--pack-parse``: the main path's steps, ``frame_body_packed`` and
     the parser (by kind, at a stream batch and at all rows) on the main
@@ -2225,8 +2349,10 @@ def main() -> int:
     timed("host split", host_split, dev, main_out)
     del main_out
     one_row = timed("frame", phase_frame, dev)
+    dist_launches = timed("dist", phase_dist, dev, card)
     for r in rows:
         r.update(one_row.get(r["name"], {}))
+        r["dist_launches"] = dist_launches.get(r["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s; by phase, s: {secs}")
     log(card)
     log("kernels: " + json.dumps({r["name"]: r["launches"] for r in rows}))

@@ -3,7 +3,9 @@
 LZ4 frame compress and decompress, compatible with the ``lz4`` CLI, file
 hashes and a report of the ``cuda`` tier, as ``python -m lz4_tpu`` has
 them (``lz4_tpu/__main__.py``), with the port's engines (``fastest``,
-``cuda``, ``segment``). It runs on the card, HC (``-l 1..17``) included;
+``cuda``, ``segment``, ``sharded``; ``sharded`` splits a batch over the
+ranks of a process group, and is one rank here, as no command starts a
+group). It runs on the card, HC (``-l 1..17``) included;
 the dictionary (``-D``), ``--turbo`` and ``--allow-dependent`` options
 wait for the serial frame reader and the native tier, which are not
 ported.

@@ -31,6 +31,8 @@
 
 #include <cuda_runtime.h>
 
+#include "lz4tt_device.cuh"
+
 namespace {
 
 __global__ void __launch_bounds__(32)
@@ -52,10 +54,12 @@ __global__ void __launch_bounds__(32)
 }
 
 cudaError_t prepare() {
-  static cudaError_t done = cudaFuncSetAttribute(
-      compress_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
-  return done;
+  int dev;
+  return lz4tt_once_a_device([](int) {
+    return cudaFuncSetAttribute(compress_kernel,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared);
+  }, &dev);
 }
 
 }  // namespace

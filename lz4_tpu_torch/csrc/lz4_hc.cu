@@ -27,6 +27,8 @@
 
 #include <cuda_runtime.h>
 
+#include "lz4tt_device.cuh"
+
 namespace {
 
 // At most 64 registers, so that 32 teams fit an SM: 4,224 on the card,

@@ -26,6 +26,8 @@
 
 #include <cuda_runtime.h>
 
+#include "lz4tt_device.cuh"
+
 namespace {
 
 constexpr int kWarpsPerCta = 4;

@@ -37,6 +37,8 @@
 
 #include <cuda_runtime.h>
 
+#include "lz4tt_device.cuh"
+
 namespace {
 
 struct Xxh32Lanes {
@@ -74,16 +76,18 @@ __global__ void __launch_bounds__(kXxhThreads, 1)
   if (lane) state[warp] = v;
 }
 
-// The kernels' shared memory allowed once; the CTAs of K3 the card holds.
+// The kernels' shared memory allowed once a card; the CTAs of K3 the
+// current card holds.
 cudaError_t prepare(int64_t* slots) {
-  static int64_t n_slots = 0;
-  static const cudaError_t done = [] {
-    cudaError_t e = lz4tt_xxh_prepare(xxh32_kernel, &n_slots);
+  static int64_t n_slots[LZ4TT_MAX_DEVICES];
+  int dev = 0;
+  const cudaError_t done = lz4tt_once_a_device([](int d) {
+    cudaError_t e = lz4tt_xxh_prepare(xxh32_kernel, &n_slots[d]);
     int64_t unused;
     if (!e) e = lz4tt_xxh_prepare(xxh32_stream_kernel, &unused);
     return e;
-  }();
-  *slots = n_slots;
+  }, &dev);
+  *slots = done ? 0 : n_slots[dev];
   return done;
 }
 

@@ -146,10 +146,10 @@ _ONE_CONSUMER_KERNEL = """__global__ void __launch_bounds__(64, 1)
   }
 }
 
-// The kernels' shared memory allowed once; the CTAs of K3 the card holds."""
+// The kernels' shared memory allowed once a card; the CTAs of K3 the"""
 _STREAM_LAUNCH32 = """  if (n_stripes > 0)
     xxh32_stream_kernel<<<1, kXxhThreads, lz4tt_xxh_smem(1), (cudaStream_t)stream>>>("""
-_PREPARED = "// The kernels' shared memory allowed once; the CTAs of K3 the card holds."
+_PREPARED = "// The kernels' shared memory allowed once a card; the CTAs of K3 the"
 # one thread carrying the four lanes of a row (K3 before this design), in
 # the textbook round, eight stripes' 16-byte loads from device memory ahead
 _THREAD_ROWS32 = _ROUND + """
@@ -262,8 +262,8 @@ __global__ void __launch_bounds__(1)
   for (int k = 0; k < 4; k++) state[k] = v[k];
 }
 
-// The kernels' shared memory allowed once; the CTAs of K4 the card holds."""
-_PREPARED64 = "// The kernels' shared memory allowed once; the CTAs of K4 the card holds."
+// The kernels' shared memory allowed once a card; the CTAs of K4 the"""
+_PREPARED64 = "// The kernels' shared memory allowed once a card; the CTAs of K4 the"
 _BATCH_LAUNCH64 = """    xxh64_kernel<<<(n + rows - 1) / rows, kXxhThreads, lz4tt_xxh_smem(rows),
                    (cudaStream_t)stream>>>((const uint8_t*)data, stride, (const int32_t*)lens,
                                            (uint64_t)seed, (uint64_t*)out, n, rows);"""

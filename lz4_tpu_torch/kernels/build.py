@@ -9,6 +9,13 @@ The libraries are loaded with ``ctypes``. Every C entry point returns
 ``cudaGetLastError()`` after its launch, and :class:`Kernel` raises if it is
 not 0.
 
+Each library links ``nvcc``'s static CUDA runtime, so each keeps its own
+current device for each host thread. Every library exports
+``lz4tt_set_device`` (``csrc/lz4tt_device.cuh``); a launch names its card,
+and runs under torch's device guard for that card after the library's
+current device has been set to it (:func:`_set_device`), so that a rank on
+``cuda:k`` launches on ``cuda:k``.
+
 Modelled on ``lz4_tpu/native/build.py``; nothing here runs at import time.
 """
 
@@ -22,6 +29,9 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -102,6 +112,25 @@ def _library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build_all()[name]))
 
 
+_current = threading.local()
+
+
+def _set_device(source: str, device: int) -> None:
+    """Make card ``device`` the current device of ``source``'s library on
+    this thread, unless it was the last one set there."""
+    table = _current.__dict__.setdefault("device", {})
+    if table.get(source) == device:
+        return
+    fn = _library(source).lz4tt_set_device
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    rc = fn(device)
+    if rc != 0:
+        raise RuntimeError(f"lz4tt_set_device({device}) in {source}: "
+                           f"CUDA error {rc}")
+    table[source] = device
+
+
 class Kernel:
     """One C entry point of one ``csrc/<source>.cu``, with a launch count.
 
@@ -120,31 +149,48 @@ class Kernel:
         self._fn = None
         Kernel.registry.append(self)
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, device: int) -> None:
+        """Launch on card ``device`` (the index of the tensors' card)."""
         if self._fn is None:
             fn = getattr(_library(self.source), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        rc = self._fn(*args)
+        with torch.cuda.device(device):
+            _set_device(self.source, device)
+            rc = self._fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA error {rc} at launch")
         self.launches += 1
 
 
-def c_function(source: str, symbol: str, argtypes: list):
+def c_function(source: str, symbol: str, argtypes: list,
+               device: int | None = 0):
     """The C function ``symbol`` of ``csrc/<source>.cu``, returning int,
-    with no launch count: for measurements beside the kernels."""
+    with no launch count: for measurements beside the kernels. Each call
+    runs on card ``device`` as a launch does; ``None`` for a function that
+    uses no card."""
     fn = getattr(_library(source), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    return fn
+    if device is None:
+        return fn
+
+    def on_card(*args):
+        with torch.cuda.device(device):
+            _set_device(source, device)
+            return fn(*args)
+
+    return on_card
 
 
-def occupancy(source: str, symbol: str) -> tuple[int, int]:
+def occupancy(source: str, symbol: str,
+              device: int = 0) -> tuple[int, int]:
     """(resident CTAs per SM, threads per CTA) of a kernel of
-    ``csrc/<source>.cu``, from its C entry point ``symbol``; no launch."""
-    fn = c_function(source, symbol, [ctypes.POINTER(ctypes.c_int)] * 2)
+    ``csrc/<source>.cu`` on card ``device``, from its C entry point
+    ``symbol``; no launch."""
+    fn = c_function(source, symbol, [ctypes.POINTER(ctypes.c_int)] * 2,
+                    device)
     ctas, threads = ctypes.c_int(0), ctypes.c_int(0)
     rc = fn(ctypes.byref(ctas), ctypes.byref(threads))
     if rc != 0:

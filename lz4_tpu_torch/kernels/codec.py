@@ -71,7 +71,8 @@ def decompress_safe_batch(comp: torch.Tensor, comp_lens: torch.Tensor,
     err = torch.empty((n,), dtype=torch.int32, device=comp.device)
     DECODE(comp.data_ptr(), comp.stride(0), comp_lens.data_ptr(),
            out.data_ptr(), out.stride(0), out_max, out_lens.data_ptr(),
-           err.data_ptr(), n, cuda_stream(comp))
+           err.data_ptr(), n, cuda_stream(comp),
+           device=comp.device.index)
     return out, out_lens, err
 
 
@@ -222,7 +223,8 @@ def decompress_fast_batch(comp: torch.Tensor, comp_avail: torch.Tensor,
     err = torch.empty((n,), dtype=torch.int32, device=comp.device)
     DECODE_FAST(comp.data_ptr(), comp.stride(0), comp_avail.data_ptr(),
                 out.data_ptr(), out.stride(0), dest_len, src_read.data_ptr(),
-                err.data_ptr(), n, cuda_stream(comp))
+                err.data_ptr(), n, cuda_stream(comp),
+                device=comp.device.index)
     return out, src_read, err
 
 
@@ -281,7 +283,8 @@ def compress_fast_batch(src: torch.Tensor, src_lens: torch.Tensor,
     err = torch.empty((n,), dtype=torch.int32, device=src.device)
     COMPRESS(src.data_ptr(), src.stride(0), src_lens.data_ptr(),
              dest.data_ptr(), dest.stride(0), dest_cap, out_lens.data_ptr(),
-             err.data_ptr(), n, cuda_stream(src))
+             err.data_ptr(), n, cuda_stream(src),
+             device=src.device.index)
     return dest, out_lens, err
 
 

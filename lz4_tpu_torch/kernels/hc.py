@@ -46,21 +46,21 @@ def check_level(level: int) -> None:
 @functools.cache
 def resident_teams(index: int) -> int:
     """K6's teams (one warp a CTA) that card ``index`` holds at once."""
-    ctas, _ = occupancy("lz4_hc", "lz4tt_hc_occupancy")
+    ctas, _ = occupancy("lz4_hc", "lz4tt_hc_occupancy", index)
     return ctas * torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
 def team_bytes() -> int:
     """Bytes of scratch one team's tables take (``LZ4TT_HC_TEAM_BYTES``)."""
-    return c_function("lz4_hc", "lz4tt_hc_team_bytes", [])()
+    return c_function("lz4_hc", "lz4tt_hc_team_bytes", [], None)()
 
 
 def _team_scratch(src: torch.Tensor, teams: int) -> torch.Tensor:
     """The scratch of ``src``'s card and current stream, at least ``teams``
     teams long. Launches on one stream run in order, so they share it; a
     buffer it replaces is freed in that stream's order too."""
-    key = (src.device.index or 0, cuda_stream(src))
+    key = (src.device.index, cuda_stream(src))
     need = teams * team_bytes()
     with _scratch_lock:
         buf = _scratch.get(key)
@@ -96,11 +96,12 @@ def compress_hc_batch(src: torch.Tensor, src_lens: torch.Tensor,
                        device=src.device)
     out_lens = torch.empty((n,), dtype=torch.int32, device=src.device)
     err = torch.empty((n,), dtype=torch.int32, device=src.device)
-    teams = max(1, min(n, resident_teams(src.device.index or 0)))
+    teams = max(1, min(n, resident_teams(src.device.index)))
     scratch = _team_scratch(src, teams)
     HC(src.data_ptr(), src.stride(0), src_lens.data_ptr(), dest.data_ptr(),
        dest.stride(0), dest_cap, level, scratch.data_ptr(), teams,
-       out_lens.data_ptr(), err.data_ptr(), n, cuda_stream(src))
+       out_lens.data_ptr(), err.data_ptr(), n, cuda_stream(src),
+       device=src.device.index)
     return dest, out_lens, err
 
 

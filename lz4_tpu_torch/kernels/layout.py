@@ -59,16 +59,16 @@ def check_batch(data: torch.Tensor, lens: torch.Tensor) -> None:
             raise ValueError(f"lengths must lie in [0, {data.shape[1]}]")
 
 
-def cuda_stream(t: torch.Tensor) -> int:
-    """Handle of the current CUDA stream of ``t``'s device.
-
-    The kernels' libraries launch on their runtime's current device, which
-    is device 0; a tensor on another card is refused, not launched against
-    the wrong context.
-    """
-    if t.device.index not in (None, 0):
-        raise ValueError(f"the kernels run on cuda:0 only, got {t.device}")
-    return torch.cuda.current_stream(t.device).cuda_stream
+def cuda_stream(t: torch.Tensor | torch.device) -> int:
+    """Handle of the current CUDA stream of the card ``t`` lies on (or
+    names). Anything but a card of this machine (an index below
+    ``torch.cuda.device_count()``) is refused; the kernels launch on the
+    card a wrapper names (``build.Kernel``)."""
+    dev = t if isinstance(t, torch.device) else t.device
+    count = torch.cuda.device_count()
+    if dev.type != "cuda" or not 0 <= (dev.index or 0) < count:
+        raise ValueError(f"not a card of this machine: {dev}")
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 UP, DOWN = "up", "down"

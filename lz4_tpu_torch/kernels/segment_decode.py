@@ -88,7 +88,7 @@ def decompress_segments(comp: torch.Tensor, comp_lens: torch.Tensor,
         SEGMENT(comp.data_ptr(), comp.stride(0), comp_lens.data_ptr(),
                 n_seq.data_ptr(), tables.data_ptr(), tables.shape[2],
                 out.data_ptr(), out.stride(0), out_max, err.data_ptr(), n,
-                cuda_stream(comp))
+                cuda_stream(comp), device=comp.device.index)
     return out, err
 
 

@@ -74,7 +74,7 @@ def parse_sequences(comp: torch.Tensor, comp_lens: torch.Tensor,
     if n:
         PARSE(comp.data_ptr(), comp.stride(0), comp_lens.data_ptr(), max_seq,
               tables.data_ptr(), n_seq.data_ptr(), out_total.data_ptr(), n,
-              cuda_stream(comp))
+              cuda_stream(comp), device=comp.device.index)
     return tables, n_seq, out_total
 
 

@@ -53,7 +53,8 @@ def xxh32_batch(data: torch.Tensor, lengths: torch.Tensor,
     n = data.shape[0]
     out = torch.empty((n,), dtype=torch.uint32, device=data.device)
     XXH32(data.data_ptr(), data.stride(0), lengths.data_ptr(), seed & _M,
-          out.data_ptr(), n, cuda_stream(data))
+          out.data_ptr(), n, cuda_stream(data),
+          device=data.device.index)
     return out
 
 
@@ -152,7 +153,8 @@ def xxh64_batch(data: torch.Tensor, lengths: torch.Tensor,
     n = data.shape[0]
     out = torch.empty((n,), dtype=torch.int64, device=data.device)
     XXH64(data.data_ptr(), data.stride(0), lengths.data_ptr(), seed & U64,
-          out.data_ptr(), n, cuda_stream(data))
+          out.data_ptr(), n, cuda_stream(data),
+          device=data.device.index)
     return out
 
 

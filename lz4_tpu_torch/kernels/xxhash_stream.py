@@ -81,7 +81,8 @@ def absorb32(lanes: torch.Tensor, stripes: torch.Tensor) -> None:
     if stripes.data_ptr() % 16:
         raise ValueError("stripes must start 16-byte aligned")
     if n:
-        XXH32_STREAM(stripes.data_ptr(), n, lanes.data_ptr(), cuda_stream(lanes))
+        XXH32_STREAM(stripes.data_ptr(), n, lanes.data_ptr(),
+                     cuda_stream(lanes), device=lanes.device.index)
 
 
 def absorb64(lanes: torch.Tensor, stripes: torch.Tensor) -> None:
@@ -95,7 +96,8 @@ def absorb64(lanes: torch.Tensor, stripes: torch.Tensor) -> None:
     if stripes.data_ptr() % 16:
         raise ValueError("stripes must start 16-byte aligned")
     if n:
-        XXH64_STREAM(stripes.data_ptr(), n, lanes.data_ptr(), cuda_stream(lanes))
+        XXH64_STREAM(stripes.data_ptr(), n, lanes.data_ptr(),
+                     cuda_stream(lanes), device=lanes.device.index)
 
 
 def _absorb_plain(lanes: list[int], data: bytes, fmt: str, round_fn):

@@ -14,11 +14,16 @@ Engines, each on one device (the card unless told otherwise):
 - ``segment``: compresses as ``cuda`` does (the JAX engine compresses with
   its native tier, byte-identical), and decodes with the sequence parser
   and K5 (``kernels/segment_decode.py``);
-- ``fastest``: ``cuda``.
+- ``fastest``: ``cuda``;
+- ``sharded``: the blocks of a batch split over the ranks of the current
+  process group (``dist/sharded.py``: ``shard_compress_blocks`` and
+  ``shard_decompress_blocks``, each rank on its own device), every rank
+  writing the same frame; with no group, one rank, and the frame of
+  ``cuda``. It has only the listed forms.
 
 ``level`` 1..17 compresses with HC at that level (K6, the tier's
 ``high_compressor(level)``), through the same data plane. The JAX engines
-``native``, ``sharded``, ``safe`` and ``parallel`` are not ported; frames
+``native``, ``safe`` and ``parallel`` are not ported; frames
 with linked blocks or a dictionary need the serial frame reader, which
 the port does not have yet: they are refused.
 
@@ -55,10 +60,12 @@ import torch
 
 from ..api import cuda_instances
 from ..api.factory import Lz4Factory
-from ..core.constants import U32
+from ..core.constants import MAX_COMPRESSION_LEVEL, U32
 from ..core.device import resolve_device
 from ..core.errors import Lz4FrameError
-from ..dist.sharded import frame_body_packed
+from ..dist.mesh import block_mesh
+from ..dist.sharded import (
+    frame_body_packed, shard_compress_blocks, shard_decompress_blocks)
 from ..formats.frame import (
     BlockSize, FrameFlag, INCOMPRESSIBLE_MASK, MAGIC, MAGIC_SKIPPABLE_BASE,
     _bd_from_byte, _flg_from_byte, _flg_to_byte, xxh32_bytes,
@@ -70,7 +77,7 @@ from ..kernels.xxhash_stream import StreamState32
 from ..utils.buffers import read_into
 from ..utils.profiling import part
 
-ENGINES = ("fastest", "cuda", "segment")
+ENGINES = ("fastest", "cuda", "segment", "sharded")
 
 _U32 = struct.Struct("<I")
 _U64 = struct.Struct("<Q")
@@ -116,10 +123,18 @@ def get_engine(name: str = "fastest", level: int = 0,
     if name not in ENGINES:
         raise ValueError(
             f"unknown engine {name!r}: the port has {', '.join(ENGINES)} "
-            "(the JAX engines native, sharded, safe and parallel are not "
-            "ported)")
+            "(the JAX engines native, safe and parallel are not ported)")
     dev = resolve_device(device)
     name = "cuda" if name == "fastest" else name
+    suffix = f"-hc{level}" if level > 0 else ""
+    if name == "sharded":
+        mesh = block_mesh(dev)
+        return BatchEngine(
+            name + suffix,
+            functools.partial(shard_compress_blocks, mesh=mesh,
+                              level=min(level, MAX_COMPRESSION_LEVEL)
+                              if level > 0 else None),
+            functools.partial(shard_decompress_blocks, mesh=mesh), dev)
     lz4 = Lz4Factory.cuda_instance(dev)
     if level > 0:
         comp, comp_packed = _hc_forms(lz4, level)
@@ -133,7 +148,6 @@ def get_engine(name: str = "fastest", level: int = 0,
         def decomp(blocks, out_max):
             return segment_decode.decompress_blocks(blocks, out_max, dev)
         decomp_packed = segment_decode.decompress_rows
-    suffix = f"-hc{level}" if level > 0 else ""
     return BatchEngine(name + suffix, comp, decomp, dev, comp_packed,
                        decomp_packed)
 

@@ -563,3 +563,66 @@ def test_hc_on_the_card_never_runs_k2(cuda_device):
     back = io.BytesIO()
     decompress_stream(io.BytesIO(out.getvalue()), back)
     assert back.getvalue() == data
+
+
+# ---------------------------------------------------------------------------
+# dist: ranks on the card
+# ---------------------------------------------------------------------------
+
+def test_cuda_stream_takes_cards_and_refuses_the_rest(cuda_device):
+    t = torch.empty(1, device=cuda_device)
+    assert layout.cuda_stream(t) == torch.cuda.current_stream().cuda_stream
+    for bad in (torch.device("cuda", torch.cuda.device_count()),
+                torch.empty(1).device):
+        with pytest.raises(ValueError):
+            layout.cuda_stream(bad)
+
+
+def test_one_nccl_rank_matches_one_device(cuda_device, tmp_path):
+    import torch.distributed as tdist
+    from lz4_tpu_torch import dist
+
+    rng = np.random.default_rng(21)
+    data = rng.integers(0, 8, 5 * 65536 + 77, dtype=np.uint8).tobytes()
+    blocks = [data[i:i + 65536] for i in range(0, len(data), 65536)]
+    tdist.init_process_group("nccl", init_method=(tmp_path / "r").as_uri(),
+                             world_size=1, rank=0)
+    try:
+        mesh = dist.block_mesh(cuda_device)
+        assert (mesh.backend, mesh.world_size) == ("nccl", 1)
+        assert dist.shard_compress_blocks(blocks, mesh) == \
+            Lz4Factory.cuda_instance().fast_compressor().compress_batch(blocks)
+        assert dist.compress_frame_sharded_packed(data, 65536, mesh) == \
+            compress_frame_packed(data, device=cuda_device)
+        assert dist.compress_frame_sharded(data, 65536, mesh) == \
+            compress_frame_packed(data, device=cuda_device)
+        build.reset_launch_counts()
+        st = dist.sharded_roundtrip_step(mesh, 64, 65536, seed=5)
+        counts = build.launch_counts()
+        assert [counts[k] for k in ("lz4_compress", "lz4_decode", "xxh32",
+                                    "frame_pack")] == [1, 1, 1, 1]
+        one = roundtrip_step(64, 65536, seed=5, device=cuda_device)
+        assert bool(st.ok.all()) and torch.equal(st.hashes, one.hashes)
+        assert torch.equal(st.offsets, one.offsets)
+        assert torch.equal(st.body, one.body[:one.body_total])
+        assert set(st.phase_ms) == {"compress", "offsets", "checksum",
+                                    "decode", "pack", "exchange"}
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_two_ranks_share_the_card(cuda_device, tmp_path):
+    from lz4_tpu_torch import dryrun_multigpu
+    from lz4_tpu_torch.dist import multihost
+
+    n_bytes = 3 * 65536 + 1234
+    out = dryrun_multigpu(2, share_card=True, data_bytes=n_bytes,
+                          blocks_per_rank=4, block_len=65536,
+                          timeout=240.0, workdir=tmp_path)
+    data = multihost.dryrun_data(n_bytes)
+    expect = compress_frame_packed(data, device=cuda_device)
+    assert out["frame"] == expect and out["packed_frame"] == expect
+    assert out["step"]["ok"] and out["step"]["blocks"] == 8
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="share_card"):
+            dryrun_multigpu(2)

@@ -1207,6 +1207,20 @@ def test_build_digest_covers_every_header(tmp_path, monkeypatch):
     assert len(digests) == len(headers) + 1
 
 
+def test_every_library_sets_its_device_and_no_body_does():
+    """Each ``.cu`` library exports ``lz4tt_set_device`` (it includes
+    ``lz4tt_device.cuh``, whose once-a-card attributes it also uses), and
+    no per-block body header includes it, so the g++ builds stay as they
+    are."""
+    for p in build.sources():
+        assert '#include "lz4tt_device.cuh"' in p.read_text(), p.name
+    for p in build.CSRC.glob("*.cuh"):
+        assert "lz4tt_device.cuh" not in p.read_text() or \
+            p.name == "lz4tt_device.cuh", p.name
+    for name in ("lz4_compress.cu", "xxh32.cu", "xxh64.cu"):
+        assert "lz4tt_once_a_device(" in (build.CSRC / name).read_text()
+
+
 def test_hc_split_edits_apply():
     """``design_variants --hc-split``'s counters go in where it says: each
     replaced text is in the shipped sources once."""

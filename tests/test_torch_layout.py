@@ -134,3 +134,31 @@ def test_import_leaves_jax_and_lz4_tpu_unloaded():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_port_files_cover_the_dist_modules():
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {f"lz4_tpu_torch/dist/{m}.py" for m in
+            ("__init__", "mesh", "multihost", "recovery", "sharded")} <= names
+
+
+def test_dist_modules_import_without_jax():
+    """The ``dist`` modules, the entry points and the dry run's workers'
+    module load neither ``jax`` nor ``lz4_tpu``."""
+    code = ("import sys, lz4_tpu_torch.dist, lz4_tpu_torch.dist.mesh, "
+            "lz4_tpu_torch.dist.multihost, lz4_tpu_torch.dist.recovery, "
+            "lz4_tpu_torch.dist.sharded, lz4_tpu_torch.entry; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'lz4_tpu')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_cuda_stream_refuses_what_is_not_a_card():
+    count = torch.cuda.device_count()
+    for bad in (torch.empty(1), torch.device("cpu"),
+                torch.device("cuda", count)):
+        with pytest.raises(ValueError):
+            layout.cuda_stream(bad)

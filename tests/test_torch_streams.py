@@ -166,7 +166,8 @@ def test_block_decoding_past_the_block_size_is_refused(engine):
 def test_get_engine_names_and_refusals():
     assert get_engine(device="cpu").name == "cuda"
     assert get_engine("segment", 17, "cpu").name == "segment-hc17"
-    for name in ("native", "sharded", "safe", "parallel", "pallas"):
+    assert get_engine("sharded", 17, "cpu").name == "sharded-hc17"
+    for name in ("native", "safe", "parallel", "pallas"):
         with pytest.raises(ValueError, match="not ported"):
             get_engine(name, device="cpu")
 
