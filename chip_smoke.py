@@ -27,7 +27,10 @@ Phases (any failure exits non-zero; nothing is caught):
    against the host hashes, and K3 and K4 on the launch shapes that change
    how their CTAs split the rows (n = 1, 2, 131, 132, 133 and 4096, ragged
    lengths around the ring's stage and whole size) against the plain
-   versions, and on rows of 1 MiB against the host hashes;
+   versions, and on rows of 1 MiB against the host hashes; K1 with a
+   history and K2 with a dictionary (``_window_edge_cases``) on matches
+   into histories of 0 to 65,536 bytes, matches reaching before them,
+   fuzz, tight caps and guards, and linked blocks in one buffer;
 4. the main path: ``roundtrip_step`` on 4096 blocks of 64 KiB (256 MiB),
    3 iterations with launch counts reset just before and read just after,
    every block OK, the packed frame body equal to the one assembled on the
@@ -107,6 +110,18 @@ Phases (any failure exits non-zero; nothing is caught):
    equal to one process's (``compress_frame_packed``, the tier's
    ``high_compressor(9)``, ``xxh64_batch``); and ``cuda_stream`` refusing
    an index past the card count;
+8c. the container formats (:func:`phase_formats`) on 64 MiB at 64 KiB
+   blocks with a 64 KiB dictionary: a dictionary frame written and read
+   back (one K2-with-dictionary and one K1-with-history launch for the
+   1,024 blocks) and through the serial reader; linked frames at 64 KiB
+   and 4 MiB blocks (one K1-with-history launch a compressed block);
+   LZ4Block streams (one K2 or K1-fast and one K3 launch each way); the
+   command line's ``-D`` and ``--allow-dependent`` in this process; each
+   call with launch counts reset just before and read just after, its
+   host wall, and its output restored; then the two window kernels
+   against their plain versions on 64 of the 1,024 rows, timed through
+   their wrappers and alone, beside the same rows without a window and
+   one row alone;
 9. the launch counts, the per-kernel JSON line and the final JSON line.
 """
 
@@ -131,13 +146,16 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from lz4_tpu_torch import Lz4Factory, XXHashFactory, dryrun_multigpu, testing
+from lz4_tpu_torch import (
+    Lz4Factory, XXHashFactory, dryrun_multigpu, formats, testing)
 from lz4_tpu_torch.__main__ import main as cli_main
+from lz4_tpu_torch.api import cuda_instances
 from lz4_tpu_torch.core import xxhash_ref
 from lz4_tpu_torch.core.constants import max_compressed_length
 from lz4_tpu_torch.core.errors import Lz4Error
 from lz4_tpu_torch.dist import mesh as dist_mesh, multihost, sharded
 from lz4_tpu_torch.entry import entry, example_blocks
+from lz4_tpu_torch.formats import BlockSize, FrameFlag
 from lz4_tpu_torch.formats.frame import (
     INCOMPRESSIBLE_MASK, frame_header, xxh32_bytes)
 from lz4_tpu_torch.kernels import (
@@ -198,6 +216,12 @@ KERNELS = {  # Kernel.name -> (source, TPU kernel it replaces)
     # runs on its device
     "lz4_hc": ("lz4_tpu_torch/csrc/lz4_hc.cu",
                "lz4_tpu/kernels/jax_hc.py:479"),
+    # not TPU kernels: the native history decode and dictionary compress
+    # the JAX package runs on the host for linked and dictionary frames
+    "lz4_decode_hist": ("lz4_tpu_torch/csrc/lz4_decode.cu",
+                        "lz4_tpu/native/src/tpulz4.cpp:1199"),
+    "lz4_compress_dict": ("lz4_tpu_torch/csrc/lz4_compress.cu",
+                          "lz4_tpu/native/src/tpulz4.cpp:536"),
 }
 MAIN_PATH = ("lz4_compress", "lz4_decode", "xxh32",   # roundtrip_step
              "frame_pack")
@@ -213,7 +237,8 @@ OCCUPANCY = (("lz4_compress", "lz4tt_compress_occupancy"),
              ("frame_pack", "lz4tt_frame_pack_occupancy"),
              ("xxh32", "lz4tt_xxh32_occupancy"),
              ("xxh64", "lz4tt_xxh64_occupancy"),
-             ("lz4_hc", "lz4tt_hc_occupancy"))
+             ("lz4_hc", "lz4tt_hc_occupancy"),
+             ("lz4_decode", "lz4tt_decode_hist_occupancy"))
 KIND_NAMES = ("a4", "text", "random")    # sharded.block_kinds 0, 1, 2
 A4_ROWS = (132, 1056, 4096)              # one block an SM, 8, 31
 HC_LEVEL = 9                             # the default level
@@ -226,6 +251,11 @@ DIST_PATH = ("lz4_compress", "lz4_decode", "xxh32", "frame_pack")
 DIST_SHARED_BLOCKS = 512                 # blocks a rank, two ranks one card
 DIST_ODD = (4, 4 * BLOCK_LEN + 1234)     # 5 blocks over 4 ranks, one empty
 DIST_TIMEOUT = 240.0                     # seconds a dry run's workers get
+FORMATS_PATH = ("lz4_compress_dict", "lz4_decode_hist")
+FORMAT_BLOCKS = 1024                     # 64 MiB at 64 KiB blocks
+FORMAT_PLAIN_ROWS = 64                   # rows the plain window codecs run on
+LINKED_BIG = 4 << 20                     # lz4 -BD's default block size
+DICT_ID = 0x5EED
 
 
 def fail(msg: str):
@@ -392,8 +422,8 @@ def phase_build() -> None:
                 log(f"  {name}: {line.strip()}")
     for source, symbol in OCCUPANCY:
         ctas, threads = build.occupancy(source, symbol)
-        log(f"occupancy {source}: {ctas} resident CTAs of {threads} threads "
-            f"an SM ({ctas * threads // 32} warps)")
+        log(f"occupancy {source} ({symbol}): {ctas} resident CTAs of "
+            f"{threads} threads an SM ({ctas * threads // 32} warps)")
 
 
 def phase_edge_cases(dev) -> None:
@@ -455,6 +485,7 @@ def phase_edge_cases(dev) -> None:
         f"dest_len: {codes}")
 
     _short_sequence_cases(dev, rng)
+    _window_edge_cases(dev, rng)
 
     hash_lens = list(range(101)) + [1000, 65536]
     hsrc, hl = layout.to_device_layout(
@@ -573,6 +604,105 @@ def _short_sequence_cases(dev, rng) -> None:
         f"hand-built blocks ({', '.join(testing.SHORT_CASES)}); guard intact")
 
 
+def _window_edge_cases(dev, rng) -> None:
+    """K1 with a history and K2 with a dictionary against their plain
+    versions: matches at the history's start and straddling its end,
+    periods 1-40 from its tail, sources in it within the ring and past
+    it, null offsets, matches reaching before it (MALFORMED) and fuzz, at
+    ``testing.HIST_LENS``, full and tight caps, a guard behind every row
+    and the histories untouched; history length 0 equal to K1; the
+    edge sizes of every kind against dictionaries of every length, at the
+    full cap and at 600, decoded back; linked blocks in one buffer."""
+    cases = testing.history_blocks(rng)
+    comp = [testing.encode_block(s, t) for _, s, t in cases]
+    want = [testing.expand_block(s, t, h) for h, s, t in cases]
+    hists = [h for h, _, _ in cases]
+    over = testing.overreach_blocks(rng)
+    fuzz = testing.fuzz_blocks(rng, comp, 256)
+    blocks = comp + [b for _, b in over] + fuzz
+    hists += [h for h, _ in over] + [hists[i % len(cases)]
+                                     for i in range(len(fuzz))]
+    c, cl = layout.to_device_layout(blocks, device=dev)
+    win, wl = testing.windows(hists, dev)
+    before = win.clone()
+    codes = {}
+    for out_max in (70000, 1000, 64):
+        bufs = [torch.full((c.shape[0], out_max + GUARD), GUARD_BYTE,
+                           dtype=torch.uint8, device=dev) for _ in range(2)]
+        kern = codec.decompress_safe_hist_batch(c, cl, out_max, win, wl,
+                                                out=bufs[0])
+        plain = codec.decompress_safe_hist_plain(c, cl, out_max, win, wl,
+                                                 out=bufs[1])
+        sync()
+        for name, buf in (("kernel", bufs[0]), ("plain", bufs[1])):
+            if not bool((buf[:, out_max:] == GUARD_BYTE).all()):
+                fail(f"K1 hist out_max={out_max}: {name} wrote past out_max")
+        compare_codec(f"K1 hist out_max={out_max}", kern, plain, out_max,
+                      all_lens=False)
+        if not torch.equal(win, before):
+            fail("K1 hist: a history changed")
+        codes[out_max] = torch.bincount(kern[2].long(), minlength=3).tolist()
+        if out_max == 70000:
+            n, m = len(want), len(over)
+            if kern[2][:n + m].tolist() != [0] * n + [codec.ERR_MALFORMED] * m \
+                    or layout.from_device_layout(kern[0][:n],
+                                                 kern[1][:n]) != want:
+                fail("K1 hist: a block did not decode to its bytes, or one "
+                     "reaching before its history was not MALFORMED")
+    zero, zl = testing.windows([b""] * c.shape[0], dev)
+    for out_max in (1, 1000, 70000):
+        a = codec.decompress_safe_hist_batch(c, cl, out_max, zero, zl)
+        b = codec.decompress_safe_batch(c, cl, out_max)
+        if not (torch.equal(a[2], b[2]) and torch.equal(a[0], b[0])
+                and torch.equal(a[1][a[2] == 0], b[1][b[2] == 0])):
+            fail(f"K1 hist with no history differs from K1 (out_max="
+                 f"{out_max})")
+    log(f"K1 hist == plain on {len(blocks)} blocks (histories of "
+        f"{testing.HIST_LENS} bytes, {len(over)} reaching before theirs, "
+        f"{len(fuzz)} fuzzed); guards and histories intact; OK/MALFORMED/"
+        f"DEST_TOO_SMALL by out_max: {codes}; with no history == K1")
+
+    srcs, dicts = [], []
+    for hl in testing.HIST_LENS:
+        d = testing.block_of(rng, "text", hl)
+        for size in EDGE_SIZES:
+            for kind in testing.KINDS:
+                b = testing.block_of(rng, kind, size)
+                srcs.append((d[-3000:] + b)[:size] if kind == "alphabet4"
+                            else b)
+                dicts.append(d)
+    src, lens = layout.to_device_layout(srcs, device=dev)
+    win, wl = testing.windows(dicts, dev)
+    for cap in (600, max_compressed_length(max(EDGE_SIZES))):
+        kern = codec.compress_dict_batch(src, lens, cap, win, wl)
+        compare_codec(f"K2 dict cap={cap}", kern,
+                      codec.compress_dict_plain(src, lens, cap, win, wl), cap)
+    out, out_lens, err = codec.decompress_safe_hist_batch(
+        kern[0], kern[1], max(EDGE_SIZES), win, wl)
+    if bool(err.any()) or layout.from_device_layout(out, out_lens) != srcs:
+        fail("K2 dict: a block did not decode back through K1 hist")
+    raw = testing.block_of(rng, "text", 40 * 4096 - 99)
+    comps = testing.linked_blocks(raw, 4096, dev)
+    buf = torch.zeros((len(raw) + 4096,), dtype=torch.uint8, device=dev)
+    pos = 0
+    for blk in comps:
+        bc, bcl = layout.to_device_layout([blk], device=dev)
+        h0 = max(0, pos - codec.WINDOW)
+        _, n, e = codec.decompress_safe_hist_batch(
+            bc, bcl, 4096, buf[h0:max(pos, 1)].view(1, -1),
+            torch.tensor([pos - h0], dtype=torch.int32, device=dev),
+            out=buf[pos:pos + 4096].view(1, -1))
+        if int(e[0]):
+            fail("linked blocks in one buffer: a block failed")
+        pos += int(n[0])
+    if buf[:pos].cpu().numpy().tobytes() != raw:
+        fail("linked blocks in one buffer: content differs")
+    log(f"K2 dict == plain on {len(srcs)} blocks (edge sizes x kinds x "
+        f"dictionaries of {testing.HIST_LENS} bytes) at caps 600 and full, "
+        f"decoded back by K1 hist; {len(comps)} linked blocks of 4 KiB "
+        f"decoded in one buffer")
+
+
 def _host_body(data: np.ndarray, comp: np.ndarray,
                comp_lens: list[int]) -> bytes:
     parts = []
@@ -608,16 +738,16 @@ def _time_plain(fn):
 
 def kernel_row(name: str, launches: dict, max_err: int, ms: float,
                plain_ms: float, nbytes: int, in_bytes: int,
-               plain_rows: int | None = None) -> dict:
+               plain_rows: int | None = None, rows: int = N_BLOCKS) -> dict:
     """One entry of the ``kernels`` JSON line; the bound is ``nbytes`` (each
     input read once, each output written once) over the HBM rate.
-    ``plain_rows`` is the rows the plain version was timed on (all of
-    them unless given)."""
-    plain_rows = plain_rows or N_BLOCKS
+    ``plain_rows`` is the rows the plain version was timed on (all
+    ``rows`` of the timed batch unless given)."""
+    plain_rows = plain_rows or rows
     src_file, replaces = KERNELS[name]
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"{name}: {ms:.3f} ms on the card ({in_bytes / ms / 1e6:.2f} GB/s "
-        f"of input), plain {plain_ms:.1f} ms on {plain_rows} of {N_BLOCKS} "
+        f"of input), plain {plain_ms:.1f} ms on {plain_rows} of {rows} "
         f"rows, bound {bound_ms:.4f} ms, max abs err {max_err}, "
         f"{launches[name]} launches")
     return {"name": name, "route": "cuda", "source": src_file,
@@ -1953,6 +2083,252 @@ def phase_frame(dev) -> dict:
     return one_row
 
 
+def _format_data():
+    """64 MiB of ``make_blocks`` data, the kinds of its blocks, and a 64 KiB
+    dictionary: a text block of the same draw (its vocabulary), taken out
+    of the data."""
+    blocks = sharded.make_blocks(FORMAT_BLOCKS + 1, BLOCK_LEN, SEED + 3)
+    kinds = sharded.block_kinds(FORMAT_BLOCKS + 1, SEED + 3)
+    t = int(np.flatnonzero(kinds == 1)[0])
+    return (np.delete(blocks, t, axis=0), np.delete(kinds, t),
+            blocks[t].tobytes())
+
+
+def _time_alone(kernel, *args) -> float:
+    """Milliseconds per launch of ``kernel``'s C entry point on card 0 with
+    ``args`` (CUDA events), without its wrapper's checks and with no
+    launch counted."""
+    fn = build.c_function(kernel.source, kernel.symbol, kernel.argtypes)
+
+    def launch():
+        if fn(*args):
+            fail(f"{kernel.symbol}: CUDA error")
+
+    return _time_kernel(launch)
+
+
+def _card_frame(raw: bytes, bs: int, comps, dev, independent: bool):
+    """A frame of ``raw``'s blocks of ``bs`` bytes stored as ``comps``
+    (raw where not shorter), with block and content checksums from K3 (the
+    host hash takes seconds on 64 MiB)."""
+    raws = [raw[i:i + bs] for i in range(0, len(raw), bs)]
+    pays = testing.payloads(raws, comps)
+    rows, lens = layout.to_device_layout(pays, device=dev)
+    sums = xxhash.xxh32_batch(rows, lens, 0).tolist()
+    flat = layout.upload_bytes(raw, dev).view(1, -1)
+    content = int(xxhash.xxh32_batch(
+        flat, torch.tensor([len(raw)], dtype=torch.int32, device=dev), 0)[0])
+    bd = {b.num_bytes: b.value for b in BlockSize}[bs]
+    return testing.build_frame(raws, comps, bd, independent=independent,
+                               sums=sums, content_sum=content), content
+
+
+def phase_formats(dev) -> tuple[list[dict], dict]:
+    """The container formats on 64 MiB (``_format_data``): dictionary
+    frames, linked frames at 64 KiB and 4 MiB blocks, LZ4Block streams and
+    the CLI's ``-D``, each call with launch counts reset just before and
+    read just after and its host wall; then K2 and K1 with the dictionary
+    against their plain versions on rows of the batch, and timed. Returns
+    the two kernels' rows and each kernel's launches over the calls."""
+    data, kinds, dictionary = _format_data()
+    raw = data.tobytes()
+    n = data.shape[0]
+    walls, counts, total = {}, {}, {}
+
+    def call(what, fn):
+        build.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        walls[what] = (time.perf_counter() - t0) * 1e3
+        counts[what] = {k: v for k, v in build.launch_counts().items() if v}
+        for k, v in counts[what].items():
+            total[k] = total.get(k, 0) + v
+        log(f"  {what}: {walls[what]:.1f} ms host wall, launches "
+            f"{counts[what]}")
+        return out
+
+    def expect(what, name, want):
+        got = counts[what].get(name, 0)
+        if got != want:
+            fail(f"{what}: {got} launches of {name}, expected {want}")
+
+    flat = layout.upload_bytes(raw, dev).view(1, -1)
+    content = int(xxhash.xxh32_batch(
+        flat, torch.tensor([len(raw)], dtype=torch.int32, device=dev), 0)[0])
+    del flat
+
+    # dictionary frames: one K2-dict launch for the batch, K2 again on the
+    # rows it did not shrink, one K3 for the block checksums; the decode one
+    # K1-hist launch for the batch, the serial reader one a block
+    feats = (FrameFlag.BLOCK_INDEPENDENCE, FrameFlag.CONTENT_CHECKSUM,
+             FrameFlag.BLOCK_CHECKSUM)
+    fr = call("compress_frame(dictionary)", lambda: formats.compress_frame(
+        raw, BlockSize.SIZE_64KB, feats, dictionary=dictionary,
+        dict_id=DICT_ID, device=dev))
+    expect("compress_frame(dictionary)", "lz4_compress_dict", 1)
+    if fr[4] != 0x75 or struct.unpack_from("<I", fr, 6)[0] != DICT_ID or \
+            struct.unpack_from("<I", fr, len(fr) - 4)[0] != content:
+        fail("dictionary frame: flags, DictID or content checksum wrong")
+    back = call("decompress_frame(dictionary)", lambda: formats.decompress_frame(
+        fr, dictionary=dictionary, device=dev))
+    expect("decompress_frame(dictionary)", "lz4_decode_hist", 1)
+    if back != raw:
+        fail("dictionary frame: decoded content differs")
+    reader = formats.Lz4FrameInputStream(io.BytesIO(fr), dictionary=dictionary,
+                                         device=dev)
+    back = call("Lz4FrameInputStream(dictionary)", reader.read)
+    n_comp = counts["Lz4FrameInputStream(dictionary)"].get("lz4_decode_hist", 0)
+    if back != raw or reader.dict_id != DICT_ID or not n_comp:
+        fail("dictionary frame: the serial reader differs")
+    plain_frame = call("compress_frame", lambda: formats.compress_frame(
+        raw, BlockSize.SIZE_64KB, feats, device=dev))
+    log(f"dictionary frame: {len(raw)} B -> {len(fr)} B ({len(plain_frame)} "
+        f"B without the dictionary); {n_comp} blocks decoded by the serial "
+        f"reader, one K1-hist launch each")
+
+    # linked frames (lz4 -BD): each block compressed against the content
+    # before it (one K2-dict launch), decoded a block at a time
+    linked = {}
+    for bs in (BLOCK_LEN, LINKED_BIG):
+        comps = call(f"linked_blocks({bs})",
+                     lambda: testing.linked_blocks(raw, bs, dev))
+        expect(f"linked_blocks({bs})", "lz4_compress_dict", 1)
+        lfr, _ = _card_frame(raw, bs, comps, dev, independent=False)
+        n_comp = sum(len(c) < bs for c in comps)
+        what = f"decompress_frame(linked, {bs})"
+        back = call(what, lambda: formats.decompress_frame(
+            lfr, allow_dependent_blocks=True, device=dev))
+        expect(what, "lz4_decode_hist", n_comp)
+        if back != raw:
+            fail(f"linked frame at {bs}: decoded content differs")
+        linked[bs] = (len(lfr), n_comp)
+        log(f"linked frame at {bs} B blocks: {len(raw)} B -> {len(lfr)} B, "
+            f"{n_comp} of {len(comps)} blocks compressed, one K1-hist "
+            f"launch and one read-back each")
+    out = io.BytesIO()
+    call("decompress_stream(allow_dependent)", lambda: decompress_stream(
+        io.BytesIO(lfr), out, allow_dependent=True, device=dev))
+    if out.getvalue() != raw:
+        fail("decompress_stream(allow_dependent): content differs")
+
+    # LZ4Block streams: one K2 (K1 fast) and one K3 launch each way
+    blob = call("compress_block_stream", lambda: formats.compress_block_stream(
+        raw, BLOCK_LEN, device=dev))
+    expect("compress_block_stream", "lz4_compress", 1)
+    expect("compress_block_stream", "xxh32", 1)
+    back = call("decompress_block_stream",
+                lambda: formats.decompress_block_stream(blob, device=dev))
+    expect("decompress_block_stream", "lz4_decode_fast", 1)
+    expect("decompress_block_stream", "xxh32", 1)
+    if back != raw:
+        fail("block stream: decoded content differs")
+    head = raw[:4 * BLOCK_LEN]
+    out = io.BytesIO()
+    writer = formats.Lz4BlockOutputStream(out, device=dev)
+    writer.write(head)
+    writer.finish()
+    if out.getvalue() != formats.compress_block_stream(head, device=dev) or \
+            formats.Lz4BlockInputStream(io.BytesIO(out.getvalue()),
+                                        device=dev).read() != head:
+        fail("block stream: the stream classes differ from the one-shot")
+
+    # the command line: -D both ways, --allow-dependent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "in.bin").write_bytes(raw[:16 << 20])
+        (tmp / "dict.bin").write_bytes(dictionary)
+        (tmp / "linked.lz4").write_bytes(lfr)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rcs = [call("cli compress -D", lambda: cli_main(
+                       ["compress", "-D", str(tmp / "dict.bin"), "--dict-id",
+                        "7", str(tmp / "in.bin"), str(tmp / "d.lz4")])),
+                   call("cli decompress -D", lambda: cli_main(
+                       ["decompress", "-D", str(tmp / "dict.bin"),
+                        str(tmp / "d.lz4"), str(tmp / "back.bin")])),
+                   call("cli decompress --allow-dependent", lambda: cli_main(
+                       ["decompress", "--allow-dependent",
+                        str(tmp / "linked.lz4"), str(tmp / "l.bin")]))]
+        if rcs != [0, 0, 0] or \
+                (tmp / "back.bin").read_bytes() != raw[:16 << 20] or \
+                (tmp / "l.bin").read_bytes() != raw:
+            fail(f"cli -D / --allow-dependent: {rcs}")
+
+    # the kernels against their plain versions on rows of the batch, timed
+    src, lens = sharded.upload_blocks(data, dev)
+    win, wlen = cuda_instances.window_tensor(dictionary, dev)
+    wl = torch.full((n,), wlen, dtype=torch.int32, device=dev)
+    cap = max_compressed_length(BLOCK_LEN)
+    sub = slice(None, None, n // FORMAT_PLAIN_ROWS)
+    kern = codec.compress_dict_batch(src, lens, cap, win, wl)
+    plain, plain_ms = _time_plain(lambda: codec.compress_dict_plain(
+        src[sub].contiguous(), lens[sub].contiguous(), cap, win,
+        wl[sub].contiguous()))
+    err = compare_codec("K2 dict, the formats batch",
+                        tuple(t[sub] for t in kern), plain, cap)
+    ms = _time_kernel(lambda: codec.compress_dict_batch(src, lens, cap, win, wl))
+    in_bytes, comp_bytes = int(lens.sum()), int(kern[1].sum())
+    rows = [kernel_row("lz4_compress_dict", total, err, ms, plain_ms,
+                       in_bytes + wlen + comp_bytes + 16 * n, in_bytes,
+                       plain_rows=FORMAT_PLAIN_ROWS, rows=n)]
+    out = torch.empty_like(kern[0])
+    scratch = torch.empty((2, n), dtype=torch.int32, device=dev)
+    rows[-1]["alone_ms"] = _time_alone(
+        codec.COMPRESS_DICT, src.data_ptr(), src.stride(0), lens.data_ptr(),
+        win.data_ptr() + win.shape[1], 0, wl.data_ptr(), out.data_ptr(),
+        out.stride(0), cap, scratch[0].data_ptr(), scratch[1].data_ptr(), n,
+        layout.cuda_stream(src))
+    comp, clens = kern[0], kern[1]
+    kern = codec.decompress_safe_hist_batch(comp, clens, BLOCK_LEN, win, wl)
+    plain, plain_ms = _time_plain(lambda: codec.decompress_safe_hist_plain(
+        comp[sub].contiguous(), clens[sub].contiguous(), BLOCK_LEN, win,
+        wl[sub].contiguous()))
+    err = compare_codec("K1 hist, the formats batch",
+                        tuple(t[sub] for t in kern), plain, BLOCK_LEN,
+                        all_lens=False)
+    if not torch.equal(kern[0][:, :BLOCK_LEN], src[:, :BLOCK_LEN]):
+        fail("K1 hist: the formats batch did not decode to its input")
+    ms = _time_kernel(lambda: codec.decompress_safe_hist_batch(
+        comp, clens, BLOCK_LEN, win, wl))
+    rows.append(kernel_row("lz4_decode_hist", total, err, ms, plain_ms,
+                           comp_bytes + wlen + in_bytes + 16 * n, in_bytes,
+                           plain_rows=FORMAT_PLAIN_ROWS, rows=n))
+    out = torch.empty((n, layout.row_stride(BLOCK_LEN)), dtype=torch.uint8,
+                      device=dev)
+    rows[-1]["alone_ms"] = _time_alone(
+        codec.DECODE_HIST, comp.data_ptr(), comp.stride(0), clens.data_ptr(),
+        out.data_ptr(), out.stride(0), BLOCK_LEN,
+        win.data_ptr() + win.shape[1], 0, wl.data_ptr(),
+        scratch[0].data_ptr(), scratch[1].data_ptr(), n,
+        layout.cuda_stream(comp))
+    log(f"alone (the C entry point, no wrapper), ms: K2 dict "
+        f"{rows[0]['alone_ms']:.3f}, K1 hist {rows[1]['alone_ms']:.3f}")
+    # the same rows without the window, for what the window costs
+    c2, cl2, _ = codec.compress_fast_batch(src, lens, cap)
+    bare = {"K2": _time_kernel(lambda: codec.compress_fast_batch(src, lens,
+                                                                 cap)),
+            "K1": _time_kernel(lambda: codec.decompress_safe_batch(
+                c2, cl2, BLOCK_LEN))}
+    rows[0]["without_window_ms"] = bare["K2"]
+    rows[1]["without_window_ms"] = bare["K1"]
+    log(f"the formats batch without a window (K1 on K2's output), ms: "
+        f"{bare}")
+    # one block alone: what a launch of the serial decode costs
+    one = {}
+    for k, name in enumerate(KIND_NAMES[:2]):
+        i = int(np.flatnonzero(kinds == k)[0])
+        c1, l1 = comp[i:i + 1].contiguous(), clens[i:i + 1].contiguous()
+        one[name] = _time_kernel(lambda: codec.decompress_safe_hist_batch(
+            c1, l1, BLOCK_LEN, win, wl[:1]))
+    rows[-1]["one_row_ms"] = one
+    log(f"K1 hist on one row alone (CUDA events), ms: {one}")
+    log("formats walls, ms: " + json.dumps(
+        {k: round(v, 3) for k, v in walls.items()}))
+    return rows, {"walls": walls, "counts": counts, "total": total,
+                  "linked": linked}
+
+
 def _dist_one_rank(dev) -> dict:
     """``sharded_roundtrip_step`` on one NCCL rank, held to
     ``roundtrip_step``; returns the launches of its steps."""
@@ -2349,10 +2725,13 @@ def main() -> int:
     timed("host split", host_split, dev, main_out)
     del main_out
     one_row = timed("frame", phase_frame, dev)
+    fmt_rows, fmt = timed("formats", phase_formats, dev)
+    rows += fmt_rows
     dist_launches = timed("dist", phase_dist, dev, card)
     for r in rows:
         r.update(one_row.get(r["name"], {}))
         r["dist_launches"] = dist_launches.get(r["name"], 0)
+        r["formats_launches"] = fmt["total"].get(r["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s; by phase, s: {secs}")
     log(card)
     log("kernels: " + json.dumps({r["name"]: r["launches"] for r in rows}))

@@ -5,15 +5,20 @@ hashes and a report of the ``cuda`` tier, as ``python -m lz4_tpu`` has
 them (``lz4_tpu/__main__.py``), with the port's engines (``fastest``,
 ``cuda``, ``segment``, ``sharded``; ``sharded`` splits a batch over the
 ranks of a process group, and is one rank here, as no command starts a
-group). It runs on the card, HC (``-l 1..17``) included;
-the dictionary (``-D``), ``--turbo`` and ``--allow-dependent`` options
-wait for the serial frame reader and the native tier, which are not
-ported.
+group). It runs on the card, HC (``-l 1..17``) included. ``-D FILE``
+compresses against a dictionary (a dictionary frame, ``--dict-id`` its
+DictID field; the fast scan only) and decodes dictionary frames;
+``--allow-dependent`` reads linked-block frames (``lz4 -BD``), which are
+refused by default like lz4-java. ``--turbo`` (the JAX package's native
+host tier) is not ported.
 
 Examples:
   python -m lz4_tpu_torch compress   input.bin out.lz4 --engine cuda -B 64KB
   python -m lz4_tpu_torch compress   input.bin out.lz4 -l 9
+  python -m lz4_tpu_torch compress   input.bin out.lz4 -D dict.bin --dict-id 7
   python -m lz4_tpu_torch decompress out.lz4 restored.bin --engine segment
+  python -m lz4_tpu_torch decompress out.lz4 restored.bin -D dict.bin
+  python -m lz4_tpu_torch decompress linked.lz4 restored.bin --allow-dependent
   python -m lz4_tpu_torch xxh32 input.bin
   python -m lz4_tpu_torch info
 """
@@ -29,8 +34,10 @@ import torch
 
 from .api.factory import Lz4Factory, XXHashFactory
 from .core.errors import Lz4Error
-from .formats.frame import BlockSize
-from .streams.pipeline import ENGINES, compress_stream, decompress_stream
+from .formats.frame import (
+    DEFAULT_FEATURES, BlockSize, FrameFlag, Lz4FrameOutputStream)
+from .streams.pipeline import (
+    ENGINES, compress_stream, decode_frames, decompress_stream)
 
 _BLOCK_SIZES = {"64KB": BlockSize.SIZE_64KB, "256KB": BlockSize.SIZE_256KB,
                 "1MB": BlockSize.SIZE_1MB, "4MB": BlockSize.SIZE_4MB}
@@ -45,12 +52,32 @@ def _block_size(name: str) -> BlockSize:
 
 
 def cmd_compress(args, device) -> None:
+    if args.dict_id is not None and not args.dict:
+        raise SystemExit("--dict-id requires -D/--dict")
     t0 = time.perf_counter()
-    with open(args.input, "rb") as src, open(args.output, "wb") as dst:
-        n = compress_stream(src, dst, block_size=args.block_size,
-                            engine=args.engine,
-                            content_checksum=not args.no_frame_crc,
-                            level=args.level, device=device)
+    if args.dict:
+        # a dictionary frame: the frame writer, each batch of blocks one
+        # launch of K2 with the dictionary
+        if args.level != 0:
+            raise SystemExit("-D supports the default fast level only")
+        with open(args.dict, "rb") as f:
+            dictionary = f.read()
+        feats = DEFAULT_FEATURES if args.no_frame_crc else (
+            FrameFlag.BLOCK_INDEPENDENCE, FrameFlag.CONTENT_CHECKSUM)
+        with open(args.input, "rb") as src, open(args.output, "wb") as dst:
+            w = Lz4FrameOutputStream(dst, block_size=args.block_size,
+                                     features=feats, dictionary=dictionary,
+                                     dict_id=args.dict_id, device=device)
+            while chunk := src.read(_CHUNK):
+                w.write(chunk)
+            w.close_keep_underlying()
+            n = dst.tell()
+    else:
+        with open(args.input, "rb") as src, open(args.output, "wb") as dst:
+            n = compress_stream(src, dst, block_size=args.block_size,
+                                engine=args.engine,
+                                content_checksum=not args.no_frame_crc,
+                                level=args.level, device=device)
     dt = time.perf_counter() - t0
     in_size = os.path.getsize(args.input)
     print(f"{args.input}: {in_size} -> {n} bytes "
@@ -60,8 +87,19 @@ def cmd_compress(args, device) -> None:
 
 def cmd_decompress(args, device) -> None:
     t0 = time.perf_counter()
+    dictionary = None
+    if args.dict:
+        with open(args.dict, "rb") as f:
+            dictionary = f.read()
     with open(args.input, "rb") as src, open(args.output, "wb") as dst:
-        n = decompress_stream(src, dst, engine=args.engine, device=device)
+        if dictionary is None:
+            n = decompress_stream(src, dst, engine=args.engine,
+                                  allow_dependent=args.allow_dependent,
+                                  device=device)
+        else:
+            n = decode_frames(src, dst, engine=args.engine, device=device,
+                              allow_dependent=args.allow_dependent,
+                              dictionary=dictionary)
     dt = time.perf_counter() - t0
     print(f"{args.input}: -> {n} bytes, "
           f"{n / max(dt, 1e-9) / 1e6:.1f} MB/s [{args.engine}]")
@@ -115,6 +153,12 @@ def main(argv=None, device: str | torch.device = "cuda") -> int:
     c.add_argument("-l", "--level", type=int, default=0,
                    help="0 = fast scan (default); 1-17 = HC at that "
                    "level, on the card")
+    c.add_argument("-D", "--dict", metavar="FILE",
+                   help="compress against a dictionary (writes a "
+                   "dictionary frame; lz4 CLI -D)")
+    c.add_argument("--dict-id", type=lambda v: int(v, 0), default=None,
+                   help="record this DictID in the frame header "
+                   "(requires -D)")
     c.add_argument("--no-frame-crc", action="store_true",
                    help="omit the content checksum")
     c.set_defaults(fn=cmd_compress)
@@ -122,6 +166,12 @@ def main(argv=None, device: str | torch.device = "cuda") -> int:
     d = sub.add_parser("decompress", help="decode LZ4 frame(s)")
     d.add_argument("input")
     d.add_argument("output")
+    d.add_argument("--allow-dependent", action="store_true",
+                   help="also read linked-block frames (lz4 CLI -BD); "
+                   "refused by default, as lz4-java refuses them")
+    d.add_argument("-D", "--dict", metavar="FILE",
+                   help="dictionary file for dictionary frames "
+                   "(lz4 CLI -D); accepts the DictID header field")
     d.add_argument("--engine", default="fastest", choices=ENGINES)
     d.set_defaults(fn=cmd_decompress)
 

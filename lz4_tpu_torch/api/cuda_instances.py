@@ -24,6 +24,15 @@ Where each role runs:
   :func:`decode_rows`, which keep the batch on the card and are what the
   stream pipeline's engines run.
 
+- the window codecs :func:`compress_blocks_with_dict` and
+  :func:`decompress_blocks_with_history` (K2 and K1 with a window before
+  each row, one shared dictionary or history a batch), the counterparts of
+  ``native_instances.compress_block_with_dict`` and
+  ``decompress_block_with_history`` (``:613-654``), which the frame
+  formats run for dictionary and linked-block frames; and
+  :func:`decode_rows_hist`, the packed decode of a batch against one
+  shared history.
+
 The host HC (``core/lz4_hc_ref.py``) is only K6's plain version: on the
 card nothing switches to it.
 """
@@ -183,6 +192,74 @@ def decode_rows(comp: torch.Tensor, comp_lens: torch.Tensor, out_max: int):
         return lens
 
     return out, finish
+
+
+def window_tensor(window, device: torch.device):
+    """The last ``codec.WINDOW`` bytes of ``window`` (bytes-like) as a
+    ``uint8[1, W]`` tensor on ``device`` (W at least 1), and their length:
+    one shared row for the window kernels."""
+    tail = memoryview(window).cast("B")[-codec.WINDOW:] if len(window) else b""
+    t = upload_bytes(bytes(tail) or b"\0", device)[:max(1, len(tail))]
+    return t.view(1, -1), len(tail)
+
+
+def decode_rows_hist(comp: torch.Tensor, comp_lens: torch.Tensor,
+                     out_max: int, hist: torch.Tensor, hist_len: int):
+    """:func:`decode_rows` with the history ``hist`` (``uint8[1, W]``, its
+    last ``hist_len`` bytes) before every row: one K1 launch with a
+    history, the packed decode of dictionary frames."""
+    lens = torch.full((comp.shape[0],), hist_len, dtype=torch.int32,
+                      device=comp.device)
+    with part("kernels"):
+        out, out_lens, err = codec.decompress_safe_hist_batch(
+            comp, comp_lens, out_max, hist, lens)
+
+    def finish() -> np.ndarray:
+        codes, lens = _read_back(err, out_lens)
+        _raise_on_bad_block(codes)
+        return lens
+
+    return out, finish
+
+
+def compress_blocks_with_dict(blocks, dictionary,
+                              device: str | torch.device = "cuda"):
+    """Compress many blocks against one dictionary (its last 64 KiB) in one
+    upload and one launch of K2 with a dictionary: byte for byte what
+    ``native_instances.compress_block_with_dict`` gives for each block.
+    Returns a list of ``bytes``."""
+    dev = resolve_device(device)
+    if not len(blocks):
+        return []
+    src, lens = to_device_layout(blocks, device=dev)
+    win, wlen = window_tensor(dictionary, dev)
+    with part("kernels"):
+        out, out_lens, err = codec.compress_dict_batch(
+            src, lens, max_compressed_length(max(len(b) for b in blocks)), win,
+            torch.full((len(blocks),), wlen, dtype=torch.int32, device=dev))
+    err, out_lens = _read_back(err, out_lens)
+    if err.any():
+        raise Lz4Error("device compression failed")
+    with part("download"):
+        return from_device_layout(out, out_lens)
+
+
+def decompress_blocks_with_history(blocks, out_max: int, history,
+                                   device: str | torch.device = "cuda"):
+    """Decode many blocks against one history (its last 64 KiB) in one
+    upload and one launch of K1 with a history: what
+    ``native_instances.decompress_block_with_history`` gives for each
+    block. Raises ``Lz4Error`` on the first block that does not decode in
+    ``out_max`` bytes. Returns a list of ``bytes``."""
+    dev = resolve_device(device)
+    if not len(blocks):
+        return []
+    comp, lens = to_device_layout(blocks, device=dev)
+    out, finish = decode_rows_hist(comp, lens, out_max,
+                                   *window_tensor(history, dev))
+    out_lens = finish()
+    with part("download"):
+        return from_device_layout(out, out_lens)
 
 
 def compress_fast_packed(src, block_size: int,

@@ -27,6 +27,16 @@
 // (PERF.md): staging the row in shared memory (80 KiB a CTA, 2 CTAs an SM)
 // was 3x slower, and words joined by a funnel shift were 2 % slower than
 // four byte loads through L1.
+//
+// lz4tt_compress_dict is the same kernel with a dictionary a row, the
+// device counterpart of the native tpulz4_compress_fast_ext
+// (lz4_tpu/native/src/tpulz4.cpp:416-542, compress_ext), which the JAX
+// package runs on the host for dictionary frames: row b's dictionary is
+// the dict_lens[b] <= 65,536 bytes that end at dict + b * dict_stride. A
+// stride of 0 gives every row one dictionary, stored once; a linked
+// frame's blocks pass the content before each block. The team first seeds
+// the 12-bit table over the dictionary (shared-memory atomicMax a bucket),
+// then the leader scans as K2 does, reading the dictionary where it lies.
 #include "lz4_compress.cuh"
 
 #include <cuda_runtime.h>
@@ -53,10 +63,37 @@ __global__ void __launch_bounds__(32)
   }
 }
 
+__global__ void __launch_bounds__(32)
+    compress_dict_kernel(const uint8_t* __restrict__ src, int64_t src_stride,
+                         const int32_t* __restrict__ src_lens,
+                         const uint8_t* dict, int64_t dict_stride,
+                         const int32_t* __restrict__ dict_lens,
+                         uint8_t* __restrict__ dst, int64_t dst_stride,
+                         int32_t dest_cap, int32_t* __restrict__ out_lens,
+                         int32_t* __restrict__ err) {
+  extern __shared__ uint4 table[];
+  const int64_t b = blockIdx.x;
+  WarpTeam t;
+  int32_t len = 0;
+  int32_t e = 0;
+  lz4tt_compress_dict_block(t, src + b * src_stride, src_lens[b],
+                            dict + b * dict_stride, dict_lens[b],
+                            dst + b * dst_stride, dest_cap, dst_stride, table,
+                            &len, &e);
+  if (t.leader()) {
+    out_lens[b] = len;
+    err[b] = e;
+  }
+}
+
 cudaError_t prepare() {
   int dev;
   return lz4tt_once_a_device([](int) {
-    return cudaFuncSetAttribute(compress_kernel,
+    cudaError_t e = cudaFuncSetAttribute(
+        compress_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (e) return e;
+    return cudaFuncSetAttribute(compress_dict_kernel,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 cudaSharedmemCarveoutMaxShared);
   }, &dev);
@@ -77,6 +114,25 @@ extern "C" int lz4tt_compress_fast(const void* src, long long src_stride,
     compress_kernel<<<n, 32, LZ4TT_TABLE_BYTES, (cudaStream_t)stream>>>(
         (const uint8_t*)src, src_stride, (const int32_t*)src_lens, (uint8_t*)dst,
         dst_stride, dest_cap, (int32_t*)out_lens, (int32_t*)err);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The fast scan with a dictionary a row: row b's dictionary is the
+// dict_lens[b] <= 65,536 bytes that end at dict + b * dict_stride (they may
+// lie just before the row). Returns cudaGetLastError() after the launch.
+extern "C" int lz4tt_compress_dict(const void* src, long long src_stride,
+                                   const void* src_lens, const void* dict,
+                                   long long dict_stride, const void* dict_lens,
+                                   void* dst, long long dst_stride,
+                                   int dest_cap, void* out_lens, void* err,
+                                   int n, void* stream) {
+  if (const cudaError_t e = prepare()) return (int)e;
+  if (n > 0) {
+    compress_dict_kernel<<<n, 32, LZ4TT_TABLE_BYTES, (cudaStream_t)stream>>>(
+        (const uint8_t*)src, src_stride, (const int32_t*)src_lens,
+        (const uint8_t*)dict, dict_stride, (const int32_t*)dict_lens,
+        (uint8_t*)dst, dst_stride, dest_cap, (int32_t*)out_lens, (int32_t*)err);
   }
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,17 @@
 // tokens, short runs, match compares a word at a time) is the leader's.
 // Between jobs the leader's state lives in Lz4ttScan, so the scan resumes
 // where it handed over.
+//
+// With a dictionary (lz4tt_compress_dict_block), the scan is the native
+// compress_ext (lz4_tpu/native/src/tpulz4.cpp:416-542, behind
+// native_instances.compress_block_with_dict), byte for byte: the
+// dictionary's last <= 65,536 bytes are the window before the block, the
+// 12-bit table holds int32 offsets from the window's start and is seeded
+// over the dictionary at stride 3 (the last position of a bucket wins),
+// the scan starts at the block's first byte, a match must lie 1 to 65,535
+// bytes back and may run back into the dictionary, and the bound checks
+// reserve the length-extension bytes exactly. The scan reads the block and
+// the dictionary where they lie (Lz4ttDictRow); nothing is copied.
 #pragma once
 
 #include "lz4tt_common.cuh"
@@ -30,6 +41,39 @@ enum { LZ4TT_TABLE_BYTES = 1 << 14 };
 enum { LZ4TT_SHORT = 16, LZ4TT_SHORT_MATCH = 32 };
 
 enum { LZ4TT_JOB_DONE = 0, LZ4TT_JOB_COPY = 1, LZ4TT_JOB_EXTEND = 2 };
+// The most dictionary bytes the window holds (64 KiB).
+enum { LZ4TT_DICT_MAX = 65536 };
+
+// The bytes a scan reads, by position in the block: the block itself.
+struct Lz4ttRow {
+  static constexpr bool kDict = false;
+  const uint8_t* src;
+  LZ4TT_HD int32_t base() const { return 0; }
+  LZ4TT_HD uint32_t byte(int32_t p) const { return src[p]; }
+  LZ4TT_HD uint32_t read32(int32_t p) const { return lz4tt_read32(src, p); }
+};
+
+// The block after a dictionary's tail: position p < 0 is dict_end[p], for
+// p >= -dict_len; table entries are offsets from the window's start.
+struct Lz4ttDictRow {
+  static constexpr bool kDict = true;
+  const uint8_t* src;
+  const uint8_t* dict_end;
+  int32_t dict_len;
+  LZ4TT_HD int32_t base() const { return dict_len; }
+  LZ4TT_HD uint32_t byte(int32_t p) const { return p < 0 ? dict_end[p] : src[p]; }
+  LZ4TT_HD uint32_t read32(int32_t p) const {
+    if (p >= 0) return lz4tt_read32(src, p);
+    if (p <= -4) return lz4tt_read32(dict_end, p);
+    return byte(p) | (byte(p + 1) << 8) | (byte(p + 2) << 16) | (byte(p + 3) << 24);
+  }
+};
+
+// The bytes a length of len takes past its token's nibble (mask 15): the
+// native compressor's exact reserve, len_ext_bytes (tpulz4.cpp:186).
+LZ4TT_HD int32_t lz4tt_len_ext_bytes(int32_t len) {
+  return len >= 15 ? (len - 15) / 255 + 1 : 0;
+}
 
 LZ4TT_HD uint32_t lz4tt_hash(uint32_t v, int hash_log) {
   return (v * 2654435761u) >> (32 - hash_log);
@@ -91,43 +135,58 @@ LZ4TT_HD void lz4tt_copy_short(uint8_t* dst, int32_t d, int64_t dst_width,
 // Length of the common prefix of src[o1..] and src[o2..], o1 < o2, with
 // o2 + count < limit: each lane compares one byte per step and the ballot
 // finds the first mismatch.
-template <class Team>
-LZ4TT_HD int32_t lz4tt_common_bytes(const Team& t, const uint8_t* src,
-                                    int32_t o1, int32_t o2, int32_t limit) {
+template <class Team, class W>
+LZ4TT_HD int32_t lz4tt_common_bytes(const Team& t, const W& w, int32_t o1,
+                                    int32_t o2, int32_t limit) {
   int32_t count = 0;
   for (;;) {
     const int32_t j = count + t.lane();
-    const bool stop = o2 + j >= limit || src[o1 + j] != src[o2 + j];
+    const bool stop = o2 + j >= limit || w.byte(o1 + j) != w.byte(o2 + j);
     const unsigned m = t.ballot(stop);
     if (m) return count + lz4tt_ffs(m) - 1;
     count += t.size();
   }
 }
 
+// The same on a plain row (K6's matches).
+template <class Team>
+LZ4TT_HD int32_t lz4tt_common_bytes(const Team& t, const uint8_t* src,
+                                    int32_t o1, int32_t o2, int32_t limit) {
+  return lz4tt_common_bytes(t, Lz4ttRow{src}, o1, o2, limit);
+}
+
 // The same by one lane, a word at a time from count c (the first c bytes
 // known equal), counted up to LZ4TT_SHORT_MATCH: a result of
 // LZ4TT_SHORT_MATCH means the first that many bytes are equal and the rest
 // is still to count (the team's lz4tt_common_bytes goes on from there).
-LZ4TT_HD int32_t lz4tt_common_words(const uint8_t* src, int32_t o1,
-                                    int32_t o2, int32_t limit, int32_t c) {
+template <class W>
+LZ4TT_HD int32_t lz4tt_common_words(const W& w, int32_t o1, int32_t o2,
+                                    int32_t limit, int32_t c) {
   while (c < LZ4TT_SHORT_MATCH) {
     if (o2 + c + 4 > limit) {
-      while (o2 + c < limit && src[o1 + c] == src[o2 + c]) c++;
+      while (o2 + c < limit && w.byte(o1 + c) == w.byte(o2 + c)) c++;
       return c;
     }
-    const uint32_t x = lz4tt_read32(src, o1 + c) ^ lz4tt_read32(src, o2 + c);
+    const uint32_t x = w.read32(o1 + c) ^ w.read32(o2 + c);
     if (x) return c + ((lz4tt_ffs(x) - 1) >> 3);
     c += 4;
   }
   return c;
 }
 
-LZ4TT_HD int32_t lz4tt_common_bytes_backward(const uint8_t* src, int32_t o1,
+// The same on a plain row (K6's matches).
+LZ4TT_HD int32_t lz4tt_common_words(const uint8_t* src, int32_t o1,
+                                    int32_t o2, int32_t limit, int32_t c) {
+  return lz4tt_common_words(Lz4ttRow{src}, o1, o2, limit, c);
+}
+
+template <class W>
+LZ4TT_HD int32_t lz4tt_common_bytes_backward(const W& w, int32_t o1,
                                              int32_t o2, int32_t l1,
                                              int32_t l2) {
   int32_t count = 0;
   while (o1 - count > l1 && o2 - count > l2 &&
-         src[o1 - count - 1] == src[o2 - count - 1])
+         w.byte(o1 - count - 1) == w.byte(o2 - count - 1))
     count++;
   return count;
 }
@@ -147,15 +206,22 @@ LZ4TT_HD int32_t lz4tt_table_swap(void* table, uint32_t h, int32_t pos) {
   return old;
 }
 
-// Hash src[s, s + 4), put s in the table, and test the old entry as a match
-// (inside the window in the 12-bit variant); ref is the old entry.
-template <bool kSmall>
-LZ4TT_HD bool lz4tt_probe(const uint8_t* src, void* table, int32_t s,
-                          int32_t& ref) {
-  const uint32_t cur = lz4tt_read32(src, s);
-  ref = lz4tt_table_swap<kSmall>(table, lz4tt_hash(cur, kSmall ? 13 : 12), s);
-  return (kSmall || s - ref < LZ4TT_MAX_DISTANCE) &&
-         lz4tt_read32(src, ref) == cur;
+// Hash the 4 bytes at s, put s in the table, and test the old entry as a
+// match (inside the window in the 12-bit variant; with a dictionary also
+// not at distance 0); ref is the old entry.
+template <bool kSmall, class W>
+LZ4TT_HD bool lz4tt_match_ok(const W& w, int32_t s, int32_t ref,
+                             uint32_t cur) {
+  return (kSmall || (s - ref < LZ4TT_MAX_DISTANCE && (!W::kDict || s != ref))) &&
+         w.read32(ref) == cur;
+}
+
+template <bool kSmall, class W>
+LZ4TT_HD bool lz4tt_probe(const W& w, void* table, int32_t s, int32_t& ref) {
+  const uint32_t cur = w.read32(s);
+  ref = lz4tt_table_swap<kSmall>(table, lz4tt_hash(cur, kSmall ? 13 : 12),
+                                 s + w.base()) - w.base();
+  return lz4tt_match_ok<kSmall>(w, s, ref, cur);
 }
 
 enum {
@@ -174,8 +240,8 @@ struct Lz4ttScan {
 // Run the scan from z until the team must help (a COPY or EXTEND job) or
 // the block ends (DONE: a = the compressed length, b = the error code).
 // ext is the team's count of the last EXTEND job.
-template <bool kSmall>
-LZ4TT_HD Lz4ttJob lz4tt_scan(Lz4ttScan& z, int32_t ext, const uint8_t* src,
+template <bool kSmall, class W>
+LZ4TT_HD Lz4ttJob lz4tt_scan(Lz4ttScan& z, int32_t ext, const W& w,
                              int32_t src_len, uint8_t* dst, int32_t dest_cap,
                              int64_t dst_width, void* table) {
   const int hash_log = kSmall ? LZ4TT_HASH_LOG_64K : LZ4TT_HASH_LOG;
@@ -198,7 +264,7 @@ LZ4TT_HD Lz4ttJob lz4tt_scan(Lz4ttScan& z, int32_t ext, const uint8_t* src,
           step = nb >> LZ4TT_SKIP_STRENGTH;
           nb++;
           if (fwd > mflimit) break;
-          if (lz4tt_probe<kSmall>(src, table, s, ref)) {
+          if (lz4tt_probe<kSmall>(w, table, s, ref)) {
             found = true;
             break;
           }
@@ -207,13 +273,16 @@ LZ4TT_HD Lz4ttJob lz4tt_scan(Lz4ttScan& z, int32_t ext, const uint8_t* src,
           z.mode = LZ4TT_SCAN_LAST;
           break;
         }
-        const int32_t excess = lz4tt_common_bytes_backward(src, ref, s, 0, z.anchor);
+        const int32_t excess =
+            lz4tt_common_bytes_backward(w, ref, s, -w.base(), z.anchor);
         z.s = s - excess;
         z.ref = ref - excess;
         const int32_t run_len = z.s - z.anchor;
         z.token_off = z.d;
         z.d++;
-        if ((int64_t)z.d + run_len + (2 + 1 + LZ4TT_LAST_LITERALS) + (run_len >> 8) >
+        const int32_t run_ext =
+            W::kDict ? lz4tt_len_ext_bytes(run_len) : run_len >> 8;
+        if ((int64_t)z.d + run_len + (2 + 1 + LZ4TT_LAST_LITERALS) + run_ext >
             dest_cap) {
           z.e = LZ4TT_ERR_DEST_TOO_SMALL;
           z.mode = LZ4TT_SCAN_END;
@@ -229,7 +298,7 @@ LZ4TT_HD Lz4ttJob lz4tt_scan(Lz4ttScan& z, int32_t ext, const uint8_t* src,
         z.d += run_len;
         z.mode = LZ4TT_SCAN_OFFSET;
         if (run_len > LZ4TT_SHORT) return {LZ4TT_JOB_COPY, 0, d0, z.anchor, run_len};
-        lz4tt_copy_short(dst, d0, dst_width, src, z.anchor, run_len);
+        lz4tt_copy_short(dst, d0, dst_width, w.src, z.anchor, run_len);
         [[fallthrough]];
       }
       case LZ4TT_SCAN_OFFSET:
@@ -248,7 +317,7 @@ LZ4TT_HD Lz4ttJob lz4tt_scan(Lz4ttScan& z, int32_t ext, const uint8_t* src,
             if (pre && x != 0 && z.s + 4 <= src_limit)
               z.ml = (lz4tt_ffs(x) - 1) >> 3;
             else
-              z.ml = lz4tt_common_words(src, z.ref, z.s, src_limit, 0);
+              z.ml = lz4tt_common_words(w, z.ref, z.s, src_limit, 0);
             pre = false;
             z.mode = LZ4TT_SCAN_MATCHED;
             if (z.ml == LZ4TT_SHORT_MATCH)
@@ -256,7 +325,8 @@ LZ4TT_HD Lz4ttJob lz4tt_scan(Lz4ttScan& z, int32_t ext, const uint8_t* src,
                       z.s + LZ4TT_SHORT_MATCH, src_limit};
           }
           const int32_t ml = z.ml;
-          if ((int64_t)z.d + (1 + LZ4TT_LAST_LITERALS) + (ml >> 8) > dest_cap) {
+          const int32_t ml_ext = W::kDict ? lz4tt_len_ext_bytes(ml) : ml >> 8;
+          if ((int64_t)z.d + (1 + LZ4TT_LAST_LITERALS) + ml_ext > dest_cap) {
             z.e = LZ4TT_ERR_DEST_TOO_SMALL;
             z.mode = LZ4TT_SCAN_END;
             break;
@@ -274,14 +344,15 @@ LZ4TT_HD Lz4ttJob lz4tt_scan(Lz4ttScan& z, int32_t ext, const uint8_t* src,
             z.mode = LZ4TT_SCAN_LAST;
             break;
           }
-          const uint32_t prev = lz4tt_read32(src, z.s - 2);
-          const uint32_t cur = lz4tt_read32(src, z.s);
-          pre_s = lz4tt_read32(src, z.s + 4);
-          lz4tt_table_swap<kSmall>(table, lz4tt_hash(prev, hash_log), z.s - 2);
-          z.ref = lz4tt_table_swap<kSmall>(table, lz4tt_hash(cur, hash_log), z.s);
-          pre_ref = lz4tt_read32(src, z.ref + 4);
-          if (!((kSmall || z.s - z.ref < LZ4TT_MAX_DISTANCE) &&
-                lz4tt_read32(src, z.ref) == cur)) {
+          const uint32_t prev = w.read32(z.s - 2);
+          const uint32_t cur = w.read32(z.s);
+          pre_s = w.read32(z.s + 4);
+          lz4tt_table_swap<kSmall>(table, lz4tt_hash(prev, hash_log),
+                                   z.s - 2 + w.base());
+          z.ref = lz4tt_table_swap<kSmall>(table, lz4tt_hash(cur, hash_log),
+                                           z.s + w.base()) - w.base();
+          pre_ref = w.read32(z.ref + 4);
+          if (!lz4tt_match_ok<kSmall>(w, z.s, z.ref, cur)) {
             z.anchor = z.s;
             z.s++;
             z.mode = LZ4TT_SCAN_FIND;
@@ -312,7 +383,7 @@ LZ4TT_HD Lz4ttJob lz4tt_scan(Lz4ttScan& z, int32_t ext, const uint8_t* src,
         const int32_t d0 = z.d;
         z.d += run_len;
         if (run_len > LZ4TT_SHORT) return {LZ4TT_JOB_COPY, 0, d0, z.anchor, run_len};
-        lz4tt_copy_short(dst, d0, dst_width, src, z.anchor, run_len);
+        lz4tt_copy_short(dst, d0, dst_width, w.src, z.anchor, run_len);
         break;
       }
       default:
@@ -321,18 +392,20 @@ LZ4TT_HD Lz4ttJob lz4tt_scan(Lz4ttScan& z, int32_t ext, const uint8_t* src,
   }
 }
 
-template <bool kSmall, class Team>
-LZ4TT_HD void lz4tt_compress_variant(const Team& t, const uint8_t* src,
+// The scan of one block by the team; the reference's first probe is at
+// position 1, the dictionary compressor's at 0.
+template <bool kSmall, class Team, class W>
+LZ4TT_HD void lz4tt_compress_variant(const Team& t, const W& w,
                                      int32_t src_len, uint8_t* dst,
                                      int32_t dest_cap, int64_t dst_width,
                                      void* table, int32_t* out_len,
                                      int32_t* err) {
   Lz4ttScan z = {src_len >= LZ4TT_MIN_LENGTH ? LZ4TT_SCAN_FIND : LZ4TT_SCAN_LAST,
-                 1, 0, 0, 0, 0, 0, 0, LZ4TT_OK};
+                 W::kDict ? 0 : 1, 0, 0, 0, 0, 0, 0, LZ4TT_OK};
   int32_t ext = 0;
   for (;;) {
     Lz4ttJob j = {};
-    if (t.leader()) j = lz4tt_scan<kSmall>(z, ext, src, src_len, dst, dest_cap,
+    if (t.leader()) j = lz4tt_scan<kSmall>(z, ext, w, src_len, dst, dest_cap,
                                            dst_width, table);
     j = lz4tt_bcast_job(t, j);
     if (j.kind == LZ4TT_JOB_DONE) {
@@ -341,9 +414,9 @@ LZ4TT_HD void lz4tt_compress_variant(const Team& t, const uint8_t* src,
       return;
     }
     if (j.kind == LZ4TT_JOB_COPY)
-      lz4tt_copy(t, dst, j.a, dst_width, src, j.b, j.c);
+      lz4tt_copy(t, dst, j.a, dst_width, w.src, j.b, j.c);
     else
-      ext = lz4tt_common_bytes(t, src, j.a, j.b, j.c);
+      ext = lz4tt_common_bytes(t, w, j.a, j.b, j.c);
   }
 }
 
@@ -357,10 +430,55 @@ LZ4TT_HD void lz4tt_compress_block(const Team& t, const uint8_t* src,
   uint32_t* words = (uint32_t*)table;
   for (int i = t.lane(); i < LZ4TT_TABLE_BYTES / 4; i += t.size()) words[i] = 0;
   t.sync();
+  const Lz4ttRow w = {src};
   if (src_len < LZ4TT_64K_LIMIT)
-    lz4tt_compress_variant<true>(t, src, src_len, dst, dest_cap, dst_width,
+    lz4tt_compress_variant<true>(t, w, src_len, dst, dest_cap, dst_width,
                                  table, out_len, err);
   else
-    lz4tt_compress_variant<false>(t, src, src_len, dst, dest_cap, dst_width,
+    lz4tt_compress_variant<false>(t, w, src_len, dst, dest_cap, dst_width,
                                   table, out_len, err);
+}
+
+// table[h] = max(table[h], v), shared by the team's lanes.
+LZ4TT_HD void lz4tt_table_max(int32_t* table, uint32_t h, int32_t v) {
+#ifdef __CUDA_ARCH__
+  atomicMax(table + h, v);
+#else
+  int32_t old = __atomic_load_n(table + h, __ATOMIC_RELAXED);
+  while (old < v && !__atomic_compare_exchange_n(table + h, &old, v, true,
+                                                 __ATOMIC_RELAXED,
+                                                 __ATOMIC_RELAXED)) {
+  }
+#endif
+}
+
+// One block compressed against the dict_len <= LZ4TT_DICT_MAX bytes that
+// end at dict_end: the native compress_ext; dict_len 0 is the plain fast
+// compress (tpulz4_compress_fast_ext's fall-through), lz4tt_compress_block.
+// The team seeds the table over the dictionary: position p (every third,
+// while p + 4 <= dict_len) goes to its bucket, and the largest p of a
+// bucket stays, as the native loop's last write does.
+template <class Team>
+LZ4TT_HD void lz4tt_compress_dict_block(const Team& t, const uint8_t* src,
+                                        int32_t src_len,
+                                        const uint8_t* dict_end,
+                                        int32_t dict_len, uint8_t* dst,
+                                        int32_t dest_cap, int64_t dst_width,
+                                        void* table, int32_t* out_len,
+                                        int32_t* err) {
+  if (dict_len == 0) {
+    lz4tt_compress_block(t, src, src_len, dst, dest_cap, dst_width, table,
+                         out_len, err);
+    return;
+  }
+  int32_t* t32 = (int32_t*)table;
+  for (int i = t.lane(); i < (1 << LZ4TT_HASH_LOG); i += t.size()) t32[i] = 0;
+  t.sync();
+  const uint8_t* wbase = dict_end - dict_len;
+  for (int32_t p = 3 * t.lane(); p + 4 <= dict_len; p += 3 * t.size())
+    lz4tt_table_max(t32, lz4tt_hash(lz4tt_read32(wbase, p), LZ4TT_HASH_LOG), p);
+  t.sync();
+  const Lz4ttDictRow w = {src, dict_end, dict_len};
+  lz4tt_compress_variant<false>(t, w, src_len, dst, dest_cap, dst_width, table,
+                                out_len, err);
 }

@@ -1,4 +1,4 @@
-// K1: batched LZ4 block decode on Hopper (sm_90a), with two entry points.
+// K1: batched LZ4 block decode on Hopper (sm_90a), with three entry points.
 //
 // lz4tt_decompress_safe replaces lz4_tpu/kernels/lz4_pallas.py::
 // decompress_safe_pallas (pallas_call at lz4_pallas.py:309; body
@@ -29,6 +29,15 @@
 // with 16-byte stores once 2 KiB wait, and copy longer runs and matches
 // together. Writes are exactly the decoded bytes: nothing is written past
 // a run and later overwritten.
+//
+// lz4tt_decompress_safe_hist is the safe decode with a history window a
+// row, the device counterpart of the native tpulz4_decompress_safe_ext
+// (lz4_tpu/native/src/tpulz4.cpp:1060-1202), which the JAX package runs on
+// the host for linked-block and dictionary frames: row b's history is the
+// hist_lens[b] bytes that end at hist + b * hist_stride. A stride of 0
+// gives every row one history (a dictionary, stored once); a linked block
+// passes its own row as the end of the history, so the frame's earlier
+// output stays where it was decoded.
 #include "lz4_decode.cuh"
 
 #include <cuda_runtime.h>
@@ -44,13 +53,14 @@ constexpr int kCtasPerSm = 8;
 // Safe: lens[b] is the exact compressed length and out_max the capacity;
 // writes the decoded length. Fast: lens[b] is the bytes available and
 // out_max the exact decoded length; writes the bytes read.
-template <bool kFast>
+template <bool kFast, bool kHist>
 __global__ void __launch_bounds__(32 * kWarpsPerCta, kCtasPerSm)
     decode_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
                   const int32_t* __restrict__ lens, uint8_t* out,
                   int64_t out_stride, int32_t out_max,
                   int32_t* __restrict__ out_lens, int32_t* __restrict__ err,
-                  int32_t n) {
+                  int32_t n, const uint8_t* hist, int64_t hist_stride,
+                  const int32_t* __restrict__ hist_lens) {
   __shared__ __align__(16) uint8_t rings[kWarpsPerCta][LZ4TT_RING];
   __shared__ Lz4ttCopies queues[kWarpsPerCta];
   const int warp = threadIdx.x >> 5;
@@ -60,24 +70,30 @@ __global__ void __launch_bounds__(32 * kWarpsPerCta, kCtasPerSm)
   int32_t len = 0;
   int32_t read = 0;
   int32_t e = 0;
-  lz4tt_decode_block<kFast>(t, comp + b * comp_stride, lens[b],
-                            out + b * out_stride, out_max, rings[warp],
-                            queues[warp], &len, &read, &e);
+  Lz4ttHist h = {nullptr, 0};
+  if (kHist) h = {hist + b * hist_stride, hist_lens[b]};
+  lz4tt_decode_block<kFast, kHist>(t, comp + b * comp_stride, lens[b],
+                                   out + b * out_stride, out_max, rings[warp],
+                                   queues[warp], &len, &read, &e, h);
   if (t.leader()) {
     out_lens[b] = kFast ? read : len;
     err[b] = e;
   }
 }
 
-template <bool kFast>
+template <bool kFast, bool kHist>
 int launch(const void* comp, long long comp_stride, const void* lens, void* out,
            long long out_stride, int out_max, void* out_lens, void* err, int n,
-           void* stream) {
+           void* stream, const void* hist = nullptr, long long hist_stride = 0,
+           const void* hist_lens = nullptr) {
   if (n > 0) {
     const int grid = (n + kWarpsPerCta - 1) / kWarpsPerCta;
-    decode_kernel<kFast><<<grid, 32 * kWarpsPerCta, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)comp, comp_stride, (const int32_t*)lens, (uint8_t*)out,
-        out_stride, out_max, (int32_t*)out_lens, (int32_t*)err, n);
+    decode_kernel<kFast, kHist>
+        <<<grid, 32 * kWarpsPerCta, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)comp, comp_stride, (const int32_t*)lens,
+            (uint8_t*)out, out_stride, out_max, (int32_t*)out_lens,
+            (int32_t*)err, n, (const uint8_t*)hist, hist_stride,
+            (const int32_t*)hist_lens);
   }
   return (int)cudaGetLastError();
 }
@@ -92,8 +108,8 @@ extern "C" int lz4tt_decompress_safe(const void* comp, long long comp_stride,
                                      long long out_stride, int out_max,
                                      void* out_lens, void* err, int n,
                                      void* stream) {
-  return launch<false>(comp, comp_stride, comp_lens, out, out_stride, out_max,
-                       out_lens, err, n, stream);
+  return launch<false, false>(comp, comp_stride, comp_lens, out, out_stride,
+                              out_max, out_lens, err, n, stream);
 }
 
 // comp: uint8[n, comp_stride] with comp_stride >= 1, comp_avail: int32[n]
@@ -105,14 +121,34 @@ extern "C" int lz4tt_decompress_fast(const void* comp, long long comp_stride,
                                      long long out_stride, int dest_len,
                                      void* src_read, void* err, int n,
                                      void* stream) {
-  return launch<true>(comp, comp_stride, comp_avail, out, out_stride, dest_len,
-                      src_read, err, n, stream);
+  return launch<true, false>(comp, comp_stride, comp_avail, out, out_stride,
+                             dest_len, src_read, err, n, stream);
+}
+
+// The safe contract with a history a row: row b's history is the
+// hist_lens[b] <= 65,536 bytes that end at hist + b * hist_stride (they
+// may lie just before the row's own output). Returns cudaGetLastError()
+// after the launch.
+extern "C" int lz4tt_decompress_safe_hist(
+    const void* comp, long long comp_stride, const void* comp_lens, void* out,
+    long long out_stride, int out_max, const void* hist, long long hist_stride,
+    const void* hist_lens, void* out_lens, void* err, int n, void* stream) {
+  return launch<false, true>(comp, comp_stride, comp_lens, out, out_stride,
+                             out_max, out_lens, err, n, stream, hist,
+                             hist_stride, hist_lens);
 }
 
 // Resident CTAs per SM and threads per CTA of the kernel as launched (the
-// two entry points are one body).
+// first two entry points are one body).
 extern "C" int lz4tt_decode_occupancy(int* ctas_per_sm, int* threads) {
   *threads = 32 * kWarpsPerCta;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas_per_sm, decode_kernel<false>, 32 * kWarpsPerCta, 0);
+      ctas_per_sm, decode_kernel<false, false>, 32 * kWarpsPerCta, 0);
+}
+
+// The same for the kernel with a history.
+extern "C" int lz4tt_decode_hist_occupancy(int* ctas_per_sm, int* threads) {
+  *threads = 32 * kWarpsPerCta;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, decode_kernel<false, true>, 32 * kWarpsPerCta, 0);
 }

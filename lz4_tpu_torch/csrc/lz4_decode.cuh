@@ -24,6 +24,15 @@
 //     caller's row must hold at least one byte.
 // A null match offset (0) writes zeros, as in every tier of the framework.
 //
+// With a history (kHist, the safe contract only; tpulz4.cpp:1060-1202,
+// tpulz4_decompress_safe_ext): the h.len <= 65,536 bytes that end at h.end
+// are the output before position 0 (a linked block's earlier output, or a
+// dictionary's tail), and matches may reach into them; only a match that
+// reaches before them is MALFORMED. They are read, never written: before
+// the walk the team copies their last LZ4TT_RING bytes into the ring, and
+// a match farther back than the ring serves reads them where they lie.
+// h.len == 0 decodes exactly as the kernel without a history.
+//
 // Reads stay in the words that hold bytes below src_end (and comp[0]);
 // writes are exactly the decoded bytes [0, out_len), below dest_cap,
 // whatever the input.
@@ -57,6 +66,37 @@ enum {
 // waits or that a copy of the same batch reads within LZ4TT_RING_NEAR, and
 // every byte farther back is in the row.
 enum { LZ4TT_RING_FLUSH = 2048, LZ4TT_RING_NEAR = 3072 };
+
+// The history of a block: the len bytes end[-len, 0), the output before
+// position 0. Output position p < 0 is end[p].
+struct Lz4ttHist {
+  const uint8_t* end;
+  int32_t len;
+};
+
+// The m bytes (1 <= m <= 16) at output position p into a[0..3]: from the
+// row, or, before position 0, from the history; a piece that straddles
+// the two is read a byte at a time.
+template <bool kHist>
+LZ4TT_HD void lz4tt_load_window(const uint8_t* out, const Lz4ttHist& h,
+                                int32_t p, int32_t m, uint32_t a[4]) {
+  if (!kHist || p >= 0) {
+    lz4tt_load_upto16(out, p, m, a);
+  } else if (p + m <= 0) {
+    lz4tt_load_upto16(h.end, p, m, a);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+      uint32_t w = 0;
+#pragma unroll
+      for (int i = 0; i < 4; i++) {
+        const int32_t q = p + 4 * k + i;
+        if (4 * k + i < m) w |= (uint32_t)(q < 0 ? h.end[q] : out[q]) << (8 * i);
+      }
+      a[k] = w;
+    }
+  }
+}
 
 enum {
   LZ4TT_DEC_DONE = 0,
@@ -143,9 +183,10 @@ LZ4TT_HD void lz4tt_team_literals(const Team& t, const Lz4ttRing& r,
   }
 }
 
-template <class Team>
+template <bool kHist = false, class Team>
 LZ4TT_HD void lz4tt_team_match(const Team& t, const Lz4ttRing& r, uint8_t* out,
-                               int32_t d, int32_t dist, int32_t n) {
+                               int32_t d, int32_t dist, int32_t n,
+                               const Lz4ttHist& h = Lz4ttHist{nullptr, 0}) {
   if (dist == 0) {
     for (int32_t j = t.lane(); j < n; j += t.size()) {
       out[d + j] = 0;
@@ -153,11 +194,12 @@ LZ4TT_HD void lz4tt_team_match(const Team& t, const Lz4ttRing& r, uint8_t* out,
     }
     return;
   }
-  const uint8_t* period = out + (d - dist);
+  const int32_t p0 = d - dist;  // before 0 only with a history
   int32_t k = t.lane() % dist;
   const int32_t step = t.size() % dist;
   for (int32_t j = t.lane(); j < n; j += t.size()) {
-    const uint8_t v = period[k];
+    const int32_t q = p0 + k;
+    const uint8_t v = kHist && q < 0 ? h.end[q] : out[q];
     out[d + j] = v;
     if (j >= n - LZ4TT_RING) r.at(d + j) = v;
     k += step;
@@ -169,12 +211,14 @@ LZ4TT_HD void lz4tt_team_match(const Team& t, const Lz4ttRing& r, uint8_t* out,
 // lane into the ring, 16 bytes at a time, all loads of a piece before its
 // stores: its source bytes (all below d) come from the ring when they lie
 // within LZ4TT_RING_NEAR, else from the row, which holds everything that
-// far back (see LZ4TT_RING_FLUSH). A match of period dist < 16 shorter
+// far back (see LZ4TT_RING_FLUSH), or before position 0 from the history. A match of period dist < 16 shorter
 // than itself repeats the period from registers (byte j is byte j mod
 // dist); a longer period copies piece by piece, each piece reading bytes
 // an earlier one wrote. dist 0 writes zeros.
+template <bool kHist = false>
 LZ4TT_HD void lz4tt_lane_match(const Lz4ttRing& r, const uint8_t* out,
-                               int32_t d, int32_t dist, int32_t n) {
+                               int32_t d, int32_t dist, int32_t n,
+                               const Lz4ttHist& h = Lz4ttHist{nullptr, 0}) {
   uint32_t a[4] = {0u, 0u, 0u, 0u};
   if (dist > 0 && dist < 16 && dist < n) {
     r.load16(d - dist, a);
@@ -188,7 +232,7 @@ LZ4TT_HD void lz4tt_lane_match(const Lz4ttRing& r, const uint8_t* out,
   for (int32_t c = 0; c < n; c += 16) {
     const int32_t m = n - c < 16 ? n - c : 16;
     if (dist > LZ4TT_RING_NEAR)
-      lz4tt_load_upto16(out, d - dist + c, m, a);
+      lz4tt_load_window<kHist>(out, h, d - dist + c, m, a);
     else if (dist > 0)
       r.load16(d - dist + c, a);
 #pragma unroll
@@ -236,10 +280,11 @@ struct Lz4ttDecState {
 // literals' offset or its distance, c = its length), or the block ends
 // (DONE: a = out_len, b = src_read, c = err). n is the number of queued
 // copies; CONT also gives a = the output decoded so far.
+// hist_len is the bytes of history before the output (0 without one).
 template <bool kFast>
 LZ4TT_HD Lz4ttJob lz4tt_decode_walk(Lz4ttDecState& z, Lz4ttCopies& q,
                                     const uint8_t* comp, int32_t src_end,
-                                    int32_t dest_cap) {
+                                    int32_t dest_cap, int32_t hist_len = 0) {
   int32_t n = 0;
   int32_t s = z.s, d = z.d, token = z.token;
   const int32_t d0 = d;
@@ -268,7 +313,7 @@ LZ4TT_HD Lz4ttJob lz4tt_decode_walk(Lz4ttDecState& z, Lz4ttCopies& q,
         int k = 0;
 #pragma unroll
         for (; k < 4; k++) {
-          if (tk[k] > 14 || d < ds[k]) break;
+          if (tk[k] > 14 || d + hist_len < ds[k]) break;
           q.d[n] = d;
           q.src[n] = -1 - ds[k];
           q.len[n] = tk[k] + LZ4TT_MIN_MATCH;
@@ -356,7 +401,7 @@ LZ4TT_HD Lz4ttJob lz4tt_decode_walk(Lz4ttDecState& z, Lz4ttCopies& q,
     int64_t m_len = token & LZ4TT_ML_MASK;
     if (m_len == LZ4TT_ML_MASK) m_len = lz4tt_read_len_ext(comp, s, src_end, m_len);
     m_len += LZ4TT_MIN_MATCH;
-    if (d - dist < 0 || (int64_t)d + m_len > dest_cap) {
+    if (d + hist_len - dist < 0 || (int64_t)d + m_len > dest_cap) {
       z.e = LZ4TT_ERR_MALFORMED;
       z.mode = LZ4TT_DEC_END;
       continue;
@@ -383,10 +428,11 @@ LZ4TT_HD Lz4ttJob lz4tt_decode_walk(Lz4ttDecState& z, Lz4ttCopies& q,
 // The n queued copies, one a lane, in waves: a copy runs once every byte it
 // reads of the output lies below the first copy still waiting, so each
 // wave reads only what earlier waves (or batches) wrote.
-template <class Team>
+template <bool kHist = false, class Team>
 LZ4TT_HD void lz4tt_run_copies(const Team& t, const Lz4ttRing& r,
                                const Lz4ttCopies& q, int32_t n,
-                               const uint8_t* comp, const uint8_t* out) {
+                               const uint8_t* comp, const uint8_t* out,
+                               const Lz4ttHist& h = Lz4ttHist{nullptr, 0}) {
   for (int32_t i0 = 0; i0 < n; i0 += t.size()) {
     const int32_t i = i0 + t.lane();
     bool todo = i < n;
@@ -406,7 +452,7 @@ LZ4TT_HD void lz4tt_run_copies(const Team& t, const Lz4ttRing& r,
         if (src >= 0)
           lz4tt_lane_literals(r, d, comp, src, len);
         else
-          lz4tt_lane_match(r, out, d, -1 - src, len);
+          lz4tt_lane_match<kHist>(r, out, d, -1 - src, len, h);
         todo = false;
       }
       t.sync();
@@ -415,12 +461,14 @@ LZ4TT_HD void lz4tt_run_copies(const Team& t, const Lz4ttRing& r,
 }
 
 // ring: LZ4TT_RING bytes, 16-byte aligned, and q, both owned by this team.
-template <bool kFast, class Team>
+// With kHist, h is the block's history (the safe contract only).
+template <bool kFast, bool kHist = false, class Team>
 LZ4TT_HD void lz4tt_decode_block(const Team& t, const uint8_t* comp,
                                  int32_t src_end, uint8_t* out,
                                  int32_t dest_cap, uint8_t* ring,
                                  Lz4ttCopies& q, int32_t* out_len,
-                                 int32_t* src_read, int32_t* err) {
+                                 int32_t* src_read, int32_t* err,
+                                 const Lz4ttHist& h = Lz4ttHist{nullptr, 0}) {
   if (dest_cap == 0) {
     *out_len = 0;
     *src_read = 1;
@@ -431,14 +479,21 @@ LZ4TT_HD void lz4tt_decode_block(const Team& t, const uint8_t* comp,
     return;
   }
   const Lz4ttRing r = {ring, (int32_t)((uintptr_t)out & 15)};
+  const int32_t hist_len = kHist ? h.len : 0;
+  if (kHist) {  // the ring's bytes before position 0: the history's tail
+    const int32_t k = hist_len < LZ4TT_RING ? hist_len : LZ4TT_RING;
+    for (int32_t j = t.lane(); j < k; j += t.size()) r.at(-1 - j) = h.end[-1 - j];
+    t.sync();
+  }
   Lz4ttDecState z = {LZ4TT_DEC_TOKEN, 0, 0, 0, LZ4TT_OK};
   int32_t f = 0;  // output [f, d) is only in the ring
   for (;;) {
     Lz4ttJob j = {};
-    if (t.leader()) j = lz4tt_decode_walk<kFast>(z, q, comp, src_end, dest_cap);
+    if (t.leader())
+      j = lz4tt_decode_walk<kFast>(z, q, comp, src_end, dest_cap, hist_len);
     j = lz4tt_bcast_job(t, j);
     t.sync();  // the queue the leader wrote
-    lz4tt_run_copies(t, r, q, j.n, comp, out);
+    lz4tt_run_copies<kHist>(t, r, q, j.n, comp, out, h);
     const int32_t d = j.a;
     if (j.kind == LZ4TT_DEC_CONT) {
       if (d - f > LZ4TT_RING_FLUSH) {
@@ -462,7 +517,7 @@ LZ4TT_HD void lz4tt_decode_block(const Team& t, const uint8_t* comp,
       f = d + j.c;
     } else if (j.kind == LZ4TT_DEC_MATCH) {
       t.sync();  // the match reads bytes the flush wrote
-      lz4tt_team_match(t, r, out, d, j.b, j.c);
+      lz4tt_team_match<kHist>(t, r, out, d, j.b, j.c, h);
       f = d + j.c;
     }
     t.sync();  // the next batch reads what this one wrote

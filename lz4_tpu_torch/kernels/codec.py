@@ -10,6 +10,16 @@ in the port's layout (``kernels/layout.py``). A CUDA tensor goes to the
 kernel; a CPU tensor goes to the plain version in this module. There is no
 fallback from one to the other.
 
+``decompress_safe_hist_batch`` and ``compress_dict_batch`` are the same
+kernels with a window of up to 64 KiB before each row: a history the
+decode's matches may reach into (a linked block's earlier output, or a
+dictionary), and a dictionary the compressor's matches may reach into.
+They are the device counterparts of the native ``tpulz4_decompress_safe_ext``
+and ``compress_ext`` (``lz4_tpu/native/src/tpulz4.cpp:1060-1202,416-542``,
+behind ``native_instances.decompress_block_with_history`` and
+``compress_block_with_dict``), byte for byte; the JAX package has no device
+counterpart of either.
+
 The plain versions are Python loops over a row's bytes, one row at a time,
 run on a copy of the batch on the host. They are the yardstick the kernels
 are held against, on the card and in the CPU tests.
@@ -42,6 +52,17 @@ DECODE_FAST = Kernel("lz4_decode_fast", "lz4_decode", "lz4tt_decompress_fast",
                      [_P, _I64, _P, _P, _I64, _I32, _P, _P, _I32, _P])
 COMPRESS = Kernel("lz4_compress", "lz4_compress", "lz4tt_compress_fast",
                   [_P, _I64, _P, _P, _I64, _I32, _P, _P, _I32, _P])
+DECODE_HIST = Kernel("lz4_decode_hist", "lz4_decode",
+                     "lz4tt_decompress_safe_hist",
+                     [_P, _I64, _P, _P, _I64, _I32, _P, _I64, _P, _P, _P, _I32,
+                      _P])
+COMPRESS_DICT = Kernel("lz4_compress_dict", "lz4_compress",
+                       "lz4tt_compress_dict",
+                       [_P, _I64, _P, _P, _I64, _P, _P, _I64, _I32, _P, _P,
+                        _I32, _P])
+# the most bytes of history or dictionary a row may have: the format's
+# 64 KiB window
+WINDOW = 1 << 16
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +124,7 @@ def _len_ext(src: bytes, s: int, src_end: int, length: int):
 
 
 def _decode_row(comp: bytes, src_end: int, out: bytearray, dest_cap: int,
-                fast: bool = False):
+                fast: bool = False, hist: bytes = b""):
     """Decode one block into ``out[:dest_cap]``; returns (out_len, src_read,
     err).
 
@@ -111,16 +132,31 @@ def _decode_row(comp: bytes, src_end: int, out: bytearray, dest_cap: int,
     variant (see ``csrc/lz4_decode.cuh``); a null match offset writes zeros.
     In the fast variant ``src_end`` is the bytes available and ``dest_cap``
     the exact decoded length. ``src_read`` counts only on OK rows.
+    ``hist`` (the safe variant) is the output before the block, which
+    matches may reach into, as in ``tpulz4_decompress_safe_ext``.
     """
     if dest_cap == 0:
         if fast:
             return 0, 1, OK if comp[0] == 0 else ERR_MALFORMED
         ok = src_end == 1 and comp[0] == 0
         return 0, 1, OK if ok else ERR_DEST_TOO_SMALL
-    s = d = 0
+    if hist:
+        buf = bytearray(hist) + out
+        n, s, e = _decode_window(comp, src_end, buf, len(hist),
+                                 len(hist) + dest_cap, fast)
+        out[:] = buf[len(hist):]
+        return n, s, e
+    return _decode_window(comp, src_end, out, 0, dest_cap, fast)
+
+
+def _decode_window(comp: bytes, src_end: int, out: bytearray, base: int,
+                   dest_cap: int, fast: bool):
+    """:func:`_decode_row` on ``out``, whose first ``base`` bytes are the
+    history: the block decodes into ``out[base:dest_cap]``."""
+    s, d = 0, base
     while True:
         if s >= src_end:
-            return d, s, ERR_MALFORMED
+            return d - base, s, ERR_MALFORMED
         token = comp[s]
         s += 1
         lit_len = token >> ML_BITS
@@ -129,26 +165,26 @@ def _decode_row(comp: bytes, src_end: int, out: bytearray, dest_cap: int,
         lit_end = d + lit_len
         if fast:
             if s + lit_len > src_end:
-                return d, s, ERR_MALFORMED
+                return d - base, s, ERR_MALFORMED
             if lit_end > dest_cap - COPY_LENGTH:
                 if lit_end != dest_cap:
-                    return d, s, ERR_MALFORMED
+                    return d - base, s, ERR_MALFORMED
                 out[d:lit_end] = comp[s:s + lit_len]
-                return lit_end, s + lit_len, OK
+                return lit_end - base, s + lit_len, OK
         elif (lit_end > dest_cap - COPY_LENGTH
                 or s + lit_len > src_end - COPY_LENGTH):
             if lit_end > dest_cap:
-                return d, s, ERR_DEST_TOO_SMALL
+                return d - base, s, ERR_DEST_TOO_SMALL
             if s + lit_len != src_end:
-                return d, s, ERR_MALFORMED
+                return d - base, s, ERR_MALFORMED
             out[d:lit_end] = comp[s:src_end]
-            return lit_end, src_end, OK
+            return lit_end - base, src_end, OK
         out[d:lit_end] = comp[s:s + lit_len]
         s += lit_len
         d = lit_end
 
         if s + 2 > src_end:
-            return d, s, ERR_MALFORMED
+            return d - base, s, ERR_MALFORMED
         dist = comp[s] | (comp[s + 1] << 8)
         s += 2
         m_len = token & ML_MASK
@@ -157,7 +193,7 @@ def _decode_row(comp: bytes, src_end: int, out: bytearray, dest_cap: int,
         m_len += MIN_MATCH
         m_end = d + m_len
         if d - dist < 0 or m_end > dest_cap:
-            return d, s, ERR_MALFORMED
+            return d - base, s, ERR_MALFORMED
         if dist == 0:
             out[d:m_end] = bytes(m_len)
         elif dist >= m_len:
@@ -182,6 +218,103 @@ def decompress_safe_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
         buf = bytearray(rows[i].tobytes())
         out_lens[i], _, err[i] = _decode_row(comp_np[i, :n].tobytes(), n, buf,
                                              out_max)
+        rows[i] = np.frombuffer(buf, np.uint8)
+    out[:, :out_max] = torch.from_numpy(rows).to(out.device)
+    dev = comp.device
+    return (out, torch.from_numpy(out_lens).to(dev),
+            torch.from_numpy(err).to(dev))
+
+
+# ---------------------------------------------------------------------------
+# a window before each row: the decode's history, the compressor's dictionary
+# ---------------------------------------------------------------------------
+
+def _check_window(win: torch.Tensor, win_lens: torch.Tensor, n: int,
+                  device: torch.device, what: str):
+    """Validate a window batch: ``win`` a uint8[1 or n, W] tensor whose rows
+    may lie anywhere (any row stride, bytes contiguous in a row) and
+    ``win_lens`` int32[n] within ``[0, min(W, WINDOW)]``; row b's window is
+    the last ``win_lens[b]`` bytes of ``win``'s row b (or its only row).
+    Returns the row stride a kernel takes (0 for one shared row). This
+    reads the lengths, so it waits for the card."""
+    if (win.dtype != torch.uint8 or win.dim() != 2 or win.shape[0] not in (1, n)
+            or (win.shape[1] > 1 and win.stride(1) != 1)):
+        raise ValueError(f"{what} must be a uint8[1 or N, W] tensor with "
+                         "contiguous rows")
+    if (win_lens.dtype != torch.int32 or win_lens.dim() != 1
+            or win_lens.shape[0] != n or not win_lens.is_contiguous()):
+        raise ValueError(f"expected contiguous int32[N] {what} lengths")
+    if win.device != device or win_lens.device != device:
+        raise ValueError(f"{what} must lie on the device of the batch")
+    if n:
+        lo, hi = torch.aminmax(win_lens)
+        if int(lo) < 0 or int(hi) > min(win.shape[1], WINDOW):
+            raise ValueError(f"{what} lengths must lie in "
+                             f"[0, {min(win.shape[1], WINDOW)}]")
+    return win.stride(0) if win.shape[0] > 1 else 0
+
+
+def _window_rows(win: torch.Tensor, win_lens: torch.Tensor, n: int):
+    """Each row's window as bytes, on the host."""
+    lens = win_lens.cpu().tolist()
+    width = win.shape[1]
+    rows = win.cpu().numpy()
+    return [rows[i if win.shape[0] > 1 else 0, width - k:].tobytes()
+            for i, k in enumerate(lens)]
+
+
+def decompress_safe_hist_batch(comp: torch.Tensor, comp_lens: torch.Tensor,
+                               out_max: int, hist: torch.Tensor,
+                               hist_lens: torch.Tensor,
+                               out: torch.Tensor | None = None):
+    """:func:`decompress_safe_batch` with a history before each row: matches
+    may reach ``hist_lens[b]`` bytes before row b's output, into the last
+    ``hist_lens[b]`` bytes of ``hist``'s row b (or its only row), and a
+    match that reaches farther is ``ERR_MALFORMED``. One shared row holds a
+    dictionary once for the whole batch; a linked block passes the bytes
+    just before its own ``out`` row (a view of one buffer), so that the
+    frame's earlier output is read where it was decoded. With every
+    history length 0 it equals :func:`decompress_safe_batch`.
+
+    Returns (out, out_lens int32[N], err int32[N]) as
+    :func:`decompress_safe_batch` does.
+    """
+    check_batch(comp, comp_lens)
+    n = comp.shape[0]
+    stride = _check_window(hist, hist_lens, n, comp.device, "hist")
+    out = _decode_out(comp, out_max, out)
+    if comp.device.type == "cpu":
+        return decompress_safe_hist_plain(comp, comp_lens, out_max, hist,
+                                          hist_lens, out)
+    out_lens = torch.empty((n,), dtype=torch.int32, device=comp.device)
+    err = torch.empty((n,), dtype=torch.int32, device=comp.device)
+    DECODE_HIST(comp.data_ptr(), comp.stride(0), comp_lens.data_ptr(),
+                out.data_ptr(), out.stride(0), out_max,
+                hist.data_ptr() + hist.shape[1], stride, hist_lens.data_ptr(),
+                out_lens.data_ptr(), err.data_ptr(), n, cuda_stream(comp),
+                device=comp.device.index)
+    return out, out_lens, err
+
+
+def decompress_safe_hist_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
+                               out_max: int, hist: torch.Tensor,
+                               hist_lens: torch.Tensor,
+                               out: torch.Tensor | None = None):
+    """Plain version of :func:`decompress_safe_hist_batch`, on any device."""
+    check_batch(comp, comp_lens)
+    n = comp.shape[0]
+    _check_window(hist, hist_lens, n, comp.device, "hist")
+    hists = _window_rows(hist, hist_lens, n)   # before out is written
+    out = _decode_out(comp, out_max, out)
+    comp_np = comp.cpu().numpy()
+    lens = comp_lens.cpu().tolist()
+    rows = out[:, :out_max].cpu().numpy()
+    out_lens = np.zeros((n,), np.int32)
+    err = np.zeros((n,), np.int32)
+    for i, k in enumerate(lens):
+        buf = bytearray(rows[i].tobytes())
+        out_lens[i], _, err[i] = _decode_row(comp_np[i, :k].tobytes(), k, buf,
+                                             out_max, hist=hists[i])
         rows[i] = np.frombuffer(buf, np.uint8)
     out[:, :out_max] = torch.from_numpy(rows).to(out.device)
     dev = comp.device
@@ -443,6 +576,201 @@ def compress_fast_plain(src: torch.Tensor, src_lens: torch.Tensor,
     for i, n in enumerate(lens):
         row, out_lens[i], err[i] = _compress_row(src_np[i, :n].tobytes(), n,
                                                  dest_cap, width)
+        dest[i] = np.frombuffer(row, np.uint8)
+    dev = src.device
+    return (torch.from_numpy(dest).to(dev), torch.from_numpy(out_lens).to(dev),
+            torch.from_numpy(err).to(dev))
+
+
+# ---------------------------------------------------------------------------
+# fast-scan compress with a dictionary
+# ---------------------------------------------------------------------------
+
+def compress_dict_batch(src: torch.Tensor, src_lens: torch.Tensor,
+                        dest_cap: int, dictionary: torch.Tensor,
+                        dict_lens: torch.Tensor):
+    """Batched fast-scan compression against a dictionary a row, byte for
+    byte the native ``compress_ext`` (``tpulz4_compress_fast_ext``): row b's
+    matches may reach into the last ``dict_lens[b]`` bytes of
+    ``dictionary``'s row b (or its only row), up to 65,535 bytes back. One
+    shared row holds a dictionary once for the whole batch; rows whose
+    dictionary is the content before them (a linked frame's blocks) pass a
+    strided view of that content. A row with no dictionary is compressed
+    by :func:`compress_fast_batch`'s algorithm, as the native function
+    falls through to its plain compress.
+
+    Returns (dest uint8[N, row_stride(dest_cap)], lens int32[N], err
+    int32[N]) as :func:`compress_fast_batch` does.
+    """
+    check_batch(src, src_lens)
+    if dest_cap < 0:
+        raise ValueError("dest_cap must be >= 0")
+    n = src.shape[0]
+    stride = _check_window(dictionary, dict_lens, n, src.device, "dictionary")
+    if src.device.type == "cpu":
+        return compress_dict_plain(src, src_lens, dest_cap, dictionary,
+                                   dict_lens)
+    dest = torch.zeros((n, row_stride(dest_cap)), dtype=torch.uint8,
+                       device=src.device)
+    out_lens = torch.empty((n,), dtype=torch.int32, device=src.device)
+    err = torch.empty((n,), dtype=torch.int32, device=src.device)
+    COMPRESS_DICT(src.data_ptr(), src.stride(0), src_lens.data_ptr(),
+                  dictionary.data_ptr() + dictionary.shape[1], stride,
+                  dict_lens.data_ptr(), dest.data_ptr(), dest.stride(0),
+                  dest_cap, out_lens.data_ptr(), err.data_ptr(), n,
+                  cuda_stream(src), device=src.device.index)
+    return dest, out_lens, err
+
+
+def _len_ext_bytes(length: int) -> int:
+    """``len_ext_bytes`` of ``tpulz4.cpp:186``: the bytes a length takes
+    past its token's nibble."""
+    return (length - 15) // 255 + 1 if length >= 15 else 0
+
+
+def _compress_row_dict(win: bytes, h: int, src_len: int, dest_cap: int,
+                       width: int):
+    """Compress the block ``win[h:]`` with the dictionary ``win[:h]``;
+    returns (dest bytearray[width], length, err).
+
+    ``compress_ext`` (``tpulz4.cpp:416-542``) in positions from the
+    window's start; writes at or past ``width`` are dropped, as the kernel
+    drops them. ``h`` 0 is :func:`_compress_row`.
+    """
+    if h == 0:
+        return _compress_row(win, src_len, dest_cap, width)
+    dest = bytearray(width)
+
+    def put(pos, v):
+        if pos < width:
+            dest[pos] = v
+
+    def put_run(pos, data):
+        if pos < width:
+            dest[pos:pos + len(data)] = data[:width - pos]
+
+    def write_len(d, length):
+        while length >= 0xFF:
+            put(d, 0xFF)
+            d += 1
+            length -= 0xFF
+        put(d, length)
+        return d + 1
+
+    def hash12(v):
+        return ((v * _HASH_MULT) & _U32) >> (32 - HASH_LOG)
+
+    def bad(ip, ref):
+        back = ip - ref
+        return (back >= MAX_DISTANCE or back == 0
+                or _read32(win, ref)[0] != _read32(win, ip)[0])
+
+    send = h + src_len
+    slimit = send - LAST_LITERALS
+    mflimit = send - MF_LIMIT
+    anchor = ip = h
+    d = 0
+    table = [0] * (1 << HASH_LOG)
+    for p in range(0, h - 3, 3):
+        table[hash12(_read32(win, p)[0])] = p
+
+    if src_len >= MIN_LENGTH:
+        while True:
+            fwd, step, nb = ip, 1, 1 << SKIP_STRENGTH
+            while True:
+                ip = fwd
+                fwd += step
+                step = nb >> SKIP_STRENGTH
+                nb += 1
+                if fwd > mflimit:
+                    break
+                hh = hash12(_read32(win, ip)[0])
+                ref = table[hh]
+                table[hh] = ip
+                if not bad(ip, ref):
+                    break
+            if fwd > mflimit:
+                break
+            while ip > anchor and ref > 0 and win[ip - 1] == win[ref - 1]:
+                ip -= 1
+                ref -= 1
+            run_len = ip - anchor
+            token_off = d
+            d += 1
+            if (d + run_len + (2 + 1 + LAST_LITERALS)
+                    + _len_ext_bytes(run_len) > dest_cap):
+                return dest, d, ERR_DEST_TOO_SMALL
+            if run_len >= RUN_MASK:
+                token = RUN_MASK << ML_BITS
+                d = write_len(d, run_len - RUN_MASK)
+            else:
+                token = run_len << ML_BITS
+            put_run(d, win[anchor:ip])
+            d += run_len
+            while True:
+                back = ip - ref
+                put(d, back & 0xFF)
+                put(d + 1, (back >> 8) & 0xFF)
+                d += 2
+                ip += MIN_MATCH
+                match_len = _common_bytes(win, ref + MIN_MATCH, ip, slimit)
+                if d + (1 + LAST_LITERALS) + _len_ext_bytes(match_len) > \
+                        dest_cap:
+                    return dest, d, ERR_DEST_TOO_SMALL
+                ip += match_len
+                if match_len >= ML_MASK:
+                    token |= ML_MASK
+                    d = write_len(d, match_len - ML_MASK)
+                else:
+                    token |= match_len
+                put(token_off, token)
+                if ip > mflimit:
+                    break
+                table[hash12(_read32(win, ip - 2)[0])] = ip - 2
+                hh = hash12(_read32(win, ip)[0])
+                ref = table[hh]
+                table[hh] = ip
+                if bad(ip, ref):
+                    break
+                token_off = d
+                d += 1
+                token = 0
+            anchor = ip
+            if ip > mflimit:
+                break
+            ip += 1
+
+    run_len = send - anchor
+    if d + run_len + 1 + (run_len + 255 - RUN_MASK) // 255 > dest_cap:
+        return dest, d, ERR_DEST_TOO_SMALL
+    if run_len >= RUN_MASK:
+        put(d, RUN_MASK << ML_BITS)
+        d = write_len(d + 1, run_len - RUN_MASK)
+    else:
+        put(d, run_len << ML_BITS)
+        d += 1
+    put_run(d, win[anchor:send])
+    return dest, d + run_len, OK
+
+
+def compress_dict_plain(src: torch.Tensor, src_lens: torch.Tensor,
+                        dest_cap: int, dictionary: torch.Tensor,
+                        dict_lens: torch.Tensor):
+    """Plain version of :func:`compress_dict_batch`, on any device."""
+    check_batch(src, src_lens)
+    n = src.shape[0]
+    _check_window(dictionary, dict_lens, n, src.device, "dictionary")
+    dicts = _window_rows(dictionary, dict_lens, n)
+    width = row_stride(dest_cap)
+    src_np = src.cpu().numpy()
+    lens = src_lens.cpu().tolist()
+    dest = np.zeros((n, width), np.uint8)
+    out_lens = np.zeros((n,), np.int32)
+    err = np.zeros((n,), np.int32)
+    for i, k in enumerate(lens):
+        row, out_lens[i], err[i] = _compress_row_dict(
+            dicts[i] + src_np[i, :k].tobytes(), len(dicts[i]), k, dest_cap,
+            width)
         dest[i] = np.frombuffer(row, np.uint8)
     dev = src.device
     return (torch.from_numpy(dest).to(dev), torch.from_numpy(out_lens).to(dev),

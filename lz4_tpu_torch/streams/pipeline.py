@@ -23,9 +23,14 @@ Engines, each on one device (the card unless told otherwise):
 
 ``level`` 1..17 compresses with HC at that level (K6, the tier's
 ``high_compressor(level)``), through the same data plane. The JAX engines
-``native``, ``safe`` and ``parallel`` are not ported; frames
-with linked blocks or a dictionary need the serial frame reader, which
-the port does not have yet: they are refused.
+``native``, ``safe`` and ``parallel`` are not ported. With
+``allow_dependent`` a frame of linked blocks (``lz4 -BD``) is handed,
+with its header replayed, to the serial frame reader
+(``formats/frame.py::Lz4FrameInputStream``), as the JAX pipeline hands it
+(``lz4_tpu/streams/pipeline.py:387-403``); by default it is refused.
+:func:`decode_frames` is the frame loop, also used by
+``formats.decompress_frame``: it decodes dictionary frames too, a batch in
+one launch of K1 with the dictionary as every row's history.
 
 The data plane of a batch (the JAX pipeline's packed fast paths,
 ``:231-261,407-456``), when the engine has its packed forms:
@@ -68,7 +73,8 @@ from ..dist.sharded import (
     frame_body_packed, shard_compress_blocks, shard_decompress_blocks)
 from ..formats.frame import (
     BlockSize, FrameFlag, INCOMPRESSIBLE_MASK, MAGIC, MAGIC_SKIPPABLE_BASE,
-    _bd_from_byte, _flg_from_byte, _flg_to_byte, xxh32_bytes,
+    Lz4FrameInputStream, _bd_from_byte, _flg_from_byte, _flg_to_byte,
+    xxh32_bytes,
 )
 from ..kernels import segment_decode
 from ..kernels.layout import DOWN, UP, row_stride, staging
@@ -298,13 +304,66 @@ def _compress_listed(src, dst, engine, bs, want, content_hash) -> int:
 
 def decompress_stream(src, dst, engine: BatchEngine | str = "fastest",
                       batch_blocks: int = 256,
+                      allow_dependent: bool = False,
                       device: str | torch.device = "cuda") -> int:
     """Decode LZ4 frames (concatenated, with skippable frames between them)
     from ``src`` into ``dst``; compressed blocks are decoded in batches of
     ``batch_blocks``. ``device`` places an engine given by name. Returns
-    the decompressed bytes written."""
+    the decompressed bytes written.
+
+    ``allow_dependent`` also reads linked-block frames (``lz4 -BD``): no
+    batch of their blocks exists (each reaches into the output before
+    it), so the frame goes to the serial frame reader, a block at a time
+    on the card; the default refuses them like the reference."""
+    return decode_frames(src, dst, engine, batch_blocks, device,
+                         allow_dependent=allow_dependent)
+
+
+def _dictionary_engine(engine: BatchEngine, dictionary) -> BatchEngine:
+    """``engine`` decoding against ``dictionary`` (its last 64 KiB as the
+    history of every block): the packed decode is one launch of K1 with
+    that history a batch."""
+    hist, hist_len = cuda_instances.window_tensor(dictionary, engine.device)
+    return BatchEngine(
+        f"{engine.name}-dict", engine.compress_batch,
+        functools.partial(cuda_instances.decompress_blocks_with_history,
+                          history=dictionary, device=engine.device),
+        engine.device, decompress_packed=functools.partial(
+            cuda_instances.decode_rows_hist, hist=hist, hist_len=hist_len))
+
+
+class _PrependStream:
+    """``head`` then the binary stream ``src``, for a reader that must see
+    bytes already read."""
+
+    def __init__(self, head: bytes, src):
+        self._head, self._src = head, src
+
+    def read(self, n: int = -1) -> bytes:
+        if self._head:
+            take = len(self._head) if n is None or n < 0 else n
+            out, self._head = self._head[:take], self._head[take:]
+            return out
+        return self._src.read(n)
+
+
+def decode_frames(src, dst, engine: BatchEngine | str = "fastest",
+                  batch_blocks: int = 256,
+                  device: str | torch.device = "cuda",
+                  allow_dependent: bool = False, dictionary=None,
+                  single_frame: bool = False,
+                  batch_bytes: int | None = None) -> int:
+    """The frame loop of :func:`decompress_stream`; also reads dictionary
+    frames (``dictionary``: its last 64 KiB are every independent block's
+    window and the first window of a linked frame; the DictID field is
+    accepted), and with ``single_frame`` stops after the first frame.
+    ``batch_bytes``, when given, sets each frame's batch to that many bytes
+    of its blocks instead of ``batch_blocks`` blocks. Returns the bytes
+    written."""
     if isinstance(engine, str):
         engine = get_engine(engine, device=device)
+    if dictionary is not None:
+        engine = _dictionary_engine(engine, dictionary)
     written = 0
 
     def read_exact(n: int, eof_ok: bool = False):
@@ -331,18 +390,35 @@ def decompress_stream(src, dst, engine: BatchEngine | str = "fastest",
             raise Lz4FrameError("Stream unsupported (not an LZ4 frame)")
 
         desc = read_exact(2)
-        flags = _flg_from_byte(desc[0])
+        flags = _flg_from_byte(desc[0], allow_dependent,
+                               dictionary is not None)
         bs = _bd_from_byte(desc[1]).num_bytes
         expected_size = -1
         if FrameFlag.CONTENT_SIZE in flags:
             raw8 = read_exact(8)
             desc += raw8
             expected_size = _U64.unpack(raw8)[0]
-        if ((xxh32_bytes(desc) >> 8) & 0xFF) != read_exact(1)[0]:
+        if FrameFlag.DICT_ID in flags:
+            desc += read_exact(4)
+        hc = read_exact(1)
+        if ((xxh32_bytes(desc) >> 8) & 0xFF) != hc[0]:
             raise Lz4FrameError("Frame header checksum mismatch")
+        if FrameFlag.BLOCK_INDEPENDENCE not in flags:
+            reader = Lz4FrameInputStream(
+                _PrependStream(word + desc + hc, src), read_single_frame=True,
+                allow_dependent_blocks=True, dictionary=dictionary,
+                device=engine.device)
+            while chunk := reader.read(1 << 20):
+                with part("write"):
+                    dst.write(chunk)
+                written += len(chunk)
+            if single_frame:
+                break
+            continue
         content_hash = (StreamState32(0, engine.device)
                         if FrameFlag.CONTENT_CHECKSUM in flags else None)
-        frame = _FrameBody(src, dst, engine, bs, max(1, batch_blocks),
+        batch = batch_blocks if batch_bytes is None else batch_bytes // bs
+        frame = _FrameBody(src, dst, engine, bs, max(1, batch),
                            FrameFlag.BLOCK_CHECKSUM in flags, content_hash)
         total = frame.run()
         written += total
@@ -352,6 +428,8 @@ def decompress_stream(src, dst, engine: BatchEngine | str = "fastest",
                 raise Lz4FrameError("Content checksum mismatch")
         if 0 <= expected_size != total:
             raise Lz4FrameError("Size check mismatch")
+        if single_frame:
+            break
     return written
 
 

@@ -244,14 +244,75 @@ def encode_block(seqs, tail: bytes) -> bytes:
     return bytes(out + tail)
 
 
-def expand_block(seqs, tail: bytes) -> bytes:
-    """What ``encode_block``'s block decodes to; a null offset writes zeros."""
-    out = bytearray()
+def expand_block(seqs, tail: bytes, hist: bytes = b"") -> bytes:
+    """What ``encode_block``'s block decodes to after the output ``hist``
+    (which its matches may reach into); a null offset writes zeros."""
+    out = bytearray(hist)
     for lit, dist, ml in seqs:
         out += lit
         for _ in range(ml):
             out.append(out[-dist] if dist else 0)
-    return bytes(out + tail)
+    return bytes(out[len(hist):] + tail)
+
+
+# The history lengths the window decode and the dictionary compress are
+# held at: none, a byte, a word, around the hash table's span and the
+# format's 64 KiB window.
+HIST_LENS = (0, 1, 4, 4095, 65535, 65536)
+
+
+def history_blocks(rng: np.random.Generator):
+    """``(hist, sequences, tail)`` blocks whose matches reach into a history
+    of each of ``HIST_LENS`` bytes (``encode_block`` makes the block,
+    ``expand_block(..., hist)`` its bytes): matches at the history's first
+    byte, matches that straddle the history's end and the row, periods
+    1-40 repeated from the history's tail (short and team-long), sources
+    in the history within the decode's ring (``RING_NEAR``) and past it
+    after output of every length around it, and null offsets."""
+    def rb(n, k=256):
+        return rng.integers(0, k, n, dtype=np.uint8).tobytes()
+
+    out = []
+    for hl in HIST_LENS:
+        hist = rb(hl, 8)
+        tail = rb(8)
+        if hl:
+            out.append((hist, [(b"", min(hl, 65535), 4),
+                               (rb(3), min(hl + 7, 65535), 20)], tail))
+            for back in (1, 3, 16):     # straddling the history's end
+                if back <= hl:
+                    out.append((hist, [(rb(2), back + 2, n)
+                                       for n in (back + 4, 40, 100)], tail))
+            out.append((hist, [(b"", p, n) for p in range(1, min(hl, 40) + 1)
+                               for n in (4, 17, 70)][:60], tail))
+        for lead in (0, 1000, RING_NEAR - 5, RING + 7):
+            seqs, pos = [(rb(lead + 1), 1, 4)], lead + 5
+            for d in (pos + 1, RING_NEAR - 1, RING_NEAR, RING_NEAR + 1, RING,
+                      RING + 1, 9000, 65535):
+                for n in (4, 13, 70):
+                    if pos < d <= pos + hl and d <= 65535:
+                        seqs.append((b"", d, n))
+                        pos += n
+            if len(seqs) > 1:
+                out.append((hist, seqs, tail))
+        out.append((hist, [(rb(5), 0, 4), (b"", 0, 100), (rb(2), 3, 4)], tail))
+    return out
+
+
+def overreach_blocks(rng: np.random.Generator):
+    """``(hist, block)``: for each of ``HIST_LENS`` below 65,535, a block
+    whose match reaches one byte before its history (malformed), after
+    literals and after a valid match into the history."""
+    def rb(n, k=256):
+        return rng.integers(0, k, n, dtype=np.uint8).tobytes()
+
+    out = []
+    for hl in HIST_LENS[:-2]:
+        out.append((rb(hl, 8), encode_block([(rb(3), hl + 4, 4)], rb(8))))
+        if hl:
+            out.append((rb(hl, 8), encode_block(
+                [(b"", hl, 4), (b"", hl + 5, 4)], rb(8))))
+    return out
 
 
 def short_sequence_blocks(case: str, rng: np.random.Generator):
@@ -389,13 +450,18 @@ def pack_cases() -> list[tuple[int, int]]:
 
 
 def build_frame(raws, comps, bd: int = 4, block_checksum: bool = True,
-                content_checksum: bool = True) -> bytes:
+                content_checksum: bool = True,
+                independent: bool = True, sums=None,
+                content_sum: int | None = None) -> bytes:
     """An LZ4 frame of independent blocks, written by hand: block i is
     ``comps[i]`` when that is shorter than ``raws[i]``, else ``raws[i]``
     stored raw, in any mix of sizes (short blocks anywhere in the frame,
     as other writers emit them); ``bd`` is the block-size indicator
-    (4: 64 KiB); block and content checksums as asked."""
-    flags = {FrameFlag.BLOCK_INDEPENDENCE}
+    (4: 64 KiB); block and content checksums as asked, hashed on the
+    host unless given (``sums``, one a block, and ``content_sum``). With
+    ``independent`` off the FLG byte says the blocks are linked (for
+    blocks from :func:`linked_blocks`)."""
+    flags = {FrameFlag.BLOCK_INDEPENDENCE} if independent else set()
     if block_checksum:
         flags.add(FrameFlag.BLOCK_CHECKSUM)
     if content_checksum:
@@ -403,17 +469,41 @@ def build_frame(raws, comps, bd: int = 4, block_checksum: bool = True,
     desc = bytes([_flg_to_byte(frozenset(flags)), (bd & 7) << 4])
     out = [struct.pack("<I", MAGIC), desc,
            bytes([(xxh32_bytes(desc) >> 8) & 0xFF])]
-    for raw, comp in zip(raws, comps):
+    for i, (raw, comp) in enumerate(zip(raws, comps)):
         if len(comp) < len(raw):
             out += [struct.pack("<I", len(comp)), comp]
         else:
             out += [struct.pack("<I", len(raw) | INCOMPRESSIBLE_MASK), raw]
         if block_checksum:
-            out.append(struct.pack("<I", xxh32_bytes(out[-1])))
+            out.append(struct.pack("<I", xxh32_bytes(out[-1]) if sums is None
+                                   else sums[i]))
     out.append(struct.pack("<I", 0))
     if content_checksum:
-        out.append(struct.pack("<I", xxh32_bytes(b"".join(raws))))
+        out.append(struct.pack("<I", xxh32_bytes(b"".join(raws))
+                               if content_sum is None else content_sum))
     return b"".join(out)
+
+
+def payloads(raws, comps) -> list:
+    """What a frame stores for each block: ``comps[i]`` when shorter than
+    ``raws[i]``, else ``raws[i]``."""
+    return [c if len(c) < len(r) else r for r, c in zip(raws, comps)]
+
+
+def windows(hists, device):
+    """Each history (or dictionary) right-aligned in its row of a
+    ``uint8[N, W]`` tensor on ``device`` (W at least 1), and their lengths
+    as ``int32[N]``: the window kernels' arguments."""
+    import torch
+
+    width = max(1, max(map(len, hists), default=0))
+    win = torch.zeros((len(hists), width), dtype=torch.uint8)
+    for i, h in enumerate(hists):
+        if h:
+            win[i, width - len(h):] = torch.frombuffer(bytearray(h),
+                                                       dtype=torch.uint8)
+    lens = torch.tensor([len(h) for h in hists], dtype=torch.int32)
+    return win.to(device), lens.to(device)
 
 
 def ragged_sizes(rng: np.random.Generator, n: int,
@@ -432,3 +522,37 @@ def ragged_sizes(rng: np.random.Generator, n: int,
         else:
             sizes.append(int(rng.integers(16, block_size - 16)) | 1)
     return sizes
+
+
+def linked_blocks(raw: bytes, block_size: int, device) -> list[bytes]:
+    """The blocks of a linked-block frame (``lz4 -BD``) of ``raw`` at
+    ``block_size``, compressed as LZ4F's linked mode compresses them: block
+    i against the up to 64 KiB of content before it, in one launch of the
+    fast scan with a dictionary (``codec.compress_dict_batch``), whose
+    dictionaries are a strided view of the content itself. A test helper:
+    neither package has a linked-frame writer."""
+    import torch
+
+    from .core.constants import max_compressed_length
+    from .kernels import codec, layout
+
+    n = -(-len(raw) // block_size)
+    if not n:
+        return []
+    win = codec.WINDOW
+    buf = torch.zeros((win + n * block_size,), dtype=torch.uint8)
+    buf[win:win + len(raw)] = torch.frombuffer(bytearray(raw),
+                                               dtype=torch.uint8)
+    buf = buf.to(device)
+    src = buf[win:].view(n, block_size)
+    dicts = buf.as_strided((n, win), (block_size, 1))  # row i ends at block i
+    starts = [i * block_size for i in range(n)]
+    lens = torch.tensor([min(block_size, len(raw) - s) for s in starts],
+                        dtype=torch.int32, device=device)
+    dict_lens = torch.tensor([min(s, win) for s in starts], dtype=torch.int32,
+                             device=device)
+    comp, comp_lens, err = codec.compress_dict_batch(
+        src, lens, max_compressed_length(block_size), dicts, dict_lens)
+    if bool(err.any()):
+        raise RuntimeError("a linked block failed to compress")
+    return layout.from_device_layout(comp, comp_lens)

@@ -626,3 +626,121 @@ def test_two_ranks_share_the_card(cuda_device, tmp_path):
     if torch.cuda.device_count() < 2:
         with pytest.raises(RuntimeError, match="share_card"):
             dryrun_multigpu(2)
+
+
+
+@pytest.mark.parametrize("out_max", [70000, 1000, 64])
+def test_decode_hist_kernel_matches_plain(cuda_device, out_max):
+    """K1 with a history a row: matches at the history's start, straddling
+    its end, periods 1-40 from its tail, sources in it within the ring and
+    past it, null offsets, matches before it (MALFORMED) and fuzz, at
+    ``testing.HIST_LENS``; tight caps; guards and histories untouched."""
+    rng = np.random.default_rng(11)
+    cases = testing.history_blocks(rng)
+    comp = [testing.encode_block(s, t) for _, s, t in cases]
+    want = [testing.expand_block(s, t, h) for h, s, t in cases]
+    hists = [h for h, _, _ in cases]
+    over = testing.overreach_blocks(rng)
+    fuzz = testing.fuzz_blocks(rng, comp, 256)
+    blocks = comp + [b for _, b in over] + fuzz
+    hists += [h for h, _ in over] + [hists[i % len(cases)]
+                                     for i in range(len(fuzz))]
+    c, cl = layout.to_device_layout(blocks, device=cuda_device)
+    win, wl = testing.windows(hists, cuda_device)
+    before = win.clone()
+    bufs = [torch.full((c.shape[0], out_max + 64), 0xA5, dtype=torch.uint8,
+                       device=cuda_device) for _ in range(2)]
+    launches = codec.DECODE_HIST.launches
+    kern = codec.decompress_safe_hist_batch(c, cl, out_max, win, wl,
+                                            out=bufs[0])
+    assert codec.DECODE_HIST.launches == launches + 1
+    plain = codec.decompress_safe_hist_plain(c, cl, out_max, win, wl,
+                                             out=bufs[1])
+    _assert_codec_equal(kern, plain, all_lens=False)
+    for buf in bufs:
+        assert bool((buf[:, out_max:] == 0xA5).all())
+    assert torch.equal(win, before)
+    if out_max == 70000:
+        n = len(want)
+        assert kern[2][:n + len(over)].tolist() == \
+            [codec.OK] * n + [codec.ERR_MALFORMED] * len(over)
+        assert layout.from_device_layout(kern[0][:n], kern[1][:n]) == want
+
+
+def test_decode_hist_kernel_zero_is_k1(cuda_device):
+    """History length 0: the window kernel equals K1 code for code and
+    byte for byte."""
+    rng = np.random.default_rng(3)
+    src, lens = layout.to_device_layout(testing.mixed_blocks(rng, EDGE_SIZES),
+                                        device=cuda_device)
+    comp, comp_lens, _ = codec.compress_fast_batch(
+        src, lens, max_compressed_length(70000))
+    blocks = layout.from_device_layout(comp, comp_lens)
+    c, cl = layout.to_device_layout(
+        blocks + testing.fuzz_blocks(rng, blocks, 256), device=cuda_device)
+    win, wl = testing.windows([b""] * c.shape[0], cuda_device)
+    for out_max in (1, 1000, 70000):
+        a = codec.decompress_safe_hist_batch(c, cl, out_max, win, wl)
+        b = codec.decompress_safe_batch(c, cl, out_max)
+        assert torch.equal(a[2], b[2])
+        ok = a[2] == 0
+        assert torch.equal(a[1][ok], b[1][ok])
+        assert torch.equal(a[0], b[0])
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_compress_dict_kernel_matches_plain(cuda_device, shared):
+    """K2 with a dictionary a row (or one shared row, stride 0) against the
+    plain version at ``testing.HIST_LENS``, full and tight caps; then the
+    output decoded back by K1 with the same windows."""
+    rng = np.random.default_rng(13)
+    blocks, dicts = [], []
+    one = testing.block_of(rng, "text", 65536)
+    for hl in testing.HIST_LENS:
+        d = one[-hl:] if shared and hl else (b"" if shared else
+                                              testing.block_of(rng, "text", hl))
+        if shared and hl != 65536:
+            continue
+        for size in (0, 5, 13, 1000, 65536, 70000):
+            for kind in testing.KINDS:
+                b = testing.block_of(rng, kind, size)
+                blocks.append((d[-3000:] + b)[:size] if kind == "alphabet4"
+                              else b)
+                dicts.append(d)
+    src, lens = layout.to_device_layout(blocks, device=cuda_device)
+    win, wl = testing.windows(dicts[:1] if shared else dicts, cuda_device)
+    if shared:
+        wl = torch.full((len(blocks),), len(dicts[0]), dtype=torch.int32,
+                        device=cuda_device)
+    for cap in (600, max_compressed_length(70000)):
+        launches = codec.COMPRESS_DICT.launches
+        kern = codec.compress_dict_batch(src, lens, cap, win, wl)
+        assert codec.COMPRESS_DICT.launches == launches + 1
+        plain = codec.compress_dict_plain(src, lens, cap, win, wl)
+        _assert_codec_equal(kern, plain)
+    out, out_lens, err = codec.decompress_safe_hist_batch(   # the full cap's
+        kern[0], kern[1], 70000, win, wl)
+    assert not bool(err.any())
+    assert layout.from_device_layout(out, out_lens) == blocks
+
+
+def test_linked_blocks_on_the_card(cuda_device):
+    """A linked frame's blocks: compressed in one K2-with-dictionary launch
+    against the content before each (a strided view), then decoded a block
+    at a time into one buffer whose earlier output is the history."""
+    rng = np.random.default_rng(12)
+    raw = testing.block_of(rng, "text", 40 * 4096 - 99)
+    comps = testing.linked_blocks(raw, 4096, cuda_device)
+    out = torch.zeros((len(raw) + 4096,), dtype=torch.uint8,
+                      device=cuda_device)
+    pos = 0
+    for blk in comps:
+        c, cl = layout.to_device_layout([blk], device=cuda_device)
+        h0 = max(0, pos - 65536)
+        hist = out[h0:max(pos, 1)].view(1, -1)
+        hl = torch.tensor([pos - h0], dtype=torch.int32, device=cuda_device)
+        _, n, e = codec.decompress_safe_hist_batch(
+            c, cl, 4096, hist, hl, out=out[pos:pos + 4096].view(1, -1))
+        assert int(e[0]) == 0
+        pos += int(n[0])
+    assert out[:pos].cpu().numpy().tobytes() == raw

@@ -239,6 +239,30 @@ static void host_stages(const uint8_t* data, int64_t n_stripes, int32_t per, T* 
   }
 }
 
+// f(team) on each of `lanes` host threads that form one team.
+template <class F>
+static void run_team(int lanes, F f) {
+  struct Arg {
+    F* f;
+    ThreadTeamShared* sh;
+    int id, n;
+  };
+  ThreadTeamShared sh;
+  pthread_barrier_init(&sh.bar, nullptr, lanes);
+  Arg args[32];
+  pthread_t th[32];
+  for (int i = 0; i < lanes; i++) {
+    args[i] = {&f, &sh, i, lanes};
+    pthread_create(&th[i], nullptr, [](void* a) -> void* {
+      Arg* x = (Arg*)a;
+      (*x->f)(ThreadTeam{x->sh, x->id, x->n});
+      return nullptr;
+    }, &args[i]);
+  }
+  for (int i = 0; i < lanes; i++) pthread_join(th[i], nullptr);
+  pthread_barrier_destroy(&sh.bar);
+}
+
 extern "C" {
 void host_decode(const uint8_t* comp, long long comp_stride,
                  const int32_t* comp_lens, uint8_t* out, long long out_stride,
@@ -399,6 +423,66 @@ int host_hc(const uint8_t* src, long long src_stride, const int32_t* src_lens,
   return rc;
 }
 int host_hc_team_bytes() { return LZ4TT_HC_TEAM_BYTES; }
+// K1's body with a history a row (row b's: the hist_lens[b] bytes that end
+// at hist_end + b * hist_stride), one block after the other, by a team of
+// `lanes` (1: one lane; else host threads); returns -1 if the lanes
+// disagree on a block
+int host_decode_hist(const uint8_t* comp, long long comp_stride,
+                     const int32_t* comp_lens, uint8_t* out,
+                     long long out_stride, int out_max, const uint8_t* hist_end,
+                     long long hist_stride, const int32_t* hist_lens,
+                     int32_t* out_lens, int32_t* err, int n, int lanes) {
+  alignas(16) static uint8_t ring[LZ4TT_RING];
+  static Lz4ttCopies q;
+  int rc = 0;
+  for (int b = 0; b < n; b++) {
+    const Lz4ttHist h = {hist_end + b * hist_stride, hist_lens[b]};
+    int32_t len[32], read[32], e[32];
+    auto body = [&](const auto& t) {
+      lz4tt_decode_block<false, true>(t, comp + b * comp_stride, comp_lens[b],
+                                      out + b * out_stride, out_max, ring, q,
+                                      &len[t.lane()], &read[t.lane()],
+                                      &e[t.lane()], h);
+    };
+    if (lanes == 1)
+      body(HostTeam());
+    else
+      run_team(lanes, body);
+    out_lens[b] = len[0];
+    err[b] = e[0];
+    for (int i = 1; i < lanes; i++)
+      if (len[i] != len[0] || e[i] != e[0]) rc = -1;
+  }
+  return rc;
+}
+// K2's body with a dictionary a row (row b's: the dict_lens[b] bytes that
+// end at dict_end + b * dict_stride), as host_decode_hist runs K1's
+int host_compress_dict(const uint8_t* src, long long src_stride,
+                       const int32_t* src_lens, const uint8_t* dict_end,
+                       long long dict_stride, const int32_t* dict_lens,
+                       uint8_t* dst, long long dst_stride, int dest_cap,
+                       int32_t* out_lens, int32_t* err, int n, int lanes) {
+  std::vector<uint32_t> table(LZ4TT_TABLE_BYTES / 4);
+  int rc = 0;
+  for (int b = 0; b < n; b++) {
+    int32_t len[32], e[32];
+    auto body = [&](const auto& t) {
+      lz4tt_compress_dict_block(t, src + b * src_stride, src_lens[b],
+                                dict_end + b * dict_stride, dict_lens[b],
+                                dst + b * dst_stride, dest_cap, dst_stride,
+                                table.data(), &len[t.lane()], &e[t.lane()]);
+    };
+    if (lanes == 1)
+      body(HostTeam());
+    else
+      run_team(lanes, body);
+    out_lens[b] = len[0];
+    err[b] = e[0];
+    for (int i = 1; i < lanes; i++)
+      if (len[i] != len[0] || e[i] != e[0]) rc = -1;
+  }
+  return rc;
+}
 long long host_hc_followed() { return hc_followed; }
 int host_hc_copy_faults() { return hc_copy_faults; }
 int host_hc_spec_attempts() { return LZ4TT_HC_SPEC_ATTEMPTS; }
@@ -469,6 +553,10 @@ def lib(tmp_path_factory):
     lib.host_xxh64_stream.argtypes = [_P, _I64, _P]
     lib.host_hc.argtypes = [_P, _I64, _P, _P, _I64, _I32, _I32, _P, _P, _P,
                             _I32, _I32]
+    lib.host_decode_hist.argtypes = [_P, _I64, _P, _P, _I64, _I32, _P, _I64,
+                                     _P, _P, _P, _I32, _I32]
+    lib.host_compress_dict.argtypes = [_P, _I64, _P, _P, _I64, _P, _P, _I64,
+                                       _I32, _P, _P, _I32, _I32]
     lib.host_hc_followed.restype = ctypes.c_longlong
     lib.host_hc_spec_attempts.restype = ctypes.c_int
     return lib
@@ -1236,3 +1324,180 @@ def test_design_variants_apply(name):
     assert (build.CSRC / f"{source}.cu").exists()
     for fname, old, new in edits:
         assert old in (build.CSRC / fname).read_text() and old != new
+
+
+
+def _host_window_codec(fn, data, lens, win, win_lens, out_width, out_cap,
+                       lanes, out=None):
+    n = data.shape[0]
+    if out is None:
+        out = torch.zeros((n, out_width), dtype=torch.uint8)
+    out_lens = torch.zeros((n,), dtype=torch.int32)
+    err = torch.zeros((n,), dtype=torch.int32)
+    rc = fn(_ptr(data), data.stride(0), _ptr(lens), *(
+        (_ptr(out), out.stride(0), out_cap, _ptr(win) + win.shape[1],
+         win.stride(0), _ptr(win_lens))
+        if fn.__name__ == "host_decode_hist" else
+        (_ptr(win) + win.shape[1], win.stride(0), _ptr(win_lens), _ptr(out),
+         out.stride(0), out_cap)), _ptr(out_lens), _ptr(err), n, lanes)
+    assert rc == 0, "the lanes disagree"
+    return out, out_lens, err
+
+
+def _history_batch(rng):
+    """The blocks of ``testing.history_blocks`` (with their bytes), of
+    ``testing.overreach_blocks`` (malformed) and fuzzed variants of them,
+    each with its history."""
+    cases = testing.history_blocks(rng)
+    comp = [testing.encode_block(s, t) for _, s, t in cases]
+    want = [testing.expand_block(s, t, h) for h, s, t in cases]
+    hists = [h for h, _, _ in cases]
+    over = testing.overreach_blocks(rng)
+    fuzz = testing.fuzz_blocks(rng, comp, 48)
+    return (comp + [b for _, b in over] + fuzz,
+            hists + [h for h, _ in over] + [hists[i % len(hists)]
+                                            for i in range(len(fuzz))],
+            want, len(over))
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+@pytest.mark.parametrize("out_max", [70000, 1000, 64])
+def test_host_decode_hist_matches_plain(lib, lanes, out_max):
+    """K1's body with a history a row, as one lane and as 32 host threads
+    (the ring's preload and the lanes' copies), on matches at the
+    history's start, straddling its end, periods 1-40 from its tail,
+    sources in it within the ring and past it, null offsets, matches
+    reaching before it (MALFORMED) and fuzz, at history lengths
+    ``testing.HIST_LENS``, against the plain version and the expected
+    bytes; tight caps; a guard behind every row and the histories
+    untouched."""
+    rng = np.random.default_rng(11)
+    blocks, hists, want, n_over = _history_batch(rng)
+    if lanes > 1:
+        keep = [i for i, h in enumerate(hists) if i < len(want) + n_over]
+        blocks, hists = [blocks[i] for i in keep], [hists[i] for i in keep]
+    c, cl = layout.to_device_layout(blocks, device="cpu")
+    win, wl = testing.windows(hists, "cpu")
+    before = win.clone()
+    guard = torch.full((len(blocks), out_max + 37), 0xA5, dtype=torch.uint8)
+    host = _host_window_codec(lib.host_decode_hist, c, cl, win, wl, None,
+                              out_max, lanes, out=guard)
+    plain = codec.decompress_safe_hist_batch(c, cl, out_max, win, wl)
+    _assert_same(host, plain, all_lens=False)
+    assert bool((guard[:, out_max:] == 0xA5).all())
+    assert torch.equal(win, before)
+    codes = host[2].tolist()
+    if out_max == 70000:
+        assert codes[:len(want)] == [codec.OK] * len(want)
+        assert layout.from_device_layout(guard[:len(want)],
+                                         host[1][:len(want)]) == want
+        assert codes[len(want):len(want) + n_over] == \
+            [codec.ERR_MALFORMED] * n_over
+    else:
+        assert codec.ERR_DEST_TOO_SMALL in codes or \
+            codec.ERR_MALFORMED in codes[:len(want)]
+
+
+def test_host_decode_hist_zero_is_k1(lib, edge_batch):
+    """History length 0 on every row: the window body equals K1's, code for
+    code and byte for byte, on the edge blocks' K2 output and fuzz."""
+    _, (src, lens) = edge_batch
+    comp, comp_lens, _ = codec.compress_fast_batch(
+        src, lens, max_compressed_length(70000))
+    comp_blocks = layout.from_device_layout(comp, comp_lens)
+    batch = comp_blocks + testing.fuzz_blocks(np.random.default_rng(4),
+                                              comp_blocks, 96)
+    c, cl = layout.to_device_layout(batch, device="cpu")
+    for out_max in (1, 1000, 70000):
+        win, wl = testing.windows([b""] * len(batch), "cpu")
+        a = _host_window_codec(lib.host_decode_hist, c, cl, win, wl,
+                               out_max + 64, out_max, 1)
+        b = _host_codec(lib.host_decode, c, cl, out_max + 64, out_max)
+        assert a[2].tolist() == b[2].tolist()
+        ok = a[2] == codec.OK
+        assert torch.equal(a[1][ok], b[1][ok])
+        assert torch.equal(a[0], b[0])
+
+
+def _linked_content(rng, n_blocks: int, bs: int) -> bytes:
+    """Content whose blocks match into the blocks before them: phrases of
+    a small vocabulary with random bytes between."""
+    words = [rng.integers(0, 256, int(k), dtype=np.uint8).tobytes()
+             for k in rng.integers(8, 64, 40)]
+    out = b"".join(words[int(i)] + bytes([int(i)])
+                   for i in rng.integers(0, 40, n_blocks * bs // 20))
+    return out[:n_blocks * bs - 123]
+
+
+def test_host_linked_blocks_in_one_buffer(lib):
+    """Linked blocks: each block compressed (K2's body with a dictionary)
+    against the content before it, then decoded (K1's body with a
+    history) in one buffer whose earlier output is each block's history,
+    the layout the frame reader uses on the card."""
+    rng = np.random.default_rng(12)
+    bs = 4096
+    content = _linked_content(rng, 24, bs)
+    n = -(-len(content) // bs)
+    buf = torch.zeros((n * bs + 16,), dtype=torch.uint8)
+    buf[:len(content)] = torch.frombuffer(bytearray(content), dtype=torch.uint8)
+    src = buf[:n * bs].view(n, bs)
+    lens = torch.tensor([min(bs, len(content) - i * bs) for i in range(n)],
+                        dtype=torch.int32)
+    starts = [i * bs for i in range(n)]
+    dlens = torch.tensor([min(s, 65536) for s in starts], dtype=torch.int32)
+    cap = max_compressed_length(bs)
+    comps = []
+    for i in range(n):    # the window is the content before block i
+        d = buf[:starts[i]].view(1, -1) if starts[i] else \
+            torch.zeros((1, 1), dtype=torch.uint8)
+        host = _host_window_codec(lib.host_compress_dict, src[i:i + 1],
+                                  lens[i:i + 1], d, dlens[i:i + 1],
+                                  layout.row_stride(cap), cap, 1)
+        plain = codec.compress_dict_batch(src[i:i + 1], lens[i:i + 1], cap, d,
+                                          dlens[i:i + 1])
+        _assert_same(host, plain)
+        comps.append(host[0][0, :int(host[1][0])].numpy().tobytes())
+    assert sum(map(len, comps)) < len(content) // 2
+    out = torch.zeros((n * bs + 64,), dtype=torch.uint8)
+    pos = 0
+    for i, blk in enumerate(comps):
+        c, cl = layout.to_device_layout([blk], device="cpu")
+        h = out[max(0, pos - 65536):pos].view(1, -1) if pos else \
+            torch.zeros((1, 1), dtype=torch.uint8)
+        hl = torch.tensor([min(pos, 65536)], dtype=torch.int32)
+        row = out[pos:pos + bs].view(1, bs)
+        got = _host_window_codec(lib.host_decode_hist, c, cl, h, hl, None, bs,
+                                 1, out=row)
+        assert got[2].tolist() == [codec.OK]
+        pos += int(got[1][0])
+    assert out[:pos].numpy().tobytes() == content
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_host_compress_dict_matches_plain(lib, lanes):
+    """K2's body with a dictionary, as one lane and as 32 host threads (the
+    table seeded by the team), against the plain version: the edge sizes
+    of every kind with dictionaries of ``testing.HIST_LENS`` bytes that
+    share content with the blocks, at the full cap and at tight caps;
+    writes past the lengths too."""
+    rng = np.random.default_rng(13)
+    sizes = (0, 5, 13, 1000, 65536, 70000) if lanes == 1 else (13, 1000)
+    hist_lens = testing.HIST_LENS if lanes == 1 else (0, 4, 4095, 65536)
+    blocks, dicts = [], []
+    for hl in hist_lens:
+        d = testing.block_of(rng, "text", hl)
+        for size in sizes:
+            for kind in testing.KINDS:
+                b = testing.block_of(rng, kind, size)
+                blocks.append((d[-3000:] + b)[:size] if kind == "alphabet4"
+                              else b)
+                dicts.append(d)
+    src, lens = layout.to_device_layout(blocks, device="cpu")
+    win, wl = testing.windows(dicts, "cpu")
+    for cap in (max_compressed_length(max(sizes)), 600):
+        width = layout.row_stride(cap)
+        host = _host_window_codec(lib.host_compress_dict, src, lens, win, wl,
+                                  width, cap, lanes)
+        plain = codec.compress_dict_batch(src, lens, cap, win, wl)
+        _assert_same(host, plain)
+        assert torch.equal(host[0], plain[0])
