@@ -16,7 +16,7 @@ Phases (any failure exits non-zero; nothing is caught):
 1. the card's name and power limit, torch and CUDA versions;
 2. build of every kernel from ``lz4_tpu_torch/csrc`` (set-up, timed), with
    nvcc's registers and spills, and K1's, K2's, K3's, K4's, K5's, K6's,
-   the parser's and pack's resident CTAs per SM;
+   K7's, K8's, the parser's and pack's resident CTAs per SM;
 3. each kernel against its plain version on edge-case batches: block sizes
    around the format's limits, data kinds from zeros to incompressible, a
    tight ``dest_cap``, fuzz batches of malformed blocks with a guard region
@@ -122,6 +122,24 @@ Phases (any failure exits non-zero; nothing is caught):
    against their plain versions on 64 of the 1,024 rows, timed through
    their wrappers and alone, beside the same rows without a window and
    one row alone;
+8d. the parallel compressor and the gather decode (:func:`phase_parallel`):
+   K7 against its plain version on ``testing.parallel_blocks`` (sizes
+   0-16, 511-513, 2047-2049, 65,535-65,537; zeros, a4, text, random,
+   period 46, runs; row tails 0xA5), the window blocks, caps down to 0
+   (-1 rows) and 16 rows of 4 MiB; the parser's sentinel tails and K8
+   against their plain versions on K2's edge blocks, the chain blocks and
+   a null offset, at max_depth 0-3 and 32; then K7 on the main path's
+   4096 blocks (timed beside K2, the plain version on 64 rows, every block
+   decoded back by K1, compressed bytes by kind beside K2's, peak device
+   memory); with launch counts reset just before and read just after each
+   call, ``compress_stream(engine="parallel")`` on 64 MiB twice (the frame
+   equal to the one put together from K7's blocks), decoded by the
+   ``cuda`` and ``segment`` engines, the same at 4 MiB blocks, and the
+   command line's ``compress --engine parallel`` in a subprocess restored
+   by ``decompress`` (K7 launched, K2 never); ``get_engine("parallel",
+   9)`` raising; then K8 on the main path's K2 output (timed beside K5
+   and K1, the plain version on 64 rows, max_depth 1-3) and
+   ``gather_decode.decompress_blocks`` restoring all 4096 blocks;
 9. the launch counts, the per-kernel JSON line and the final JSON line.
 """
 
@@ -152,15 +170,17 @@ from lz4_tpu_torch.__main__ import main as cli_main
 from lz4_tpu_torch.api import cuda_instances
 from lz4_tpu_torch.core import xxhash_ref
 from lz4_tpu_torch.core.constants import max_compressed_length
-from lz4_tpu_torch.core.errors import Lz4Error
+from lz4_tpu_torch.core.errors import Lz4Error, Lz4FrameError
 from lz4_tpu_torch.dist import mesh as dist_mesh, multihost, sharded
 from lz4_tpu_torch.entry import entry, example_blocks
 from lz4_tpu_torch.formats import BlockSize, FrameFlag
 from lz4_tpu_torch.formats.frame import (
     INCOMPRESSIBLE_MASK, frame_header, xxh32_bytes)
 from lz4_tpu_torch.kernels import (
-    build, codec, layout, segment_decode, sequences, xxhash, xxhash_stream)
-from lz4_tpu_torch.streams import compress_stream, decompress_stream
+    build, codec, gather_decode, layout, parallel_compress, segment_decode,
+    sequences, xxhash, xxhash_stream)
+from lz4_tpu_torch.streams import (
+    compress_stream, decompress_stream, get_engine)
 
 try:    # the package before K6 has no kernels.hc; --host-split runs on it
     from lz4_tpu_torch.kernels import hc
@@ -222,6 +242,11 @@ KERNELS = {  # Kernel.name -> (source, TPU kernel it replaces)
                         "lz4_tpu/native/src/tpulz4.cpp:1199"),
     "lz4_compress_dict": ("lz4_tpu_torch/csrc/lz4_compress.cu",
                           "lz4_tpu/native/src/tpulz4.cpp:536"),
+    # not Pallas kernels: the pure-JAX parallel compressor and gather decode
+    "parallel_compress": ("lz4_tpu_torch/csrc/parallel_compress.cu",
+                          "lz4_tpu/kernels/parallel_compress.py:323"),
+    "gather_decode": ("lz4_tpu_torch/csrc/gather_decode.cu",
+                      "lz4_tpu/kernels/gather_decode.py:168"),
 }
 MAIN_PATH = ("lz4_compress", "lz4_decode", "xxh32",   # roundtrip_step
              "frame_pack")
@@ -238,7 +263,9 @@ OCCUPANCY = (("lz4_compress", "lz4tt_compress_occupancy"),
              ("xxh32", "lz4tt_xxh32_occupancy"),
              ("xxh64", "lz4tt_xxh64_occupancy"),
              ("lz4_hc", "lz4tt_hc_occupancy"),
-             ("lz4_decode", "lz4tt_decode_hist_occupancy"))
+             ("lz4_decode", "lz4tt_decode_hist_occupancy"),
+             ("parallel_compress", "lz4tt_parallel_occupancy"),
+             ("gather_decode", "lz4tt_gather_occupancy"))
 KIND_NAMES = ("a4", "text", "random")    # sharded.block_kinds 0, 1, 2
 A4_ROWS = (132, 1056, 4096)              # one block an SM, 8, 31
 HC_LEVEL = 9                             # the default level
@@ -256,6 +283,10 @@ FORMAT_BLOCKS = 1024                     # 64 MiB at 64 KiB blocks
 FORMAT_PLAIN_ROWS = 64                   # rows the plain window codecs run on
 LINKED_BIG = 4 << 20                     # lz4 -BD's default block size
 DICT_ID = 0x5EED
+PARALLEL_PATH = ("parallel_compress", "frame_pack", "xxh32_stream")
+GATHER_PATH = ("lz4_parse", "gather_decode")
+PARALLEL_BIG_ROW = 4 << 20               # -B4MB frame blocks
+PARALLEL_PLAIN_ROWS = 64                 # main-path rows the plain K7, K8 run on
 
 
 def fail(msg: str):
@@ -2329,6 +2360,363 @@ def phase_formats(dev) -> tuple[list[dict], dict]:
                   "linked": linked}
 
 
+# ---------------------------------------------------------------------------
+# the parallel compressor (K7), its engine, and the gather decode (K8)
+# ---------------------------------------------------------------------------
+
+def _scratch_gib(module) -> float:
+    """GiB of the scratch of a wrapper's last launch (K7's, K8's)."""
+    return module.SCRATCH.last_nbytes / 2 ** 30
+
+
+def compare_parallel(what, src, lens, cap) -> int:
+    """K7 against its plain version: every length and every row byte,
+    the rows at -1 included (their first ``cap`` bytes)."""
+    out, out_lens = parallel_compress.compress_parallel_batch(src, lens, cap)
+    plain, plain_lens = parallel_compress.compress_parallel_plain(src, lens,
+                                                                  cap)
+    sync()
+    if not torch.equal(out_lens, plain_lens):
+        bad = torch.nonzero(out_lens != plain_lens).flatten()[:8].tolist()
+        fail(f"{what}: lengths differ at rows {bad}: kernel "
+             f"{out_lens[bad].tolist()} plain {plain_lens[bad].tolist()}")
+    worst = int((out.to(torch.int16) - plain.to(torch.int16)).abs().max()) \
+        if out.numel() else 0
+    if worst:
+        fail(f"{what}: bytes differ (max abs diff {worst})")
+    return worst
+
+
+def compare_gather(what, comp, tables, out_len, max_depth=32) -> int:
+    got = gather_decode.gather_decompress_batch(comp, *tables, out_len,
+                                                max_depth)
+    want = gather_decode.gather_decompress_plain(comp, *tables, out_len,
+                                                 max_depth)
+    sync()
+    if not torch.equal(got, want):
+        bad = torch.nonzero((got != want).any(1)).flatten()[:8].tolist()
+        fail(f"{what}: K8 differs from its plain version at rows {bad}")
+    return 0
+
+
+def _parallel_edge_cases(dev, rng) -> None:
+    """K7 against its plain version on ``testing.parallel_blocks`` at the
+    sizes about 0-16, 512, 2048 and 65,536, the window blocks and 256
+    blocks of random kind and size (every row tail 0xA5), at tight caps
+    (-1) too, and on 16 rows of 4 MiB; K8 on the parser's sentinel tables
+    of K2's and K7's output of edge blocks, the chain blocks (max_depth
+    0-3 and 32) and the null-offset block."""
+    fuzz = [testing.block_of(rng, testing.PARALLEL_KINDS[int(k)], int(n))
+            for k, n in zip(rng.integers(0, len(testing.PARALLEL_KINDS), 256),
+                            rng.integers(0, 70000, 256))]
+    blocks = (testing.parallel_blocks(rng) + testing.parallel_blocks(
+        rng, testing.PARALLEL_BIG_SIZES) + testing.window_clamp_blocks()
+        + fuzz)
+    src, lens = layout.to_device_layout(blocks, device=dev)
+    col = torch.arange(src.shape[1], device=dev)
+    src[col >= lens[:, None]] = GUARD_BYTE
+    cap = max_compressed_length(src.shape[1])
+    for c in (cap, 600, 40, 0):
+        compare_parallel(f"K7 edge blocks cap={c}", src, lens, c)
+    out, out_lens = parallel_compress.compress_parallel_batch(src, lens, cap)
+    tight = parallel_compress.compress_parallel_batch(src, lens, 40)[1]
+    dec = codec.decompress_safe_batch(out, out_lens, src.shape[1])
+    if layout.from_device_layout(dec[0], dec[1]) != blocks or \
+            bool(dec[2].any()) or not bool((tight == -1).any()):
+        fail("K7 edge blocks: K1 did not restore them, or no row was -1 "
+             "at cap 40")
+    k7_blocks = layout.from_device_layout(out, out_lens)
+    window = k7_blocks[-len(fuzz) - 2:-len(fuzz)]
+    if not len(window[1]) < len(window[0]) - 20:
+        fail("K7: the repeat inside the window did not compress")
+    log(f"K7 == plain on {len(blocks)} edge blocks (sizes "
+        f"{testing.PARALLEL_SIZES + testing.PARALLEL_BIG_SIZES} x "
+        f"{testing.PARALLEL_KINDS}, the window blocks, {len(fuzz)} of random "
+        f"kind and size up to 70,000; tails 0xA5) at caps "
+        f"{cap}, 600, 40, 0 ({int((tight == -1).sum())} rows -1 at 40); "
+        f"K1 restores them; window blocks {len(window[0])} and "
+        f"{len(window[1])} B")
+
+    big = sharded.make_blocks(16, PARALLEL_BIG_ROW, SEED + 5)
+    bsrc, blens = sharded.upload_blocks(big, dev)
+    bcap = max_compressed_length(PARALLEL_BIG_ROW)
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bout, bl = parallel_compress.compress_parallel_batch(bsrc, blens, bcap)
+    sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = _time_kernel(lambda: parallel_compress.compress_parallel_batch(
+        bsrc, blens, bcap))
+    compare_parallel("K7 16 x 4 MiB", bsrc, blens, bcap)
+    dec = codec.decompress_safe_batch(bout, bl, PARALLEL_BIG_ROW)
+    if bool(dec[2].any()) or not torch.equal(dec[0][:, :PARALLEL_BIG_ROW],
+                                             bsrc[:, :PARALLEL_BIG_ROW]):
+        fail("K7 16 x 4 MiB: K1 did not restore the rows")
+    log(f"K7 on 16 x 4 MiB == plain, restored by K1: {ms:.3f} ms, "
+        f"{int(bl.sum())} B out; peak device memory of the call "
+        f"{peak / 2 ** 30:.3f} GiB above its inputs, K7's scratch "
+        f"{_scratch_gib(parallel_compress):.3f} GiB")
+    del bsrc, bout, dec
+
+    raws = testing.mixed_blocks(rng, EDGE_SIZES)
+    r, rl = layout.to_device_layout(raws, device=dev)
+    comp, clens, _ = codec.compress_fast_batch(r, rl, max_compressed_length(
+        max(EDGE_SIZES)))
+    cblocks = layout.from_device_layout(comp, clens) + k7_blocks
+    raws += blocks
+    chains = testing.chain_blocks(rng)
+    cblocks += [c for c, _ in chains] + [testing.boundary_blocks()[0]]
+    raws += [d for _, d in chains] + [b"*" + bytes(4) + b"*" * 8]
+    c, cl = layout.to_device_layout(cblocks, device=dev)
+    compare_parse("parser sentinel tails", c, cl)
+    tables, n_seq, _ = sequences.parse_sequences(c, cl, sentinel_tails=True)
+    want = sequences.parse_plain(c, cl, sentinel_tails=True)
+    if not torch.equal(tables, want[0].to(dev)):
+        fail("parser: the sentinel tables differ from the plain version's")
+    out_len = max(len(x) for x in raws)
+    for depth in (0, 1, 2, 3, 32):
+        compare_gather(f"K8 edge blocks max_depth={depth}", c, tables,
+                       out_len, depth)
+    if gather_decode.decompress_blocks(cblocks, out_len, dev) != raws:
+        fail("gather_decode.decompress_blocks did not restore the edge "
+             "blocks")
+    log(f"parser sentinel tails == plain; K8 == plain on {len(cblocks)} "
+        f"blocks (K2's and K7's edge blocks, {len(chains)} chain blocks, a "
+        f"null offset) at max_depth 0, 1, 2, 3, 32; decompress_blocks "
+        f"restores them")
+
+
+def _parallel_stream(dev, raw: bytes, k7_blocks: list[bytes]) -> dict:
+    """The ``parallel`` engine: ``compress_stream`` on 64 MiB twice (its
+    frame equal to the one put together from K7's blocks), decoded by the
+    ``cuda`` and ``segment`` engines; the same at 4 MiB blocks; the CLI's
+    ``compress --engine parallel`` in a subprocess, restored by
+    ``decompress``; each call with launch counts reset just before and read
+    just after: K7 run, K2 never. Returns walls and launches by call."""
+    want = _host_frame([raw[i:i + BLOCK_LEN]
+                        for i in range(0, len(raw), BLOCK_LEN)],
+                       k7_blocks, dev)
+    out, total = {}, {}
+
+    def call(what, fn, path, nbytes=len(raw)):
+        build.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        got = fn()
+        sync()
+        dt = time.perf_counter() - t0
+        counts = build.launch_counts()
+        missing = [k for k in path if counts.get(k, 0) < 1]
+        if missing or (path == PARALLEL_PATH and counts["lz4_compress"]):
+            fail(f"{what}: launches {counts}: K2 run, or {missing} not")
+        out[what] = {"wall_ms": round(dt * 1e3, 1),
+                     "MB/s": round(nbytes / dt / 1e6, 2),
+                     "launches": {k: v for k, v in counts.items() if v}}
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return got
+
+    def compress(bs, data=raw):
+        sink = io.BytesIO()
+        compress_stream(io.BytesIO(data), sink, engine="parallel",
+                        block_size=bs, batch_blocks=STREAM_BATCH)
+        return sink.getvalue()
+
+    def decompress(frame, engine):
+        back = io.BytesIO()
+        decompress_stream(io.BytesIO(frame), back, engine=engine)
+        return back.getvalue()
+
+    for rnd in (1, 2):
+        frame = call(f"compress_stream(parallel) #{rnd}",
+                     lambda: compress(BlockSize.SIZE_64KB), PARALLEL_PATH)
+        if frame != want:
+            fail("compress_stream(parallel): the frame differs from the one "
+                 "put together from K7's blocks")
+    for engine, path in (("cuda", ("lz4_decode",)),
+                         ("segment", ("lz4_parse", "segment_decode"))):
+        if call(f"decompress_stream({engine})",
+                lambda: decompress(want, engine), path) != raw:
+            fail(f"decompress_stream({engine}) did not restore the "
+                 "parallel frame")
+    big = call("compress_stream(parallel, 4 MiB blocks)",
+               lambda: compress(BlockSize.SIZE_4MB), PARALLEL_PATH)
+    for engine in ("cuda", "segment"):
+        if decompress(big, engine) != raw:
+            fail(f"the 4 MiB parallel frame: decompress_stream({engine}) "
+                 "did not restore it")
+    # the device memory a full batch of 4 MiB blocks leaves allocated (K7's
+    # scratch at its budget is the launch's own) and its peak
+    what = "compress_stream(parallel, 4 MiB blocks, a full batch)"
+    full = raw * (STREAM_BATCH * PARALLEL_BIG_ROW // len(raw))
+    parallel_compress.SCRATCH.clear()
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    frame = call(what, lambda: compress(BlockSize.SIZE_4MB, full),
+                 PARALLEL_PATH, len(full))
+    out[what].update({
+        "held_gib": (torch.cuda.memory_allocated() - base) / 2 ** 30,
+        "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+        "scratch_kept_gib": parallel_compress.SCRATCH.nbytes() / 2 ** 30,
+        "scratch_launch_gib": _scratch_gib(parallel_compress),
+        "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
+    if decompress(frame, "cuda") != full:
+        fail(f"{what}: decompress_stream(cuda) did not restore it")
+    del full, frame
+    try:
+        get_engine("parallel", 9, dev)
+        fail("get_engine('parallel', 9) did not raise")
+    except Lz4FrameError as e:
+        log(f"get_engine('parallel', 9) raises: {e}")
+    work = REPO / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        src = pathlib.Path(tmp) / "in.bin"
+        dst, back = src.with_suffix(".lz4"), src.with_suffix(".back")
+        src.write_bytes(raw)
+        t0 = time.perf_counter()
+        log(_cli("compress", str(src), str(dst), "--engine", "parallel")
+            .strip())
+        log(_cli("decompress", str(dst), str(back)).strip())
+        out["python -m lz4_tpu_torch compress --engine parallel"] = {
+            "wall_ms": round((time.perf_counter() - t0) * 1e3, 1)}
+        if dst.read_bytes() != want or back.read_bytes() != raw:
+            fail("the command line's parallel frame differs from the "
+                 "engine's, or its round trip from the input")
+    log(f"parallel engine ({len(raw) >> 20} MiB): {json.dumps(out)}; frame "
+        f"{len(want)} B at 64 KiB, {len(big)} B at 4 MiB blocks, both "
+        f"restored by the cuda and segment engines and the command line")
+    return {"calls": out, "total": total}
+
+
+def phase_parallel(dev) -> list[dict]:
+    """Phase 8d: K7 and K8 on their edge cases; K7 on the main path's
+    blocks (timed beside K2, the plain version on some rows, every block
+    decoded back by K1, sizes by kind); the ``parallel`` engine and its
+    command line; K8 on the main path's K2 output (timed beside K5 and K1,
+    the plain version on some rows) and ``gather_decode.
+    decompress_blocks``. Returns the rows of K7 and K8."""
+    rng = np.random.default_rng(SEED + 4)
+    _parallel_edge_cases(dev, rng)
+
+    data = sharded.make_blocks(N_BLOCKS, BLOCK_LEN, SEED)
+    kinds = torch.from_numpy(sharded.block_kinds(N_BLOCKS, SEED)).to(dev)
+    src, lens = sharded.upload_blocks(data, dev)
+    n = N_BLOCKS
+    cap = max_compressed_length(BLOCK_LEN)
+    in_bytes = int(lens.sum())
+    sub = slice(None, None, n // PARALLEL_PLAIN_ROWS)
+
+    # the peak of a first call at this shape: its scratch (kept by the
+    # wrapper, grown by the edge cases' 4 MiB rows) allocated anew
+    parallel_compress.SCRATCH.clear()
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    comp, comp_lens = parallel_compress.compress_parallel_batch(src, lens, cap)
+    sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    ssub, lsub = src[sub].contiguous(), lens[sub].contiguous()
+    plain, plain_ms = _time_plain(
+        lambda: parallel_compress.compress_parallel_plain(ssub, lsub, cap))
+    if not (torch.equal(plain[1], comp_lens[sub])
+            and torch.equal(plain[0], comp[sub])):
+        fail("K7 main path: differs from the plain version")
+    dec = codec.decompress_safe_batch(comp, comp_lens, BLOCK_LEN)
+    if bool(dec[2].any()) or not torch.equal(dec[0][:, :BLOCK_LEN],
+                                             src[:, :BLOCK_LEN]):
+        fail("K7 main path: K1 did not decode every block to its input")
+    del dec
+    ms = _time_kernel(lambda: parallel_compress.compress_parallel_batch(
+        src, lens, cap))
+    k2 = codec.compress_fast_batch(src, lens, cap)
+    k2_ms = _time_kernel(lambda: codec.compress_fast_batch(src, lens, cap))
+    sizes = {name: (int(comp_lens[kinds == k].sum()),
+                    int(k2[1][kinds == k].sum()))
+             for k, name in enumerate(KIND_NAMES)}
+    log(f"K7 on {n} x {BLOCK_LEN} B: {ms:.3f} ms (K2 {k2_ms:.3f} ms on the "
+        f"same blocks); plain {plain_ms:.1f} ms on {ssub.shape[0]} rows, "
+        f"equal; every block decoded by K1 to its input; compressed bytes "
+        f"(K7, K2) by kind {sizes}; peak device memory of the call "
+        f"{peak / 2 ** 30:.3f} GiB above its inputs, its scratch "
+        f"{_scratch_gib(parallel_compress):.3f} GiB of it "
+        f"({parallel_compress.resident_teams(0)} teams)")
+    k7_blocks = layout.from_device_layout(comp[:CLI_BYTES // BLOCK_LEN],
+                                          comp_lens[:CLI_BYTES // BLOCK_LEN])
+    stream = _parallel_stream(dev, data.tobytes()[:CLI_BYTES], k7_blocks)
+    comp_bytes = int(comp_lens.sum())
+    k7 = kernel_row("parallel_compress", stream["total"], 0, ms, plain_ms,
+                    in_bytes + comp_bytes + 8 * n, in_bytes,
+                    plain_rows=ssub.shape[0])
+    k7.update({"k2_ms": k2_ms, "bytes_by_kind_k7_k2": sizes,
+               "peak_gib": peak / 2 ** 30, "stream": stream["calls"]})
+    del comp, plain, ssub
+
+    # K8 on the main path's K2 output, beside K5 and K1
+    c, cl = k2[0], k2[1]
+    tables, n_seq, total = sequences.parse_sequences(c, cl,
+                                                     sentinel_tails=True)
+    if bool((n_seq < 0).any()) or not bool((total == BLOCK_LEN).all()):
+        fail("parser main path: a block was refused")
+    gather_decode.SCRATCH.clear()
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = gather_decode.gather_decompress_batch(c, *tables, BLOCK_LEN)
+    sync()
+    k8_peak = torch.cuda.max_memory_allocated() - base
+    if not torch.equal(out, src[:, :BLOCK_LEN]):
+        fail("K8 main path: a block differs from the input")
+    csub = c[sub].contiguous()
+    tsub = tables[:, sub].contiguous()
+    plain, k8_plain_ms = _time_plain(
+        lambda: gather_decode.gather_decompress_plain(csub, *tsub,
+                                                      BLOCK_LEN))
+    if not torch.equal(plain, out[sub]):
+        fail("K8 main path: differs from the plain version")
+    for depth in (1, 2, 3):
+        compare_gather(f"K8 main path rows max_depth={depth}", csub, tsub,
+                       BLOCK_LEN, depth)
+    k8_ms = _time_kernel(lambda: gather_decode.gather_decompress_batch(
+        c, *tables, BLOCK_LEN))
+    plain_seg = sequences.parse_sequences(c, cl)
+    k5_ms = _time_kernel(lambda: segment_decode.decompress_segments(
+        c, cl, plain_seg[1], plain_seg[0], BLOCK_LEN))
+    k1_ms = _time_kernel(lambda: codec.decompress_safe_batch(c, cl,
+                                                             BLOCK_LEN))
+    del out, plain, plain_seg
+    blocks = layout.from_device_layout(c, cl)
+    build.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    restored = gather_decode.decompress_blocks(blocks, BLOCK_LEN, dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = build.launch_counts()
+    if [k for k in GATHER_PATH if launches.get(k, 0) < 1]:
+        fail(f"gather_decode.decompress_blocks: launches {launches}")
+    if restored != [r.tobytes() for r in data]:
+        fail("gather_decode.decompress_blocks did not restore the input")
+    log(f"K8 on {n} x {BLOCK_LEN} B of K2 output: {k8_ms:.3f} ms (K5 "
+        f"{k5_ms:.3f}, K1 {k1_ms:.3f} ms on the same blocks); plain "
+        f"{k8_plain_ms:.1f} ms on {csub.shape[0]} rows, equal at max_depth "
+        f"1, 2, 3, 32; peak device memory {k8_peak / 2 ** 30:.3f} GiB above "
+        f"its inputs, its scratch {_scratch_gib(gather_decode):.3f} GiB of "
+        f"it; "
+        f"decompress_blocks restored all {n} blocks in "
+        f"{wall:.1f} ms, launches {launches}")
+    # literal bytes, 24 B of table a sequence and the sentinel after it in;
+    # the rows out
+    lit_bytes = int(tables[2].sum())
+    k8 = kernel_row("gather_decode", launches, 0, k8_ms, k8_plain_ms,
+                    lit_bytes + 24 * int((n_seq + 1).sum()) + in_bytes,
+                    in_bytes, plain_rows=csub.shape[0])
+    k8.update({"k5_ms": k5_ms, "k1_ms": k1_ms, "peak_gib": k8_peak / 2 ** 30,
+               "decompress_blocks_wall_ms": round(wall, 1)})
+    return [k7, k8]
+
+
 def _dist_one_rank(dev) -> dict:
     """``sharded_roundtrip_step`` on one NCCL rank, held to
     ``roundtrip_step``; returns the launches of its steps."""
@@ -2728,6 +3116,7 @@ def main() -> int:
     fmt_rows, fmt = timed("formats", phase_formats, dev)
     rows += fmt_rows
     dist_launches = timed("dist", phase_dist, dev, card)
+    rows += timed("parallel", phase_parallel, dev)
     for r in rows:
         r.update(one_row.get(r["name"], {}))
         r["dist_launches"] = dist_launches.get(r["name"], 0)

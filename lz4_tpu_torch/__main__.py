@@ -5,7 +5,8 @@ hashes and a report of the ``cuda`` tier, as ``python -m lz4_tpu`` has
 them (``lz4_tpu/__main__.py``), with the port's engines (``fastest``,
 ``cuda``, ``segment``, ``sharded``; ``sharded`` splits a batch over the
 ranks of a process group, and is one rank here, as no command starts a
-group). It runs on the card, HC (``-l 1..17``) included. ``-D FILE``
+group; ``compress`` also has ``parallel``, the parallel compressor, K7).
+It runs on the card, HC (``-l 1..17``) included. ``-D FILE``
 compresses against a dictionary (a dictionary frame, ``--dict-id`` its
 DictID field; the fast scan only) and decodes dictionary frames;
 ``--allow-dependent`` reads linked-block frames (``lz4 -BD``), which are
@@ -15,6 +16,7 @@ host tier) is not ported.
 Examples:
   python -m lz4_tpu_torch compress   input.bin out.lz4 --engine cuda -B 64KB
   python -m lz4_tpu_torch compress   input.bin out.lz4 -l 9
+  python -m lz4_tpu_torch compress   input.bin out.lz4 --engine parallel
   python -m lz4_tpu_torch compress   input.bin out.lz4 -D dict.bin --dict-id 7
   python -m lz4_tpu_torch decompress out.lz4 restored.bin --engine segment
   python -m lz4_tpu_torch decompress out.lz4 restored.bin -D dict.bin
@@ -42,6 +44,9 @@ from .streams.pipeline import (
 _BLOCK_SIZES = {"64KB": BlockSize.SIZE_64KB, "256KB": BlockSize.SIZE_256KB,
                 "1MB": BlockSize.SIZE_1MB, "4MB": BlockSize.SIZE_4MB}
 _CHUNK = 1 << 20
+# decompress has the JAX command line's choices: no parallel, which only
+# compresses differently
+_DECODE_ENGINES = tuple(e for e in ENGINES if e != "parallel")
 
 
 def _block_size(name: str) -> BlockSize:
@@ -134,7 +139,8 @@ def cmd_info(args, device) -> None:
     print(f"  lz4 tier     : {Lz4Factory.cuda_instance(device)!r}")
     print(f"  hash tier    : {XXHashFactory.cuda_instance(device)!r}")
     print(f"  engines      : {', '.join(ENGINES)}")
-    print("  compressors  : fast scan (K2), HC levels 1-17 (K6)")
+    print("  compressors  : fast scan (K2), HC levels 1-17 (K6), "
+          "parallel (K7)")
 
 
 def main(argv=None, device: str | torch.device = "cuda") -> int:
@@ -172,7 +178,7 @@ def main(argv=None, device: str | torch.device = "cuda") -> int:
     d.add_argument("-D", "--dict", metavar="FILE",
                    help="dictionary file for dictionary frames "
                    "(lz4 CLI -D); accepts the DictID header field")
-    d.add_argument("--engine", default="fastest", choices=ENGINES)
+    d.add_argument("--engine", default="fastest", choices=_DECODE_ENGINES)
     d.set_defaults(fn=cmd_decompress)
 
     for name, fn in (("xxh32", cmd_xxh32), ("xxh64", cmd_xxh64)):

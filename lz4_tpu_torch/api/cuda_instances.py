@@ -20,9 +20,9 @@ Where each role runs:
 - the packed entry points :func:`compress_fast_packed` and
   :func:`decompress_safe_packed` (the contracts of
   ``lz4_tpu/api/native_instances.py:167,247``: one contiguous buffer each
-  way), over :func:`compress_rows` (K2, or K6 at an HC level) and
-  :func:`decode_rows`, which keep the batch on the card and are what the
-  stream pipeline's engines run.
+  way), over :func:`compress_rows` (K2, or K6 at an HC level),
+  :func:`compress_parallel_rows` (K7) and :func:`decode_rows`, which keep
+  the batch on the card and are what the stream pipeline's engines run.
 
 - the window codecs :func:`compress_blocks_with_dict` and
   :func:`decompress_blocks_with_history` (K2 and K1 with a window before
@@ -48,7 +48,7 @@ from ..core.constants import (
 from ..core.device import resolve_device
 from ..core.errors import Lz4Error
 from ..core.lz4_hc_ref import check_range
-from ..kernels import codec, hc, xxhash_stream
+from ..kernels import codec, hc, parallel_compress, xxhash_stream
 from ..kernels.layout import (
     DOWN, UP, from_device_layout, row_stride, staging, to_device_layout,
     upload_bytes)
@@ -141,6 +141,31 @@ def compress_rows(data: torch.Tensor, block_size: int, level: int = 0):
     blocks (the frame stores a block raw when compressing does not shrink
     it).
     """
+    with part("kernels"):
+        src, lens = _block_rows(data, block_size)
+        cap = max_compressed_length(block_size)
+        if level > 0:
+            return (src, lens) + hc.compress_hc_batch(src, lens, cap, level)
+        return (src, lens) + codec.compress_fast_batch(src, lens, cap)
+
+
+def compress_parallel_rows(data: torch.Tensor, block_size: int):
+    """:func:`compress_rows` on K7, the parallel compressor (the packed
+    compress of the ``parallel`` engine), with its return contract; a
+    block whose output does not fit its cap, which
+    ``max_compressed_length`` rules out, gets ``ERR_DEST_TOO_SMALL``."""
+    with part("kernels"):
+        src, lens = _block_rows(data, block_size)
+        comp, comp_lens = parallel_compress.compress_parallel_batch(
+            src, lens, max_compressed_length(block_size))
+        err = (comp_lens < 0).to(torch.int32) * codec.ERR_DEST_TOO_SMALL
+        return src, lens, comp, comp_lens, err
+
+
+def _block_rows(data: torch.Tensor, block_size: int):
+    """``data`` (a contiguous ``uint8[L]`` tensor) cut into rows of
+    ``block_size`` bytes, the last possibly short, on its device: (src
+    uint8[N, row_stride(block_size)], lens int32[N])."""
     if data.dtype != torch.uint8 or data.dim() != 1 or not data.is_contiguous():
         raise ValueError("expected a contiguous uint8[L] tensor")
     if block_size < 1:
@@ -149,19 +174,14 @@ def compress_rows(data: torch.Tensor, block_size: int, level: int = 0):
     n = -(-total // block_size)
     full = total // block_size
     dev = data.device
-    with part("kernels"):
-        src = torch.empty((n, row_stride(block_size)), dtype=torch.uint8,
-                          device=dev)
-        src[:full, :block_size] = data[:full * block_size].view(
-            full, block_size)
-        lens = torch.full((n,), block_size, dtype=torch.int32, device=dev)
-        if n > full:
-            src[full, :total - full * block_size] = data[full * block_size:]
-            lens[full] = total - full * block_size
-        cap = max_compressed_length(block_size)
-        if level > 0:
-            return (src, lens) + hc.compress_hc_batch(src, lens, cap, level)
-        return (src, lens) + codec.compress_fast_batch(src, lens, cap)
+    src = torch.empty((n, row_stride(block_size)), dtype=torch.uint8,
+                      device=dev)
+    src[:full, :block_size] = data[:full * block_size].view(full, block_size)
+    lens = torch.full((n,), block_size, dtype=torch.int32, device=dev)
+    if n > full:
+        src[full, :total - full * block_size] = data[full * block_size:]
+        lens[full] = total - full * block_size
+    return src, lens
 
 
 def check_compressed(err: torch.Tensor) -> None:

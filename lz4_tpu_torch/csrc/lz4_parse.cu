@@ -38,7 +38,7 @@ __global__ void __launch_bounds__(32 * kWarpsPerCta, kCtasPerSm)
     parse_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
                  const int32_t* __restrict__ comp_lens, int32_t max_seq,
                  int32_t* tables, int32_t* __restrict__ n_seq,
-                 int32_t* __restrict__ out_total, int32_t n) {
+                 int32_t* __restrict__ out_total, int32_t n, int32_t tail) {
   __shared__ __align__(16) uint8_t wins[kWarpsPerCta][LZ4TT_PARSE_WIN];
   const int warp = threadIdx.x >> 5;
   const int64_t b = (int64_t)blockIdx.x * kWarpsPerCta + warp;
@@ -48,6 +48,9 @@ __global__ void __launch_bounds__(32 * kWarpsPerCta, kCtasPerSm)
   const int32_t ns = lz4tt_parse_block(t, comp + b * comp_stride, comp_lens[b],
                                        max_seq, lz4tt_seq_row(tables, n, max_seq, b),
                                        wins[warp], &total);
+  if (tail != 0)
+    lz4tt_parse_sentinel(t, lz4tt_seq_row(tables, n, max_seq, b), ns, max_seq,
+                         tail);
   if (t.leader()) {
     n_seq[b] = ns;
     out_total[b] = total;
@@ -60,16 +63,18 @@ __global__ void __launch_bounds__(32 * kWarpsPerCta, kCtasPerSm)
 // tables: int32[6, n, max_seq] (lit_out, lit_src, lit_len, m_out, m_dist,
 // m_len), every entry written; n_seq: int32[n], the sequence count or a
 // negative code; out_total: int32[n], the decoded length of each OK block,
-// else 0. Returns cudaGetLastError() after the launch.
+// else 0. tail: 0, or the value of lit_out and m_out past the sequences of
+// an OK row (lz4tt_parse_sentinel). Returns cudaGetLastError() after the
+// launch.
 extern "C" int lz4tt_parse_sequences(const void* comp, long long comp_stride,
                                      const void* comp_lens, int max_seq,
                                      void* tables, void* n_seq, void* out_total,
-                                     int n, void* stream) {
+                                     int n, int tail, void* stream) {
   if (n > 0) {
     const int grid = (n + kWarpsPerCta - 1) / kWarpsPerCta;
     parse_kernel<<<grid, 32 * kWarpsPerCta, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)comp, comp_stride, (const int32_t*)comp_lens, max_seq,
-        (int32_t*)tables, (int32_t*)n_seq, (int32_t*)out_total, n);
+        (int32_t*)tables, (int32_t*)n_seq, (int32_t*)out_total, n, tail);
   }
   return (int)cudaGetLastError();
 }

@@ -352,6 +352,20 @@ LZ4TT_HD bool lz4tt_parse_chain(const Team& t, const Lz4ttParseSrc& src,
   return !bad && cur >= w;
 }
 
+// The gather decode's sentinel tails: lit_out and m_out past the ns
+// sequences of an OK row set to `tail`, past any output offset, so that a
+// search never selects them (tpulz4.cpp's tail mode 2: 1 << 30).
+template <class Team>
+LZ4TT_HD void lz4tt_parse_sentinel(const Team& t, const Lz4ttSeqRow& row,
+                                   int32_t ns, int32_t max_seq, int32_t tail) {
+  t.sync();  // after the zero tails' stores of the other lanes
+  const int32_t from = ns >= 0 ? ns : max_seq;
+  for (int32_t j = from + t.lane(); j < max_seq; j += t.size()) {
+    row.lit_out[j] = tail;
+    row.m_out[j] = tail;
+  }
+}
+
 // Parse one block into its row of the tables by the team, the zero tails
 // included; win: the team's LZ4TT_PARSE_WIN bytes of shared memory,
 // 16-byte aligned. Returns the number of sequences or a code; *out_total

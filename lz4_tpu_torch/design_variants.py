@@ -291,7 +291,8 @@ _PARSE_THREAD = """__global__ void __launch_bounds__(32)
     parse_thread_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
                         const int32_t* __restrict__ comp_lens, int32_t max_seq,
                         int32_t* tables, int32_t* __restrict__ n_seq,
-                        int32_t* __restrict__ out_total, int32_t n) {
+                        int32_t* __restrict__ out_total, int32_t n,
+                        int32_t tail) {
   const int64_t b = (int64_t)blockIdx.x * 32 + threadIdx.x;
   if (b >= n) return;
   const Lz4ttParseSrc src = {comp + b * comp_stride, nullptr, 0, 0};
@@ -303,6 +304,8 @@ _PARSE_THREAD = """__global__ void __launch_bounds__(32)
   } while (code == LZ4TT_PARSE_MORE);
   n_seq[b] = code == LZ4TT_PARSE_DONE ? at.n : code;
   out_total[b] = code == LZ4TT_PARSE_DONE ? at.d : 0;
+  if (tail != 0)
+    lz4tt_parse_sentinel(HostTeam(), row, n_seq[b], max_seq, tail);
 }
 
 }  // namespace"""

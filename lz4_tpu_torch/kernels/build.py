@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, at first use, into
-``build/lz4_tpu_torch/<source-hash>/`` beside the package (or
-``$LZ4_TPU_TORCH_BUILD_DIR``). All sources build at once, one ``nvcc`` each,
+``build/lz4_tpu_torch/<source-hash>/`` beside the package (or under
+``$LZ4_TPU_TORCH_BUILD_DIR``; ``utils/config.py`` has the knobs). All sources build at once, one ``nvcc`` each,
 in parallel; a file lock keeps concurrent processes from building together.
 The libraries are loaded with ``ctypes``. Every C entry point returns
 ``cudaGetLastError()`` after its launch, and :class:`Kernel` raises if it is
@@ -33,6 +33,9 @@ import threading
 
 import torch
 
+from ..utils import config
+from .layout import cuda_stream
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -55,9 +58,7 @@ def source_digest() -> str:
 
 
 def build_dir() -> pathlib.Path:
-    root = os.environ.get("LZ4_TPU_TORCH_BUILD_DIR")
-    base = (pathlib.Path(root) if root
-            else CSRC.parent.parent / "build" / "lz4_tpu_torch")
+    base = config.build_root() or CSRC.parent.parent / "build" / "lz4_tpu_torch"
     return base / source_digest()
 
 
@@ -65,8 +66,7 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = pathlib.Path(cuda_home) / "bin" / "nvcc"
+    path = config.cuda_home() / "bin" / "nvcc"
     if not path.exists():
         raise KernelBuildError("nvcc not found (set CUDA_HOME or PATH)")
     return str(path)
@@ -196,6 +196,72 @@ def occupancy(source: str, symbol: str,
     if rc != 0:
         raise RuntimeError(f"{symbol}: CUDA error {rc}")
     return ctas.value, threads.value
+
+
+@functools.cache
+def resident_ctas(source: str, symbol: str, device: int = 0) -> int:
+    """CTAs of a kernel of ``csrc/<source>.cu`` that card ``device`` holds
+    at once: its resident CTAs per SM (:func:`occupancy`) times the SMs."""
+    ctas, _ = occupancy(source, symbol, device)
+    return ctas * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# The most scratch one launch takes (fewer teams, each looping over more
+# blocks, when rows are so wide that a wave of them would need more), and
+# the most a Scratch keeps between calls: a 4096 x 64 KiB wave of K7 or K8
+# fits, 4 MiB rows and K6's 4096 teams do not.
+SCRATCH_BUDGET = 4 << 30
+SCRATCH_KEEP = 512 << 20
+
+
+class Scratch:
+    """A kernel's scratch on the card, a slice a team: one tensor a card and
+    CUDA stream, grown to what a launch asks for and kept between calls up
+    to ``SCRATCH_KEEP`` bytes, so that such a call allocates nothing. A
+    larger one is the launch's own and goes back to PyTorch's allocator
+    when the wrapper returns. Launches on one stream run in order, so they
+    share it; a buffer it replaces or drops is freed in that stream's
+    order too. ``budget`` (bytes, None for none) caps a launch's scratch
+    by its teams."""
+
+    def __init__(self, dtype: torch.dtype, budget: int | None = SCRATCH_BUDGET):
+        self.dtype = dtype
+        self.budget = budget
+        self.last_nbytes = 0
+        self._bufs: dict[tuple[int, int], torch.Tensor] = {}
+        self._lock = threading.Lock()
+
+    def teams(self, t: torch.Tensor, n: int, resident: int,
+              per_team: int) -> tuple[int, torch.Tensor]:
+        """Teams for ``n`` blocks on ``t``'s card (at most ``resident``, and
+        within the budget at ``per_team`` elements a team), and their
+        scratch for its current stream."""
+        teams = min(n, resident)
+        if self.budget is not None:
+            teams = min(teams, self.budget // (self.dtype.itemsize * per_team))
+        teams = max(1, teams)
+        return teams, self.take(t, teams * per_team)
+
+    def take(self, t: torch.Tensor, numel: int) -> torch.Tensor:
+        """At least ``numel`` elements on ``t``'s card, for its current
+        stream."""
+        key = (t.device.index, cuda_stream(t))
+        with self._lock:
+            buf = self._bufs.get(key)
+            if buf is None or buf.numel() < numel:
+                buf = torch.empty((numel,), dtype=self.dtype, device=t.device)
+                if buf.numel() * buf.element_size() <= SCRATCH_KEEP:
+                    self._bufs[key] = buf
+            self.last_nbytes = buf.numel() * buf.element_size()
+            return buf
+
+    def nbytes(self) -> int:
+        """Bytes kept between calls."""
+        return sum(b.numel() * b.element_size() for b in self._bufs.values())
+
+    def clear(self) -> None:
+        with self._lock:
+            self._bufs.clear()
 
 
 def launch_counts() -> dict[str, int]:

@@ -9,33 +9,30 @@ plain version, :func:`compress_hc_plain`. There is no fallback from one
 to the other.
 
 K6 keeps each block's match-finder tables and bucket index (1.375 MiB) in
-a team's slice of a scratch tensor on the card (5.5 GiB at 4096 teams). The wrapper owns it: one a card and CUDA
-stream, grown to the teams a launch runs (at most the resident CTAs) and
-kept between calls, so that a call allocates nothing once it is large
-enough.
+a team's slice of a scratch tensor on the card (5.5 GiB at 4096 teams),
+sized to the teams a launch runs (at most the resident CTAs, with no
+budget) by ``build.Scratch``, which keeps it between calls up to its
+``SCRATCH_KEEP``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 
 import numpy as np
 import torch
 
 from ..core.errors import Lz4Error
 from ..core.lz4_hc_ref import compress_hc
-from .build import Kernel, c_function, occupancy
+from .build import Kernel, Scratch, c_function, resident_ctas
 from .codec import ERR_DEST_TOO_SMALL
 from .layout import check_batch, cuda_stream, row_stride
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 HC = Kernel("lz4_hc", "lz4_hc", "lz4tt_compress_hc",
             [_P, _I64, _P, _P, _I64, _I32, _I32, _P, _I32, _P, _P, _I32, _P])
-
-_scratch: dict[tuple[int, int], torch.Tensor] = {}
-_scratch_lock = threading.Lock()
+SCRATCH = Scratch(torch.uint8, budget=None)
 
 
 def check_level(level: int) -> None:
@@ -43,31 +40,15 @@ def check_level(level: int) -> None:
         raise ValueError(f"level must be 1..17, got {level}")
 
 
-@functools.cache
 def resident_teams(index: int) -> int:
     """K6's teams (one warp a CTA) that card ``index`` holds at once."""
-    ctas, _ = occupancy("lz4_hc", "lz4tt_hc_occupancy", index)
-    return ctas * torch.cuda.get_device_properties(index).multi_processor_count
+    return resident_ctas("lz4_hc", "lz4tt_hc_occupancy", index)
 
 
 @functools.cache
 def team_bytes() -> int:
     """Bytes of scratch one team's tables take (``LZ4TT_HC_TEAM_BYTES``)."""
     return c_function("lz4_hc", "lz4tt_hc_team_bytes", [], None)()
-
-
-def _team_scratch(src: torch.Tensor, teams: int) -> torch.Tensor:
-    """The scratch of ``src``'s card and current stream, at least ``teams``
-    teams long. Launches on one stream run in order, so they share it; a
-    buffer it replaces is freed in that stream's order too."""
-    key = (src.device.index, cuda_stream(src))
-    need = teams * team_bytes()
-    with _scratch_lock:
-        buf = _scratch.get(key)
-        if buf is None or buf.numel() < need:
-            buf = _scratch[key] = torch.empty((need,), dtype=torch.uint8,
-                                              device=src.device)
-        return buf
 
 
 def compress_hc_batch(src: torch.Tensor, src_lens: torch.Tensor,
@@ -96,8 +77,8 @@ def compress_hc_batch(src: torch.Tensor, src_lens: torch.Tensor,
                        device=src.device)
     out_lens = torch.empty((n,), dtype=torch.int32, device=src.device)
     err = torch.empty((n,), dtype=torch.int32, device=src.device)
-    teams = max(1, min(n, resident_teams(src.device.index)))
-    scratch = _team_scratch(src, teams)
+    teams, scratch = SCRATCH.teams(src, n, resident_teams(src.device.index),
+                                   team_bytes())
     HC(src.data_ptr(), src.stride(0), src_lens.data_ptr(), dest.data_ptr(),
        dest.stride(0), dest_cap, level, scratch.data_ptr(), teams,
        out_lens.data_ptr(), err.data_ptr(), n, cuda_stream(src),

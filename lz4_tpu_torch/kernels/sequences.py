@@ -14,7 +14,10 @@ Tables: ``int32[6, N, S]`` in the order of :data:`TABLES`, so that
 number of sequences of block ``i``, or a negative code: ``-2`` malformed,
 ``-3`` more than ``S`` sequences (``tpulz4.cpp:99-100``). ``out_total[i]`` is
 the decoded length of an OK block, 0 otherwise. Entries past those a block
-wrote are 0; on an error row the entries before the error stay.
+wrote are 0; on an error row the entries before the error stay. With
+``sentinel_tails`` (the gather decode's tables, ``tpulz4.cpp``'s tail mode
+2), ``lit_out`` and ``m_out`` past an OK block's sequences are
+:data:`SENTINEL` instead, past any output offset.
 """
 
 from __future__ import annotations
@@ -32,11 +35,12 @@ from .layout import check_batch, cuda_stream, to_device_layout
 TABLES = ("lit_out", "lit_src", "lit_len", "m_out", "m_dist", "m_len")
 PARSE_MALFORMED = -2
 PARSE_TOO_MANY = -3
+SENTINEL = 1 << 30
 _LEN_CAP = 0x7E000000
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 PARSE = Kernel("lz4_parse", "lz4_parse", "lz4tt_parse_sequences",
-               [_P, _I64, _P, _I32, _P, _P, _P, _I32, _P])
+               [_P, _I64, _P, _I32, _P, _P, _P, _I32, _I32, _P])
 
 
 def max_seq_for(comp_max: int) -> int:
@@ -46,13 +50,15 @@ def max_seq_for(comp_max: int) -> int:
 
 
 def parse_sequences(comp: torch.Tensor, comp_lens: torch.Tensor,
-                    max_seq: int | None = None):
+                    max_seq: int | None = None, sentinel_tails: bool = False):
     """Parse a batch of compressed blocks into sequence tables.
 
     Args:
       comp: uint8[N, W] compressed blocks; comp_lens: int32[N] exact sizes.
       max_seq: table width S; by default :func:`max_seq_for` the longest
         block.
+      sentinel_tails: :data:`SENTINEL` in the ``lit_out`` and ``m_out``
+        tails of OK rows, else 0.
 
     Returns:
       (tables int32[6, N, S], n_seq int32[N], out_total int32[N]), on the
@@ -65,7 +71,7 @@ def parse_sequences(comp: torch.Tensor, comp_lens: torch.Tensor,
     if max_seq < 1:
         raise ValueError("max_seq must be >= 1")
     if comp.device.type == "cpu":
-        return parse_plain(comp, comp_lens, max_seq)
+        return parse_plain(comp, comp_lens, max_seq, sentinel_tails)
     dev = comp.device
     # the kernel writes every entry, the zero tails included
     tables = torch.empty((6, n, max_seq), dtype=torch.int32, device=dev)
@@ -74,7 +80,8 @@ def parse_sequences(comp: torch.Tensor, comp_lens: torch.Tensor,
     if n:
         PARSE(comp.data_ptr(), comp.stride(0), comp_lens.data_ptr(), max_seq,
               tables.data_ptr(), n_seq.data_ptr(), out_total.data_ptr(), n,
-              cuda_stream(comp), device=comp.device.index)
+              SENTINEL if sentinel_tails else 0, cuda_stream(comp),
+              device=comp.device.index)
     return tables, n_seq, out_total
 
 
@@ -135,7 +142,7 @@ def _parse_row(src: bytes, rows: np.ndarray, max_seq: int):
 
 
 def parse_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
-                max_seq: int | None = None):
+                max_seq: int | None = None, sentinel_tails: bool = False):
     """Plain version of :func:`parse_sequences`, on any device: a Python
     loop over each block's tokens, on the host."""
     check_batch(comp, comp_lens)
@@ -149,6 +156,8 @@ def parse_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
     for i, n in enumerate(lens):
         n_seq[i], out_total[i] = _parse_row(comp_np[i, :n].tobytes(), rows[i],
                                             max_seq)
+        if sentinel_tails and n_seq[i] >= 0:
+            rows[i, [0, 3], n_seq[i]:] = SENTINEL
     dev = comp.device
     return (torch.from_numpy(rows.transpose(1, 0, 2).copy()).to(dev),
             torch.from_numpy(n_seq).to(dev), torch.from_numpy(out_total).to(dev))

@@ -15,6 +15,10 @@ Engines, each on one device (the card unless told otherwise):
   its native tier, byte-identical), and decodes with the sequence parser
   and K5 (``kernels/segment_decode.py``);
 - ``fastest``: ``cuda``;
+- ``parallel``: compresses with the parallel compressor (K7,
+  ``kernels/parallel_compress.py``: valid LZ4, not the fast scan's bytes)
+  and decodes as ``cuda`` does, the counterpart of the JAX engine, which
+  decodes on its native tier; it has no HC levels;
 - ``sharded``: the blocks of a batch split over the ranks of the current
   process group (``dist/sharded.py``: ``shard_compress_blocks`` and
   ``shard_decompress_blocks``, each rank on its own device), every rank
@@ -23,7 +27,7 @@ Engines, each on one device (the card unless told otherwise):
 
 ``level`` 1..17 compresses with HC at that level (K6, the tier's
 ``high_compressor(level)``), through the same data plane. The JAX engines
-``native``, ``safe`` and ``parallel`` are not ported. With
+``native`` and ``safe`` (host tiers) are not ported. With
 ``allow_dependent`` a frame of linked blocks (``lz4 -BD``) is handed,
 with its header replayed, to the serial frame reader
 (``formats/frame.py::Lz4FrameInputStream``), as the JAX pipeline hands it
@@ -36,7 +40,8 @@ The data plane of a batch (the JAX pipeline's packed fast paths,
 ``:231-261,407-456``), when the engine has its packed forms:
 
 - compress: the batch is read straight into the pinned staging buffer
-  (``readinto``), uploaded once, compressed with K2 (K6 at an HC level),
+  (``readinto``), uploaded once, compressed with K2 (K6 at an HC level, K7
+  for ``parallel``),
   packed into the frame body on the card
   (``dist/sharded.py::frame_body_packed``), downloaded once and written
   with one ``dst.write``; while the card compresses a batch,
@@ -76,14 +81,14 @@ from ..formats.frame import (
     Lz4FrameInputStream, _bd_from_byte, _flg_from_byte, _flg_to_byte,
     xxh32_bytes,
 )
-from ..kernels import segment_decode
+from ..kernels import parallel_compress, segment_decode
 from ..kernels.layout import DOWN, UP, row_stride, staging
 from ..kernels.xxhash import xxh32_batch
 from ..kernels.xxhash_stream import StreamState32
 from ..utils.buffers import read_into
 from ..utils.profiling import part
 
-ENGINES = ("fastest", "cuda", "segment", "sharded")
+ENGINES = ("fastest", "cuda", "segment", "sharded", "parallel")
 
 _U32 = struct.Struct("<I")
 _U64 = struct.Struct("<Q")
@@ -97,7 +102,8 @@ class BatchEngine:
     - optionally the packed forms, the fields of the JAX engine's names,
       one contiguous buffer each way, here kept on the engine's device:
       ``compress_packed(data, block_size) -> (src, lens, comp, comp_lens,
-      err)`` (``cuda_instances.compress_rows``) and ``decompress_packed(comp,
+      err)`` (``cuda_instances.compress_rows``, ``compress_parallel_rows``)
+      and ``decompress_packed(comp,
       comp_lens, out_max) -> (out, out_lens)`` (``cuda_instances.
       decode_rows``, ``segment_decode.decompress_rows``). The pipeline
       takes them when they are set.
@@ -124,14 +130,33 @@ def get_engine(name: str = "fastest", level: int = 0,
 
     ``level`` 1..17 compresses with HC at that level on K6, packed or
     listed; 0 (or below) with the fast scan, as the JAX engines other than
-    ``native`` do.
+    ``native`` do. ``parallel`` refuses a level above 0 with
+    ``Lz4FrameError``, as the JAX engine does.
     """
     if name not in ENGINES:
         raise ValueError(
             f"unknown engine {name!r}: the port has {', '.join(ENGINES)} "
-            "(the JAX engines native, safe and parallel are not ported)")
+            "(the JAX engines native and safe are not ported)")
     dev = resolve_device(device)
     name = "cuda" if name == "fastest" else name
+    if name == "parallel":
+        if level > 0:
+            # no parallel HC exists: refusing beats handing back the
+            # parallel compressor's output at a requested level
+            raise Lz4FrameError(
+                f"engine 'parallel' has no HC mode (level={level}); "
+                "use engine 'cuda'/'segment'/'sharded' for HC")
+        def decomp(blocks, out_max):
+            # the tier's safe decoder, built (and self-tested) at first use
+            # only: a compress through this engine runs K7 alone
+            return Lz4Factory.cuda_instance(dev).safe_decompressor() \
+                .decompress_batch(blocks, out_max)
+
+        return BatchEngine(
+            name, functools.partial(parallel_compress.compress_blocks,
+                                    device=dev),
+            decomp, dev, cuda_instances.compress_parallel_rows,
+            cuda_instances.decode_rows)
     suffix = f"-hc{level}" if level > 0 else ""
     if name == "sharded":
         mesh = block_mesh(dev)

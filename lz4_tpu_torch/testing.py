@@ -35,12 +35,43 @@ def block_of(rng: np.random.Generator, kind: str, size: int) -> bytes:
                  for k in rng.integers(4, 48, 64)]
         return b"".join(words[int(i)] for i in
                         rng.integers(0, 64, size // 4 + 1))[:size]
+    if kind == "period46":   # test_parallel_compress.py:43
+        return (PHRASE * (size // len(PHRASE) + 1))[:size]
+    if kind == "runs":       # a run of zeros, then one of ones (:52)
+        return bytes(size * 3 // 4) + b"\x01" * (size - size * 3 // 4)
     raise ValueError(f"unknown kind {kind!r}")
 
 
 def mixed_blocks(rng: np.random.Generator, sizes) -> list[bytes]:
     """One block of every kind at every size."""
     return [block_of(rng, kind, size) for size in sizes for kind in KINDS]
+
+
+# The parallel compressor's (K7's) edge cases: every kind at the sizes
+# about the format's end rules, a segment's and a window's length.
+PHRASE = b"the quick brown fox jumps over the lazy dog. "
+PARALLEL_KINDS = ("zeros", "alphabet4", "text", "incompressible", "period46",
+                  "runs")
+PARALLEL_SIZES = tuple(range(17)) + (511, 512, 513, 2047, 2048, 2049)
+PARALLEL_BIG_SIZES = (65535, 65536, 65537)
+
+
+def parallel_blocks(rng: np.random.Generator, sizes=PARALLEL_SIZES):
+    """One block of every K7 kind at every size, and a block of 2 KiB of
+    words FF FF FF 7F (the sort key of the positions past a block)."""
+    return [block_of(rng, kind, size) for size in sizes
+            for kind in PARALLEL_KINDS] + [b"\xff\xff\xff\x7f" * 512]
+
+
+def window_clamp_blocks() -> list[bytes]:
+    """Two blocks of 70,028 bytes (``test_parallel_compress.py:80``): 64
+    random bytes repeated just outside the 65,536-byte window, and the same
+    length with a repeat just inside it."""
+    rng = np.random.default_rng(7)
+    head = rng.integers(0, 256, 64, dtype=np.uint8).tobytes()
+    mid = rng.integers(0, 256, 69_900, dtype=np.uint8).tobytes()
+    base = head + mid
+    return [base + head, base + base[-65_000:-65_000 + 64]]
 
 
 # The kinds of data and the long block sizes HC is held at: its chains
@@ -253,6 +284,35 @@ def expand_block(seqs, tail: bytes, hist: bytes = b"") -> bytes:
         for _ in range(ml):
             out.append(out[-dist] if dist else 0)
     return bytes(out[len(hist):] + tail)
+
+
+def chain_blocks(rng: np.random.Generator):
+    """``(compressed, decoded)`` blocks whose matches copy matches, for the
+    gather decode's rounds: a chain of 8-byte copies at distance 8 (byte p
+    is p // 8 - 1 copies from its literal), runs at distance 1 and
+    periodic overlaps copied again, and random sequences of short literals
+    and matches reaching up to 300 bytes back (often past their own
+    start)."""
+    def rand(n):
+        return rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+
+    cases = [[(rand(8), 8, 8)] + [(b"", 8, 8)] * 40,
+             [(rand(1), 1, 1000), (rand(3), 3, 60), (b"", 500, 700),
+              (rand(2), 61, 200), (b"", 1, 37)]]
+    seqs, total = [], 0
+    for k in range(300):
+        lit = rand(16 if k == 0 else rng.integers(0, 3))
+        total += len(lit)
+        dist = int(rng.integers(1, min(total, 300) + 1))
+        ml = int(rng.integers(4, 40))
+        seqs.append((lit, dist, ml))
+        total += ml
+    cases.append(seqs)
+    out = []
+    for c in cases:
+        tail = rand(5)
+        out.append((encode_block(c, tail), expand_block(c, tail)))
+    return out
 
 
 # The history lengths the window decode and the dictionary compress are

@@ -1,6 +1,6 @@
 """Measurement and buffer helpers: the counterpart of ``lz4_tpu/utils``
 (``profiling``, ``timing``, ``buffers``) on ``torch.profiler`` and CUDA
-events."""
+events, and ``config``, the port's environment knobs."""
 
 from .buffers import as_bytes, chunk_bytes
 from .profiling import annotate, part, trace

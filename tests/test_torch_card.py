@@ -20,7 +20,8 @@ from lz4_tpu_torch.core import xxhash_ref
 from lz4_tpu_torch.core.constants import max_compressed_length
 from lz4_tpu_torch.dist import sharded
 from lz4_tpu_torch.kernels import (
-    build, codec, hc, layout, segment_decode, sequences, xxhash, xxhash_stream)
+    build, codec, gather_decode, hc, layout, parallel_compress,
+    segment_decode, sequences, xxhash, xxhash_stream)
 from lz4_tpu_torch.streams import compress_stream, decompress_stream
 
 pytestmark = pytest.mark.cuda
@@ -744,3 +745,67 @@ def test_linked_blocks_on_the_card(cuda_device):
         assert int(e[0]) == 0
         pos += int(n[0])
     assert out[:pos].cpu().numpy().tobytes() == raw
+
+
+@pytest.mark.parametrize("cap", [None, 40])
+def test_parallel_kernel_matches_plain(cuda_device, cap):
+    """K7 against its plain version on the edge blocks, the long ones and
+    the window blocks, with every row tail 0xA5; one launch."""
+    rng = np.random.default_rng(61)
+    blocks = (testing.parallel_blocks(rng)
+              + testing.parallel_blocks(rng, testing.PARALLEL_BIG_SIZES)[::5]
+              + testing.window_clamp_blocks())
+    src, lens = layout.to_device_layout(blocks, device=cuda_device)
+    col = torch.arange(src.shape[1], device=cuda_device)
+    src[col >= lens[:, None]] = 0xA5
+    cap = max_compressed_length(src.shape[1]) if cap is None else cap
+    before = parallel_compress.PARALLEL.launches
+    out, out_lens = parallel_compress.compress_parallel_batch(src, lens, cap)
+    assert parallel_compress.PARALLEL.launches == before + 1
+    want = parallel_compress.compress_parallel_plain(src, lens, cap)
+    assert torch.equal(out_lens, want[1])
+    assert torch.equal(out, want[0])
+
+
+@pytest.mark.parametrize("max_depth", [1, 2, 3, 32])
+def test_gather_kernel_matches_plain(cuda_device, max_depth):
+    """K8 against its plain version on the parser's sentinel tables of K2's
+    blocks and the chain blocks; one launch."""
+    rng = np.random.default_rng(62)
+    raws = testing.mixed_blocks(rng, EDGE_SIZES)
+    src, lens = layout.to_device_layout(raws, device=cuda_device)
+    comp, clens, _ = codec.compress_fast_batch(src, lens,
+                                               max_compressed_length(70000))
+    blocks = layout.from_device_layout(comp, clens)
+    blocks += [c for c, _ in testing.chain_blocks(rng)]
+    blocks.append(testing.boundary_blocks()[0])
+    c, cl = layout.to_device_layout(blocks, device=cuda_device)
+    tables, n_seq, _ = sequences.parse_sequences(c, cl, sentinel_tails=True)
+    assert bool((n_seq > 0).all())
+    before = gather_decode.GATHER.launches
+    got = gather_decode.gather_decompress_batch(c, *tables, 70000, max_depth)
+    assert gather_decode.GATHER.launches == before + 1
+    want = gather_decode.gather_decompress_plain(c, *tables, 70000, max_depth)
+    assert torch.equal(got, want)
+
+
+def test_parallel_engine_round_trip(cuda_device):
+    """The ``parallel`` engine on the card: K7 compresses, never K2; the
+    frame equals the one put together from ``compress_blocks``; both
+    engines restore it."""
+    rng = np.random.default_rng(63)
+    data = b"".join(testing.block_of(rng, k, 100000)
+                    for k in ("text", "alphabet4", "incompressible"))
+    build.reset_launch_counts()
+    sink = io.BytesIO()
+    compress_stream(io.BytesIO(data), sink, engine="parallel")
+    counts = build.launch_counts()
+    assert counts["parallel_compress"] == 1 and counts["lz4_compress"] == 0
+    blocks = [data[i:i + 65536] for i in range(0, len(data), 65536)]
+    comps = parallel_compress.compress_blocks(blocks)
+    assert sink.getvalue() == testing.build_frame(blocks, comps,
+                                                  block_checksum=False)
+    for engine in ("cuda", "segment"):
+        back = io.BytesIO()
+        decompress_stream(io.BytesIO(sink.getvalue()), back, engine=engine)
+        assert back.getvalue() == data

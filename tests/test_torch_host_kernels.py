@@ -16,7 +16,8 @@ from lz4_tpu_torch import design_variants, testing
 from lz4_tpu_torch.core.constants import max_compressed_length
 from lz4_tpu_torch.dist import sharded
 from lz4_tpu_torch.kernels import (
-    build, codec, hc, layout, segment_decode, sequences, xxhash, xxhash_stream)
+    build, codec, gather_decode, hc, layout, parallel_compress, segment_decode,
+    sequences, xxhash, xxhash_stream)
 from test_torch_segment import CORRUPTIONS, corrupt
 
 HARNESS = r"""
@@ -32,10 +33,12 @@ static int hc_copy_faults = 0;
 #define LZ4TT_HC_CHECK_COPY(copy, slot) \
   if ((copy) != (slot)) __atomic_add_fetch(&hc_copy_faults, 1, __ATOMIC_RELAXED)
 #include "frame_pack.cuh"
+#include "gather_decode.cuh"
 #include "lz4_compress.cuh"
 #include "lz4_decode.cuh"
 #include "lz4_hc.cuh"
 #include "lz4_parse.cuh"
+#include "parallel_compress.cuh"
 #include "segment_decode.cuh"
 #include "xxh32.cuh"
 #include "xxh64.cuh"
@@ -89,6 +92,59 @@ struct ThreadTeam {
       m = (uint32_t)sh->slot[i] > m ? (uint32_t)sh->slot[i] : m;
     sync();
     return m;
+  }
+  // the block-team collectives of K7 and K8 (parallel_compress.cuh)
+  int rank() const { return id; }
+  int32_t exclusive_sum(int32_t v, int32_t* total) const {
+    sync();
+    sh->slot[id] = v;
+    sync();
+    int32_t e = 0, s = 0;
+    for (int i = 0; i < n; i++) {
+      s += sh->slot[i];
+      if (i < id) e += sh->slot[i];
+    }
+    *total = s;
+    return e;
+  }
+  int32_t inclusive_min(int32_t v, int32_t* total) const {
+    sync();
+    sh->slot[id] = v;
+    sync();
+    int32_t m = v, all = v;
+    for (int i = 0; i < n; i++) {
+      all = sh->slot[i] < all ? sh->slot[i] : all;
+      if (i < id) m = sh->slot[i] < m ? sh->slot[i] : m;
+    }
+    *total = all;
+    return m;
+  }
+  int32_t digit_rank(uint32_t d, bool valid, int32_t* base) const {
+    sync();
+    sh->slot[id] = valid ? (int32_t)d : 256;
+    sync();
+    int32_t at = 0;
+    if (valid) {
+      at = base[d];
+      for (int i = 0; i < id; i++) at += sh->slot[i] == (int32_t)d;
+    }
+    sync();
+    if (id == 0)
+      for (int i = 0; i < n; i++)
+        if (sh->slot[i] < 256) base[sh->slot[i]]++;
+    sync();
+    return at;
+  }
+  bool any(bool p) const {
+    sync();
+    sh->slot[id] = p;
+    sync();
+    bool r = false;
+    for (int i = 0; i < n; i++) r |= sh->slot[i] != 0;
+    return r;
+  }
+  int32_t add(int32_t* p, int32_t v) const {
+    return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
   }
 };
 
@@ -338,6 +394,14 @@ int host_parse(const uint8_t* comp, long long comp_stride,
   for (int b = 0; b < n; b++) parse_row(HostTeam(), x, b, &n_seq[b], &out_total[b]);
   return 0;
 }
+// the sentinel tails of OK rows, as the parse kernel writes them after
+// the body when its tail is not 0
+void host_parse_sentinel(int32_t* tables, const int32_t* n_seq, int max_seq,
+                         int n, int tail) {
+  for (int b = 0; b < n; b++)
+    lz4tt_parse_sentinel(HostTeam(), lz4tt_seq_row(tables, n, max_seq, b),
+                         n_seq[b], max_seq, tail);
+}
 // the parser's reads outside its window since the last call
 int host_window_faults() { return __atomic_exchange_n(&window_faults, 0, __ATOMIC_RELAXED); }
 // the pack kernel's body, one block after the other, by a team of `lanes`
@@ -515,6 +579,65 @@ int host_segment_team(const uint8_t* comp, long long comp_stride,
   pthread_barrier_destroy(&sh.bar);
   return 0;
 }
+// K7's body, one block after the other in one team's scratch for rows of
+// `width` bytes (poisoned first, never cleared), by a team of `lanes` (1:
+// Lz4ttBlockSerial; else host threads); returns -1 if the lanes disagree
+int host_parallel(const uint8_t* src, long long src_stride,
+                  const int32_t* src_lens, uint8_t* dst, long long dst_stride,
+                  int cap, long long width, int32_t* out_lens, int n,
+                  int lanes) {
+  std::vector<int32_t> scratch(lz4tt_pc_team_words(width), 0x5A5A5A5A);
+  int32_t hist[4 * LZ4TT_PC_RADIX], queue = 0;
+  int rc = 0;
+  for (int b = 0; b < n; b++) {
+    int32_t len[32];
+    auto body = [&](const auto& t) {
+      len[t.rank()] = lz4tt_pc_block(t, src + b * src_stride, src_lens[b],
+                                     dst + b * dst_stride, cap, scratch.data(),
+                                     lz4tt_pc_region(width), hist, &queue);
+    };
+    if (lanes == 1)
+      body(Lz4ttBlockSerial());
+    else
+      run_team(lanes, body);
+    out_lens[b] = len[0];
+    for (int i = 1; i < lanes; i++)
+      if (len[i] != len[0]) rc = -1;
+  }
+  return rc;
+}
+long long host_parallel_team_words(long long width) {
+  return lz4tt_pc_team_words(width);
+}
+// K8's body, one block after the other in one team's nodes (poisoned
+// first), by a team of `lanes` as host_parallel runs K7's
+void host_gather(const uint8_t* comp, long long comp_stride, int cmax,
+                 const int32_t* lit_out, const int32_t* lit_src,
+                 const int32_t* lit_len, const int32_t* m_out,
+                 const int32_t* m_dist, const int32_t* m_len, int max_seq,
+                 uint8_t* out, long long out_stride, int out_len,
+                 int max_depth, int n, int lanes) {
+  std::vector<Lz4ttGdNode> nodes(2 * (size_t)out_len + 1, {0x5A5A5A5A, -7});
+  std::vector<int32_t> longs(max_seq + 1, 0x5A5A5A5A);
+  int32_t queue = 0;
+  for (int b = 0; b < n; b++) {
+    const long long o = (long long)b * max_seq;
+    const Lz4ttGdTables s = {lit_out + o, lit_src + o, lit_len + o,
+                             m_out + o,   m_dist + o,  m_len + o};
+    auto body = [&](const auto& t) {
+      lz4tt_gd_block(t, comp + b * comp_stride, cmax, s, max_seq,
+                     out + b * out_stride, out_len, max_depth, nodes.data(),
+                     nodes.data() + out_len, longs.data(), &queue);
+    };
+    if (lanes == 1)
+      body(Lz4ttBlockSerial());
+    else
+      run_team(lanes, body);
+  }
+}
+int host_gd_used(const int32_t* lit_out, int max_seq) {
+  return lz4tt_gd_used(lit_out, max_seq);
+}
 }
 """
 
@@ -557,6 +680,14 @@ def lib(tmp_path_factory):
                                      _P, _P, _P, _I32, _I32]
     lib.host_compress_dict.argtypes = [_P, _I64, _P, _P, _I64, _P, _P, _I64,
                                        _I32, _P, _P, _I32, _I32]
+    lib.host_parse_sentinel.argtypes = [_P, _P, _I32, _I32, _I32]
+    lib.host_parallel.argtypes = [_P, _I64, _P, _P, _I64, _I32, _I64, _P,
+                                  _I32, _I32]
+    lib.host_parallel_team_words.argtypes = [_I64]
+    lib.host_parallel_team_words.restype = ctypes.c_longlong
+    lib.host_gather.argtypes = [_P, _I64, _I32] + [_P] * 6 + [
+        _I32, _P, _I64, _I32, _I32, _I32, _I32]
+    lib.host_gd_used.argtypes = [_P, _I32]
     lib.host_hc_followed.restype = ctypes.c_longlong
     lib.host_hc_spec_attempts.restype = ctypes.c_int
     return lib
@@ -748,11 +879,11 @@ def _comp_batch(seed, n_fuzz):
     return layout.to_device_layout(comp_blocks, device="cpu")
 
 
-def _host_parse(lib, c, cl, max_seq, lanes=1, shift=0):
+def _host_parse(lib, c, cl, max_seq, lanes=1, shift=0, sentinel=False):
     """The parser's body by a team of ``lanes`` into tables, counts and
     totals filled with 0x5A5A5A5A first: the body writes every entry.
     With ``shift`` the rows start that many bytes past a 16-byte
-    boundary."""
+    boundary; with ``sentinel``, then the sentinel tails."""
     n = c.shape[0]
     if shift:
         wide = torch.zeros((n, c.shape[1] + 16), dtype=torch.uint8)
@@ -766,6 +897,9 @@ def _host_parse(lib, c, cl, max_seq, lanes=1, shift=0):
                           _ptr(tables), _ptr(n_seq), _ptr(total), n,
                           lanes) == 0
     assert lib.host_window_faults() == 0
+    if sentinel:
+        lib.host_parse_sentinel(_ptr(tables), _ptr(n_seq), max_seq, n,
+                                sequences.SENTINEL)
     return tables, n_seq, total
 
 
@@ -1501,3 +1635,131 @@ def test_host_compress_dict_matches_plain(lib, lanes):
         plain = codec.compress_dict_batch(src, lens, cap, win, wl)
         _assert_same(host, plain)
         assert torch.equal(host[0], plain[0])
+
+
+def _host_parallel(lib, src, lens, cap, lanes=1):
+    n = src.shape[0]
+    out = torch.zeros((n, layout.row_stride(cap)), dtype=torch.uint8)
+    out_lens = torch.zeros((n,), dtype=torch.int32)
+    assert lib.host_parallel(_ptr(src), src.stride(0), _ptr(lens), _ptr(out),
+                             out.stride(0), cap, src.shape[1], _ptr(out_lens),
+                             n, lanes) == 0
+    return out, out_lens
+
+
+@pytest.fixture(scope="module")
+def parallel_batch():
+    blocks = testing.parallel_blocks(np.random.default_rng(31))
+    return layout.to_device_layout(blocks, device="cpu")
+
+
+def _assert_parallel_same(host, plain):
+    assert host[1].tolist() == plain[1].tolist()
+    assert torch.equal(host[0], plain[0])
+
+
+@pytest.mark.parametrize("cap, lanes", [(None, 1), (40, 1), (0, 1), (None, 8),
+                                        (40, 8)])
+def test_host_parallel_matches_plain(lib, parallel_batch, cap, lanes):
+    """K7's body, as one thread and as a team of 8 host threads (tiles of
+    8 positions: the sort's ranks, the scans' carries and the queue of
+    long literal runs across many tiles), against the plain version, the
+    rows at a tight cap (-1, their first cap bytes) included."""
+    src, lens = parallel_batch
+    if cap is None:
+        cap = max_compressed_length(src.shape[1])
+    host = _host_parallel(lib, src, lens, cap, lanes)
+    plain = parallel_compress.compress_parallel_plain(src, lens, cap)
+    _assert_parallel_same(host, plain)
+    if cap == 40:
+        assert (host[1] == -1).any() and (host[1] > 0).any()
+
+
+@pytest.mark.parametrize("case", ["big", "window"])
+def test_host_parallel_long_blocks(lib, case):
+    """Blocks of 65,535-65,537 bytes of every kind, and the two window
+    blocks of 70,028 bytes (a repeat just outside and just inside
+    MAX_DISTANCE), on one thread."""
+    rng = np.random.default_rng(32)
+    blocks = (testing.parallel_blocks(rng, testing.PARALLEL_BIG_SIZES)[:-1]
+              if case == "big" else testing.window_clamp_blocks())
+    src, lens = layout.to_device_layout(blocks, device="cpu")
+    cap = max_compressed_length(src.shape[1])
+    _assert_parallel_same(_host_parallel(lib, src, lens, cap),
+                          parallel_compress.compress_parallel_plain(src, lens,
+                                                                    cap))
+
+
+@pytest.fixture(scope="module")
+def gather_batch():
+    """K2's blocks of the edge batch kinds, the chain blocks and the
+    null-offset block, with their plain parser's sentinel-tail tables."""
+    rng = np.random.default_rng(34)
+    raws = testing.mixed_blocks(rng, (0, 5, 13, 1000, 4000))
+    src, lens = layout.to_device_layout(raws, device="cpu")
+    comp, clens, _ = codec.compress_fast_plain(src, lens,
+                                               max_compressed_length(4000))
+    blocks = layout.from_device_layout(comp, clens)
+    pairs = testing.chain_blocks(rng)
+    blocks += [c for c, _ in pairs] + [testing.boundary_blocks()[0]]
+    raws += [r for _, r in pairs] + [b"*" + bytes(4) + b"*" * 8]
+    c, cl = layout.to_device_layout(blocks, device="cpu")
+    tables, n_seq, total = sequences.parse_plain(c, cl, sentinel_tails=True)
+    assert bool((n_seq > 0).all())
+    return c, tables, raws, max(len(r) for r in raws), cl
+
+
+def _host_gather(lib, c, tables, out_len, max_depth, lanes=1):
+    out = torch.full((c.shape[0], out_len + 16), 0xA5, dtype=torch.uint8)
+    lib.host_gather(_ptr(c), c.stride(0), c.shape[1],
+                    *(_ptr(t) for t in tables.contiguous()), tables.shape[2],
+                    _ptr(out), out.stride(0), out_len, max_depth, c.shape[0],
+                    lanes)
+    assert bool((out[:, out_len:] == 0xA5).all())
+    return out[:, :out_len]
+
+
+@pytest.mark.parametrize("max_depth, lanes", [(0, 1), (1, 1), (2, 1), (3, 1),
+                                              (32, 1), (2, 8), (32, 8)])
+def test_host_gather_matches_plain(lib, gather_batch, max_depth, lanes):
+    """K8's body, as one thread and as 8 host threads, against the plain
+    version at max_depth 0-3 (chains cut short) and 32, where every block
+    decodes to its input."""
+    c, tables, raws, out_len, _ = gather_batch
+    host = _host_gather(lib, c, tables, out_len, max_depth, lanes)
+    plain = gather_decode.gather_decompress_plain(c, *tables, out_len,
+                                                  max_depth)
+    assert torch.equal(host, plain)
+    if max_depth == 32:
+        for i, r in enumerate(raws):
+            assert host[i, :len(r)].numpy().tobytes() == r, i
+            assert not bool(host[i, len(r):].any())
+
+
+@pytest.mark.parametrize("sentinel_tails", [True, False])
+def test_host_gather_walks_the_sequences_only(lib, gather_batch,
+                                              sentinel_tails):
+    """K8's body writes the entries before a row's first sentinel
+    (``lz4tt_gd_used``): the parser's ``n_seq`` with sentinel tails, every
+    entry with zero tails."""
+    c, _, _, _, cl = gather_batch
+    tables, n_seq, _ = sequences.parse_plain(c, cl,
+                                             sentinel_tails=sentinel_tails)
+    lit_out = tables[0].contiguous()
+    width = lit_out.shape[1]
+    used = [lib.host_gd_used(_ptr(lit_out[i]), width)
+            for i in range(lit_out.shape[0])]
+    assert used == (n_seq.tolist() if sentinel_tails
+                    else [width] * lit_out.shape[0])
+
+
+def test_host_parse_sentinel_tails(lib):
+    """The parser's sentinel tails (``lz4tt_parse_sentinel``, run after the
+    body as the kernel runs it) against the plain parser's."""
+    c, cl = _comp_batch(35, 8)
+    want = sequences.parse_plain(c, cl, sentinel_tails=True)
+    got = _host_parse(lib, c, cl, want[0].shape[2], sentinel=True)
+    assert torch.equal(got[1], want[1])
+    ok = want[1] >= 0
+    assert torch.equal(got[0][:, ok], want[0][:, ok])
+    assert bool((want[0][[0, 3]][:, ok, -1] == sequences.SENTINEL).all())

@@ -83,7 +83,10 @@ def test_port_files_cover_the_stream_pipeline_and_cli():
     assert {"lz4_tpu_torch/streams/pipeline.py", "lz4_tpu_torch/__main__.py",
             "lz4_tpu_torch/kernels/segment_decode.py",
             "lz4_tpu_torch/kernels/sequences.py",
-            "lz4_tpu_torch/kernels/xxhash_stream.py"} <= names
+            "lz4_tpu_torch/kernels/xxhash_stream.py",
+            "lz4_tpu_torch/kernels/parallel_compress.py",
+            "lz4_tpu_torch/kernels/gather_decode.py",
+            "lz4_tpu_torch/utils/config.py"} <= names
 
 
 def test_cli_module_runs_without_jax():
@@ -127,7 +130,10 @@ def test_import_leaves_jax_and_lz4_tpu_unloaded():
             "lz4_tpu_torch.__main__, lz4_tpu_torch.kernels.hc, "
             "lz4_tpu_torch.kernels.segment_decode, "
             "lz4_tpu_torch.kernels.sequences, "
-            "lz4_tpu_torch.kernels.xxhash_stream; "
+            "lz4_tpu_torch.kernels.xxhash_stream, "
+            "lz4_tpu_torch.kernels.parallel_compress, "
+            "lz4_tpu_torch.kernels.gather_decode, "
+            "lz4_tpu_torch.utils.config; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lz4_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -170,7 +170,10 @@ def test_get_engine_names_and_refusals():
     assert get_engine(device="cpu").name == "cuda"
     assert get_engine("segment", 17, "cpu").name == "segment-hc17"
     assert get_engine("sharded", 17, "cpu").name == "sharded-hc17"
-    for name in ("native", "safe", "parallel", "pallas"):
+    assert get_engine("parallel", device="cpu").name == "parallel"
+    with pytest.raises(Lz4FrameError, match="no HC mode"):
+        get_engine("parallel", 9, "cpu")
+    for name in ("native", "safe", "pallas"):
         with pytest.raises(ValueError, match="not ported"):
             get_engine(name, device="cpu")
 

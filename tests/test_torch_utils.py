@@ -24,7 +24,7 @@ from lz4_tpu_torch.utils import (
 from lz4_tpu_torch.utils.buffers import read_into
 from lz4_tpu_torch.utils.profiling import TRACE_FILE
 from test_torch_host_kernels import (  # noqa: F401
-    _host_codec, _host_hc, _host_parse, _ptr, lib)
+    _host_codec, _host_hc, _host_parallel, _host_parse, _ptr, lib)
 
 
 def test_trace_and_annotate_write_a_chrome_trace(tmp_path):
@@ -160,7 +160,8 @@ def batches():
 
 
 @pytest.mark.parametrize("kernel", ["compress", "decode", "decode_fast",
-                                    "xxh32", "xxh64", "parse", "pack", "hc"])
+                                    "xxh32", "xxh64", "parse", "pack", "hc",
+                                    "parallel"])
 def test_row_tails_change_no_kernel_output(lib, batches, kernel):  # noqa: F811
     (src, lens), (c, cl), (comp, comp_lens) = batches
 
@@ -187,6 +188,8 @@ def test_row_tails_change_no_kernel_output(lib, batches, kernel):  # noqa: F811
         if kernel == "hc":
             cap = max_compressed_length(65547)
             return [_host_hc(lib, s, lens, cap, level) for level in (1, 2)]
+        if kernel == "parallel":
+            return _host_parallel(lib, s, lens, max_compressed_length(65547))
         if kernel == "parse":
             return _host_parse(lib, k, cl, sequences.max_seq_for(k.shape[1]))
         offs = sharded.pack_offsets(torch.where(
