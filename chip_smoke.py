@@ -30,7 +30,10 @@ Phases (any failure exits non-zero; nothing is caught):
    versions, and on rows of 1 MiB against the host hashes; K1 with a
    history and K2 with a dictionary (``_window_edge_cases``) on matches
    into histories of 0 to 65,536 bytes, matches reaching before them,
-   fuzz, tight caps and guards, and linked blocks in one buffer;
+   fuzz, tight caps and guards, and linked blocks in one buffer; the
+   linked walk and resolve (``_linked_edge_cases``) on those blocks, fuzz
+   and 300-byte linked blocks behind a window, and linked frames with
+   each fault decoded on the card and the CPU alike;
 4. the main path: ``roundtrip_step`` on 4096 blocks of 64 KiB (256 MiB),
    3 iterations with launch counts reset just before and read just after,
    every block OK, the packed frame body equal to the one assembled on the
@@ -114,14 +117,19 @@ Phases (any failure exits non-zero; nothing is caught):
    blocks with a 64 KiB dictionary: a dictionary frame written and read
    back (one K2-with-dictionary and one K1-with-history launch for the
    1,024 blocks) and through the serial reader; linked frames at 64 KiB
-   and 4 MiB blocks (one K1-with-history launch a compressed block);
-   LZ4Block streams (one K2 or K1-fast and one K3 launch each way); the
-   command line's ``-D`` and ``--allow-dependent`` in this process; each
-   call with launch counts reset just before and read just after, its
-   host wall, and its output restored; then the two window kernels
-   against their plain versions on 64 of the 1,024 rows, timed through
-   their wrappers and alone, beside the same rows without a window and
-   one row alone;
+   and 4 MiB blocks, each decoded twice in one batch (one linked walk and
+   one resolve), with the batch's peak device memory, and held against
+   the serial reader (one K1-with-history launch a compressed block);
+   ``decompress_stream`` of both (one walk and resolve a batch of 256
+   blocks); LZ4Block streams (one K2 or K1-fast and one K3 launch each
+   way); the command line's ``-D`` and ``--allow-dependent`` in this
+   process; each call with launch counts reset just before and read just
+   after, its host wall, and its output restored; then the two window
+   kernels against their plain versions on 64 of the 1,024 rows, timed
+   through their wrappers and alone, beside the same rows without a
+   window and one row alone; and the linked walk (against its plain
+   version on 8 rows) and resolve (on the first 64 blocks) timed on both
+   frames' batches, the resolve also without its rounds;
 8d. the parallel compressor and the gather decode (:func:`phase_parallel`):
    K7 against its plain version on ``testing.parallel_blocks`` (sizes
    0-16, 511-513, 2047-2049, 65,535-65,537; zeros, a4, text, random,
@@ -136,7 +144,8 @@ Phases (any failure exits non-zero; nothing is caught):
    equal to the one put together from K7's blocks), decoded by the
    ``cuda`` and ``segment`` engines, the same at 4 MiB blocks, and the
    command line's ``compress --engine parallel`` in a subprocess restored
-   by ``decompress`` (K7 launched, K2 never); ``get_engine("parallel",
+   by ``decompress`` (K7 launched, K2 never), and the 64 KiB stream's K7
+   launches (256 rows each) timed by CUDA events; ``get_engine("parallel",
    9)`` raising; then K8 on the main path's K2 output (timed beside K5
    and K1, the plain version on 64 rows, max_depth 1-3) and
    ``gather_decode.decompress_blocks`` restoring all 4096 blocks;
@@ -177,8 +186,8 @@ from lz4_tpu_torch.formats import BlockSize, FrameFlag
 from lz4_tpu_torch.formats.frame import (
     INCOMPRESSIBLE_MASK, frame_header, xxh32_bytes)
 from lz4_tpu_torch.kernels import (
-    build, codec, gather_decode, layout, parallel_compress, segment_decode,
-    sequences, xxhash, xxhash_stream)
+    build, codec, gather_decode, layout, linked_decode, parallel_compress,
+    segment_decode, sequences, xxhash, xxhash_stream)
 from lz4_tpu_torch.streams import (
     compress_stream, decompress_stream, get_engine)
 
@@ -247,6 +256,14 @@ KERNELS = {  # Kernel.name -> (source, TPU kernel it replaces)
                           "lz4_tpu/kernels/parallel_compress.py:323"),
     "gather_decode": ("lz4_tpu_torch/csrc/gather_decode.cu",
                       "lz4_tpu/kernels/gather_decode.py:168"),
+    # not TPU kernels: the linked-frame decode a batch at a time, in place
+    # of the native history decode the JAX package runs a block at a time
+    # (the resolve carries gather_decode.py:127's pointer doubling across
+    # blocks)
+    "linked_walk": ("lz4_tpu_torch/csrc/linked_decode.cu",
+                    "lz4_tpu/native/src/tpulz4.cpp:1199"),
+    "linked_resolve": ("lz4_tpu_torch/csrc/linked_decode.cu",
+                       "lz4_tpu/native/src/tpulz4.cpp:1199"),
 }
 MAIN_PATH = ("lz4_compress", "lz4_decode", "xxh32",   # roundtrip_step
              "frame_pack")
@@ -265,7 +282,8 @@ OCCUPANCY = (("lz4_compress", "lz4tt_compress_occupancy"),
              ("lz4_hc", "lz4tt_hc_occupancy"),
              ("lz4_decode", "lz4tt_decode_hist_occupancy"),
              ("parallel_compress", "lz4tt_parallel_occupancy"),
-             ("gather_decode", "lz4tt_gather_occupancy"))
+             ("gather_decode", "lz4tt_gather_occupancy"),
+             ("linked_decode", "lz4tt_linked_occupancy"))
 KIND_NAMES = ("a4", "text", "random")    # sharded.block_kinds 0, 1, 2
 A4_ROWS = (132, 1056, 4096)              # one block an SM, 8, 31
 HC_LEVEL = 9                             # the default level
@@ -278,9 +296,11 @@ DIST_PATH = ("lz4_compress", "lz4_decode", "xxh32", "frame_pack")
 DIST_SHARED_BLOCKS = 512                 # blocks a rank, two ranks one card
 DIST_ODD = (4, 4 * BLOCK_LEN + 1234)     # 5 blocks over 4 ranks, one empty
 DIST_TIMEOUT = 240.0                     # seconds a dry run's workers get
-FORMATS_PATH = ("lz4_compress_dict", "lz4_decode_hist")
 FORMAT_BLOCKS = 1024                     # 64 MiB at 64 KiB blocks
 FORMAT_PLAIN_ROWS = 64                   # rows the plain window codecs run on
+LINKED_PATH = ("linked_walk", "linked_resolve", "xxh32", "xxh32_stream")
+LINKED_PLAIN_ROWS = 8                    # rows the plain linked walk runs on
+LINKED_PLAIN_BLOCKS = 64                 # blocks the plain resolve runs on
 LINKED_BIG = 4 << 20                     # lz4 -BD's default block size
 DICT_ID = 0x5EED
 PARALLEL_PATH = ("parallel_compress", "frame_pack", "xxh32_stream")
@@ -517,6 +537,7 @@ def phase_edge_cases(dev) -> None:
 
     _short_sequence_cases(dev, rng)
     _window_edge_cases(dev, rng)
+    _linked_edge_cases(dev, rng)
 
     hash_lens = list(range(101)) + [1000, 65536]
     hsrc, hl = layout.to_device_layout(
@@ -732,6 +753,118 @@ def _window_edge_cases(dev, rng) -> None:
         f"dictionaries of {testing.HIST_LENS} bytes) at caps 600 and full, "
         f"decoded back by K1 hist; {len(comps)} linked blocks of 4 KiB "
         f"decoded in one buffer")
+
+
+def _linked_edge_cases(dev, rng) -> None:
+    """The linked walk and resolve against their plain versions: the walk
+    on K2's edge blocks, the boundary, chain, history and overreach blocks
+    and fuzz (some flagged raw) at block sizes 64 KiB, 100 and 0 and at a
+    table of 5 records; the resolve on linked blocks of 300 bytes behind a
+    window of 5,000; then ``decode_frames`` of linked frames with a block
+    reaching before the frame, one decoding past its slot, a block
+    checksum mismatch and a cut stream, on the card and on the CPU, at
+    batches of 2 and 256 blocks: bytes written and error equal."""
+    raws = testing.mixed_blocks(rng, EDGE_SIZES)
+    src, lens = layout.to_device_layout(raws, device=dev)
+    comp, clens, _ = codec.compress_fast_batch(src, lens,
+                                               max_compressed_length(70000))
+    blocks = layout.from_device_layout(comp, clens)
+    blocks += testing.boundary_blocks()
+    blocks += [b for b, _ in testing.chain_blocks(rng)]
+    blocks += [testing.encode_block(q, t)
+               for _, q, t in testing.history_blocks(rng)]
+    blocks += [b for _, b in testing.overreach_blocks(rng)]
+    blocks += testing.fuzz_blocks(rng, blocks, 256)
+    c, cl = layout.to_device_layout(blocks, device=dev)
+    flags = torch.from_numpy(rng.random(len(blocks)) < 0.1).to(dev)
+    width = linked_decode.table_width(cl.tolist(), flags.tolist())
+    codes = {}
+    for dest_cap, w in ((BLOCK_LEN, width), (100, width), (0, width),
+                        (BLOCK_LEN, 5)):
+        kern = linked_decode.walk_linked(c, cl, flags, dest_cap, w)
+        plain = linked_decode.walk_linked_plain(c, cl, flags, dest_cap, w)
+        for a, b in zip(kern[1:], plain[1:]):
+            if not torch.equal(a, b):
+                fail(f"linked walk dest_cap={dest_cap} width={w}: differs "
+                     f"from the plain version")
+        for i, k in enumerate(kern[1].tolist()):
+            if not torch.equal(kern[0][:, i, :k], plain[0][:, i, :k]):
+                fail(f"linked walk dest_cap={dest_cap}: block {i}'s records")
+        codes[f"{dest_cap}/{w}"] = torch.bincount(kern[3].long(),
+                                                  minlength=4).tolist()
+    data = testing.block_of(rng, "alphabet4", 5000 + 300 * 200)
+    comps = testing.linked_blocks(data, 300, dev)[17:]   # after 5,100 bytes
+    raws = [data[i:i + 300] for i in range(17 * 300, len(data), 300)]
+    pays = testing.payloads(raws, comps)
+    c, cl = layout.to_device_layout(pays, device=dev)
+    flags = torch.tensor([len(q) >= len(r) for r, q in zip(raws, comps)],
+                         device=dev)
+    win = layout.upload_bytes(data[:17 * 300], dev)
+    walk = linked_decode.walk_linked(c, cl, flags, 300)
+    plan = linked_decode.frame_plan(walk[2], walk[3], walk[4], win.numel())
+    args = (c, walk[0], walk[1], plan[0], plan[2], plan[3], win,
+            win.numel() + len(pays) * 300)
+    kern, opened = linked_decode.resolve_linked(*args)
+    want, _ = linked_decode.resolve_linked_plain(*args)
+    m = int(plan[3])
+    if int(plan[2]) != len(pays) or int(opened[-1]) or \
+            not torch.equal(kern[:m], want[:m]) or \
+            kern[:m].cpu().numpy().tobytes() != data[:m]:
+        fail("linked resolve: 300-byte blocks differ from the plain version "
+             "or the input")
+    outcomes = _linked_frame_faults(dev, rng)
+    log(f"linked walk == plain on {len(blocks)} blocks, OK/MALFORMED/"
+        f"DEST_TOO_SMALL/TOO_MANY by block size/table width: {codes}; "
+        f"linked resolve == plain on {len(pays)} blocks of 300 B "
+        f"({opened.tolist().index(0) + 1} rounds); linked frames on the "
+        f"card == on the CPU: {outcomes}")
+
+
+def _linked_frame_faults(dev, rng) -> dict:
+    """``decode_frames`` of a linked frame of 5 x 64 KiB a4 blocks, whole
+    and with each fault, on the card and the CPU at batches of 2 and 256:
+    the same bytes written and error; one walk and resolve a batch on the
+    card, no history decode. Returns each case's error."""
+    from lz4_tpu_torch.streams.pipeline import decode_frames
+
+    data = testing.block_of(rng, "alphabet4", 5 * BLOCK_LEN + 999)
+    raws = [data[i:i + BLOCK_LEN] for i in range(0, len(data), BLOCK_LEN)]
+    good = testing.linked_blocks(data, BLOCK_LEN, dev)
+    out = {}
+    for fault in ("none", "reach", "oversized", "checksum", "premature"):
+        comps = list(good)
+        if fault == "reach":
+            comps[0] = testing.encode_block([(b"ab", 100, 4)], b"x" * 9)
+        elif fault == "oversized":
+            comps[3] = testing.encode_block([(b"ab", 1, BLOCK_LEN)], b"x" * 9)
+        frame = bytearray(testing.build_frame(raws, comps, independent=False))
+        if fault == "checksum":
+            frame[-40] ^= 1
+        elif fault == "premature":
+            frame = frame[:len(frame) // 2]
+        seen = set()
+        for batch in (2, 256):
+            for d in (dev, torch.device("cpu")):
+                sink = io.BytesIO()
+                build.reset_launch_counts()
+                try:
+                    decode_frames(io.BytesIO(bytes(frame)), sink, "cuda", batch,
+                                  d, allow_dependent=True)
+                    err = None
+                except Lz4Error as e:
+                    err = f"{type(e).__name__}: {e}"
+                counts = build.launch_counts()
+                if d.type == "cuda" and (
+                        counts["lz4_decode_hist"] or not counts["linked_walk"]
+                        or counts["linked_walk"] != counts["linked_resolve"]):
+                    fail(f"linked frame ({fault}): launches {counts}")
+                seen.add((sink.getvalue(), err))
+        if len(seen) != 1 or (fault == "none") != (err is None) or \
+                (fault == "none" and sink.getvalue() != data):
+            fail(f"linked frame ({fault}): the card and the CPU differ, or "
+                 f"the outcome is wrong: {[e for _, e in seen]}")
+        out[fault] = err
+    return out
 
 
 def _host_body(data: np.ndarray, comp: np.ndarray,
@@ -2154,13 +2287,15 @@ def _card_frame(raw: bytes, bs: int, comps, dev, independent: bool):
                                sums=sums, content_sum=content), content
 
 
-def phase_formats(dev) -> tuple[list[dict], dict]:
+def phase_formats(dev, card: str = "") -> tuple[list[dict], dict]:
     """The container formats on 64 MiB (``_format_data``): dictionary
     frames, linked frames at 64 KiB and 4 MiB blocks, LZ4Block streams and
     the CLI's ``-D``, each call with launch counts reset just before and
     read just after and its host wall; then K2 and K1 with the dictionary
     against their plain versions on rows of the batch, and timed. Returns
-    the two kernels' rows and each kernel's launches over the calls."""
+    the two kernels' rows and each kernel's launches over the calls.
+    ``card`` (the card's name and power limit) goes beside the linked
+    decode's timings."""
     data, kinds, dictionary = _format_data()
     raw = data.tobytes()
     n = data.shape[0]
@@ -2220,7 +2355,10 @@ def phase_formats(dev) -> tuple[list[dict], dict]:
         f"reader, one K1-hist launch each")
 
     # linked frames (lz4 -BD): each block compressed against the content
-    # before it (one K2-dict launch), decoded a block at a time
+    # before it (one K2-dict launch); decoded in one batch (one walk, one
+    # resolve, one K3 for the block checksums, one content-hash update),
+    # twice, and held against the serial reader (one K1-hist launch a
+    # compressed block) and the input
     linked = {}
     for bs in (BLOCK_LEN, LINKED_BIG):
         comps = call(f"linked_blocks({bs})",
@@ -2228,21 +2366,50 @@ def phase_formats(dev) -> tuple[list[dict], dict]:
         expect(f"linked_blocks({bs})", "lz4_compress_dict", 1)
         lfr, _ = _card_frame(raw, bs, comps, dev, independent=False)
         n_comp = sum(len(c) < bs for c in comps)
-        what = f"decompress_frame(linked, {bs})"
-        back = call(what, lambda: formats.decompress_frame(
-            lfr, allow_dependent_blocks=True, device=dev))
+        for rnd in (1, 2):
+            what = f"decompress_frame(linked, {bs}) #{rnd}"
+            back = call(what, lambda: formats.decompress_frame(
+                lfr, allow_dependent_blocks=True, device=dev))
+            for name in LINKED_PATH:
+                expect(what, name, 1)
+            expect(what, "lz4_decode_hist", 0)
+            if back != raw:
+                fail(f"linked frame at {bs}: decoded content differs")
+        # the device memory of a batch: its peak and what it leaves held
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        formats.decompress_frame(lfr, allow_dependent_blocks=True, device=dev)
+        sync()
+        mem = {"peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+               "held_gib": (torch.cuda.memory_allocated() - base) / 2 ** 30}
+        what = f"Lz4FrameInputStream(linked, {bs})"
+        reader = formats.Lz4FrameInputStream(
+            io.BytesIO(lfr), allow_dependent_blocks=True, device=dev)
+        if call(what, reader.read) != raw:
+            fail(f"linked frame at {bs}: the serial reader differs")
         expect(what, "lz4_decode_hist", n_comp)
-        if back != raw:
-            fail(f"linked frame at {bs}: decoded content differs")
-        linked[bs] = (len(lfr), n_comp)
+        linked[bs] = {"frame": lfr, "comps": comps, "frame_bytes": len(lfr),
+                      "compressed_blocks": n_comp, **mem}
         log(f"linked frame at {bs} B blocks: {len(raw)} B -> {len(lfr)} B, "
-            f"{n_comp} of {len(comps)} blocks compressed, one K1-hist "
-            f"launch and one read-back each")
-    out = io.BytesIO()
-    call("decompress_stream(allow_dependent)", lambda: decompress_stream(
-        io.BytesIO(lfr), out, allow_dependent=True, device=dev))
-    if out.getvalue() != raw:
-        fail("decompress_stream(allow_dependent): content differs")
+            f"{n_comp} of {len(comps)} blocks compressed; decoded in one "
+            f"batch (one walk, one resolve), equal to the serial reader's "
+            f"{n_comp} K1-hist launches; device memory of the batch "
+            f"{json.dumps(mem)}")
+    # decompress_stream's batches of 256 blocks: 4 at 64 KiB, 1 at 4 MiB
+    for bs, batches in ((BLOCK_LEN, FORMAT_BLOCKS // STREAM_BATCH),
+                        (LINKED_BIG, 1)):
+        out = io.BytesIO()
+        what = f"decompress_stream(allow_dependent, {bs})"
+        call(what, lambda: decompress_stream(
+            io.BytesIO(linked[bs]["frame"]), out, batch_blocks=STREAM_BATCH,
+            allow_dependent=True, device=dev))
+        for name in ("linked_walk", "linked_resolve"):
+            expect(what, name, batches)
+        expect(what, "lz4_decode_hist", 0)
+        if out.getvalue() != raw:
+            fail(f"{what}: content differs")
+    lfr = linked[LINKED_BIG]["frame"]
 
     # LZ4Block streams: one K2 (K1 fast) and one K3 launch each way
     blob = call("compress_block_stream", lambda: formats.compress_block_stream(
@@ -2285,6 +2452,8 @@ def phase_formats(dev) -> tuple[list[dict], dict]:
                 (tmp / "back.bin").read_bytes() != raw[:16 << 20] or \
                 (tmp / "l.bin").read_bytes() != raw:
             fail(f"cli -D / --allow-dependent: {rcs}")
+        for name in ("linked_walk", "linked_resolve"):
+            expect("cli decompress --allow-dependent", name, 1)
 
     # the kernels against their plain versions on rows of the batch, timed
     src, lens = sharded.upload_blocks(data, dev)
@@ -2354,10 +2523,120 @@ def phase_formats(dev) -> tuple[list[dict], dict]:
             c1, l1, BLOCK_LEN, win, wl[:1]))
     rows[-1]["one_row_ms"] = one
     log(f"K1 hist on one row alone (CUDA events), ms: {one}")
-    log("formats walls, ms: " + json.dumps(
+    rows += _linked_kernels(dev, raw, linked, total, card)
+    log(f"formats walls, ms ({card}): " + json.dumps(
         {k: round(v, 3) for k, v in walls.items()}))
-    return rows, {"walls": walls, "counts": counts, "total": total,
-                  "linked": linked}
+    return rows, {"walls": walls, "counts": counts, "total": total}
+
+
+def _linked_kernels(dev, raw: bytes, linked: dict, launches: dict,
+                    card: str) -> list:
+    """The linked walk and resolve on the formats path's frames (1,024
+    blocks of 64 KiB, 16 of 4 MiB; one batch each), against their plain
+    versions (the walk on ``LINKED_PLAIN_ROWS`` rows of the 64 KiB batch,
+    the resolve on its first ``LINKED_PLAIN_BLOCKS`` blocks, 4 MiB) and
+    timed through their wrappers: the walk, the resolve, and the resolve
+    with no rounds (its fill and gather), with the rounds it ran. Returns
+    their rows of the ``kernels`` line, the 64 KiB batch's numbers as
+    ``ms``, the 4 MiB batch's beside them."""
+    win = torch.empty((0,), dtype=torch.uint8, device=dev)
+    got = {}
+    for bs in (BLOCK_LEN, LINKED_BIG):
+        raws = [raw[i:i + bs] for i in range(0, len(raw), bs)]
+        comps = linked[bs]["comps"]
+        c, cl = layout.to_device_layout(testing.payloads(raws, comps),
+                                        device=dev)
+        flags = torch.tensor([len(cm) >= len(r) for r, cm in zip(raws, comps)],
+                             device=dev)
+        width = linked_decode.table_width(cl.tolist(), flags.tolist())
+        n, cap = c.shape[0], c.shape[0] * bs
+        tables, n_seq, out_total, code, reach = linked_decode.walk_linked(
+            c, cl, flags, bs, width)
+        block_at, _, n_ok, n_nodes = linked_decode.frame_plan(
+            out_total, code, reach, 0)
+        out, opened = linked_decode.resolve_linked(
+            c, tables, n_seq, block_at, n_ok, n_nodes, win, cap)
+        if int(n_ok) != n or int(n_nodes) != len(raw) or \
+                out[:len(raw)].cpu().numpy().tobytes() != raw:
+            fail(f"linked kernels at {bs}: the batch did not decode to its "
+                 f"input")
+        if int(opened[-1]):
+            fail(f"linked resolve at {bs}: nodes left open")
+        rounds = opened.tolist().index(0) + 1
+        used = torch.arange(width, device=dev) < n_seq.long()[:, None]
+        seqs = int(n_seq.sum())
+        lit_bytes = int(tables[2][used].long().sum())
+        comp_bytes = int(cl.sum())
+        got[bs] = {
+            "walk_ms": _time_kernel(lambda: linked_decode.walk_linked(
+                c, cl, flags, bs, width)),
+            "resolve_ms": _time_kernel(lambda: linked_decode.resolve_linked(
+                c, tables, n_seq, block_at, n_ok, n_nodes, win, cap)),
+            "fill_gather_ms": _time_kernel(
+                lambda: linked_decode.resolve_linked(
+                    c, tables, n_seq, block_at, n_ok, n_nodes, win, cap, 0)),
+            "rounds": rounds, "open_by_round": opened[:rounds].tolist(),
+            "sequences": seqs, "table_width": width,
+            # the payloads, their lengths and flags in; 24 B of table a
+            # sequence and 16 B a block out
+            "walk_bytes": comp_bytes + 5 * n + 24 * seqs + 16 * n,
+            # the tables and literals in, the output out
+            "resolve_bytes": 24 * seqs + 8 * n + lit_bytes + len(raw)}
+        if bs != BLOCK_LEN:
+            continue
+        # the plain walk on rows spread over the batch
+        idx = torch.arange(0, n, n // LINKED_PLAIN_ROWS, device=dev)
+        cs_, cls_, fs_ = c[idx].contiguous(), cl[idx].contiguous(), flags[idx]
+        plain, walk_plain_ms = _time_plain(
+            lambda: linked_decode.walk_linked_plain(cs_, cls_, fs_, bs, width))
+        for a, b in zip(plain[1:], (n_seq[idx], out_total[idx], code[idx],
+                                    reach[idx])):
+            if not torch.equal(a, b):
+                fail("linked walk: differs from the plain version")
+        for j, k in enumerate(plain[1].tolist()):
+            if not torch.equal(plain[0][:, j, :k], tables[:, idx[j], :k]):
+                fail(f"linked walk: row {int(idx[j])}'s records differ")
+        # the plain resolve on the batch of the first blocks
+        k = LINKED_PLAIN_BLOCKS
+        ck, clk, fk = c[:k].contiguous(), cl[:k].contiguous(), flags[:k]
+        wk = linked_decode.walk_linked(ck, clk, fk, bs, width)
+        plan = linked_decode.frame_plan(wk[2], wk[3], wk[4], 0)
+        args = (ck, wk[0], wk[1], plan[0], plan[2], plan[3], win, k * bs)
+        kern, _ = linked_decode.resolve_linked(*args)
+        (want, _), resolve_plain_ms = _time_plain(
+            lambda: linked_decode.resolve_linked_plain(*args))
+        m = int(plan[3])
+        resolve_err = int((kern[:m].int() - want[:m].int()).abs().max())
+        if resolve_err or kern[:m].cpu().numpy().tobytes() != raw[:m]:
+            fail("linked resolve: differs from the plain version")
+    small, big = got[BLOCK_LEN], got[LINKED_BIG]
+    rows = [kernel_row("linked_walk", launches, 0, small["walk_ms"],
+                       walk_plain_ms, small["walk_bytes"], len(raw),
+                       plain_rows=LINKED_PLAIN_ROWS, rows=FORMAT_BLOCKS),
+            kernel_row("linked_resolve", launches, resolve_err,
+                       small["resolve_ms"], resolve_plain_ms,
+                       small["resolve_bytes"], len(raw),
+                       plain_rows=LINKED_PLAIN_BLOCKS, rows=FORMAT_BLOCKS)]
+    for row, key in zip(rows, ("walk", "resolve")):
+        row["at_4mib_blocks"] = {
+            "ms": big[f"{key}_ms"],
+            "bound_ms": big[f"{key}_bytes"] / HBM_BYTES_PER_S * 1e3}
+    for row in rows[1:]:
+        row.update({k: small[k] for k in ("fill_gather_ms", "rounds",
+                                          "open_by_round")})
+        row["at_4mib_blocks"].update({k: big[k] for k in (
+            "fill_gather_ms", "rounds")})
+    for bs in (BLOCK_LEN, LINKED_BIG):
+        info = {k: v for k, v in got[bs].items() if k != "open_by_round"}
+        info.update({k: linked[bs][k] for k in (
+            "frame_bytes", "compressed_blocks", "peak_gib", "held_gib")})
+        log(f"linked kernels at {bs} B blocks, one batch of "
+            f"{len(raw) >> 20} MiB (ms, CUDA events; {card}): "
+            f"{json.dumps(info)}")
+    log(f"linked walk == plain on {LINKED_PLAIN_ROWS} rows "
+        f"({walk_plain_ms:.1f} ms); linked resolve == plain on "
+        f"{LINKED_PLAIN_BLOCKS} blocks ({resolve_plain_ms:.1f} ms)")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2534,6 +2813,30 @@ def _parallel_stream(dev, raw: bytes, k7_blocks: list[bytes]) -> dict:
         if frame != want:
             fail("compress_stream(parallel): the frame differs from the one "
                  "put together from K7's blocks")
+    # the stream's K7 launches (256 rows each) timed where they run: CUDA
+    # events around each, on the stream it launches on
+    events, launch = [], parallel_compress.compress_parallel_batch
+
+    def timed_launch(*args, **kw):
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        result = launch(*args, **kw)
+        pair[1].record()
+        events.append(pair)
+        return result
+
+    parallel_compress.compress_parallel_batch = timed_launch
+    try:
+        frame = call("compress_stream(parallel) #3, K7 timed",
+                     lambda: compress(BlockSize.SIZE_64KB), PARALLEL_PATH)
+    finally:
+        parallel_compress.compress_parallel_batch = launch
+    sync()
+    k7_ms = [a.elapsed_time(b) for a, b in events]
+    if frame != want or len(k7_ms) != len(raw) // (STREAM_BATCH * BLOCK_LEN):
+        fail(f"compress_stream(parallel) with K7 timed: the frame differs, "
+             f"or {len(k7_ms)} launches")
+    out["compress_stream(parallel) #3, K7 timed"]["k7_launch_ms"] = k7_ms
     for engine, path in (("cuda", ("lz4_decode",)),
                          ("segment", ("lz4_parse", "segment_decode"))):
         if call(f"decompress_stream({engine})",
@@ -2651,7 +2954,9 @@ def phase_parallel(dev) -> list[dict]:
                     in_bytes + comp_bytes + 8 * n, in_bytes,
                     plain_rows=ssub.shape[0])
     k7.update({"k2_ms": k2_ms, "bytes_by_kind_k7_k2": sizes,
-               "peak_gib": peak / 2 ** 30, "stream": stream["calls"]})
+               "peak_gib": peak / 2 ** 30, "stream": stream["calls"],
+               "stream_launch_ms": stream["calls"][
+                   "compress_stream(parallel) #3, K7 timed"]["k7_launch_ms"]})
     del comp, plain, ssub
 
     # K8 on the main path's K2 output, beside K5 and K1
@@ -3113,7 +3418,7 @@ def main() -> int:
     timed("host split", host_split, dev, main_out)
     del main_out
     one_row = timed("frame", phase_frame, dev)
-    fmt_rows, fmt = timed("formats", phase_formats, dev)
+    fmt_rows, fmt = timed("formats", phase_formats, dev, card)
     rows += fmt_rows
     dist_launches = timed("dist", phase_dist, dev, card)
     rows += timed("parallel", phase_parallel, dev)

@@ -1,0 +1,192 @@
+// The batched decode of linked-block frames on Hopper (sm_90a): a walk of
+// every block's tokens and a frame-wide resolve by pointer doubling
+// (linked_decode.cuh).
+//
+// Replaces, on the linked-frame path, the serial history decode
+// (lz4tt_decompress_safe_hist in lz4_decode.cu, one launch, one read-back
+// and one row a block, the device counterpart of the native
+// tpulz4_decompress_safe_ext, lz4_tpu/native/src/tpulz4.cpp:1060-1202); it
+// carries the technique of the pure-JAX gather decode
+// (lz4_tpu/kernels/gather_decode.py::_decode_one, :127-165) across the
+// blocks of a batch, with a history and no depth cap.
+//
+// Bound on the card: bytes. The walk reads each compressed byte once and
+// writes 24 bytes of table a sequence; the resolve reads the tables, the
+// literal bytes and the window once and writes each output byte once
+// (3.35 TB/s). What they do instead: the walk is one lane's chain of
+// dependent loads a block (K1's, without its copies), all blocks at once;
+// the resolve writes a 4-byte node a byte, then each round reads every
+// node of the batch and gathers the parent of each open one.
+//
+// Design (the first):
+//   - lz4tt_linked_walk: one warp a block, lane 0 walking, four warps a
+//     CTA; every block of a 64 MiB batch resident at once;
+//   - lz4tt_linked_resolve, on one stream: the fill (a CTA of 256 threads a
+//     block and 256 of its records, a thread a record, records longer than
+//     LZ4TT_LR_LONG nodes by the CTA; one more row of CTAs for the window),
+//     `rounds` round kernels over the nodes in place, each a grid of the
+//     resident CTAs that counts the nodes it leaves open and returns at
+//     once when the round before left none, and the gather of each node's
+//     byte. The number of nodes and of blocks to resolve are read on the
+//     card, so nothing waits for the host between the walk and the gather.
+#include "linked_decode.cuh"
+
+#include <cuda_runtime.h>
+
+#include "lz4tt_device.cuh"
+
+namespace {
+
+constexpr int kWalkWarps = 4;
+constexpr int kFill = 256;
+constexpr int kRound = 256;
+
+__global__ void __launch_bounds__(32 * kWalkWarps)
+    walk_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
+                const int32_t* __restrict__ lens,
+                const uint8_t* __restrict__ raw, int32_t n, int32_t dest_cap,
+                int32_t* tables, int32_t max_seq, int32_t* n_seq,
+                int32_t* out_total, int32_t* code, int32_t* reach) {
+  const int64_t b = (int64_t)blockIdx.x * kWalkWarps + threadIdx.x / 32;
+  if (b >= n || (threadIdx.x & 31) != 0) return;
+  const int64_t plane = (int64_t)n * max_seq;
+  int32_t* row = tables + b * max_seq;
+  const Lz4ttLwTables t = {row,             row + plane,     row + 2 * plane,
+                           row + 3 * plane, row + 4 * plane, row + 5 * plane};
+  const Lz4ttLwResult r = lz4tt_lw_walk(comp + b * comp_stride, lens[b],
+                                        dest_cap, raw[b] != 0, t, max_seq);
+  n_seq[b] = r.n_seq;
+  out_total[b] = r.out_total;
+  code[b] = r.code;
+  reach[b] = r.reach;
+}
+
+// Grid (x, n + 1): CTA (x, b < n) fills records [x * kFill, +kFill) of
+// block b, if b is below *n_ok; the row b = n fills the window's nodes.
+__global__ void __launch_bounds__(kFill)
+    fill_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
+                const int32_t* tables, int32_t max_seq, int32_t n,
+                const int32_t* __restrict__ n_seq,
+                const int64_t* __restrict__ block_at,
+                const int64_t* __restrict__ n_ok,
+                const uint8_t* __restrict__ window, int32_t w,
+                int32_t* nodes) {
+  __shared__ int32_t longs[kFill];
+  __shared__ int32_t n_long;
+  const int32_t b = blockIdx.y;
+  if (b == n) {
+    for (int64_t j = (int64_t)blockIdx.x * kFill + threadIdx.x; j < w;
+         j += (int64_t)gridDim.x * kFill)
+      nodes[j] = lz4tt_lr_known(window[j]);
+    return;
+  }
+  const int32_t k0 = blockIdx.x * kFill;
+  if (b >= *n_ok || k0 >= n_seq[b]) return;  // the same for the whole CTA
+  if (threadIdx.x == 0) n_long = 0;
+  __syncthreads();
+  const int64_t plane = (int64_t)n * max_seq;
+  int32_t* row = const_cast<int32_t*>(tables) + (int64_t)b * max_seq;
+  const Lz4ttLwTables t = {row,             row + plane,     row + 2 * plane,
+                           row + 3 * plane, row + 4 * plane, row + 5 * plane};
+  const uint8_t* src = comp + b * comp_stride;
+  const int64_t base = w + block_at[b];
+  const int32_t k = k0 + threadIdx.x;
+  if (k < n_seq[b]) {
+    if (lz4tt_lr_long(t, k))
+      longs[atomicAdd(&n_long, 1)] = k;
+    else
+      lz4tt_lr_fill(src, t, k, nodes, base, 0, 1);
+  }
+  __syncthreads();
+  for (int32_t q = 0; q < n_long; q++)
+    lz4tt_lr_fill(src, t, longs[q], nodes, base, threadIdx.x, kFill);
+}
+
+// Round r over nodes [0, *n_nodes): open[r] counts the nodes it leaves
+// open; nothing to do once round r - 1 left none.
+__global__ void __launch_bounds__(kRound)
+    round_kernel(int32_t* nodes, const int64_t* __restrict__ n_nodes,
+                 int32_t* open, int32_t r) {
+  if (r > 0 && open[r - 1] == 0) return;
+  const int64_t total = *n_nodes;
+  int32_t mine = 0;
+  for (int64_t j = (int64_t)blockIdx.x * kRound + threadIdx.x; j < total;
+       j += (int64_t)gridDim.x * kRound)
+    mine += lz4tt_lr_step(nodes, j);
+  mine = __reduce_add_sync(0xffffffffu, mine);
+  if ((threadIdx.x & 31) == 0 && mine) atomicAdd(open + r, mine);
+}
+
+__global__ void __launch_bounds__(kRound)
+    gather_kernel(const int32_t* __restrict__ nodes,
+                  const int64_t* __restrict__ n_nodes, uint8_t* out) {
+  const int64_t total = *n_nodes;
+  for (int64_t j = (int64_t)blockIdx.x * kRound + threadIdx.x; j < total;
+       j += (int64_t)gridDim.x * kRound)
+    out[j] = (uint8_t)nodes[j];
+}
+
+}  // namespace
+
+// comp: uint8[n, comp_stride], row b's first lens[b] bytes block b's
+// payload (raw[b] != 0: stored raw); tables: int32[6, n, max_seq] in the
+// order lit_out, lit_src, lit_len, m_out, m_dist, m_len, the first
+// n_seq[b] entries of row b written; out_total, code, reach: int32[n].
+// Returns cudaGetLastError() after the launch.
+extern "C" int lz4tt_linked_walk(const void* comp, long long comp_stride,
+                                 const void* lens, const void* raw, int n,
+                                 int dest_cap, void* tables, int max_seq,
+                                 void* n_seq, void* out_total, void* code,
+                                 void* reach, void* stream) {
+  if (n < 0 || dest_cap < 0 || max_seq < 1) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const int grid = (n + kWalkWarps - 1) / kWalkWarps;
+    walk_kernel<<<grid, 32 * kWalkWarps, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)comp, comp_stride, (const int32_t*)lens,
+        (const uint8_t*)raw, n, dest_cap, (int32_t*)tables, max_seq,
+        (int32_t*)n_seq, (int32_t*)out_total, (int32_t*)code,
+        (int32_t*)reach);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The resolve of a walked batch: blocks [0, *n_ok) at nodes w +
+// block_at[b] (int64[n + 1], an exclusive scan of their out_total), the
+// window's w bytes at nodes [0, w); nodes: int32[>= *n_nodes], n_nodes =
+// w + block_at[*n_ok]; open: int32[rounds], zeroed; out: uint8[>=
+// *n_nodes], byte j of the batch's nodes. grid: CTAs of each round and of
+// the gather. Returns the first error of its launches.
+extern "C" int lz4tt_linked_resolve(const void* comp, long long comp_stride,
+                                    const void* tables, int max_seq, int n,
+                                    const void* n_seq, const void* block_at,
+                                    const void* n_ok, const void* window,
+                                    int w, const void* n_nodes, void* nodes,
+                                    void* out, void* open, int rounds,
+                                    int grid, void* stream) {
+  if (n < 0 || n >= 65535 || w < 0 || max_seq < 1 || rounds < 0 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const dim3 fill_grid((max_seq + kFill - 1) / kFill, n + 1);
+  fill_kernel<<<fill_grid, kFill, 0, s>>>(
+      (const uint8_t*)comp, comp_stride, (const int32_t*)tables, max_seq, n,
+      (const int32_t*)n_seq, (const int64_t*)block_at, (const int64_t*)n_ok,
+      (const uint8_t*)window, w, (int32_t*)nodes);
+  if (const cudaError_t e = cudaGetLastError()) return (int)e;
+  for (int r = 0; r < rounds; r++) {
+    round_kernel<<<grid, kRound, 0, s>>>((int32_t*)nodes,
+                                         (const int64_t*)n_nodes,
+                                         (int32_t*)open, r);
+    if (const cudaError_t e = cudaGetLastError()) return (int)e;
+  }
+  gather_kernel<<<grid, kRound, 0, s>>>((const int32_t*)nodes,
+                                        (const int64_t*)n_nodes,
+                                        (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// Resident CTAs per SM and threads per CTA of a round.
+extern "C" int lz4tt_linked_occupancy(int* ctas_per_sm, int* threads) {
+  *threads = kRound;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, round_kernel, kRound, 0);
+}

@@ -23,7 +23,8 @@ kernels' plain versions):
 - :func:`compress_frame` is the writer in one call; :func:`decompress_frame`
   decodes a batch of independent blocks in one launch
   (``streams/pipeline.py``, one K1 with a history a batch in a dictionary
-  frame) and hands linked frames to the serial reader.
+  frame) and a batch of linked blocks in one walk and one resolve
+  (``kernels/linked_decode.py``).
 
 frame  = magic(4, LE 0x184D2204) FLG BD [content_size(8)] [dict_id(4)] HC
          block* endmark(4 x 0) [content_checksum(4)]
@@ -668,7 +669,10 @@ def decompress_frame(data, read_single_frame: bool = False,
     dictionary, one
     launch of K1 with the dictionary as the history of every row); linked
     frames (``allow_dependent_blocks``, refused by default like the
-    reference) go to :class:`Lz4FrameInputStream`, a block at a time.
+    reference) a batch of up to 64 MiB at a time too, in one walk of every
+    block's tokens and one pointer-doubling resolve against the output
+    before the batch (``kernels/linked_decode.py``), with the output and
+    errors of :class:`Lz4FrameInputStream`, which reads a block at a time.
     ``read_single_frame`` stops after the first frame. Empty input decodes
     to nothing, as the JAX package's one-call codec has it."""
     from ..streams.pipeline import decode_frames

@@ -28,9 +28,12 @@ Engines, each on one device (the card unless told otherwise):
 ``level`` 1..17 compresses with HC at that level (K6, the tier's
 ``high_compressor(level)``), through the same data plane. The JAX engines
 ``native`` and ``safe`` (host tiers) are not ported. With
-``allow_dependent`` a frame of linked blocks (``lz4 -BD``) is handed,
-with its header replayed, to the serial frame reader
-(``formats/frame.py::Lz4FrameInputStream``), as the JAX pipeline hands it
+``allow_dependent`` a frame of linked blocks (``lz4 -BD``) is decoded a
+batch of up to 64 MiB at a time (``_LinkedFrameBody``: one walk and one
+resolve of ``kernels/linked_decode.py`` a batch, against the window of
+the output before it, kept on the card), with the output and errors of
+the serial frame reader (``formats/frame.py::Lz4FrameInputStream``), to
+which the JAX pipeline hands such a frame
 (``lz4_tpu/streams/pipeline.py:387-403``); by default it is refused.
 :func:`decode_frames` is the frame loop, also used by
 ``formats.decompress_frame``: it decodes dictionary frames too, a batch in
@@ -72,16 +75,17 @@ from ..api import cuda_instances
 from ..api.factory import Lz4Factory
 from ..core.constants import MAX_COMPRESSION_LEVEL, U32
 from ..core.device import resolve_device
-from ..core.errors import Lz4FrameError
+from ..core.errors import Lz4Error, Lz4FrameError
 from ..dist.mesh import block_mesh
 from ..dist.sharded import (
     frame_body_packed, shard_compress_blocks, shard_decompress_blocks)
 from ..formats.frame import (
-    BlockSize, FrameFlag, INCOMPRESSIBLE_MASK, MAGIC, MAGIC_SKIPPABLE_BASE,
-    Lz4FrameInputStream, _bd_from_byte, _flg_from_byte, _flg_to_byte,
+    _BATCH_BYTES, BlockSize, FrameFlag, INCOMPRESSIBLE_MASK, MAGIC,
+    MAGIC_SKIPPABLE_BASE, _bd_from_byte, _flg_from_byte, _flg_to_byte,
     xxh32_bytes,
 )
-from ..kernels import parallel_compress, segment_decode
+from ..kernels import linked_decode, parallel_compress, segment_decode
+from ..kernels.codec import ERR_DEST_TOO_SMALL, WINDOW
 from ..kernels.layout import DOWN, UP, row_stride, staging
 from ..kernels.xxhash import xxh32_batch
 from ..kernels.xxhash_stream import StreamState32
@@ -336,10 +340,10 @@ def decompress_stream(src, dst, engine: BatchEngine | str = "fastest",
     ``batch_blocks``. ``device`` places an engine given by name. Returns
     the decompressed bytes written.
 
-    ``allow_dependent`` also reads linked-block frames (``lz4 -BD``): no
-    batch of their blocks exists (each reaches into the output before
-    it), so the frame goes to the serial frame reader, a block at a time
-    on the card; the default refuses them like the reference."""
+    ``allow_dependent`` also reads linked-block frames (``lz4 -BD``),
+    ``batch_blocks`` blocks (at most 64 MiB of output) a batch, each
+    decoded by one walk and one resolve against the output before it; the
+    default refuses them like the reference."""
     return decode_frames(src, dst, engine, batch_blocks, device,
                          allow_dependent=allow_dependent)
 
@@ -357,21 +361,6 @@ def _dictionary_engine(engine: BatchEngine, dictionary) -> BatchEngine:
             cuda_instances.decode_rows_hist, hist=hist, hist_len=hist_len))
 
 
-class _PrependStream:
-    """``head`` then the binary stream ``src``, for a reader that must see
-    bytes already read."""
-
-    def __init__(self, head: bytes, src):
-        self._head, self._src = head, src
-
-    def read(self, n: int = -1) -> bytes:
-        if self._head:
-            take = len(self._head) if n is None or n < 0 else n
-            out, self._head = self._head[:take], self._head[take:]
-            return out
-        return self._src.read(n)
-
-
 def decode_frames(src, dst, engine: BatchEngine | str = "fastest",
                   batch_blocks: int = 256,
                   device: str | torch.device = "cuda",
@@ -383,8 +372,8 @@ def decode_frames(src, dst, engine: BatchEngine | str = "fastest",
     window and the first window of a linked frame; the DictID field is
     accepted), and with ``single_frame`` stops after the first frame.
     ``batch_bytes``, when given, sets each frame's batch to that many bytes
-    of its blocks instead of ``batch_blocks`` blocks. Returns the bytes
-    written."""
+    of its blocks instead of ``batch_blocks`` blocks; a batch of linked
+    blocks holds at most 64 MiB of them. Returns the bytes written."""
     if isinstance(engine, str):
         engine = get_engine(engine, device=device)
     if dictionary is not None:
@@ -428,23 +417,17 @@ def decode_frames(src, dst, engine: BatchEngine | str = "fastest",
         hc = read_exact(1)
         if ((xxh32_bytes(desc) >> 8) & 0xFF) != hc[0]:
             raise Lz4FrameError("Frame header checksum mismatch")
-        if FrameFlag.BLOCK_INDEPENDENCE not in flags:
-            reader = Lz4FrameInputStream(
-                _PrependStream(word + desc + hc, src), read_single_frame=True,
-                allow_dependent_blocks=True, dictionary=dictionary,
-                device=engine.device)
-            while chunk := reader.read(1 << 20):
-                with part("write"):
-                    dst.write(chunk)
-                written += len(chunk)
-            if single_frame:
-                break
-            continue
         content_hash = (StreamState32(0, engine.device)
                         if FrameFlag.CONTENT_CHECKSUM in flags else None)
         batch = batch_blocks if batch_bytes is None else batch_bytes // bs
-        frame = _FrameBody(src, dst, engine, bs, max(1, batch),
-                           FrameFlag.BLOCK_CHECKSUM in flags, content_hash)
+        if FrameFlag.BLOCK_INDEPENDENCE in flags:
+            frame = _FrameBody(src, dst, engine, bs, max(1, batch),
+                               FrameFlag.BLOCK_CHECKSUM in flags,
+                               content_hash)
+        else:
+            frame = _LinkedFrameBody(
+                src, dst, engine, bs, max(1, min(batch, _BATCH_BYTES // bs)),
+                FrameFlag.BLOCK_CHECKSUM in flags, content_hash, dictionary)
         total = frame.run()
         written += total
         if content_hash is not None:
@@ -624,6 +607,83 @@ class _FrameBody:
         with part("write"):
             self.dst.write(data)
         return len(data)
+
+
+class _LinkedFrameBody(_FrameBody):
+    """The blocks of one linked-block frame, up to its end mark, decoded a
+    batch at a time into ``dst`` (``kernels/linked_decode.py``).
+
+    The walk of :class:`_FrameBody` reads up to ``batch_blocks`` payloads
+    (at most 64 MiB of output) into the pinned rows, which go up in one
+    upload; the block checksums are one K3 launch; the decode is one walk
+    and one resolve against the window, the up to 64 KiB of output before
+    the batch, kept on the card (at the frame's start the dictionary's
+    tail, or nothing). Each batch reads back its codes once and downloads
+    its output once, whatever its number of blocks.
+
+    Errors come as the serial reader raises them
+    (``formats/frame.py::Lz4FrameInputStream``): the blocks before the
+    first one that fails, by its block checksum (checked before its
+    decode) or its decode, are written, then its error is raised; a fault
+    of the walk is raised after every block read before it is written.
+    """
+
+    def __init__(self, src, dst, engine, bs, batch_blocks, block_checksum,
+                 content_hash, dictionary):
+        super().__init__(src, dst, engine, bs, batch_blocks, block_checksum,
+                         content_hash)
+        win, w = cuda_instances.window_tensor(dictionary or b"",
+                                              engine.device)
+        self.window = win[0, :w]
+
+    def run(self) -> int:
+        total = 0
+        while True:
+            with part("read"):
+                host = self.up.take(self.rows_at + self.b * self.stride)
+                n, raw, sums, end, fault = self._walk(host.numpy())
+            if n:
+                total += self._decode(host, n, raw, sums)
+            if fault is not None:
+                raise fault
+            if end:
+                return total
+
+    def _decode(self, host, n, raw, sums) -> int:
+        """Decode, check and write one batch; returns its length."""
+        dev = self.engine.device
+        width = linked_decode.table_width(
+            host.numpy()[:4 * n].view(np.int32), raw)
+        rows, lens = self._upload(host, n)
+        held = None
+        with part("kernels"):
+            if self.block_checksum:
+                want = torch.from_numpy(
+                    np.array(sums, np.uint32).view(np.int32)).to(dev)
+                held = xxh32_batch(rows, lens, 0).view(torch.int32) == want
+            batch = linked_decode.decode_linked_batch(
+                rows, lens, torch.tensor(raw, dtype=torch.bool, device=dev),
+                self.bs, self.window, width, held)
+        stop, w = batch.n_ok, self.window.numel()
+        k = int(batch.block_at[stop])
+        if k:
+            flat = batch.out[w:w + k]
+            if self.content_hash is not None:
+                with part("content_hash"):
+                    self.content_hash.update(flat)
+            with part("download"):
+                data = staging(dev, DOWN).download(flat)
+            with part("write"):
+                self.dst.write(memoryview(data))
+        if stop < n:
+            if batch.held is not None and not batch.held[stop]:
+                raise Lz4FrameError("Block checksum mismatch")
+            if batch.codes[stop] == ERR_DEST_TOO_SMALL:
+                raise Lz4Error("maxDestLen is too small")
+            raise Lz4Error("Malformed input")
+        keep = min(WINDOW, batch.n_nodes)
+        self.window = batch.out[batch.n_nodes - keep:batch.n_nodes].clone()
+        return k
 
 
 def _join_rows(rows: torch.Tensor, sizes: np.ndarray, bs: int,

@@ -20,8 +20,8 @@ from lz4_tpu_torch.core import xxhash_ref
 from lz4_tpu_torch.core.constants import max_compressed_length
 from lz4_tpu_torch.dist import sharded
 from lz4_tpu_torch.kernels import (
-    build, codec, gather_decode, hc, layout, parallel_compress,
-    segment_decode, sequences, xxhash, xxhash_stream)
+    build, codec, gather_decode, hc, layout, linked_decode,
+    parallel_compress, segment_decode, sequences, xxhash, xxhash_stream)
 from lz4_tpu_torch.streams import compress_stream, decompress_stream
 
 pytestmark = pytest.mark.cuda
@@ -809,3 +809,137 @@ def test_parallel_engine_round_trip(cuda_device):
         back = io.BytesIO()
         decompress_stream(io.BytesIO(sink.getvalue()), back, engine=engine)
         assert back.getvalue() == data
+
+
+def _linked_rows(device, rng):
+    """Payload rows of linked blocks on ``device``: the edge blocks of K2,
+    boundary, chain, history, overreach and null-offset blocks, fuzz, some
+    flagged raw."""
+    raws = testing.mixed_blocks(rng, EDGE_SIZES)
+    src, lens = layout.to_device_layout(raws, device=device)
+    comp, clens, _ = codec.compress_fast_batch(src, lens,
+                                               max_compressed_length(70000))
+    blocks = layout.from_device_layout(comp, clens)
+    blocks += testing.boundary_blocks()
+    blocks += [c for c, _ in testing.chain_blocks(rng)]
+    blocks += [testing.encode_block(s, t)
+               for _, s, t in testing.history_blocks(rng)]
+    blocks += [b for _, b in testing.overreach_blocks(rng)]
+    blocks += testing.fuzz_blocks(rng, blocks, 60)
+    c, cl = layout.to_device_layout(blocks, device=device)
+    raw = torch.from_numpy(rng.random(len(blocks)) < 0.1).to(device)
+    return c, cl, raw
+
+
+@pytest.mark.parametrize("dest_cap, max_seq", [
+    (65536, None), (100, None), (0, None), (65536, 5)])
+def test_linked_walk_kernel_matches_plain(cuda_device, dest_cap, max_seq):
+    """The linked walk against its plain version: codes, lengths, reach
+    and each block's records; one launch."""
+    rng = np.random.default_rng(64)
+    c, cl, raw = _linked_rows(cuda_device, rng)
+    width = max_seq or linked_decode.table_width(cl.tolist(), raw.tolist())
+    before = linked_decode.WALK.launches
+    got = linked_decode.walk_linked(c, cl, raw, dest_cap, width)
+    assert linked_decode.WALK.launches == before + 1
+    want = linked_decode.walk_linked_plain(c, cl, raw, dest_cap, width)
+    for x, y in zip(got[1:], want[1:]):
+        assert torch.equal(x, y)
+    for i, k in enumerate(got[1].tolist()):
+        assert torch.equal(got[0][:, i, :k], want[0][:, i, :k]), i
+
+
+@pytest.mark.parametrize("block, w, kind", [
+    (65536, 0, "alphabet4"), (300, 5000, "alphabet4"), (65536, 65536, "text"),
+    (1000, 65536, "zeros")])
+def test_linked_resolve_kernel_matches_plain(cuda_device, block, w, kind):
+    """The resolve against its plain version on a walked batch of
+    ``testing.linked_blocks`` after a window of ``w`` bytes of the same
+    content: the batch's bytes are its content; one launch."""
+    rng = np.random.default_rng(65)
+    data = testing.block_of(rng, kind, w + 40 * block + 77)
+    comps = testing.linked_blocks(data, block, cuda_device)
+    first = -(-w // block)       # the blocks that make the window
+    raws = [data[i:i + block] for i in range(0, len(data), block)]
+    pays = testing.payloads(raws, comps)[first:]
+    raw = torch.tensor([len(c) >= len(r) for r, c in
+                        zip(raws[first:], comps[first:])], device=cuda_device)
+    c, cl = layout.to_device_layout(pays, device=cuda_device)
+    start = first * block
+    window = layout.upload_bytes(data[max(0, start - 65536):start],
+                                 cuda_device) if start else \
+        torch.empty((0,), dtype=torch.uint8, device=cuda_device)
+    tables, n_seq, out_total, code, reach = linked_decode.walk_linked(
+        c, cl, raw, block)
+    plan = linked_decode.frame_plan(out_total, code, reach, window.numel())
+    assert int(plan[2]) == len(pays)
+    cap = window.numel() + len(pays) * block
+    before = linked_decode.RESOLVE.launches
+    got, opened = linked_decode.resolve_linked(c, tables, n_seq, plan[0],
+                                               plan[2], plan[3], window, cap)
+    assert linked_decode.RESOLVE.launches == before + 1
+    want, _ = linked_decode.resolve_linked_plain(c, tables, n_seq, plan[0],
+                                                 plan[2], plan[3], window, cap)
+    n = int(plan[3])
+    assert int(opened[-1]) == 0
+    assert torch.equal(got[:n], want[:n])
+    assert got[window.numel():n].cpu().numpy().tobytes() == data[start:]
+
+
+def _linked_frame(device, rng):
+    data = testing.block_of(rng, "alphabet4", 5 * 65536 + 999)
+    raws = [data[i:i + 65536] for i in range(0, len(data), 65536)]
+    return data, raws, testing.linked_blocks(data, 65536, device)
+
+
+@pytest.mark.parametrize("fault", ["none", "checksum", "reach", "oversized",
+                                   "premature"])
+def test_linked_frames_on_the_card(cuda_device, fault):
+    """``decode_frames`` of linked frames on the card (one walk and one
+    resolve a batch, no history decode) against the same on the CPU
+    (the plain versions) and the serial reader: bytes written and error,
+    at batches of 2 and 256 blocks."""
+    from lz4_tpu_torch.core.errors import Lz4Error
+    from lz4_tpu_torch.formats import Lz4FrameInputStream
+    from lz4_tpu_torch.streams.pipeline import decode_frames
+
+    rng = np.random.default_rng(66)
+    data, raws, comps = _linked_frame(cuda_device, rng)
+    if fault == "reach":       # block 0 reaches before the frame's start
+        comps[0] = testing.encode_block([(b"ab", 100, 4)], b"x" * 9)
+    elif fault == "oversized":
+        comps[3] = testing.encode_block([(b"ab", 1, 65536)], b"x" * 9)
+    frame = bytearray(testing.build_frame(raws, comps, independent=False))
+    if fault == "checksum":
+        frame[-40] ^= 1
+    elif fault == "premature":
+        frame = frame[:len(frame) // 2]
+
+    def outcome(run):
+        out = io.BytesIO()
+        try:
+            run(out)
+        except Lz4Error as e:
+            return out.getvalue(), (type(e).__name__, str(e))
+        return out.getvalue(), None
+
+    def serial(out):
+        reader = Lz4FrameInputStream(io.BytesIO(frame),
+                                     allow_dependent_blocks=True,
+                                     device=cuda_device)
+        while chunk := reader.read(1 << 20):
+            out.write(chunk)
+
+    want = outcome(serial)
+    assert want[1] is not None or want[0] == data
+    for batch in (2, 256):
+        for dev in (cuda_device, "cpu"):
+            build.reset_launch_counts()
+            got = outcome(lambda out: decode_frames(
+                io.BytesIO(frame), out, "cuda", batch, dev,
+                allow_dependent=True))
+            assert got == want, (batch, dev)
+            if dev != "cpu":
+                counts = build.launch_counts()
+                assert counts["lz4_decode_hist"] == 0
+                assert counts["linked_walk"] == counts["linked_resolve"] >= 1
