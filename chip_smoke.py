@@ -9,7 +9,9 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
 (``python3 chip_smoke.py --pack-parse`` times only the main path's steps,
 pack and the parser; see :func:`pack_parse_only`. ``python3 chip_smoke.py
 --host-split`` runs only phase 7, on whichever package lies beside the
-script, the one before the host data plane included.)
+script, the one before the host data plane included; ``--parallel-stream``
+only phase 8d's ``parallel`` engine calls, the full batch of 4 MiB blocks
+and K7 on its rows included, on whichever package lies beside it.)
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -136,18 +138,29 @@ Phases (any failure exits non-zero; nothing is caught):
    period 46, runs; row tails 0xA5), the window blocks, caps down to 0
    (-1 rows) and 16 rows of 4 MiB; the parser's sentinel tails and K8
    against their plain versions on K2's edge blocks, the chain blocks and
-   a null offset, at max_depth 0-3 and 32; then K7 on the main path's
-   4096 blocks (timed beside K2, the plain version on 64 rows, every block
-   decoded back by K1, compressed bytes by kind beside K2's, peak device
-   memory); with launch counts reset just before and read just after each
+   a null offset, at max_depth 0-3 and 32; K7 on rows of three 64 KiB
+   windows and 17 bytes (``testing.window_rows``: runs of period 1-4
+   across every window end, a literal run over windows, one repeated
+   byte, rows about one and two windows) and one byte repeated over 4 MiB
+   + 1; K8 on ``testing.link_tables`` (chains of exactly 2^k - 1 and 2^k
+   links, cycles, forward pointers) at max_depth 0-3 and 32; then K7 on
+   the main path's 4096 blocks (timed beside K2, the plain version on 64
+   rows, every block decoded back by K1, compressed bytes by kind beside
+   K2's, peak device memory); with launch counts reset just before and
+   read just after each
    call, ``compress_stream(engine="parallel")`` on 64 MiB twice (the frame
    equal to the one put together from K7's blocks), decoded by the
    ``cuda`` and ``segment`` engines, the same at 4 MiB blocks, and the
    command line's ``compress --engine parallel`` in a subprocess restored
    by ``decompress`` (K7 launched, K2 never), and the 64 KiB stream's K7
-   launches (256 rows each) timed by CUDA events; ``get_engine("parallel",
-   9)`` raising; then K8 on the main path's K2 output (timed beside K5
-   and K1, the plain version on 64 rows, max_depth 1-3) and
+   launches (256 rows each) timed by CUDA events; a full batch of 256 ×
+   4 MiB blocks through the stream (its K7 launch timed the same way, its
+   peak memory and what it leaves allocated), then K7 on those 256 rows
+   directly (timed; the 16 distinct rows against the plain version, every
+   row against its copies and decoded back by K1; peak memory);
+   ``get_engine("parallel", 9)`` raising; then K8 on the main path's K2
+   output (timed beside K5 and K1, the plain version on 64 rows, max_depth
+   0-3) and
    ``gather_decode.decompress_blocks`` restoring all 4096 blocks;
 9. the launch counts, the per-kernel JSON line and the final JSON line.
 """
@@ -2678,13 +2691,15 @@ def compare_gather(what, comp, tables, out_len, max_depth=32) -> int:
     return 0
 
 
-def _parallel_edge_cases(dev, rng) -> None:
+def _parallel_edge_cases(dev, rng) -> dict:
     """K7 against its plain version on ``testing.parallel_blocks`` at the
     sizes about 0-16, 512, 2048 and 65,536, the window blocks and 256
     blocks of random kind and size (every row tail 0xA5), at tight caps
-    (-1) too, and on 16 rows of 4 MiB; K8 on the parser's sentinel tables
-    of K2's and K7's output of edge blocks, the chain blocks (max_depth
-    0-3 and 32) and the null-offset block."""
+    (-1) too, on ``testing.window_rows`` (three 64 KiB windows and 17
+    bytes), one byte over 4 MiB + 1 and 16 rows of 4 MiB (timed, its peak
+    memory; returned); K8 on ``testing.link_tables`` and on the parser's
+    sentinel tables of K2's and K7's output of edge blocks, the chain
+    blocks and the null-offset block, at max_depth 0-3 and 32."""
     fuzz = [testing.block_of(rng, testing.PARALLEL_KINDS[int(k)], int(n))
             for k, n in zip(rng.integers(0, len(testing.PARALLEL_KINDS), 256),
                             rng.integers(0, 70000, 256))]
@@ -2716,6 +2731,42 @@ def _parallel_edge_cases(dev, rng) -> None:
         f"K1 restores them; window blocks {len(window[0])} and "
         f"{len(window[1])} B")
 
+    rows = testing.window_rows(rng)
+    wsrc, wlens = layout.to_device_layout(rows, device=dev)
+    wcap = max_compressed_length(wsrc.shape[1])
+    compare_parallel("K7 window rows", wsrc, wlens, wcap)
+    out, out_lens = parallel_compress.compress_parallel_batch(wsrc, wlens,
+                                                              wcap)
+    dec = codec.decompress_safe_batch(out, out_lens, wsrc.shape[1])
+    if bool(dec[2].any()) or layout.from_device_layout(dec[0],
+                                                       dec[1]) != rows:
+        fail("K7 window rows: K1 did not restore them")
+    one = (4 << 20) + 1
+    rsrc, rlens = layout.to_device_layout([b"\x61" * one], device=dev)
+    rcap = max_compressed_length(rsrc.shape[1])
+    compare_parallel("K7 one byte over 4 MiB + 1", rsrc, rlens, rcap)
+    run_len = parallel_compress.compress_parallel_batch(rsrc, rlens,
+                                                        rcap)[1].item()
+    if run_len != 1 + 1 + 2 + 1 + (one - 10 - 15) // 255 + 1 + 5:
+        fail(f"K7: one byte over 4 MiB + 1 is {run_len} B, not one match "
+             "sequence and the last literals")
+    log(f"K7 == plain on {len(rows)} window rows (three 64 KiB windows and "
+        f"17 bytes: runs of period 1-4 across every window end, a literal "
+        f"run over windows, one repeated byte; rows about one and two "
+        f"windows), K1 restores them; one byte over 4 MiB + 1: {run_len} B, "
+        f"one match sequence")
+    del wsrc, rsrc, out, dec
+    for out_len in (40, 8):
+        tables, comp = testing.link_tables(out_len)
+        t = torch.from_numpy(tables).to(dev)
+        c = torch.from_numpy(comp).to(dev)
+        for depth in (0, 1, 2, 3, 32):
+            compare_gather(f"K8 link tables out_len={out_len} "
+                           f"max_depth={depth}", c, t, out_len, depth)
+    log("K8 == plain on the link tables (chains of 2^k - 1 and 2^k links, "
+        "k = 0-3, forward pointers, a cycle, a self-parent, a null offset) "
+        "at out_len 40 and 8, max_depth 0-3 and 32")
+
     big = sharded.make_blocks(16, PARALLEL_BIG_ROW, SEED + 5)
     bsrc, blens = sharded.upload_blocks(big, dev)
     bcap = max_compressed_length(PARALLEL_BIG_ROW)
@@ -2732,7 +2783,12 @@ def _parallel_edge_cases(dev, rng) -> None:
     if bool(dec[2].any()) or not torch.equal(dec[0][:, :PARALLEL_BIG_ROW],
                                              bsrc[:, :PARALLEL_BIG_ROW]):
         fail("K7 16 x 4 MiB: K1 did not restore the rows")
-    log(f"K7 on 16 x 4 MiB == plain, restored by K1: {ms:.3f} ms, "
+    big16 = {"ms": ms, "peak_gib": peak / 2 ** 30,
+             "windows_a_row": parallel_compress.windows(PARALLEL_BIG_ROW),
+             "scratch_gib": _scratch_gib(parallel_compress)}
+    log(f"K7 on 16 x 4 MiB == plain, restored by K1: {ms:.3f} ms "
+        f"({parallel_compress.windows(PARALLEL_BIG_ROW)} windows a row, a CTA "
+        f"each, {parallel_compress.resident_teams(0)} CTAs), "
         f"{int(bl.sum())} B out; peak device memory of the call "
         f"{peak / 2 ** 30:.3f} GiB above its inputs, K7's scratch "
         f"{_scratch_gib(parallel_compress):.3f} GiB")
@@ -2764,6 +2820,73 @@ def _parallel_edge_cases(dev, rng) -> None:
         f"blocks (K2's and K7's edge blocks, {len(chains)} chain blocks, a "
         f"null offset) at max_depth 0, 1, 2, 3, 32; decompress_blocks "
         f"restores them")
+    return big16
+
+
+@contextlib.contextmanager
+def _k7_timed():
+    """K7's launches inside the block timed where they run: CUDA events
+    around each wrapper call, on its stream; yields the list of event
+    pairs, complete when the block ends."""
+    events, launch = [], parallel_compress.compress_parallel_batch
+
+    def timed_launch(*args, **kw):
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        result = launch(*args, **kw)
+        pair[1].record()
+        events.append(pair)
+        return result
+
+    parallel_compress.compress_parallel_batch = timed_launch
+    try:
+        yield events
+    finally:
+        parallel_compress.compress_parallel_batch = launch
+        sync()
+
+
+def _k7_full_batch(dev, full: bytes, distinct: int) -> dict:
+    """K7 on the full batch's 256 rows of 4 MiB directly: timed, its peak
+    device memory, the 16 distinct rows (the 64 MiB repeated) against the
+    plain version 4 at a time, every row equal to its first copy's (row r
+    is row r % ``distinct``), all decoded back by K1."""
+    src = torch.frombuffer(bytearray(full), dtype=torch.uint8).to(dev).view(
+        STREAM_BATCH, PARALLEL_BIG_ROW)
+    lens = torch.full((STREAM_BATCH,), PARALLEL_BIG_ROW, dtype=torch.int32,
+                      device=dev)
+    cap = max_compressed_length(PARALLEL_BIG_ROW)
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, out_lens = parallel_compress.compress_parallel_batch(src, lens, cap)
+    sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = _time_kernel(lambda: parallel_compress.compress_parallel_batch(
+        src, lens, cap))
+    copies = torch.arange(STREAM_BATCH, device=dev) % distinct
+    if not (torch.equal(out, out[copies]) and
+            torch.equal(out_lens, out_lens[copies])):
+        fail("K7 full batch: a row differs from its first copy's")
+    for r in range(0, distinct, 4):
+        plain = parallel_compress.compress_parallel_plain(
+            src[r:r + 4], lens[r:r + 4], cap)
+        if not (torch.equal(plain[1], out_lens[r:r + 4])
+                and torch.equal(plain[0], out[r:r + 4])):
+            fail(f"K7 full batch: rows {r}-{r + 3} differ from the plain "
+                 "version")
+        del plain
+    dec = codec.decompress_safe_batch(out, out_lens, PARALLEL_BIG_ROW)
+    if bool(dec[2].any()) or not torch.equal(dec[0][:, :PARALLEL_BIG_ROW],
+                                             src):
+        fail("K7 full batch: K1 did not restore the rows")
+    del dec
+    log(f"K7 on {STREAM_BATCH} x 4 MiB: {ms:.3f} ms; the {distinct} distinct "
+        f"rows == plain, every row == its first copy, K1 restores them; "
+        f"peak device memory {peak / 2 ** 30:.3f} GiB above its inputs")
+    return {"ms": ms, "peak_gib": peak / 2 ** 30,
+            "scratch_gib": _scratch_gib(parallel_compress),
+            "distinct_rows_equal_plain": distinct}
 
 
 def _parallel_stream(dev, raw: bytes, k7_blocks: list[bytes]) -> dict:
@@ -2815,23 +2938,9 @@ def _parallel_stream(dev, raw: bytes, k7_blocks: list[bytes]) -> dict:
                  "put together from K7's blocks")
     # the stream's K7 launches (256 rows each) timed where they run: CUDA
     # events around each, on the stream it launches on
-    events, launch = [], parallel_compress.compress_parallel_batch
-
-    def timed_launch(*args, **kw):
-        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        pair[0].record()
-        result = launch(*args, **kw)
-        pair[1].record()
-        events.append(pair)
-        return result
-
-    parallel_compress.compress_parallel_batch = timed_launch
-    try:
+    with _k7_timed() as events:
         frame = call("compress_stream(parallel) #3, K7 timed",
                      lambda: compress(BlockSize.SIZE_64KB), PARALLEL_PATH)
-    finally:
-        parallel_compress.compress_parallel_batch = launch
-    sync()
     k7_ms = [a.elapsed_time(b) for a, b in events]
     if frame != want or len(k7_ms) != len(raw) // (STREAM_BATCH * BLOCK_LEN):
         fail(f"compress_stream(parallel) with K7 timed: the frame differs, "
@@ -2857,9 +2966,11 @@ def _parallel_stream(dev, raw: bytes, k7_blocks: list[bytes]) -> dict:
     sync()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    frame = call(what, lambda: compress(BlockSize.SIZE_4MB, full),
-                 PARALLEL_PATH, len(full))
+    with _k7_timed() as events:
+        frame = call(what, lambda: compress(BlockSize.SIZE_4MB, full),
+                     PARALLEL_PATH, len(full))
     out[what].update({
+        "k7_launch_ms": [a.elapsed_time(b) for a, b in events],
         "held_gib": (torch.cuda.memory_allocated() - base) / 2 ** 30,
         "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
         "scratch_kept_gib": parallel_compress.SCRATCH.nbytes() / 2 ** 30,
@@ -2867,7 +2978,11 @@ def _parallel_stream(dev, raw: bytes, k7_blocks: list[bytes]) -> dict:
         "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
     if decompress(frame, "cuda") != full:
         fail(f"{what}: decompress_stream(cuda) did not restore it")
-    del full, frame
+    del frame
+    out["K7 on the full batch's 256 x 4 MiB rows"] = _k7_full_batch(
+        dev, full, len(raw) // PARALLEL_BIG_ROW
+        if len(raw) % PARALLEL_BIG_ROW == 0 else STREAM_BATCH)
+    del full
     try:
         get_engine("parallel", 9, dev)
         fail("get_engine('parallel', 9) did not raise")
@@ -2902,7 +3017,7 @@ def phase_parallel(dev) -> list[dict]:
     the plain version on some rows) and ``gather_decode.
     decompress_blocks``. Returns the rows of K7 and K8."""
     rng = np.random.default_rng(SEED + 4)
-    _parallel_edge_cases(dev, rng)
+    big16 = _parallel_edge_cases(dev, rng)
 
     data = sharded.make_blocks(N_BLOCKS, BLOCK_LEN, SEED)
     kinds = torch.from_numpy(sharded.block_kinds(N_BLOCKS, SEED)).to(dev)
@@ -2953,7 +3068,10 @@ def phase_parallel(dev) -> list[dict]:
     k7 = kernel_row("parallel_compress", stream["total"], 0, ms, plain_ms,
                     in_bytes + comp_bytes + 8 * n, in_bytes,
                     plain_rows=ssub.shape[0])
-    k7.update({"k2_ms": k2_ms, "bytes_by_kind_k7_k2": sizes,
+    k7.update({"k2_ms": k2_ms, "16x4MiB": big16,
+               "full_batch_256x4MiB": stream["calls"][
+                   "K7 on the full batch's 256 x 4 MiB rows"],
+               "bytes_by_kind_k7_k2": sizes,
                "peak_gib": peak / 2 ** 30, "stream": stream["calls"],
                "stream_launch_ms": stream["calls"][
                    "compress_stream(parallel) #3, K7 timed"]["k7_launch_ms"]})
@@ -2981,7 +3099,7 @@ def phase_parallel(dev) -> list[dict]:
                                                       BLOCK_LEN))
     if not torch.equal(plain, out[sub]):
         fail("K8 main path: differs from the plain version")
-    for depth in (1, 2, 3):
+    for depth in (0, 1, 2, 3):
         compare_gather(f"K8 main path rows max_depth={depth}", csub, tsub,
                        BLOCK_LEN, depth)
     k8_ms = _time_kernel(lambda: gather_decode.gather_decompress_batch(
@@ -3006,7 +3124,7 @@ def phase_parallel(dev) -> list[dict]:
     log(f"K8 on {n} x {BLOCK_LEN} B of K2 output: {k8_ms:.3f} ms (K5 "
         f"{k5_ms:.3f}, K1 {k1_ms:.3f} ms on the same blocks); plain "
         f"{k8_plain_ms:.1f} ms on {csub.shape[0]} rows, equal at max_depth "
-        f"1, 2, 3, 32; peak device memory {k8_peak / 2 ** 30:.3f} GiB above "
+        f"0, 1, 2, 3, 32; peak device memory {k8_peak / 2 ** 30:.3f} GiB above "
         f"its inputs, its scratch {_scratch_gib(gather_decode):.3f} GiB of "
         f"it; "
         f"decompress_blocks restored all {n} blocks in "
@@ -3397,6 +3515,19 @@ def main() -> int:
         log(phase_card())
         build.build_all()
         log("host split: " + json.dumps(host_split(torch.device("cuda"))))
+        return 0
+    if sys.argv[1:] == ["--parallel-stream"]:
+        log(phase_card())
+        build.build_all()
+        dev = torch.device("cuda")
+        raw = sharded.make_blocks(N_BLOCKS, BLOCK_LEN, SEED).tobytes()[
+            :CLI_BYTES]
+        src, lens = sharded.upload_blocks(np.frombuffer(raw, np.uint8).reshape(
+            -1, BLOCK_LEN).copy(), dev)
+        out, out_lens = parallel_compress.compress_parallel_batch(
+            src, lens, max_compressed_length(BLOCK_LEN))
+        log("parallel stream: " + json.dumps(_parallel_stream(
+            dev, raw, layout.from_device_layout(out, out_lens))))
         return 0
     t_start = time.perf_counter()
     dev = torch.device("cuda")

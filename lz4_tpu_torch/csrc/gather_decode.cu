@@ -9,16 +9,19 @@
 //
 // Bound on the card: by bytes, each literal byte and each sequence's table
 // entries (and the first sentinel's) read once and each output byte
-// written once (3.35 TB/s). What it does instead is 8-byte nodes a byte,
-// written once and then read, gathered and written again in each doubling
-// round, in the team's scratch.
+// written once (3.35 TB/s). What it does besides: a 4-byte node a byte,
+// written once by the fill, read once to list the open ones, then only the
+// open nodes read and gathered in each round, in the team's scratch.
 //
-// Design (the first): one CTA of 512 threads a block, a grid of at most the
-// resident CTAs looping over the blocks; each sequence writes its bytes'
-// nodes (a thread a sequence, long ones by the CTA), then synchronous
-// rounds between two buffers of nodes in the team's slice of a scratch
-// tensor the wrapper owns, until no byte is unresolved or max_depth rounds
-// have run (gather_decode.cuh).
+// Design (the second; the first kept 8-byte nodes in two buffers and read,
+// gathered and rewrote every node of a row each round): one CTA of 512
+// threads a block, a grid of at most the resident CTAs looping over the
+// blocks. Each sequence writes its bytes' nodes, and its literal bytes to
+// the output (a thread a sequence, long ones by the CTA); then rounds over
+// a list of the open nodes, in place when 2^max_depth >= out_len (at most
+// ceil(log2(out_len)) + 1), synchronous below that, until none is open;
+// a node that resolves writes its byte. No host read-back between rounds
+// (gather_decode.cuh).
 #include "gather_decode.cuh"
 
 #include <cuda_runtime.h>
@@ -35,38 +38,34 @@ __global__ void __launch_bounds__(kThreads, 2)
     gd_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
               int32_t cmax, Lz4ttGdTables tables, int32_t max_seq,
               uint8_t* __restrict__ out, int64_t out_stride,
-              int32_t out_len, int32_t max_depth, Lz4ttGdNode* scratch,
-              int64_t team_nodes, int n) {
+              int32_t out_len, int32_t max_depth, int32_t* scratch,
+              int64_t team_words, int n) {
   __shared__ Team::Shared team;
-  __shared__ int32_t queue;
-  const Team t{&team};
-  Lz4ttGdNode* a = scratch + (int64_t)blockIdx.x * team_nodes;
-  Lz4ttGdNode* b = a + out_len;
-  int32_t* longs = reinterpret_cast<int32_t*>(b + out_len);
+  __shared__ int32_t counters[4];
+  const Team t{&team, nullptr};
+  int32_t* mine = scratch + (int64_t)blockIdx.x * team_words;
   for (int64_t r = blockIdx.x; r < n; r += gridDim.x) {
     const int64_t o = r * max_seq;
     const Lz4ttGdTables s = {tables.lit_out + o, tables.lit_src + o,
                              tables.lit_len + o, tables.m_out + o,
                              tables.m_dist + o, tables.m_len + o};
     lz4tt_gd_block(t, comp + r * comp_stride, cmax, s, max_seq,
-                   out + r * out_stride, out_len, max_depth, a, b, longs,
-                   &queue);
+                   out + r * out_stride, out_len, max_depth, mine, counters);
   }
 }
 
 }  // namespace
 
-// Nodes of scratch a team needs: two buffers of out_len nodes, then
-// max_seq int32 (rounded up to whole nodes).
-extern "C" long long lz4tt_gather_team_nodes(int out_len, int max_seq) {
-  return 2LL * out_len + (max_seq + 1) / 2;
+// Int32 words of scratch a team needs (lz4tt_gd_team_words).
+extern "C" long long lz4tt_gather_team_words(int out_len, int max_seq) {
+  return lz4tt_gd_team_words(out_len, max_seq);
 }
 
 // comp: uint8[n, comp_stride], cmax <= comp_stride bytes a row read;
 // lit_out, lit_src, lit_len, m_out, m_dist, m_len: int32[n, max_seq]
 // each; out: uint8[n, out_stride], out_stride >= out_len, every byte of
-// [0, out_len) written; scratch: teams x lz4tt_gather_team_nodes nodes,
-// 8-byte aligned; the grid is min(n, teams) CTAs. Returns
+// [0, out_len) written; scratch: teams x lz4tt_gather_team_words int32;
+// the grid is min(n, teams) CTAs. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for cmax < 1
 // or no scratch).
 extern "C" int lz4tt_gather_decode(const void* comp, long long comp_stride,
@@ -87,7 +86,7 @@ extern "C" int lz4tt_gather_decode(const void* comp, long long comp_stride,
                       (const int32_t*)lit_len, (const int32_t*)m_out,
                       (const int32_t*)m_dist, (const int32_t*)m_len},
         max_seq, (uint8_t*)out, out_stride, out_len, max_depth,
-        (Lz4ttGdNode*)scratch, lz4tt_gather_team_nodes(out_len, max_seq), n);
+        (int32_t*)scratch, lz4tt_gd_team_words(out_len, max_seq), n);
   }
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,16 @@
 """Time design variants of block compress (K2), block decode (K1),
 segment decode (K5), the hashes (K3, K4 and their streaming updates), the
-sequence parser, frame-body packing and LZ4 HC (K6) against the shipped
-kernels, on the card.
+sequence parser, frame-body packing, LZ4 HC (K6), the parallel compressor
+(K7) and the gather decode (K8) against the shipped kernels, on the card.
 
 Each variant is the shipped ``csrc`` with a few text replacements: the
 design options ``PERF.md`` reports as tried and lost. Every variant is
 built with ``nvcc`` (in parallel, into ``build/lz4_tpu_torch/variants/``)
 and timed with CUDA events on the main path's rows (``make_blocks(4096,
 65536, 1234)``, its K2 output for K1, the parser and pack, and the
-parser's tables of that for K5): all rows, the a4 and the text rows apart,
-then the first 256 rows (a stream batch). A hash variant is timed
+parser's tables of that for K5, with sentinel tails for K8 at max_depth
+32): all rows, the a4 and the text rows apart, then the first 256 rows (a
+stream batch). A hash variant is timed
 on three launches: the one-shot entry point on the 4096 rows and on one
 16 MiB row (the first 256 rows end to end), and the update on the same 16
 MiB, a stream batch. K6 is timed at levels 1-6, 9 and 17 on the 4096
@@ -19,11 +20,13 @@ variant's output is held against the shipped kernel's. Run from the root
 of a checkout, on a machine with a card, for all of them or those of
 some sources::
 
-    python -m lz4_tpu_torch.design_variants [lz4_compress lz4_decode segment_decode lz4_parse frame_pack xxh32 xxh64 lz4_hc]
+    python -m lz4_tpu_torch.design_variants [lz4_compress lz4_decode segment_decode lz4_parse frame_pack xxh32 xxh64 lz4_hc parallel_compress gather_decode]
 
 ``--hc-split`` instead builds K6 with ``clock64`` counters in its first
 team's lane 0 and prints the cycles of each part of its searches: on one
-a4 row alone and on team 0 of 4,096 a4 rows, at level 9.
+a4 row alone and on team 0 of 4,096 a4 rows, at level 9. ``--k7-split``
+does the same for the parts of K7's window kernel, in its first CTA's
+thread 0 over its windows, on the main path's rows.
 """
 
 from __future__ import annotations
@@ -38,7 +41,9 @@ import torch
 
 from .core.constants import max_compressed_length
 from .dist import sharded
-from .kernels import build, codec, hc, sequences, xxhash, xxhash_stream
+from .kernels import (
+    build, codec, gather_decode, hc, parallel_compress, sequences, xxhash,
+    xxhash_stream)
 
 SEED, N_BLOCKS, BLOCK_LEN, REPS = 1234, 4096, 1 << 16, 5
 HC_REPS = 2                      # K6's timed launches (the slow ones take 1 s)
@@ -526,6 +531,15 @@ _HC_LINKS_OWN = """    // lane k's link holds if its true next is lane k + 1's c
     const int32_t nx = lane + 1 < size ? after : first2;
     const bool holds = in && (next == nx || ((next < lo || next > off) &&
                                              (nx < lo || nx > off)));"""
+# K7's candidates without the hash sort and walks: the exact sort of
+# (word, position) in every window
+_K7_HASH = """  t.sort_pass(A, nullptr, B, nullptr, m, LZ4TT_PC_POS_BITS, 0x1Fu);
+  t.sort_pass(B, nullptr, A, nullptr, m, LZ4TT_PC_POS_BITS + 5, 0x1Fu);
+  t.sort_pass(A, nullptr, B, nullptr, m, LZ4TT_PC_POS_BITS + 10, 0x1Fu);
+  bool over = false;
+  for (int32_t k = r; k < m; k += T) {"""
+_K7_SORT = """  bool over = true;
+  for (int32_t k = r; k < 0; k += T) {"""
 _HC_GRID = "    const int grid = n < teams ? n : teams;"
 _HC_BOUNDS = "__global__ void __launch_bounds__(32, 32)"
 
@@ -697,6 +711,19 @@ VARIANTS = {
     "K4, 3 stages of 64 KiB": ("xxh64", [
         (_RING_H, _STAGES,
          "#define LZ4TT_XXH_STAGE 65536\n#define LZ4TT_XXH_STAGES 3")]),
+    "K7": ("parallel_compress", []),
+    "K7, candidates by the exact sort of (word, position) alone": (
+        "parallel_compress", [("parallel_compress.cuh", _K7_HASH, _K7_SORT)]),
+    "K8": ("gather_decode", []),
+    "K8, synchronous rounds at every max_depth": ("gather_decode", [
+        ("gather_decode.cuh",
+         "  const bool in_place = lz4tt_gd_in_place(out_len, max_depth);",
+         "  const bool in_place = false;")]),
+    "K8, a CTA of 1,024 threads an SM": ("gather_decode", [
+        ("gather_decode.cu", "constexpr int kThreads = 512;",
+         "constexpr int kThreads = 1024;"),
+        ("gather_decode.cu", "__launch_bounds__(kThreads, 2)",
+         "__launch_bounds__(kThreads, 1)")]),
     "K6": ("lz4_hc", []),
     "K6, serial walk (the kernel before)": ("lz4_hc", [
         ("lz4_hc.cuh", _HC_SPEC, "  LZ4TT_HC_SPEC_ATTEMPTS = 1 << 30,"),
@@ -750,6 +777,12 @@ SYMBOLS = {  # source -> (C entry point, its argtypes)
               [_P, _I64, _P, ctypes.c_ulonglong, _P, _I32, _P]),
     "lz4_hc": ("lz4tt_compress_hc",
                [_P, _I64, _P, _P, _I64, _I32, _I32, _P, _I32, _P, _P, _I32, _P]),
+    "parallel_compress": ("lz4tt_compress_parallel",
+                          [_P, _I64, _P, _P, _I64, _I32, _I64, _P, _I32, _I64,
+                           _P, _I32, _P]),
+    "gather_decode": ("lz4tt_gather_decode",
+                      [_P, _I64, _I32] + [_P] * 6
+                      + [_I32, _P, _I64, _I32, _I32, _P, _I32, _I32, _P]),
 }
 # the hash sources' launches, each timed: the one-shot entry point on the
 # 4096 rows and on one 16 MiB row, the update on the same 16 MiB
@@ -808,6 +841,59 @@ enum {
 }
 
 // Bytes of scratch a team needs."""),
+]
+
+
+# K7 with clock64 counters (--k7-split): the parts of its window kernel,
+# timed by the first CTA's thread 0 over its windows
+_K7_PARTS = ("keys", "hash sort", "hash walks", "exact sort", "stops past the "
+             "window", "chunks' first stops", "positions", "walks and "
+             "gather", "groups")
+_K7_MARKS = (  # a mark before each: the part before it ends there
+    "  // 1. candidates: keys sorted by hash",
+    "  t.sort_pass(A, nullptr, B, nullptr, m, LZ4TT_PC_POS_BITS, 0x1Fu);",
+    "  bool over = false;\n",
+    "  if (t.any(over)) {  // the exact sort",
+    "  int32_t after[4], stop[4];",
+    "  const int W = t.warp_size(), n_warp = T / W, lane = r % W;",
+    "  for (int32_t b = c0 + (c1 - c0 + W - 1) / W * W - W; b >= c0;",
+    "  int32_t* m_pos = scratch + span;",
+    "  int32_t G = 0;",
+    "  if (r == 0) {\n    store[LZ4TT_PC_H] = G;",
+)
+_K7_SPLIT_EDITS = [
+    ("parallel_compress.cuh", '#include "lz4tt_common.cuh"\n',
+     """#include "lz4tt_common.cuh"
+#ifdef __CUDACC__
+__device__ unsigned long long lz4tt_split[16];
+#endif
+#ifdef __CUDA_ARCH__
+#define PT(i) const long long pt##i = clock64(); \\
+  if (i > 0 && blockIdx.x == 0 && threadIdx.x == 0) \\
+    lz4tt_split[i - 1] += pt##i - pt_last; \\
+  pt_last = pt##i
+#define PW() if (blockIdx.x == 0 && threadIdx.x == 0) lz4tt_split[15] += 1
+#else
+#define PT(i)
+#define PW()
+#endif
+"""),
+    ("parallel_compress.cuh", "  const int T = t.size(), r = t.rank();\n  const int32_t ws = w * wl;\n"
+     "  const int32_t we = ws + wl < n ? ws + wl : n;\n  const int32_t lo",
+     "  const int T = t.size(), r = t.rank();\n  long long pt_last = 0;\n"
+     "  (void)pt_last;\n  PW();\n  const int32_t ws = w * wl;\n"
+     "  const int32_t we = ws + wl < n ? ws + wl : n;\n  const int32_t lo"),
+] + [("parallel_compress.cuh", text, f"  PT({i});\n" + text)
+     for i, text in enumerate(_K7_MARKS)] + [
+    ("parallel_compress.cu", "// Int32 words of a team's scratch", """extern "C" int lz4tt_split_read(unsigned long long* h, int zero) {
+  const unsigned long long none[16] = {};
+  const cudaError_t e = cudaMemcpyFromSymbol(h, lz4tt_split, sizeof(none));
+  return (int)(zero && e == cudaSuccess
+                   ? cudaMemcpyToSymbol(lz4tt_split, none, sizeof(none))
+                   : e);
+}
+
+// Int32 words of a team's scratch"""),
 ]
 
 
@@ -871,6 +957,40 @@ def hc_split() -> dict:
     return out
 
 
+def k7_split() -> dict:
+    """Cycles of each part of K7's window kernel (``_K7_PARTS``) in the
+    first CTA's thread 0, summed over its windows, on the main path's rows
+    (all, a4, text, the first 256), with the windows it took."""
+    so, proc = _nvcc_copy(build.build_dir().parent / "variants" / "k7split",
+                          _K7_SPLIT_EDITS, "parallel_compress")
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise build.KernelBuildError(log)
+    lib = ctypes.CDLL(str(so))
+    symbol, argtypes = SYMBOLS["parallel_compress"]
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    lib.lz4tt_split_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    rows = _Rows(torch.device("cuda"))
+    stream = torch.cuda.current_stream().cuda_stream
+    counts = (ctypes.c_ulonglong * 16)()
+    out = {}
+    for name, idx in rows.sets.items():
+        call, check = _calls(fn, "parallel_compress", rows, idx, stream)
+        if not check():
+            raise SystemExit(f"design_variants: the K7 split build differs "
+                             f"on {name}")
+        torch.cuda.synchronize()
+        lib.lz4tt_split_read(counts, 1)
+        call()
+        torch.cuda.synchronize()
+        lib.lz4tt_split_read(counts, 0)
+        out[name] = {"windows": counts[15],
+                     **{part: counts[i] for i, part in enumerate(_K7_PARTS)}}
+        print(f"K7 split, {name}: {json.dumps(out[name])}", flush=True)
+    return out
+
+
 def build_variants(sources: set[str]) -> dict:
     """name -> (source, .so path, nvcc's register lines) of the variants of
     ``sources``; all at once."""
@@ -917,6 +1037,8 @@ class _Rows:
             self.src, self.lens, self.cap)
         self.tables, self.n_seq, self.total = sequences.parse_sequences(
             self.comp, self.clens)
+        self.gtables = sequences.parse_sequences(self.comp, self.clens,
+                                                 sentinel_tails=True)[0]
         kinds = torch.from_numpy(sharded.block_kinds(N_BLOCKS, SEED)).to(dev)
         self.sets = {"all": torch.arange(N_BLOCKS, device=dev),
                      "a4": torch.nonzero(kinds == 0).flatten(),
@@ -1050,6 +1172,48 @@ def _calls(fn, source: str, rows: _Rows, idx, stream):
             raise RuntimeError(f"CUDA error {rc}")
 
     n = idx.numel()
+    if source == "parallel_compress":
+        s, sl = rows.src[idx].contiguous(), rows.lens[idx].contiguous()
+        width = s.shape[1]
+        teams = min(n * parallel_compress.windows(width),
+                    parallel_compress.resident_teams(dev.index or 0))
+        scratch = torch.empty((parallel_compress.scratch_words(
+            width, n, teams),), dtype=torch.int32, device=dev)
+        want = parallel_compress.compress_parallel_batch(s, sl, rows.cap)
+        out, ol = torch.zeros_like(want[0]), torch.empty_like(want[1])
+
+        def call():
+            launch(s.data_ptr(), s.stride(0), sl.data_ptr(), out.data_ptr(),
+                   out.stride(0), rows.cap, width, scratch.data_ptr(), teams,
+                   parallel_compress.wave_rows(width), ol.data_ptr(), n,
+                   stream)
+
+        def check():   # the scratch poisoned: nothing may need a reset
+            out.zero_()
+            scratch.fill_(0x5A5A5A5A)
+            call()
+            return torch.equal(out, want[0]) and torch.equal(ol, want[1])
+        return call, check
+    if source == "gather_decode":
+        c = rows.comp[idx].contiguous()
+        t = rows.gtables[:, idx].contiguous()
+        s_max = t.shape[2]
+        teams = min(n, gather_decode.resident_teams(dev.index or 0))
+        scratch = torch.empty((teams * gather_decode.team_words(
+            BLOCK_LEN, s_max),), dtype=torch.int32, device=dev)
+        out = torch.empty((n, BLOCK_LEN), dtype=torch.uint8, device=dev)
+
+        def call():
+            launch(c.data_ptr(), c.stride(0), c.shape[1],
+                   *(x.data_ptr() for x in t), s_max, out.data_ptr(),
+                   out.stride(0), BLOCK_LEN, 32, scratch.data_ptr(), teams, n,
+                   stream)
+
+        def check():
+            scratch.fill_(0x5A5A5A5A)
+            call()
+            return torch.equal(out, rows.src[idx][:, :BLOCK_LEN])
+        return call, check
     if source == "lz4_parse":
         c, cl = rows.comp[idx].contiguous(), rows.clens[idx].contiguous()
         s = rows.tables.shape[2]
@@ -1130,12 +1294,16 @@ def _calls(fn, source: str, rows: _Rows, idx, stream):
 def main(argv: list[str]) -> int:
     """Build and time every variant, or those of the sources named in
     ``argv`` (``lz4_compress``, ``lz4_decode``, ``segment_decode``,
-    ``lz4_parse``, ``frame_pack``, ``xxh32``, ``xxh64``, ``lz4_hc``)."""
+    ``lz4_parse``, ``frame_pack``, ``xxh32``, ``xxh64``, ``lz4_hc``,
+    ``parallel_compress``, ``gather_decode``)."""
     if not torch.cuda.is_available():
         print("design_variants: CUDA is not available", file=sys.stderr)
         return 1
     if argv == ["--hc-split"]:
         print(json.dumps(hc_split()))
+        return 0
+    if argv == ["--k7-split"]:
+        print(json.dumps(k7_split()))
         return 0
     dev = torch.device("cuda")
     libs = build_variants(set(argv) or set(SYMBOLS))

@@ -208,8 +208,8 @@ def resident_ctas(source: str, symbol: str, device: int = 0) -> int:
 
 # The most scratch one launch takes (fewer teams, each looping over more
 # blocks, when rows are so wide that a wave of them would need more), and
-# the most a Scratch keeps between calls: a 4096 x 64 KiB wave of K7 or K8
-# fits, 4 MiB rows and K6's 4096 teams do not.
+# the most a Scratch keeps between calls: K7's (sized by its windows in
+# flight) and a 4096 x 64 KiB wave of K8 fit, K6's 4096 teams do not.
 SCRATCH_BUDGET = 4 << 30
 SCRATCH_KEEP = 512 << 20
 

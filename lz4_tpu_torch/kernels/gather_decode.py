@@ -16,7 +16,11 @@ past a block's end, chains longer than the rounds reach) decode as zeros.
   searchsorted form in torch ops, on a CPU tensor; there is no fallback
   from one to the other. K8 has each sequence write its own bytes, which is
   the same on the parser's tables (in output order, ranges apart, tails
-  of length 0);
+  of length 0), keeps a 4-byte node a byte and runs its rounds over the
+  open nodes only: in place when ``2 ** max_depth >= out_len`` (every
+  chain that ends is then followed to its end), synchronous below that,
+  so that a small ``max_depth`` cuts the chains where the JAX function
+  does;
 - :func:`decompress_blocks` parses and decodes on one device; as the JAX
   function does, it returns a block that decodes past ``out_len`` cut to
   ``out_len`` bytes.
@@ -43,7 +47,7 @@ GATHER = Kernel("gather_decode", "gather_decode", "lz4tt_gather_decode",
                 [_P, _I64, _I32] + [_P] * 6
                 + [_I32, _P, _I64, _I32, _I32, _P, _I32, _I32, _P])
 
-SCRATCH = Scratch(torch.int64)
+SCRATCH = Scratch(torch.int32)
 
 
 def parse_packed(comp, comp_offsets, comp_lens, max_seq: int,
@@ -82,9 +86,9 @@ def resident_teams(index: int) -> int:
     return resident_ctas("gather_decode", "lz4tt_gather_occupancy", index)
 
 
-def team_nodes(out_len: int, max_seq: int) -> int:
-    """8-byte nodes of scratch a team needs (``lz4tt_gather_team_nodes``)."""
-    fn = c_function("gather_decode", "lz4tt_gather_team_nodes", [_I32, _I32],
+def team_words(out_len: int, max_seq: int) -> int:
+    """int32 words of scratch a team needs (``lz4tt_gather_team_words``)."""
+    fn = c_function("gather_decode", "lz4tt_gather_team_words", [_I32, _I32],
                     None)
     fn.restype = ctypes.c_longlong
     return fn(out_len, max_seq)
@@ -129,9 +133,9 @@ def gather_decompress_batch(comp: torch.Tensor, lit_out, lit_src, lit_len,
         if cmax < 1 or max_seq < 1:
             raise ValueError("comp and the tables need at least one column")
         tabs = [t.contiguous() for t in tabs]
-        nodes = team_nodes(out_len, max_seq)
+        words = team_words(out_len, max_seq)
         teams, scratch = SCRATCH.teams(comp, n, resident_teams(
-            comp.device.index), nodes)
+            comp.device.index), words)
         GATHER(comp.data_ptr(), comp.stride(0), cmax,
                *(t.data_ptr() for t in tabs), max_seq, out.data_ptr(),
                out.stride(0), out_len, max_depth, scratch.data_ptr(), teams,

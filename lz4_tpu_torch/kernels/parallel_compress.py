@@ -48,30 +48,49 @@ EXT_STEPS = 15     # 4-byte extension steps -> hashed-match cap 4 + 60 + 3
 RLE_DISTS = (1, 2, 3, 4)
 PAD = 80           # the JAX layout's slack past a row; reads past n are 0
 BEXT = 7           # back-extension cap
+WINDOW = 65536     # K7's window, a CTA's positions (LZ4TT_PC_WIN)
 _GHOST = 0x7FFFFFFF
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 PARALLEL = Kernel("parallel_compress", "parallel_compress",
                   "lz4tt_compress_parallel",
-                  [_P, _I64, _P, _P, _I64, _I32, _P, _I64, _I32, _P, _I32,
-                   _P])
+                  [_P, _I64, _P, _P, _I64, _I32, _I64, _P, _I32, _I64, _P,
+                   _I32, _P])
 
-SCRATCH = Scratch(torch.int32)
+SCRATCH = Scratch(torch.int32, budget=None)
 
 
 def resident_teams(index: int) -> int:
-    """K7's teams (one CTA a block) that card ``index`` holds at once."""
+    """K7's teams (one CTA a window) that card ``index`` holds at once."""
     return resident_ctas("parallel_compress", "lz4tt_parallel_occupancy",
                          index)
 
 
-def team_words(width: int) -> int:
-    """int32 words of scratch one team needs for rows of ``width`` bytes
-    (``lz4tt_pc_team_words``)."""
-    fn = c_function("parallel_compress", "lz4tt_parallel_team_words",
-                    [_I64], None)
+def _size(symbol: str, *args: int) -> int:
+    fn = c_function("parallel_compress", symbol, [_I64] * len(args), None)
     fn.restype = ctypes.c_longlong
-    return fn(width)
+    return fn(*args)
+
+
+def windows(width: int) -> int:
+    """Windows of ``WINDOW`` positions K7 cuts a row of ``width`` bytes
+    into, a CTA each (``lz4tt_pc_windows``)."""
+    return max(1, -(-width // WINDOW))
+
+
+def wave_rows(width: int) -> int:
+    """Rows of ``width`` bytes a wave of K7's three kernels takes (at most
+    512 windows, or one row)."""
+    return _size("lz4tt_parallel_wave_rows", width)
+
+
+def scratch_words(width: int, n: int, teams: int) -> int:
+    """int32 words of scratch a launch on ``n`` rows of ``width`` bytes
+    takes with ``teams`` CTAs: each team's (``lz4tt_parallel_team_words``)
+    and a wave's windows' stores (``lz4tt_parallel_wave_words``)."""
+    rows = min(n, wave_rows(width))
+    return (teams * _size("lz4tt_parallel_team_words", width)
+            + _size("lz4tt_parallel_wave_words", width, rows))
 
 
 def compress_parallel_batch(src: torch.Tensor, lens: torch.Tensor, cap: int):
@@ -98,12 +117,14 @@ def compress_parallel_batch(src: torch.Tensor, lens: torch.Tensor, cap: int):
                       device=src.device)
     out_lens = torch.empty((n,), dtype=torch.int32, device=src.device)
     if n:
-        words = team_words(src.shape[1])
-        teams, scratch = SCRATCH.teams(src, n, resident_teams(
-            src.device.index), words)
+        width = src.shape[1]
+        teams = max(1, min(n * windows(width),
+                           resident_teams(src.device.index)))
+        scratch = SCRATCH.take(src, scratch_words(width, n, teams))
         PARALLEL(src.data_ptr(), src.stride(0), lens.data_ptr(),
-                 out.data_ptr(), out.stride(0), cap, scratch.data_ptr(),
-                 words, teams, out_lens.data_ptr(), n, cuda_stream(src),
+                 out.data_ptr(), out.stride(0), cap, width,
+                 scratch.data_ptr(), teams, wave_rows(width),
+                 out_lens.data_ptr(), n, cuda_stream(src),
                  device=src.device.index)
     return out, out_lens
 

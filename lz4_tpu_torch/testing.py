@@ -74,6 +74,48 @@ def window_clamp_blocks() -> list[bytes]:
     return [base + head, base + base[-65_000:-65_000 + 64]]
 
 
+def window_rows(rng: np.random.Generator, wl: int = 65536,
+                windows: int = 3) -> list[bytes]:
+    """Rows of ``windows`` windows of ``wl`` positions (K7's on the card,
+    ``parallel_compress.WINDOW``, by default) and 17 bytes more for K7's
+    window split: rows of noise with a run of period 1, 2, 3 or 4 (a
+    random pattern repeated) across every window end; runs of mixed
+    periods and lengths over noise; a text part, an incompressible stretch of
+    several windows and a text part again (a literal run that spans
+    windows); one repeated byte (one match sequence across the row); and
+    rows of text, alphabet-4, runs and zeros a byte around one and two
+    windows."""
+    n = windows * wl + 17
+
+    def rand(k):
+        return rng.integers(0, 256, int(k), dtype=np.uint8).tobytes()
+
+    def run(period, k):
+        return (rand(period) * (k // period + 1))[:k]
+
+    rows = []
+    for d in (1, 2, 3, 4):
+        row = bytearray(rand(n))
+        for e in range(wl, n, wl):
+            a, b = max(0, e - int(rng.integers(20, 600))), \
+                min(n, e + int(rng.integers(20, 600)))
+            row[a:b] = run(d, b - a)
+        rows.append(bytes(row))
+    mixed = bytearray()
+    while len(mixed) < n:
+        mixed += (run(int(rng.integers(1, 5)), int(rng.integers(4, 3000)))
+                  if rng.random() < 0.6 else rand(int(rng.integers(1, 200))))
+    rows.append(bytes(mixed[:n]))
+    third = n // 5
+    rows.append(block_of(rng, "text", third) + rand(n - 2 * third)
+                + block_of(rng, "text", third))
+    rows.append(bytes([0x61]) * n)
+    for size in (wl - 1, wl, wl + 1, 2 * wl - 1, 2 * wl + 1):
+        rows += [block_of(rng, kind, size)
+                 for kind in ("text", "alphabet4", "runs", "zeros")]
+    return rows
+
+
 # The kinds of data and the long block sizes HC is held at: its chains
 # are longest on alphabet-4 data; past 65,536 bytes the chain slots
 # (off & 0xFFFF) wrap and the MAX_DISTANCE window cuts the chains.
@@ -313,6 +355,40 @@ def chain_blocks(rng: np.random.Generator):
         tail = rand(5)
         out.append((encode_block(c, tail), expand_block(c, tail)))
     return out
+
+
+def link_tables(out_len: int = 40, width: int = 48):
+    """Sequence tables (``gather_decode`` order: lit_out, lit_src, lit_len,
+    m_out, m_dist, m_len; int32[6, N, width], sentinel tails) and
+    compressed rows (uint8[N, 64]) for the gather decode's rounds at
+    exactly 2^k - 1 and 2^k links (max_depth k resolves the first, not the
+    second) and for pointers the tables make outside a row of ``out_len``
+    bytes: row 0 is a literal and one-byte matches at distance 1 (byte j
+    is j links from it); row 1 two literals and
+    two-byte matches at distance 2 (bytes 2k and 2k + 1 are k links from
+    them); row 2 a match at the row's start whose parents wrap
+    to its end (forward pointers to literals); row 3 two matches whose
+    parents point at each other (a cycle) and a match into the cycle and
+    bytes no sequence writes; row 4 a self-parent byte, a null offset and a
+    match whose chains end in its zeros."""
+    S = 1 << 30
+    rows = [
+        [(0, 0, 1, 1, 1, 1)] + [(j, 0, 0, j, 1, 1)
+                                for j in range(2, out_len)],
+        [(0, 0, 2, 2, 2, 2)] + [(j, 0, 0, j, 2, 2)
+                                for j in range(4, out_len, 2)],
+        [(0, 0, 0, 0, 3, 6), (6, 1, out_len - 6, S, 0, 0)],
+        [(0, 0, 0, 0, out_len - 12, 4), (12, 0, 0, 12, 12, 4),
+         (16, 2, 4, 20, 10, 6)],
+        [(0, 5, 0, 0, out_len, 1), (1, 7, 2, 3, 0, 3), (6, 0, 0, 6, 4, 20)],
+    ]
+    tables = np.zeros((6, len(rows), width), np.int32)
+    tables[0] = tables[3] = S
+    for i, seqs in enumerate(rows):
+        for k, seq in enumerate(seqs):
+            tables[:, i, k] = seq
+    comp = (np.arange(64 * len(rows)) * 7 + 1).astype(np.uint8)
+    return tables, comp.reshape(len(rows), 64)
 
 
 # The history lengths the window decode and the dictionary compress are

@@ -767,7 +767,7 @@ def test_parallel_kernel_matches_plain(cuda_device, cap):
     assert torch.equal(out, want[0])
 
 
-@pytest.mark.parametrize("max_depth", [1, 2, 3, 32])
+@pytest.mark.parametrize("max_depth", [0, 1, 2, 3, 32])
 def test_gather_kernel_matches_plain(cuda_device, max_depth):
     """K8 against its plain version on the parser's sentinel tables of K2's
     blocks and the chain blocks; one launch."""
@@ -787,6 +787,43 @@ def test_gather_kernel_matches_plain(cuda_device, max_depth):
     assert gather_decode.GATHER.launches == before + 1
     want = gather_decode.gather_decompress_plain(c, *tables, 70000, max_depth)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["window rows", "one byte, 4 MiB + 1"])
+def test_parallel_windows_match_plain(cuda_device, case):
+    """K7 on rows cut into windows: three 64 KiB windows and 17 bytes
+    (runs of period 1-4 across every window end, a literal run over
+    windows, one repeated byte, rows about one and two windows), and one
+    byte over 4 MiB + 1 (one match sequence); one launch."""
+    rows = (testing.window_rows(np.random.default_rng(64))
+            if case == "window rows" else [b"\x61" * ((4 << 20) + 1)])
+    src, lens = layout.to_device_layout(rows, device=cuda_device)
+    cap = max_compressed_length(src.shape[1])
+    before = parallel_compress.PARALLEL.launches
+    out, out_lens = parallel_compress.compress_parallel_batch(src, lens, cap)
+    assert parallel_compress.PARALLEL.launches == before + 1
+    want = parallel_compress.compress_parallel_plain(src, lens, cap)
+    assert torch.equal(out_lens, want[1])
+    assert torch.equal(out, want[0])
+    back = codec.decompress_safe_batch(out, out_lens, src.shape[1])
+    assert not bool(back[2].any())
+    assert layout.from_device_layout(back[0], back[1]) == rows
+
+
+@pytest.mark.parametrize("max_depth", [0, 1, 2, 3, 32])
+def test_gather_link_tables_match_plain(cuda_device, max_depth):
+    """K8 on ``testing.link_tables`` (chains of exactly 2^k - 1 and 2^k
+    links, forward pointers, a cycle, a self-parent byte, a null offset) at
+    out_len 40 (synchronous rounds below max_depth 6) and 8 (in place from
+    max_depth 3)."""
+    for out_len in (40, 8):
+        tables, comp = testing.link_tables(out_len)
+        t = torch.from_numpy(tables).to(cuda_device)
+        c = torch.from_numpy(comp).to(cuda_device)
+        got = gather_decode.gather_decompress_batch(c, *t, out_len, max_depth)
+        want = gather_decode.gather_decompress_plain(c, *t, out_len,
+                                                     max_depth)
+        assert torch.equal(got, want), out_len
 
 
 def test_parallel_engine_round_trip(cuda_device):

@@ -107,11 +107,11 @@ struct ThreadTeam {
     *total = s;
     return e;
   }
-  int32_t inclusive_min(int32_t v, int32_t* total) const {
+  int32_t exclusive_min(int32_t v, int32_t* total) const {
     sync();
     sh->slot[id] = v;
     sync();
-    int32_t m = v, all = v;
+    int32_t m = LZ4TT_PC_NO_STOP, all = v;
     for (int i = 0; i < n; i++) {
       all = sh->slot[i] < all ? sh->slot[i] : all;
       if (i < id) m = sh->slot[i] < m ? sh->slot[i] : m;
@@ -119,22 +119,19 @@ struct ThreadTeam {
     *total = all;
     return m;
   }
-  int32_t digit_rank(uint32_t d, bool valid, int32_t* base) const {
+  void sort_pass(const uint32_t* ks, const int32_t* vs, uint32_t* kd,
+                 int32_t* vd, int32_t m, int shift, uint32_t mask) const {
     sync();
-    sh->slot[id] = valid ? (int32_t)d : 256;
+    if (id == 0) lz4tt_pc_sort_serial(ks, vs, kd, vd, m, shift, mask);
     sync();
-    int32_t at = 0;
-    if (valid) {
-      at = base[d];
-      for (int i = 0; i < id; i++) at += sh->slot[i] == (int32_t)d;
-    }
-    sync();
-    if (id == 0)
-      for (int i = 0; i < n; i++)
-        if (sh->slot[i] < 256) base[sh->slot[i]]++;
-    sync();
-    return at;
   }
+  int32_t slot(int32_t* p) const { return add(p, 1); }
+  int warp_size() const { return 1; }
+  int32_t warp_min(int32_t v) const { return v; }
+  int32_t warp_suffix_min(int32_t v) const { return v; }
+  int32_t warp_bcast(int32_t v, int) const { return v; }
+  int32_t warp_count(bool p) const { return p ? 1 : 0; }
+  int32_t warp_rank(bool) const { return 0; }
   bool any(bool p) const {
     sync();
     sh->slot[id] = p;
@@ -579,37 +576,49 @@ int host_segment_team(const uint8_t* comp, long long comp_stride,
   pthread_barrier_destroy(&sh.bar);
   return 0;
 }
-// K7's body, one block after the other in one team's scratch for rows of
-// `width` bytes (poisoned first, never cleared), by a team of `lanes` (1:
-// Lz4ttBlockSerial; else host threads); returns -1 if the lanes disagree
+// K7's bodies on each block, one after the other: part 1 on each of its
+// windows of wl positions (last first, each a team of `lanes`: 1,
+// Lz4ttBlockSerial; else host threads) in one team's scratch and one
+// store a window (all poisoned first, never cleared), part 2 on the row,
+// part 3 on each window, walks of at most walk_limit steps
 int host_parallel(const uint8_t* src, long long src_stride,
                   const int32_t* src_lens, uint8_t* dst, long long dst_stride,
                   int cap, long long width, int32_t* out_lens, int n,
-                  int lanes) {
-  std::vector<int32_t> scratch(lz4tt_pc_team_words(width), 0x5A5A5A5A);
-  int32_t hist[4 * LZ4TT_PC_RADIX], queue = 0;
-  int rc = 0;
+                  int lanes, int wl, int walk_limit) {
+  const int64_t span = lz4tt_pc_span(width, wl);
+  const int64_t groups = lz4tt_pc_groups(width, wl);
+  const int64_t ww = lz4tt_pc_window_words(width, wl);
+  std::vector<int32_t> scratch(lz4tt_pc_team_words(width, wl), 0x5A5A5A5A);
+  std::vector<uint16_t> mlen(lz4tt_pc_mlen_len(wl), 0x5A5A);
+  std::vector<int32_t> stores(lz4tt_pc_windows(width, wl) * ww, 0x5A5A5A5A);
+  int32_t row[LZ4TT_PC_ROW_WORDS], queue = 0;
   for (int b = 0; b < n; b++) {
-    int32_t len[32];
-    auto body = [&](const auto& t) {
-      len[t.rank()] = lz4tt_pc_block(t, src + b * src_stride, src_lens[b],
-                                     dst + b * dst_stride, cap, scratch.data(),
-                                     lz4tt_pc_region(width), hist, &queue);
+    const uint8_t* x = src + b * src_stride;
+    const int32_t len = src_lens[b];
+    const int32_t nw = lz4tt_pc_windows(len, wl);
+    auto each = [&](auto body) {
+      for (int32_t w = nw - 1; w >= 0; w--) {
+        auto on = [&](const auto& t) { body(t, w); };
+        if (lanes == 1)
+          on(Lz4ttBlockSerial());
+        else
+          run_team(lanes, on);
+      }
     };
-    if (lanes == 1)
-      body(Lz4ttBlockSerial());
-    else
-      run_team(lanes, body);
-    out_lens[b] = len[0];
-    for (int i = 1; i < lanes; i++)
-      if (len[i] != len[0]) rc = -1;
+    each([&](const auto& t, int32_t w) {
+      lz4tt_pc_window(t, x, len, w, wl, walk_limit, scratch.data(), span,
+                      groups, mlen.data(), stores.data() + w * ww);
+    });
+    out_lens[b] = lz4tt_pc_row(len, wl, cap, stores.data(), ww, groups, row);
+    each([&](const auto& t, int32_t w) {
+      lz4tt_pc_emit_window(t, x, len, w, wl, stores.data() + w * ww, groups,
+                           row, dst + b * dst_stride, cap, scratch.data(),
+                           span, &queue);
+    });
   }
-  return rc;
+  return 0;
 }
-long long host_parallel_team_words(long long width) {
-  return lz4tt_pc_team_words(width);
-}
-// K8's body, one block after the other in one team's nodes (poisoned
+// K8's body, one block after the other in one team's scratch (poisoned
 // first), by a team of `lanes` as host_parallel runs K7's
 void host_gather(const uint8_t* comp, long long comp_stride, int cmax,
                  const int32_t* lit_out, const int32_t* lit_src,
@@ -617,23 +626,28 @@ void host_gather(const uint8_t* comp, long long comp_stride, int cmax,
                  const int32_t* m_dist, const int32_t* m_len, int max_seq,
                  uint8_t* out, long long out_stride, int out_len,
                  int max_depth, int n, int lanes) {
-  std::vector<Lz4ttGdNode> nodes(2 * (size_t)out_len + 1, {0x5A5A5A5A, -7});
-  std::vector<int32_t> longs(max_seq + 1, 0x5A5A5A5A);
-  int32_t queue = 0;
+  std::vector<int32_t> scratch(lz4tt_gd_team_words(out_len, max_seq),
+                               0x5A5A5A5A);
+  int32_t counters[4] = {7, 7, 7, 7};
   for (int b = 0; b < n; b++) {
     const long long o = (long long)b * max_seq;
     const Lz4ttGdTables s = {lit_out + o, lit_src + o, lit_len + o,
                              m_out + o,   m_dist + o,  m_len + o};
     auto body = [&](const auto& t) {
       lz4tt_gd_block(t, comp + b * comp_stride, cmax, s, max_seq,
-                     out + b * out_stride, out_len, max_depth, nodes.data(),
-                     nodes.data() + out_len, longs.data(), &queue);
+                     out + b * out_stride, out_len, max_depth, scratch.data(),
+                     counters);
     };
     if (lanes == 1)
       body(Lz4ttBlockSerial());
     else
       run_team(lanes, body);
   }
+}
+// the rounds K8 runs at most, and whether in place
+int host_gd_rounds(int out_len, int max_depth) {
+  return lz4tt_gd_in_place(out_len, max_depth) ? lz4tt_gd_rounds(out_len)
+                                               : -max_depth;
 }
 int host_gd_used(const int32_t* lit_out, int max_seq) {
   return lz4tt_gd_used(lit_out, max_seq);
@@ -682,9 +696,8 @@ def lib(tmp_path_factory):
                                        _I32, _P, _P, _I32, _I32]
     lib.host_parse_sentinel.argtypes = [_P, _P, _I32, _I32, _I32]
     lib.host_parallel.argtypes = [_P, _I64, _P, _P, _I64, _I32, _I64, _P,
-                                  _I32, _I32]
-    lib.host_parallel_team_words.argtypes = [_I64]
-    lib.host_parallel_team_words.restype = ctypes.c_longlong
+                                  _I32, _I32, _I32, _I32]
+    lib.host_gd_rounds.argtypes = [_I32, _I32]
     lib.host_gather.argtypes = [_P, _I64, _I32] + [_P] * 6 + [
         _I32, _P, _I64, _I32, _I32, _I32, _I32]
     lib.host_gd_used.argtypes = [_P, _I32]
@@ -1637,13 +1650,17 @@ def test_host_compress_dict_matches_plain(lib, lanes):
         assert torch.equal(host[0], plain[0])
 
 
-def _host_parallel(lib, src, lens, cap, lanes=1):
+def _host_parallel(lib, src, lens, cap, lanes=1, wl=65536, walk_limit=64):
+    """K7's bodies on the rows of ``src`` in windows of ``wl`` positions
+    (the card's 65,536, or a multiple of 512 below it), hash walks of at
+    most ``walk_limit`` steps (0: the exact sort wherever a walk has a
+    step)."""
     n = src.shape[0]
     out = torch.zeros((n, layout.row_stride(cap)), dtype=torch.uint8)
     out_lens = torch.zeros((n,), dtype=torch.int32)
     assert lib.host_parallel(_ptr(src), src.stride(0), _ptr(lens), _ptr(out),
                              out.stride(0), cap, src.shape[1], _ptr(out_lens),
-                             n, lanes) == 0
+                             n, lanes, wl, walk_limit) == 0
     return out, out_lens
 
 
