@@ -770,8 +770,9 @@ def _window_edge_cases(dev, rng) -> None:
 
 def _linked_edge_cases(dev, rng) -> None:
     """The linked walk and resolve against their plain versions: the walk
-    on K2's edge blocks, the boundary, chain, history and overreach blocks
-    and fuzz (some flagged raw) at block sizes 64 KiB, 100 and 0 and at a
+    (as shipped, and with every block cut into chunks of 64 bytes) on K2's
+    edge blocks, the boundary, chain, history and overreach blocks and
+    fuzz (some flagged raw) at block sizes 64 KiB, 100 and 0 and at a
     table of 5 records; the resolve on linked blocks of 300 bytes behind a
     window of 5,000; then ``decode_frames`` of linked frames with a block
     reaching before the frame, one decoding past its slot, a block
@@ -792,17 +793,18 @@ def _linked_edge_cases(dev, rng) -> None:
     flags = torch.from_numpy(rng.random(len(blocks)) < 0.1).to(dev)
     width = linked_decode.table_width(cl.tolist(), flags.tolist())
     codes = {}
+    host = (cl.tolist(), flags.tolist())
     for dest_cap, w in ((BLOCK_LEN, width), (100, width), (0, width),
                         (BLOCK_LEN, 5)):
-        kern = linked_decode.walk_linked(c, cl, flags, dest_cap, w)
         plain = linked_decode.walk_linked_plain(c, cl, flags, dest_cap, w)
-        for a, b in zip(kern[1:], plain[1:]):
-            if not torch.equal(a, b):
-                fail(f"linked walk dest_cap={dest_cap} width={w}: differs "
-                     f"from the plain version")
-        for i, k in enumerate(kern[1].tolist()):
-            if not torch.equal(kern[0][:, i, :k], plain[0][:, i, :k]):
-                fail(f"linked walk dest_cap={dest_cap}: block {i}'s records")
+        # the shipped walk, and every block cut into chunks of 64 bytes
+        for chunk, whole in ((linked_decode.CHUNK, linked_decode.WHOLE_BELOW),
+                             (64, 0)):
+            kern = linked_decode._walk_cuda(c, cl, flags, dest_cap, w, host,
+                                            chunk, whole)
+            if not _walks_equal(kern, plain):
+                fail(f"linked walk dest_cap={dest_cap} width={w} chunk="
+                     f"{chunk}: differs from the plain version")
         codes[f"{dest_cap}/{w}"] = torch.bincount(kern[3].long(),
                                                   minlength=4).tolist()
     data = testing.block_of(rng, "alphabet4", 5000 + 300 * 200)
@@ -2485,13 +2487,19 @@ def phase_formats(dev, card: str = "") -> tuple[list[dict], dict]:
     rows = [kernel_row("lz4_compress_dict", total, err, ms, plain_ms,
                        in_bytes + wlen + comp_bytes + 16 * n, in_bytes,
                        plain_rows=FORMAT_PLAIN_ROWS, rows=n)]
-    out = torch.empty_like(kern[0])
+    out = torch.zeros_like(kern[0])
     scratch = torch.empty((2, n), dtype=torch.int32, device=dev)
-    rows[-1]["alone_ms"] = _time_alone(
-        codec.COMPRESS_DICT, src.data_ptr(), src.stride(0), lens.data_ptr(),
-        win.data_ptr() + win.shape[1], 0, wl.data_ptr(), out.data_ptr(),
-        out.stride(0), cap, scratch[0].data_ptr(), scratch[1].data_ptr(), n,
-        layout.cuda_stream(src))
+    seed = torch.empty((codec.SEED_WORDS,), dtype=torch.int32, device=dev)
+    for key, seed_len in (("alone_ms", wlen), ("seeded_by_each_cta_ms", -1)):
+        rows[-1][key] = _time_alone(
+            codec.COMPRESS_DICT, src.data_ptr(), src.stride(0),
+            lens.data_ptr(), win.data_ptr() + win.shape[1], 0, wl.data_ptr(),
+            out.data_ptr(), out.stride(0), cap, scratch[0].data_ptr(),
+            scratch[1].data_ptr(), n, seed.data_ptr(), seed_len,
+            layout.cuda_stream(src))
+        if not torch.equal(out[:, :cap], kern[0][:, :cap]):
+            fail(f"K2 dict ({key}): differs from the wrapper's launch")
+    rows[-1].update(_dict_linked_rows(dev, raw, src, lens, cap))
     comp, clens = kern[0], kern[1]
     kern = codec.decompress_safe_hist_batch(comp, clens, BLOCK_LEN, win, wl)
     plain, plain_ms = _time_plain(lambda: codec.decompress_safe_hist_plain(
@@ -2515,8 +2523,10 @@ def phase_formats(dev, card: str = "") -> tuple[list[dict], dict]:
         win.data_ptr() + win.shape[1], 0, wl.data_ptr(),
         scratch[0].data_ptr(), scratch[1].data_ptr(), n,
         layout.cuda_stream(comp))
-    log(f"alone (the C entry point, no wrapper), ms: K2 dict "
-        f"{rows[0]['alone_ms']:.3f}, K1 hist {rows[1]['alone_ms']:.3f}")
+    log(f"alone (the C entry point, no wrapper; {card}), ms: K2 dict "
+        f"{rows[0]['alone_ms']:.3f} (seeded by each CTA, the first design: "
+        f"{rows[0]['seeded_by_each_cta_ms']:.3f}), K1 hist "
+        f"{rows[1]['alone_ms']:.3f}")
     # the same rows without the window, for what the window costs
     c2, cl2, _ = codec.compress_fast_batch(src, lens, cap)
     bare = {"K2": _time_kernel(lambda: codec.compress_fast_batch(src, lens,
@@ -2542,16 +2552,59 @@ def phase_formats(dev, card: str = "") -> tuple[list[dict], dict]:
     return rows, {"walls": walls, "counts": counts, "total": total}
 
 
+def _dict_linked_rows(dev, raw: bytes, src, lens, cap) -> dict:
+    """K2 with a dictionary on the formats batch's linked rows (each row's
+    dictionary the 64 KiB of content before it, ``testing.linked_blocks``'
+    strided view), against its plain version on ``FORMAT_PLAIN_ROWS`` rows
+    and against the same rows with their dictionaries copied, and timed
+    both ways."""
+    n, w = src.shape[0], codec.WINDOW
+    buf = torch.zeros((w + n * BLOCK_LEN,), dtype=torch.uint8, device=dev)
+    buf[w:] = src[:, :BLOCK_LEN].reshape(-1)
+    rows = buf[w:].view(n, BLOCK_LEN)
+    dicts = buf.as_strided((n, w), (BLOCK_LEN, 1))
+    copies = dicts.contiguous()
+    dl = torch.tensor([min(i * BLOCK_LEN, w) for i in range(n)],
+                      dtype=torch.int32, device=dev)
+    kern = codec.compress_dict_batch(rows, lens, cap, dicts, dl)
+    two = codec.compress_dict_batch(rows, lens, cap, copies, dl)
+    if not all(torch.equal(x, y) for x, y in zip(kern, two)):
+        fail("K2 dict: linked rows differ from their copied dictionaries'")
+    sub = slice(None, None, n // FORMAT_PLAIN_ROWS)
+    plain = codec.compress_dict_plain(rows[sub].contiguous(),
+                                      lens[sub].contiguous(), cap,
+                                      dicts[sub], dl[sub].contiguous())
+    compare_codec("K2 dict, the formats batch's linked rows",
+                  tuple(t[sub] for t in kern), plain, cap)
+    got = {"linked_rows_ms": _time_kernel(
+               lambda: codec.compress_dict_batch(rows, lens, cap, dicts, dl)),
+           "linked_rows_copied_dicts_ms": _time_kernel(
+               lambda: codec.compress_dict_batch(rows, lens, cap, copies, dl))}
+    log(f"K2 dict on the linked rows == plain on {FORMAT_PLAIN_ROWS} rows, "
+        f"== with copied dictionaries; ms: {json.dumps(got)}")
+    return got
+
+
+def _walks_equal(a, b) -> bool:
+    """Two walks' n_seq, out_total, code, reach and every row's records."""
+    if not all(torch.equal(x, y) for x, y in zip(a[1:], b[1:])):
+        return False
+    used = (torch.arange(a[0].shape[2], device=a[0].device)
+            < a[1].long()[:, None])
+    return torch.equal(a[0][:, used], b[0][:, used])
+
+
 def _linked_kernels(dev, raw: bytes, linked: dict, launches: dict,
                     card: str) -> list:
     """The linked walk and resolve on the formats path's frames (1,024
     blocks of 64 KiB, 16 of 4 MiB; one batch each), against their plain
-    versions (the walk on ``LINKED_PLAIN_ROWS`` rows of the 64 KiB batch,
-    the resolve on its first ``LINKED_PLAIN_BLOCKS`` blocks, 4 MiB) and
-    timed through their wrappers: the walk, the resolve, and the resolve
-    with no rounds (its fill and gather), with the rounds it ran. Returns
-    their rows of the ``kernels`` line, the 64 KiB batch's numbers as
-    ``ms``, the 4 MiB batch's beside them."""
+    versions (the walk on ``LINKED_PLAIN_ROWS`` rows of the 64 KiB batch
+    and on one 4 MiB row, the resolve on its first ``LINKED_PLAIN_BLOCKS``
+    blocks, 4 MiB) and against the walk's first design (a warp a block) on
+    every row of both batches, and timed through their wrappers: the walk
+    (and its first design and every block cut beside it), the resolve, and the resolve with no rounds (its fill and gather), with
+    the rounds it ran. Returns their rows of the ``kernels`` line, the 64
+    KiB batch's numbers as ``ms``, the 4 MiB batch's beside them."""
     win = torch.empty((0,), dtype=torch.uint8, device=dev)
     got = {}
     for bs in (BLOCK_LEN, LINKED_BIG):
@@ -2580,9 +2633,36 @@ def _linked_kernels(dev, raw: bytes, linked: dict, launches: dict,
         seqs = int(n_seq.sum())
         lit_bytes = int(tables[2][used].long().sum())
         comp_bytes = int(cl.sum())
+        host = (cl.cpu().numpy(), flags.cpu().numpy())
+        walk = (tables, n_seq, out_total, code, reach)
+        # the walk's other layouts: every block cut into chunks
+        # (whole_below 0), the first design alone (a warp a block)
+        designs = {}
+        for design, whole in (("cut", 0), ("warp", 1 << 31)):
+            def call():
+                return linked_decode._walk_cuda(c, cl, flags, bs, width, host,
+                                                linked_decode.CHUNK, whole)
+            if not _walks_equal(call(), walk):
+                fail(f"linked walk at {bs}: differs from its {design} design")
+            designs[f"{design}_walk_ms"] = _time_kernel(call)
+        walk_ms = _time_kernel(lambda: linked_decode.walk_linked(
+            c, cl, flags, bs, width, host))
+        lay, n_chunks, n_tab = linked_decode.chunk_layout(*host, bs)
+        lay = torch.from_numpy(lay).to(dev) if n_chunks > n else None
+        scratch = linked_decode.SCRATCH.take(c, n_tab * 3 * linked_decode.CHUNK
+                                             + 5 * n_chunks)
         got[bs] = {
-            "walk_ms": _time_kernel(lambda: linked_decode.walk_linked(
-                c, cl, flags, bs, width)),
+            "walk_ms": walk_ms,
+            "walk_alone_ms": _time_alone(
+                linked_decode.WALK, c.data_ptr(), c.stride(0), cl.data_ptr(),
+                flags.data_ptr(), n, bs, tables.data_ptr(), width,
+                n_seq.data_ptr(), out_total.data_ptr(), code.data_ptr(),
+                reach.data_ptr(), None if lay is None else lay.data_ptr(),
+                n_chunks, n_tab, linked_decode.CHUNK, scratch.data_ptr(),
+                layout.cuda_stream(c)),
+            **designs,
+            "walk_scratch_gib": linked_decode.SCRATCH.last_nbytes / 2 ** 30,
+            "chunks": n_chunks,
             "resolve_ms": _time_kernel(lambda: linked_decode.resolve_linked(
                 c, tables, n_seq, block_at, n_ok, n_nodes, win, cap)),
             "fill_gather_ms": _time_kernel(
@@ -2596,6 +2676,15 @@ def _linked_kernels(dev, raw: bytes, linked: dict, launches: dict,
             # the tables and literals in, the output out
             "resolve_bytes": 24 * seqs + 8 * n + lit_bytes + len(raw)}
         if bs != BLOCK_LEN:
+            # the plain walk on the 4 MiB batch's first compressed row
+            i = int(torch.nonzero(~flags)[0])
+            one, one_ms = _time_plain(lambda: linked_decode.walk_linked_plain(
+                c[i:i + 1].contiguous(), cl[i:i + 1].contiguous(),
+                flags[i:i + 1].contiguous(), bs, width))
+            if not _walks_equal(one, tuple(t[:, i:i + 1] if t.dim() == 3
+                                           else t[i:i + 1] for t in walk)):
+                fail("linked walk: a 4 MiB row differs from the plain version")
+            got[bs]["plain_row_ms"] = one_ms
             continue
         # the plain walk on rows spread over the batch
         idx = torch.arange(0, n, n // LINKED_PLAIN_ROWS, device=dev)
@@ -2634,6 +2723,11 @@ def _linked_kernels(dev, raw: bytes, linked: dict, launches: dict,
         row["at_4mib_blocks"] = {
             "ms": big[f"{key}_ms"],
             "bound_ms": big[f"{key}_bytes"] / HBM_BYTES_PER_S * 1e3}
+    for k in ("walk_alone_ms", "cut_walk_ms", "warp_walk_ms",
+              "walk_scratch_gib", "chunks"):
+        rows[0][k] = small[k]
+        rows[0]["at_4mib_blocks"][k] = big[k]
+    rows[0]["card"] = card
     for row in rows[1:]:
         row.update({k: small[k] for k in ("fill_gather_ms", "rounds",
                                           "open_by_round")})
@@ -2647,8 +2741,19 @@ def _linked_kernels(dev, raw: bytes, linked: dict, launches: dict,
             f"{len(raw) >> 20} MiB (ms, CUDA events; {card}): "
             f"{json.dumps(info)}")
     log(f"linked walk == plain on {LINKED_PLAIN_ROWS} rows "
-        f"({walk_plain_ms:.1f} ms); linked resolve == plain on "
-        f"{LINKED_PLAIN_BLOCKS} blocks ({resolve_plain_ms:.1f} ms)")
+        f"({walk_plain_ms:.1f} ms) and on a {LINKED_BIG >> 10} KiB row "
+        f"({big['plain_row_ms']:.1f} ms), == its warp design and every "
+        f"block cut on all {FORMAT_BLOCKS} + {len(raw) // LINKED_BIG} rows; linked "
+        f"resolve == plain on {LINKED_PLAIN_BLOCKS} blocks "
+        f"({resolve_plain_ms:.1f} ms)")
+    log(f"linked walk ({card}), ms: shipped {small['walk_ms']:.3f} at 64 KiB "
+        f"(one chunk a block), {big['walk_ms']:.3f} at 4 MiB ("
+        f"{big['chunks']} chunks); its C entry point alone "
+        f"{small['walk_alone_ms']:.3f} and {big['walk_alone_ms']:.3f}; "
+        f"every block cut {small['cut_walk_ms']:.3f}"
+        f" and {big['cut_walk_ms']:.3f}; warp (the first design) {small['warp_walk_ms']:.3f} and "
+        f"{big['warp_walk_ms']:.3f}; scratch {big['walk_scratch_gib']:.3f} "
+        f"GiB at 4 MiB")
     return rows
 
 

@@ -13,14 +13,30 @@
 // Bound on the card: bytes. The walk reads each compressed byte once and
 // writes 24 bytes of table a sequence; the resolve reads the tables, the
 // literal bytes and the window once and writes each output byte once
-// (3.35 TB/s). What they do instead: the walk is one lane's chain of
-// dependent loads a block (K1's, without its copies), all blocks at once;
-// the resolve writes a 4-byte node a byte, then each round reads every
-// node of the batch and gathers the parent of each open one.
+// (3.35 TB/s). What they do instead: the walk is chains of dependent
+// loads, one a chunk of a block (K1's, without its copies), beside a
+// backward pass over every offset of a chunk and one dependent table read
+// a chunk; the resolve writes a 4-byte node a byte, then each round reads
+// every node of the batch and gathers the parent of each open one.
 //
-// Design (the first):
-//   - lz4tt_linked_walk: one warp a block, lane 0 walking, four warps a
-//     CTA; every block of a 64 MiB batch resident at once;
+// Design (the walk's second, the resolve's first):
+//   - lz4tt_linked_walk, four launches on one stream: a block longer than
+//     one chunk (kernels/linked_decode.py::CHUNK compressed bytes) is cut
+//     into chunks, and every chunk but a block's last gets its exit tables
+//     (tables_kernel: a warp a chunk, the chunk's bytes staged in shared
+//     memory, 32 offsets a step from the chunk's end back, the 0xFF runs'
+//     ends and the last 256 offsets' tables in shared memory, the tables
+//     in the scratch, 12 B an offset); a thread a block follows its
+//     chunks' entries (hops_kernel, one table read a chunk); a warp a
+//     chunk, lane 0 walking, walks from its true entry and writes its
+//     records (emit_kernel: a block of one chunk is the whole walk); a
+//     thread a block takes the first chunk that stopped (finish_kernel).
+//     Exact: linked_decode.cuh says why. A batch whose blocks are all one
+//     chunk (kernels/linked_decode.py::WHOLE_BELOW: 64 KiB frame blocks)
+//     takes the walk's first design alone, which was faster on them: one
+//     warp a block, lane 0 walking, four warps a CTA (walk_kernel). The
+//     chunks in one kernel with a decoupled look-back lost to the four
+//     launches (design_variants.py, linked_decode);
 //   - lz4tt_linked_resolve, on one stream: the fill (a CTA of 256 threads a
 //     block and 256 of its records, a thread a record, records longer than
 //     LZ4TT_LR_LONG nodes by the CTA; one more row of CTAs for the window),
@@ -38,8 +54,129 @@
 namespace {
 
 constexpr int kWalkWarps = 4;
+constexpr int kTabWarps = 4;
+constexpr int kEmitWarps = 4;
+constexpr int kChunkThreads = 128;
 constexpr int kFill = 256;
 constexpr int kRound = 256;
+
+// The six tables of block b of n, max_seq records a row.
+__device__ __forceinline__ Lz4ttLwTables row_tables(int32_t* tables,
+                                                    int32_t n,
+                                                    int32_t max_seq,
+                                                    int64_t b) {
+  const int64_t plane = (int64_t)n * max_seq;
+  int32_t* row = tables + b * max_seq;
+  return {row,             row + plane,     row + 2 * plane,
+          row + 3 * plane, row + 4 * plane, row + 5 * plane};
+}
+
+// The largest b < n with base[b] <= g (base: int32[n + 1], ascending,
+// base[n] > g): the block of chunk g.
+__device__ __forceinline__ int32_t block_of(const int32_t* __restrict__ base,
+                                            int32_t n, int32_t g) {
+  int32_t lo = 0, hi = n;
+  while (hi - lo > 1) {
+    const int32_t mid = (lo + hi) >> 1;
+    if (base[mid] <= g)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// The scratch of the chunked walk: n_tab chunks' tables (3 x chunk int32
+// each), then five int32[n_chunks] of each chunk's entry, records and
+// output before it (then its own), code and reach.
+struct ChunkState {
+  int32_t *tab, *ent, *n0, *d0, *code, *reach;
+};
+
+__host__ __device__ __forceinline__ ChunkState chunk_state(int32_t* scratch,
+                                                           int32_t n_chunks,
+                                                           int32_t n_tab,
+                                                           int32_t chunk) {
+  int32_t* s = scratch + (int64_t)n_tab * 3 * chunk;
+  return {scratch, s, s + n_chunks, s + 2 * (int64_t)n_chunks,
+          s + 3 * (int64_t)n_chunks, s + 4 * (int64_t)n_chunks};
+}
+
+// A warp's shared memory in tables_kernel: its stage, ring and ff16.
+__host__ __device__ __forceinline__ int64_t table_warp_bytes(int32_t chunk) {
+  const int64_t stage = (chunk + LZ4TT_LW_MARGIN + 15) / 16 * 16;
+  return stage + 12 * LZ4TT_LW_RING + (2 * (int64_t)chunk + 15) / 16 * 16;
+}
+
+// Warp w of CTA x: table chunk g = x * kTabWarps + w (layout: int32[2, n +
+// 1], the chunks' and table chunks' exclusive scans a block).
+__global__ void __launch_bounds__(32 * kTabWarps)
+    tables_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
+                  const int32_t* __restrict__ lens,
+                  const int32_t* __restrict__ layout, int32_t n,
+                  int32_t chunk, int32_t n_tab, int32_t* scratch) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int32_t w = threadIdx.x / 32;
+  const int32_t g = blockIdx.x * kTabWarps + w;
+  if (g >= n_tab) return;  // the whole warp
+  uint8_t* mine = smem + w * table_warp_bytes(chunk);
+  const int64_t stage = (chunk + LZ4TT_LW_MARGIN + 15) / 16 * 16;
+  const Lz4ttLwScratch sc = {(uint16_t*)(mine + stage + 12 * LZ4TT_LW_RING),
+                             mine, (int32_t*)(mine + stage)};
+  const int32_t* tbase = layout + n + 1;
+  const int32_t b = block_of(tbase, n, g), c = g - tbase[b];
+  lz4tt_lw_tables(WarpTeam(), comp + b * comp_stride, lens[b], c * chunk,
+                  (c + 1) * chunk, scratch + (int64_t)g * 3 * chunk, sc);
+}
+
+__global__ void __launch_bounds__(kChunkThreads)
+    hops_kernel(const int32_t* __restrict__ layout, int32_t n, int32_t chunk,
+                ChunkState st) {
+  const int32_t b = blockIdx.x * kChunkThreads + threadIdx.x;
+  if (b >= n) return;
+  const int32_t cb = layout[b], nc = layout[b + 1] - cb;
+  lz4tt_lw_hops(nc, chunk, st.tab + (int64_t)layout[n + 1 + b] * 3 * chunk,
+                st.ent + cb, st.n0 + cb, st.d0 + cb);
+}
+
+// A warp a chunk, lane 0 walking (lanes of one warp walking chunks of
+// their own diverge at every token); its result in place of its entry's
+// counts.
+__global__ void __launch_bounds__(32 * kEmitWarps)
+    emit_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
+                const int32_t* __restrict__ lens,
+                const uint8_t* __restrict__ raw, int32_t n, int32_t dest_cap,
+                int32_t* tables, int32_t max_seq,
+                const int32_t* __restrict__ layout, int32_t n_chunks,
+                int32_t chunk, ChunkState st) {
+  const int32_t g = blockIdx.x * kEmitWarps + threadIdx.x / 32;
+  if (g >= n_chunks || (threadIdx.x & 31) != 0) return;
+  const int32_t b = block_of(layout, n, g), c = g - layout[b];
+  const Lz4ttLwResult r = lz4tt_lw_chunk(
+      comp + b * comp_stride, lens[b], dest_cap, raw[b] != 0,
+      row_tables(tables, n, max_seq, b), max_seq, c, layout[b + 1] - layout[b],
+      chunk, st.ent[g], st.n0[g], st.d0[g]);
+  st.code[g] = r.code;
+  st.n0[g] = r.n_seq;
+  st.d0[g] = r.out_total;
+  st.reach[g] = r.reach;
+}
+
+__global__ void __launch_bounds__(kChunkThreads)
+    finish_kernel(const int32_t* __restrict__ layout, int32_t n,
+                  ChunkState st, int32_t* n_seq, int32_t* out_total,
+                  int32_t* code, int32_t* reach) {
+  const int32_t b = blockIdx.x * kChunkThreads + threadIdx.x;
+  if (b >= n) return;
+  const int32_t cb = layout[b];
+  const Lz4ttLwResult r = lz4tt_lw_finish(layout[b + 1] - cb, st.code + cb,
+                                          st.n0 + cb, st.d0 + cb,
+                                          st.reach + cb);
+  n_seq[b] = r.n_seq;
+  out_total[b] = r.out_total;
+  code[b] = r.code;
+  reach[b] = r.reach;
+}
 
 __global__ void __launch_bounds__(32 * kWalkWarps)
     walk_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
@@ -49,12 +186,9 @@ __global__ void __launch_bounds__(32 * kWalkWarps)
                 int32_t* out_total, int32_t* code, int32_t* reach) {
   const int64_t b = (int64_t)blockIdx.x * kWalkWarps + threadIdx.x / 32;
   if (b >= n || (threadIdx.x & 31) != 0) return;
-  const int64_t plane = (int64_t)n * max_seq;
-  int32_t* row = tables + b * max_seq;
-  const Lz4ttLwTables t = {row,             row + plane,     row + 2 * plane,
-                           row + 3 * plane, row + 4 * plane, row + 5 * plane};
-  const Lz4ttLwResult r = lz4tt_lw_walk(comp + b * comp_stride, lens[b],
-                                        dest_cap, raw[b] != 0, t, max_seq);
+  const Lz4ttLwResult r =
+      lz4tt_lw_walk(comp + b * comp_stride, lens[b], dest_cap, raw[b] != 0,
+                    row_tables(tables, n, max_seq, b), max_seq);
   n_seq[b] = r.n_seq;
   out_total[b] = r.out_total;
   code[b] = r.code;
@@ -131,22 +265,62 @@ __global__ void __launch_bounds__(kRound)
 // comp: uint8[n, comp_stride], row b's first lens[b] bytes block b's
 // payload (raw[b] != 0: stored raw); tables: int32[6, n, max_seq] in the
 // order lit_out, lit_src, lit_len, m_out, m_dist, m_len, the first
-// n_seq[b] entries of row b written; out_total, code, reach: int32[n].
-// Returns cudaGetLastError() after the launch.
+// n_seq[b] entries of row b written (those past them undefined);
+// out_total, code, reach: int32[n]. layout: int32[2, n + 1], the exclusive
+// scans of each block's chunks (n_chunks in all) and of its chunks but the
+// last (n_tab), chunks of `chunk` <= 65,535 compressed bytes
+// (kernels/linked_decode.py::chunk_layout); scratch: int32[n_tab * 3 *
+// chunk + 5 * n_chunks]. A batch of one chunk a block (n_chunks == n) runs
+// the warp walk alone (walk_kernel; layout and scratch unused). Returns
+// the first error of its launches.
 extern "C" int lz4tt_linked_walk(const void* comp, long long comp_stride,
                                  const void* lens, const void* raw, int n,
                                  int dest_cap, void* tables, int max_seq,
                                  void* n_seq, void* out_total, void* code,
-                                 void* reach, void* stream) {
-  if (n < 0 || dest_cap < 0 || max_seq < 1) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const int grid = (n + kWalkWarps - 1) / kWalkWarps;
-    walk_kernel<<<grid, 32 * kWalkWarps, 0, (cudaStream_t)stream>>>(
+                                 void* reach, const void* layout,
+                                 int n_chunks, int n_tab, int chunk,
+                                 void* scratch, void* stream) {
+  if (n < 0 || dest_cap < 0 || max_seq < 1 || chunk < 1 || chunk > 65535 ||
+      n_chunks < n || n_tab < 0 || n_tab > n_chunks)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n_chunks == n) {  // every block one chunk: the warp walk alone
+    walk_kernel<<<(n + kWalkWarps - 1) / kWalkWarps, 32 * kWalkWarps, 0, s>>>(
         (const uint8_t*)comp, comp_stride, (const int32_t*)lens,
         (const uint8_t*)raw, n, dest_cap, (int32_t*)tables, max_seq,
         (int32_t*)n_seq, (int32_t*)out_total, (int32_t*)code,
         (int32_t*)reach);
+    return (int)cudaGetLastError();
   }
+  const int32_t* lay = (const int32_t*)layout;
+  const ChunkState st = chunk_state((int32_t*)scratch, n_chunks, n_tab, chunk);
+  if (n_tab > 0) {
+    const size_t smem = (size_t)kTabWarps * table_warp_bytes(chunk);
+    if (smem > 48 * 1024) {
+      if (const cudaError_t e = cudaFuncSetAttribute(
+              tables_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+              (int)smem))
+        return (int)e;
+    }
+    tables_kernel<<<(n_tab + kTabWarps - 1) / kTabWarps, 32 * kTabWarps, smem,
+                    s>>>((const uint8_t*)comp, comp_stride,
+                         (const int32_t*)lens, lay, n, chunk, n_tab,
+                         (int32_t*)scratch);
+    if (const cudaError_t e = cudaGetLastError()) return (int)e;
+  }
+  const int by_block = (n + kChunkThreads - 1) / kChunkThreads;
+  hops_kernel<<<by_block, kChunkThreads, 0, s>>>(lay, n, chunk, st);
+  if (const cudaError_t e = cudaGetLastError()) return (int)e;
+  emit_kernel<<<(n_chunks + kEmitWarps - 1) / kEmitWarps, 32 * kEmitWarps,
+                0, s>>>((const uint8_t*)comp, comp_stride,
+                        (const int32_t*)lens, (const uint8_t*)raw, n,
+                        dest_cap, (int32_t*)tables, max_seq, lay, n_chunks,
+                        chunk, st);
+  if (const cudaError_t e = cudaGetLastError()) return (int)e;
+  finish_kernel<<<by_block, kChunkThreads, 0, s>>>(
+      lay, n, st, (int32_t*)n_seq, (int32_t*)out_total, (int32_t*)code,
+      (int32_t*)reach);
   return (int)cudaGetLastError();
 }
 

@@ -34,14 +34,26 @@
 // package runs on the host for dictionary frames: row b's dictionary is
 // the dict_lens[b] <= 65,536 bytes that end at dict + b * dict_stride. A
 // stride of 0 gives every row one dictionary, stored once; a linked
-// frame's blocks pass the content before each block. The team first seeds
-// the 12-bit table over the dictionary (shared-memory atomicMax a bucket),
-// then the leader scans as K2 does, reading the dictionary where it lies.
+// frame's blocks pass the content before each block. Its design (the
+// second): where every row has the same dictionary (stride 0, one
+// length), one seed kernel (a CTA of 1,024 threads, atomicMax in shared
+// memory) seeds the 12-bit table once for the launch, and each CTA brings
+// those 16 KiB into its shared memory with one bulk asynchronous copy
+// (cp.async.bulk, an mbarrier) in place of zeroing and seeding it itself
+// (its first design, still taken by rows with dictionaries of their
+// own). Then the leader scans as K2 does. What cost the first design half
+// of its speed (design_variants --dict-split): a read of a dictionary
+// position branched on it and the word at a table entry was read only
+// after the window test, so that a step's loads waited for each other;
+// both are selects now, and FIND reads each probe's word while the probe
+// before it takes its table entry (in K2's scan too). The 12-bit table
+// that compress_ext fixes costs the rest against K2's 13-bit one.
 #include "lz4_compress.cuh"
 
 #include <cuda_runtime.h>
 
 #include "lz4tt_device.cuh"
+#include "lz4tt_xxh_ring.cuh"
 
 namespace {
 
@@ -63,6 +75,24 @@ __global__ void __launch_bounds__(32)
   }
 }
 
+// The seeded table (int32[1 << LZ4TT_HASH_LOG]) of the dict_len bytes that
+// end at dict_end, for every CTA of a launch.
+struct SeedTeam {
+  __device__ int lane() const { return threadIdx.x; }
+  __device__ int size() const { return blockDim.x; }
+  __device__ void sync() const { __syncthreads(); }
+};
+
+__global__ void __launch_bounds__(1024)
+    seed_kernel(const uint8_t* dict_end, int32_t dict_len, int32_t* seed) {
+  __shared__ int32_t t32[1 << LZ4TT_HASH_LOG];
+  lz4tt_dict_seed(SeedTeam(), dict_end, dict_len, t32);
+  for (int i = threadIdx.x; i < (1 << LZ4TT_HASH_LOG); i += blockDim.x)
+    seed[i] = t32[i];
+}
+
+// seed: null, or the seeded table of every row's dictionary (seed_kernel),
+// copied into the CTA's table by one bulk copy.
 __global__ void __launch_bounds__(32)
     compress_dict_kernel(const uint8_t* __restrict__ src, int64_t src_stride,
                          const int32_t* __restrict__ src_lens,
@@ -70,16 +100,29 @@ __global__ void __launch_bounds__(32)
                          const int32_t* __restrict__ dict_lens,
                          uint8_t* __restrict__ dst, int64_t dst_stride,
                          int32_t dest_cap, int32_t* __restrict__ out_lens,
-                         int32_t* __restrict__ err) {
+                         int32_t* __restrict__ err,
+                         const int32_t* __restrict__ seed) {
   extern __shared__ uint4 table[];
+  __shared__ uint64_t bar;
   const int64_t b = blockIdx.x;
   WarpTeam t;
+  const int32_t dl = dict_lens[b];
+  const bool seeded = seed != nullptr && dl > 0;
+  if (seeded) {
+    if (t.leader()) {
+      lz4tt_mbar_init(&bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      lz4tt_mbar_expect(&bar, LZ4TT_TABLE_BYTES);
+      lz4tt_bulk_copy(table, seed, LZ4TT_TABLE_BYTES, &bar);
+    }
+    __syncwarp();
+    lz4tt_mbar_wait(&bar, 0);
+  }
   int32_t len = 0;
   int32_t e = 0;
   lz4tt_compress_dict_block(t, src + b * src_stride, src_lens[b],
-                            dict + b * dict_stride, dict_lens[b],
-                            dst + b * dst_stride, dest_cap, dst_stride, table,
-                            &len, &e);
+                            dict + b * dict_stride, dl, dst + b * dst_stride,
+                            dest_cap, dst_stride, table, &len, &e, seeded);
   if (t.leader()) {
     out_lens[b] = len;
     err[b] = e;
@@ -120,19 +163,33 @@ extern "C" int lz4tt_compress_fast(const void* src, long long src_stride,
 
 // The fast scan with a dictionary a row: row b's dictionary is the
 // dict_lens[b] <= 65,536 bytes that end at dict + b * dict_stride (they may
-// lie just before the row). Returns cudaGetLastError() after the launch.
+// lie just before the row). seed_len >= 0 (dict_stride 0, every
+// dict_lens[b] either seed_len or 0): the table is seeded once into seed
+// (int32[1 << 12], 16-byte aligned) for every CTA; -1: each CTA seeds its
+// own. Returns the first error of its launches.
 extern "C" int lz4tt_compress_dict(const void* src, long long src_stride,
                                    const void* src_lens, const void* dict,
                                    long long dict_stride, const void* dict_lens,
                                    void* dst, long long dst_stride,
                                    int dest_cap, void* out_lens, void* err,
-                                   int n, void* stream) {
+                                   int n, void* seed, int seed_len,
+                                   void* stream) {
   if (const cudaError_t e = prepare()) return (int)e;
+  if (seed_len > LZ4TT_DICT_MAX || (seed_len >= 0 && (dict_stride != 0 ||
+                                                      seed == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
   if (n > 0) {
-    compress_dict_kernel<<<n, 32, LZ4TT_TABLE_BYTES, (cudaStream_t)stream>>>(
+    if (seed_len > 0) {
+      seed_kernel<<<1, 1024, 0, s>>>((const uint8_t*)dict, seed_len,
+                                     (int32_t*)seed);
+      if (const cudaError_t e = cudaGetLastError()) return (int)e;
+    }
+    compress_dict_kernel<<<n, 32, LZ4TT_TABLE_BYTES, s>>>(
         (const uint8_t*)src, src_stride, (const int32_t*)src_lens,
         (const uint8_t*)dict, dict_stride, (const int32_t*)dict_lens,
-        (uint8_t*)dst, dst_stride, dest_cap, (int32_t*)out_lens, (int32_t*)err);
+        (uint8_t*)dst, dst_stride, dest_cap, (int32_t*)out_lens, (int32_t*)err,
+        seed_len > 0 ? (const int32_t*)seed : nullptr);
   }
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,9 @@
 // the scan starts at the block's first byte, a match must lie 1 to 65,535
 // bytes back and may run back into the dictionary, and the bound checks
 // reserve the length-extension bytes exactly. The scan reads the block and
-// the dictionary where they lie (Lz4ttDictRow); nothing is copied.
+// the dictionary where they lie (Lz4ttDictRow); nothing is copied. The
+// seeded table comes from the team's own seed or, where every row shares
+// one dictionary, from one seed for the whole launch (lz4_compress.cu).
 #pragma once
 
 #include "lz4tt_common.cuh"
@@ -54,17 +56,17 @@ struct Lz4ttRow {
 };
 
 // The block after a dictionary's tail: position p < 0 is dict_end[p], for
-// p >= -dict_len; table entries are offsets from the window's start.
+// p >= -dict_len; table entries are offsets from the window's start. Each
+// byte's pointer is a select, not a branch, so that a word's four loads
+// issue together, as Lz4ttRow's do.
 struct Lz4ttDictRow {
   static constexpr bool kDict = true;
   const uint8_t* src;
   const uint8_t* dict_end;
   int32_t dict_len;
   LZ4TT_HD int32_t base() const { return dict_len; }
-  LZ4TT_HD uint32_t byte(int32_t p) const { return p < 0 ? dict_end[p] : src[p]; }
+  LZ4TT_HD uint32_t byte(int32_t p) const { return (p < 0 ? dict_end : src)[p]; }
   LZ4TT_HD uint32_t read32(int32_t p) const {
-    if (p >= 0) return lz4tt_read32(src, p);
-    if (p <= -4) return lz4tt_read32(dict_end, p);
     return byte(p) | (byte(p + 1) << 8) | (byte(p + 2) << 16) | (byte(p + 3) << 24);
   }
 };
@@ -206,22 +208,17 @@ LZ4TT_HD int32_t lz4tt_table_swap(void* table, uint32_t h, int32_t pos) {
   return old;
 }
 
-// Hash the 4 bytes at s, put s in the table, and test the old entry as a
-// match (inside the window in the 12-bit variant; with a dictionary also
-// not at distance 0); ref is the old entry.
+// Whether the old table entry ref of the word cur at s is a match
+// (inside the window in the 12-bit variant; with a dictionary also not at
+// distance 0). The word at ref is read
+// whatever the window test says (every table entry lies in the row or its
+// window), so that its load issues with the others of the step.
 template <bool kSmall, class W>
 LZ4TT_HD bool lz4tt_match_ok(const W& w, int32_t s, int32_t ref,
                              uint32_t cur) {
+  const bool same = w.read32(ref) == cur;
   return (kSmall || (s - ref < LZ4TT_MAX_DISTANCE && (!W::kDict || s != ref))) &&
-         w.read32(ref) == cur;
-}
-
-template <bool kSmall, class W>
-LZ4TT_HD bool lz4tt_probe(const W& w, void* table, int32_t s, int32_t& ref) {
-  const uint32_t cur = w.read32(s);
-  ref = lz4tt_table_swap<kSmall>(table, lz4tt_hash(cur, kSmall ? 13 : 12),
-                                 s + w.base()) - w.base();
-  return lz4tt_match_ok<kSmall>(w, s, ref, cur);
+         same;
 }
 
 enum {
@@ -258,13 +255,20 @@ LZ4TT_HD Lz4ttJob lz4tt_scan(Lz4ttScan& z, int32_t ext, const W& w,
         int32_t fwd = z.s, step = 1, nb = 1 << LZ4TT_SKIP_STRENGTH;
         int32_t s = 0, ref = 0;
         bool found = false;
+        // each probe's word read while the probe before it takes its
+        // table entry
+        uint32_t next = fwd <= mflimit ? w.read32(fwd) : 0u;
         for (;;) {
           s = fwd;
+          const uint32_t cur = next;
           fwd += step;
           step = nb >> LZ4TT_SKIP_STRENGTH;
           nb++;
           if (fwd > mflimit) break;
-          if (lz4tt_probe<kSmall>(w, table, s, ref)) {
+          next = w.read32(fwd);
+          ref = lz4tt_table_swap<kSmall>(table, lz4tt_hash(cur, hash_log),
+                                         s + w.base()) - w.base();
+          if (lz4tt_match_ok<kSmall>(w, s, ref, cur)) {
             found = true;
             break;
           }
@@ -452,12 +456,26 @@ LZ4TT_HD void lz4tt_table_max(int32_t* table, uint32_t h, int32_t v) {
 #endif
 }
 
+// The 12-bit table of int32 entries seeded over the dict_len bytes that
+// end at dict_end, by the team: position p (every third, while p + 4 <=
+// dict_len) goes to its bucket, and the largest p of a bucket stays, as
+// the native loop's last write does.
+template <class Team>
+LZ4TT_HD void lz4tt_dict_seed(const Team& t, const uint8_t* dict_end,
+                              int32_t dict_len, int32_t* t32) {
+  for (int i = t.lane(); i < (1 << LZ4TT_HASH_LOG); i += t.size()) t32[i] = 0;
+  t.sync();
+  const uint8_t* wbase = dict_end - dict_len;
+  for (int32_t p = 3 * t.lane(); p + 4 <= dict_len; p += 3 * t.size())
+    lz4tt_table_max(t32, lz4tt_hash(lz4tt_read32(wbase, p), LZ4TT_HASH_LOG), p);
+  t.sync();
+}
+
 // One block compressed against the dict_len <= LZ4TT_DICT_MAX bytes that
 // end at dict_end: the native compress_ext; dict_len 0 is the plain fast
 // compress (tpulz4_compress_fast_ext's fall-through), lz4tt_compress_block.
-// The team seeds the table over the dictionary: position p (every third,
-// while p + 4 <= dict_len) goes to its bucket, and the largest p of a
-// bucket stays, as the native loop's last write does.
+// The team seeds the table (lz4tt_dict_seed) unless `seeded`: the table
+// already holds that seed.
 template <class Team>
 LZ4TT_HD void lz4tt_compress_dict_block(const Team& t, const uint8_t* src,
                                         int32_t src_len,
@@ -465,20 +483,14 @@ LZ4TT_HD void lz4tt_compress_dict_block(const Team& t, const uint8_t* src,
                                         int32_t dict_len, uint8_t* dst,
                                         int32_t dest_cap, int64_t dst_width,
                                         void* table, int32_t* out_len,
-                                        int32_t* err) {
+                                        int32_t* err, bool seeded = false) {
   if (dict_len == 0) {
     lz4tt_compress_block(t, src, src_len, dst, dest_cap, dst_width, table,
                          out_len, err);
     return;
   }
-  int32_t* t32 = (int32_t*)table;
-  for (int i = t.lane(); i < (1 << LZ4TT_HASH_LOG); i += t.size()) t32[i] = 0;
-  t.sync();
-  const uint8_t* wbase = dict_end - dict_len;
-  for (int32_t p = 3 * t.lane(); p + 4 <= dict_len; p += 3 * t.size())
-    lz4tt_table_max(t32, lz4tt_hash(lz4tt_read32(wbase, p), LZ4TT_HASH_LOG), p);
-  t.sync();
+  if (!seeded) lz4tt_dict_seed(t, dict_end, dict_len, (int32_t*)table);
   const Lz4ttDictRow w = {src, dict_end, dict_len};
-  lz4tt_compress_variant<false>(t, w, src_len, dst, dest_cap, dst_width, table,
-                                out_len, err);
+  lz4tt_compress_variant<false>(t, w, src_len, dst, dest_cap, dst_width,
+                                table, out_len, err);
 }

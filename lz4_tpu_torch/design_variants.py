@@ -21,12 +21,21 @@ of a checkout, on a machine with a card, for all of them or those of
 some sources::
 
     python -m lz4_tpu_torch.design_variants [lz4_compress lz4_decode segment_decode lz4_parse frame_pack xxh32 xxh64 lz4_hc parallel_compress gather_decode]
+    python -m lz4_tpu_torch.design_variants linked_decode|--dict-split|--walk-split
 
 ``--hc-split`` instead builds K6 with ``clock64`` counters in its first
 team's lane 0 and prints the cycles of each part of its searches: on one
 a4 row alone and on team 0 of 4,096 a4 rows, at level 9. ``--k7-split``
 does the same for the parts of K7's window kernel, in its first CTA's
-thread 0 over its windows, on the main path's rows.
+thread 0 over its windows, on the main path's rows; ``--dict-split`` for
+the parts of one row of K2 with a dictionary (the formats path's rows,
+``_DictRows``), beside the dictionary compress's designs.
+
+``linked_decode`` times the linked walk's designs (``LINKED_VARIANTS``:
+chunk sizes, the threshold, the one-kernel look-back, the first design)
+on the formats path's linked frames at 64 KiB, 256 KiB, 1 MiB and 4 MiB
+blocks, each held against the shipped walk; ``--walk-split`` its
+launches one after another.
 """
 
 from __future__ import annotations
@@ -37,13 +46,15 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
+from . import testing
 from .core.constants import max_compressed_length
 from .dist import sharded
 from .kernels import (
-    build, codec, gather_decode, hc, parallel_compress, sequences, xxhash,
-    xxhash_stream)
+    build, codec, gather_decode, hc, layout, linked_decode, parallel_compress,
+    sequences, xxhash, xxhash_stream)
 
 SEED, N_BLOCKS, BLOCK_LEN, REPS = 1234, 4096, 1 << 16, 5
 HC_REPS = 2                      # K6's timed launches (the slow ones take 1 s)
@@ -65,6 +76,56 @@ LZ4TT_HD uint32_t lz4tt_load32u(const uint8_t* p, int64_t i) {
   return lz4tt_funnel_r(lz4tt_ld32(w), mis ? lz4tt_ld32(w + 4) : 0u, 8 * mis);
 }
 """
+# FIND's probes in turn, as K2's first design read them: each probe's
+# word read after the probe before it (the shipped scan reads it ahead)
+_PROBES_IN_TURN = [
+    ("lz4_compress.cuh", """        bool found = false;
+        // each probe's word read while the probe before it takes its
+        // table entry
+        uint32_t next = fwd <= mflimit ? w.read32(fwd) : 0u;
+        for (;;) {
+          s = fwd;
+          const uint32_t cur = next;
+          fwd += step;
+          step = nb >> LZ4TT_SKIP_STRENGTH;
+          nb++;
+          if (fwd > mflimit) break;
+          next = w.read32(fwd);
+""", """        bool found = false;
+        for (;;) {
+          s = fwd;
+          fwd += step;
+          step = nb >> LZ4TT_SKIP_STRENGTH;
+          nb++;
+          if (fwd > mflimit) break;
+          const uint32_t cur = w.read32(s);
+""")]
+# K2's scan with the 12-bit table (int32 entries, the window test) on rows
+# of 64 KiB too, as the dictionary compress must scan: other bytes, timed
+# only, for what the table itself costs
+_TABLE_12 = [("lz4_compress.cuh", "  if (src_len < LZ4TT_64K_LIMIT)\n",
+              "  if (false)\n")]
+# the dictionary compress's first design: a dictionary row's reads branch
+# on the position, and the word at a table entry is read only inside the
+# window
+_DICT_FIRST_READS = [
+    ("lz4_compress.cuh",
+     "  LZ4TT_HD uint32_t byte(int32_t p) const { return (p < 0 ? dict_end : src)[p]; }\n"
+     "  LZ4TT_HD uint32_t read32(int32_t p) const {\n"
+     "    return byte(p) | (byte(p + 1) << 8) | (byte(p + 2) << 16) | (byte(p + 3) << 24);\n"
+     "  }",
+     "  LZ4TT_HD uint32_t byte(int32_t p) const { return p < 0 ? dict_end[p] : src[p]; }\n"
+     "  LZ4TT_HD uint32_t read32(int32_t p) const {\n"
+     "    if (p >= 0) return lz4tt_read32(src, p);\n"
+     "    if (p <= -4) return lz4tt_read32(dict_end, p);\n"
+     "    return byte(p) | (byte(p + 1) << 8) | (byte(p + 2) << 16) | (byte(p + 3) << 24);\n"
+     "  }"),
+    ("lz4_compress.cuh",
+     "  const bool same = w.read32(ref) == cur;\n"
+     "  return (kSmall || (s - ref < LZ4TT_MAX_DISTANCE && (!W::kDict || s != ref))) &&\n"
+     "         same;",
+     "  return (kSmall || (s - ref < LZ4TT_MAX_DISTANCE && (!W::kDict || s != ref))) &&\n"
+     "         w.read32(ref) == cur;")]
 _STAGES = "#define LZ4TT_XXH_STAGE 32768\n#define LZ4TT_XXH_STAGES 4"
 _ROWS = "#define LZ4TT_XXH_ROWS 32"
 _ROUND = """LZ4TT_HD uint32_t lz4tt_xxh_round(uint32_t v, uint32_t x) {
@@ -570,6 +631,8 @@ VARIANTS = {
     "K2, the match's first word read after the probe": ("lz4_compress", [
         ("lz4_compress.cuh", "if (pre && x != 0 && z.s + 4 <= src_limit)",
          "if (false && x != 0 && z.s + 4 <= src_limit)")]),
+    "K2, FIND's probes read in turn (the first design)": ("lz4_compress",
+                                                          _PROBES_IN_TURN),
     "K2, aligned words and funnel shifts for reads": ("lz4_compress", [
         ("lz4_compress.cuh", '#include "lz4tt_common.cuh"\n', _WORDS),
         ("lz4_compress.cuh", "lz4tt_read32(", "lz4tt_load32u(")]),
@@ -895,6 +958,488 @@ __device__ unsigned long long lz4tt_split[16];
 
 // Int32 words of a team's scratch"""),
 ]
+
+
+# K2 with a dictionary with clock64 counters (--dict-split): the parts of
+# one row's compress, timed by the first CTA's lane 0
+_DICT_PARTS = ("seed or zeroed table", "FIND probe loops", "the scan, all",
+               "team jobs", "the row")
+_DICT_SPLIT_EDITS = [
+    ("lz4_compress.cuh", '#include "lz4tt_common.cuh"\n', """#include "lz4tt_common.cuh"
+#ifdef __CUDACC__
+__device__ unsigned long long lz4tt_split[16];
+__device__ long long lz4tt_t0;
+#endif
+#ifdef __CUDA_ARCH__
+#define PT(v) const long long v = clock64()
+#define PA(i, a, b) if (blockIdx.x == 0 && threadIdx.x == 0) { \\
+  lz4tt_split[i] += (b) - (a); lz4tt_split[(i) + 8] += 1; }
+#define P0() if (blockIdx.x == 0 && threadIdx.x == 0) lz4tt_t0 = clock64()
+#else
+#define PT(v)
+#define PA(i, a, b)
+#define P0()
+#endif
+"""),
+    ("lz4_compress.cuh", "        bool found = false;\n",
+     "        bool found = false;\n        PT(f0);\n"),
+    ("lz4_compress.cuh", "        if (!found) {\n",
+     "        PT(f1);\n        PA(1, f0, f1);\n        if (!found) {\n"),
+    ("lz4_compress.cuh", "  int32_t ext = 0;\n",
+     "  int32_t ext = 0;\n  PT(v0);\n  PA(0, lz4tt_t0, v0);\n"),
+    ("lz4_compress.cuh",
+     "    if (t.leader()) j = lz4tt_scan<kSmall>(z, ext, w, src_len, dst, dest_cap,\n"
+     "                                           dst_width, table);\n",
+     "    PT(s0);\n"
+     "    if (t.leader()) j = lz4tt_scan<kSmall>(z, ext, w, src_len, dst, dest_cap,\n"
+     "                                           dst_width, table);\n"
+     "    PT(s1);\n    PA(2, s0, s1);\n"),
+    ("lz4_compress.cuh", "    if (j.kind == LZ4TT_JOB_COPY)\n",
+     "    PT(j0);\n    if (j.kind == LZ4TT_JOB_COPY)\n"),
+    ("lz4_compress.cuh", "      ext = lz4tt_common_bytes(t, w, j.a, j.b, j.c);\n",
+     "      ext = lz4tt_common_bytes(t, w, j.a, j.b, j.c);\n"
+     "    PT(j1);\n    PA(3, j0, j1);\n"),
+    ("lz4_compress.cu", "  const int32_t dl = dict_lens[b];\n",
+     "  P0();\n  const int32_t dl = dict_lens[b];\n"),
+    ("lz4_compress.cu", "                            dest_cap, dst_stride, table, &len, &e, seeded);\n",
+     "                            dest_cap, dst_stride, table, &len, &e, seeded);\n"
+     "  PT(r1);\n  PA(4, lz4tt_t0, r1);\n"),
+    ("lz4_compress.cu", "// Resident CTAs per SM and threads per CTA", """extern "C" int lz4tt_split_read(unsigned long long* h, int zero) {
+  const unsigned long long none[16] = {};
+  const cudaError_t e = cudaMemcpyFromSymbol(h, lz4tt_split, sizeof(none));
+  return (int)(zero && e == cudaSuccess
+                   ? cudaMemcpyToSymbol(lz4tt_split, none, sizeof(none))
+                   : e);
+}
+
+// Resident CTAs per SM and threads per CTA"""),
+]
+# the formats path's rows: 64 MiB of make_blocks data (its first text
+# block taken out as the shared dictionary), chip_smoke.py::_format_data
+FORMAT_SEED, FORMAT_BLOCKS = SEED + 3, 1024
+_DICT_ARGS = [_P, _I64, _P, _P, _I64, _P, _P, _I64, _I32, _P, _P, _I32, _P,
+              _I32, _P]
+
+
+class _DictRows:
+    """The formats path's 1,024 rows of 64 KiB on the card, its shared
+    dictionary, and its linked rows (each row's dictionary the 64 KiB of
+    content before it, ``testing.linked_blocks``' strided view)."""
+
+    def __init__(self, dev):
+        blocks = sharded.make_blocks(FORMAT_BLOCKS + 1, BLOCK_LEN, FORMAT_SEED)
+        kinds = sharded.block_kinds(FORMAT_BLOCKS + 1, FORMAT_SEED)
+        t = int(np.flatnonzero(kinds == 1)[0])
+        self.dictionary = blocks[t].tobytes()
+        blocks, kinds = np.delete(blocks, t, axis=0), np.delete(kinds, t)
+        self.kinds = kinds
+        self.src, self.lens = sharded.upload_blocks(blocks, dev)
+        self.n = self.src.shape[0]
+        self.cap = max_compressed_length(BLOCK_LEN)
+        self.win = layout.upload_bytes(self.dictionary, dev).view(1, -1)
+        self.wl = torch.full((self.n,), BLOCK_LEN, dtype=torch.int32,
+                             device=dev)
+        w = codec.WINDOW
+        buf = torch.zeros((w + self.n * BLOCK_LEN,), dtype=torch.uint8,
+                          device=dev)
+        buf[w:] = self.src[:, :BLOCK_LEN].reshape(-1)
+        self.linked = buf[w:].view(self.n, BLOCK_LEN)
+        self.linked_dicts = buf.as_strided((self.n, w), (BLOCK_LEN, 1))
+        self.linked_copies = self.linked_dicts.contiguous()
+        self.linked_lens = torch.tensor(
+            [min(i * BLOCK_LEN, w) for i in range(self.n)], dtype=torch.int32,
+            device=dev)
+        self.seed = torch.empty((codec.SEED_WORDS,), dtype=torch.int32,
+                                device=dev)
+
+    def order(self, kind: int):
+        """The rows with the first row of ``kind`` first (the split's CTA
+        0 takes it)."""
+        first = int(np.flatnonzero(self.kinds == kind)[0])
+        idx = [first] + [i for i in range(self.n) if i != first]
+        return torch.tensor(idx, device=self.src.device)
+
+    def cases(self):
+        """name -> (src, lens, dict end pointer, dict stride, dict lens,
+        seed_len) of each launch: the shared dictionary seeded once (the
+        shipped path) and seeded by each CTA (the first design), no
+        dictionary (K2's path on the same kernel), the linked rows (their
+        dictionaries a strided view of the content) and the same with
+        their dictionaries copied."""
+        out = {}
+        zero = torch.zeros_like(self.wl)
+        for kind, kname in ((0, "a4"), (1, "text")):
+            idx = self.order(kind)
+            s, sl = self.src[idx].contiguous(), self.lens[idx].contiguous()
+            end = self.win.data_ptr() + self.win.shape[1]
+            out[f"{kname}, shared dictionary, seeded once"] = (
+                s, sl, end, 0, self.wl, BLOCK_LEN)
+            out[f"{kname}, shared dictionary, seeded by each CTA"] = (
+                s, sl, end, 0, self.wl, -1)
+            out[f"{kname}, no dictionary"] = (s, sl, end, 0, zero, -1)
+        w = codec.WINDOW
+        out["linked rows, strided view"] = (
+            self.linked, self.lens, self.linked_dicts.data_ptr() + w,
+            BLOCK_LEN, self.linked_lens, -1)
+        out["linked rows, copied dictionaries"] = (
+            self.linked, self.lens, self.linked_copies.data_ptr() + w, w,
+            self.linked_lens, -1)
+        return out
+
+
+def _dict_call(fn, rows: _DictRows, case, stream):
+    """(call, output buffers) of one K2-dict launch of ``case``."""
+    s, sl, end, stride, dl, seed_len = case
+    n = s.shape[0]
+    dst = torch.zeros((n, layout.row_stride(rows.cap)), dtype=torch.uint8,
+                      device=s.device)
+    ol, err = (torch.empty((n,), dtype=torch.int32, device=s.device)
+               for _ in range(2))
+
+    def call():
+        rc = fn(s.data_ptr(), s.stride(0), sl.data_ptr(), end, stride,
+                dl.data_ptr(), dst.data_ptr(), dst.stride(0), rows.cap,
+                ol.data_ptr(), err.data_ptr(), n, rows.seed.data_ptr(),
+                seed_len, stream)
+        if rc:
+            raise RuntimeError(f"CUDA error {rc}")
+    return call, (dst, ol, err)
+
+
+def dict_split() -> dict:
+    """Cycles of each part of one row's dictionary compress
+    (``_DICT_PARTS``) in the first CTA's lane 0, on the formats path's
+    first a4 and first text row with the shared dictionary (seeded once,
+    and by each CTA), without one, and on a linked row (its dictionary a
+    strided view, and copied); and each launch's time (CUDA events) on all 1,024 rows, the
+    shipped build beside the counting one, every output held against the
+    first case of its rows."""
+    root = build.build_dir().parent / "variants"
+    built = {}
+    for name, edits in (("split", _DICT_SPLIT_EDITS),
+                        ("probes in turn", _PROBES_IN_TURN),
+                        ("first design", _DICT_FIRST_READS + _PROBES_IN_TURN),
+                        ("12-bit table", _TABLE_12)):
+        built[name] = _nvcc_copy(root / name.replace(" ", ""), edits,
+                                 "lz4_compress")
+    for name, (so, proc) in built.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise build.KernelBuildError(log)
+        built[name] = ctypes.CDLL(str(so))
+    split = built["split"]
+    rows = _DictRows(torch.device("cuda"))
+    stream = torch.cuda.current_stream().cuda_stream
+    fns = {}
+    for name, lib in (("shipped", build._library("lz4_compress")),
+                      *built.items()):
+        fn = lib.lz4tt_compress_dict
+        fn.argtypes, fn.restype = _DICT_ARGS, ctypes.c_int
+        fns[name] = fn
+    split.lz4tt_split_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    counts = (ctypes.c_ulonglong * 16)()
+    out, firsts = {}, {}
+    for name, case in rows.cases().items():
+        key = name.split(",")[0] + ("" if "no dictionary" not in name else
+                                    " bare")
+        res = {}
+        for build_name, fn in fns.items():
+            if build_name == "12-bit table":
+                if "no dictionary" in name:   # other bytes: timed only
+                    res[f"{build_name} ms"] = _time(
+                        _dict_call(fn, rows, case, stream)[0])
+                continue
+            call, bufs = _dict_call(fn, rows, case, stream)
+            split.lz4tt_split_read(counts, 1)
+            call()
+            torch.cuda.synchronize()
+            if build_name == "split":
+                split.lz4tt_split_read(counts, 0)
+                res["cycles"] = {
+                    part: {"cycles": counts[i], "calls": counts[i + 8]}
+                    for i, part in enumerate(_DICT_PARTS)}
+            want = firsts.setdefault(key, tuple(x.clone() for x in bufs))
+            if bool(bufs[2].any()) or not all(
+                    torch.equal(x, y) for x, y in zip(bufs, want)):
+                raise SystemExit(f"design_variants: K2 dict differs on {name}")
+            res[f"{build_name} ms"] = _time(call)
+        out[name] = res
+        print(f"K2 dict split, {name}: {json.dumps(res)}", flush=True)
+    return out
+
+
+# the chunked walk's launches timed cumulatively (--walk-split): builds
+# that return after the tables, after the hops, after the emission
+_HOPS = "  hops_kernel<<<by_block, kChunkThreads, 0, s>>>(lay, n, chunk, st);\n"
+_EMIT = ("  emit_kernel<<<(n_chunks + kEmitWarps - 1) / kEmitWarps, "
+         "32 * kEmitWarps,\n")
+_FINISH = "  finish_kernel<<<by_block, kChunkThreads, 0, s>>>(\n"
+_WALK_PARTS = {"tables": _HOPS, "+ hops": _EMIT, "+ emission": _FINISH}
+
+
+def walk_split() -> dict:
+    """The chunked walk's launches one after another, every block cut
+    into chunks of 2, 4 and 8 KiB (the C entry point alone): the tables,
+    then with the hops, then with the emission, then all four (the
+    finish), on the formats path's linked frames."""
+    root = build.build_dir().parent / "variants"
+    libs = {}
+    for i, (name, text) in enumerate(_WALK_PARTS.items()):
+        so, proc = _nvcc_copy(root / f"walksplit{i}",
+                              [("linked_decode.cu", text, "  return 0;\n" + text)],
+                              "linked_decode")
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise build.KernelBuildError(log)
+        libs[name] = getattr(ctypes.CDLL(str(so)), "lz4tt_linked_walk")
+    libs["all"] = getattr(build._library("linked_decode"), "lz4tt_linked_walk")
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for set_name, (c, cl, flags, bs, host) in _linked_rows(dev).items():
+        n = c.shape[0]
+        width = linked_decode.table_width(*host)
+        for chunk in (2048, 4096, 8192):
+            lay, n_chunks, n_tab = linked_decode.chunk_layout(*host, bs, chunk,
+                                                              0)
+            lay = torch.from_numpy(lay).to(dev)
+            scratch = torch.empty((n_tab * 3 * chunk + 5 * n_chunks,),
+                                  dtype=torch.int32, device=dev)
+            tables = torch.empty((6, n, width), dtype=torch.int32, device=dev)
+            res = torch.empty((4, n), dtype=torch.int32, device=dev)
+            args = [c.data_ptr(), c.stride(0), cl.data_ptr(), flags.data_ptr(),
+                    n, bs, tables.data_ptr(), width,
+                    *(r.data_ptr() for r in res), lay.data_ptr(), n_chunks,
+                    n_tab, chunk, scratch.data_ptr(), stream]
+            got = {}
+            for name, fn in libs.items():
+                fn.argtypes, fn.restype = linked_decode.WALK.argtypes, ctypes.c_int
+
+                def call():
+                    if fn(*args):
+                        raise RuntimeError("CUDA error")
+                got[name] = _time(call)
+            out[f"{set_name}, chunks of {chunk}"] = got
+            print(f"linked walk split, {set_name}, chunks of {chunk}: "
+                  f"{json.dumps(got)}", flush=True)
+    return out
+
+
+def _linked_rows(dev) -> dict:
+    """The formats path's linked frames (``testing.linked_blocks`` of its
+    64 MiB at each of ``LINKED_SIZES``, LZ4F's 64 KiB, 256 KiB, 1 MiB and 4
+    MiB blocks): name -> (payload rows, lengths, raw flags, block size,
+    host lengths and flags)."""
+    blocks = sharded.make_blocks(FORMAT_BLOCKS + 1, BLOCK_LEN, FORMAT_SEED)
+    kinds = sharded.block_kinds(FORMAT_BLOCKS + 1, FORMAT_SEED)
+    raw = np.delete(blocks, int(np.flatnonzero(kinds == 1)[0]), axis=0)
+    raw = raw.tobytes()
+    out = {}
+    for bs in LINKED_SIZES:
+        size = f"{bs >> 20} MiB" if bs >= 1 << 20 else f"{bs >> 10} KiB"
+        name = f"{len(raw) // bs:,} x {size}"
+        raws = [raw[i:i + bs] for i in range(0, len(raw), bs)]
+        comps = testing.linked_blocks(raw, bs, dev)
+        pays = testing.payloads(raws, comps)
+        c, cl = layout.to_device_layout(pays, device=dev)
+        flags = [len(p) >= len(r) for r, p in zip(raws, comps)]
+        out[name] = (c, cl, torch.tensor(flags, device=dev), bs,
+                     (cl.cpu().numpy(), np.array(flags)))
+    return out
+
+
+# the linked walk's designs: (entry point, chunk, whole_below); None for
+# the shipped wrapper's own
+LINKED_SIZES = (BLOCK_LEN, 256 << 10, 1 << 20, 4 << 20)
+LINKED_VARIANTS = {
+    "chunked walk (shipped)": ("launches", None, None),
+    "chunked walk, 64 KiB blocks cut too": ("launches", None, 0),
+    "chunked walk, blocks up to 256 KiB whole": ("launches", None, 256 << 10),
+    "chunked walk, blocks up to 1 MiB whole": ("launches", None, 1 << 20),
+    "chunked walk, chunks of 2 KiB": ("launches", 2048, 0),
+    "chunked walk, chunks of 8 KiB": ("launches", 8192, 0),
+    "chunked walk, chunks of 16 KiB": ("launches", 16384, 0),
+    "chunked walk, one kernel with a look-back": ("lookback", None, 0),
+    "warp walk (the first design)": ("launches", None, 1 << 31),
+}
+# the chunked walk in one kernel with a decoupled look-back, a variant of
+# linked_decode.cu: a warp takes chunks in order by an atomic ticket,
+# builds its tables in shared memory, waits for the chunk before it to
+# publish its entry, publishes the next one and walks; then the finish
+_LOOKBACK_KERNEL = """// The chunked walk in one kernel: a warp a chunk, taken in order by a
+// ticket; the chunk's tables in shared memory (ff16, then exit, cnt, out);
+// a chunk's entry published by the chunk before it (flag[g] set after
+// st.ent/n0/d0[g]), the next one's published before the walk.
+__global__ void __launch_bounds__(32)
+    lookback_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
+                    const int32_t* __restrict__ lens,
+                    const uint8_t* __restrict__ raw, int32_t n,
+                    int32_t dest_cap, int32_t* tables, int32_t max_seq,
+                    const int32_t* __restrict__ layout, int32_t n_chunks,
+                    int32_t chunk, ChunkState st, int32_t* flag,
+                    int32_t* ticket) {
+  extern __shared__ __align__(16) int32_t tab[];  // 3 x chunk, ff16, stage
+  const WarpTeam t{};
+  int32_t g = 0;
+  if (t.leader()) g = atomicAdd(ticket, 1);
+  g = t.bcast(g);
+  if (g >= n_chunks) return;
+  const int32_t b = block_of(layout, n, g), c = g - layout[b];
+  const int32_t nc = layout[b + 1] - layout[b];
+  const uint8_t* src = comp + b * comp_stride;
+  const int32_t c0 = c * chunk, c1 = c0 + chunk;
+  if (c < nc - 1) {
+    uint16_t* ff16 = (uint16_t*)(tab + 3 * chunk);
+    uint8_t* stage = (uint8_t*)(ff16 + (chunk + 7) / 8 * 8);
+    lz4tt_lw_tables(t, src, lens[b], c0, c1, tab, {ff16, stage, nullptr});
+  }
+  if (!t.leader()) return;
+  int32_t e = 0, n0 = 0, d0 = 0;
+  if (c > 0) {
+    volatile int32_t* f = flag + g;
+    while (*f == 0) __nanosleep(64);
+    __threadfence();
+    e = ((volatile int32_t*)st.ent)[g];
+    n0 = ((volatile int32_t*)st.n0)[g];
+    d0 = ((volatile int32_t*)st.d0)[g];
+  }
+  const bool here = e >= 0 && (c == nc - 1 || e < c1);
+  if (c < nc - 1) {  // the next chunk's entry
+    int32_t ne = e, nn = n0;
+    int64_t nd = d0;
+    if (here) {
+      const int32_t* x = tab + 3 * (e - c0);
+      if (x[0] == LZ4TT_LW_STOP) {
+        ne = -1;
+      } else {
+        ne = x[0];
+        nn += x[1];
+        nd += x[2];
+      }
+    }
+    st.ent[g + 1] = ne;
+    st.n0[g + 1] = nn;
+    st.d0[g + 1] = lz4tt_lw_sat(nd);
+    __threadfence();
+    atomicExch(flag + g + 1, 1);
+  }
+  const Lz4ttLwResult r = lz4tt_lw_chunk(
+      src, lens[b], dest_cap, raw[b] != 0, row_tables(tables, n, max_seq, b),
+      max_seq, c, nc, chunk, here ? e : -1, n0, d0);
+  st.code[g] = r.code;
+  st.n0[g] = r.n_seq;
+  st.d0[g] = r.out_total;
+  st.reach[g] = r.reach;
+}
+
+"""
+_LOOKBACK_ENTRY = """// The same chunks by one kernel with a decoupled look-back, then the
+// finish (lookback_kernel); scratch: int32[6 * n_chunks + 1].
+extern "C" int lz4tt_linked_walk_lookback(
+    const void* comp, long long comp_stride, const void* lens, const void* raw,
+    int n, int dest_cap, void* tables, int max_seq, void* n_seq,
+    void* out_total, void* code, void* reach, const void* layout,
+    int n_chunks, int chunk, void* scratch, void* stream) {
+  if (n < 0 || dest_cap < 0 || max_seq < 1 || chunk < 1 || chunk > 16384 ||
+      n_chunks < n)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int32_t* lay = (const int32_t*)layout;
+  const ChunkState st = chunk_state((int32_t*)scratch, n_chunks, 0, chunk);
+  int32_t* flag = (int32_t*)scratch + 5 * (int64_t)n_chunks;
+  if (const cudaError_t e = cudaMemsetAsync(
+          flag, 0, ((size_t)n_chunks + 1) * sizeof(int32_t), s))
+    return (int)e;
+  const size_t smem = 12 * (size_t)chunk + 2 * ((chunk + 7) / 8 * 8) +
+                      chunk + LZ4TT_LW_MARGIN;
+  if (smem > 48 * 1024) {
+    if (const cudaError_t e = cudaFuncSetAttribute(
+            lookback_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem))
+      return (int)e;
+  }
+  lookback_kernel<<<n_chunks, 32, smem, s>>>(
+      (const uint8_t*)comp, comp_stride, (const int32_t*)lens,
+      (const uint8_t*)raw, n, dest_cap, (int32_t*)tables, max_seq, lay,
+      n_chunks, chunk, st, flag, flag + n_chunks);
+  if (const cudaError_t e = cudaGetLastError()) return (int)e;
+  finish_kernel<<<(n + kChunkThreads - 1) / kChunkThreads, kChunkThreads, 0,
+                  s>>>(lay, n, st, (int32_t*)n_seq, (int32_t*)out_total,
+                       (int32_t*)code, (int32_t*)reach);
+  return (int)cudaGetLastError();
+}
+"""
+_LOOKBACK = [
+    ("linked_decode.cu", "}  // namespace\n",
+     _LOOKBACK_KERNEL + "\n}  // namespace\n"),
+    ("linked_decode.cu", "// The resolve of a walked batch:",
+     _LOOKBACK_ENTRY + "\n// The resolve of a walked batch:")]
+
+
+def _lookback_walk(fn, c, cl, flags, bs, width, host, chunk):
+    """The look-back walk (``_LOOKBACK``'s C entry point ``fn``) of a
+    batch, every block past ``chunk`` cut: what ``walk_linked`` returns."""
+    n, dev = c.shape[0], c.device
+    lay, n_chunks, _ = linked_decode.chunk_layout(*host, bs, chunk, 0)
+    lay = torch.from_numpy(lay).to(dev)
+    scratch = torch.empty((6 * n_chunks + 1,), dtype=torch.int32, device=dev)
+    tables = torch.empty((6, n, width), dtype=torch.int32, device=dev)
+    res = torch.empty((4, n), dtype=torch.int32, device=dev)
+    if fn(c.data_ptr(), c.stride(0), cl.data_ptr(), flags.data_ptr(), n, bs,
+          tables.data_ptr(), width, *(r.data_ptr() for r in res),
+          lay.data_ptr(), n_chunks, chunk, scratch.data_ptr(),
+          layout.cuda_stream(c)):
+        raise RuntimeError("lz4tt_linked_walk_lookback: CUDA error")
+    return (tables, *res)
+
+
+def linked_variants() -> dict:
+    """Each design of the linked walk (``LINKED_VARIANTS``) timed (CUDA
+    events) on the formats path's linked frames, its output (every
+    record of every block, the codes, lengths and reach) held against the
+    shipped walk's."""
+    so, proc = _nvcc_copy(build.build_dir().parent / "variants" / "lookback",
+                          _LOOKBACK, "linked_decode")
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise build.KernelBuildError(log)
+    lookback = ctypes.CDLL(str(so)).lz4tt_linked_walk_lookback
+    lookback.argtypes = linked_decode.WALK.argtypes[:13] + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lookback.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    sets = _linked_rows(dev)
+    out = {}
+    for name, (kind, chunk, whole) in LINKED_VARIANTS.items():
+        res = {}
+        for set_name, (c, cl, flags, bs, host) in sets.items():
+            want = linked_decode.walk_linked(c, cl, flags, bs, None, host)
+            width = want[0].shape[2]
+            ck = chunk or linked_decode.CHUNK
+            if kind == "launches":
+                wb = linked_decode.WHOLE_BELOW if whole is None else whole
+
+                def call():
+                    return linked_decode._walk_cuda(c, cl, flags, bs, width,
+                                                    host, ck, wb)
+            else:
+                def call():
+                    return _lookback_walk(lookback, c, cl, flags, bs, width,
+                                          host, ck)
+            got = call()
+            n_seq = want[1].long()
+            used = torch.arange(width, device=dev) < n_seq[:, None]
+            if not all(torch.equal(x, y) for x, y in zip(got[1:], want[1:])) \
+                    or not torch.equal(got[0][:, used], want[0][:, used]):
+                raise SystemExit(f"design_variants: {name} differs on "
+                                 f"{set_name}")
+            res[set_name] = _time(call)
+            print(f"linked walk, {name}, {set_name}: {res[set_name]:.3f} ms",
+                  flush=True)
+        out[name] = res
+    out["scratch_bytes"] = linked_decode.SCRATCH.last_nbytes
+    return out
 
 
 def _nvcc_copy(d, edits, source: str):
@@ -1304,6 +1849,15 @@ def main(argv: list[str]) -> int:
         return 0
     if argv == ["--k7-split"]:
         print(json.dumps(k7_split()))
+        return 0
+    if argv == ["--dict-split"]:
+        print(json.dumps(dict_split()))
+        return 0
+    if argv == ["linked_decode"]:
+        print(json.dumps(linked_variants()))
+        return 0
+    if argv == ["--walk-split"]:
+        print(json.dumps(walk_split()))
         return 0
     dev = torch.device("cuda")
     libs = build_variants(set(argv) or set(SYMBOLS))

@@ -38,7 +38,7 @@ from ..core.constants import (
     MAX_DISTANCE, MF_LIMIT, MIN_LENGTH, MIN_MATCH, ML_BITS, ML_MASK, RUN_MASK,
     SKIP_STRENGTH,
 )
-from .build import Kernel
+from .build import Kernel, Scratch
 from .layout import check_batch, cuda_stream, row_stride
 
 OK = 0
@@ -59,10 +59,14 @@ DECODE_HIST = Kernel("lz4_decode_hist", "lz4_decode",
 COMPRESS_DICT = Kernel("lz4_compress_dict", "lz4_compress",
                        "lz4tt_compress_dict",
                        [_P, _I64, _P, _P, _I64, _P, _P, _I64, _I32, _P, _P,
-                        _I32, _P])
+                        _I32, _P, _I32, _P])
 # the most bytes of history or dictionary a row may have: the format's
 # 64 KiB window
 WINDOW = 1 << 16
+# the seeded hash table that every row of a shared dictionary starts from
+# (the 12-bit table's int32 entries), a card and stream
+SEED_WORDS = 1 << HASH_LOG
+SEED = Scratch(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -235,8 +239,9 @@ def _check_window(win: torch.Tensor, win_lens: torch.Tensor, n: int,
     may lie anywhere (any row stride, bytes contiguous in a row) and
     ``win_lens`` int32[n] within ``[0, min(W, WINDOW)]``; row b's window is
     the last ``win_lens[b]`` bytes of ``win``'s row b (or its only row).
-    Returns the row stride a kernel takes (0 for one shared row). This
-    reads the lengths, so it waits for the card."""
+    Returns the row stride a kernel takes (0 for one shared row) and the
+    least and largest length. This reads the lengths, so it waits for the
+    card."""
     if (win.dtype != torch.uint8 or win.dim() != 2 or win.shape[0] not in (1, n)
             or (win.shape[1] > 1 and win.stride(1) != 1)):
         raise ValueError(f"{what} must be a uint8[1 or N, W] tensor with "
@@ -246,12 +251,13 @@ def _check_window(win: torch.Tensor, win_lens: torch.Tensor, n: int,
         raise ValueError(f"expected contiguous int32[N] {what} lengths")
     if win.device != device or win_lens.device != device:
         raise ValueError(f"{what} must lie on the device of the batch")
+    lo = hi = 0
     if n:
-        lo, hi = torch.aminmax(win_lens)
-        if int(lo) < 0 or int(hi) > min(win.shape[1], WINDOW):
+        lo, hi = (int(v) for v in torch.aminmax(win_lens))
+        if lo < 0 or hi > min(win.shape[1], WINDOW):
             raise ValueError(f"{what} lengths must lie in "
                              f"[0, {min(win.shape[1], WINDOW)}]")
-    return win.stride(0) if win.shape[0] > 1 else 0
+    return win.stride(0) if win.shape[0] > 1 else 0, lo, hi
 
 
 def _window_rows(win: torch.Tensor, win_lens: torch.Tensor, n: int):
@@ -281,7 +287,7 @@ def decompress_safe_hist_batch(comp: torch.Tensor, comp_lens: torch.Tensor,
     """
     check_batch(comp, comp_lens)
     n = comp.shape[0]
-    stride = _check_window(hist, hist_lens, n, comp.device, "hist")
+    stride, _, _ = _check_window(hist, hist_lens, n, comp.device, "hist")
     out = _decode_out(comp, out_max, out)
     if comp.device.type == "cpu":
         return decompress_safe_hist_plain(comp, comp_lens, out_max, hist,
@@ -593,11 +599,12 @@ def compress_dict_batch(src: torch.Tensor, src_lens: torch.Tensor,
     byte the native ``compress_ext`` (``tpulz4_compress_fast_ext``): row b's
     matches may reach into the last ``dict_lens[b]`` bytes of
     ``dictionary``'s row b (or its only row), up to 65,535 bytes back. One
-    shared row holds a dictionary once for the whole batch; rows whose
-    dictionary is the content before them (a linked frame's blocks) pass a
-    strided view of that content. A row with no dictionary is compressed
-    by :func:`compress_fast_batch`'s algorithm, as the native function
-    falls through to its plain compress.
+    shared row holds a dictionary once for the whole batch (and, at one
+    length for every row, its hash table is seeded once for the launch);
+    rows whose dictionary is the content before them (a linked frame's
+    blocks) pass a strided view of that content. A row with no dictionary
+    is compressed by :func:`compress_fast_batch`'s algorithm, as the native
+    function falls through to its plain compress.
 
     Returns (dest uint8[N, row_stride(dest_cap)], lens int32[N], err
     int32[N]) as :func:`compress_fast_batch` does.
@@ -606,7 +613,8 @@ def compress_dict_batch(src: torch.Tensor, src_lens: torch.Tensor,
     if dest_cap < 0:
         raise ValueError("dest_cap must be >= 0")
     n = src.shape[0]
-    stride = _check_window(dictionary, dict_lens, n, src.device, "dictionary")
+    stride, lo, hi = _check_window(dictionary, dict_lens, n, src.device,
+                                   "dictionary")
     if src.device.type == "cpu":
         return compress_dict_plain(src, src_lens, dest_cap, dictionary,
                                    dict_lens)
@@ -614,10 +622,13 @@ def compress_dict_batch(src: torch.Tensor, src_lens: torch.Tensor,
                        device=src.device)
     out_lens = torch.empty((n,), dtype=torch.int32, device=src.device)
     err = torch.empty((n,), dtype=torch.int32, device=src.device)
+    seed_len = hi if stride == 0 and lo == hi > 0 else -1
+    seed = SEED.take(src, SEED_WORDS) if seed_len > 0 else None
     COMPRESS_DICT(src.data_ptr(), src.stride(0), src_lens.data_ptr(),
                   dictionary.data_ptr() + dictionary.shape[1], stride,
                   dict_lens.data_ptr(), dest.data_ptr(), dest.stride(0),
                   dest_cap, out_lens.data_ptr(), err.data_ptr(), n,
+                  seed.data_ptr() if seed is not None else None, seed_len,
                   cuda_stream(src), device=src.device.index)
     return dest, out_lens, err
 

@@ -13,7 +13,12 @@ blocks (``csrc/linked_decode.cuh``):
   and writes one record a sequence (the six tables of
   ``kernels/sequences.py``, block-relative, a null offset a match of
   zeros), each block's code, output length and the farthest its matches
-  reach before its own start;
+  reach before its own start. A block longer than :data:`CHUNK`
+  compressed bytes is walked in chunks at once (:func:`chunk_layout`):
+  exit tables for every offset of a chunk, the chunks' true entries by
+  one table read each, then each chunk's walk from its entry; exact,
+  because the rules of the walk that depend on the output position can
+  only stop it;
 - :func:`frame_plan` (torch, on the batch's device) places the blocks one
   after another behind the window of ``w`` bytes carried in, gives block
   ``i`` its history ``min(65536, w + o_i)``, makes a block whose reach
@@ -34,16 +39,17 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..core.constants import MIN_MATCH, ML_BITS, ML_MASK, RUN_MASK
-from .build import Kernel, resident_ctas
+from .build import Kernel, Scratch, resident_ctas
 from .codec import (
     ERR_DEST_TOO_SMALL, ERR_MALFORMED, OK, WINDOW, _len_ext)
-from .layout import check_batch, cuda_stream
+from .layout import Staging, check_batch, cuda_stream
 from .sequences import max_seq_for
 
 # a walk code besides the codec's: more sequences than the table has room
@@ -52,9 +58,16 @@ TOO_MANY = 3
 _COPY_LENGTH = 8
 _KNOWN = 1 << 31          # a node's sign bit: its byte is known
 
+# the compressed bytes of a chunk of the chunked walk, and the longest
+# block that walks as one chunk (PERF.md: measured at 16 x 4 MiB
+# and 1,024 x 64 KiB; a batch of one chunk a block takes the warp walk)
+CHUNK = 4096
+WHOLE_BELOW = 65536
+
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 WALK = Kernel("linked_walk", "linked_decode", "lz4tt_linked_walk",
-              [_P, _I64, _P, _P, _I32, _I32, _P, _I32, _P, _P, _P, _P, _P])
+              [_P, _I64, _P, _P, _I32, _I32, _P, _I32, _P, _P, _P, _P, _P,
+               _I32, _I32, _I32, _P, _P])
 RESOLVE = Kernel("linked_resolve", "linked_decode", "lz4tt_linked_resolve",
                  [_P, _I64, _P, _I32, _I32, _P, _P, _P, _P, _I32, _P, _P,
                   _P, _P, _I32, _I32, _P])
@@ -91,6 +104,31 @@ def rounds_for(node_cap: int) -> int:
     return math.ceil(math.log2(max(node_cap, 2))) + 1
 
 
+def chunk_layout(comp_lens, raw, dest_cap: int, chunk: int = CHUNK,
+                 whole_below: int = WHOLE_BELOW):
+    """The chunks of a batch (host integers ``comp_lens``, flags ``raw``):
+    a block walks in ``ceil(len / chunk)`` chunks unless it is raw, no
+    longer than ``max(chunk, whole_below)`` or ``dest_cap`` is 0 (one
+    chunk: the whole walk). Returns (int32[2, N + 1], the exclusive scans
+    of the chunks a block and of its chunks but the last; the chunks; the
+    chunks with exit tables)."""
+    lens = np.asarray(comp_lens).astype(np.int64).reshape(-1)
+    flags = np.asarray(raw, bool).reshape(-1)
+    whole = flags | (lens <= max(chunk, whole_below)) | (dest_cap == 0)
+    nc = np.where(whole, 1, -(-lens // chunk))
+    lay = np.zeros((2, lens.size + 1), np.int64)
+    lay[0, 1:] = np.cumsum(nc)
+    lay[1, 1:] = np.cumsum(nc - 1)
+    if lay[0, -1] >= 1 << 31:
+        raise ValueError("too many chunks")
+    return lay.astype(np.int32), int(lay[0, -1]), int(lay[1, -1])
+
+
+# the chunked walk's scratch: its exit tables (12 B a compressed byte of
+# the chunks that have them) and 20 B a chunk, a card and stream
+SCRATCH = Scratch(torch.int32)
+
+
 def _check_raw(raw: torch.Tensor, n: int, device: torch.device) -> None:
     if (raw.dtype != torch.bool or raw.dim() != 1 or raw.shape[0] != n
             or not raw.is_contiguous() or raw.device != device):
@@ -99,7 +137,8 @@ def _check_raw(raw: torch.Tensor, n: int, device: torch.device) -> None:
 
 
 def walk_linked(comp: torch.Tensor, comp_lens: torch.Tensor,
-                raw: torch.Tensor, dest_cap: int, max_seq: int | None = None):
+                raw: torch.Tensor, dest_cap: int, max_seq: int | None = None,
+                host=None):
     """Walk a batch of linked blocks.
 
     Args:
@@ -108,11 +147,14 @@ def walk_linked(comp: torch.Tensor, comp_lens: torch.Tensor,
       dest_cap: the most bytes a block may decode to (the frame's block
         size).
       max_seq: table width; by default :func:`table_width`.
+      host: ``(comp_lens, raw)`` as host sequences, when the caller has
+        them: the kernel's chunks are planned on the host
+        (:func:`chunk_layout`), read back from the card otherwise.
 
     Returns:
       (tables int32[6, N, max_seq], n_seq, out_total, code, reach, each
       int32[N]) on the device of ``comp``. Row ``i``'s first ``n_seq[i]``
-      records are written (the kernel leaves the rest as it found them).
+      records are written (the kernel's entries past them are undefined).
       ``code`` is ``OK``, ``ERR_MALFORMED``, ``ERR_DEST_TOO_SMALL`` or
       :data:`TOO_MANY`; matches reaching before a block's start are no
       error here, ``reach`` is the farthest (0 for none).
@@ -122,22 +164,62 @@ def walk_linked(comp: torch.Tensor, comp_lens: torch.Tensor,
     _check_raw(raw, n, comp.device)
     if dest_cap < 0:
         raise ValueError("dest_cap must be >= 0")
+    if host is None and (max_seq is None or comp.device.type != "cpu"):
+        host = (comp_lens.tolist(), raw.tolist())
     if max_seq is None:
-        max_seq = table_width(comp_lens.tolist(), raw.tolist())
+        max_seq = table_width(*host)
     if max_seq < 1:
         raise ValueError("max_seq must be >= 1")
     if comp.device.type == "cpu":
         return walk_linked_plain(comp, comp_lens, raw, dest_cap, max_seq)
-    dev = comp.device
+    return _walk_cuda(comp, comp_lens, raw, dest_cap, max_seq, host, CHUNK,
+                      WHOLE_BELOW)
+
+
+def _walk_cuda(comp, comp_lens, raw, dest_cap: int, max_seq: int, host,
+               chunk: int, whole_below: int):
+    """:func:`walk_linked`'s launch on the card, its chunks planned by
+    :func:`chunk_layout` at ``chunk`` and ``whole_below``: the wrapper's
+    constants on the path; other values compare and time other layouts
+    (a ``whole_below`` past every block runs the first design alone, a
+    warp a block)."""
+    if not 0 < chunk < 1 << 16:
+        raise ValueError("chunk must lie in [1, 65535]")
+    n, dev = comp.shape[0], comp.device
     tables = torch.empty((6, n, max_seq), dtype=torch.int32, device=dev)
     n_seq, out_total, code, reach = torch.empty((4, n), dtype=torch.int32,
                                                 device=dev)
     if n:
+        lens = np.asarray(host[0])
+        lay_ptr = scratch_ptr = None
+        n_chunks, n_tab = n, 0      # one chunk a block: the warp walk
+        if dest_cap and lens.max() > max(chunk, whole_below):
+            lay, n_chunks, n_tab = chunk_layout(lens, host[1], dest_cap,
+                                                chunk, whole_below)
+        if n_chunks > n:
+            lay = _upload(lay, dev)
+            lay_ptr = lay.data_ptr()
+            scratch_ptr = SCRATCH.take(
+                comp, n_tab * 3 * chunk + 5 * n_chunks).data_ptr()
         WALK(comp.data_ptr(), comp.stride(0), comp_lens.data_ptr(),
              raw.data_ptr(), n, dest_cap, tables.data_ptr(), max_seq,
              n_seq.data_ptr(), out_total.data_ptr(), code.data_ptr(),
-             reach.data_ptr(), cuda_stream(comp), device=dev.index)
+             reach.data_ptr(), lay_ptr, n_chunks, n_tab, chunk, scratch_ptr,
+             cuda_stream(comp), device=dev.index)
     return tables, n_seq, out_total, code, reach
+
+
+_up = threading.local()
+
+
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The int32 array ``a`` on card ``dev`` by an asynchronous copy from a
+    pinned buffer of this thread's (a pageable one would wait for the
+    card)."""
+    st = _up.__dict__.setdefault(dev.index, Staging())
+    host = st.take(a.nbytes)
+    host.numpy()[:] = a.reshape(-1).view(np.uint8)
+    return st.upload(host, dev).view(torch.int32).view(a.shape)
 
 
 def _walk_row(src: bytes, src_end: int, dest_cap: int, raw: bool,
@@ -360,7 +442,8 @@ def resolve_linked_plain(comp: torch.Tensor, tables: torch.Tensor,
 def decode_linked_batch(comp: torch.Tensor, comp_lens: torch.Tensor,
                         raw: torch.Tensor, dest_cap: int,
                         window: torch.Tensor, max_seq: int | None = None,
-                        held: torch.Tensor | None = None) -> LinkedBatch:
+                        held: torch.Tensor | None = None,
+                        host=None) -> LinkedBatch:
     """Walk, place and resolve a batch of linked blocks against ``window``
     (uint8[w], the up to 64 KiB of output before it), on the batch's
     device: two launches on the card and one read-back (the codes, the
@@ -369,9 +452,10 @@ def decode_linked_batch(comp: torch.Tensor, comp_lens: torch.Tensor,
     whose checksum did not hold are neither resolved nor returned).
     Raises ``RuntimeError`` if a node is still open after the rounds that
     any batch needs, or if the first failing block had more sequences
-    than its table: both are faults of this code, not of the input."""
+    than its table: both are faults of this code, not of the input.
+    ``host`` is :func:`walk_linked`'s."""
     tables, n_seq, out_total, code, reach = walk_linked(
-        comp, comp_lens, raw, dest_cap, max_seq)
+        comp, comp_lens, raw, dest_cap, max_seq, host)
     block_at, code, n_ok, n_nodes = frame_plan(out_total, code, reach,
                                                window.numel(), held)
     node_cap = window.numel() + comp.shape[0] * dest_cap

@@ -652,8 +652,8 @@ class _LinkedFrameBody(_FrameBody):
     def _decode(self, host, n, raw, sums) -> int:
         """Decode, check and write one batch; returns its length."""
         dev = self.engine.device
-        width = linked_decode.table_width(
-            host.numpy()[:4 * n].view(np.int32), raw)
+        comp_lens = host.numpy()[:4 * n].view(np.int32)
+        width = linked_decode.table_width(comp_lens, raw)
         rows, lens = self._upload(host, n)
         held = None
         with part("kernels"):
@@ -663,7 +663,7 @@ class _LinkedFrameBody(_FrameBody):
                 held = xxh32_batch(rows, lens, 0).view(torch.int32) == want
             batch = linked_decode.decode_linked_batch(
                 rows, lens, torch.tensor(raw, dtype=torch.bool, device=dev),
-                self.bs, self.window, width, held)
+                self.bs, self.window, width, held, (comp_lens, raw))
         stop, w = batch.n_ok, self.window.numel()
         k = int(batch.block_at[stop])
         if k:

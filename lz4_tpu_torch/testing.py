@@ -692,3 +692,30 @@ def linked_blocks(raw: bytes, block_size: int, device) -> list[bytes]:
     if bool(err.any()):
         raise RuntimeError("a linked block failed to compress")
     return layout.from_device_layout(comp, comp_lens)
+
+
+def long_run_frame(case: str) -> bytes:
+    """A linked frame (``bd`` 6) of three 1 MiB blocks whose tokens hold
+    literal runs of 60,000 bytes and more, so that each block compresses
+    to over 64 KiB (``literal_runs``), or 0xFF runs of hundreds of bytes
+    (``long_matches``), or the latter with its second block cut in half
+    (``fault``)."""
+    rng = np.random.default_rng(164)
+    raws, comps, hist = [], [], b""
+    for k in range(3):
+        if case == "literal_runs":
+            seqs = [(rng.integers(0, 256, 60_000 + k, dtype=np.uint8)
+                     .tobytes(), 5, 20)] + [(b"", 1, 30)] * 100
+            tail = rng.integers(0, 256, 100_000, dtype=np.uint8).tobytes()
+        else:
+            seqs = [(b"ab", 2, 100_000), (b"", 7, 30_000)] + \
+                [(b"q", 3, 9)] * 500
+            tail = b"tail of the block"
+        raw = expand_block(seqs, tail, hist)
+        raws.append(raw)
+        comps.append(encode_block(seqs, tail))
+        hist += raw
+    if case == "fault":
+        comps[1] = comps[1][:len(comps[1]) // 2]
+    return build_frame(raws, comps, bd=6, independent=False,
+                       block_checksum=False)

@@ -886,6 +886,159 @@ def test_linked_walk_kernel_matches_plain(cuda_device, dest_cap, max_seq):
         assert torch.equal(got[0][:, i, :k], want[0][:, i, :k]), i
 
 
+def _long_run_blocks(rng) -> list[bytes]:
+    """Literal runs over many chunks, 0xFF runs longer than a chunk (both
+    lengths), the last literals in a late chunk, and those cut short."""
+    def lits(k):
+        return rng.integers(0, 256, k, dtype=np.uint8).tobytes()
+
+    good = [testing.encode_block([(lits(5000), 1, 4)], lits(9)),
+            testing.encode_block([(lits(300_000), 3, 40)], lits(700)),
+            testing.encode_block([(lits(10), 1, 200_000)], lits(9)),
+            testing.encode_block([(b"ab", 2, 9)] * 400, b"q" * 3000),
+            testing.encode_block([(b"", 1, 10)] * 50 + [(bytes(40_000), 3, 300)]
+                                 + [(b"z", 1, 5)] * 40, b"tail tail")]
+    return good + [g[:len(g) - k] for g in good for k in (1, 9, 300)
+                   if len(g) > k]
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 333, 4096])
+@pytest.mark.parametrize("dest_cap, max_seq", [
+    (400_000, None), (65536, None), (100, None), (65536, 5)])
+def test_chunked_walk_matches_plain(cuda_device, chunk, dest_cap, max_seq):
+    """The chunked walk at chunks down to 16 bytes, every block cut
+    (seams inside tokens, offsets and 0xFF runs; 32 offsets a step of a
+    chunk's tables, so pointer jumping over shuffles inside a step)
+    against the plain walk, exact, on the edge blocks and blocks of long
+    runs; one launch. The shipped layout (blocks of up to 64 KiB one
+    chunk) and the first design (a warp a block) give the same."""
+    rng = np.random.default_rng(66)
+    c, cl, raw = _linked_rows(cuda_device, rng)
+    extra = _long_run_blocks(rng)
+    blocks = layout.from_device_layout(c, cl) + extra
+    c, cl = layout.to_device_layout(blocks, device=cuda_device)
+    raw = torch.cat([raw, torch.zeros(len(extra), dtype=torch.bool,
+                                      device=cuda_device)])
+    host = (cl.tolist(), raw.tolist())
+    width = max_seq or linked_decode.table_width(*host)
+    before = linked_decode.WALK.launches
+    got = linked_decode._walk_cuda(c, cl, raw, dest_cap, width, host, chunk,
+                                   0)
+    assert linked_decode.WALK.launches == before + 1
+    want = linked_decode.walk_linked_plain(c, cl, raw, dest_cap, width)
+    _assert_walks_equal(got, want)
+    _assert_walks_equal(linked_decode.walk_linked(c, cl, raw, dest_cap, width,
+                                                  host), want)
+    _assert_walks_equal(linked_decode._walk_cuda(
+        c, cl, raw, dest_cap, width, host, chunk, WARP_ONLY), want)
+
+
+# a threshold past every block: the first design alone, a warp a block
+WARP_ONLY = 1 << 31
+
+
+def _assert_walks_equal(got, want):
+    for x, y in zip(got[1:], want[1:]):
+        assert torch.equal(x, y)
+    for i, k in enumerate(want[1].tolist()):
+        assert torch.equal(got[0][:, i, :k], want[0][:, i, :k]), i
+
+
+@pytest.mark.parametrize("bs", [65536, 4 << 20])
+def test_chunked_walk_on_linked_frames(cuda_device, bs):
+    """A linked frame's blocks (``testing.linked_blocks`` of a4, text and
+    random content) walked in chunks: equal to the plain walk on its first
+    block and to the warp walk on every block, exactly."""
+    rng = np.random.default_rng(67)
+    data = b"".join(testing.block_of(rng, k, 3 << 20)
+                    for k in ("alphabet4", "text", "incompressible"))
+    raws = [data[i:i + bs] for i in range(0, len(data), bs)]
+    comps = testing.linked_blocks(data, bs, cuda_device)
+    c, cl = layout.to_device_layout(testing.payloads(raws, comps),
+                                    device=cuda_device)
+    raw = torch.tensor([len(p) >= len(r) for r, p in zip(raws, comps)],
+                       device=cuda_device)
+    host = (cl.tolist(), raw.tolist())
+    width = linked_decode.table_width(*host)
+    got = linked_decode.walk_linked(c, cl, raw, bs, width, host)
+    assert not bool(got[3].any())
+    _assert_walks_equal(got, linked_decode._walk_cuda(
+        c, cl, raw, bs, width, host, linked_decode.CHUNK, WARP_ONLY))
+    want = linked_decode.walk_linked_plain(c[:1], cl[:1], raw[:1], bs, width)
+    _assert_walks_equal(tuple(t[:, :1] if t.dim() == 3 else t[:1]
+                              for t in got), want)
+
+
+@pytest.mark.parametrize("case", ["literal_runs", "long_matches", "fault"])
+def test_long_run_frames_on_the_card(cuda_device, case):
+    """The linked frames of ``test_torch_linked_walk_chunks.py``'s
+    ``test_frames_with_long_runs`` (``testing.long_run_frame``, which the
+    CPU test holds against the JAX package's reader) decoded on the card
+    (the ``literal_runs`` blocks compress to over 64 KiB, so the walk cuts
+    them into chunks): bytes written and error equal the same decode on
+    the CPU, exactly."""
+    from lz4_tpu_torch.core.errors import Lz4Error
+    from lz4_tpu_torch.streams.pipeline import decode_frames
+
+    frame = testing.long_run_frame(case)
+
+    def outcome(dev):
+        out = io.BytesIO()
+        try:
+            decode_frames(io.BytesIO(frame), out, "cuda", 3, dev,
+                          allow_dependent=True)
+        except Lz4Error as e:
+            return out.getvalue(), (type(e).__name__, str(e))
+        return out.getvalue(), None
+
+    build.reset_launch_counts()
+    got = outcome(cuda_device)
+    assert build.launch_counts()["linked_walk"] >= 1
+    want = outcome("cpu")
+    assert got == want
+    assert (want[1] is None) == (case != "fault")
+
+
+def test_dict_kernel_seeded_once_and_linked_rows(cuda_device):
+    """K2 with a dictionary on its new paths against the plain version:
+    one shared dictionary at one length (seeded once for the launch, each
+    CTA's table a bulk copy), the same with a row of no dictionary (each
+    CTA seeds its own), and linked rows whose dictionaries end where they
+    start (a strided view of one buffer) and the same dictionaries
+    copied."""
+    rng = np.random.default_rng(68)
+    d = testing.block_of(rng, "text", 65536)
+    blocks = [(d[-3000:] + testing.block_of(rng, k, 65536))[:65536]
+              if k == "alphabet4" else testing.block_of(rng, k, s)
+              for s in (13, 1000, 65536, 70000) for k in testing.KINDS]
+    src, lens = layout.to_device_layout(blocks, device=cuda_device)
+    win = layout.upload_bytes(d, cuda_device).view(1, -1)
+    cap = max_compressed_length(70000)
+    for wl in (torch.full((len(blocks),), 65536, dtype=torch.int32),
+               torch.tensor([0] + [4095] * (len(blocks) - 1),
+                            dtype=torch.int32)):
+        wl = wl.to(cuda_device)
+        _assert_codec_equal(codec.compress_dict_batch(src, lens, cap, win, wl),
+                            codec.compress_dict_plain(src, lens, cap, win, wl))
+    bs, w = 4096, codec.WINDOW
+    content = testing.block_of(rng, "text", 40 * bs - 99)
+    n = -(-len(content) // bs)
+    buf = torch.zeros((w + n * bs,), dtype=torch.uint8, device=cuda_device)
+    buf[w:w + len(content)] = layout.upload_bytes(content, cuda_device)
+    rows = buf[w:].view(n, bs)
+    dicts = buf.as_strided((n, w), (bs, 1))
+    ll = torch.tensor([min(bs, len(content) - i * bs) for i in range(n)],
+                      dtype=torch.int32, device=cuda_device)
+    dl = torch.tensor([min(i * bs, w) for i in range(n)], dtype=torch.int32,
+                      device=cuda_device)
+    cap = max_compressed_length(bs)
+    kern = codec.compress_dict_batch(rows, ll, cap, dicts, dl)
+    _assert_codec_equal(kern, codec.compress_dict_plain(rows, ll, cap, dicts,
+                                                        dl))
+    two = codec.compress_dict_batch(rows, ll, cap, dicts.contiguous(), dl)
+    assert all(torch.equal(x, y) for x, y in zip(kern, two))
+
+
 @pytest.mark.parametrize("block, w, kind", [
     (65536, 0, "alphabet4"), (300, 5000, "alphabet4"), (65536, 65536, "text"),
     (1000, 65536, "zeros")])
