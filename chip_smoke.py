@@ -34,8 +34,9 @@ Phases (any failure exits non-zero; nothing is caught):
    into histories of 0 to 65,536 bytes, matches reaching before them,
    fuzz, tight caps and guards, and linked blocks in one buffer; the
    linked walk and resolve (``_linked_edge_cases``) on those blocks, fuzz
-   and 300-byte linked blocks behind a window, and linked frames with
-   each fault decoded on the card and the CPU alike;
+   and 300-byte linked blocks behind a window, the resolve on each of
+   ``testing.resolve_case``'s batches (and a list too short), and linked
+   frames with each fault decoded on the card and the CPU alike;
 4. the main path: ``roundtrip_step`` on 4096 blocks of 64 KiB (256 MiB),
    3 iterations with launch counts reset just before and read just after,
    every block OK, the packed frame body equal to the one assembled on the
@@ -131,7 +132,7 @@ Phases (any failure exits non-zero; nothing is caught):
    through their wrappers and alone, beside the same rows without a
    window and one row alone; and the linked walk (against its plain
    version on 8 rows) and resolve (on the first 64 blocks) timed on both
-   frames' batches, the resolve also without its rounds;
+   frames' batches, the resolve also by its kernels' device times;
 8d. the parallel compressor and the gather decode (:func:`phase_parallel`):
    K7 against its plain version on ``testing.parallel_blocks`` (sizes
    0-16, 511-513, 2047-2049, 65,535-65,537; zeros, a4, text, random,
@@ -187,7 +188,8 @@ import torch
 import torch.distributed as tdist
 
 from lz4_tpu_torch import (
-    Lz4Factory, XXHashFactory, dryrun_multigpu, formats, testing)
+    Lz4Factory, XXHashFactory, design_variants, dryrun_multigpu, formats,
+    testing)
 from lz4_tpu_torch.__main__ import main as cli_main
 from lz4_tpu_torch.api import cuda_instances
 from lz4_tpu_torch.core import xxhash_ref
@@ -296,7 +298,8 @@ OCCUPANCY = (("lz4_compress", "lz4tt_compress_occupancy"),
              ("lz4_decode", "lz4tt_decode_hist_occupancy"),
              ("parallel_compress", "lz4tt_parallel_occupancy"),
              ("gather_decode", "lz4tt_gather_occupancy"),
-             ("linked_decode", "lz4tt_linked_occupancy"))
+             ("linked_decode", "lz4tt_linked_occupancy"),
+             ("linked_decode", "lz4tt_linked_segment_occupancy"))
 KIND_NAMES = ("a4", "text", "random")    # sharded.block_kinds 0, 1, 2
 A4_ROWS = (132, 1056, 4096)              # one block an SM, 8, 31
 HC_LEVEL = 9                             # the default level
@@ -827,12 +830,60 @@ def _linked_edge_cases(dev, rng) -> None:
             kern[:m].cpu().numpy().tobytes() != data[:m]:
         fail("linked resolve: 300-byte blocks differ from the plain version "
              "or the input")
+    cases = _resolve_cases(dev, rng)
     outcomes = _linked_frame_faults(dev, rng)
     log(f"linked walk == plain on {len(blocks)} blocks, OK/MALFORMED/"
         f"DEST_TOO_SMALL/TOO_MANY by block size/table width: {codes}; "
-        f"linked resolve == plain on {len(pays)} blocks of 300 B "
-        f"({opened.tolist().index(0) + 1} rounds); linked frames on the "
-        f"card == on the CPU: {outcomes}")
+        f"linked resolve == plain on {len(pays)} blocks of 300 B (open "
+        f"after the pass, listed, rounds: {opened.tolist()[:3]}) and on "
+        f"testing.resolve_case's batches (the same): {cases}; linked frames "
+        f"on the card == on the CPU: {outcomes}")
+
+
+def _resolve_cases(dev, rng) -> dict:
+    """The resolve on each of ``testing.resolve_case``'s batches against its
+    plain version (max abs error 0) and the batch's content, its open nodes
+    and list against ``testing.resolve_sets``, no list entry left open;
+    and in chunks of a third of its open exits and of one: the same bytes.
+    Returns each case's (open, listed, rounds)."""
+    out = {}
+    for case in testing.RESOLVE_CASES:
+        window, raws, comps, dest_cap, n_ok = testing.resolve_case(case, rng)
+        c, cl = layout.to_device_layout(testing.payloads(raws, comps),
+                                        device=dev)
+        flags = torch.tensor([len(q) >= len(r) for r, q in zip(raws, comps)],
+                             device=dev)
+        win = layout.upload_bytes(window, dev) if window else \
+            torch.empty((0,), dtype=torch.uint8, device=dev)
+        walk = linked_decode.walk_linked(c, cl, flags, dest_cap)
+        plan = linked_decode.frame_plan(walk[2], walk[3], walk[4], win.numel())
+        args = (c, walk[0], walk[1], plan[0], plan[2], plan[3], win,
+                win.numel() + len(raws) * dest_cap)
+        kern, opened = linked_decode.resolve_linked(*args)
+        want, _ = linked_decode.resolve_linked_plain(*args)
+        m = int(plan[3])
+        leaves, listed = testing.resolve_sets(
+            walk[0], walk[1], plan[0], plan[2], win.numel(), m,
+            linked_decode.SEGMENT)
+        if int(plan[2]) != n_ok or int(opened[-1]) or \
+                not torch.equal(kern[:m], want[:m]) or \
+                kern[:m].cpu().numpy().tobytes() != \
+                window + b"".join(raws[:n_ok]) or \
+                opened.tolist()[:2] != [int(leaves.sum()), int(listed.sum())]:
+            fail(f"linked resolve, case {case}: differs from the plain "
+                 f"version, the input or the records "
+                 f"({opened.tolist()}, {int(leaves.sum())}, "
+                 f"{int(listed.sum())})")
+        out[case] = opened.tolist()[:3]
+        rooms = {"big_block": (int(opened[1]) // 3 + 1,),
+                 "long_record": (1,)}
+        for room in rooms.get(case, ()):
+            part, popen = linked_decode._resolve_cuda(*args, room)
+            if not torch.equal(part[:m], want[:m]) or \
+                    popen.tolist()[:2] != opened.tolist()[:2] or popen[3]:
+                fail(f"linked resolve, case {case}: in chunks of {room} "
+                     f"differs ({popen.tolist()})")
+    return out
 
 
 def _linked_frame_faults(dev, rng) -> dict:
@@ -2600,11 +2651,15 @@ def _linked_kernels(dev, raw: bytes, linked: dict, launches: dict,
     blocks of 64 KiB, 16 of 4 MiB; one batch each), against their plain
     versions (the walk on ``LINKED_PLAIN_ROWS`` rows of the 64 KiB batch
     and on one 4 MiB row, the resolve on its first ``LINKED_PLAIN_BLOCKS``
-    blocks, 4 MiB) and against the walk's first design (a warp a block) on
-    every row of both batches, and timed through their wrappers: the walk
-    (and its first design and every block cut beside it), the resolve, and the resolve with no rounds (its fill and gather), with
-    the rounds it ran. Returns their rows of the ``kernels`` line, the 64
-    KiB batch's numbers as ``ms``, the 4 MiB batch's beside them."""
+    blocks, 4 MiB, its open nodes and list against the records'), the walk
+    against its first design on every row of both batches, and timed
+    through their wrappers: the walk (and its first design and every
+    block cut beside it), the resolve (and its kernels' device times,
+    ``torch.profiler``), the resolve's own peak memory, with its open
+    nodes, list and rounds (its first design is timed by
+    ``python -m lz4_tpu_torch.design_variants --resolve``). Returns their
+    rows of the ``kernels`` line, the 64 KiB batch's numbers as ``ms``,
+    the 4 MiB batch's beside them."""
     win = torch.empty((0,), dtype=torch.uint8, device=dev)
     got = {}
     for bs in (BLOCK_LEN, LINKED_BIG):
@@ -2620,15 +2675,22 @@ def _linked_kernels(dev, raw: bytes, linked: dict, launches: dict,
             c, cl, flags, bs, width)
         block_at, _, n_ok, n_nodes = linked_decode.frame_plan(
             out_total, code, reach, 0)
-        out, opened = linked_decode.resolve_linked(
-            c, tables, n_seq, block_at, n_ok, n_nodes, win, cap)
+        args = (c, tables, n_seq, block_at, n_ok, n_nodes, win, cap)
+        out, opened = linked_decode.resolve_linked(*args)
         if int(n_ok) != n or int(n_nodes) != len(raw) or \
                 out[:len(raw)].cpu().numpy().tobytes() != raw:
             fail(f"linked kernels at {bs}: the batch did not decode to its "
                  f"input")
         if int(opened[-1]):
             fail(f"linked resolve at {bs}: nodes left open")
-        rounds = opened.tolist().index(0) + 1
+
+        def peak_gib(fn):
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            sync()
+            return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
         used = torch.arange(width, device=dev) < n_seq.long()[:, None]
         seqs = int(n_seq.sum())
         lit_bytes = int(tables[2][used].long().sum())
@@ -2663,12 +2725,17 @@ def _linked_kernels(dev, raw: bytes, linked: dict, launches: dict,
             **designs,
             "walk_scratch_gib": linked_decode.SCRATCH.last_nbytes / 2 ** 30,
             "chunks": n_chunks,
-            "resolve_ms": _time_kernel(lambda: linked_decode.resolve_linked(
-                c, tables, n_seq, block_at, n_ok, n_nodes, win, cap)),
-            "fill_gather_ms": _time_kernel(
-                lambda: linked_decode.resolve_linked(
-                    c, tables, n_seq, block_at, n_ok, n_nodes, win, cap, 0)),
-            "rounds": rounds, "open_by_round": opened[:rounds].tolist(),
+            "resolve_ms": _time_kernel(
+                lambda: linked_decode.resolve_linked(*args)),
+            # its kernels' device times (us a call; empty where the trace
+            # has none)
+            "resolve_kernels_us": design_variants._kernel_times(
+                lambda: linked_decode.resolve_linked(*args)),
+            "resolve_peak_gib": peak_gib(
+                lambda: linked_decode.resolve_linked(*args)),
+            **dict(zip(("open_after_pass", "list", "rounds"),
+                       opened.tolist()[:3])),
+            "list_room": -(-cap // linked_decode.LIST_SHARE),
             "sequences": seqs, "table_width": width,
             # the payloads, their lengths and flags in; 24 B of table a
             # sequence and 16 B a block out
@@ -2704,13 +2771,19 @@ def _linked_kernels(dev, raw: bytes, linked: dict, launches: dict,
         wk = linked_decode.walk_linked(ck, clk, fk, bs, width)
         plan = linked_decode.frame_plan(wk[2], wk[3], wk[4], 0)
         args = (ck, wk[0], wk[1], plan[0], plan[2], plan[3], win, k * bs)
-        kern, _ = linked_decode.resolve_linked(*args)
+        kern, kopen = linked_decode.resolve_linked(*args)
         (want, _), resolve_plain_ms = _time_plain(
             lambda: linked_decode.resolve_linked_plain(*args))
         m = int(plan[3])
         resolve_err = int((kern[:m].int() - want[:m].int()).abs().max())
         if resolve_err or kern[:m].cpu().numpy().tobytes() != raw[:m]:
             fail("linked resolve: differs from the plain version")
+        leaves, listed = testing.resolve_sets(
+            wk[0], wk[1], plan[0], plan[2], 0, m, linked_decode.SEGMENT)
+        if kopen.tolist()[:2] != [int(leaves.sum()), int(listed.sum())]:
+            fail(f"linked resolve: open nodes and list {kopen.tolist()[:2]}"
+                 f", the records say {int(leaves.sum())}, "
+                 f"{int(listed.sum())}")
     small, big = got[BLOCK_LEN], got[LINKED_BIG]
     rows = [kernel_row("linked_walk", launches, 0, small["walk_ms"],
                        walk_plain_ms, small["walk_bytes"], len(raw),
@@ -2728,13 +2801,13 @@ def _linked_kernels(dev, raw: bytes, linked: dict, launches: dict,
         rows[0][k] = small[k]
         rows[0]["at_4mib_blocks"][k] = big[k]
     rows[0]["card"] = card
+    resolve_keys = ("resolve_kernels_us", "resolve_peak_gib",
+                    "open_after_pass", "list", "list_room", "rounds")
     for row in rows[1:]:
-        row.update({k: small[k] for k in ("fill_gather_ms", "rounds",
-                                          "open_by_round")})
-        row["at_4mib_blocks"].update({k: big[k] for k in (
-            "fill_gather_ms", "rounds")})
+        row.update({k: small[k] for k in resolve_keys})
+        row["at_4mib_blocks"].update({k: big[k] for k in resolve_keys})
     for bs in (BLOCK_LEN, LINKED_BIG):
-        info = {k: v for k, v in got[bs].items() if k != "open_by_round"}
+        info = dict(got[bs])
         info.update({k: linked[bs][k] for k in (
             "frame_bytes", "compressed_blocks", "peak_gib", "held_gib")})
         log(f"linked kernels at {bs} B blocks, one batch of "
@@ -2746,6 +2819,15 @@ def _linked_kernels(dev, raw: bytes, linked: dict, launches: dict,
         f"block cut on all {FORMAT_BLOCKS} + {len(raw) // LINKED_BIG} rows; linked "
         f"resolve == plain on {LINKED_PLAIN_BLOCKS} blocks "
         f"({resolve_plain_ms:.1f} ms)")
+    log(f"linked resolve ({card}), ms at 64 KiB; 4 MiB blocks: "
+        f"{small['resolve_ms']:.3f}; {big['resolve_ms']:.3f} (5 kernels, us "
+        f"a call: {small['resolve_kernels_us']}; "
+        f"{big['resolve_kernels_us']}); open after the pass "
+        f"{small['open_after_pass']}; {big['open_after_pass']} of "
+        f"{len(raw)} bytes, listed {small['list']}; {big['list']} (room "
+        f"{small['list_room']}), rounds {small['rounds']}; {big['rounds']}; "
+        f"the resolve's own peak {small['resolve_peak_gib']:.3f}; "
+        f"{big['resolve_peak_gib']:.3f} GiB")
     log(f"linked walk ({card}), ms: shipped {small['walk_ms']:.3f} at 64 KiB "
         f"(one chunk a block), {big['walk_ms']:.3f} at 4 MiB ("
         f"{big['chunks']} chunks); its C entry point alone "

@@ -16,10 +16,12 @@
 // (3.35 TB/s). What they do instead: the walk is chains of dependent
 // loads, one a chunk of a block (K1's, without its copies), beside a
 // backward pass over every offset of a chunk and one dependent table read
-// a chunk; the resolve writes a 4-byte node a byte, then each round reads
-// every node of the batch and gathers the parent of each open one.
+// a chunk; the resolve's chains are output bytes copied from earlier ones,
+// through the whole batch (the match sources of alphabet-4 data lie a few
+// hundred bytes back, so a byte's chain runs back to the start of its run
+// of such blocks).
 //
-// Design (the walk's second, the resolve's first):
+// Design (the walk's second, the resolve's second):
 //   - lz4tt_linked_walk, four launches on one stream: a block longer than
 //     one chunk (kernels/linked_decode.py::CHUNK compressed bytes) is cut
 //     into chunks, and every chunk but a block's last gets its exit tables
@@ -37,16 +39,31 @@
 //     warp a block, lane 0 walking, four warps a CTA (walk_kernel). The
 //     chunks in one kernel with a decoupled look-back lost to the four
 //     launches (design_variants.py, linked_decode);
-//   - lz4tt_linked_resolve, on one stream: the fill (a CTA of 256 threads a
-//     block and 256 of its records, a thread a record, records longer than
-//     LZ4TT_LR_LONG nodes by the CTA; one more row of CTAs for the window),
-//     `rounds` round kernels over the nodes in place, each a grid of the
-//     resident CTAs that counts the nodes it leaves open and returns at
-//     once when the round before left none, and the gather of each node's
-//     byte. The number of nodes and of blocks to resolve are read on the
-//     card, so nothing waits for the host between the walk and the gather.
+//   - lz4tt_linked_resolve, five launches on one stream
+//     (linked_decode.cuh, "The resolve by segments"): segment_kernel, a CTA
+//     of 512 threads a segment of 16 KiB of output (64 KiB of int32 nodes
+//     in shared memory, three CTAs an SM), fills its nodes from the
+//     records that cover it, resolves them in output order and writes
+//     every known byte once; count_kernel and init_kernel rank the open
+//     exits (the nodes through which chains leave their segments: far
+//     fewer than the nodes whose chains leave); and resolve_kernel, a
+//     cooperative grid of the resident CTAs, takes those exits in chunks
+//     of a fixed room in output order (a chunk's positions from the words
+//     of the bitmap that hold its ranks alone), makes each entry the index
+//     of the entry its exit has or that exit's known byte, runs the rounds
+//     over each chunk in place and writes their bytes; finish_kernel
+//     writes every other open node's byte, the byte at its exit. Every byte is written once. Nothing waits for the host,
+//     and no launch returns for want of work: the rounds end on the list.
+//     The rounds are bounded, and the entries they leave open (none,
+//     unless the list is faulty) are counted. A batch holds 2 B an output
+//     byte (the offset to its exit), three bitmaps' worth of words and the
+//     room (two int32 an entry), where the first design (a node for every
+//     byte, rounds over all of them; design_variants.py times it) held an
+//     int32 node an output byte.
 #include "linked_decode.cuh"
 
+#include <cooperative_groups.h>
+#include <string.h>
 #include <cuda_runtime.h>
 
 #include "lz4tt_device.cuh"
@@ -57,8 +74,14 @@ constexpr int kWalkWarps = 4;
 constexpr int kTabWarps = 4;
 constexpr int kEmitWarps = 4;
 constexpr int kChunkThreads = 128;
-constexpr int kFill = 256;
-constexpr int kRound = 256;
+// the resolve's segments: output bytes, threads, resident CTAs an SM
+constexpr int kSeg = 16384, kSegThreads = 512, kSegCtas = 3;
+constexpr int kScan = 512;    // count and init: words a thread, a CTA
+constexpr int kScanWords = 4;
+constexpr int kChunkWords = kScan * kScanWords;
+constexpr int kResolve = 256;
+constexpr int kBatch = 8;     // words or entries a thread at a time, in flight
+constexpr int kFinish = 16;   // nodes a thread in finish_kernel
 
 // The six tables of block b of n, max_seq records a row.
 __device__ __forceinline__ Lz4ttLwTables row_tables(int32_t* tables,
@@ -195,69 +218,374 @@ __global__ void __launch_bounds__(32 * kWalkWarps)
   reach[b] = r.reach;
 }
 
-// Grid (x, n + 1): CTA (x, b < n) fills records [x * kFill, +kFill) of
-// block b, if b is below *n_ok; the row b = n fills the window's nodes.
-__global__ void __launch_bounds__(kFill)
-    fill_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
-                const int32_t* tables, int32_t max_seq, int32_t n,
-                const int32_t* __restrict__ n_seq,
-                const int64_t* __restrict__ block_at,
-                const int64_t* __restrict__ n_ok,
-                const uint8_t* __restrict__ window, int32_t w,
-                int32_t* nodes) {
-  __shared__ int32_t longs[kFill];
-  __shared__ int32_t n_long;
-  const int32_t b = blockIdx.y;
-  if (b == n) {
-    for (int64_t j = (int64_t)blockIdx.x * kFill + threadIdx.x; j < w;
-         j += (int64_t)gridDim.x * kFill)
-      nodes[j] = lz4tt_lr_known(window[j]);
+// ---------------------------------------------------------------------------
+// The resolve by segments (linked_decode.cuh, lz4tt_rs_*).
+// ---------------------------------------------------------------------------
+
+// A CTA as lz4tt_rs_segment's team (its collectives a warp at a time).
+struct SegTeam {
+  __host__ __device__ __forceinline__ int rank() const {
+#ifdef __CUDA_ARCH__
+    return threadIdx.x;
+#else
+    return 0;
+#endif
+  }
+  __host__ __device__ __forceinline__ int size() const {
+#ifdef __CUDA_ARCH__
+    return blockDim.x;
+#else
+    return 1;
+#endif
+  }
+  __host__ __device__ __forceinline__ void sync() const {
+#ifdef __CUDA_ARCH__
+    __syncthreads();
+#endif
+  }
+  __host__ __device__ __forceinline__ int32_t add(int32_t* p,
+                                                  int32_t v) const {
+#ifdef __CUDA_ARCH__
+    return atomicAdd(p, v);
+#else
+    return 0;
+#endif
+  }
+  __host__ __device__ __forceinline__ void add_all(int32_t* p,
+                                                   int32_t v) const {
+#ifdef __CUDA_ARCH__
+    v = __reduce_add_sync(0xffffffffu, v);
+    if ((threadIdx.x & 31) == 0 && v) atomicAdd(p, v);
+#endif
+  }
+  // the warp's word: a ballot, stored by lane 0
+  __host__ __device__ __forceinline__ void put_bit(uint32_t* words, int32_t j,
+                                                   bool on,
+                                                   bool valid) const {
+#ifdef __CUDA_ARCH__
+    const uint32_t w = __ballot_sync(0xffffffffu, on);
+    if ((threadIdx.x & 31) == 0 && valid) words[j >> 5] = w;
+#endif
+  }
+  __host__ __device__ __forceinline__ void or_shared(uint32_t* p,
+                                                     uint32_t v) const {
+#ifdef __CUDA_ARCH__
+    atomicOr(p, v);
+#endif
+  }
+  __host__ __device__ __forceinline__ void or_global(uint32_t* p,
+                                                     uint32_t v) const {
+#ifdef __CUDA_ARCH__
+    atomicOr(p, v);
+#endif
+  }
+};
+
+// The whole grid of a cooperative launch as lz4tt_rs_rounds' grid.
+struct GridTeam {
+  __host__ __device__ __forceinline__ int64_t rank() const {
+#ifdef __CUDA_ARCH__
+    return (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+#else
+    return 0;
+#endif
+  }
+  __host__ __device__ __forceinline__ int64_t size() const {
+#ifdef __CUDA_ARCH__
+    return (int64_t)gridDim.x * blockDim.x;
+#else
+    return 1;
+#endif
+  }
+  __host__ __device__ __forceinline__ bool leader() const {
+#ifdef __CUDA_ARCH__
+    return blockIdx.x == 0 && threadIdx.x == 0;
+#else
+    return true;
+#endif
+  }
+  __host__ __device__ __forceinline__ void sync() const {
+#ifdef __CUDA_ARCH__
+    cooperative_groups::this_grid().sync();
+#endif
+  }
+  __host__ __device__ __forceinline__ void add_all(int32_t* p,
+                                                   int32_t v) const {
+#ifdef __CUDA_ARCH__
+    v = __reduce_add_sync(0xffffffffu, v);
+    if ((threadIdx.x & 31) == 0 && v) atomicAdd(p, v);
+#endif
+  }
+};
+
+// Shared memory of a segment (Lz4ttRsShared): the nodes, the exits'
+// bitmap, the long records, four counters.
+constexpr size_t kSegSmem =
+    4 * (size_t)(kSeg + LZ4TT_RS_EXIT_WORDS + kSegThreads + 4);
+
+// Step 1: CTA g resolves segment [g * kSeg, +kSeg) if it starts below
+// *n_nodes; counters[0] += its open nodes.
+__global__ void __launch_bounds__(kSegThreads, kSegCtas)
+    segment_kernel(Lz4ttRsBatch bt, Lz4ttRsMaps m,
+                   const int64_t* __restrict__ n_ok,
+                   const int64_t* __restrict__ n_nodes, int32_t* counters) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int64_t total = *n_nodes;
+  const int64_t s0 = (int64_t)blockIdx.x * kSeg;
+  if (s0 >= total) return;
+  bt.n_ok = (int32_t)*n_ok;
+  bt.n_nodes = (int32_t)total;
+  int32_t* sm = (int32_t*)smem;
+  const Lz4ttRsShared sh = {sm, (uint32_t*)(sm + kSeg),
+                            sm + kSeg + LZ4TT_RS_EXIT_WORDS,
+                            sm + kSeg + LZ4TT_RS_EXIT_WORDS + kSegThreads};
+  lz4tt_rs_segment(SegTeam(), bt, m, (int32_t)s0, kSeg, sh);
+  if (threadIdx.x == 0 && sh.cnt[2]) atomicAdd(counters, sh.cnt[2]);
+}
+
+// The sum of v over a CTA of kScan threads (sh: kScan / 32 int32).
+__device__ __forceinline__ int32_t block_sum(int32_t v, int32_t* sh) {
+  v = __reduce_add_sync(0xffffffffu, v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int32_t s = 0;
+#pragma unroll
+  for (int i = 0; i < kScan / 32; i++) s += sh[i];
+  return s;
+}
+
+// The exclusive sum of v over a CTA of kScan threads, in thread order.
+__device__ __forceinline__ int32_t block_exclusive(int32_t v, int32_t* sh) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  int32_t x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int32_t u = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += u;
+  }
+  __syncthreads();
+  if (lane == 31) sh[wid] = x;
+  __syncthreads();
+  int32_t before = 0;
+  for (int i = 0; i < wid; i++) before += sh[i];
+  return before + x - v;
+}
+
+// Step 2: the open exits (exits &= open) and their count a chunk of
+// kChunkWords words (thread t: words kScanWords * t, ...).
+__global__ void __launch_bounds__(kScan)
+    count_kernel(uint32_t* exits, const uint32_t* __restrict__ open,
+                 const int64_t* __restrict__ n_nodes, int32_t* chunk_sum) {
+  __shared__ int32_t sh[kScan / 32];
+  const int64_t words = (*n_nodes + 31) >> 5;
+  const int64_t w0 =
+      (int64_t)blockIdx.x * kChunkWords + (int64_t)threadIdx.x * kScanWords;
+  int32_t c = 0;
+#pragma unroll
+  for (int u = 0; u < kScanWords; u++) {
+    if (w0 + u < words) {
+      const uint32_t f = exits[w0 + u] & open[w0 + u];
+      exits[w0 + u] = f;
+      c += __popc(f);
+    }
+  }
+  c = block_sum(c, sh);
+  if (threadIdx.x == 0) chunk_sum[blockIdx.x] = c;
+}
+
+// Step 3: word_base, the open exits in all (counters[1]), and the first
+// chunk's positions: those of the open exits of ranks below list_cap;
+// tally (the rounds' sums) zeroed.
+__global__ void __launch_bounds__(kScan)
+    init_kernel(Lz4ttRsMaps m, const int64_t* __restrict__ n_nodes,
+                const int32_t* __restrict__ chunk_sum, int32_t n_chunks,
+                int32_t list_cap, int32_t* counters, int32_t* tally) {
+  __shared__ int32_t sh[kScan / 32];
+  if (blockIdx.x == 0 && threadIdx.x < 3) tally[threadIdx.x] = 0;
+  int32_t before = 0, all = 0;
+  for (int32_t c = threadIdx.x; c < n_chunks; c += kScan) {
+    const int32_t v = chunk_sum[c];
+    all += v;
+    if (c < (int32_t)blockIdx.x) before += v;
+  }
+  before = block_sum(before, sh);
+  all = block_sum(all, sh);
+  if (blockIdx.x == 0 && threadIdx.x == 0) counters[1] = all;
+  const int64_t words = (*n_nodes + 31) >> 5;
+  const int64_t w0 =
+      (int64_t)blockIdx.x * kChunkWords + (int64_t)threadIdx.x * kScanWords;
+  uint32_t f[kScanWords];
+  int32_t mine = 0;
+#pragma unroll
+  for (int u = 0; u < kScanWords; u++) {
+    f[u] = w0 + u < words ? m.exits[w0 + u] : 0u;
+    mine += __popc(f[u]);
+  }
+  int32_t at = before + block_exclusive(mine, sh), wb[kScanWords];
+#pragma unroll
+  for (int u = 0; u < kScanWords; u++) {
+    wb[u] = at;
+    if (w0 + u < words) m.word_base[w0 + u] = at;
+    at += __popc(f[u]);
+  }
+  // the positions, a warp's words one at a time, a lane a bit: stores of
+  // consecutive entries
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < kScanWords; u++)
+    for (uint32_t nz = __ballot_sync(0xffffffffu, f[u] != 0u); nz;
+         nz &= nz - 1) {
+      const int src = __ffs(nz) - 1;
+      const uint32_t bits = __shfl_sync(0xffffffffu, f[u], src);
+      const int32_t k = __shfl_sync(0xffffffffu, wb[u], src) +
+                        __popc(bits & ((1u << lane) - 1u));
+      const int32_t w = __shfl_sync(0xffffffffu, (int32_t)(w0 + u), src);
+      if (((bits >> lane) & 1u) && k < list_cap) m.pos[k] = w * 32 + lane;
+    }
+}
+
+// The first word of the open exits' bitmap (of `words`) whose open exits
+// reach past rank r (words if none), by a warp: 32 probes a step, the
+// words before it those whose open exits all rank at or below r.
+__device__ __forceinline__ int64_t word_past(const Lz4ttRsMaps& m,
+                                             int64_t words, int32_t r) {
+  const int lane = threadIdx.x & 31;
+  int64_t lo = 0, hi = words;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int64_t step = (hi - lo + 31) / 32, w = lo + lane * step;
+    const bool before =
+        w < hi && m.word_base[w] + __popc(m.exits[w]) <= r;
+    const int n = __popc(__ballot_sync(0xffffffffu, before));
+    if (n == 0) break;  // the answer is lo
+    const int64_t top = lo + n * step;
+    lo += (n - 1) * step + 1;
+    hi = top < hi ? top : hi;
+  }
+  return lo;
+}
+
+// The open exits with ranks in [base, base + len), kBatch words a warp at a
+// time (a lane a bit), over the words that hold them: fn(q, rank(q) -
+// base) for each.
+template <class F>
+__device__ __forceinline__ void each_in_chunk(const Lz4ttRsMaps& m,
+                                              int64_t words, int64_t me,
+                                              int64_t warps, int32_t base,
+                                              int32_t len, F fn) {
+  const int lane = threadIdx.x & 31;
+  const int64_t lo = word_past(m, words, base);
+  int64_t hi = word_past(m, words, base + len - 1) + 1;
+  if (hi > words) hi = words;
+  for (int64_t w0 = lo + (me >> 5); w0 < hi; w0 += kBatch * warps) {
+    uint32_t mask[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; u++) {
+      const int64_t w = w0 + u * warps;
+      mask[u] = w < hi ? lz4tt_rs_in_chunk(m, w, base, len) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; u++)
+      if ((mask[u] >> lane) & 1u) {
+        const int32_t q = (int32_t)((w0 + u * warps) * 32 + lane);
+        fn(q, lz4tt_rs_rank(m, q) - base);
+      }
+  }
+}
+
+// Step 4, a cooperative grid (all CTAs resident): the list in chunks of
+// list_cap ranks (linked_decode.cuh, step 4; the first chunk's positions
+// from init_kernel, the others' here), the rounds over each chunk
+// (lz4tt_rs_rounds: a thread's own, then the grid's), counters[2] the most
+// rounds a thread took on a chunk, counters[3] the entries left open, each
+// chunk's bytes to out at their positions.
+__global__ void __launch_bounds__(kResolve)
+    resolve_kernel(Lz4ttRsMaps m, const int64_t* __restrict__ n_nodes,
+                   int32_t list_cap, int32_t* counters, int32_t* tally) {
+  const GridTeam grid;
+  const int32_t n_list = counters[1];
+  const int64_t me = grid.rank(), lanes = grid.size(), warps = lanes >> 5;
+  const int64_t total = *n_nodes, words = (total + 31) >> 5;
+  int32_t turn = 0;
+  for (int32_t base = 0; base < n_list; base += list_cap) {
+    const int32_t len = n_list - base < list_cap ? n_list - base : list_cap;
+    if (base > 0) {
+      each_in_chunk(m, words, me, warps, base, len,
+                    [&](int32_t q, int32_t k) { m.pos[k] = q; });
+      grid.sync();
+    }
+    // the entries: their exits' own entries or known bytes, each step's
+    // loads for kBatch entries in flight together
+    for (int64_t i0 = me; i0 < len; i0 += kBatch * lanes) {
+      int32_t q[kBatch], k[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; u++)
+        q[u] = i0 + u * lanes < len ? m.pos[i0 + u * lanes] : -1;
+#pragma unroll
+      for (int u = 0; u < kBatch; u++)
+        if (q[u] >= 0) q[u] = lz4tt_rs_exit(m, q[u], kSeg);
+#pragma unroll
+      for (int u = 0; u < kBatch; u++)
+        if (q[u] >= 0) k[u] = lz4tt_rs_where(m, q[u], base);
+#pragma unroll
+      for (int u = 0; u < kBatch; u++)
+        if (q[u] >= 0 && k[u] < 0) k[u] = lz4tt_lr_known(m.out[q[u]]);
+#pragma unroll
+      for (int u = 0; u < kBatch; u++)
+        if (q[u] >= 0) m.list[i0 + u * lanes] = k[u];
+    }
+    grid.sync();
+    int32_t rounds = 0;
+    const int32_t left = lz4tt_rs_rounds(grid, m, len,
+                                         lz4tt_rs_rounds_for(len), tally,
+                                         turn, rounds);
+    rounds = __reduce_max_sync(0xffffffffu, rounds);
+    if ((threadIdx.x & 31) == 0 && rounds) atomicMax(counters + 2, rounds);
+    if (left && grid.leader()) atomicAdd(counters + 3, left);
+    for (int64_t i = me; i < len; i += lanes)
+      m.out[m.pos[i]] = (uint8_t)m.list[i];
+    grid.sync();
+  }
+}
+
+// Step 5, kFinish nodes a thread (their offsets in two 16-byte loads, one
+// word of the list's bitmap): every other open node (off[j] != 0, not
+// listed), the byte at its exit, known in out since step 1 or 4; a
+// thread's 16 bytes in one store where all of them are such.
+__global__ void __launch_bounds__(kResolve)
+    finish_kernel(Lz4ttRsMaps m, const int64_t* __restrict__ n_nodes) {
+  const int64_t total = *n_nodes;
+  const int64_t j0 = ((int64_t)blockIdx.x * kResolve + threadIdx.x) * kFinish;
+  if (j0 >= total) return;
+  uint16_t o[kFinish];
+  if (j0 + kFinish <= total) {
+    const uint4* src = (const uint4*)(m.off + j0);
+    const uint4 a = src[0], b = src[1];
+    memcpy(o, &a, 16);
+    memcpy(o + 8, &b, 16);
+  } else {
+#pragma unroll
+    for (int u = 0; u < kFinish; u++) o[u] = j0 + u < total ? m.off[j0 + u] : 0;
+  }
+  const uint32_t listed = m.exits[j0 >> 5] >> (j0 & 31);
+  const int32_t s0 = (int32_t)j0 & ~(kSeg - 1);  // the same for the 16
+  uint32_t mine = 0;
+  uint8_t b[kFinish];
+#pragma unroll
+  for (int u = 0; u < kFinish; u++)
+    if (o[u] && !((listed >> u) & 1u)) {
+      mine |= 1u << u;
+      b[u] = m.out[s0 - o[u]];
+    }
+  if (mine == 0xFFFFu) {
+    uint4 v;
+    memcpy(&v, b, 16);
+    *(uint4*)(m.out + j0) = v;
     return;
   }
-  const int32_t k0 = blockIdx.x * kFill;
-  if (b >= *n_ok || k0 >= n_seq[b]) return;  // the same for the whole CTA
-  if (threadIdx.x == 0) n_long = 0;
-  __syncthreads();
-  const int64_t plane = (int64_t)n * max_seq;
-  int32_t* row = const_cast<int32_t*>(tables) + (int64_t)b * max_seq;
-  const Lz4ttLwTables t = {row,             row + plane,     row + 2 * plane,
-                           row + 3 * plane, row + 4 * plane, row + 5 * plane};
-  const uint8_t* src = comp + b * comp_stride;
-  const int64_t base = w + block_at[b];
-  const int32_t k = k0 + threadIdx.x;
-  if (k < n_seq[b]) {
-    if (lz4tt_lr_long(t, k))
-      longs[atomicAdd(&n_long, 1)] = k;
-    else
-      lz4tt_lr_fill(src, t, k, nodes, base, 0, 1);
-  }
-  __syncthreads();
-  for (int32_t q = 0; q < n_long; q++)
-    lz4tt_lr_fill(src, t, longs[q], nodes, base, threadIdx.x, kFill);
-}
-
-// Round r over nodes [0, *n_nodes): open[r] counts the nodes it leaves
-// open; nothing to do once round r - 1 left none.
-__global__ void __launch_bounds__(kRound)
-    round_kernel(int32_t* nodes, const int64_t* __restrict__ n_nodes,
-                 int32_t* open, int32_t r) {
-  if (r > 0 && open[r - 1] == 0) return;
-  const int64_t total = *n_nodes;
-  int32_t mine = 0;
-  for (int64_t j = (int64_t)blockIdx.x * kRound + threadIdx.x; j < total;
-       j += (int64_t)gridDim.x * kRound)
-    mine += lz4tt_lr_step(nodes, j);
-  mine = __reduce_add_sync(0xffffffffu, mine);
-  if ((threadIdx.x & 31) == 0 && mine) atomicAdd(open + r, mine);
-}
-
-__global__ void __launch_bounds__(kRound)
-    gather_kernel(const int32_t* __restrict__ nodes,
-                  const int64_t* __restrict__ n_nodes, uint8_t* out) {
-  const int64_t total = *n_nodes;
-  for (int64_t j = (int64_t)blockIdx.x * kRound + threadIdx.x; j < total;
-       j += (int64_t)gridDim.x * kRound)
-    out[j] = (uint8_t)nodes[j];
+#pragma unroll
+  for (int u = 0; u < kFinish; u++)
+    if ((mine >> u) & 1u) m.out[j0 + u] = b[u];
 }
 
 }  // namespace
@@ -324,43 +652,111 @@ extern "C" int lz4tt_linked_walk(const void* comp, long long comp_stride,
   return (int)cudaGetLastError();
 }
 
-// The resolve of a walked batch: blocks [0, *n_ok) at nodes w +
-// block_at[b] (int64[n + 1], an exclusive scan of their out_total), the
-// window's w bytes at nodes [0, w); nodes: int32[>= *n_nodes], n_nodes =
-// w + block_at[*n_ok]; open: int32[rounds], zeroed; out: uint8[>=
-// *n_nodes], byte j of the batch's nodes. grid: CTAs of each round and of
-// the gather. Returns the first error of its launches.
-extern "C" int lz4tt_linked_resolve(const void* comp, long long comp_stride,
-                                    const void* tables, int max_seq, int n,
-                                    const void* n_seq, const void* block_at,
-                                    const void* n_ok, const void* window,
-                                    int w, const void* n_nodes, void* nodes,
-                                    void* out, void* open, int rounds,
-                                    int grid, void* stream) {
-  if (n < 0 || n >= 65535 || w < 0 || max_seq < 1 || rounds < 0 || grid < 1)
+// The scratch of lz4tt_linked_resolve in int32, for node_cap nodes
+// (kernels/linked_decode.py::resolve_scratch): open, exits and word_base (a
+// word each 32 nodes, rounded up to 4), the chunks' counts, the rounds'
+// tally (4), the list and its positions.
+static int64_t resolve_words(long long node_cap) {
+  return ((node_cap + 31) / 32 + 3) / 4 * 4;
+}
+static int64_t resolve_chunks(long long node_cap) {
+  return (resolve_words(node_cap) + kChunkWords - 1) / kChunkWords;
+}
+
+// The segment kernel's attributes, once a card.
+static cudaError_t prepare_segments() {
+  int dev = 0;
+  return lz4tt_once_a_device(
+      [&](int) {
+        if (const cudaError_t e = cudaFuncSetAttribute(
+                segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                (int)kSegSmem))
+          return e;
+        return cudaFuncSetAttribute(
+            segment_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+            (int)cudaSharedmemCarveoutMaxShared);
+      },
+      &dev);
+}
+
+// The resolve of a walked batch (linked_decode.cuh, "The resolve by
+// segments"): blocks [0, *n_ok) at w + block_at[b] (int64[n + 1], an
+// exclusive scan of their out_total), the window's w bytes first; n_nodes
+// = w + block_at[*n_ok] <= node_cap. out: uint8[node_cap], bytes [0,
+// *n_nodes) written; off: uint16[node_cap]; scratch: int32[3 *
+// resolve_words + resolve_chunks + 4 + 2 * list_cap]; counters: int32[4],
+// the nodes open after the segments' pass, the open exits (the list), the
+// most rounds a thread took, and the list entries left open (0: every
+// chain ends). Segments of kSeg bytes; the list in chunks of list_cap
+// entries; grid: the resident CTAs of resolve_kernel (a cooperative
+// launch). Returns the first error.
+extern "C" int lz4tt_linked_resolve(
+    const void* comp, long long comp_stride, const void* tables, int max_seq,
+    int n, const void* n_seq, const void* block_at, const void* n_ok,
+    const void* window, int w, const void* n_nodes, long long node_cap,
+    void* out, void* off, void* scratch, long long list_cap, void* counters,
+    int grid, void* stream) {
+  if (n < 0 || w < 0 || w > LZ4TT_RS_REACH || max_seq < 1 || node_cap < 1 ||
+      node_cap >= (1ll << 31) || list_cap < 1 || list_cap >= (1ll << 31) ||
+      grid < 1)
     return (int)cudaErrorInvalidValue;
+  if (const cudaError_t e = prepare_segments()) return (int)e;
   const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 fill_grid((max_seq + kFill - 1) / kFill, n + 1);
-  fill_kernel<<<fill_grid, kFill, 0, s>>>(
-      (const uint8_t*)comp, comp_stride, (const int32_t*)tables, max_seq, n,
-      (const int32_t*)n_seq, (const int64_t*)block_at, (const int64_t*)n_ok,
-      (const uint8_t*)window, w, (int32_t*)nodes);
+  const int64_t words = resolve_words(node_cap);
+  int32_t* sc = (int32_t*)scratch;
+  const int32_t n_chunks = (int32_t)resolve_chunks(node_cap);
+  int32_t* chunk_sum = sc + 3 * words;
+  int32_t* tally = chunk_sum + n_chunks;
+  int32_t* list = tally + 4;
+  const Lz4ttRsMaps m = {(uint8_t*)out,        (uint16_t*)off,
+                         (uint32_t*)sc,        (uint32_t*)(sc + words),
+                         sc + 2 * words,       list,
+                         list + list_cap};
+  const Lz4ttRsBatch bt = {(const uint8_t*)comp, comp_stride,
+                           (int32_t*)tables,     max_seq,
+                           n,                    (const int32_t*)n_seq,
+                           (const int64_t*)block_at,
+                           0,                    (const uint8_t*)window,
+                           w,                    0};
+  const int64_t* nk = (const int64_t*)n_ok;
+  const int64_t* nn = (const int64_t*)n_nodes;
+  int32_t* cnt = (int32_t*)counters;
+  if (const cudaError_t e = cudaMemsetAsync(m.exits, 0, 4 * words, s))
+    return (int)e;
+  if (const cudaError_t e = cudaMemsetAsync(cnt, 0, 4 * sizeof(int32_t), s))
+    return (int)e;
+  segment_kernel<<<(unsigned)((node_cap + kSeg - 1) / kSeg), kSegThreads,
+                   kSegSmem, s>>>(bt, m, nk, nn, cnt);
   if (const cudaError_t e = cudaGetLastError()) return (int)e;
-  for (int r = 0; r < rounds; r++) {
-    round_kernel<<<grid, kRound, 0, s>>>((int32_t*)nodes,
-                                         (const int64_t*)n_nodes,
-                                         (int32_t*)open, r);
-    if (const cudaError_t e = cudaGetLastError()) return (int)e;
-  }
-  gather_kernel<<<grid, kRound, 0, s>>>((const int32_t*)nodes,
-                                        (const int64_t*)n_nodes,
-                                        (uint8_t*)out);
+  count_kernel<<<n_chunks, kScan, 0, s>>>(m.exits, m.open, nn, chunk_sum);
+  if (const cudaError_t e = cudaGetLastError()) return (int)e;
+  int32_t cap = (int32_t)list_cap;
+  init_kernel<<<n_chunks, kScan, 0, s>>>(m, nn, chunk_sum, n_chunks, cap,
+                                         cnt, tally);
+  if (const cudaError_t e = cudaGetLastError()) return (int)e;
+  void* args[] = {(void*)&m, (void*)&nn, (void*)&cap, (void*)&cnt,
+                  (void*)&tally};
+  if (const cudaError_t e = cudaLaunchCooperativeKernel(
+          (const void*)resolve_kernel, grid, kResolve, args, 0, s))
+    return (int)e;
+  const int64_t per = (int64_t)kFinish * kResolve;
+  finish_kernel<<<(unsigned)((node_cap + per - 1) / per), kResolve, 0, s>>>(
+      m, nn);
   return (int)cudaGetLastError();
 }
 
-// Resident CTAs per SM and threads per CTA of a round.
+// Resident CTAs per SM and threads per CTA of the rounds.
 extern "C" int lz4tt_linked_occupancy(int* ctas_per_sm, int* threads) {
-  *threads = kRound;
+  *threads = kResolve;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas_per_sm, round_kernel, kRound, 0);
+      ctas_per_sm, resolve_kernel, kResolve, 0);
+}
+
+// The same of the segment kernel.
+extern "C" int lz4tt_linked_segment_occupancy(int* ctas_per_sm,
+                                              int* threads) {
+  *threads = kSegThreads;
+  if (const cudaError_t e = prepare_segments()) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, segment_kernel, kSegThreads, kSegSmem);
 }

@@ -25,14 +25,20 @@
 // of w bytes first, then the blocks' output one after another), a node of
 // 4 bytes: a byte whose value is known (a window byte, a literal, a byte
 // of a null-offset match) holds it with the sign bit set; a byte of a match
-// of distance d holds the index of its parent, the periodic source
-// base + (x mod d) with base = m_out - d, always an earlier node. Rounds of
-// pointer doubling (lz4tt_lr_step: an open node takes its parent's node)
-// resolve every node; a node at depth D from a known byte is resolved
-// after ceil(log2(D + 1)) synchronous rounds. The rounds run in place: a
-// node only ever moves up its chain, so a node read while another thread
-// writes it is still its own ancestor or its value, and a round is never
-// slower than the synchronous one.
+// of distance d holds the index of its parent, a byte a multiple of d
+// before it, always an earlier node. Rounds of pointer doubling (an open
+// node takes its parent's node) resolve every node; a node at depth D from
+// a known byte is resolved after ceil(log2(D + 1)) synchronous rounds. The
+// rounds run in place: a node only ever moves up its chain, so a node read
+// while another thread writes it is still its own ancestor or its value,
+// and a round is never slower than the synchronous one.
+//
+// The resolve (lz4tt_rs_*, below the walk) keeps the nodes of one output
+// segment at a time in shared memory, resolves them there in output
+// order, and leaves only the chains that leave their segment to rounds.
+// Its first design, a node for every byte of the batch in device memory
+// and rounds over all of them, lives on in design_variants.py, which
+// times it beside this one.
 #pragma once
 
 #include "lz4_decode.cuh"
@@ -41,10 +47,6 @@
 // (never with sequences.max_seq_for: a sequence but the last takes at
 // least 3 compressed bytes).
 enum { LZ4TT_LW_TOO_MANY = 3 };
-
-// A literal run and match that write more nodes than this go to the whole
-// CTA in the resolve's fill, shorter ones to one thread.
-enum { LZ4TT_LR_LONG = 64 };
 
 // The six tables of one block, max_seq entries each.
 struct Lz4ttLwTables {
@@ -472,46 +474,478 @@ LZ4TT_HD Lz4ttLwResult lz4tt_lw_finish(int32_t nc, const int32_t* code,
   return {LZ4TT_ERR_MALFORMED, 0, 0, r};  // not reached: the last chunk stops
 }
 
-// A node whose byte is known.
+// ---------------------------------------------------------------------------
+// The resolve by segments (lz4tt_linked_resolve), in five launches.
+//
+// 1. lz4tt_rs_segment, a CTA a segment of `seg` nodes (a power of two, a
+//    multiple of 32; segment g is [g * seg, (g + 1) * seg) of the batch):
+//    the segment's nodes in shared memory, from the window and from the
+//    records that cover it (found by a team search of block_at and of the
+//    block's ascending lit_out). A match byte j of distance d points to
+//    bp + ((j - bp) mod d), bp = max(m_out, s0) - d: in the segment where
+//    the match starts in it (its bytes all point into the period before
+//    its start there, so a run of any length is one hop deep), else into
+//    the d bytes before the segment, never more than 65,535 bytes before
+//    s0. One pass in output order, a tile of 2 size() nodes at a time
+//    with a barrier, follows each node up its chain while it points into
+//    the segment: a parent in an earlier tile is final, one in the same tile
+//    is followed as far as it has got (in place, as in the rounds). After
+//    it each node is known or points before s0 (an exit). Every known byte
+//    goes to out from the segment, once; an open node sets its bit in
+//    `open` and keeps s0 - exit (1..65,535) in `off`. The segment's exits
+//    (its nodes' parents below s0, marked per record as the fill places
+//    it, lz4tt_rs_exits) go to `exits`, or'ed in shared memory over the
+//    64 KiB before s0 first.
+// 2. lz4tt_linked_resolve's count: exits &= open (the open exits: the
+//    list), and the open exits a chunk of words.
+// 3. init: word_base[w], the open exits before word w (an exit's rank),
+//    and the first chunk's positions (below).
+// 4. resolve, all CTAs resident (a cooperative launch): the list in
+//    chunks of list_cap ranks, in rank (output) order. A chunk's entries
+//    take their positions (pos[rank(q) - base] = q) and their exits (s0 -
+//    off[q]), each exit once made the index of its own entry or its known
+//    byte (lz4tt_rs_entry: a pointer always goes back, to a lower rank, so
+//    an earlier chunk's exits are known in out); rounds over the chunk
+//    only, in place (lz4tt_rs_round: an entry takes the entry it points
+//    to), each thread until its entries are known; each entry's byte to
+//    out at its position. A grid barrier between the parts.
+//    The rounds are bounded (lz4tt_rs_rounds): a thread's own rounds, then
+//    rounds of the whole grid behind barriers, enough for any chain of the
+//    chunk; the entries still open after them (none, unless the list is
+//    faulty) are counted, and the caller raises.
+// 5. finish: every other open node's byte, the byte at its exit (off[j] !=
+//    0, not listed), known in out since step 1 or 4. A chain leaves its
+//    segment only through exits, and an exit's exit is an exit, so the
+//    list is closed under its pointers; every byte is written once.
+// ---------------------------------------------------------------------------
+
+enum {
+  LZ4TT_RS_REACH = 65536,                    // exits lie within this of s0
+  LZ4TT_RS_EXIT_WORDS = LZ4TT_RS_REACH / 32,  // a segment's exits bitmap
+  LZ4TT_RS_LONG = 64,  // a record writing more nodes of a segment: the team
+  LZ4TT_RS_PROBES = 32,  // a team search's probes a level, at least
+  LZ4TT_RS_BYTES = 8,    // literal bytes a thread loads at once
+  LZ4TT_RS_BATCH = 8,    // list entries a thread steps at once
+};
+
+// A walked batch: tables int32[6, n, max_seq] (lz4tt_lw_*), block b's
+// output at w + block_at[b] for b < n_ok, n_nodes = w + block_at[n_ok].
+struct Lz4ttRsBatch {
+  const uint8_t* comp;
+  int64_t comp_stride;
+  int32_t* tables;
+  int32_t max_seq, n;
+  const int32_t* n_seq;
+  const int64_t* block_at;
+  int32_t n_ok;
+  const uint8_t* window;
+  int32_t w, n_nodes;
+};
+
+// What the resolve writes: out (uint8[n_nodes]); off (uint16[n_nodes]);
+// open and exits, bitmaps of ceil(n_nodes / 32) words (exits zeroed before
+// step 1, the open exits after step 2); word_base (int32 a word); list and
+// pos, a chunk of the open exits' entries and their positions.
+struct Lz4ttRsMaps {
+  uint8_t* out;
+  uint16_t* off;
+  uint32_t* open;
+  uint32_t* exits;
+  int32_t* word_base;
+  int32_t* list;
+  int32_t* pos;
+};
+
+// A segment's shared memory: nodes int32[seg]; exits uint32[EXIT_WORDS]
+// over [s0 - REACH, s0); longs int32[size()] (the long records); cnt
+// int32[4] (two long-record counts, the open nodes, a search's answer).
+struct Lz4ttRsShared {
+  int32_t* nodes;
+  uint32_t* exits;
+  int32_t* longs;
+  int32_t* cnt;
+};
+
+// A node whose byte is known: the byte with the sign bit set.
 LZ4TT_HD int32_t lz4tt_lr_known(uint32_t byte) {
   return (int32_t)(0x80000000u | byte);
 }
 
-// Whether record k writes more than LZ4TT_LR_LONG nodes.
-LZ4TT_HD bool lz4tt_lr_long(const Lz4ttLwTables& t, int32_t k) {
-  return (int64_t)t.lit_len[k] + t.m_len[k] > LZ4TT_LR_LONG;
+// Loads and stores of nodes and list entries that other threads write at
+// the same time (the card's L1 is not coherent; the compiler must reload).
+LZ4TT_HD int32_t lz4tt_rs_load(const int32_t* p) {
+  return *(const volatile int32_t*)p;
+}
+LZ4TT_HD void lz4tt_rs_store(int32_t* p, int32_t v) { *(volatile int32_t*)p = v; }
+
+// The largest k in [a, b) with key[k] <= x, by the team (key ascending,
+// key[a] <= x): each level probes max(4 size(), PROBES) evenly spaced keys
+// (their loads in flight together) and keeps the bracket that holds x;
+// slot: an int32 of the team's.
+template <class Team, class K>
+LZ4TT_HD int32_t lz4tt_rs_search(const Team& t, const K* key, int32_t a,
+                                 int32_t b, int64_t x, int32_t* slot) {
+  const int P =
+      4 * t.size() > LZ4TT_RS_PROBES ? 4 * t.size() : LZ4TT_RS_PROBES;
+  while (b - a > 1) {
+    const int32_t step = (int32_t)(((int64_t)b - a + P - 1) / P);
+    for (int r = t.rank(); r < P; r += t.size()) {
+      const int64_t i = a + (int64_t)r * step;
+      if (i >= b) break;
+      const int64_t nx = i + step;
+      if ((int64_t)key[i] <= x && (nx >= b || (int64_t)key[nx] > x))
+        *slot = (int32_t)i;
+    }
+    t.sync();
+    a = *slot;
+    t.sync();  // read before the next level writes it
+    b = a + step < b ? a + step : b;
+  }
+  return a;
 }
 
-// The nodes of record k of a block whose output starts at node base; comp
-// is the block's row. Its bytes from, from + step, ...
-LZ4TT_HD void lz4tt_lr_fill(const uint8_t* comp, const Lz4ttLwTables& t,
-                            int32_t k, int32_t* nodes, int64_t base,
-                            int32_t from, int32_t step) {
-  const int64_t lo = base + t.lit_out[k];
-  const int32_t ls = t.lit_src[k], ll = t.lit_len[k];
-  for (int32_t x = from; x < ll; x += step)
-    nodes[lo + x] = lz4tt_lr_known(comp[ls + x]);
-  const int64_t mo = base + t.m_out[k];
-  const int32_t md = t.m_dist[k], ml = t.m_len[k];
-  if (md == 0) {
-    for (int32_t x = from; x < ml; x += step) nodes[mo + x] = lz4tt_lr_known(0);
-  } else {
-    // byte x of the match is byte (x mod md) of the period before it
-    int32_t q = from % md;
-    const int32_t adv = step % md;
-    for (int32_t x = from; x < ml; x += step) {
-      nodes[mo + x] = (int32_t)(mo - md + q);
-      q += adv;
-      if (q >= md) q -= md;
-    }
+// One record of a block's tables (lz4tt_lw_put's fields); lit past every
+// offset: none.
+struct Lz4ttRsRec {
+  int32_t lit, ls, ll, mo, md, ml;
+};
+
+LZ4TT_HD Lz4ttRsRec lz4tt_rs_rec(const Lz4ttLwTables& tb, int32_t k) {
+  return {tb.lit_out[k], tb.lit_src[k], tb.lit_len[k],
+          tb.m_out[k],   tb.m_dist[k],  tb.m_len[k]};
+}
+
+// The nodes of record c of a block (its row src) in the block offsets [lo,
+// hi) of a segment starting at s0, the block's byte 0 at frame position
+// base; those from + i * step of each clipped run.
+LZ4TT_HD void lz4tt_rs_fill(const uint8_t* src, const Lz4ttRsRec& c,
+                            int64_t base, int32_t lo, int32_t hi, int32_t s0,
+                            int32_t* nodes, int32_t from, int32_t step) {
+  int32_t a = c.lit > lo ? c.lit : lo;
+  int32_t e = c.lit + c.ll < hi ? c.lit + c.ll : hi;
+  const int64_t o = base - s0;  // nodes[o + x]: block offset x's node
+  const int32_t ls = c.ls - c.lit;  // src[ls + x]: block offset x's byte
+  // LZ4TT_RS_BYTES literal bytes at a time, loaded before any is stored (a
+  // byte store may alias them, so the compiler keeps each load behind
+  // the store before it)
+  for (int32_t x = a + from; x < e; x += LZ4TT_RS_BYTES * step) {
+    uint8_t v[LZ4TT_RS_BYTES];
+#pragma unroll
+    for (int u = 0; u < LZ4TT_RS_BYTES; u++)
+      v[u] = x + u * step < e ? src[ls + x + u * step] : 0;
+#pragma unroll
+    for (int u = 0; u < LZ4TT_RS_BYTES; u++)
+      if (x + u * step < e) nodes[o + x + u * step] = lz4tt_lr_known(v[u]);
+  }
+  a = c.mo > lo ? c.mo : lo;
+  e = c.mo + c.ml < hi ? c.mo + c.ml : hi;
+  if (a + from >= e) return;
+  if (c.md == 0) {
+    for (int32_t x = a + from; x < e; x += step) nodes[o + x] = lz4tt_lr_known(0);
+    return;
+  }
+  // byte j (frame) points to bp + ((j - bp) mod md), carried from j to j +
+  // step; j - bp <= seg + 65,535
+  const int64_t mf = base + c.mo;
+  const int64_t bp = (mf > s0 ? mf : s0) - c.md;
+  int32_t q = (int32_t)(base + a + from - bp) % c.md;
+  const int32_t adv = step % c.md;
+  for (int32_t x = a + from; x < e; x += step) {
+    nodes[o + x] = (int32_t)(bp + q);
+    q += adv;
+    if (q >= c.md) q -= c.md;
   }
 }
 
-// One round's step of node j, in place; whether it is still open.
-LZ4TT_HD bool lz4tt_lr_step(int32_t* nodes, int64_t j) {
-  const int32_t v = nodes[j];
-  if (v < 0) return false;
-  const int32_t w = nodes[v];
-  nodes[j] = w;
-  return w >= 0;
+// Bits [lo, hi) of words (bit l in word l >> 5), those in the words from,
+// from + step, ... of the range, by atomic ors of the team.
+template <class Team>
+LZ4TT_HD void lz4tt_rs_mark(const Team& t, uint32_t* words, int32_t lo,
+                            int32_t hi, int32_t from, int32_t step) {
+  if (lo >= hi) return;
+  const int32_t w0 = lo >> 5, w1 = (hi - 1) >> 5;
+  for (int32_t w = w0 + from; w <= w1; w += step) {
+    uint32_t bits = 0xFFFFFFFFu;
+    if (w == w0) bits &= 0xFFFFFFFFu << (lo & 31);
+    if (w == w1) bits &= 0xFFFFFFFFu >> (31 - ((hi - 1) & 31));
+    t.or_shared(words + w, bits);
+  }
+}
+
+// The exits of record c in a segment (as lz4tt_rs_fill places its nodes):
+// the parents below s0 of its match bytes in [lo, hi), bits of the
+// segment's exits bitmap (over [s0 - REACH, s0)). A node whose parent lies
+// before s0 is open with that exit, and every other open node's chain
+// leaves through such a node, so these are all the segment's exits. Byte
+// j's parent is bp + ((j - bp) mod md): the residues of the clipped bytes
+// are one or two runs, and those below s0 - bp point before s0.
+template <class Team>
+LZ4TT_HD void lz4tt_rs_exits(const Team& t, const Lz4ttRsRec& c,
+                             int64_t base, int32_t lo, int32_t hi, int32_t s0,
+                             uint32_t* exits, int32_t from, int32_t step) {
+  const int32_t a = c.mo > lo ? c.mo : lo;
+  const int32_t e = c.mo + c.ml < hi ? c.mo + c.ml : hi;
+  if (c.md == 0 || a >= e) return;
+  const int64_t mf = base + c.mo;
+  const int64_t bp = (mf > s0 ? mf : s0) - c.md;
+  const int32_t lim = (int32_t)(s0 - bp);  // <= md
+  if (lim <= 0) return;
+  const int32_t n = e - a, d = c.md;
+  const int32_t r0 = (int32_t)(base + a - bp) % d;
+  const int32_t at = (int32_t)(bp - (s0 - LZ4TT_RS_REACH));  // residue 0
+  int32_t run[4] = {r0, r0 + n, 0, 0};  // residues [r0, r0 + n) mod d
+  if (n >= d) {
+    run[0] = 0;
+    run[1] = d;
+  } else if (r0 + n > d) {
+    run[1] = d;
+    run[3] = r0 + n - d;
+  }
+  for (int k = 0; k < 4; k += 2)
+    lz4tt_rs_mark(t, exits, at + run[k],
+                  at + (run[k + 1] < lim ? run[k + 1] : lim), from, step);
+}
+
+// The nodes record c writes in [lo, hi).
+LZ4TT_HD int32_t lz4tt_rs_nodes(const Lz4ttRsRec& c, int32_t lo, int32_t hi) {
+  const int32_t le = c.lit + c.ll, me = c.mo + c.ml;
+  const int32_t a = (le < hi ? le : hi) - (c.lit > lo ? c.lit : lo);
+  const int32_t b = (me < hi ? me : hi) - (c.mo > lo ? c.mo : lo);
+  return (a > 0 ? a : 0) + (b > 0 ? b : 0);
+}
+
+// Step 1 for the segment at s0 (a multiple of seg, below n_nodes), by the
+// team: rank(), size() (a multiple of 32 on the card), sync(); add(p, v),
+// an atomic add in shared memory returning the old value; add_all(p, v),
+// *p += v summed over the team (every thread calls it); put_bit(words, j,
+// on, valid), bit j of words set to on (every thread, 32 consecutive j a
+// warp: the word stored whole where valid); or_shared(p, v) and
+// or_global(p, v), atomic ors in shared and device memory. The segment's
+// open nodes end in sh.cnt[2] (read after a sync); its exits are marked as
+// its records are filled (lz4tt_rs_exits).
+template <class Team>
+LZ4TT_HD void lz4tt_rs_segment(const Team& t, const Lz4ttRsBatch& bt,
+                               const Lz4ttRsMaps& m, int32_t s0, int32_t seg,
+                               const Lz4ttRsShared& sh) {
+  const int T = t.size(), r = t.rank();
+  const int64_t end = (int64_t)s0 + seg;
+  const int32_t s1 = end < bt.n_nodes ? (int32_t)end : bt.n_nodes;
+  const int32_t L = s1 - s0;
+  int32_t* nodes = sh.nodes;
+  for (int i = r; i < LZ4TT_RS_EXIT_WORDS; i += T) sh.exits[i] = 0;
+  if (r == 0) sh.cnt[0] = sh.cnt[1] = sh.cnt[2] = 0;
+  const int32_t wend = s1 < bt.w ? s1 : bt.w;
+  for (int32_t j = s0 + r; j < wend; j += T)
+    nodes[j - s0] = lz4tt_lr_known(bt.window[j]);
+  t.sync();
+  // the blocks over [x0, x1), offsets past the window
+  const int32_t x0 = (s0 > bt.w ? s0 : bt.w) - bt.w, x1 = s1 - bt.w;
+  if (x0 < x1) {
+    const int64_t plane = (int64_t)bt.n * bt.max_seq;
+    int it = 0;
+    for (int32_t b = lz4tt_rs_search(t, bt.block_at, 0, bt.n_ok, x0,
+                                     &sh.cnt[3]);
+         b < bt.n_ok && bt.block_at[b] < x1; b++) {
+      const int64_t at = bt.block_at[b];
+      const int32_t lo = x0 > at ? (int32_t)(x0 - at) : 0;
+      const int64_t top = bt.block_at[b + 1] - at;
+      const int32_t hi = x1 - at < top ? (int32_t)(x1 - at) : (int32_t)top;
+      if (lo >= hi) continue;
+      int32_t* row = bt.tables + (int64_t)b * bt.max_seq;
+      const Lz4ttLwTables tb = {row,             row + plane,
+                                row + 2 * plane, row + 3 * plane,
+                                row + 4 * plane, row + 5 * plane};
+      const int32_t ns = bt.n_seq[b];
+      const uint8_t* src = bt.comp + b * bt.comp_stride;
+      const int64_t base = bt.w + at;
+      const int32_t k0 =
+          lo == 0 ? 0 : lz4tt_rs_search(t, tb.lit_out, 0, ns, lo, &sh.cnt[3]);
+      // size() records at a time: a thread each, the long ones by the team;
+      // the next size() records' loads issued before this chunk's fill
+      const Lz4ttRsRec none = {INT32_MAX, 0, 0, 0, 0, 0};
+      Lz4ttRsRec cur = k0 + r < ns ? lz4tt_rs_rec(tb, k0 + r) : none;
+      for (int32_t kk = k0;; kk += T) {
+        int32_t* n_long = &sh.cnt[it & 1];
+        // the next chunk's count: whoever still reads it read a 0 (below)
+        if (r == 0) sh.cnt[(it + 1) & 1] = 0;
+        const bool more = (int64_t)kk + T < ns && tb.lit_out[kk + T] < hi;
+        const Lz4ttRsRec nxt =
+            (int64_t)kk + T + r < ns ? lz4tt_rs_rec(tb, kk + T + r) : none;
+        if (cur.lit < hi) {
+          if (lz4tt_rs_nodes(cur, lo, hi) > LZ4TT_RS_LONG) {
+            sh.longs[t.add(n_long, 1)] = kk + r;
+          } else {
+            lz4tt_rs_fill(src, cur, base, lo, hi, s0, nodes, 0, 1);
+            lz4tt_rs_exits(t, cur, base, lo, hi, s0, sh.exits, 0, 1);
+          }
+        }
+        t.sync();
+        const int32_t nl = *n_long;
+        if (nl) {  // the same for the whole team
+          for (int32_t q = 0; q < nl; q++) {
+            const Lz4ttRsRec c = lz4tt_rs_rec(tb, sh.longs[q]);
+            lz4tt_rs_fill(src, c, base, lo, hi, s0, nodes, r, T);
+            lz4tt_rs_exits(t, c, base, lo, hi, s0, sh.exits, r, T);
+          }
+          t.sync();  // the longs read before the next chunk writes them
+        }
+        it++;
+        cur = nxt;
+        if (!more) break;
+      }
+    }
+  }
+  t.sync();
+  // the pass in output order, a tile of 2 T nodes at a time (a thread's
+  // two in order)
+  for (int32_t t0 = 0; t0 < L; t0 += 2 * T) {
+    for (int32_t i = t0 + r; i < t0 + 2 * T && i < L; i += T) {
+      int32_t p = nodes[i];
+      while (p >= s0) p = lz4tt_rs_load(nodes + (p - s0));
+      lz4tt_rs_store(nodes + i, p);
+    }
+    t.sync();
+  }
+  // known bytes to out; open nodes, their offsets and exits; size() nodes
+  // a step (whole warps: a warp's 32 nodes are one word of the bitmaps)
+  int32_t n_open = 0;
+  for (int32_t i0 = 0; i0 < L; i0 += T) {
+    const int32_t i = i0 + r, j = s0 + i;
+    const int32_t v = i < L ? nodes[i] : -1;
+    if (v >= 0) {
+      m.off[j] = (uint16_t)(s0 - v);
+      n_open++;
+    } else if (i < L) {
+      m.out[j] = (uint8_t)v;
+      m.off[j] = 0;
+    }
+    t.put_bit(m.open, j, v >= 0, (j & ~31) < s1);
+  }
+  t.add_all(&sh.cnt[2], n_open);
+  t.sync();
+  const int32_t g0 = (s0 >> 5) - LZ4TT_RS_EXIT_WORDS;
+  for (int i = r; i < LZ4TT_RS_EXIT_WORDS; i += T)
+    if (sh.exits[i]) t.or_global(&m.exits[g0 + i], sh.exits[i]);
+}
+
+// The list entry of open exit p (rank among the open exits).
+LZ4TT_HD int32_t lz4tt_rs_rank(const Lz4ttRsMaps& m, int32_t p) {
+  return m.word_base[p >> 5] +
+         lz4tt_popc(m.exits[p >> 5] & ((1u << (p & 31)) - 1u));
+}
+
+LZ4TT_HD bool lz4tt_rs_listed(const Lz4ttRsMaps& m, int32_t p) {
+  return (m.exits[p >> 5] >> (p & 31)) & 1u;
+}
+
+// Where exit p's value is while the list holds the open exits of ranks
+// [base, base + its length): its list entry, or -1 (its byte is in out).
+LZ4TT_HD int32_t lz4tt_rs_where(const Lz4ttRsMaps& m, int32_t p,
+                                int32_t base) {
+  return lz4tt_rs_listed(m, p) ? lz4tt_rs_rank(m, p) - base : -1;
+}
+
+// The list entry of exit p while the list holds the open exits of ranks
+// [base, base + its length): the index of p's own entry where p is listed
+// there (always below the index of the entry that points to p: exits lie
+// before their nodes), else p's known byte from out (p resolved in its
+// segment, or in an earlier chunk of the list).
+LZ4TT_HD int32_t lz4tt_rs_entry(const Lz4ttRsMaps& m, int32_t p,
+                                int32_t base) {
+  const int32_t k = lz4tt_rs_where(m, p, base);
+  return k >= 0 ? k : lz4tt_lr_known(m.out[p]);
+}
+
+// One round of a thread's list entries (i = me, me + lanes, ... below
+// len) in place, LZ4TT_RS_BATCH at a time with their loads in flight
+// together: an open entry (the index of an earlier one) takes that entry,
+// known or an index further back. An index at or past its own (no correct
+// list has one) is kept as it is, open. Returns the entries it leaves
+// open.
+LZ4TT_HD int32_t lz4tt_rs_round(const Lz4ttRsMaps& m, int64_t me,
+                                int64_t lanes, int32_t len) {
+  int32_t left = 0;
+  for (int64_t i0 = me; i0 < len; i0 += LZ4TT_RS_BATCH * lanes) {
+    int32_t v[LZ4TT_RS_BATCH];
+#pragma unroll
+    for (int u = 0; u < LZ4TT_RS_BATCH; u++) {
+      const int64_t i = i0 + u * lanes;
+      v[u] = i < len ? lz4tt_rs_load(m.list + i) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < LZ4TT_RS_BATCH; u++) {
+      const int64_t i = i0 + u * lanes;
+      if (v[u] >= 0) {  // open: a known entry stays as it is
+        if (v[u] < i) v[u] = lz4tt_rs_load(m.list + v[u]);
+        lz4tt_rs_store(m.list + i, v[u]);
+        left += v[u] >= 0;
+      }
+    }
+  }
+  return left;
+}
+
+// Synchronous rounds that resolve any chain of up to len list entries
+// (ceil(log2(len + 1)), a chain's end being a known byte) or more.
+LZ4TT_HD int32_t lz4tt_rs_rounds_for(int32_t len) {
+  int32_t r = 1;
+  for (int64_t span = 1; span < len; span <<= 1) r++;
+  return r;
+}
+
+// Step 4's rounds over a chunk of the list (len entries, lz4tt_rs_entry's)
+// by the grid g: rank(), size(), leader(), sync() (a barrier of
+// every thread, memory included) and add_all(p, v) (*p += v summed over
+// the grid), every thread of it calling. Each thread steps its own entries
+// until they are known, for up to `own` rounds; then, while any entry of
+// the chunk is open, every thread steps its entries once a round with a
+// barrier between rounds, for up to lz4tt_rs_rounds_for(len) rounds: the
+// rounds in place are never slower than synchronous ones, so these end
+// every chain of a correct list. tally: three int32 of the grid's, the
+// open entries' sums, tally[turn % 3] zero when called; turn goes on from
+// one call to the next. Returns the entries left open (0 unless the list
+// is faulty), the same on every thread; rounds: this thread's.
+template <class Grid>
+LZ4TT_HD int32_t lz4tt_rs_rounds(const Grid& g, const Lz4ttRsMaps& m,
+                                 int32_t len, int32_t own, int32_t* tally,
+                                 int32_t& turn, int32_t& rounds) {
+  const int64_t me = g.rank(), lanes = g.size();
+  int32_t left = me < len ? 1 : 0;
+  rounds = 0;
+  while (left && rounds < own) {
+    left = lz4tt_rs_round(m, me, lanes, len);
+    rounds++;
+  }
+  const int32_t most = lz4tt_rs_rounds_for(len);
+  for (int32_t r = 0;; r++) {
+    // the slot after this one was last read before the barrier of the
+    // turn before; it is zeroed before the barrier its adds follow
+    g.add_all(tally + turn % 3, left);
+    if (g.leader()) tally[(turn + 1) % 3] = 0;
+    g.sync();
+    const int32_t open = lz4tt_rs_load(tally + turn % 3);
+    turn++;
+    if (!open || r == most) return open;
+    left = lz4tt_rs_round(m, me, lanes, len);
+    rounds++;
+  }
+}
+
+// The open exits of word w whose ranks lie in [base, base + len): a mask.
+LZ4TT_HD uint32_t lz4tt_rs_in_chunk(const Lz4ttRsMaps& m, int64_t w,
+                                    int32_t base, int32_t len) {
+  uint32_t bits = m.exits[w];
+  int32_t k = m.word_base[w];
+  const int32_t end = k + lz4tt_popc(bits);
+  if (!bits || k >= base + len || end <= base) return 0;
+  if (k >= base && end <= base + len) return bits;
+  uint32_t mask = 0;
+  for (; bits; bits &= bits - 1, k++)
+    if (k >= base && k < base + len) mask |= bits & (~bits + 1u);
+  return mask;
+}
+
+// The exit of open node j: s0 - off[j].
+LZ4TT_HD int32_t lz4tt_rs_exit(const Lz4ttRsMaps& m, int32_t j, int32_t seg) {
+  return (j & ~(seg - 1)) - m.off[j];
 }

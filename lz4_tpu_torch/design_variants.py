@@ -21,7 +21,7 @@ of a checkout, on a machine with a card, for all of them or those of
 some sources::
 
     python -m lz4_tpu_torch.design_variants [lz4_compress lz4_decode segment_decode lz4_parse frame_pack xxh32 xxh64 lz4_hc parallel_compress gather_decode]
-    python -m lz4_tpu_torch.design_variants linked_decode|--dict-split|--walk-split
+    python -m lz4_tpu_torch.design_variants linked_decode|--resolve|--dict-split|--walk-split
 
 ``--hc-split`` instead builds K6 with ``clock64`` counters in its first
 team's lane 0 and prints the cycles of each part of its searches: on one
@@ -34,8 +34,11 @@ the parts of one row of K2 with a dictionary (the formats path's rows,
 ``linked_decode`` times the linked walk's designs (``LINKED_VARIANTS``:
 chunk sizes, the threshold, the one-kernel look-back, the first design)
 on the formats path's linked frames at 64 KiB, 256 KiB, 1 MiB and 4 MiB
-blocks, each held against the shipped walk; ``--walk-split`` its
-launches one after another.
+blocks, each held against the shipped walk, then the linked resolve's
+(``resolve_variants``: its first design, rooms for open exits, segments
+of 8 and 32 KiB, its parts cumulatively and options tried, on those
+frames and on 16 x 4 MiB of far matches; ``--resolve`` alone);
+``--walk-split`` the walk's launches one after another.
 """
 
 from __future__ import annotations
@@ -1373,8 +1376,8 @@ extern "C" int lz4tt_linked_walk_lookback(
 _LOOKBACK = [
     ("linked_decode.cu", "}  // namespace\n",
      _LOOKBACK_KERNEL + "\n}  // namespace\n"),
-    ("linked_decode.cu", "// The resolve of a walked batch:",
-     _LOOKBACK_ENTRY + "\n// The resolve of a walked batch:")]
+    ("linked_decode.cu", "// The scratch of lz4tt_linked_resolve",
+     _LOOKBACK_ENTRY + "\n// The scratch of lz4tt_linked_resolve")]
 
 
 def _lookback_walk(fn, c, cl, flags, bs, width, host, chunk):
@@ -1439,6 +1442,431 @@ def linked_variants() -> dict:
                   flush=True)
         out[name] = res
     out["scratch_bytes"] = linked_decode.SCRATCH.last_nbytes
+    return out
+
+
+# The linked resolve's first design, spliced into a copy of
+# csrc for timing beside the shipped one: a node for every byte of the
+# batch in device memory, its parent the periodic source base + (x mod d)
+# with base = m_out - d; a fill, rounds over all nodes in place, a gather.
+# FIRST_RESOLVE_CUH holds its bodies (the tests build them with g++ too).
+FIRST_RESOLVE_CUH = """// A literal run and match that write more nodes than this go to the whole
+// CTA in the first design's fill, shorter ones to one thread.
+enum { LZ4TT_LR_LONG = 64 };
+
+// Whether record k writes more than LZ4TT_LR_LONG nodes.
+LZ4TT_HD bool lz4tt_lr_long(const Lz4ttLwTables& t, int32_t k) {
+  return (int64_t)t.lit_len[k] + t.m_len[k] > LZ4TT_LR_LONG;
+}
+
+// The nodes of record k of a block whose output starts at node base; comp
+// is the block's row. Its bytes from, from + step, ...
+LZ4TT_HD void lz4tt_lr_fill(const uint8_t* comp, const Lz4ttLwTables& t,
+                            int32_t k, int32_t* nodes, int64_t base,
+                            int32_t from, int32_t step) {
+  const int64_t lo = base + t.lit_out[k];
+  const int32_t ls = t.lit_src[k], ll = t.lit_len[k];
+  for (int32_t x = from; x < ll; x += step)
+    nodes[lo + x] = lz4tt_lr_known(comp[ls + x]);
+  const int64_t mo = base + t.m_out[k];
+  const int32_t md = t.m_dist[k], ml = t.m_len[k];
+  if (md == 0) {
+    for (int32_t x = from; x < ml; x += step) nodes[mo + x] = lz4tt_lr_known(0);
+  } else {
+    // byte x of the match is byte (x mod md) of the period before it
+    int32_t q = from % md;
+    const int32_t adv = step % md;
+    for (int32_t x = from; x < ml; x += step) {
+      nodes[mo + x] = (int32_t)(mo - md + q);
+      q += adv;
+      if (q >= md) q -= md;
+    }
+  }
+}
+
+// One round's step of node j, in place; whether it is still open.
+LZ4TT_HD bool lz4tt_lr_step(int32_t* nodes, int64_t j) {
+  const int32_t v = nodes[j];
+  if (v < 0) return false;
+  const int32_t w = nodes[v];
+  nodes[j] = w;
+  return w >= 0;
+}
+"""
+_FIRST_RESOLVE_KERNELS = """constexpr int kFill = 256, kRound = 256;
+
+// Grid (x, n + 1): CTA (x, b < n) fills records [x * kFill, +kFill) of
+// block b, if b is below *n_ok; the row b = n fills the window's nodes.
+__global__ void __launch_bounds__(kFill)
+    fill_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
+                const int32_t* tables, int32_t max_seq, int32_t n,
+                const int32_t* __restrict__ n_seq,
+                const int64_t* __restrict__ block_at,
+                const int64_t* __restrict__ n_ok,
+                const uint8_t* __restrict__ window, int32_t w,
+                int32_t* nodes) {
+  __shared__ int32_t longs[kFill];
+  __shared__ int32_t n_long;
+  const int32_t b = blockIdx.y;
+  if (b == n) {
+    for (int64_t j = (int64_t)blockIdx.x * kFill + threadIdx.x; j < w;
+         j += (int64_t)gridDim.x * kFill)
+      nodes[j] = lz4tt_lr_known(window[j]);
+    return;
+  }
+  const int32_t k0 = blockIdx.x * kFill;
+  if (b >= *n_ok || k0 >= n_seq[b]) return;  // the same for the whole CTA
+  if (threadIdx.x == 0) n_long = 0;
+  __syncthreads();
+  const int64_t plane = (int64_t)n * max_seq;
+  int32_t* row = const_cast<int32_t*>(tables) + (int64_t)b * max_seq;
+  const Lz4ttLwTables t = {row,             row + plane,     row + 2 * plane,
+                           row + 3 * plane, row + 4 * plane, row + 5 * plane};
+  const uint8_t* src = comp + b * comp_stride;
+  const int64_t base = w + block_at[b];
+  const int32_t k = k0 + threadIdx.x;
+  if (k < n_seq[b]) {
+    if (lz4tt_lr_long(t, k))
+      longs[atomicAdd(&n_long, 1)] = k;
+    else
+      lz4tt_lr_fill(src, t, k, nodes, base, 0, 1);
+  }
+  __syncthreads();
+  for (int32_t q = 0; q < n_long; q++)
+    lz4tt_lr_fill(src, t, longs[q], nodes, base, threadIdx.x, kFill);
+}
+
+// Round r over nodes [0, *n_nodes): open[r] counts the nodes it leaves
+// open; nothing to do once round r - 1 left none.
+__global__ void __launch_bounds__(kRound)
+    round_kernel(int32_t* nodes, const int64_t* __restrict__ n_nodes,
+                 int32_t* open, int32_t r) {
+  if (r > 0 && open[r - 1] == 0) return;
+  const int64_t total = *n_nodes;
+  int32_t mine = 0;
+  for (int64_t j = (int64_t)blockIdx.x * kRound + threadIdx.x; j < total;
+       j += (int64_t)gridDim.x * kRound)
+    mine += lz4tt_lr_step(nodes, j);
+  mine = __reduce_add_sync(0xffffffffu, mine);
+  if ((threadIdx.x & 31) == 0 && mine) atomicAdd(open + r, mine);
+}
+
+__global__ void __launch_bounds__(kRound)
+    gather_kernel(const int32_t* __restrict__ nodes,
+                  const int64_t* __restrict__ n_nodes, uint8_t* out) {
+  const int64_t total = *n_nodes;
+  for (int64_t j = (int64_t)blockIdx.x * kRound + threadIdx.x; j < total;
+       j += (int64_t)gridDim.x * kRound)
+    out[j] = (uint8_t)nodes[j];
+}
+"""
+_FIRST_RESOLVE_ENTRY = """// The resolve's first design: a node for every byte of the batch (nodes:
+// int32[>= *n_nodes]), the fill, `rounds` round kernels over all of them
+// in place (each returns at once when the round before left no node open;
+// open: int32[rounds], zeroed), and the gather into out. grid: CTAs of
+// each round and of the gather.
+extern "C" int lz4tt_linked_resolve_rounds(
+    const void* comp, long long comp_stride, const void* tables, int max_seq,
+    int n, const void* n_seq, const void* block_at, const void* n_ok,
+    const void* window, int w, const void* n_nodes, void* nodes, void* out,
+    void* open, int rounds, int grid, void* stream) {
+  if (n < 0 || n >= 65535 || w < 0 || max_seq < 1 || rounds < 0 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const dim3 fill_grid((max_seq + kFill - 1) / kFill, n + 1);
+  fill_kernel<<<fill_grid, kFill, 0, s>>>(
+      (const uint8_t*)comp, comp_stride, (const int32_t*)tables, max_seq, n,
+      (const int32_t*)n_seq, (const int64_t*)block_at, (const int64_t*)n_ok,
+      (const uint8_t*)window, w, (int32_t*)nodes);
+  if (const cudaError_t e = cudaGetLastError()) return (int)e;
+  for (int r = 0; r < rounds; r++) {
+    round_kernel<<<grid, kRound, 0, s>>>((int32_t*)nodes,
+                                         (const int64_t*)n_nodes,
+                                         (int32_t*)open, r);
+    if (const cudaError_t e = cudaGetLastError()) return (int)e;
+  }
+  gather_kernel<<<grid, kRound, 0, s>>>((const int32_t*)nodes,
+                                        (const int64_t*)n_nodes,
+                                        (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// Resident CTAs per SM and threads per CTA of the first design's round.
+extern "C" int lz4tt_linked_rounds_occupancy(int* ctas_per_sm, int* threads) {
+  *threads = kRound;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, round_kernel, kRound, 0);
+}
+
+"""
+_RESOLVE_OCC = "// Resident CTAs per SM and threads per CTA of the rounds."
+_FIRST_RESOLVE = [
+    ("linked_decode.cuh", "// The exit of open node j: s0 - off[j].",
+     FIRST_RESOLVE_CUH + "\n// The exit of open node j: s0 - off[j]."),
+    ("linked_decode.cu", "}  // namespace\n",
+     _FIRST_RESOLVE_KERNELS + "\n}  // namespace\n"),
+    ("linked_decode.cu", _RESOLVE_OCC, _FIRST_RESOLVE_ENTRY + _RESOLVE_OCC)]
+_FIRST_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+               ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+    ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_void_p]
+
+# The shipped resolve's other builds (file, text, its replacement): its
+# segments at 8 and 32 KiB (16 KiB: linked_decode.SEGMENT), its launches
+# cut after a part (the segment kernel returning after its searches, its
+# fill, its pass; the launches up to the segments, the exits' ranks, the
+# rounds and their bytes) and options tried. True: its bytes held against
+# the shipped ones (the cut ones write part of them).
+_SEG = "constexpr int kSeg = 16384, kSegThreads = 512, kSegCtas = 3;"
+_PASS = ("  // the pass in output order, a tile of 2 T nodes at a time (a "
+         "thread's\n")
+_OUTPUT = ("  // known bytes to out; open nodes, their offsets and exits; size() "
+           "nodes\n")
+_RECORDS = ("      // size() records at a time: a thread each, the long ones by "
+            "the team;\n")
+_AFTER = {"segments": "  count_kernel<<<n_chunks, kScan, 0, s>>>(",
+          "ranks": "  void* args[] = {(void*)&m,",
+          "rounds": "  const int64_t per = (int64_t)kFinish * kResolve;"}
+
+
+def _cut(after: str, *cuh) -> list:
+    """The entry point returning before the launch after ``after`` (and
+    the segment kernel's body returning before each text of ``cuh``)."""
+    return [("linked_decode.cu", _AFTER[after], "  return 0;\n" + _AFTER[after]),
+            *(("linked_decode.cuh", t, "  return;\n" + t) for t in cuh)]
+
+
+_ENTRIES = ("    for (int64_t i0 = me; i0 < len; i0 += kBatch * lanes) {\n"
+            "      int32_t q[kBatch], k[kBatch];")
+_ROUNDS = ("    const int32_t left = lz4tt_rs_rounds(grid, m, len,\n"
+           "                                         lz4tt_rs_rounds_for(len), "
+           "tally,\n                                         turn, rounds);\n")
+_BYTES = ("    for (int64_t i = me; i < len; i += lanes)\n"
+          "      m.out[m.pos[i]] = (uint8_t)m.list[i];\n")
+_NO_ROUNDS = ("linked_decode.cu", _ROUNDS, "    const int32_t left = 0;\n")
+RESOLVE_BUILDS = {
+    "segments of 8 KiB": ([("linked_decode.cu", _SEG, _SEG.replace(
+        "16384", "8192"))], True),
+    "segments of 32 KiB": ([("linked_decode.cu", _SEG, _SEG.replace(
+        "16384, kSegThreads = 512, kSegCtas = 3",
+        "32768, kSegThreads = 1024, kSegCtas = 1"))], True),
+    "split: the segments' searches": ([
+        ("linked_decode.cuh", _RECORDS, "      continue;\n" + _RECORDS),
+        *_cut("segments", _PASS)], False),
+    "split: the segments' fill": (_cut("segments", _PASS), False),
+    "split: + their pass": (_cut("segments", _OUTPUT), False),
+    "split: the segments": (_cut("segments"), False),
+    "split: + the exits' ranks": (_cut("ranks"), False),
+    "split: + the rounds and the exits' bytes": (_cut("rounds"), False),
+    # the list's kernel in parts: the scans for each chunk's positions;
+    # with the entries; with the bytes; all (with the rounds)
+    "split: the list's scans": ([
+        ("linked_decode.cu", _ENTRIES, _ENTRIES.replace("i0 < len", "i0 < 0")),
+        _NO_ROUNDS, ("linked_decode.cu", _BYTES, "")], False),
+    "split: + the entries": ([_NO_ROUNDS, ("linked_decode.cu", _BYTES, "")],
+                             False),
+    "split: + the bytes (no rounds)": ([_NO_ROUNDS], False),
+    "tried: every chunk scanning every word": (
+        [("linked_decode.cu", "  const int64_t lo = word_past(m, words, base);",
+          "  const int64_t lo = 0;"),
+         ("linked_decode.cu", "  if (hi > words) hi = words;",
+          "  hi = words;")], True),
+    "tried: the list's kernel at 6 CTAs an SM": ([(
+        "linked_decode.cu",
+        "__launch_bounds__(kResolve)\n    resolve_kernel(",
+        "__launch_bounds__(kResolve, 6)\n    resolve_kernel(")], True),
+    "tried: the list's kernel at 8 CTAs an SM": ([(
+        "linked_decode.cu",
+        "__launch_bounds__(kResolve)\n    resolve_kernel(",
+        "__launch_bounds__(kResolve, 8)\n    resolve_kernel(")], True),
+    "tried: 16 list entries a thread at once": (
+        [("linked_decode.cuh", "  LZ4TT_RS_BATCH = 8,", "  LZ4TT_RS_BATCH = 16,"),
+         ("linked_decode.cu", "constexpr int kBatch = 8;",
+          "constexpr int kBatch = 16;")], True),
+    "tried: searches of size() probes a level": (
+        [("linked_decode.cuh", "4 * t.size() > LZ4TT_RS_PROBES ? 4 * t.size()",
+          "t.size() > LZ4TT_RS_PROBES ? t.size()")], True),
+    "tried: records of more than 16 nodes by the team": (
+        [("linked_decode.cuh", "  LZ4TT_RS_LONG = 64,", "  LZ4TT_RS_LONG = 16,")],
+        True),
+}
+
+
+def _kernel_times(call, reps: int = 5) -> dict:
+    """Device microseconds a call of each kernel ``call`` launches, from a
+    ``torch.profiler`` trace of ``reps`` calls (empty where the trace has
+    no device times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us:
+            out[e.key[:60]] = us / reps
+    return out
+
+
+def _resolve_libs() -> dict:
+    """The libraries of the first design's build (``"first design"``) and
+    of each of ``RESOLVE_BUILDS``, built at once."""
+    builds = {"first design": _FIRST_RESOLVE,
+              **{k: v[0] for k, v in RESOLVE_BUILDS.items()}}
+    root = build.build_dir().parent / "variants"
+    procs = []
+    try:
+        for i, (name, edits) in enumerate(builds.items()):
+            procs.append((name, *_nvcc_copy(root / f"resolve{i}", edits,
+                                            "linked_decode")))
+        logs = [proc.communicate()[0] for _, _, proc in procs]
+    finally:
+        for _, _, proc in procs:     # none left running on an error
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    libs = {}
+    for (name, so, proc), log in zip(procs, logs):
+        if proc.returncode:
+            raise build.KernelBuildError(log)
+        libs[name] = ctypes.CDLL(str(so))
+        fn = libs[name].lz4tt_linked_resolve
+        fn.argtypes, fn.restype = linked_decode.RESOLVE.argtypes, ctypes.c_int
+    return libs
+
+
+def _own_grid(lib):
+    """``lib``'s ``lz4tt_linked_resolve`` launching its cooperative kernel
+    on the CTAs its own build holds at once (its registers may differ
+    from the shipped build's)."""
+    ctas, threads = ctypes.c_int(), ctypes.c_int()
+    if lib.lz4tt_linked_occupancy(ctypes.byref(ctas), ctypes.byref(threads)):
+        raise RuntimeError("lz4tt_linked_occupancy: CUDA error")
+    grid = ctas.value * torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+
+    def fn(*args):     # _resolve_cuda's arguments, the grid second to last
+        return lib.lz4tt_linked_resolve(*args[:-2], grid, args[-1])
+    return fn
+
+
+def _resolve_first(lib, comp, tables, n_seq, block_at, n_ok, n_nodes,
+                   window, node_cap: int, rounds: int | None = None):
+    """The first design (``lib``, the build of ``_FIRST_RESOLVE``) on a
+    walked batch: ``rounds`` round kernels (by default
+    ``linked_decode.rounds_for(node_cap)``); (out, each round's open
+    nodes)."""
+    rounds = linked_decode.rounds_for(node_cap) if rounds is None else rounds
+    dev = comp.device
+    out = torch.empty((node_cap,), dtype=torch.uint8, device=dev)
+    nodes = torch.empty((node_cap,), dtype=torch.int32, device=dev)
+    open_ = torch.zeros((rounds,), dtype=torch.int32, device=dev)
+    ctas, threads = ctypes.c_int(), ctypes.c_int()
+    if lib.lz4tt_linked_rounds_occupancy(ctypes.byref(ctas),
+                                         ctypes.byref(threads)):
+        raise RuntimeError("lz4tt_linked_rounds_occupancy: CUDA error")
+    fn = lib.lz4tt_linked_resolve_rounds
+    fn.argtypes, fn.restype = _FIRST_ARGS, ctypes.c_int
+    if fn(comp.data_ptr(), comp.stride(0), tables.data_ptr(),
+          tables.shape[2], comp.shape[0], n_seq.data_ptr(),
+          block_at.data_ptr(), n_ok.data_ptr(), window.data_ptr(),
+          window.numel(), n_nodes.data_ptr(), nodes.data_ptr(),
+          out.data_ptr(), open_.data_ptr(), rounds,
+          ctas.value * torch.cuda.get_device_properties(
+              dev).multi_processor_count,
+          layout.cuda_stream(comp)):
+        raise RuntimeError("lz4tt_linked_resolve_rounds: CUDA error")
+    return out, open_
+
+
+def _peak_gib(call) -> float:
+    """The device memory a call allocates at its peak, GiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def _far_rows(dev) -> tuple:
+    """``testing.far_match_frame`` at 16 x 4 MiB (64 MiB of matches at
+    distances up to 65,535 after a 64 KiB window): (payload rows,
+    lengths, raw flags, block size, host lengths and flags, window)."""
+    window, raws, comps, bs, _ = testing.far_match_frame(
+        np.random.default_rng(FORMAT_SEED), 16)
+    c, cl = layout.to_device_layout(testing.payloads(raws, comps),
+                                    device=dev)
+    flags = [len(p) >= len(r) for r, p in zip(raws, comps)]
+    return (c, cl, torch.tensor(flags, device=dev), bs,
+            (cl.cpu().numpy(), np.array(flags)),
+            layout.upload_bytes(window, dev))
+
+
+def resolve_variants() -> dict:
+    """The linked resolve's designs (CUDA events) on the formats path's
+    linked frames at ``LINKED_SIZES`` and on 16 x 4 MiB of far matches
+    (``_far_rows``: most bytes open exits, the list in chunks), each walked
+    once: its first design (and its fill and gather alone), the shipped
+    one, with room for every open exit (one chunk), at segments of 8 and
+    32 KiB, options tried and its parts cumulatively (``RESOLVE_BUILDS``),
+    each complete output held against the shipped one's; its kernels'
+    device times; the open nodes, open exits, rounds and list chunks; the
+    peak memory of each design's call."""
+    dev = torch.device("cuda")
+    libs = _resolve_libs()
+    sets = {name: (*row, torch.empty((0,), dtype=torch.uint8, device=dev))
+            for name, row in _linked_rows(dev).items()}
+    sets["16 x 4 MiB of far matches"] = _far_rows(dev)
+    out = {}
+    for set_name, (c, cl, flags, bs, host, win) in sets.items():
+        walk = linked_decode.walk_linked(c, cl, flags, bs, None, host)
+        block_at, _, n_ok, n_nodes = linked_decode.frame_plan(
+            walk[2], walk[3], walk[4], win.numel())
+        cap = win.numel() + c.shape[0] * bs
+        args = (c, walk[0], walk[1], block_at, n_ok, n_nodes, win, cap)
+        want, opened = linked_decode.resolve_linked(*args)
+        n = int(n_nodes)
+        if int(n_ok) != c.shape[0] or int(opened[3]):
+            raise SystemExit(f"design_variants: {set_name} did not resolve")
+        room = -(-cap // linked_decode.LIST_SHARE)
+        res = dict(zip(("open after the pass", "open exits", "rounds"),
+                       opened.tolist()[:3]))
+        res["list chunks"] = -(-int(opened[1]) // room)
+        first = libs["first design"]
+        calls = {
+            "shipped": lambda: linked_decode.resolve_linked(*args),
+            "first design": lambda: _resolve_first(first, *args),
+            "first design: fill and gather": lambda: _resolve_first(
+                first, *args, rounds=0),
+            "room for every open exit": lambda: linked_decode._resolve_cuda(
+                *args, max(1, int(opened[1]))),
+            "room node_cap / 4": lambda: linked_decode._resolve_cuda(
+                *args, -(-cap // 4)),
+            "room node_cap / 64": lambda: linked_decode._resolve_cuda(
+                *args, -(-cap // 64))}
+        for name in RESOLVE_BUILDS:
+            calls[name] = (lambda fn=_own_grid(libs[name]):
+                           linked_decode._resolve_cuda(*args, room, fn))
+        for name, call in calls.items():
+            check = RESOLVE_BUILDS[name][1] if name in RESOLVE_BUILDS else \
+                name != "first design: fill and gather"
+            if check and not torch.equal(call()[0][:n], want[:n]):
+                raise SystemExit(f"design_variants: the resolve's {name} "
+                                 f"differs on {set_name}")
+            res[name] = _time(call)
+        for name in ("shipped", "first design", "room for every open exit"):
+            res[f"peak GiB: {name}"] = _peak_gib(calls[name])
+        res["kernels (torch.profiler, us a call)"] = _kernel_times(
+            calls["shipped"])
+        out[set_name] = res
+        print(f"linked resolve, {set_name}: {json.dumps(res)}", flush=True)
     return out
 
 
@@ -1854,7 +2282,11 @@ def main(argv: list[str]) -> int:
         print(json.dumps(dict_split()))
         return 0
     if argv == ["linked_decode"]:
-        print(json.dumps(linked_variants()))
+        print(json.dumps({"walk": linked_variants(),
+                          "resolve": resolve_variants()}))
+        return 0
+    if argv == ["--resolve"]:
+        print(json.dumps(resolve_variants()))
         return 0
     if argv == ["--walk-split"]:
         print(json.dumps(walk_split()))

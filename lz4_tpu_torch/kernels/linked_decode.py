@@ -24,15 +24,18 @@ blocks (``csrc/linked_decode.cuh``):
   ``i`` its history ``min(65536, w + o_i)``, makes a block whose reach
   goes past it MALFORMED, and finds the first block that fails;
 - :func:`resolve_linked` gives every byte of the window and of the blocks
-  before that one a node, a known byte or its parent's index, and runs
-  pointer-doubling rounds until every node is known, then writes the
-  bytes;
+  before that one its value: a segment of :data:`SEGMENT` output bytes at
+  a time in shared memory, in output order, then pointer-doubling rounds
+  over the few nodes through which chains leave their segments (the open
+  exits, a list), then the bytes whose chains left; each byte is written
+  once;
 - :func:`decode_linked_batch` chains them with one read-back.
 
 A CUDA tensor goes to the kernels (``csrc/linked_decode.cu``), a CPU tensor
 to the plain versions here; there is no fallback from one to the other.
 The plain walk is a Python loop over each block's tokens; the plain
-resolve runs synchronous rounds in torch gathers, on any device.
+resolve runs synchronous rounds in torch gathers over a node for every
+byte, on any device.
 """
 
 from __future__ import annotations
@@ -63,14 +66,22 @@ _KNOWN = 1 << 31          # a node's sign bit: its byte is known
 # and 1,024 x 64 KiB; a batch of one chunk a block takes the warp walk)
 CHUNK = 4096
 WHOLE_BELOW = 65536
+# the output bytes of a segment of the resolve (csrc/linked_decode.cu:
+# kSeg), and its room for open exits: an entry for each LIST_SHARE bytes
+# of node_cap, a batch with more taking them in chunks (PERF.md: segments
+# of 8 and 32 KiB, rooms of node_cap / 4 and / 64 measured slower)
+SEGMENT = 16384
+LIST_SHARE = 16
+_CHUNK_WORDS = 2048       # csrc/linked_decode.cu: kChunkWords
+_TALLY = 4                # csrc/linked_decode.cu: the rounds' tally
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 WALK = Kernel("linked_walk", "linked_decode", "lz4tt_linked_walk",
               [_P, _I64, _P, _P, _I32, _I32, _P, _I32, _P, _P, _P, _P, _P,
                _I32, _I32, _I32, _P, _P])
 RESOLVE = Kernel("linked_resolve", "linked_decode", "lz4tt_linked_resolve",
-                 [_P, _I64, _P, _I32, _I32, _P, _P, _P, _P, _I32, _P, _P,
-                  _P, _P, _I32, _I32, _P])
+                 [_P, _I64, _P, _I32, _I32, _P, _P, _P, _P, _I32, _P, _I64,
+                  _P, _P, _P, _I64, _P, _I32, _P])
 
 
 class LinkedBatch(NamedTuple):
@@ -98,10 +109,20 @@ def table_width(comp_lens, raw) -> int:
 
 
 def rounds_for(node_cap: int) -> int:
-    """Rounds that resolve any batch of up to ``node_cap`` nodes, and one
-    more that finds none open: a node at depth D is resolved after
-    ceil(log2(D + 1)) rounds, and D < node_cap."""
+    """Synchronous rounds that resolve any batch of up to ``node_cap``
+    nodes, and one more that finds none open: a node at depth D is
+    resolved after ceil(log2(D + 1)) rounds, and D < node_cap (the plain
+    resolve's)."""
     return math.ceil(math.log2(max(node_cap, 2))) + 1
+
+
+def resolve_scratch(node_cap: int, list_cap: int) -> int:
+    """Int32 words of the resolve's scratch: three bitmaps' worth of words
+    (the open nodes, the open exits, the list's entries before each word)
+    of ``ceil(node_cap / 32)`` rounded up to 4, a count a chunk of them,
+    the rounds' tally, and the list and its positions."""
+    words = (-(-node_cap // 32) + 3) // 4 * 4
+    return 3 * words + -(-words // _CHUNK_WORDS) + _TALLY + 2 * list_cap
 
 
 def chunk_layout(comp_lens, raw, dest_cap: int, chunk: int = CHUNK,
@@ -348,8 +369,7 @@ def _check_resolve(comp, tables, n_seq, block_at, window):
 def resolve_linked(comp: torch.Tensor, tables: torch.Tensor,
                    n_seq: torch.Tensor, block_at: torch.Tensor,
                    n_ok: torch.Tensor, n_nodes: torch.Tensor,
-                   window: torch.Tensor, node_cap: int,
-                   rounds: int | None = None):
+                   window: torch.Tensor, node_cap: int):
     """Resolve a walked batch (:func:`walk_linked`, :func:`frame_plan`).
 
     Args:
@@ -358,34 +378,50 @@ def resolve_linked(comp: torch.Tensor, tables: torch.Tensor,
         for ``n_ok`` and ``n_nodes``).
       window: uint8[w], the bytes before the batch (its nodes [0, w)).
       node_cap: at least ``n_nodes`` (``w`` + N x the block size).
-      rounds: rounds to launch (:func:`rounds_for` ``node_cap`` by default;
-        0 runs the fill and the gather alone, for timing).
 
     Returns:
-      (out uint8[node_cap], bytes [0, n_nodes) written; open int32[rounds],
-      the nodes each round left open). The kernel's rounds run in place,
-      so its counts may differ from the plain version's synchronous ones;
-      both are 0 once every node is known.
+      (out uint8[node_cap], bytes [0, n_nodes) written; open int32[k],
+      whose last entry counts the nodes still open). The kernel's ``open``
+      is int32[4]: the nodes whose chains leave their segment, the open
+      exits (the list), the most rounds a thread took on a chunk of the
+      list, and the list entries its bounded rounds left open (0 unless
+      the kernel is at fault). The plain version's is its synchronous
+      rounds' open counts.
     """
     _check_resolve(comp, tables, n_seq, block_at, window)
     if not 0 < node_cap < 1 << 31:
         raise ValueError("node_cap must lie in [1, 2**31)")
-    rounds = rounds_for(node_cap) if rounds is None else rounds
     if comp.device.type == "cpu":
         return resolve_linked_plain(comp, tables, n_seq, block_at, n_ok,
-                                    n_nodes, window, node_cap, rounds)
+                                    n_nodes, window, node_cap)
+    return _resolve_cuda(comp, tables, n_seq, block_at, n_ok, n_nodes,
+                         window, node_cap, -(-node_cap // LIST_SHARE))
+
+
+def _resolve_cuda(comp, tables, n_seq, block_at, n_ok, n_nodes, window,
+                  node_cap: int, list_cap: int, fn=RESOLVE):
+    """:func:`resolve_linked`'s launches on the card with room for
+    ``list_cap`` open exits at a time (``node_cap / LIST_SHARE`` on the
+    path; less takes the list in more chunks). ``fn``: another build of
+    the same C entry point (``design_variants``' edits), for timing."""
     dev = comp.device
     out = torch.empty((node_cap,), dtype=torch.uint8, device=dev)
-    nodes = torch.empty((node_cap,), dtype=torch.int32, device=dev)
-    open_ = torch.zeros((rounds,), dtype=torch.int32, device=dev)
-    RESOLVE(comp.data_ptr(), comp.stride(0), tables.data_ptr(),
+    off = torch.empty((node_cap,), dtype=torch.int16, device=dev)
+    scratch = torch.empty((resolve_scratch(node_cap, list_cap),),
+                          dtype=torch.int32, device=dev)
+    counters = torch.empty((4,), dtype=torch.int32, device=dev)
+    args = (comp.data_ptr(), comp.stride(0), tables.data_ptr(),
             tables.shape[2], comp.shape[0], n_seq.data_ptr(),
             block_at.data_ptr(), n_ok.data_ptr(), window.data_ptr(),
-            window.numel(), n_nodes.data_ptr(), nodes.data_ptr(),
-            out.data_ptr(), open_.data_ptr(), rounds,
+            window.numel(), n_nodes.data_ptr(), node_cap, out.data_ptr(),
+            off.data_ptr(), scratch.data_ptr(), list_cap, counters.data_ptr(),
             resident_ctas("linked_decode", "lz4tt_linked_occupancy",
-                          dev.index), cuda_stream(comp), device=dev.index)
-    return out, open_
+                          dev.index), cuda_stream(comp))
+    if fn is RESOLVE:
+        RESOLVE(*args, device=dev.index)
+    elif fn(*args):
+        raise RuntimeError("lz4tt_linked_resolve: CUDA error")
+    return out, counters
 
 
 def resolve_linked_plain(comp: torch.Tensor, tables: torch.Tensor,
@@ -446,20 +482,19 @@ def decode_linked_batch(comp: torch.Tensor, comp_lens: torch.Tensor,
                         host=None) -> LinkedBatch:
     """Walk, place and resolve a batch of linked blocks against ``window``
     (uint8[w], the up to 64 KiB of output before it), on the batch's
-    device: two launches on the card and one read-back (the codes, the
-    offsets, the first failing block, the nodes left open and ``held``,
-    each block's checksum verdict when given: the blocks from the first
-    whose checksum did not hold are neither resolved nor returned).
-    Raises ``RuntimeError`` if a node is still open after the rounds that
-    any batch needs, or if the first failing block had more sequences
-    than its table: both are faults of this code, not of the input.
-    ``host`` is :func:`walk_linked`'s."""
+    device: the walk's and the resolve's launches on the card and one
+    read-back (the codes, the offsets, the first failing block, the nodes
+    left open and ``held``, each block's checksum verdict when given: the
+    blocks from the first whose checksum did not hold are neither resolved
+    nor returned). Raises ``RuntimeError`` if a node is still open, or if
+    the first failing block had more sequences than its table: both are
+    faults of this code, not of the input. ``host`` is
+    :func:`walk_linked`'s."""
     tables, n_seq, out_total, code, reach = walk_linked(
         comp, comp_lens, raw, dest_cap, max_seq, host)
     block_at, code, n_ok, n_nodes = frame_plan(out_total, code, reach,
                                                window.numel(), held)
     node_cap = window.numel() + comp.shape[0] * dest_cap
-    rounds = rounds_for(node_cap)
     out, open_ = resolve_linked(comp, tables, n_seq, block_at, n_ok, n_nodes,
                                 window, node_cap)
     n = comp.shape[0]
@@ -472,8 +507,7 @@ def decode_linked_batch(comp: torch.Tensor, comp_lens: torch.Tensor,
     n_ok, n_nodes, left = (int(v) for v in host[2 * n + 1:2 * n + 4])
     verdicts = host[2 * n + 4:].astype(bool) if held is not None else None
     if left:
-        raise RuntimeError(f"linked resolve: {left} nodes still open after "
-                           f"{rounds} rounds")
+        raise RuntimeError(f"linked resolve: {left} nodes still open")
     if n_ok < n and codes[n_ok] == TOO_MANY and (
             verdicts is None or verdicts[n_ok]):
         raise RuntimeError(f"linked walk: block {n_ok} has more sequences "

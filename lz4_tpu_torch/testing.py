@@ -323,8 +323,13 @@ def expand_block(seqs, tail: bytes, hist: bytes = b"") -> bytes:
     out = bytearray(hist)
     for lit, dist, ml in seqs:
         out += lit
-        for _ in range(ml):
-            out.append(out[-dist] if dist else 0)
+        if not dist:
+            out += bytes(ml)
+            continue
+        if dist > len(out):
+            raise IndexError("a match reaches before the history")
+        src = out[len(out) - dist:len(out) - dist + ml]
+        out += (src * (ml // dist + 1))[:ml]   # a period of dist bytes
     return bytes(out[len(hist):] + tail)
 
 
@@ -692,6 +697,182 @@ def linked_blocks(raw: bytes, block_size: int, device) -> list[bytes]:
     if bool(err.any()):
         raise RuntimeError("a linked block failed to compress")
     return layout.from_device_layout(comp, comp_lens)
+
+
+RESOLVE_CASES = ("chains", "short_blocks", "window_only", "null_seam",
+                 "long_record", "big_block", "n_ok")
+
+
+def resolve_case(case: str, rng: np.random.Generator):
+    """A batch of linked blocks for the resolve (``kernels/linked_decode``)
+    whose bytes cross its segments' and tiles' seams in one way each:
+    ``(window, raws, comps, dest_cap, n_ok)``, the blocks ``comps[i]``
+    (compressed, or ``raws[i]`` itself: stored raw) after ``window``, their
+    content ``raws``, and the blocks that decode (``n_ok``):
+
+    - ``chains``: matches of distance 1-3 and 4-300 bytes, most without
+      literals, over 200 KiB in four blocks;
+    - ``short_blocks``: 256 blocks of 20-200 bytes, each starting with a
+      match into the block before (or further back);
+    - ``window_only``: every match's source in a 64 KiB window (the
+      last literals of each block aside);
+    - ``null_seam``: null offsets (zeros) of 1-3,000 bytes, and matches
+      copying them, over 48 KiB;
+    - ``long_record``: a literal run of 40,000 bytes, matches of 50,000
+      and 70,000 bytes (distances 1 and 30,000) in a 4 MiB block;
+    - ``big_block``: a 4 MiB block of matches of 100-30,000 bytes at
+      distances up to 65,535 (the window's 64 KiB first), cut mid-match by
+      every segment size;
+    - ``n_ok``: six blocks, the fourth reaching before its history (the
+      batch decodes three).
+    """
+    def rb(n, k=256):
+        return rng.integers(0, k, int(n), dtype=np.uint8).tobytes()
+
+    def frame(window, blocks, dest_cap, n_ok=None):
+        raws, comps, hist = [], [], window
+        for seqs, tail in blocks:
+            raws.append(expand_block(seqs, tail, hist[-65536:]))
+            comps.append(encode_block(seqs, tail))
+            hist += raws[-1]
+        return (window, raws, comps, dest_cap,
+                len(blocks) if n_ok is None else n_ok)
+
+    if case == "chains":
+        blocks = []
+        for b in range(4):
+            seqs, n = [(rb(3), 1, 4)] if b == 0 else [], 0
+            while n < 50000:
+                lit = rb(int(rng.integers(0, 4))) if rng.random() < 0.2 else b""
+                seqs.append((lit, int(rng.integers(1, 4)),
+                             int(rng.integers(4, 301))))
+                n += len(lit) + seqs[-1][2]
+            blocks.append((seqs, rb(6)))
+        return frame(b"", blocks, 1 << 16)
+    if case == "short_blocks":
+        blocks, total = [([], rb(100))], 100
+        for _ in range(255):
+            n = int(rng.integers(20, 201))
+            dist = int(rng.integers(1, min(total, 400) + 1))
+            ml = int(rng.integers(4, max(5, n - 6)))
+            blocks.append(([(b"", dist, ml)], rb(max(0, n - ml))))
+            total += ml + max(0, n - ml)
+        return frame(b"", blocks, 256)
+    if case == "window_only":
+        w = 65536
+        blocks, pos = [], w
+        for _ in range(4):
+            seqs, n = [], 0
+            while n < 12000:
+                ml = int(rng.integers(4, 600))
+                src = int(rng.integers(max(0, pos + n - 65535), w - ml))
+                seqs.append((b"", pos + n - src, ml))
+                n += ml
+            blocks.append((seqs, rb(10)))
+            pos += n + 10
+        return frame(rb(w), blocks, 1 << 16)
+    if case == "null_seam":
+        blocks = []
+        for b in range(3):
+            seqs, n = [], 0
+            while n < 16000:
+                ml = int(rng.integers(1, 3001)) + 4
+                d = 0 if rng.random() < 0.5 else int(rng.integers(1, n + 2))
+                lit = rb(int(rng.integers(0, 3))) if d > n else b""
+                if d > n + len(lit):
+                    d = 0
+                seqs.append((lit, d, ml))
+                n += len(lit) + ml
+            blocks.append((seqs, rb(5)))
+        return frame(b"", blocks, 1 << 16)
+    if case == "long_record":
+        seqs = [(rb(40000), 1, 50000), (rb(7), 30000, 70000),
+                (b"", 3, 20000)]
+        return frame(b"", [(seqs, rb(40000))], 4 << 20)
+    if case == "big_block":
+        return far_match_frame(rng, 1)
+    if case == "n_ok":
+        # blocks 1 and 2 take 51 bytes each; block 3's match reaches one
+        # byte before the frame (its raw is a stand-in of its length)
+        good = frame(b"", [([], rb(300))] + [
+            ([(rb(2), int(rng.integers(1, 250)), 40)], rb(9))
+            for _ in range(4)], 1 << 16)
+        bad = ([(rb(2), 2 + 300 + 2 * 51 + 1, 8)], rb(9))
+        raws, comps = list(good[1]), list(good[2])
+        raws.insert(3, bytes(19))
+        comps.insert(3, encode_block(*bad))
+        return b"", raws, comps, 1 << 16, 3
+    raise ValueError(f"no resolve case {case!r}")
+
+
+def far_match_frame(rng: np.random.Generator, n_blocks: int):
+    """``n_blocks`` linked blocks of 4 MiB after a 64 KiB window (bytes of
+    an alphabet of 16), each of matches of 100-30,000 bytes at distances
+    up to 65,535 behind 0-20 literals, so that most of its bytes are open
+    exits of the resolve's segments: ``resolve_case``'s ``(window, raws,
+    comps, dest_cap, n_ok)``."""
+    window = rng.integers(0, 16, 65536, dtype=np.uint8).tobytes()
+    raws, comps, hist = [], [], window
+    for _ in range(n_blocks):
+        seqs, n = [], 0
+        while n < (4 << 20) - 40000:
+            lit = rng.integers(0, 256, int(rng.integers(0, 21)),
+                               dtype=np.uint8).tobytes()
+            ml = int(rng.integers(100, 30001))
+            seqs.append((lit, int(rng.integers(1, 65536)), ml))
+            n += len(lit) + ml
+        tail = rng.integers(0, 256, 9, dtype=np.uint8).tobytes()
+        raws.append(expand_block(seqs, tail, hist[-65536:]))
+        comps.append(encode_block(seqs, tail))
+        hist = hist[-65536:] + raws[-1]
+    return window, raws, comps, 4 << 20, n_blocks
+
+
+def resolve_sets(tables, n_seq, block_at, n_ok, w: int, total: int,
+                 seg: int):
+    """What the resolve by segments (``csrc/linked_decode.cuh``) must find
+    in a walked batch, from its records as the plain version makes its
+    nodes (a match byte's parent base + (x mod d), base = m_out - d), as
+    bool[total]: the nodes whose chain leaves their segment of ``seg``
+    bytes before it reaches a known byte (the open nodes); and those of
+    them on which the segments' pass leaves a chain (its parents in the
+    period before the match's start in the segment, or before the
+    segment): the list."""
+    known = np.ones(total, bool)
+    plain, by_seg = np.arange(total), np.arange(total)
+    tb = tables.cpu().numpy()
+    ns, at = n_seq.cpu().numpy(), block_at.cpu().numpy()
+    for b in range(int(n_ok)):
+        k = int(ns[b])
+        mo, md, ml = (tb[f, b, :k].astype(np.int64) for f in (3, 4, 5))
+        keep = md > 0
+        mo, md, ml = mo[keep], md[keep], ml[keep]
+        rec = np.repeat(np.arange(mo.size), ml)
+        x = np.arange(rec.size) - np.repeat(np.cumsum(ml) - ml, ml)
+        mf = w + int(at[b]) + mo[rec]
+        d = md[rec]
+        j = mf + x
+        known[j] = False
+        plain[j] = mf - d + x % d
+        bp = np.maximum(mf, j // seg * seg) - d
+        by_seg[j] = bp + (j - bp) % d
+    s0 = np.arange(total) // seg * seg
+
+    def follow(par):
+        ptr = par.copy()
+        while True:
+            go = ~known & (ptr >= s0) & ~known[ptr] & (ptr != par[ptr])
+            if not go.any():
+                return ptr
+            ptr = np.where(go, par[ptr], ptr)
+
+    leaves = ~known & (follow(plain) < s0)
+    exits = follow(by_seg)
+    if not np.array_equal(leaves, ~known & (exits < s0)):
+        raise AssertionError("the two kinds of parents leave differently")
+    listed = np.zeros(total, bool)
+    listed[exits[leaves]] = True
+    return leaves, listed & leaves
 
 
 def long_run_frame(case: str) -> bytes:

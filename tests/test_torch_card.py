@@ -1039,41 +1039,107 @@ def test_dict_kernel_seeded_once_and_linked_rows(cuda_device):
     assert all(torch.equal(x, y) for x, y in zip(kern, two))
 
 
-@pytest.mark.parametrize("block, w, kind", [
-    (65536, 0, "alphabet4"), (300, 5000, "alphabet4"), (65536, 65536, "text"),
-    (1000, 65536, "zeros")])
-def test_linked_resolve_kernel_matches_plain(cuda_device, block, w, kind):
-    """The resolve against its plain version on a walked batch of
-    ``testing.linked_blocks`` after a window of ``w`` bytes of the same
-    content: the batch's bytes are its content; one launch."""
+def _linked_resolve_batch(case, device):
+    """A walked batch for the resolve: ``testing.linked_blocks`` of
+    ``(block, w, kind)`` after a window of ``w`` bytes of the same content,
+    or ``testing.resolve_case(case)``. Returns (comp, tables, n_seq,
+    block_at, n_ok, n_nodes, window, node_cap, the batch's content)."""
     rng = np.random.default_rng(65)
-    data = testing.block_of(rng, kind, w + 40 * block + 77)
-    comps = testing.linked_blocks(data, block, cuda_device)
-    first = -(-w // block)       # the blocks that make the window
-    raws = [data[i:i + block] for i in range(0, len(data), block)]
-    pays = testing.payloads(raws, comps)[first:]
-    raw = torch.tensor([len(c) >= len(r) for r, c in
-                        zip(raws[first:], comps[first:])], device=cuda_device)
-    c, cl = layout.to_device_layout(pays, device=cuda_device)
-    start = first * block
-    window = layout.upload_bytes(data[max(0, start - 65536):start],
-                                 cuda_device) if start else \
-        torch.empty((0,), dtype=torch.uint8, device=cuda_device)
+    if isinstance(case, str):
+        window, raws, comps, dest_cap, n_ok = testing.resolve_case(case, rng)
+        start, content = len(window), window + b"".join(raws[:n_ok])
+    else:
+        block, w, kind = case
+        data = testing.block_of(rng, kind, w + 40 * block + 77)
+        comps = testing.linked_blocks(data, block, device)
+        first = -(-w // block)       # the blocks that make the window
+        raws = [data[i:i + block] for i in range(0, len(data), block)]
+        start = first * block
+        window = data[max(0, start - 65536):start]
+        raws, comps, dest_cap, n_ok = (raws[first:], comps[first:], block,
+                                       len(raws) - first)
+        content = window + data[start:]
+    pays = testing.payloads(raws, comps)
+    raw = torch.tensor([len(c) >= len(r) for r, c in zip(raws, comps)],
+                       device=device)
+    c, cl = layout.to_device_layout(pays, device=device)
+    win = layout.upload_bytes(window, device) if window else \
+        torch.empty((0,), dtype=torch.uint8, device=device)
     tables, n_seq, out_total, code, reach = linked_decode.walk_linked(
-        c, cl, raw, block)
-    plan = linked_decode.frame_plan(out_total, code, reach, window.numel())
-    assert int(plan[2]) == len(pays)
-    cap = window.numel() + len(pays) * block
+        c, cl, raw, dest_cap)
+    plan = linked_decode.frame_plan(out_total, code, reach, win.numel())
+    assert int(plan[2]) == n_ok
+    return (c, tables, n_seq, plan[0], plan[2], plan[3], win,
+            win.numel() + len(pays) * dest_cap, content)
+
+
+@pytest.mark.parametrize("case", [
+    (65536, 0, "alphabet4"), (300, 5000, "alphabet4"), (65536, 65536, "text"),
+    (1000, 65536, "zeros"), *testing.RESOLVE_CASES])
+def test_linked_resolve_kernel_matches_plain(cuda_device, case):
+    """The resolve against its plain version, one launch, on a walked
+    batch of ``testing.linked_blocks`` after a window of the same content
+    and on each of ``testing.resolve_case``'s (chains of distance 1-3 over
+    seams, 256 short blocks reaching back, the window as the only source,
+    null offsets over seams, records longer than a segment, a 4 MiB block
+    cut mid-match, a failing fourth block): the batch's bytes are its
+    content; the kernel's open nodes and list are as many as the records
+    say (``testing.resolve_sets``), and it leaves no list entry open."""
+    *args, content = _linked_resolve_batch(case, cuda_device)
+    c, tables, n_seq, block_at, n_ok, n_nodes, window, cap = args
     before = linked_decode.RESOLVE.launches
-    got, opened = linked_decode.resolve_linked(c, tables, n_seq, plan[0],
-                                               plan[2], plan[3], window, cap)
+    got, opened = linked_decode.resolve_linked(*args)
     assert linked_decode.RESOLVE.launches == before + 1
-    want, _ = linked_decode.resolve_linked_plain(c, tables, n_seq, plan[0],
-                                                 plan[2], plan[3], window, cap)
-    n = int(plan[3])
+    want, _ = linked_decode.resolve_linked_plain(*args)
+    n = int(n_nodes)
     assert int(opened[-1]) == 0
     assert torch.equal(got[:n], want[:n])
-    assert got[window.numel():n].cpu().numpy().tobytes() == data[start:]
+    assert got[:n].cpu().numpy().tobytes() == content
+    leaves, listed = testing.resolve_sets(tables, n_seq, block_at, n_ok,
+                                          window.numel(), n,
+                                          linked_decode.SEGMENT)
+    assert opened.tolist()[:2] == [int(leaves.sum()), int(listed.sum())]
+
+
+def test_linked_resolve_in_chunks(cuda_device):
+    """Room for fewer open exits than a batch has: the resolve takes them in
+    chunks, in output order (of a third of them, and of one), and gives the
+    same bytes and counts (4 MiB blocks: records longer than a segment, a
+    4 MiB block cut mid-match); ``decode_linked_batch`` on 16 x 4 MiB of
+    far matches (most bytes open exits: the list in chunks on the path)
+    decodes the batch in one resolve launch."""
+    for case, rooms in (("big_block", (3,)), ("long_record", (3, 1 << 30))):
+        *args, content = _linked_resolve_batch(case, cuda_device)
+        n = int(args[5])
+        _, opened = linked_decode.resolve_linked(*args)
+        need = int(opened[1])
+        assert need > 3
+        for k in rooms:
+            got, chunked = linked_decode._resolve_cuda(
+                *args, max(1, need // k))
+            assert chunked.tolist()[:2] == opened.tolist()[:2]
+            assert int(chunked[3]) == 0
+            assert got[:n].cpu().numpy().tobytes() == content
+    window, raws, comps, dest_cap, _ = testing.far_match_frame(
+        np.random.default_rng(65), 16)
+    pays = testing.payloads(raws, comps)
+    c, cl = layout.to_device_layout(pays, device=cuda_device)
+    raw = torch.tensor([len(p) >= len(r) for r, p in zip(raws, comps)],
+                       device=cuda_device)
+    before = linked_decode.RESOLVE.launches
+    batch = linked_decode.decode_linked_batch(
+        c, cl, raw, dest_cap, layout.upload_bytes(window, cuda_device))
+    assert linked_decode.RESOLVE.launches == before + 1
+    assert batch.out[:batch.n_nodes].cpu().numpy().tobytes() == \
+        window + b"".join(raws)
+    walk = linked_decode.walk_linked(c, cl, raw, dest_cap)
+    plan = linked_decode.frame_plan(walk[2], walk[3], walk[4], len(window))
+    cap = len(window) + len(raws) * dest_cap
+    _, opened = linked_decode.resolve_linked(
+        c, walk[0], walk[1], plan[0], plan[2], plan[3],
+        layout.upload_bytes(window, cuda_device), cap)
+    assert int(opened[1]) > 2 * -(-cap // linked_decode.LIST_SHARE)
+    assert int(opened[3]) == 0
 
 
 def _linked_frame(device, rng):

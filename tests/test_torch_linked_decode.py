@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from lz4_tpu.formats import frame as jframe
-from lz4_tpu_torch import testing
+from lz4_tpu_torch import design_variants, testing
 from lz4_tpu_torch.core.constants import max_compressed_length
 from lz4_tpu_torch.core.errors import Lz4Error
 from lz4_tpu_torch.formats import frame as frame_mod
@@ -32,7 +32,97 @@ CPU = "cpu"
 BS = 1 << 16
 
 HARNESS = r"""
+#include <pthread.h>
+
+#include <vector>
+
 #include "linked_decode.cuh"
+
+// A team of host threads for lz4tt_rs_segment: a barrier a sync, atomics
+// for the shared and device memory ors and adds.
+struct RsShared {
+  pthread_barrier_t bar;
+};
+struct RsTeam {
+  RsShared* sh;
+  int id, n;
+  int rank() const { return id; }
+  int size() const { return n; }
+  void sync() const { pthread_barrier_wait(&sh->bar); }
+  int32_t add(int32_t* p, int32_t v) const {
+    return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+  }
+  void add_all(int32_t* p, int32_t v) const { add(p, v); }
+  void or_global(uint32_t* p, uint32_t v) const {
+    __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
+  }
+  // the bitmaps start zeroed here, so a bit is or'ed in
+  void put_bit(uint32_t* words, int32_t j, bool on, bool) const {
+    if (on) or_global(words + (j >> 5), 1u << (j & 31));
+  }
+  void or_shared(uint32_t* p, uint32_t v) const { or_global(p, v); }
+};
+struct RsJob {
+  const Lz4ttRsBatch* bt;
+  const Lz4ttRsMaps* m;
+  int32_t s0, seg;
+  Lz4ttRsShared sh;
+  RsShared* team;
+  int lanes;
+};
+struct RsLane {
+  RsJob* job;
+  int id;
+};
+static void* rs_lane(void* arg) {
+  RsLane* l = (RsLane*)arg;
+  RsJob* j = l->job;
+  lz4tt_rs_segment(RsTeam{j->team, l->id, j->lanes}, *j->bt, *j->m, j->s0,
+                   j->seg, j->sh);
+  return nullptr;
+}
+
+// The same team as lz4tt_rs_rounds' grid.
+struct RsGrid : RsTeam {
+  bool leader() const { return id == 0; }
+};
+struct RoundsJob {
+  const Lz4ttRsMaps* m;
+  int32_t len, own, turn, left;
+  int32_t *tally, *rounds;  // rounds: each lane's
+  RsShared* team;
+  int lanes;
+};
+struct RoundsLane {
+  RoundsJob* job;
+  int id;
+};
+static void* rounds_lane(void* arg) {
+  RoundsLane* l = (RoundsLane*)arg;
+  RoundsJob* j = l->job;
+  int32_t turn = j->turn, rounds = 0;
+  const int32_t left =
+      lz4tt_rs_rounds(RsGrid{{j->team, l->id, j->lanes}}, *j->m, j->len,
+                      j->own, j->tally, turn, rounds);
+  j->rounds[l->id] = rounds;
+  if (l->id == 0) {  // the same on every lane
+    j->turn = turn;
+    j->left = left;
+  }
+  return nullptr;
+}
+
+// Runs fn(lane) on `lanes` host threads, joined.
+template <class Lane, class Job>
+static void run_lanes(Job* job, int lanes, void* (*fn)(void*)) {
+  std::vector<pthread_t> th(lanes);
+  std::vector<Lane> ls(lanes);
+  for (int k = 0; k < lanes; k++) {
+    ls[k] = {job, k};
+    pthread_create(&th[k], nullptr, fn, &ls[k]);
+  }
+  for (int k = 0; k < lanes; k++) pthread_join(th[k], nullptr);
+}
 
 extern "C" {
 
@@ -57,12 +147,87 @@ void host_linked_walk(const uint8_t* comp, long long stride,
   }
 }
 
-// The resolve as the kernels run it, one thread: the fill (a record longer
-// than LZ4TT_LR_LONG nodes in `step` interleaved parts, as a CTA's
-// threads take it), then rounds in place over [0, n_nodes), ascending or
-// (reverse) descending; the latter reads every parent before this round
-// writes it, so its counts are the synchronous rounds'. open: int32[rounds].
+// The resolve as its five kernels run it (lz4tt_linked_resolve): each
+// segment of seg nodes by a team of `lanes` host threads (tiles of 2 lanes
+// nodes), in ascending or (reverse) descending order; the open exits,
+// their ranks as count_kernel and init_kernel make them; the list in
+// chunks of list_cap, each chunk's entries and positions, its rounds by
+// lz4tt_rs_rounds on `lanes` host threads (own: each thread's own rounds
+// before the grid's; -1, the kernel's), then its bytes; then every other
+// open node's byte. plant >= 0: a fault planted in the first chunk, entry
+// `plant` pointing at itself. open, exits, word_base: uint32 or
+// int32[ceil(n_nodes / 32)], exits zeroed; off: uint16[n_nodes]; list:
+// int32[2 * list_cap] (the entries, then their positions); counters:
+// int32[4], zeroed.
 void host_linked_resolve(const uint8_t* comp, long long stride,
+                         int32_t* tables, int max_seq, int n,
+                         const int32_t* n_seq, const int64_t* block_at,
+                         int n_ok, const uint8_t* window, int w, int n_nodes,
+                         int seg, int lanes, int reverse, long long list_cap,
+                         int own, int plant, uint8_t* out, uint16_t* off,
+                         uint32_t* open, uint32_t* exits, int32_t* word_base,
+                         int32_t* list, int32_t* counters) {
+  const Lz4ttRsBatch bt = {comp, stride, tables, max_seq, n, n_seq,
+                           block_at, n_ok, window, w, n_nodes};
+  const Lz4ttRsMaps m = {out, off, open, exits, word_base, list,
+                         list + list_cap};
+  const int n_segs = (n_nodes + seg - 1) / seg;
+  std::vector<int32_t> nodes(seg), more(lanes + 4);
+  std::vector<uint32_t> ex(LZ4TT_RS_EXIT_WORDS);
+  RsShared team;
+  pthread_barrier_init(&team.bar, nullptr, lanes);
+  for (int i = 0; i < n_segs; i++) {
+    const int g = reverse ? n_segs - 1 - i : i;
+    RsJob job = {&bt, &m, g * seg, seg,
+                 {nodes.data(), ex.data(), more.data(), more.data() + lanes},
+                 &team, lanes};
+    run_lanes<RsLane>(&job, lanes, rs_lane);
+    counters[0] += job.sh.cnt[2];
+  }
+  const int words = (n_nodes + 31) / 32;
+  int32_t all = 0;
+  for (int k = 0; k < words; k++) {
+    exits[k] &= open[k];
+    word_base[k] = all;
+    all += lz4tt_popc(exits[k]);
+  }
+  counters[1] = all;
+  int32_t tally[3] = {0, 0, 0}, turn = 0;
+  std::vector<int32_t> rounds(lanes);
+  for (int32_t base = 0; base < all; base += (int32_t)list_cap) {
+    const int32_t len =
+        all - base < list_cap ? all - base : (int32_t)list_cap;
+    for (int k = 0; k < words; k++)  // init_kernel's, or the chunk's scan
+      for (uint32_t b = lz4tt_rs_in_chunk(m, k, base, len); b; b &= b - 1) {
+        const int32_t q = k * 32 + lz4tt_ffs(b) - 1;
+        list[lz4tt_rs_rank(m, q) - base] =
+            lz4tt_rs_entry(m, lz4tt_rs_exit(m, q, seg), base);
+        m.pos[lz4tt_rs_rank(m, q) - base] = q;
+      }
+    if (base == 0 && plant >= 0 && plant < len) list[plant] = plant;
+    RoundsJob job = {&m, len,
+                     own < 0 ? lz4tt_rs_rounds_for(len) : own, turn, 0,
+                     tally, rounds.data(), &team, lanes};
+    run_lanes<RoundsLane>(&job, lanes, rounds_lane);
+    turn = job.turn;
+    for (int32_t r : rounds)
+      if (r > counters[2]) counters[2] = r;
+    counters[3] += job.left;
+    for (int i = 0; i < len; i++) out[m.pos[i]] = (uint8_t)list[i];
+  }
+  pthread_barrier_destroy(&team.bar);
+  for (int j = 0; j < n_nodes; j++)
+    if (off[j] && !lz4tt_rs_listed(m, j))
+      out[j] = out[lz4tt_rs_exit(m, j, seg)];
+}
+
+// The resolve's first design as its kernels run it, one thread: the fill (a
+// record longer than LZ4TT_LR_LONG nodes in `step` interleaved parts, as a
+// CTA's threads take it), then rounds in place over [0, n_nodes),
+// ascending or (reverse) descending; the latter reads every parent before
+// this round writes it, so its counts are the synchronous rounds'. open:
+// int32[rounds].
+void host_linked_resolve_first(const uint8_t* comp, long long stride,
                          int32_t* tables, int max_seq, int n,
                          const int32_t* n_seq, const int64_t* block_at,
                          long long n_ok, const uint8_t* window, int w,
@@ -106,10 +271,12 @@ def lib(tmp_path_factory):
     if gxx is None:
         pytest.skip("g++ is not installed")
     out = tmp_path_factory.mktemp("linked_decode")
-    (out / "harness.cpp").write_text(HARNESS)
+    (out / "harness.cpp").write_text(HARNESS.replace(
+        '#include "linked_decode.cuh"\n',
+        '#include "linked_decode.cuh"\n\n' + design_variants.FIRST_RESOLVE_CUH))
     res = subprocess.run(
-        [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-Wall", "-Werror",
-         "-Wno-unknown-pragmas", "-I", str(build.CSRC), "-o",
+        [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-pthread", "-Wall",
+         "-Werror", "-Wno-unknown-pragmas", "-I", str(build.CSRC), "-o",
          str(out / "liblinked.so"), str(out / "harness.cpp")],
         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
@@ -117,8 +284,12 @@ def lib(tmp_path_factory):
     lib.host_linked_walk.argtypes = [_P, _I64, _P, _P, _I32, _I32, _P, _I32,
                                      _P]
     lib.host_linked_resolve.argtypes = [_P, _I64, _P, _I32, _I32, _P, _P,
-                                        _I64, _P, _I32, _I64, _P, _P, _P,
-                                        _I32, _I32, _I32]
+                                        _I32, _P, _I32, _I32, _I32, _I32,
+                                        _I32, _I64, _I32, _I32, _P, _P, _P,
+                                        _P, _P, _P, _P]
+    lib.host_linked_resolve_first.argtypes = [_P, _I64, _P, _I32, _I32, _P,
+                                              _P, _I64, _P, _I32, _I64, _P,
+                                              _P, _P, _I32, _I32, _I32]
     return lib
 
 
@@ -243,6 +414,61 @@ def _resolve_inputs(pays, raw, window, dest_cap):
     return comp, tables, n_seq, block_at, n_ok, n_nodes, win, code
 
 
+def _bits(words, total):
+    """A bitmap of int32 words as bool[total]."""
+    return np.unpackbits(words.numpy().view(np.uint8),
+                         bitorder="little")[:total].astype(bool)
+
+
+def _host_resolve(lib, comp, tables, n_seq, block_at, n_ok, n_nodes, win,
+                  seg, lanes, reverse, list_cap=None, own=-1, plant=-1):
+    """The g++ build of the resolve's five kernels (``host_linked_resolve``;
+    ``own`` and ``plant`` are its): (out, open nodes, the list (open
+    exits), counters)."""
+    total = int(n_nodes)
+    words = -(-total // 32)
+    out = torch.zeros((total,), dtype=torch.uint8)
+    off = torch.zeros((total,), dtype=torch.int16)
+    maps = torch.zeros((3, max(words, 1)), dtype=torch.int32)
+    cap = total if list_cap is None else list_cap
+    lst = torch.zeros((2 * max(cap, 1),), dtype=torch.int32)
+    counters = torch.zeros((4,), dtype=torch.int32)
+    lib.host_linked_resolve(
+        comp.data_ptr(), comp.stride(0), tables.data_ptr(), tables.shape[2],
+        comp.shape[0], n_seq.data_ptr(), block_at.data_ptr(), int(n_ok),
+        win.data_ptr(), win.numel(), total, seg, lanes, reverse, cap, own,
+        plant, out.data_ptr(), off.data_ptr(), maps[0].data_ptr(),
+        maps[1].data_ptr(), maps[2].data_ptr(), lst.data_ptr(),
+        counters.data_ptr())
+    return out, _bits(maps[0], total), _bits(maps[1], total), counters
+
+
+def _assert_host_resolve(lib, inputs, seg, lanes, reverse, content=None):
+    """The g++ resolve (``reverse``: its segments from the last and the
+    list's rounds the grid's alone, no thread's own) equals the plain
+    version (and ``content``); its open nodes are those whose chain leaves
+    their segment, its list those of them that are exits (both from the
+    plain version's nodes); its counts say so, and nothing is left
+    open."""
+    comp, tables, n_seq, block_at, n_ok, n_nodes, win, _ = inputs
+    total = int(n_nodes)
+    plain, _ = ld.resolve_linked(comp, tables, n_seq, block_at, n_ok,
+                                 n_nodes, win, max(total, 1))
+    if content is not None:
+        assert plain[:total].numpy().tobytes() == content
+    out, opened, listed, counters = _host_resolve(
+        lib, comp, tables, n_seq, block_at, n_ok, n_nodes, win, seg, lanes,
+        reverse, own=0 if reverse else -1)
+    assert torch.equal(out, plain[:total])
+    leaves, want = testing.resolve_sets(tables, n_seq, block_at, n_ok,
+                                        win.numel(), total, seg)
+    assert np.array_equal(opened, leaves)
+    assert np.array_equal(listed, want)
+    assert counters.tolist()[:2] == [int(leaves.sum()), int(want.sum())]
+    assert int(counters[3]) == 0
+    return counters
+
+
 @pytest.mark.parametrize("sizes, w, kind", [
     ((BS, BS, 1000, BS), 0, "period"),
     ((300, 250, 10, 700, 400, 2000), 5000, "period"),
@@ -251,16 +477,43 @@ def _resolve_inputs(pays, raw, window, dest_cap):
 ])
 @pytest.mark.parametrize("reverse", [0, 1])
 def test_host_resolve_matches_plain(lib, sizes, w, kind, reverse):
-    """The resolve's bodies (g++: the fill with long records split as a
-    CTA splits them, rounds in place) against the plain version's
-    synchronous rounds: the batch's bytes equal its content; walking the
-    nodes from the last (each parent read before it is written) gives the
-    plain version's open counts round for round."""
+    """The resolve's bodies (g++: each segment by a team of host threads,
+    in segment order or (reverse) from the last; the list's rounds each
+    thread's own first or (reverse) the grid's alone) against the plain
+    version's synchronous rounds, at segments of
+    256 (tiles of 8), 1,024 (16) and the card's 16 KiB (16): the batch's
+    bytes equal its content; the open nodes are exactly those whose chain
+    leaves their segment, and the list exactly those of them that are
+    exits, counted from the plain version's nodes."""
+    rng = np.random.default_rng(142 + w)
+    window, content, pays, raw = _linked_batch(rng, sizes, w, kind)
+    inputs = _resolve_inputs(pays, raw, window, BS)
+    assert int(inputs[4]) == len(sizes)
+    for seg, lanes in ((256, 4), (1024, 8), (ld.SEGMENT, 8)):
+        counters = _assert_host_resolve(lib, inputs, seg, lanes, reverse,
+                                        window + content)
+        if seg == 256:
+            assert int(counters[1]) > 0    # chains leave their segments
+
+
+@pytest.mark.parametrize("sizes, w, kind", [
+    ((BS, BS, 1000, BS), 0, "period"),
+    ((300, 250, 10, 700, 400, 2000), 5000, "period"),
+    ((200,) * 12, 65536, "a4"),
+    ((BS, 500, 3000), 100, "a4"),
+])
+@pytest.mark.parametrize("reverse", [0, 1])
+def test_host_first_resolve_matches_plain(lib, sizes, w, kind, reverse):
+    """The resolve's first design (``lz4tt_linked_resolve_rounds``, kept
+    for timing; g++: the fill with long records split as a CTA splits
+    them, rounds in place) against the plain version's synchronous
+    rounds: the batch's bytes equal its content; walking the nodes from
+    the last (each parent read before it is written) gives the plain
+    version's open counts round for round."""
     rng = np.random.default_rng(142 + w)
     window, content, pays, raw = _linked_batch(rng, sizes, w, kind)
     comp, tables, n_seq, block_at, n_ok, n_nodes, win, _ = _resolve_inputs(
         pays, raw, window, BS)
-    assert int(n_ok) == len(sizes)
     cap = w + len(sizes) * BS
     plain, plain_open = ld.resolve_linked(comp, tables, n_seq, block_at,
                                           n_ok, n_nodes, win, cap)
@@ -270,7 +523,7 @@ def test_host_resolve_matches_plain(lib, sizes, w, kind, reverse):
     out = torch.zeros((total,), dtype=torch.uint8)
     rounds = ld.rounds_for(cap)
     opened = torch.zeros((rounds,), dtype=torch.int32)
-    lib.host_linked_resolve(
+    lib.host_linked_resolve_first(
         comp.data_ptr(), comp.stride(0), tables.data_ptr(), tables.shape[2],
         comp.shape[0], n_seq.data_ptr(), block_at.data_ptr(), int(n_ok),
         win.data_ptr(), w, total, nodes.data_ptr(), out.data_ptr(),
@@ -280,6 +533,117 @@ def test_host_resolve_matches_plain(lib, sizes, w, kind, reverse):
     if reverse:
         assert opened.tolist() == plain_open.tolist()
         assert int(plain_open[0]) > 0      # chains longer than one hop
+
+
+def _case_inputs(case, seed=160):
+    window, raws, comps, dest_cap, n_ok = testing.resolve_case(
+        case, np.random.default_rng(seed))
+    pays = testing.payloads(raws, comps)
+    flags = [len(c) >= len(r) for r, c in zip(raws, comps)]
+    inputs = _resolve_inputs(pays, flags, window, dest_cap)
+    assert int(inputs[4]) == n_ok
+    return inputs, window + b"".join(raws[:n_ok])
+
+
+@pytest.mark.parametrize("case", testing.RESOLVE_CASES)
+@pytest.mark.parametrize("seg, lanes, reverse", [(64, 8, 0), (1024, 4, 1),
+                                                 (ld.SEGMENT, 8, 0)])
+def test_host_resolve_cases(lib, case, seg, lanes, reverse):
+    """``testing.resolve_case``'s batches through the resolve's bodies
+    (g++) against the plain version and their content: distance-1 to -3
+    chains over segment and tile seams, 256 short blocks each reaching
+    into the block before, the window as the only source, null offsets
+    across seams, records longer than a segment, a 4 MiB block cut
+    mid-match, and a batch whose fourth block fails (``n_ok`` 3)."""
+    if case == "big_block":
+        # a team of host threads waits at a barrier a tile: 4 MiB of tiles
+        # take minutes, so one thread, and segments of at least 1 KiB
+        seg, lanes = max(seg, 1024), 1
+    inputs, content = _case_inputs(case)
+    _assert_host_resolve(lib, inputs, seg, lanes, reverse, content)
+
+
+@pytest.mark.parametrize("room", [1, 7, 3])
+def test_host_resolve_in_chunks(lib, room):
+    """Room for fewer open exits than the batch has (one, 7, a third of
+    them): the resolve takes them in chunks in output order, each resolved
+    before the next reads it, and gives the same bytes and counts."""
+    inputs, content = _case_inputs("chains")
+    comp, tables, n_seq, block_at, n_ok, n_nodes, win, _ = inputs
+    args = (lib, comp, tables, n_seq, block_at, n_ok, n_nodes, win, 1024, 8,
+            0)
+    whole = _host_resolve(*args)[3]
+    need = int(whole[1])
+    assert need > 21
+    cap = need // 3 + 1 if room == 3 else room
+    out, _, _, counters = _host_resolve(*args, list_cap=cap)
+    assert out.numpy().tobytes() == content
+    assert counters.tolist()[:2] == whole.tolist()[:2]
+    assert int(counters[3]) == 0
+
+
+@pytest.mark.parametrize("own, lanes", [(-1, 1), (-1, 4), (0, 4), (2, 3)])
+def test_host_resolve_counts_a_planted_fault(lib, own, lanes):
+    """A list entry planted to point at itself (no correct list has one: a
+    chain that never ends) cannot hang the rounds: they stop
+    after a thread's own rounds (the kernel's, none, or two) and the
+    grid's ``lz4tt_rs_rounds_for(len)``, and count the entries left open,
+    the planted one and those whose chains run through it."""
+    inputs, content = _case_inputs("chains")
+    comp, tables, n_seq, block_at, n_ok, n_nodes, win, _ = inputs
+    args = (lib, comp, tables, n_seq, block_at, n_ok, n_nodes, win, 1024,
+            lanes, 0)
+    whole = _host_resolve(*args, own=own)
+    assert int(whole[3][3]) == 0
+    assert whole[0].numpy().tobytes() == content
+    need = int(whole[3][1])
+    counters = _host_resolve(*args, own=own, plant=need // 2)[3]
+    assert int(counters[3]) >= 1
+    most = ld.rounds_for(need)
+    assert int(counters[2]) <= (most if own < 0 else own) + most
+    # the list in chunks of a third of it (the fault in the first), the
+    # tally's turns going on from chunk to chunk
+    counters = _host_resolve(*args, list_cap=need // 3 + 1, own=own,
+                             plant=0)[3]
+    assert int(counters[3]) >= 1
+
+
+def test_decode_linked_batch_raises_on_nodes_left_open(monkeypatch):
+    """``decode_linked_batch`` reads the resolve's last count, the nodes it
+    left open, back with the codes, and raises where it is not 0."""
+    rng = np.random.default_rng(164)
+    window, content, pays, raw = _linked_batch(rng, (300, 250, 700), 0,
+                                               "period")
+    comp, cl = layout.to_device_layout(pays, device=CPU)
+    flags = torch.tensor(raw)
+    win = torch.empty((0,), dtype=torch.uint8)
+    batch = ld.decode_linked_batch(comp, cl, flags, BS, win)
+    assert batch.out[:batch.n_nodes].numpy().tobytes() == content
+    resolve = ld.resolve_linked
+
+    def faulty(*args):
+        out, open_ = resolve(*args)
+        return out, torch.tensor([7, 3, 2, 2], dtype=torch.int32)
+    monkeypatch.setattr(ld, "resolve_linked", faulty)
+    with pytest.raises(RuntimeError, match="2 nodes still open"):
+        ld.decode_linked_batch(comp, cl, flags, BS, win)
+
+
+_RESOLVE_EDITS = {"first design": design_variants._FIRST_RESOLVE,
+                  "look-back walk": design_variants._LOOKBACK,
+                  **{k: v[0] for k, v in
+                     design_variants.RESOLVE_BUILDS.items()}}
+
+
+@pytest.mark.parametrize("name", list(_RESOLVE_EDITS))
+def test_linked_design_variants_apply(name):
+    """Every build of ``design_variants`` for the linked walk and resolve
+    (the resolve's first design, its segment sizes, its parts, options
+    tried; the look-back walk) is still a set of edits to the shipped
+    sources: each replaced text is there once."""
+    for fname, old, new in _RESOLVE_EDITS[name]:
+        assert (build.CSRC / fname).read_text().count(old) == 1
+        assert old != new
 
 
 def test_resolve_stops_at_the_first_failing_block():
