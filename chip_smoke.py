@@ -115,7 +115,16 @@ Phases (any failure exits non-zero; nothing is caught):
    (one rank empty), their frames, HC frame and ``shard_xxh64`` digests
    equal to one process's (``compress_frame_packed``, the tier's
    ``high_compressor(9)``, ``xxh64_batch``); and ``cuda_stream`` refusing
-   an index past the card count;
+   an index past the card count; then the scaling modules
+   (:func:`_dist_scaling`) with every rank on ``cuda:0`` (gloo; sharing
+   one card, not scaling across cards) on 1,024 blocks of 64 KiB of the
+   JAX workers' seeded alphabet-4 data (cut from the main path's 4096:
+   the ten spawns of worker processes, about 8 s each, must stay near
+   two minutes; ``python -m lz4_tpu_torch.dist.multihost_scaling`` and
+   ``.scaling`` run the full width): ``multihost_scaling.measure`` at 2
+   and 4 ranks and ``scaling.measure`` at widths 1, 2 and 4, one trial
+   each, every digest equal to K2's output in this process on the same
+   rows, with each call's wall;
 8c. the container formats (:func:`phase_formats`) on 64 MiB at 64 KiB
    blocks with a 64 KiB dictionary: a dictionary frame written and read
    back (one K2-with-dictionary and one K1-with-history launch for the
@@ -195,7 +204,8 @@ from lz4_tpu_torch.api import cuda_instances
 from lz4_tpu_torch.core import xxhash_ref
 from lz4_tpu_torch.core.constants import max_compressed_length
 from lz4_tpu_torch.core.errors import Lz4Error, Lz4FrameError
-from lz4_tpu_torch.dist import mesh as dist_mesh, multihost, sharded
+from lz4_tpu_torch.dist import (
+    mesh as dist_mesh, multihost, multihost_scaling, scaling, sharded)
 from lz4_tpu_torch.entry import entry, example_blocks
 from lz4_tpu_torch.formats import BlockSize, FrameFlag
 from lz4_tpu_torch.formats.frame import (
@@ -312,6 +322,9 @@ DIST_PATH = ("lz4_compress", "lz4_decode", "xxh32", "frame_pack")
 DIST_SHARED_BLOCKS = 512                 # blocks a rank, two ranks one card
 DIST_ODD = (4, 4 * BLOCK_LEN + 1234)     # 5 blocks over 4 ranks, one empty
 DIST_TIMEOUT = 240.0                     # seconds a dry run's workers get
+SCALING_BLOCKS = 1024                    # the scaling modules' workload, cut
+SCALING_PROCS = (2, 4)                   # multihost_scaling's widths
+SCALING_WIDTHS = (1, 2, 4)               # scaling's widths
 FORMAT_BLOCKS = 1024                     # 64 MiB at 64 KiB blocks
 FORMAT_PLAIN_ROWS = 64                   # rows the plain window codecs run on
 LINKED_PATH = ("linked_walk", "linked_resolve", "xxh32", "xxh32_stream")
@@ -3416,12 +3429,61 @@ def _dist_shared(dev, n: int, data_bytes: int, blocks_per_rank: int) -> None:
         f"start-up included); step ms by rank {out['phase_ms']}")
 
 
+def _dist_scaling(dev, card: str) -> None:
+    """The two scaling modules with ranks sharing the card; every digest
+    held to K2's output in this process on the same seeded rows."""
+    build.build_all()
+    src, lens = sharded.upload_blocks(
+        multihost_scaling.scaling_blocks(SCALING_BLOCKS, BLOCK_LEN), dev)
+    comp, comp_lens, err = codec.compress_fast_batch(
+        src, lens, max_compressed_length(BLOCK_LEN))
+    if bool(err.any()):
+        fail("dist scaling: K2 failed on the scaling blocks")
+    blocks = layout.from_device_layout(comp, comp_lens)
+    del src, lens, comp, comp_lens, err
+    whole = multihost_scaling.sha256_of(blocks)
+    for n in SCALING_PROCS:
+        t0 = time.perf_counter()
+        out = multihost_scaling.measure(SCALING_BLOCKS, BLOCK_LEN, n,
+                                        DIST_TIMEOUT, 1, share_card=True)
+        wall = time.perf_counter() - t0
+        share = multihost_scaling.sha256_of(blocks[:SCALING_BLOCKS // n])
+        if out["sha256"] != whole or out["share_sha256"] != share:
+            fail(f"dist scaling: multihost_scaling at {n} ranks compressed "
+                 "other bytes than K2 in this process")
+        log(f"dist scaling: multihost_scaling.measure at {n} ranks "
+            f"({out['placement']}; sharing one card, not scaling across "
+            f"cards), {SCALING_BLOCKS} x {BLOCK_LEN} B, 1 trial: t_multi "
+            f"{out['t_multi_s']} s, t_os {out['t_os_s']} s, t_ref "
+            f"{out['t_ref_s']} s; multihost_efficiency "
+            f"{out['multihost_efficiency']}, os_ceiling_efficiency "
+            f"{out['os_ceiling_efficiency']}, multihost_vs_os_ceiling "
+            f"{out['multihost_vs_os_ceiling']}; digests of the group and of "
+            f"a share equal to K2's in this process; wall {wall:.1f} s "
+            f"({2 * n + 1} worker processes' start-up included); {card}")
+    t0 = time.perf_counter()
+    out = scaling.measure(SCALING_BLOCKS, BLOCK_LEN, SCALING_WIDTHS, 1,
+                          share_card=True, timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if set(out["sha256"].values()) != {whole}:
+        fail("dist scaling: scaling compressed other bytes than K2 in this "
+             "process")
+    shown = {k: v for k, v in out.items() if k != "sha256"}
+    log(f"dist scaling: scaling.measure at widths {SCALING_WIDTHS} (sharing "
+        f"one card, not scaling across cards), {SCALING_BLOCKS} x "
+        f"{BLOCK_LEN} B, 1 trial: {json.dumps(shown)}; every width's digest "
+        f"equal to K2's in this process; wall {wall:.1f} s "
+        f"({1 + sum(SCALING_WIDTHS)} worker processes' start-up included); "
+        f"{card}")
+
+
 def phase_dist(dev, card: str) -> dict:
     """The ``dist`` path (phase 8b); returns its launches by kernel."""
     one = _dist_one_rank(dev)
     _dist_shared(dev, 2, 2 * DIST_SHARED_BLOCKS * BLOCK_LEN,
                  DIST_SHARED_BLOCKS)
     _dist_shared(dev, DIST_ODD[0], DIST_ODD[1], 1)
+    _dist_scaling(dev, card)
     layout.cuda_stream(torch.empty(1, device=dev))
     past = torch.device("cuda", torch.cuda.device_count())
     try:

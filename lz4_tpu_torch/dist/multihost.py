@@ -14,7 +14,10 @@ process nothing is exchanged.
 :func:`dryrun_multihost` runs the real several-process path: it spawns
 the ranks as worker processes that meet through a ``file://`` rendezvous
 in a temporary directory, and requires every rank's frames to be
-identical.
+identical. :func:`run_ranks` is the one spawner of the port: the dry run's
+ranks, and the scaling modules' groups and independent workers
+(``dist/multihost_scaling.py``, ``dist/scaling.py``), each a job that names
+the function its workers run.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import hashlib
+import importlib
 import json
 import os
 import pathlib
@@ -105,6 +109,7 @@ def compress_frame_multihost(data, block_size: int = FRAME_BLOCK,
 
 _WORKER = ("from lz4_tpu_torch.dist.multihost import _worker_main; "
            "_worker_main()")
+DRYRUN_JOB = "lz4_tpu_torch.dist.multihost:run_job"
 # what a rank's result may hold that the others' do not
 _PER_RANK = ("phase_ms", "block_range")
 
@@ -162,16 +167,34 @@ def run_job(mesh: BlockMesh, job: dict) -> dict:
     return out
 
 
+def _pin(worker: int) -> None:
+    """Pin this process to one core of its affinity set, worker ``w`` to
+    the ``w``-th (``lz4_tpu/dist/multihost_scaling.py:47-51``)."""
+    try:
+        cores = sorted(os.sched_getaffinity(0))
+        os.sched_setaffinity(0, {cores[worker % len(cores)]})
+    except (AttributeError, OSError):
+        pass
+
+
 def _worker_main() -> None:
-    """A rank of the dry run: ``python -c _WORKER <spec json>``."""
+    """A worker of :func:`run_ranks`: ``python -c _WORKER <spec json>``;
+    runs ``spec["job"]["fn"]`` (``module:function``, the dry run's
+    :func:`run_job` by default) on this rank's mesh."""
     spec = json.loads(sys.argv[1])
+    print(f"worker {spec['worker']}: rank {spec['rank']} of "
+          f"{spec['world_size']} on {spec['device']}, pid {os.getpid()}",
+          flush=True)
+    _pin(spec["worker"])
     torch.set_num_threads(1)
+    module, name = spec["job"].get("fn", DRYRUN_JOB).split(":")
+    job_fn = getattr(importlib.import_module(module), name)
     dev = torch.device(spec["device"])
     initialize(spec["init_method"], spec["world_size"], spec["rank"],
                spec["backend"], datetime.timedelta(seconds=spec["timeout"]),
                dev)
     try:
-        result = run_job(block_mesh(dev), spec["job"])
+        result = job_fn(block_mesh(dev), spec["job"])
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -194,6 +217,32 @@ def _placement(n: int, device, share_card: bool) -> tuple[list[str], str]:
     return [f"cuda:{r}" for r in range(n)], "nccl"
 
 
+def placement(n: int, device: str | torch.device = "cuda",
+              share_card: bool = False) -> str:
+    """Where :func:`run_ranks` puts ``n`` ranks, in words: ``"cpu, gloo"``,
+    ``"cuda:0 shared by n ranks, gloo"``, ``"one card a rank, nccl"``, or
+    ``"cuda:0, one rank"``. Raises as :func:`run_ranks` does when the cards
+    are too few."""
+    devices, backend = _placement(n, device, share_card)
+    if devices[0] == "cpu":
+        return "cpu, gloo"
+    if n == 1:
+        return "cuda:0, one rank"
+    if backend == "gloo":
+        return f"cuda:0 shared by {n} ranks, gloo"
+    return "one card a rank, nccl"
+
+
+def barrier(mesh: BlockMesh) -> None:
+    """Wait for every rank of ``mesh``'s group; nothing without one."""
+    if mesh.group is None:
+        return
+    if mesh.backend == "nccl":
+        dist.barrier(mesh.group, device_ids=[mesh.device.index])
+    else:
+        dist.barrier(mesh.group)
+
+
 def _tail(path: pathlib.Path, limit: int = 6000) -> str:
     text = path.read_text(errors="replace") if path.exists() else ""
     return text[-limit:]
@@ -201,20 +250,30 @@ def _tail(path: pathlib.Path, limit: int = 6000) -> str:
 
 def run_ranks(n: int, job: dict, device: str | torch.device = "cuda",
               share_card: bool = False, timeout: float = 300.0,
-              workdir=None) -> list[dict]:
-    """Run :func:`run_job` on ``n`` worker processes, one a rank, and
-    return each rank's result in rank order.
+              workdir=None, group: bool = True) -> list[dict]:
+    """Run ``job`` on ``n`` worker processes, one a rank, and return each
+    worker's result in rank order.
+
+    ``job["fn"]`` names what each worker runs, ``"module:function"``
+    called as ``function(mesh, job)`` with the worker's
+    :class:`~.mesh.BlockMesh`; without it the dry run's :func:`run_job`.
+    With ``group=False`` the workers are ``n`` independent processes,
+    each a world of one rank: no process group, no exchange. Worker ``w``
+    is pinned to the ``w``-th core of the caller's affinity set.
 
     On ``device="cuda"`` rank r runs on ``cuda:r`` over NCCL, and fewer
     than ``n`` cards is an error unless ``share_card``, which puts every
     rank on ``cuda:0`` with gloo collectives; ``device="cpu"`` runs gloo
     on the plain versions. The ranks meet through a ``file://`` rendezvous
-    in ``workdir`` (a new temporary directory by default). A worker that
-    fails raises ``RuntimeError`` with its output; so does one still
-    running after ``timeout`` seconds. Every worker is killed and reaped
-    before this returns or raises.
+    in ``workdir`` (a new temporary directory by default); each writes its
+    output to ``rank<r>.log`` there. A worker that fails raises
+    ``RuntimeError`` with its log; so do the workers still running after
+    ``timeout`` seconds (one stuck in a barrier whose peer hangs), each
+    with its log. Every worker is killed and reaped before this returns or
+    raises.
     """
     devices, backend = _placement(n, device, share_card)
+    what = job.get("fn", DRYRUN_JOB).split(":")[1]
     root = str(pathlib.Path(__file__).resolve().parents[2])
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
@@ -222,15 +281,18 @@ def run_ranks(n: int, job: dict, device: str | torch.device = "cuda",
         if workdir is None:
             workdir = stack.enter_context(tempfile.TemporaryDirectory())
         work = pathlib.Path(workdir)
+        work.mkdir(parents=True, exist_ok=True)
         init = (work / "rendezvous").resolve().as_uri()
         logs = [work / f"rank{r}.log" for r in range(n)]
         outs = [work / f"rank{r}.pkl" for r in range(n)]
         procs = []
         try:
             for r in range(n):
-                spec = {"rank": r, "world_size": n, "device": devices[r],
-                        "backend": backend, "init_method": init,
-                        "timeout": timeout, "job": job, "out": str(outs[r])}
+                spec = {"worker": r, "rank": r if group else 0,
+                        "world_size": n if group else 1,
+                        "device": devices[r], "backend": backend,
+                        "init_method": init, "timeout": timeout, "job": job,
+                        "out": str(outs[r])}
                 with open(logs[r], "w") as log:
                     procs.append(subprocess.Popen(
                         [sys.executable, "-c", _WORKER, json.dumps(spec)],
@@ -240,16 +302,18 @@ def run_ranks(n: int, job: dict, device: str | torch.device = "cuda",
                 codes = [p.poll() for p in procs]
                 bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
                 if bad:
-                    raise RuntimeError("dry run: " + "\n".join(
+                    raise RuntimeError(f"{what}: " + "\n".join(
                         f"rank {r} failed (exit {codes[r]}):\n"
                         f"{_tail(logs[r])}" for r in bad))
                 if all(c == 0 for c in codes):
                     break
                 if time.monotonic() > deadline:
                     late = [r for r, c in enumerate(codes) if c is None]
-                    raise RuntimeError(
-                        f"dry run: rank(s) {late} still running after "
-                        f"{timeout} s:\n{_tail(logs[late[0]])}")
+                    raise RuntimeError(f"{what}: rank(s) {late} still "
+                                       f"running after {timeout} s, killed:\n"
+                                       + "\n".join(f"rank {r}:\n"
+                                                   f"{_tail(logs[r])}"
+                                                   for r in late))
                 time.sleep(0.05)
         finally:
             for p in procs:

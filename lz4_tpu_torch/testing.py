@@ -7,6 +7,7 @@ Shared by the CPU tests and ``chip_smoke.py``; every generator takes a
 from __future__ import annotations
 
 import struct
+import time
 
 import numpy as np
 
@@ -900,3 +901,18 @@ def long_run_frame(case: str) -> bytes:
         comps[1] = comps[1][:len(comps[1]) // 2]
     return build_frame(raws, comps, bd=6, independent=False,
                        block_checksum=False)
+
+
+def stalled_rank_job(mesh, job: dict) -> dict:
+    """A job for ``dist/multihost.py::run_ranks``'s tests: rank
+    ``job["stall"]`` raises ``RuntimeError`` (``job["fault"] == "raise"``)
+    or sleeps past any timeout (``"hang"``), while every other rank waits
+    for it in a barrier of the group."""
+    from .dist.multihost import barrier
+
+    if mesh.rank == job["stall"]:
+        if job["fault"] == "raise":
+            raise RuntimeError("stalled_rank_job: planted fault")
+        time.sleep(3600)
+    barrier(mesh)
+    return {"rank": mesh.rank}

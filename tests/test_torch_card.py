@@ -629,6 +629,46 @@ def test_two_ranks_share_the_card(cuda_device, tmp_path):
             dryrun_multigpu(2)
 
 
+def test_scaling_modules_share_the_card(cuda_device, tmp_path):
+    """Both scaling modules at 8 x 64 KiB, two ranks sharing ``cuda:0``:
+    their digests equal K2's output in this process on the same rows."""
+    from lz4_tpu_torch.dist import multihost_scaling, scaling
+
+    src, lens = sharded.upload_blocks(
+        multihost_scaling.scaling_blocks(8, 65536), cuda_device)
+    comp, comp_lens, err = codec.compress_fast_batch(
+        src, lens, max_compressed_length(65536))
+    assert not bool(err.any())
+    blocks = layout.from_device_layout(comp, comp_lens)
+    whole = multihost_scaling.sha256_of(blocks)
+    out = multihost_scaling.measure(8, 65536, 2, timeout=240.0, trials=1,
+                                    share_card=True, workdir=tmp_path / "m")
+    assert out["placement"] == "cuda:0 shared by 2 ranks, gloo"
+    assert out["sha256"] == whole
+    assert out["share_sha256"] == multihost_scaling.sha256_of(blocks[:4])
+    assert min(out["t_multi_s"], out["t_os_s"], out["t_ref_s"]) > 0
+    res = scaling.measure(8, 65536, (1, 2), trials=2, share_card=True,
+                          timeout=240.0, workdir=tmp_path / "s")
+    assert res["sha256"] == {"1": whole, "2": whole}
+    assert res["physical_cores"] == 1 and res["headline_width"] == 1
+    assert res["placement"]["2"] == "cuda:0 shared by 2 ranks, gloo"
+    assert res["control_relative_ratio"]["2"] is None   # 2 ranks, 1 card
+
+
+def test_ranks_need_a_card_each_unless_they_share(cuda_device, tmp_path):
+    from lz4_tpu_torch.dist import multihost, multihost_scaling, scaling
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match="share_card"):
+        multihost._placement(n, "cuda", False)
+    with pytest.raises(RuntimeError, match="share_card"):
+        multihost_scaling.measure(8, 65536, n, trials=1, workdir=tmp_path)
+    assert not any(tmp_path.iterdir())
+    out = scaling.measure(8, 4096, (1, n), trials=1, workdir=tmp_path)
+    assert set(out["times_s"]) == {"1"}     # the width past the cards left out
+    assert out["placement"] == {"1": "cuda:0, one rank"}
+
+
 
 @pytest.mark.parametrize("out_max", [70000, 1000, 64])
 def test_decode_hist_kernel_matches_plain(cuda_device, out_max):

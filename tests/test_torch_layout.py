@@ -145,15 +145,19 @@ def test_import_leaves_jax_and_lz4_tpu_unloaded():
 def test_port_files_cover_the_dist_modules():
     names = {p.relative_to(REPO).as_posix() for p in _port_files()}
     assert {f"lz4_tpu_torch/dist/{m}.py" for m in
-            ("__init__", "mesh", "multihost", "recovery", "sharded")} <= names
+            ("__init__", "mesh", "multihost", "multihost_scaling",
+             "recovery", "scaling", "sharded")} <= names
 
 
 def test_dist_modules_import_without_jax():
-    """The ``dist`` modules, the entry points and the dry run's workers'
-    module load neither ``jax`` nor ``lz4_tpu``."""
+    """The ``dist`` modules (the scaling modules among them), the entry
+    points and the workers' modules load neither ``jax`` nor
+    ``lz4_tpu``."""
     code = ("import sys, lz4_tpu_torch.dist, lz4_tpu_torch.dist.mesh, "
             "lz4_tpu_torch.dist.multihost, lz4_tpu_torch.dist.recovery, "
-            "lz4_tpu_torch.dist.sharded, lz4_tpu_torch.entry; "
+            "lz4_tpu_torch.dist.sharded, lz4_tpu_torch.dist.scaling, "
+            "lz4_tpu_torch.dist.multihost_scaling, lz4_tpu_torch.testing, "
+            "lz4_tpu_torch.entry; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lz4_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
