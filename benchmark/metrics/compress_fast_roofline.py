@@ -1,0 +1,11 @@
+"""LZ4 fast compress's share of its roofline: the raw blocks read and the
+compressed bytes written, over the device time of everything launched from
+``compress_fast_batch``."""
+
+from benchmark import layers, roofline
+
+
+def read(ctx):
+    return layers.roofline_pct(
+        ctx, {"compress_fast_batch"},
+        lambda b: roofline.compress_bytes(b.n, b.block_bytes, b.comp_total))
