@@ -11,7 +11,11 @@ pack and the parser; see :func:`pack_parse_only`. ``python3 chip_smoke.py
 --host-split`` runs only phase 7, on whichever package lies beside the
 script, the one before the host data plane included; ``--parallel-stream``
 only phase 8d's ``parallel`` engine calls, the full batch of 4 MiB blocks
-and K7 on its rows included, on whichever package lies beside it.)
+and K7 on its rows included, on whichever package lies beside it.
+``python3 chip_smoke.py --idle-split [cell ...] [--seed N] [--seconds S]``
+runs each of the benchmark's cells (by default all) traced, as
+``python3 -m benchmark.run --trace 1`` does, and splits its idle time by
+the port's own spans; see :func:`idle_split`.)
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -177,6 +181,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 from __future__ import annotations
 
+import argparse
+import bisect
 import contextlib
 import ctypes
 import importlib.util
@@ -3752,6 +3758,193 @@ def host_split(dev, main=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the idle split of the benchmark's cells by the port's own spans
+# ---------------------------------------------------------------------------
+
+# the entry span each cell kernel's launch must lie in (``profiling.entry``)
+ENTRY_OF = {"decode_kernel": "decompress_safe_batch",
+            "compress_kernel": "compress_fast_batch",
+            "hc_kernel": "compress_hc_batch",
+            "pack_kernel": "frame_body_packed"}
+SYNC_SPAN = "sync."
+
+
+def innermost(spans) -> list[tuple[int, int, str]]:
+    """The host's timeline under ``spans`` ((start, end, name) of one
+    thread, nested as ``record_function`` ranges nest) as ordered pieces
+    that do not overlap, each with the name of the innermost span there."""
+    pieces, stack, t = [], [], None
+
+    def close(until):
+        nonlocal t
+        while stack and stack[-1][0] <= until:
+            end, name = stack.pop()
+            if end > t:
+                pieces.append((t, end, name))
+                t = end
+
+    for s, e, name in sorted(spans, key=lambda x: (x[0], -x[1])):
+        close(s)
+        if stack and s > t:
+            pieces.append((t, s, stack[-1][1]))
+        t = s
+        stack.append((e, name))
+    close(float("inf"))
+    return pieces
+
+
+def idle_by_span(gaps, spans) -> dict:
+    """The idle intervals ``gaps`` ((start, end), ordered) split by the
+    innermost of ``spans`` the host was in meanwhile, ns by name; None
+    for time under none."""
+    out: dict = {}
+    pieces = innermost(spans)
+    j = 0
+    for g0, g1 in gaps:
+        covered = 0
+        while j < len(pieces) and pieces[j][1] <= g0:
+            j += 1
+        k = j
+        while k < len(pieces) and pieces[k][0] < g1:
+            a, b, name = pieces[k]
+            d = min(b, g1) - max(a, g0)
+            if d > 0:
+                out[name] = out.get(name, 0) + d
+                covered += d
+            k += 1
+        if g1 - g0 > covered:
+            out[None] = out.get(None, 0) + g1 - g0 - covered
+    return out
+
+
+def idle_shares(by_span: dict, window_ns: int) -> dict:
+    """``sync_idle_pct``: the window's share (%) idle while the host was in
+    a read-back span; ``enqueue_idle_pct``: in an entry span but in no
+    read-back span."""
+    sync = sum(v for k, v in by_span.items()
+               if k is not None and k.startswith(SYNC_SPAN))
+    enqueue = sum(v for k, v in by_span.items()
+                  if k in ENTRY_OF.values())
+    return {"sync_idle_pct": 100.0 * sync / window_ns,
+            "enqueue_idle_pct": 100.0 * enqueue / window_ns}
+
+
+def launches_in_entries(launches, spans) -> dict:
+    """For each cell kernel of ``launches`` ((device op name, host launch
+    time or None)), how many launches lie inside an entry span of its own
+    (:data:`ENTRY_OF`), of how many: ``{kernel: [inside, all]}``. Spans of
+    one entry do not nest."""
+    by_entry: dict[str, list] = {}
+    for s, e, n in sorted(spans):
+        by_entry.setdefault(n, []).append((s, e))
+    out = {}
+    for name, t in launches:
+        kernel = next((k for k in ENTRY_OF if f"::{k}<" in name
+                       or f"::{k}(" in name), None)
+        if kernel is None:
+            continue
+        inside = False
+        if t is not None:
+            ivs = by_entry.get(ENTRY_OF[kernel], [])
+            i = bisect.bisect_right(ivs, (t, float("inf"))) - 1
+            inside = i >= 0 and ivs[i][0] <= t <= ivs[i][1]
+        counts = out.setdefault(kernel, [0, 0])
+        counts[0] += inside
+        counts[1] += 1
+    return out
+
+
+def _port_events(prof):
+    """From a finished ``torch.profiler`` session: the port's host spans
+    (start, end, name less ``lz4tt.``) and each device operation's name
+    with the host time of the runtime call that launched it."""
+    spans, launch_at, ops = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        on_host = str(e.device_type()).endswith("CPU")
+        if on_host and name.startswith(SPAN):
+            spans.append((e.start_ns(), e.end_ns(), name[len(SPAN):]))
+        elif on_host and name.startswith("cu") and e.correlation_id():
+            launch_at.setdefault(e.correlation_id(), e.start_ns())
+        elif not on_host and not e.is_user_annotation():
+            ops.append((name, e.correlation_id()))
+    return spans, [(n, launch_at.get(c)) for n, c in ops]
+
+
+def idle_split(cells=(), seed: int = SEED, seconds: float = 20.0):
+    """Each of ``cells`` (every cell of ``BENCHMARK.json`` by default)
+    traced once, as ``python3 -m benchmark.run --trace 1`` runs it
+    (``benchmark.harness.run``), with the port's spans read from the same
+    profiler session: its result line, and its idle time split by the
+    port's innermost span (``lz4tt.sync.*`` read-backs, the entry spans,
+    none), the shares of the window that the read-back and the entry
+    spans hold idle, the idle share the run's breakdown charges to the
+    benchmark's spans around the port's calls, the program's read-backs a
+    batch (``profiling.sync_counts`` before and after the window) and
+    whether every K1, K2, K6 and pack launch lies in its entry span.
+    Returns the results by cell."""
+    from benchmark import cells as bench_cells, harness, system
+    from benchmark import trace as bench_trace
+    from lz4_tpu_torch.utils import profiling
+
+    class Port(system.Port):
+        """The benchmark's program, with the read-back count taken where
+        the harness takes the launch count: before and after the window."""
+
+        def __init__(self, config):
+            super().__init__(config)
+            self.syncs = []
+
+        def launches(self):
+            self.syncs.append(sum(profiling.sync_counts().values()))
+            return super().launches()
+
+    dev = torch.device("cuda", 0)
+    spec = bench_cells.load_spec()
+    real = bench_trace.from_profiler
+    out = {}
+    for name in cells or [w["name"] for w in spec["workloads"]]:
+        cell = bench_cells.find_cell(spec, name)
+        got = {}
+
+        def keep(prof, got=got):
+            got["spans"], got["launches"] = _port_events(prof)
+            got["trace"] = real(prof)
+            return got["trace"]
+
+        port = Port(cell.config)
+        bench_trace.from_profiler = keep
+        try:
+            done = harness.run(cell, seed, seconds, True, dev,
+                               time.perf_counter(), port=port)
+        finally:
+            bench_trace.from_profiler = real
+        res, tr, spans = done.result, got["trace"], got["spans"]
+        window_ns = tr.window.end - tr.window.start
+        by_span = idle_by_span(tr.gaps(), spans)
+        main_entry = (port.compress_name if cell.traffic["pipeline"] == "write"
+                      else "decompress_safe_batch")
+        batches = sum(1 for s, e, n in spans if n == main_entry
+                      and tr.window.start <= s <= tr.window.end)
+        wrapped = {port.compress_name, "frame_body_packed",
+                   "decompress_safe_batch"}
+        bench_idle = sum(v for k, v in res["breakdown"]["idle_gaps"]
+                         if k in wrapped)
+        out[name] = {
+            "result": res, "notes": done.notes,
+            "idle_by_span_s": {str(k): v / 1e9 for k, v in by_span.items()},
+            **idle_shares(by_span, window_ns),
+            "idle_pct": 100.0 * tr.idle_share(),
+            "bench_call_idle_pct": 100.0 * bench_idle / tr.window_s,
+            "host_syncs_per_batch": (port.syncs[1] - port.syncs[0]) / batches,
+            "batches": batches,
+            "launches_in_entry_spans": launches_in_entries(got["launches"],
+                                                           spans)}
+        log(f"idle split {name}: " + json.dumps(out[name]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3759,6 +3952,15 @@ def main() -> int:
     if sys.argv[1:] == ["--pack-parse"]:
         phase_card()
         pack_parse_only(torch.device("cuda"))
+        return 0
+    if sys.argv[1:2] == ["--idle-split"]:
+        p = argparse.ArgumentParser(prog="chip_smoke.py --idle-split")
+        p.add_argument("cells", nargs="*")
+        p.add_argument("--seed", type=int, default=SEED)
+        p.add_argument("--seconds", type=float, default=20.0)
+        args = p.parse_args(sys.argv[2:])
+        log(phase_card())
+        idle_split(args.cells, args.seed, args.seconds)
         return 0
     if sys.argv[1:] == ["--host-split"]:
         log(phase_card())

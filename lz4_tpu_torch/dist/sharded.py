@@ -57,6 +57,7 @@ from ..kernels.layout import (
     DOWN, UP, cuda_stream, from_device_layout, row_stride, staging,
     to_device_layout)
 from ..kernels.xxhash import split_u64, xxh32_batch, xxh64_batch
+from ..utils.profiling import entry, readback
 from .mesh import BlockMesh, block_mesh
 
 # Output bytes packed per step of frame_body_packed_plain: its int32/int64
@@ -86,6 +87,7 @@ def _check_pack_batch(data: torch.Tensor, lens: torch.Tensor) -> None:
         raise ValueError("data and lengths must be on one device")
 
 
+@entry
 def frame_body_packed(src: torch.Tensor, lens: torch.Tensor,
                       comp: torch.Tensor, comp_lens: torch.Tensor):
     """Pack per-block payloads into one contiguous LZ4 frame body.
@@ -116,8 +118,9 @@ def frame_body_packed(src: torch.Tensor, lens: torch.Tensor,
     emit = torch.where(lens > 0, torch.minimum(lens, comp_lens) + 4, 0)
     ends = torch.cumsum(emit, 0)            # int64
     offs = (ends - emit).to(torch.int32)    # wraps only where total is refused
-    total, lens_max, comp_min, comp_max = torch.stack(
-        (ends[-1], lens.max(), comp_lens.min(), comp_lens.max())).tolist()
+    with readback("frame_body", ends):
+        total, lens_max, comp_min, comp_max = torch.stack(
+            (ends[-1], lens.max(), comp_lens.min(), comp_lens.max())).tolist()
     if lens_max > src.shape[1] or comp_min < 0 or comp_max > comp.shape[1]:
         raise ValueError("lengths must lie within the rows")
     if total >= 2 ** 31:
@@ -370,7 +373,8 @@ def _gather_bytes(mesh: BlockMesh, payload: torch.Tensor, what: str,
         return payload
     head = torch.tensor([payload.numel(), int(failed)], dtype=torch.int64,
                         device=_wire(mesh))
-    heads = _all_gather(mesh, head).tolist()
+    with readback("gather_bytes", head):
+        heads = _all_gather(mesh, head).tolist()
     bad = [r for r, (_, f) in enumerate(heads) if f]
     if bad:
         raise Lz4Error(f"{what} failed on rank(s) {bad}")

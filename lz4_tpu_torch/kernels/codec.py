@@ -38,6 +38,7 @@ from ..core.constants import (
     MAX_DISTANCE, MF_LIMIT, MIN_LENGTH, MIN_MATCH, ML_BITS, ML_MASK, RUN_MASK,
     SKIP_STRENGTH,
 )
+from ..utils.profiling import entry, readback
 from .build import Kernel, Scratch
 from .layout import check_batch, cuda_stream, row_stride
 
@@ -73,6 +74,7 @@ SEED = Scratch(torch.int32)
 # safe decode
 # ---------------------------------------------------------------------------
 
+@entry
 def decompress_safe_batch(comp: torch.Tensor, comp_lens: torch.Tensor,
                           out_max: int, out: torch.Tensor | None = None):
     """Batched safe decompression (exact compressed sizes known).
@@ -253,7 +255,8 @@ def _check_window(win: torch.Tensor, win_lens: torch.Tensor, n: int,
         raise ValueError(f"{what} must lie on the device of the batch")
     lo = hi = 0
     if n:
-        lo, hi = (int(v) for v in torch.aminmax(win_lens))
+        with readback("check_window", win_lens):
+            lo, hi = (int(v) for v in torch.aminmax(win_lens))
         if lo < 0 or hi > min(win.shape[1], WINDOW):
             raise ValueError(f"{what} lengths must lie in "
                              f"[0, {min(win.shape[1], WINDOW)}]")
@@ -394,6 +397,7 @@ def decompress_fast_plain(comp: torch.Tensor, comp_avail: torch.Tensor,
 # fast-scan compress
 # ---------------------------------------------------------------------------
 
+@entry
 def compress_fast_batch(src: torch.Tensor, src_lens: torch.Tensor,
                         dest_cap: int):
     """Batched fast-scan compression, byte-identical to the reference.

@@ -25,6 +25,7 @@ import torch
 
 from ..core.errors import Lz4Error
 from ..core.lz4_hc_ref import compress_hc
+from ..utils.profiling import entry
 from .build import Kernel, Scratch, c_function, resident_ctas
 from .codec import ERR_DEST_TOO_SMALL
 from .layout import check_batch, cuda_stream, row_stride
@@ -51,6 +52,7 @@ def team_bytes() -> int:
     return c_function("lz4_hc", "lz4tt_hc_team_bytes", [], None)()
 
 
+@entry
 def compress_hc_batch(src: torch.Tensor, src_lens: torch.Tensor,
                       dest_cap: int, level: int = 9):
     """Batched LZ4 HC compression at ``level`` (1..17), byte-identical to

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..utils.profiling import readback
 
 PAD = 16
 
@@ -54,8 +55,10 @@ def check_batch(data: torch.Tensor, lens: torch.Tensor) -> None:
     if data.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {data.device}")
     if lens.numel():
-        lo, hi = torch.aminmax(lens)
-        if int(lo) < 0 or int(hi) > data.shape[1]:
+        with readback("check_batch", lens):
+            lo, hi = torch.aminmax(lens)
+            bad = int(lo) < 0 or int(hi) > data.shape[1]
+        if bad:
             raise ValueError(f"lengths must lie in [0, {data.shape[1]}]")
 
 
@@ -94,7 +97,8 @@ class Staging:
     def take(self, nbytes: int) -> torch.Tensor:
         """``uint8[nbytes]`` of the buffer, free to write."""
         if self._done is not None:
-            self._done.synchronize()
+            with readback("staging"):
+                self._done.synchronize()
             self._done = None
         if self._buf is None or self._buf.numel() < nbytes:
             self._buf = None
@@ -126,7 +130,8 @@ class Staging:
         host = host.view(t.shape)
         host.copy_(t, non_blocking=True)
         self._record(torch.cuda.current_stream(t.device))
-        self._done.synchronize()
+        with readback("staging"):
+            self._done.synchronize()
         return host.numpy()
 
 

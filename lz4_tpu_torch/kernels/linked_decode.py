@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..core.constants import MIN_MATCH, ML_BITS, ML_MASK, RUN_MASK
+from ..utils.profiling import readback
 from .build import Kernel, Scratch, resident_ctas
 from .codec import (
     ERR_DEST_TOO_SMALL, ERR_MALFORMED, OK, WINDOW, _len_ext)
@@ -186,7 +187,8 @@ def walk_linked(comp: torch.Tensor, comp_lens: torch.Tensor,
     if dest_cap < 0:
         raise ValueError("dest_cap must be >= 0")
     if host is None and (max_seq is None or comp.device.type != "cpu"):
-        host = (comp_lens.tolist(), raw.tolist())
+        with readback("walk_linked", comp_lens):
+            host = (comp_lens.tolist(), raw.tolist())
     if max_seq is None:
         max_seq = table_width(*host)
     if max_seq < 1:
@@ -502,7 +504,8 @@ def decode_linked_batch(comp: torch.Tensor, comp_lens: torch.Tensor,
              open_[-1:].long()]
     if held is not None:
         parts.append(held.long())
-    host = torch.cat(parts).cpu().numpy()
+    with readback("decode_linked_batch", code):
+        host = torch.cat(parts).cpu().numpy()
     codes, at = host[:n], host[n:2 * n + 1]
     n_ok, n_nodes, left = (int(v) for v in host[2 * n + 1:2 * n + 4])
     verdicts = host[2 * n + 4:].astype(bool) if held is not None else None

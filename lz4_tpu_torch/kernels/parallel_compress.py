@@ -39,6 +39,7 @@ from ..core.constants import (
     RUN_MASK, max_compressed_length)
 from ..core.device import resolve_device
 from ..core.errors import Lz4Error
+from ..utils.profiling import readback
 from .build import Kernel, Scratch, c_function, resident_ctas
 from .layout import (
     check_batch, cuda_stream, from_device_layout, row_stride, to_device_layout)
@@ -414,7 +415,8 @@ def compress_blocks(blocks, block_len: int | None = None,
     cap = max_compressed_length(block_len)
     src, lens = to_device_layout(blocks, block_len, device=dev)
     out, out_lens = compress_parallel_batch(src, lens, cap)
-    got = out_lens.tolist()
+    with readback("compress_blocks", out_lens):
+        got = out_lens.tolist()
     if min(got) < 0:
         raise Lz4Error("parallel compress: dest capacity too small")
     return from_device_layout(out, got)

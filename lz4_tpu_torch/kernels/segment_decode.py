@@ -38,7 +38,7 @@ from .build import Kernel
 from .codec import ERR_MALFORMED, OK, _decode_out
 from .layout import check_batch, cuda_stream, from_device_layout, to_device_layout
 from .sequences import parse_sequences
-from ..utils.profiling import part
+from ..utils.profiling import part, readback
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SEGMENT = Kernel("segment_decode", "segment_decode", "lz4tt_decompress_segments",
@@ -166,7 +166,7 @@ def decompress_rows(comp: torch.Tensor, comp_lens: torch.Tensor,
                                        out_len)
 
     def finish() -> np.ndarray:
-        with part("check"):
+        with part("check"), readback("decompress_rows", err):
             counts, totals, codes = torch.stack(
                 (n_seq, out_total, err)).cpu().numpy()
         bad = np.flatnonzero(counts < 0)

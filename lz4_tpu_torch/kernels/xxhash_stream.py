@@ -46,6 +46,7 @@ from ..core.constants import (
     U64,
 )
 from ..core.device import resolve_device
+from ..utils.profiling import readback
 from .build import Kernel
 from .layout import UP, cuda_stream, staging
 
@@ -156,13 +157,15 @@ class _StreamState:
         """The lane accumulators, once every absorb queued has run."""
         self._settle()
         if self._side is not None:
-            self._side.synchronize()
+            with readback("lanes"):
+                self._side.synchronize()
         return self._v
 
     def reset(self) -> None:
         self._settle()
         if self._side is not None:
-            self._side.synchronize()
+            with readback("reset"):
+                self._side.synchronize()
         self._v = self._init_lanes()
         if self._side is not None:
             self._v.record_stream(self._side)
@@ -173,7 +176,8 @@ class _StreamState:
         """The remainder, once the copy of a tensor's tail has landed."""
         if self._tail is not None:
             k, done = self._tail
-            done.synchronize()
+            with readback("settle"):
+                done.synchronize()
             s = self.STRIPE
             self.mem = self._small.numpy()[s:s + k].tobytes()
             self._tail = None

@@ -1239,3 +1239,38 @@ def test_linked_frames_on_the_card(cuda_device, fault):
                 counts = build.launch_counts()
                 assert counts["lz4_decode_hist"] == 0
                 assert counts["linked_walk"] == counts["linked_resolve"] >= 1
+
+
+def test_read_backs_are_counted_and_launches_lie_in_their_entry_spans(
+        cuda_device):
+    """The benchmark cells' four calls on the card: one read-back a codec
+    call (``check_batch``) and one a frame body, counted by site; under
+    ``torch.profiler`` every K1, K2, K6 and pack launch lies inside the
+    entry span of the call that made it."""
+    import chip_smoke
+    from lz4_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(21)
+    src, lens = layout.to_device_layout(
+        testing.mixed_blocks(rng, (1000, 65536)), device=cuda_device)
+    cap = max_compressed_length(65536)
+
+    def calls():
+        comp, comp_lens, _ = codec.compress_fast_batch(src, lens, cap)
+        hc.compress_hc_batch(src, lens, cap, 9)
+        sharded.frame_body_packed(src, lens, comp, comp_lens)
+        codec.decompress_safe_batch(comp, comp_lens, 65536)
+        torch.cuda.synchronize()
+
+    calls()
+    profiling.reset_sync_counts()
+    calls()
+    assert profiling.sync_counts() == {"check_batch": 3, "frame_body": 1}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        calls()
+    spans, launches = chip_smoke._port_events(prof)
+    assert chip_smoke.launches_in_entries(launches, spans) == {
+        k: [1, 1] for k in ("compress_kernel", "hc_kernel", "pack_kernel",
+                            "decode_kernel")}

@@ -1,4 +1,4 @@
-"""``lz4_tpu_torch.utils`` (profiling, timing, buffers) against the cases
+"""``lz4_tpu_torch.utils`` (profiling, buffers) against the cases
 of ``tests/test_aux.py`` and the JAX package's helpers; the host split that
 ``chip_smoke.py`` reads from a trace; and the proof that the staging
 buffer's rows need no zeroed tails: no kernel body (built for the host
@@ -18,9 +18,7 @@ from lz4_tpu_torch import testing
 from lz4_tpu_torch.core.constants import max_compressed_length
 from lz4_tpu_torch.dist import sharded
 from lz4_tpu_torch.kernels import codec, hc, layout, sequences
-from lz4_tpu_torch.utils import (
-    DeviceTimer, annotate, as_bytes, chunk_bytes, median_throughput, part,
-    trace)
+from lz4_tpu_torch.utils import annotate, as_bytes, chunk_bytes, part, trace
 from lz4_tpu_torch.utils.buffers import read_into
 from lz4_tpu_torch.utils.profiling import TRACE_FILE
 from test_torch_host_kernels import (  # noqa: F401
@@ -38,20 +36,6 @@ def test_trace_and_annotate_write_a_chrome_trace(tmp_path):
     assert any(e.key == "lz4tt.kernels" for e in prof.key_averages())
     with pytest.raises(ValueError):
         part("compress")
-
-
-def test_timing_utils():
-    t = DeviceTimer()
-    with t.section("a"):
-        pass
-    with t.section("a"):
-        pass
-    assert "a" in t.spans and "a=" in t.report()
-    assert t.device_spans() == {}
-    gbps = median_throughput(lambda x: sum(x), [[1], [2], [3]], 10 ** 9)
-    assert gbps > 0
-    with pytest.raises(ValueError):
-        median_throughput(lambda x: x, [[1]], 1)
 
 
 @pytest.mark.parametrize("data, size", [(b"abcdef", 4), (b"", 4),
