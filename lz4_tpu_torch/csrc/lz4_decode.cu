@@ -52,7 +52,9 @@ constexpr int kCtasPerSm = 8;
 
 // Safe: lens[b] is the exact compressed length and out_max the capacity;
 // writes the decoded length. Fast: lens[b] is the bytes available and
-// out_max the exact decoded length; writes the bytes read.
+// out_max the exact decoded length; writes the bytes read. A lens[b]
+// outside [0, comp_stride] is row b's MALFORMED (lz4tt_decode_row): the
+// wrappers do not read the lengths back.
 template <bool kFast, bool kHist>
 __global__ void __launch_bounds__(32 * kWarpsPerCta, kCtasPerSm)
     decode_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
@@ -72,9 +74,10 @@ __global__ void __launch_bounds__(32 * kWarpsPerCta, kCtasPerSm)
   int32_t e = 0;
   Lz4ttHist h = {nullptr, 0};
   if (kHist) h = {hist + b * hist_stride, hist_lens[b]};
-  lz4tt_decode_block<kFast, kHist>(t, comp + b * comp_stride, lens[b],
-                                   out + b * out_stride, out_max, rings[warp],
-                                   queues[warp], &len, &read, &e, h);
+  lz4tt_decode_row<kFast, kHist>(t, comp + b * comp_stride, comp_stride,
+                                 lens[b], out + b * out_stride, out_max,
+                                 rings[warp], queues[warp], &len, &read, &e,
+                                 h);
   if (t.leader()) {
     out_lens[b] = kFast ? read : len;
     err[b] = e;
@@ -100,9 +103,11 @@ int launch(const void* comp, long long comp_stride, const void* lens, void* out,
 
 }  // namespace
 
-// comp: uint8[n, comp_stride], comp_lens: int32[n] within [0, comp_stride];
-// out: uint8[n, out_stride] with out_stride >= out_max; writes stay below
-// out_max in every row. Returns cudaGetLastError() after the launch.
+// comp: uint8[n, comp_stride], comp_lens: int32[n] (a length outside
+// [0, comp_stride] is that row's MALFORMED, out length 0, nothing read or
+// written); out: uint8[n, out_stride] with out_stride >= out_max; writes
+// stay below out_max in every row. Returns cudaGetLastError() after the
+// launch.
 extern "C" int lz4tt_decompress_safe(const void* comp, long long comp_stride,
                                      const void* comp_lens, void* out,
                                      long long out_stride, int out_max,
@@ -113,7 +118,8 @@ extern "C" int lz4tt_decompress_safe(const void* comp, long long comp_stride,
 }
 
 // comp: uint8[n, comp_stride] with comp_stride >= 1, comp_avail: int32[n]
-// within [0, comp_stride]; out: uint8[n, out_stride] with out_stride >=
+// (a count outside [0, comp_stride] is that row's MALFORMED, src_read 0,
+// nothing read or written); out: uint8[n, out_stride] with out_stride >=
 // dest_len; writes stay below dest_len in every row, and src_read[b] is the
 // bytes of row b consumed. Returns cudaGetLastError() after the launch.
 extern "C" int lz4tt_decompress_fast(const void* comp, long long comp_stride,
@@ -127,8 +133,8 @@ extern "C" int lz4tt_decompress_fast(const void* comp, long long comp_stride,
 
 // The safe contract with a history a row: row b's history is the
 // hist_lens[b] <= 65,536 bytes that end at hist + b * hist_stride (they
-// may lie just before the row's own output). Returns cudaGetLastError()
-// after the launch.
+// may lie just before the row's own output); comp_lens as in
+// lz4tt_decompress_safe. Returns cudaGetLastError() after the launch.
 extern "C" int lz4tt_decompress_safe_hist(
     const void* comp, long long comp_stride, const void* comp_lens, void* out,
     long long out_stride, int out_max, const void* hist, long long hist_stride,

@@ -10,6 +10,13 @@ in the port's layout (``kernels/layout.py``). A CUDA tensor goes to the
 kernel; a CPU tensor goes to the plain version in this module. There is no
 fallback from one to the other.
 
+The decode wrappers check a batch's structure on the host and read nothing
+back (``layout.check_layout``): a row whose length lies outside ``[0, S]``
+(S the row stride of ``comp``) is that row's ``ERR_MALFORMED``, with out
+length (bytes read) 0 and nothing written to its output row, on the card
+and in the plain versions alike. That is the reference's rule for faults in
+the data, a code a block and never thrown (``jax_codec.py:14-16``).
+
 ``decompress_safe_hist_batch`` and ``compress_dict_batch`` are the same
 kernels with a window of up to 64 KiB before each row: a history the
 decode's matches may reach into (a linked block's earlier output, or a
@@ -40,7 +47,7 @@ from ..core.constants import (
 )
 from ..utils.profiling import entry, readback
 from .build import Kernel, Scratch
-from .layout import check_batch, cuda_stream, row_stride
+from .layout import check_batch, check_layout, cuda_stream, row_stride
 
 OK = 0
 ERR_MALFORMED = 1
@@ -81,6 +88,9 @@ def decompress_safe_batch(comp: torch.Tensor, comp_lens: torch.Tensor,
 
     Args:
       comp: uint8[N, S] compressed blocks; comp_lens: int32[N] exact sizes.
+        A size outside ``[0, S]`` is that row's ``ERR_MALFORMED`` (out
+        length 0, its output row not written), not an exception: the
+        lengths are not read back.
       out_max: the most bytes a block may decode to.
       out: optional uint8[N, >= out_max] buffer to decode into; bytes at
         and past ``out_max`` in each row are never written.
@@ -89,7 +99,7 @@ def decompress_safe_batch(comp: torch.Tensor, comp_lens: torch.Tensor,
       (out uint8[N, row_stride(out_max)] (or ``out``), out_lens int32[N],
       err int32[N]).
     """
-    check_batch(comp, comp_lens)
+    check_layout(comp, comp_lens)
     out = _decode_out(comp, out_max, out)
     if comp.device.type == "cpu":
         return decompress_safe_plain(comp, comp_lens, out_max, out)
@@ -213,22 +223,38 @@ def _decode_window(comp: bytes, src_end: int, out: bytearray, base: int,
 def decompress_safe_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
                           out_max: int, out: torch.Tensor | None = None):
     """Plain version of :func:`decompress_safe_batch`, on any device."""
-    check_batch(comp, comp_lens)
+    check_layout(comp, comp_lens)
     out = _decode_out(comp, out_max, out)
+    return _decode_plain(comp, comp_lens, out, out_max)
+
+
+def _decode_plain(comp: torch.Tensor, lens: torch.Tensor, out: torch.Tensor,
+                  cap: int, fast: bool = False, hists: list | None = None):
+    """The plain versions' loop: row i decoded by :func:`_decode_row` into
+    ``out[i, :cap]``, with the history ``hists[i]`` where given. A length
+    outside ``[0, S]`` is the row's ``ERR_MALFORMED``, out length or bytes
+    read 0 and the row not written, as K1 does. Returns (out, out lengths
+    (bytes read where ``fast``), err) on the device of ``comp``."""
     comp_np = comp.cpu().numpy()
-    lens = comp_lens.cpu().tolist()
-    rows = out[:, :out_max].cpu().numpy()
-    out_lens = np.zeros((len(lens),), np.int32)
+    stride = comp.shape[1]
+    lens = lens.cpu().tolist()
+    rows = out[:, :cap].cpu().numpy()
+    got = np.zeros((len(lens),), np.int32)
     err = np.zeros((len(lens),), np.int32)
     for i, n in enumerate(lens):
+        if not 0 <= n <= stride:
+            err[i] = ERR_MALFORMED
+            continue
         buf = bytearray(rows[i].tobytes())
-        out_lens[i], _, err[i] = _decode_row(comp_np[i, :n].tobytes(), n, buf,
-                                             out_max)
+        # the fast contract reads a row's first byte whatever it holds
+        src = comp_np[i, :max(n, 1) if fast else n].tobytes()
+        out_len, read, err[i] = _decode_row(src, n, buf, cap, fast,
+                                            hists[i] if hists else b"")
+        got[i] = read if fast else out_len
         rows[i] = np.frombuffer(buf, np.uint8)
-    out[:, :out_max] = torch.from_numpy(rows).to(out.device)
+    out[:, :cap] = torch.from_numpy(rows).to(out.device)
     dev = comp.device
-    return (out, torch.from_numpy(out_lens).to(dev),
-            torch.from_numpy(err).to(dev))
+    return out, torch.from_numpy(got).to(dev), torch.from_numpy(err).to(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -283,12 +309,15 @@ def decompress_safe_hist_batch(comp: torch.Tensor, comp_lens: torch.Tensor,
     dictionary once for the whole batch; a linked block passes the bytes
     just before its own ``out`` row (a view of one buffer), so that the
     frame's earlier output is read where it was decoded. With every
-    history length 0 it equals :func:`decompress_safe_batch`.
+    history length 0 it equals :func:`decompress_safe_batch`. A compressed
+    size outside ``[0, S]`` is that row's ``ERR_MALFORMED``, as there; the
+    history lengths are read back and checked on the host
+    (:func:`_check_window`).
 
     Returns (out, out_lens int32[N], err int32[N]) as
     :func:`decompress_safe_batch` does.
     """
-    check_batch(comp, comp_lens)
+    check_layout(comp, comp_lens)
     n = comp.shape[0]
     stride, _, _ = _check_window(hist, hist_lens, n, comp.device, "hist")
     out = _decode_out(comp, out_max, out)
@@ -310,25 +339,12 @@ def decompress_safe_hist_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
                                hist_lens: torch.Tensor,
                                out: torch.Tensor | None = None):
     """Plain version of :func:`decompress_safe_hist_batch`, on any device."""
-    check_batch(comp, comp_lens)
+    check_layout(comp, comp_lens)
     n = comp.shape[0]
     _check_window(hist, hist_lens, n, comp.device, "hist")
     hists = _window_rows(hist, hist_lens, n)   # before out is written
     out = _decode_out(comp, out_max, out)
-    comp_np = comp.cpu().numpy()
-    lens = comp_lens.cpu().tolist()
-    rows = out[:, :out_max].cpu().numpy()
-    out_lens = np.zeros((n,), np.int32)
-    err = np.zeros((n,), np.int32)
-    for i, k in enumerate(lens):
-        buf = bytearray(rows[i].tobytes())
-        out_lens[i], _, err[i] = _decode_row(comp_np[i, :k].tobytes(), k, buf,
-                                             out_max, hist=hists[i])
-        rows[i] = np.frombuffer(buf, np.uint8)
-    out[:, :out_max] = torch.from_numpy(rows).to(out.device)
-    dev = comp.device
-    return (out, torch.from_numpy(out_lens).to(dev),
-            torch.from_numpy(err).to(dev))
+    return _decode_plain(comp, comp_lens, out, out_max, hists=hists)
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +361,10 @@ def decompress_fast_batch(comp: torch.Tensor, comp_avail: torch.Tensor,
         the first byte of a row whatever ``comp_avail`` says, as
         ``jax_codec`` does).
       comp_avail: int32[N] bytes available in each row; not necessarily the
-        exact compressed length (the fast contract's point).
+        exact compressed length (the fast contract's point). A count
+        outside ``[0, S]`` is that row's ``ERR_MALFORMED`` (bytes read 0,
+        its output row not written, its first byte not read), not an
+        exception.
       dest_len: the exact decoded length of every block.
       out: optional uint8[N, >= dest_len] buffer to decode into; bytes at
         and past ``dest_len`` in each row are never written.
@@ -354,7 +373,7 @@ def decompress_fast_batch(comp: torch.Tensor, comp_avail: torch.Tensor,
       (out uint8[N, row_stride(dest_len)] (or ``out``), src_read int32[N]
       (meaningful on OK rows), err int32[N]).
     """
-    check_batch(comp, comp_avail)
+    check_layout(comp, comp_avail)
     if comp.shape[1] == 0:
         raise ValueError("rows of comp must hold at least one byte")
     out = _decode_out(comp, dest_len, out)
@@ -373,24 +392,11 @@ def decompress_fast_batch(comp: torch.Tensor, comp_avail: torch.Tensor,
 def decompress_fast_plain(comp: torch.Tensor, comp_avail: torch.Tensor,
                           dest_len: int, out: torch.Tensor | None = None):
     """Plain version of :func:`decompress_fast_batch`, on any device."""
-    check_batch(comp, comp_avail)
+    check_layout(comp, comp_avail)
     if comp.shape[1] == 0:
         raise ValueError("rows of comp must hold at least one byte")
     out = _decode_out(comp, dest_len, out)
-    comp_np = comp.cpu().numpy()
-    avail = comp_avail.cpu().tolist()
-    rows = out[:, :dest_len].cpu().numpy()
-    src_read = np.zeros((len(avail),), np.int32)
-    err = np.zeros((len(avail),), np.int32)
-    for i, n in enumerate(avail):
-        buf = bytearray(rows[i].tobytes())
-        _, src_read[i], err[i] = _decode_row(
-            comp_np[i, :max(n, 1)].tobytes(), n, buf, dest_len, fast=True)
-        rows[i] = np.frombuffer(buf, np.uint8)
-    out[:, :dest_len] = torch.from_numpy(rows).to(out.device)
-    dev = comp.device
-    return (out, torch.from_numpy(src_read).to(dev),
-            torch.from_numpy(err).to(dev))
+    return _decode_plain(comp, comp_avail, out, dest_len, fast=True)
 
 
 # ---------------------------------------------------------------------------

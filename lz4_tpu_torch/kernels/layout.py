@@ -17,6 +17,13 @@ length are left as they are (no kernel reads them, see
 which is 0: K1's fast entry point reads it, as ``jax_codec`` does. On the
 CPU the rows are a new zeroed tensor.
 
+:func:`check_layout` validates a batch's structure and reads nothing back;
+:func:`check_batch` adds the lengths' range, read back from the card. K1's
+three wrappers (``codec.decompress_*``) call :func:`check_layout` alone:
+K1 checks each row's length on the card, so that a launch of the decode
+need not wait for the batch in flight. Every other kernel wrapper calls
+:func:`check_batch`.
+
 ``from_jax_layout`` / ``to_jax_layout`` carry a batch across between the two
 packages: this system has no weights, so the state that crosses is the
 batch itself.
@@ -42,9 +49,10 @@ def row_stride(cap: int) -> int:
     return ((cap + 15) & ~15) + PAD
 
 
-def check_batch(data: torch.Tensor, lens: torch.Tensor) -> None:
-    """Validate a ``(uint8[N, S], int32[N])`` batch; lengths must lie in
-    ``[0, S]`` (this reads them, so it waits for the card)."""
+def check_layout(data: torch.Tensor, lens: torch.Tensor) -> None:
+    """Validate the structure of a ``(uint8[N, S], int32[N])`` batch:
+    dtypes, ranks, contiguity, shapes and device. It reads nothing from
+    the card, so a launch after it is queued behind the work in flight."""
     if data.dtype != torch.uint8 or data.dim() != 2 or not data.is_contiguous():
         raise ValueError("expected a contiguous uint8[N, S] tensor")
     if (lens.dtype != torch.int32 or lens.dim() != 1
@@ -54,6 +62,13 @@ def check_batch(data: torch.Tensor, lens: torch.Tensor) -> None:
         raise ValueError("data and lengths must be on one device")
     if data.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {data.device}")
+
+
+def check_batch(data: torch.Tensor, lens: torch.Tensor) -> None:
+    """:func:`check_layout`, and lengths within ``[0, S]``, which the
+    kernels behind it trust. This reads the lengths back, so it waits for
+    the card."""
+    check_layout(data, lens)
     if lens.numel():
         with readback("check_batch", lens):
             lo, hi = torch.aminmax(lens)

@@ -648,6 +648,52 @@ def windows(hists, device):
     return win.to(device), lens.to(device)
 
 
+# A row's stated length outside [0, S], S the row stride of the compressed
+# batch: just below, just past, and the largest int32. K1 makes each the
+# row's ERR_MALFORMED (csrc/lz4_decode.cuh, lz4tt_decode_row).
+BAD_LENGTHS = {"minus1": lambda s: -1, "past_row": lambda s: s + 1,
+               "int32_max": lambda s: (1 << 31) - 1}
+# K1's three wrappers, by the contract each keeps
+DECODERS = ("safe", "fast", "hist")
+# the history of every row of the "hist" wrapper: one shared row
+DECODE_HIST = 64
+
+
+def length_batch(rng: np.random.Generator, device, size: int = 1000):
+    """Two blocks of every kind at ``size`` bytes, compressed by K2 (or
+    its plain version) on ``device``: ``(comp, comp_lens, size)``, every
+    row of which decodes to ``size`` bytes."""
+    from .core.constants import max_compressed_length
+    from .kernels import codec, layout
+
+    src, lens = layout.to_device_layout(mixed_blocks(rng, (size, size)),
+                                        device=device)
+    comp, comp_lens, _ = codec.compress_fast_batch(
+        src, lens, max_compressed_length(size))
+    return comp, comp_lens, size
+
+
+def decode_with(name: str, comp, lens, cap: int, out=None):
+    """K1 through its wrapper ``name`` (one of :data:`DECODERS`): ``cap``
+    is the capacity (safe, hist) or the exact decoded length (fast);
+    "hist" decodes every row after the same :data:`DECODE_HIST` bytes of
+    history. Returns the wrapper's ``(out, lengths, err)``."""
+    import torch
+
+    from .kernels import codec
+
+    if name == "safe":
+        return codec.decompress_safe_batch(comp, lens, cap, out=out)
+    if name == "fast":
+        return codec.decompress_fast_batch(comp, lens, cap, out=out)
+    hist = torch.arange(DECODE_HIST, dtype=torch.uint8,
+                        device=comp.device).view(1, -1)
+    hist_lens = torch.full(lens.shape, DECODE_HIST, dtype=torch.int32,
+                           device=comp.device)
+    return codec.decompress_safe_hist_batch(comp, lens, cap, hist, hist_lens,
+                                            out=out)
+
+
 def ragged_sizes(rng: np.random.Generator, n: int,
                  block_size: int = 1 << 16) -> list[int]:
     """Sizes of ``n`` frame blocks of ``block_size``: full blocks with

@@ -82,6 +82,56 @@ def test_decode_kernel_matches_plain(cuda_device, out_max):
             blocks
 
 
+@pytest.mark.parametrize("empty", [False, True], ids=["cap", "cap0"])
+@pytest.mark.parametrize("name", testing.DECODERS)
+def test_decode_lengths_outside_the_row_match_the_cpu(cuda_device, name,
+                                                      empty):
+    """A row whose length lies outside ``[0, S]`` (each of
+    ``testing.BAD_LENGTHS``) is ``ERR_MALFORMED`` with length 0 on the card,
+    its output row untouched, and every row's code, length and bytes are
+    the CPU's, with room for the blocks and with none (``dest_cap`` 0)."""
+    comp, lens, cap = testing.length_batch(np.random.default_rng(5), "cpu")
+    cap = 0 if empty else cap
+    n, stride = comp.shape
+    rows = [1, 4, 7]
+    for i, length in zip(rows, testing.BAD_LENGTHS.values()):
+        lens[i] = length(stride)
+    outs = [torch.full((n, cap + 16), 0xA5, dtype=torch.uint8, device=dev)
+            for dev in (cuda_device, "cpu")]
+    kern = testing.decode_with(name, comp.to(cuda_device),
+                               lens.to(cuda_device), cap, out=outs[0])
+    plain = testing.decode_with(name, comp, lens, cap, out=outs[1])
+    assert kern[2].tolist() == plain[2].tolist()
+    assert kern[2][rows].tolist() == [codec.ERR_MALFORMED] * len(rows)
+    assert kern[1].tolist() == plain[1].tolist()
+    assert kern[1][rows].tolist() == [0] * len(rows)
+    if cap:
+        assert kern[2].tolist().count(codec.OK) == n - len(rows)
+    assert torch.equal(outs[0].cpu(), outs[1])
+    assert bool((outs[1][rows] == 0xA5).all())
+
+
+@pytest.mark.parametrize("name", ["safe", "fast"])
+def test_decode_launch_waits_for_no_read_back(cuda_device, name):
+    """The decode wrappers read nothing back: behind a kernel that keeps
+    the stream busy, the call returns with the stream still busy, and no
+    ``check_batch`` read-back is counted."""
+    from lz4_tpu_torch.utils import profiling
+
+    comp, lens, cap = testing.length_batch(np.random.default_rng(5),
+                                           cuda_device)
+    testing.decode_with(name, comp, lens, cap)
+    torch.cuda.synchronize()
+    before = profiling.sync_counts().get("check_batch", 0)
+    torch.cuda._sleep(1 << 28)
+    _, _, err = testing.decode_with(name, comp, lens, cap)
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert busy
+    assert profiling.sync_counts().get("check_batch", 0) == before
+    assert err.tolist() == [codec.OK] * comp.shape[0]
+
+
 @pytest.mark.parametrize("seed", [0, 0xFFFFFFFF])
 def test_xxh32_kernel_matches_plain(cuda_device, seed):
     rng = np.random.default_rng(seed & 0xFF)
@@ -1243,8 +1293,9 @@ def test_linked_frames_on_the_card(cuda_device, fault):
 
 def test_read_backs_are_counted_and_launches_lie_in_their_entry_spans(
         cuda_device):
-    """The benchmark cells' four calls on the card: one read-back a codec
-    call (``check_batch``) and one a frame body, counted by site; under
+    """The benchmark cells' four calls on the card: one read-back a
+    compress call (``check_batch``) and one a frame body, counted by site,
+    and none in the decode, as K1 checks each row's length; under
     ``torch.profiler`` every K1, K2, K6 and pack launch lies inside the
     entry span of the call that made it."""
     import chip_smoke
@@ -1265,7 +1316,7 @@ def test_read_backs_are_counted_and_launches_lie_in_their_entry_spans(
     calls()
     profiling.reset_sync_counts()
     calls()
-    assert profiling.sync_counts() == {"check_batch": 3, "frame_body": 1}
+    assert profiling.sync_counts() == {"check_batch": 2, "frame_body": 1}
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:

@@ -99,6 +99,33 @@ def test_null_match_bytes_are_zeros():
     assert bool((out[0, 25:] == 0xA5).all())     # nothing past out_max
 
 
+@pytest.mark.parametrize("bad", list(testing.BAD_LENGTHS))
+@pytest.mark.parametrize("name", testing.DECODERS)
+def test_decode_lengths_outside_the_row_are_malformed(name, bad):
+    """The decode wrappers read no length back: a row whose length lies
+    outside ``[0, S]`` is that row's ``ERR_MALFORMED``, with out length
+    (bytes read) 0 and its output row untouched, and every other row
+    decodes as it does in the batch without it. A batch of the wrong
+    structure still raises."""
+    comp, lens, cap = testing.length_batch(np.random.default_rng(5), "cpu")
+    n, stride, k = comp.shape[0], comp.shape[1], 2
+    bad_lens = lens.clone()
+    bad_lens[k] = testing.BAD_LENGTHS[bad](stride)
+    out = torch.full((n, cap + 16), 0xA5, dtype=torch.uint8)
+    got = testing.decode_with(name, comp, bad_lens, cap, out=out)
+    assert (int(got[2][k]), int(got[1][k])) == (codec.ERR_MALFORMED, 0)
+    assert bool((out[k] == 0xA5).all())
+    keep = [i for i in range(n) if i != k]
+    want = testing.decode_with(name, comp[keep], lens[keep], cap)
+    assert got[2][keep].tolist() == want[2].tolist() == [codec.OK] * (n - 1)
+    assert got[1][keep].tolist() == want[1].tolist()
+    assert torch.equal(out[keep, :cap], want[0][:, :cap])
+    with pytest.raises(ValueError):
+        testing.decode_with(name, comp, lens.to(torch.int64), cap)
+    with pytest.raises(ValueError):
+        testing.decode_with(name, comp[:, :stride - 16], lens, cap)
+
+
 def _compress_batch(rng):
     blocks = (_alphabet_blocks(rng, FIXTURE_SPEC + PALLAS_SPEC)
               + testing.mixed_blocks(rng, (5, 12, 13, 777)))

@@ -325,9 +325,9 @@ void host_decode(const uint8_t* comp, long long comp_stride,
   Lz4ttCopies q;
   int32_t read;
   for (int b = 0; b < n; b++)
-    lz4tt_decode_block<false>(t, comp + b * comp_stride, comp_lens[b],
-                              out + b * out_stride, out_max, ring, q,
-                              &out_lens[b], &read, &err[b]);
+    lz4tt_decode_row<false>(t, comp + b * comp_stride, comp_stride,
+                            comp_lens[b], out + b * out_stride, out_max, ring,
+                            q, &out_lens[b], &read, &err[b]);
 }
 void host_decode_fast(const uint8_t* comp, long long comp_stride,
                       const int32_t* comp_avail, uint8_t* out,
@@ -338,9 +338,9 @@ void host_decode_fast(const uint8_t* comp, long long comp_stride,
   Lz4ttCopies q;
   int32_t len;
   for (int b = 0; b < n; b++)
-    lz4tt_decode_block<true>(t, comp + b * comp_stride, comp_avail[b],
-                             out + b * out_stride, dest_len, ring, q, &len,
-                             &src_read[b], &err[b]);
+    lz4tt_decode_row<true>(t, comp + b * comp_stride, comp_stride,
+                           comp_avail[b], out + b * out_stride, dest_len, ring,
+                           q, &len, &src_read[b], &err[b]);
 }
 void host_compress(const uint8_t* src, long long src_stride,
                    const int32_t* src_lens, uint8_t* dst, long long dst_stride,
@@ -500,10 +500,10 @@ int host_decode_hist(const uint8_t* comp, long long comp_stride,
     const Lz4ttHist h = {hist_end + b * hist_stride, hist_lens[b]};
     int32_t len[32], read[32], e[32];
     auto body = [&](const auto& t) {
-      lz4tt_decode_block<false, true>(t, comp + b * comp_stride, comp_lens[b],
-                                      out + b * out_stride, out_max, ring, q,
-                                      &len[t.lane()], &read[t.lane()],
-                                      &e[t.lane()], h);
+      lz4tt_decode_row<false, true>(t, comp + b * comp_stride, comp_stride,
+                                    comp_lens[b], out + b * out_stride,
+                                    out_max, ring, q, &len[t.lane()],
+                                    &read[t.lane()], &e[t.lane()], h);
     };
     if (lanes == 1)
       body(HostTeam());
@@ -1564,6 +1564,41 @@ def test_host_decode_hist_zero_is_k1(lib, edge_batch):
         ok = a[2] == codec.OK
         assert torch.equal(a[1][ok], b[1][ok])
         assert torch.equal(a[0], b[0])
+
+
+@pytest.mark.parametrize("empty", [False, True], ids=["cap", "cap0"])
+@pytest.mark.parametrize("name", testing.DECODERS)
+def test_host_decode_lengths_outside_the_row(lib, name, empty):
+    """K1's row guard (``lz4tt_decode_row``) in the host build of each
+    entry point, with room for the blocks and with none (``dest_cap`` 0,
+    where the body reads a row's first byte): rows whose length lies
+    outside ``[0, S]`` (each of ``testing.BAD_LENGTHS``) are MALFORMED
+    with length 0 and their rows untouched, and the other rows decode as
+    the plain version decodes them, with a guard behind every row."""
+    comp, lens, cap = testing.length_batch(np.random.default_rng(6), "cpu")
+    cap = 0 if empty else cap
+    n, stride = comp.shape
+    rows = [1, 4, 7]
+    bad = lens.clone()
+    for i, length in zip(rows, testing.BAD_LENGTHS.values()):
+        bad[i] = length(stride)
+    guard = torch.full((n, cap + 37), 0xA5, dtype=torch.uint8)
+    if name == "hist":
+        win, wl = testing.windows([bytes(range(testing.DECODE_HIST))] * n,
+                                  "cpu")
+        host = _host_window_codec(lib.host_decode_hist, comp, bad, win, wl,
+                                  None, cap, 1, out=guard)
+    else:
+        fn = lib.host_decode if name == "safe" else lib.host_decode_fast
+        host = _host_codec(fn, comp, bad, None, cap, out=guard)
+    plain = testing.decode_with(name, comp, bad, cap)
+    _assert_same(host, plain, out_len=cap if name == "fast" else None)
+    assert host[2][rows].tolist() == [codec.ERR_MALFORMED] * len(rows)
+    assert host[1][rows].tolist() == [0] * len(rows)
+    if cap:
+        assert host[2].tolist().count(codec.OK) == n - len(rows)
+    assert bool((guard[rows] == 0xA5).all())
+    assert bool((guard[:, cap:] == 0xA5).all())
 
 
 def _linked_content(rng, n_blocks: int, bs: int) -> bytes:

@@ -52,6 +52,11 @@ def test_layout_rejects_bad_batches():
     bad[0] = -1
     with pytest.raises(ValueError):
         layout.check_batch(t, bad)
+    layout.check_layout(t, bad)     # the structure alone: lengths not read
+    with pytest.raises(ValueError):
+        layout.check_layout(t, lens.to(torch.int64))
+    with pytest.raises(ValueError):
+        layout.check_layout(t[:, :-1], lens)
 
 
 @pytest.mark.parametrize("jax_pad", [jax_codec.PAD, 256])
