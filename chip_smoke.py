@@ -51,6 +51,16 @@ Phases (any failure exits non-zero; nothing is caught):
    chain bound of one row and the rows a CTA; then K2, K1 and K1
    fast on the a4, text and random rows apart, and K1 on 132, 1056 and
    4096 a4 rows;
+4b. the LZ4Block stream (:func:`phase_lz4block`) at the benchmark cells'
+   shape: 4,096 x 64 KiB of the benchmark's mix (``benchmark/data.py``,
+   made on the card from the seed), compressed by K2, then
+   ``block_stream_body_packed``, ``block_stream_index`` and
+   ``decompress_block_stream_batch``, each with launch counts reset just
+   before and read just after, each output held exactly to its plain
+   version's (the decode's on every 8th record), the decode to the raw
+   rows; then the pack, the index (its mark and chain kernels apart by
+   ``torch.profiler``), the decode and the verdict timed alone, beside
+   their bounds;
 5. the ``cuda`` tier at the same width, through ``Lz4Factory`` and
    ``XXHashFactory``: the factories are built (their self-tests run on the
    card), then ``compress_batch``, ``decompress_batch``, the fast
@@ -137,8 +147,9 @@ Phases (any failure exits non-zero; nothing is caught):
    one resolve), with the batch's peak device memory, and held against
    the serial reader (one K1-with-history launch a compressed block);
    ``decompress_stream`` of both (one walk and resolve a batch of 256
-   blocks); LZ4Block streams (one K2 or K1-fast and one K3 launch each
-   way); the command line's ``-D`` and ``--allow-dependent`` in this
+   blocks); LZ4Block streams (one K2, K3 and pack launch to write; one
+   index, decode, K3 and verdict launch to read, K1-fast none); the
+   command line's ``-D`` and ``--allow-dependent`` in this
    process; each call with launch counts reset just before and read just
    after, its host wall, and its output restored; then the two window
    kernels against their plain versions on 64 of the 1,024 rows, timed
@@ -295,6 +306,19 @@ KERNELS = {  # Kernel.name -> (source, TPU kernel it replaces)
                     "lz4_tpu/native/src/tpulz4.cpp:1199"),
     "linked_resolve": ("lz4_tpu_torch/csrc/linked_decode.cu",
                        "lz4_tpu/native/src/tpulz4.cpp:1199"),
+    # not TPU kernels: the LZ4Block stream the JAX package writes and
+    # reads a block at a time on the host (the writer's headers, the
+    # reader's walk of them, its decode and its check)
+    "lz4block_pack": ("lz4_tpu_torch/csrc/frame_pack.cu",
+                      "lz4_tpu/formats/block_stream.py:64"),
+    "lz4block_mark": ("lz4_tpu_torch/csrc/block_stream.cu",
+                      "lz4_tpu/formats/block_stream.py:173"),
+    "lz4block_chain": ("lz4_tpu_torch/csrc/block_stream.cu",
+                       "lz4_tpu/formats/block_stream.py:173"),
+    "lz4block_decode": ("lz4_tpu_torch/csrc/block_stream.cu",
+                        "lz4_tpu/formats/block_stream.py:173"),
+    "lz4block_verdict": ("lz4_tpu_torch/csrc/block_stream.cu",
+                         "lz4_tpu/formats/block_stream.py:173"),
 }
 MAIN_PATH = ("lz4_compress", "lz4_decode", "xxh32",   # roundtrip_step
              "frame_pack")
@@ -332,6 +356,7 @@ SCALING_BLOCKS = 1024                    # the scaling modules' workload, cut
 SCALING_PROCS = (2, 4)                   # multihost_scaling's widths
 SCALING_WIDTHS = (1, 2, 4)               # scaling's widths
 FORMAT_BLOCKS = 1024                     # 64 MiB at 64 KiB blocks
+LZ4BLOCK_PLAIN_STEP = 8                  # the plain decode's records: every 8th
 FORMAT_PLAIN_ROWS = 64                   # rows the plain window codecs run on
 LINKED_PATH = ("linked_walk", "linked_resolve", "xxh32", "xxh32_stream")
 LINKED_PLAIN_ROWS = 8                    # rows the plain linked walk runs on
@@ -985,18 +1010,21 @@ def _time_plain(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def kernel_row(name: str, launches: dict, max_err: int, ms: float,
+def kernel_row(name: str, launches: dict, max_err: int, ms: float | None,
                plain_ms: float, nbytes: int, in_bytes: int,
                plain_rows: int | None = None, rows: int = N_BLOCKS) -> dict:
     """One entry of the ``kernels`` JSON line; the bound is ``nbytes`` (each
-    input read once, each output written once) over the HBM rate.
+    input read once, each output written once) over the HBM rate. ``ms``
+    None where the kernel's time was not measured.
     ``plain_rows`` is the rows the plain version was timed on (all
     ``rows`` of the timed batch unless given)."""
     plain_rows = plain_rows or rows
     src_file, replaces = KERNELS[name]
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"{name}: {ms:.3f} ms on the card ({in_bytes / ms / 1e6:.2f} GB/s "
-        f"of input), plain {plain_ms:.1f} ms on {plain_rows} of {rows} "
+    timed = ("not measured" if ms is None else
+             f"{ms:.3f} ms on the card ({in_bytes / ms / 1e6:.2f} GB/s of "
+             f"input)")
+    log(f"{name}: {timed}, plain {plain_ms:.1f} ms on {plain_rows} of {rows} "
         f"rows, bound {bound_ms:.4f} ms, max abs err {max_err}, "
         f"{launches[name]} launches")
     return {"name": name, "route": "cuda", "source": src_file,
@@ -1152,6 +1180,150 @@ def phase_main_path(dev):
     rows[-1].update(_hash_batch_bounds(dev, 32, rows[-1], n))
     time_by_kind(src, lens, st.comp, st.comp_lens)
     return rows, {"data": data, "comp": st.comp, "comp_lens": st.comp_lens}
+
+
+def phase_lz4block(dev) -> list[dict]:
+    """The LZ4Block stream's three calls on a batch of the benchmark cells'
+    shape (``N_BLOCKS`` x ``BLOCK_LEN`` of ``benchmark/data.py``'s mix, made
+    on the card from ``SEED``, compressed by K2): each call's launches
+    counted from a reset just before it, its output held exactly to its
+    plain version's (the decode's on every ``LZ4BLOCK_PLAIN_STEP``-th
+    record) and the decode to the raw rows; then each kernel timed alone
+    (CUDA events; the index's two kernels apart by ``torch.profiler``),
+    beside the bytes it must move. Returns their rows of the ``kernels``
+    line."""
+    from benchmark import data as bench_data
+    from lz4_tpu_torch.kernels import block_stream as bs
+
+    n, L = N_BLOCKS, BLOCK_LEN
+    src, _ = bench_data.make_batch(n, L, layout.row_stride(L),
+                                   bench_data.generator(SEED, dev), dev)
+    lens = torch.full((n,), L, dtype=torch.int32, device=dev)
+    comp, comp_lens, err = codec.compress_fast_batch(
+        src, lens, max_compressed_length(L))
+    if bool(err.any()):
+        fail("lz4block: K2 failed on the benchmark's mix")
+    launches = {}
+
+    def counted(what, fn, want):
+        build.reset_launch_counts()
+        out = fn()
+        sync()
+        got = {k: v for k, v in build.launch_counts().items() if v}
+        if got != want:
+            fail(f"lz4block {what}: launches {got}, expected {want}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    body, total = counted("pack", lambda: sharded.block_stream_body_packed(
+        src, lens, comp, comp_lens, L), {"xxh32": 1, "lz4block_pack": 1})
+    (want, want_total), pack_plain_ms = _time_plain(
+        lambda: bs.block_stream_body_packed_plain(src, lens, comp, comp_lens,
+                                                  L))
+    if total != want_total or not torch.equal(body, want):
+        fail("lz4block pack: the stream differs from the plain version's")
+    del want
+    index = counted("index", lambda: sharded.block_stream_index(
+        body, total, n + 1), {"lz4block_index": 1})
+    plain_index, index_plain_ms = _time_plain(
+        lambda: bs.block_stream_index_plain(body, total, n + 1))
+    if not (torch.equal(index.table, plain_index.table)
+            and torch.equal(index.meta, plain_index.meta)
+            and torch.equal(index.order, plain_index.order)):
+        fail("lz4block index: the records differ from the plain version's")
+    if index.meta.tolist() != [n + 1, total]:
+        fail(f"lz4block index: meta {index.meta.tolist()}, expected "
+             f"{[n + 1, total]}")
+    out, out_lens, codes = counted(
+        "decode", lambda: sharded.decompress_block_stream_batch(body, index, L),
+        {"lz4block_decode": 1, "xxh32": 1, "lz4block_verdict": 1})
+    if (codes.tolist() != [bs.OK] * (n + 1)
+            or out_lens.tolist() != [L] * n + [0]
+            or not torch.equal(out[:n, :L], src[:, :L])):
+        fail("lz4block decode: the rows, lengths or codes are not the "
+             "stream's blocks")
+    sub = slice(None, None, LZ4BLOCK_PLAIN_STEP)
+    plain, decode_plain_ms = _time_plain(
+        lambda: bs.decompress_block_stream_batch_plain(body, index[sub], L))
+    if not (torch.equal(codes[sub], plain[2])
+            and torch.equal(out_lens[sub], plain[1])
+            and torch.equal(out[sub][:, :L], plain[0][:, :L])):
+        fail("lz4block decode: differs from the plain version")
+    plain_records = plain[1].numel()
+    del plain
+
+    # the kernels alone, on the tensors above
+    t = index.table
+    raw = t[bs.METHOD] == bs.COMPRESSION_METHOD_RAW
+    n_raw = int((raw & (t[bs.OLEN] > 0)).sum())
+    payload = int(t[bs.CLEN].to(torch.int64).sum())
+    records = n + 1
+    emit = torch.where(lens > 0,
+                       torch.minimum(lens, comp_lens) + bs.HEADER_LENGTH, 0)
+    offs = (torch.cumsum(emit, 0) - emit).to(torch.int32)
+    checks = xxhash.xxh32_rows(src, lens, bs.DEFAULT_SEED)
+    stream = layout.cuda_stream(src)
+    pack_ms = _time_alone(
+        bs.LZ4BLOCK_PACK, src.data_ptr(), src.stride(0), lens.data_ptr(),
+        comp.data_ptr(), comp.stride(0), comp_lens.data_ptr(),
+        offs.data_ptr(), checks.data_ptr(), bs.compression_level(L),
+        body.data_ptr(), total - bs.HEADER_LENGTH, n, stream)
+    if not torch.equal(body, sharded.block_stream_body_packed(
+            src, lens, comp, comp_lens, L)[0]):
+        fail("lz4block pack: differs when launched alone")
+    index_ms = _time_kernel(lambda: bs.block_stream_index(body, total, n + 1))
+    index_us = design_variants._kernel_times(
+        lambda: bs.block_stream_index(body, total, n + 1))
+    hashes = xxhash.xxh32_rows(out, out_lens, bs.DEFAULT_SEED)
+    decode_ms = _time_alone(
+        bs.LZ4BLOCK_DECODE, body.data_ptr(), t.data_ptr(), t.stride(0),
+        index.order.data_ptr(), records, out.data_ptr(), out.stride(0), L,
+        out_lens.data_ptr(), codes.data_ptr(), stream)
+    verdict_ms = _time_alone(
+        bs.LZ4BLOCK_VERDICT, hashes.data_ptr(), t.data_ptr(), t.stride(0),
+        out_lens.data_ptr(), codes.data_ptr(), records, stream)
+    if codes.tolist() != [bs.OK] * records or \
+            not torch.equal(out[:n, :L], src[:, :L]):
+        fail("lz4block decode or verdict: differs when launched alone")
+
+    def device_ms(kernel):
+        us = [v for k, v in index_us.items() if kernel in k]
+        return sum(us) / 1e3 if us else None
+
+    in_bytes = n * L
+    launches["lz4block_mark"] = launches["lz4block_chain"] = \
+        launches["lz4block_index"]
+    rows = [
+        # the payloads read from their rows, four int32 a block (the two
+        # lengths, the offset, the check), the stream written
+        kernel_row("lz4block_pack", launches, 0, pack_ms, pack_plain_ms,
+                   payload + 16 * n + total, in_bytes, rows=n),
+        # the stream read once
+        kernel_row("lz4block_mark", launches, 0, device_ms("lz4block_mark"),
+                   index_plain_ms, total, total, rows=records),
+        # 21 B read a record, its six fields and its place in the order
+        # written
+        kernel_row("lz4block_chain", launches, 0,
+                   device_ms("lz4block_chain"), index_plain_ms,
+                   (21 + 28) * records, total, rows=records),
+        # the payloads read, the rows written, the record's fields read and
+        # its length and code written
+        kernel_row("lz4block_decode", launches, 0, decode_ms, decode_plain_ms,
+                   payload + in_bytes + 32 * records, in_bytes,
+                   plain_rows=plain_records, rows=records),
+        # a hash, a check, a length and a code read, a code written
+        kernel_row("lz4block_verdict", launches, 0, verdict_ms,
+                   decode_plain_ms, 20 * records, 20 * records,
+                   plain_rows=plain_records, rows=records)]
+    for r in rows[1:3]:
+        r["index_ms"] = index_ms
+        r["index_kernels_us"] = index_us
+    log(f"lz4block: {n} x {L} B, {n - n_raw} LZ4 and {n_raw} raw blocks, "
+        f"stream {total} B, every call equal to its plain version, "
+        f"launches {launches}; the index call {index_ms:.4f} ms, its "
+        f"kernels (us) {json.dumps(index_us)}")
+    return rows
 
 
 def phase_tier(dev, main) -> list[dict]:
@@ -2496,15 +2668,18 @@ def phase_formats(dev, card: str = "") -> tuple[list[dict], dict]:
             fail(f"{what}: content differs")
     lfr = linked[LINKED_BIG]["frame"]
 
-    # LZ4Block streams: one K2 (K1 fast) and one K3 launch each way
+    # LZ4Block streams: K2, K3 and the pack once to write; the index, the
+    # decode, K3 and the verdict once to read, K1-fast never
     blob = call("compress_block_stream", lambda: formats.compress_block_stream(
         raw, BLOCK_LEN, device=dev))
-    expect("compress_block_stream", "lz4_compress", 1)
-    expect("compress_block_stream", "xxh32", 1)
+    for name in ("lz4_compress", "xxh32", "lz4block_pack"):
+        expect("compress_block_stream", name, 1)
     back = call("decompress_block_stream",
                 lambda: formats.decompress_block_stream(blob, device=dev))
-    expect("decompress_block_stream", "lz4_decode_fast", 1)
-    expect("decompress_block_stream", "xxh32", 1)
+    for name in ("lz4block_index", "lz4block_decode", "xxh32",
+                 "lz4block_verdict"):
+        expect("decompress_block_stream", name, 1)
+    expect("decompress_block_stream", "lz4_decode_fast", 0)
     if back != raw:
         fail("block stream: decoded content differs")
     head = raw[:4 * BLOCK_LEN]
@@ -3766,7 +3941,12 @@ def host_split(dev, main=None) -> dict:
 ENTRY_OF = {"decode_kernel": "decompress_safe_batch",
             "compress_kernel": "compress_fast_batch",
             "hc_kernel": "compress_hc_batch",
-            "pack_kernel": "frame_body_packed"}
+            "pack_kernel": "frame_body_packed",
+            "lz4block_pack_kernel": "block_stream_body_packed",
+            "lz4block_mark_kernel": "block_stream_index",
+            "lz4block_chain_kernel": "block_stream_index",
+            "lz4block_decode_kernel": "decompress_block_stream_batch",
+            "lz4block_verdict_kernel": "decompress_block_stream_batch"}
 SYNC_SPAN = "sync."
 
 
@@ -3994,6 +4174,7 @@ def main() -> int:
     timed("build", phase_build)
     timed("edge cases", phase_edge_cases, dev)
     rows, main_out = timed("main path", phase_main_path, dev)
+    rows += timed("lz4block", phase_lz4block, dev)
     rows += timed("tier", phase_tier, dev, main_out)
     rows += timed("stream", phase_stream, dev, main_out)
     rows += timed("hc", phase_hc, dev, main_out)

@@ -50,15 +50,39 @@ LZ4TT_HD void lz4tt_team_copy(const Team& t, uint8_t* dst, const uint8_t* src,
   for (int32_t j = a1 + t.lane(); j < n; j += t.size()) dst[j] = src[j];
 }
 
+// A block's header and payload at dst, its offset in the body: Header
+// writes its kHeader bytes (Header::write(team, dst, stored_raw, len,
+// comp_len)), the team copies the payload behind them. The frame's header
+// is its size word (Lz4ttFrameWord); the LZ4Block stream's is 21 bytes
+// (block_stream.cuh).
+template <class Team, class Header>
+LZ4TT_HD void lz4tt_pack_payload(const Team& t, const Header& h,
+                                 const uint8_t* raw, int32_t len,
+                                 const uint8_t* comp, int32_t comp_len,
+                                 uint8_t* dst) {
+  if (len <= 0) return;
+  const bool use_raw = comp_len >= len;
+  h.write(t, dst, use_raw, len, comp_len);
+  lz4tt_team_copy(t, dst + Header::kHeader, use_raw ? raw : comp,
+                  use_raw ? len : comp_len);
+}
+
+// The frame's 4-byte size word.
+struct Lz4ttFrameWord {
+  enum { kHeader = 4 };
+  template <class Team>
+  LZ4TT_HD void write(const Team& t, uint8_t* dst, bool use_raw, int32_t len,
+                      int32_t comp_len) const {
+    const uint32_t word =
+        use_raw ? ((uint32_t)len | LZ4TT_INCOMPRESSIBLE) : (uint32_t)comp_len;
+    for (int j = t.lane(); j < 4; j += t.size()) dst[j] = (uint8_t)(word >> (8 * j));
+  }
+};
+
 // Block b's size word and payload at dst, its offset in the body.
 template <class Team>
 LZ4TT_HD void lz4tt_pack_block(const Team& t, const uint8_t* raw, int32_t len,
                                const uint8_t* comp, int32_t comp_len,
                                uint8_t* dst) {
-  if (len <= 0) return;
-  const bool use_raw = comp_len >= len;
-  const uint32_t word =
-      use_raw ? ((uint32_t)len | LZ4TT_INCOMPRESSIBLE) : (uint32_t)comp_len;
-  for (int j = t.lane(); j < 4; j += t.size()) dst[j] = (uint8_t)(word >> (8 * j));
-  lz4tt_team_copy(t, dst + 4, use_raw ? raw : comp, use_raw ? len : comp_len);
+  lz4tt_pack_payload(t, Lz4ttFrameWord(), raw, len, comp, comp_len, dst);
 }

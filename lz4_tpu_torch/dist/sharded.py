@@ -6,7 +6,10 @@ finds each counterpart. On one device: ``pack_offsets``,
 kernel ``csrc/frame_pack.cu``), ``compress_frame_packed`` and
 ``roundtrip_step``: compress, block checksums, the exclusive scan of
 compressed lengths, decode and verify, and packing of the frame body, all
-on the device.
+on the device. Beside the frame's body, the LZ4Block stream's calls of
+``kernels/block_stream.py``: ``block_stream_body_packed`` (the same pack
+body with the stream's 21-byte headers), ``block_stream_index`` and
+``decompress_block_stream_batch``.
 
 Over the ranks of a :class:`~.mesh.BlockMesh`: ``shard_compress_blocks``
 (fast, or HC at ``level``), ``shard_decompress_blocks``, ``shard_xxh32``,
@@ -50,12 +53,15 @@ from ..core.constants import max_compressed_length
 from ..core.device import resolve_device
 from ..core.errors import Lz4Error
 from ..formats.frame import BlockSize, INCOMPRESSIBLE_MASK, frame_header
+from ..kernels.block_stream import (  # noqa: F401  (the LZ4Block calls)
+    block_stream_body_packed, block_stream_index,
+    decompress_block_stream_batch)
 from ..kernels.build import Kernel
 from ..kernels.codec import compress_fast_batch, decompress_safe_batch
 from ..kernels.hc import check_level, compress_hc_batch
 from ..kernels.layout import (
-    DOWN, UP, cuda_stream, from_device_layout, row_stride, staging,
-    to_device_layout)
+    DOWN, UP, check_rows, cuda_stream, from_device_layout, row_stride,
+    staging, to_device_layout)
 from ..kernels.xxhash import split_u64, xxh32_batch, xxh64_batch
 from ..utils.profiling import entry, readback
 from .mesh import BlockMesh, block_mesh
@@ -73,18 +79,6 @@ FRAME_PACK = Kernel("frame_pack", "frame_pack", "lz4tt_frame_pack",
 def pack_offsets(comp_lens: torch.Tensor) -> torch.Tensor:
     """Exclusive prefix sum of per-block compressed lengths (int32)."""
     return torch.cumsum(comp_lens, 0, dtype=torch.int32) - comp_lens
-
-
-def _check_pack_batch(data: torch.Tensor, lens: torch.Tensor) -> None:
-    """Shapes, types and devices of one ``(uint8[N, W], int32[N])`` input
-    of :func:`frame_body_packed`, without reading the lengths."""
-    if data.dtype != torch.uint8 or data.dim() != 2 or data.stride(1) != 1:
-        raise ValueError("expected a uint8[N, W] tensor with contiguous rows")
-    if (lens.dtype != torch.int32 or lens.dim() != 1
-            or lens.shape[0] != data.shape[0] or not lens.is_contiguous()):
-        raise ValueError("expected contiguous int32[N] lengths")
-    if lens.device != data.device:
-        raise ValueError("data and lengths must be on one device")
 
 
 @entry
@@ -105,8 +99,8 @@ def frame_body_packed(src: torch.Tensor, lens: torch.Tensor,
     """
     if src.device.type == "cpu":
         return frame_body_packed_plain(src, lens, comp, comp_lens)
-    _check_pack_batch(src, lens)
-    _check_pack_batch(comp, comp_lens)
+    check_rows(src, lens)
+    check_rows(comp, comp_lens)
     n = lens.shape[0]
     if comp.shape[0] != n or comp.device != src.device:
         raise ValueError("src and comp must hold the same blocks on one device")

@@ -1,5 +1,6 @@
 """The LZ4Block stream format (lz4-java's ``LZ4BlockOutputStream``, which
-Kafka and Spark write), on the card.
+Spark's ``lz4`` I/O codec and Java services wrapping a stream in one
+write; Kafka writes LZ4 frames instead), on the card.
 
 Counterpart of ``lz4_tpu/formats/block_stream.py`` with its names,
 contracts and messages (``LZ4BlockOutputStream.java:39-69,189-266``,
@@ -15,55 +16,39 @@ contracts and messages (``LZ4BlockOutputStream.java:39-69,189-266``,
 The default checksum is XXH32 with seed 0x9747B28C masked to 28 bits (the
 reference's ``Checksum`` adapter, StreamingXXHash32.java:101-107), which
 K3 computes with that seed. The stream classes go a block at a time (K2,
-K1's fast contract, K3); :func:`compress_block_stream` and
-:func:`decompress_block_stream` take a batch of blocks at a time: one K2
-or K1-fast launch (one a decoded length: a batch's full blocks and its
-short one) and one K3 launch a batch, with the same bytes as the classes.
+K1's fast contract, K3). :func:`compress_block_stream` and
+:func:`decompress_block_stream` take a batch at a time on the card path of
+``kernels/block_stream.py``, with the same bytes and errors as the
+classes: a batch of up to 64 MiB is one K2 launch, one K3 and one pack
+launch and one download; a window of up to 64 MiB of the stream is one
+upload, its headers walked on the card, and its records decoded, checked
+and downloaded in batches of up to 64 MiB of output.
 """
 
 from __future__ import annotations
 
 import io
-import struct
 
-import numpy as np
 import torch
 
 from ..api import cuda_instances
 from ..api.factory import Lz4Factory, XXHashFactory
-from ..core.constants import U32, max_compressed_length
+from ..core.constants import U32
 from ..core.device import resolve_device
 from ..core.errors import Lz4Error, Lz4FrameError
-from ..kernels import codec
-from ..kernels.layout import (
-    from_device_layout, row_stride, to_device_layout, upload_bytes)
-from ..kernels.xxhash import xxh32_batch
+from ..kernels import block_stream as bs
+from ..kernels.block_stream import (
+    COMPRESSION_LEVEL_BASE, COMPRESSION_METHOD_LZ4, COMPRESSION_METHOD_RAW,
+    DEFAULT_SEED, HEADER_LENGTH, MAGIC, block_header as _block_header,
+    compression_level as _compression_level)
+from ..kernels.layout import DOWN, from_device_layout, staging, upload_bytes
 
-MAGIC = b"LZ4Block"
 MAGIC_LENGTH = len(MAGIC)
-HEADER_LENGTH = MAGIC_LENGTH + 1 + 4 + 4 + 4  # 21
-
-COMPRESSION_LEVEL_BASE = 10
-MIN_BLOCK_SIZE = 64
-MAX_BLOCK_SIZE = 1 << (COMPRESSION_LEVEL_BASE + 0x0F)  # 32 MB
-
-COMPRESSION_METHOD_RAW = 0x10
-COMPRESSION_METHOD_LZ4 = 0x20
-
-DEFAULT_SEED = 0x9747B28C
-_CHECK_MASK = 0xFFFFFFF     # the 28-bit Checksum adapter
-_BATCH_BYTES = 64 << 20     # the one-shot functions' batch
-
-_U32 = struct.Struct("<I")
-_HEADER = struct.Struct("<8sBIII")
-
-
-def _compression_level(block_size: int) -> int:
-    if block_size < MIN_BLOCK_SIZE:
-        raise ValueError(f"blockSize must be >= {MIN_BLOCK_SIZE}, got {block_size}")
-    if block_size > MAX_BLOCK_SIZE:
-        raise ValueError(f"blockSize must be <= {MAX_BLOCK_SIZE}, got {block_size}")
-    return max(0, (block_size - 1).bit_length() - COMPRESSION_LEVEL_BASE)
+_BATCH_BYTES = 64 << 20     # the one-shot functions' batch and window
+_WINDOW_RECORDS = 1 << 14   # the records one walk of a window lists
+_FAULTS = {bs.MALFORMED: (Lz4Error, "Malformed input"),
+           bs.CORRUPTED: (Lz4FrameError, "Stream is corrupted"),
+           bs.PREMATURE: (Lz4FrameError, "Stream ended prematurely")}
 
 
 def default_checksum(device: str | torch.device = "cuda"):
@@ -72,14 +57,9 @@ def default_checksum(device: str | torch.device = "cuda"):
     xxh = XXHashFactory.cuda_instance(device).hash32()
 
     def check(data, off, length) -> int:
-        return xxh.hash(data, off, length, DEFAULT_SEED) & _CHECK_MASK
+        return xxh.hash(data, off, length, DEFAULT_SEED) & bs.CHECK_MASK
 
     return check
-
-
-def _block_header(method: int, level: int, comp_len: int, orig_len: int,
-                  check: int) -> bytes:
-    return _HEADER.pack(MAGIC, method | level, comp_len, orig_len, check)
 
 
 class Lz4BlockOutputStream(io.RawIOBase):
@@ -160,27 +140,14 @@ class Lz4BlockOutputStream(io.RawIOBase):
 
 def _parse_header(header: bytes):
     """(method, level, compressed_len, original_len, check) of a block
-    header, with the reader's checks, the compressed length against the
-    bound of the block size before anything of the payload is read."""
-    magic, token, compressed_len, original_len, check = _HEADER.unpack(header)
-    if magic != MAGIC:
+    header, with the reader's checks (``kernels/block_stream.py::
+    parse_header``), the compressed length against the bound of the block
+    size before anything of the payload is read."""
+    code, compressed_len, original_len, method, check = bs.parse_header(
+        header, 0, HEADER_LENGTH)
+    if code != bs.OK:
         raise Lz4FrameError("Stream is corrupted")
-    method = token & 0xF0
-    level = COMPRESSION_LEVEL_BASE + (token & 0x0F)
-    if method not in (COMPRESSION_METHOD_RAW, COMPRESSION_METHOD_LZ4):
-        raise Lz4FrameError("Stream is corrupted")
-    if (original_len > (1 << level)
-            or (original_len == 0) != (compressed_len == 0)
-            or (method == COMPRESSION_METHOD_RAW
-                and original_len != compressed_len)):
-        raise Lz4FrameError("Stream is corrupted")
-    # compressed_len is up to 4 GB - 1 from the input; a payload never
-    # exceeds the bound of its block size, so it is refused before the
-    # payload is read
-    if compressed_len > max_compressed_length(1 << level):
-        raise Lz4FrameError("Stream is corrupted")
-    if original_len == 0 and check != 0:
-        raise Lz4FrameError("Stream is corrupted")
+    level = COMPRESSION_LEVEL_BASE + (header[MAGIC_LENGTH] & 0x0F)
     return method, level, compressed_len, original_len, check
 
 
@@ -289,34 +256,25 @@ def compress_block_stream(data, block_size: int = 1 << 16,
                           device: str | torch.device = "cuda") -> bytes:
     """One call: ``data`` as a complete LZ4Block stream, the bytes of
     :class:`Lz4BlockOutputStream`. A batch of up to 64 MiB is one upload,
-    one K2 launch over its blocks and one K3 launch (seed 0x9747B28C) over
-    the same rows for their checksums, then one download."""
-    level = _compression_level(block_size)
+    one K2 launch over its blocks, then ``block_stream_body_packed`` (one
+    K3 launch for the checks, seed 0x9747B28C, and one pack launch), and
+    one download of its part of the stream."""
+    _compression_level(block_size)
     dev = resolve_device(device)
     raw = memoryview(data).cast("B")
     step = max(1, _BATCH_BYTES // block_size) * block_size
     out = bytearray()
     for at in range(0, len(raw), step):
-        chunk = raw[at:at + step]
         src, lens, comp, comp_lens, err = cuda_instances.compress_rows(
-            upload_bytes(chunk, dev), block_size)
+            upload_bytes(raw[at:at + step], dev), block_size)
         cuda_instances.check_compressed(err)
-        checks = xxh32_batch(src, lens, DEFAULT_SEED).to(torch.int64)
-        comp_lens, checks = torch.stack((comp_lens.to(torch.int64),
-                                         checks)).cpu().tolist()
-        comps = from_device_layout(comp, comp_lens)
-        for i, (cl, c) in enumerate(zip(comp_lens, comps)):
-            block = chunk[i * block_size:(i + 1) * block_size]
-            o = len(block)
-            if cl >= o:
-                out += _block_header(COMPRESSION_METHOD_RAW, level, o, o,
-                                     checks[i] & _CHECK_MASK)
-                out += block
-            else:
-                out += _block_header(COMPRESSION_METHOD_LZ4, level, cl, o,
-                                     checks[i] & _CHECK_MASK)
-                out += c
-    out += _block_header(COMPRESSION_METHOD_RAW, level, 0, 0, 0)
+        body, total = bs.block_stream_body_packed(src, lens, comp, comp_lens,
+                                                  block_size)
+        # every batch's body ends with the end block; the stream's only
+        out += staging(dev, DOWN).download(
+            body[:total - HEADER_LENGTH]).tobytes()
+    out += _block_header(COMPRESSION_METHOD_RAW,
+                         _compression_level(block_size), 0, 0, 0)
     return bytes(out)
 
 
@@ -324,83 +282,60 @@ def decompress_block_stream(data, stop_on_empty_block: bool = True,
                             device: str | torch.device = "cuda") -> bytes:
     """One call: decode an LZ4Block stream (concatenated streams with
     ``stop_on_empty_block=False``), as :class:`Lz4BlockInputStream` does,
-    error for error. The walk collects up to 64 MiB of blocks; their LZ4
-    payloads are one upload and one K1-fast launch a decoded length, and
-    the checksums one K3 launch (seed 0x9747B28C) over the decoded rows.
-    A fault of the walk is raised after the blocks before it are checked,
-    so the first faulty block's error wins, as in the stream reader."""
+    error for error. A window of up to 64 MiB of the stream is one upload
+    and one walk of its headers on the card (``block_stream_index``), read
+    back with its records; the records are decoded and checked on the card
+    (``decompress_block_stream_batch``) in batches of up to 64 MiB of
+    output, each read back once. The first faulty record's error wins, as
+    in the stream reader: a fault of the walk is its last record."""
     dev = resolve_device(device)
     mv = memoryview(data).cast("B")
     out = bytearray()
-    pos, done = 0, False
-    while not done:
-        batch, fault, budget = [], None, _BATCH_BYTES
-        while budget > 0:
-            if pos == len(mv):
-                if stop_on_empty_block:
-                    fault = Lz4FrameError("Stream ended prematurely")
-                done = True
-                break
-            if pos + HEADER_LENGTH > len(mv):
-                fault = Lz4FrameError("Stream ended prematurely")
-                break
-            try:
-                method, _, cl, ol, check = _parse_header(
-                    bytes(mv[pos:pos + HEADER_LENGTH]))
-            except Lz4FrameError as e:
-                fault = e
-                break
-            pos += HEADER_LENGTH
-            if ol == 0:
-                if stop_on_empty_block:
-                    done = True
-                    break
-                continue
-            if pos + cl > len(mv):
-                fault = Lz4FrameError("Stream ended prematurely")
-                break
-            batch.append((method, mv[pos:pos + cl], ol, check))
-            pos += cl
-            budget -= ol
-        out += _decode_batch(batch, dev)
-        if fault is not None:
-            raise fault
-    return bytes(out)
+    pos = 0
+    while True:
+        win = mv[pos:pos + _BATCH_BYTES]
+        final = pos + len(win) == len(mv)
+        stream = upload_bytes(win, dev)
+        index = bs.block_stream_index(stream, len(win), _WINDOW_RECORDS,
+                                      stop_on_empty_block)
+        meta = torch.cat((index.meta, index.table.flatten())).tolist()
+        count, end = meta[:2]
+        records = [meta[2 + k::_WINDOW_RECORDS][:bs.FIELDS]
+                   for k in range(count)]
+        if not final and records and records[-1][bs.CODE] == bs.PREMATURE:
+            # cut by the window's end, not the stream's: the next window
+            end = records.pop()[bs.AT]
+        _decode_records(stream, index, records, out)
+        last = records[-1] if records else None
+        if last is not None and stop_on_empty_block and last[bs.OLEN] == 0:
+            return bytes(out)
+        if final and len(records) == count and count < _WINDOW_RECORDS:
+            return bytes(out)
+        if end == 0:
+            raise Lz4Error("LZ4Block walk made no progress")
+        pos += end
 
 
-def _decode_batch(batch, dev: torch.device) -> bytes:
-    """The blocks of one walk, checked in order: each LZ4 payload decoded by
-    K1's fast contract to its original length with the bytes read equal to
-    its compressed length, and each block's checksum; raises the first
-    block's fault."""
-    if not batch:
-        return b""
-    n = len(batch)
-    width = max(ol for _, _, ol, _ in batch)
-    rows = torch.zeros((n, row_stride(width)), dtype=torch.uint8, device=dev)
-    codes = [codec.OK] * n
-    reads = [len(p) for _, p, _, _ in batch]
-    lz4 = [i for i, b in enumerate(batch) if b[0] == COMPRESSION_METHOD_LZ4]
-    raw = [i for i, b in enumerate(batch) if b[0] == COMPRESSION_METHOD_RAW]
-    if raw:
-        r, _ = to_device_layout([batch[i][1] for i in raw], cap=width,
-                                device=dev)
-        rows[raw] = r
-    for ol in sorted({batch[i][2] for i in lz4}):
-        idx = [i for i in lz4 if batch[i][2] == ol]
-        comp, avail = to_device_layout([batch[i][1] for i in idx], device=dev)
-        dec, src_read, err = codec.decompress_fast_batch(comp, avail, ol)
-        rows[idx, :dec.shape[1]] = dec
-        got = torch.stack((err, src_read)).cpu().tolist()
-        for k, i in enumerate(idx):
-            codes[i], reads[i] = got[0][k], got[1][k]
-    lens = torch.tensor([ol for _, _, ol, _ in batch], dtype=torch.int32,
-                        device=dev)
-    sums = (xxh32_batch(rows, lens, DEFAULT_SEED).to(torch.int64)
-            & _CHECK_MASK).cpu().tolist()
-    for i, (_, payload, _, check) in enumerate(batch):
-        if codes[i] != codec.OK:
-            raise Lz4Error("Malformed input")
-        if reads[i] != len(payload) or sums[i] != check:
-            raise Lz4FrameError("Stream is corrupted")
-    return b"".join(from_device_layout(rows, lens))
+def _decode_records(stream: torch.Tensor, index: bs.BlockStreamIndex,
+                    records: list, out: bytearray) -> None:
+    """The records of one walk, decoded and checked in order in batches of
+    up to 64 MiB of output, appended to ``out``; raises the first faulty
+    record's error."""
+    a = 0
+    while a < len(records):
+        b, size = a, 0
+        while b < len(records) and (b == a or size + records[b][bs.OLEN]
+                                    <= _BATCH_BYTES):
+            size += records[b][bs.OLEN]
+            b += 1
+        width = max(r[bs.OLEN] for r in records[a:b])
+        rows, lens, err = bs.decompress_block_stream_batch(
+            stream, index[a:b], width)
+        codes, sizes = torch.stack((err, lens)).tolist()
+        good = next((k for k, c in enumerate(codes) if c != bs.OK), len(codes))
+        out += b"".join(from_device_layout(rows[:good], sizes[:good]))
+        if good < len(codes):
+            kind, message = _FAULTS.get(codes[good],
+                                        (Lz4Error, "Malformed input"))
+            raise kind(message)
+        a = b

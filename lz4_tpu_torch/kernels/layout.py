@@ -64,6 +64,19 @@ def check_layout(data: torch.Tensor, lens: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {data.device}")
 
 
+def check_rows(data: torch.Tensor, lens: torch.Tensor) -> None:
+    """Shapes, types and devices of a ``(uint8[N, W], int32[N])`` batch
+    whose rows may be a view into wider ones (contiguous within a row),
+    without reading the lengths: the packers' inputs."""
+    if data.dtype != torch.uint8 or data.dim() != 2 or data.stride(1) != 1:
+        raise ValueError("expected a uint8[N, W] tensor with contiguous rows")
+    if (lens.dtype != torch.int32 or lens.dim() != 1
+            or lens.shape[0] != data.shape[0] or not lens.is_contiguous()):
+        raise ValueError("expected contiguous int32[N] lengths")
+    if lens.device != data.device:
+        raise ValueError("data and lengths must be on one device")
+
+
 def check_batch(data: torch.Tensor, lens: torch.Tensor) -> None:
     """:func:`check_layout`, and lengths within ``[0, S]``, which the
     kernels behind it trust. This reads the lengths back, so it waits for

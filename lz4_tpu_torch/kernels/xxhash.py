@@ -23,7 +23,7 @@ from ..core.constants import (
     PRIME64_1, PRIME64_2, PRIME64_3, PRIME64_4, PRIME64_5, U64,
 )
 from .build import Kernel
-from .layout import check_batch, cuda_stream
+from .layout import check_batch, check_layout, cuda_stream
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 XXH32 = Kernel("xxh32", "xxh32", "lz4tt_xxh32_batch",
@@ -49,6 +49,15 @@ def xxh32_batch(data: torch.Tensor, lengths: torch.Tensor,
     check_batch(data, lengths)
     if data.device.type == "cpu":
         return xxh32_plain(data, lengths, seed)
+    return xxh32_rows(data, lengths, seed)
+
+
+def xxh32_rows(data: torch.Tensor, lengths: torch.Tensor,
+               seed: int = 0) -> torch.Tensor:
+    """:func:`xxh32_batch` on the card for lengths that the caller knows
+    lie within the rows, as a kernel computed them: one K3 launch, nothing
+    read back."""
+    check_layout(data, lengths)
     _check_aligned(data)
     n = data.shape[0]
     out = torch.empty((n,), dtype=torch.uint32, device=data.device)
@@ -79,6 +88,14 @@ def xxh32_plain(data: torch.Tensor, lengths: torch.Tensor,
     tensors' device: int64 arithmetic masked to 32 bits, one step per
     16-byte stripe of the longest block, shorter blocks masked out."""
     check_batch(data, lengths)
+    return xxh32_plain_rows(data, lengths, seed)
+
+
+def xxh32_plain_rows(data: torch.Tensor, lengths: torch.Tensor,
+                     seed: int = 0) -> torch.Tensor:
+    """:func:`xxh32_plain` for lengths that the caller has checked, as
+    :func:`xxh32_rows` is :func:`xxh32_batch`'s."""
+    check_layout(data, lengths)
     dev = data.device
     n = data.shape[0]
     data, words = _words(data)

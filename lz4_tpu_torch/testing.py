@@ -13,6 +13,7 @@ import numpy as np
 
 from .formats.frame import (
     FrameFlag, INCOMPRESSIBLE_MASK, MAGIC, _flg_to_byte, xxh32_bytes)
+from .kernels import block_stream as bs
 
 KINDS = ("zeros", "period3", "alphabet4", "incompressible")
 SHORT_CASES = ("periods", "dist_vs_len", "runs", "null", "ring_edge")
@@ -962,3 +963,119 @@ def stalled_rank_job(mesh, job: dict) -> dict:
         time.sleep(3600)
     barrier(mesh)
     return {"rank": mesh.rank}
+
+
+# ---------------------------------------------------------------------------
+# LZ4Block streams
+# ---------------------------------------------------------------------------
+
+def lz4block_stream(raws, comps, block_size: int = 1 << 16, end: bool = True,
+                    checks=None) -> bytes:
+    """An LZ4Block stream written by hand: block i is ``comps[i]`` when
+    that is shorter than ``raws[i]``, else ``raws[i]`` stored raw, its
+    check ``checks[i]`` (by default the XXH32 of ``raws[i]``, seed
+    ``DEFAULT_SEED``, masked to 28 bits); then the end block unless
+    ``end`` is false."""
+    level = bs.compression_level(block_size)
+    out = bytearray()
+    for i, (r, c) in enumerate(zip(raws, comps)):
+        ck = (xxh32_bytes(r, bs.DEFAULT_SEED) & bs.CHECK_MASK
+              if checks is None else checks[i])
+        if len(c) >= len(r):
+            out += bs.block_header(bs.COMPRESSION_METHOD_RAW, level, len(r),
+                                   len(r), ck) + r
+        else:
+            out += bs.block_header(bs.COMPRESSION_METHOD_LZ4, level, len(c),
+                                   len(r), ck) + c
+    if end:
+        out += bs.block_header(bs.COMPRESSION_METHOD_RAW, level, 0, 0, 0)
+    return bytes(out)
+
+
+# Planted faults of an LZ4Block stream of four 1 KiB blocks (an LZ4 block,
+# a raw one, two LZ4), each breaking a rule of the reader in block 2 (or
+# after it), with the code of its record: each of the header's rules, a
+# header or payload cut off, no end block, an LZ4 payload that does not
+# decode, one with bytes past its last sequence, a literal byte flipped, a
+# wrong check; and magic bytes inside a raw payload, which read as they
+# are.
+LZ4BLOCK_FAULTS = {
+    "magic": bs.CORRUPTED, "method": bs.CORRUPTED, "level": bs.CORRUPTED,
+    "lengths_zero": bs.CORRUPTED, "raw_lengths": bs.CORRUPTED,
+    "bound": bs.CORRUPTED, "empty_check": bs.CORRUPTED,
+    "header_cut": bs.PREMATURE, "payload_cut": bs.PREMATURE,
+    "no_end": bs.PREMATURE, "malformed": bs.MALFORMED,
+    "trailing": bs.CORRUPTED, "literal": bs.CORRUPTED, "check": bs.CORRUPTED,
+    "magic_inside": bs.OK}
+LZ4BLOCK_FAULT_BLOCK = 1 << 10
+
+
+def _fault_blocks(rng: np.random.Generator):
+    from .kernels.codec import compress_fast_plain
+    from .kernels.layout import from_device_layout, to_device_layout
+
+    n = LZ4BLOCK_FAULT_BLOCK
+    raws = [block_of(rng, "alphabet4", n), block_of(rng, "incompressible", n),
+            block_of(rng, "text", n), block_of(rng, "period3", n)]
+    src, lens = to_device_layout(raws, device="cpu")
+    comp, comp_lens, _ = compress_fast_plain(src, lens, n + n // 255 + 16)
+    return raws, from_device_layout(comp, comp_lens)
+
+
+def _fake_chain(rng: np.random.Generator, size: int) -> bytes:
+    """``size`` random bytes holding an LZ4Block stream of two raw blocks
+    and, at its end, a header whose payload reaches exactly to the end:
+    inside a raw payload its magic links to the header after it."""
+    inner = lz4block_stream([block_of(rng, "incompressible", 100)] * 2,
+                            [b""] * 2, 1024, end=False)
+    tail = size - len(inner) - 2 * bs.HEADER_LENGTH - 50
+    fake = bs.block_header(bs.COMPRESSION_METHOD_RAW, 0, tail, tail, 0)
+    body = (block_of(rng, "incompressible", 50) + inner + fake
+            + block_of(rng, "incompressible", tail))
+    return body + block_of(rng, "incompressible", size - len(body))
+
+
+def lz4block_fault(case: str, rng: np.random.Generator) -> tuple[bytes, int]:
+    """The stream of :data:`LZ4BLOCK_FAULTS`' ``case`` (read with an empty
+    block stopping the walk), and the record its fault lies in."""
+    raws, comps = _fault_blocks(rng)
+    at = 2                                  # the faulty block
+    if case == "magic_inside":
+        raws[1] = _fake_chain(rng, LZ4BLOCK_FAULT_BLOCK)
+        return lz4block_stream(raws, comps, LZ4BLOCK_FAULT_BLOCK), -1
+    if case == "malformed":
+        comps[at] = b"\xf0" * 100
+    elif case == "trailing":
+        comps[at] = comps[at] + b"\x00\x00\x00"
+    elif case == "literal":
+        comps[at] = comps[at][:-2] + bytes([comps[at][-2] ^ 1]) + comps[at][-1:]
+    checks = [xxh32_bytes(r, bs.DEFAULT_SEED) & bs.CHECK_MASK for r in raws]
+    if case == "check":
+        checks[at] ^= 1 << 27
+    stream = bytearray(lz4block_stream(raws, comps, LZ4BLOCK_FAULT_BLOCK,
+                                       checks=checks))
+    h = sum(bs.HEADER_LENGTH + min(len(r), len(c))
+            for r, c in zip(raws[:at], comps[:at]))
+    if case == "magic":
+        stream[h + 3] ^= 0x20
+    elif case == "method":
+        stream[h + 8] = 0x30 | (stream[h + 8] & 0x0F)
+    elif case == "level":                   # 1 KiB blocks at level 0
+        stream[h + 8] = (stream[h + 8] & 0xF0) | 0
+        stream[h + 13:h + 17] = struct.pack("<I", 1025)
+    elif case == "lengths_zero":
+        stream[h + 9:h + 13] = bytes(4)
+    elif case == "raw_lengths":
+        stream[h + 8] = bs.COMPRESSION_METHOD_RAW | (stream[h + 8] & 0x0F)
+    elif case == "bound":
+        stream[h + 9:h + 13] = struct.pack("<I", 0xFFFFFFF0)
+    elif case == "empty_check":             # an empty block with a check
+        stream[h:h] = bs.block_header(bs.COMPRESSION_METHOD_RAW, 0, 0, 0, 7)
+    elif case == "header_cut":
+        del stream[h + 10:]
+    elif case == "payload_cut":
+        del stream[h + bs.HEADER_LENGTH + 5:]
+    elif case == "no_end":
+        del stream[-bs.HEADER_LENGTH:]
+        at = 4
+    return bytes(stream), at

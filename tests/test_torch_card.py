@@ -1325,3 +1325,179 @@ def test_read_backs_are_counted_and_launches_lie_in_their_entry_spans(
     assert chip_smoke.launches_in_entries(launches, spans) == {
         k: [1, 1] for k in ("compress_kernel", "hc_kernel", "pack_kernel",
                             "decode_kernel")}
+
+
+# ---------------------------------------------------------------------------
+# the LZ4Block stream (kernels/block_stream.py)
+# ---------------------------------------------------------------------------
+
+def _lz4block_batch(device, n=4096, size=65536, seed=23):
+    """The seeded three-kind mix at ``n`` x ``size``, compressed by K2."""
+    src, lens = sharded.upload_blocks(sharded.make_blocks(n, size, seed),
+                                      device)
+    comp, comp_lens, err = codec.compress_fast_batch(
+        src, lens, max_compressed_length(size))
+    assert not bool(err.any())
+    return src, lens, comp, comp_lens
+
+
+def _assert_records_equal(kern, plain):
+    assert torch.equal(kern.table.cpu(), plain.table.cpu())
+    assert kern.meta.tolist() == plain.meta.tolist()
+    assert torch.equal(kern.order.cpu(), plain.order.cpu())
+
+
+def _assert_decoded_equal(kern, plain):
+    kern, plain = [t.cpu() for t in kern], [t.cpu() for t in plain]
+    assert torch.equal(kern[2], plain[2])
+    assert torch.equal(kern[1], plain[1])
+    for i, k in enumerate(kern[1].tolist()):
+        assert torch.equal(kern[0][i, :k], plain[0][i, :k]), i
+
+
+def test_lz4block_calls_match_plain_at_4096_blocks(cuda_device):
+    """The pack, the index and the decode of a 4,096 x 64 KiB batch against
+    their plain versions, and the decode against the raw rows."""
+    from lz4_tpu_torch.kernels import block_stream as bs
+
+    src, lens, comp, comp_lens = _lz4block_batch(cuda_device)
+    before = (bs.LZ4BLOCK_PACK.launches, xxhash.XXH32.launches)
+    body, total = sharded.block_stream_body_packed(src, lens, comp, comp_lens)
+    assert (bs.LZ4BLOCK_PACK.launches, xxhash.XXH32.launches) == (
+        before[0] + 1, before[1] + 1)
+    want, want_total = bs.block_stream_body_packed_plain(
+        src.cpu(), lens.cpu(), comp.cpu(), comp_lens.cpu())
+    assert total == want_total and torch.equal(body.cpu(), want)
+    index = sharded.block_stream_index(body, total, 4097)
+    _assert_records_equal(index, bs.block_stream_index_plain(body.cpu(),
+                                                             total, 4097))
+    assert index.meta.tolist() == [4097, total]
+    kern = sharded.decompress_block_stream_batch(body, index, 65536)
+    assert kern[2].tolist() == [bs.OK] * 4097
+    assert torch.equal(kern[0][:4096, :65536], src[:, :65536])
+    assert kern[1].tolist() == [65536] * 4096 + [0]
+    plain = bs.decompress_block_stream_batch_plain(
+        body.cpu(), bs.BlockStreamIndex(index.table.cpu(), index.meta.cpu(),
+                                        index.order.cpu()), 65536)
+    _assert_decoded_equal(kern, plain)
+
+
+def _lz4block_card_streams(rng):
+    """Streams for the index on the card: each planted fault; concatenated
+    streams of three block sizes; blocks of 64 B (tiles with more
+    candidates than they keep); a raw payload of magic bytes (more
+    candidates than the scratch keeps, with few records asked for); and
+    the fault cases' magic inside a raw payload, whose false chain links
+    into the true one (ranked by pointer jumping)."""
+    out = {case: testing.lz4block_fault(case, rng)[0]
+           for case in sorted(testing.LZ4BLOCK_FAULTS)}
+    parts = []
+    for block_size in (64, 1024, 65536):
+        src, lens, comp, comp_lens = _lz4block_batch(
+            "cuda", 40, min(block_size, 3000), block_size)
+        body, total = sharded.block_stream_body_packed(
+            src, lens, comp, comp_lens, block_size)
+        parts.append(body[:total].cpu().numpy().tobytes())
+    out["concatenated"] = b"".join(parts)
+    out["small_blocks"] = parts[0] * 20
+    raws = [b"LZ4Block" * 8192, bytes(100)]
+    out["magic_payload"] = testing.lz4block_stream(raws, raws, 1 << 16)
+    return out
+
+
+@pytest.mark.parametrize("max_blocks", [1, 2, 5, 4000])
+@pytest.mark.parametrize("stop", [True, False])
+def test_lz4block_index_and_decode_match_plain(cuda_device, stop, max_blocks):
+    """Every stream of :func:`_lz4block_card_streams`, whole and cut, at
+    an offset of 3 bytes too: the index's records and end, and every
+    record decoded, as the plain versions give them."""
+    from lz4_tpu_torch.kernels import block_stream as bs
+
+    for name, blob in _lz4block_card_streams(
+            np.random.default_rng(max_blocks)).items():
+        for cut in (len(blob), len(blob) - 7, len(blob) // 3):
+            for shift in (0, 3):
+                buf = torch.zeros((cut + 32,), dtype=torch.uint8,
+                                  device=cuda_device)
+                card = buf[shift:shift + cut + 8]
+                card[:cut] = torch.frombuffer(bytearray(blob[:cut]),
+                                              dtype=torch.uint8).to(cuda_device)
+                host = card.cpu()
+                kern = sharded.block_stream_index(card, cut, max_blocks, stop)
+                plain = bs.block_stream_index_plain(host, cut, max_blocks,
+                                                    stop)
+                _assert_records_equal(kern, plain)
+                _assert_decoded_equal(
+                    sharded.decompress_block_stream_batch(card, kern, 8192),
+                    bs.decompress_block_stream_batch_plain(host, plain, 8192))
+
+
+def test_lz4block_reads_back_once_a_write_and_never_a_read(cuda_device):
+    """A write batch (K2, then the stream's body) reads back once in the
+    compress call and once for the body's size; a read batch (the index,
+    the decode) reads nothing back. Under ``torch.profiler`` every launch
+    of the new kernels lies inside the entry span of its call."""
+    import chip_smoke
+    from lz4_tpu_torch.utils import profiling
+
+    src, lens, _, _ = _lz4block_batch(cuda_device, 64)
+    cap = max_compressed_length(65536)
+
+    def write():
+        comp, comp_lens, _ = codec.compress_fast_batch(src, lens, cap)
+        return sharded.block_stream_body_packed(src, lens, comp, comp_lens)
+
+    body, total = write()
+
+    def read():
+        index = sharded.block_stream_index(body, total, 65)
+        return sharded.decompress_block_stream_batch(body, index, 65536)
+
+    read()
+    torch.cuda.synchronize()
+    profiling.reset_sync_counts()
+    write()
+    assert profiling.sync_counts() == {"check_batch": 1,
+                                       "block_stream_body": 1}
+    profiling.reset_sync_counts()
+    out = read()
+    assert profiling.sync_counts() == {}
+    assert out[2].tolist() == [0] * 65
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            write()
+            read()
+        torch.cuda.synchronize()
+    spans, launches = chip_smoke._port_events(prof)
+    got = chip_smoke.launches_in_entries(launches, spans)
+    names = [n[:48] for n, _ in launches if "namespace" in n]
+    assert set(got) >= {"lz4block_pack_kernel", "lz4block_mark_kernel",
+                        "lz4block_chain_kernel", "lz4block_decode_kernel",
+                        "lz4block_verdict_kernel"}, names
+    assert all(inside == total >= 1 for inside, total in got.values()), got
+
+
+def test_lz4block_one_shots_on_the_card(cuda_device):
+    """``compress_block_stream`` and ``decompress_block_stream`` on the
+    card path, against the CPU's bytes and errors."""
+    from lz4_tpu_torch.formats import (
+        compress_block_stream, decompress_block_stream)
+
+    rng = np.random.default_rng(31)
+    data = sharded.make_blocks(48, 65536, 31).tobytes() + b"tail" * 1000
+    for block_size in (64 << 10, 4096):
+        blob = compress_block_stream(data, block_size, device=cuda_device)
+        assert blob == compress_block_stream(data, block_size, device="cpu")
+        assert decompress_block_stream(blob, device=cuda_device) == data
+    for case in sorted(testing.LZ4BLOCK_FAULTS):
+        blob, _ = testing.lz4block_fault(case, rng)
+        got = []
+        for dev in (cuda_device, "cpu"):
+            try:
+                got.append(decompress_block_stream(blob, device=dev))
+            except Exception as e:  # noqa: BLE001 - compared below
+                got.append((type(e).__name__, str(e)))
+        assert got[0] == got[1], case

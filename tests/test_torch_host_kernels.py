@@ -32,6 +32,7 @@ static long long hc_followed = 0;
 static int hc_copy_faults = 0;
 #define LZ4TT_HC_CHECK_COPY(copy, slot) \
   if ((copy) != (slot)) __atomic_add_fetch(&hc_copy_faults, 1, __ATOMIC_RELAXED)
+#include "block_stream.cuh"
 #include "frame_pack.cuh"
 #include "gather_decode.cuh"
 #include "lz4_compress.cuh"
@@ -652,6 +653,56 @@ int host_gd_rounds(int out_len, int max_depth) {
 int host_gd_used(const int32_t* lit_out, int max_seq) {
   return lz4tt_gd_used(lit_out, max_seq);
 }
+// the LZ4Block pack kernel's body: block b by a team of `lanes` at offs[b],
+// its header's check checks[b]; the end block at end_at
+void host_lz4block_pack(const uint8_t* src, long long src_stride,
+                        const int32_t* lens, const uint8_t* comp,
+                        long long comp_stride, const int32_t* comp_lens,
+                        const int32_t* offs, const uint32_t* checks, int level,
+                        uint8_t* body, int end_at, int n, int lanes) {
+  for (int b = 0; b <= n; b++) {
+    auto body_of = [&](const auto& t) {
+      if (b == n) {
+        lz4tt_lz4block_end(t, level, body + end_at);
+        return;
+      }
+      lz4tt_pack_payload(t, Lz4ttBlockHeader{level, checks[b]},
+                         src + b * src_stride, lens[b], comp + b * comp_stride,
+                         comp_lens[b], body + offs[b]);
+    };
+    if (lanes == 1)
+      body_of(HostTeam());
+    else
+      run_team(lanes, body_of);
+  }
+}
+// the reader's walk from pos (the index's records), and its end
+int host_lz4block_walk(const uint8_t* s, long long len, long long pos,
+                       int stop, int max_blocks, int32_t* table,
+                       long long* end) {
+  int64_t e = 0;
+  const int k = lz4tt_lz4block_walk(s, len, pos, stop, 0, max_blocks, table,
+                                    max_blocks, &e);
+  *end = e;
+  return k;
+}
+// the mark's test of 16 positions, chunk by chunk: hits[c] for the 16
+// positions of s[16 c, 16 c + 16), s zero past len
+void host_lz4block_hits(const uint8_t* s, long long len, uint32_t* hits,
+                        int n_chunks) {
+  for (int c = 0; c < n_chunks; c++) {
+    uint32_t w[6];
+    for (int k = 0; k < 6; k++) {
+      uint32_t x = 0;
+      for (int i = 0; i < 4; i++) {
+        const long long p = 16LL * c + 4 * k + i;
+        if (p < len) x |= (uint32_t)s[p] << (8 * i);
+      }
+      w[k] = x;
+    }
+    hits[c] = lz4tt_lz4block_hits(w);
+  }
+}
 }
 """
 
@@ -701,6 +752,10 @@ def lib(tmp_path_factory):
     lib.host_gather.argtypes = [_P, _I64, _I32] + [_P] * 6 + [
         _I32, _P, _I64, _I32, _I32, _I32, _I32]
     lib.host_gd_used.argtypes = [_P, _I32]
+    lib.host_lz4block_pack.argtypes = [_P, _I64, _P, _P, _I64, _P, _P, _P,
+                                       _I32, _P, _I32, _I32, _I32]
+    lib.host_lz4block_walk.argtypes = [_P, _I64, _I64, _I32, _I32, _P, _P]
+    lib.host_lz4block_hits.argtypes = [_P, _I64, _P, _I32]
     lib.host_hc_followed.restype = ctypes.c_longlong
     lib.host_hc_spec_attempts.restype = ctypes.c_int
     return lib
@@ -1815,3 +1870,94 @@ def test_host_parse_sentinel_tails(lib):
     ok = want[1] >= 0
     assert torch.equal(got[0][:, ok], want[0][:, ok])
     assert bool((want[0][[0, 3]][:, ok, -1] == sequences.SENTINEL).all())
+
+
+# ---------------------------------------------------------------------------
+# the LZ4Block stream (block_stream.cuh)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+@pytest.mark.parametrize("shift", [0, 3])
+def test_host_lz4block_pack_matches_plain(lib, shift, lanes):
+    """The LZ4Block pack body (each block's 21-byte header and payload, and
+    the end block) by one lane and by teams of host threads, against
+    ``block_stream_body_packed_plain`` at a block size of 128 KiB."""
+    from lz4_tpu_torch.kernels import block_stream as bs
+
+    src, lens, comp, comp_lens = _pack_batch(np.random.default_rng(shift),
+                                             shift)
+    want, total = bs.block_stream_body_packed_plain(src, lens, comp,
+                                                    comp_lens, 1 << 17)
+    checks = xxhash.xxh32_plain(src.contiguous(), lens, bs.DEFAULT_SEED)
+    emit = torch.where(lens > 0, torch.minimum(lens, comp_lens) + 21, 0)
+    offs = (torch.cumsum(emit, 0) - emit).to(torch.int32)
+    end_at = int(emit.sum())
+    assert end_at + 21 == total
+    body = torch.full((total + 16,), 0xA5, dtype=torch.uint8)
+    lib.host_lz4block_pack(_ptr(src), src.stride(0), _ptr(lens), _ptr(comp),
+                           comp.stride(0), _ptr(comp_lens), _ptr(offs),
+                           _ptr(checks), bs.compression_level(1 << 17),
+                           _ptr(body), end_at, lens.numel(), lanes)
+    assert torch.equal(body[:total], want)
+    assert bool((body[total:] == 0xA5).all())
+
+
+def _lz4block_streams():
+    """Each planted fault's stream (an empty block stops the walk), and
+    streams with no first block, concatenated streams and a raw payload of
+    magic bytes, walked with and without the stop."""
+    from lz4_tpu.formats import compress_block_stream
+
+    rng = np.random.default_rng(8)
+    out = [(testing.lz4block_fault(case, rng)[0], True)
+           for case in sorted(testing.LZ4BLOCK_FAULTS)]
+    cat = (compress_block_stream(testing.block_of(rng, "text", 3000), 1024)
+           + compress_block_stream(bytes(5000), 64))
+    magic = testing.lz4block_stream([b"LZ4Block" * 128], [b"LZ4Block" * 128],
+                                    1024)
+    for blob in (b"", b"LZ4Block", bytes(30), cat, magic, cat[:-3]):
+        out += [(blob, True), (blob, False)]
+    return out
+
+
+@pytest.mark.parametrize("max_blocks", [1, 3, 64])
+def test_host_lz4block_walk_matches_plain(lib, max_blocks):
+    """The walk body (the reference of the index kernels, and what they
+    fall back on) against ``kernels/block_stream.py::walk``: records,
+    count and end, from position 0 and from the middle of a stream."""
+    from lz4_tpu_torch.kernels import block_stream as bs
+
+    for blob, stop in _lz4block_streams():
+        for pos in sorted({0, min(len(blob), 21 + 1024 + 21)}):
+            buf = np.frombuffer(blob + bytes(16), np.uint8).copy()
+            table = torch.full((6, max_blocks), 77, dtype=torch.int32)
+            end = ctypes.c_longlong(-1)
+            k = lib.host_lz4block_walk(buf.ctypes.data, len(blob), pos,
+                                       int(stop), max_blocks, _ptr(table),
+                                       ctypes.byref(end))
+            want, want_end = bs.walk(blob, len(blob), pos, stop, max_blocks)
+            assert (k, end.value) == (len(want), want_end), (pos, stop)
+            assert table[:, :k].T.tolist() == [list(r) for r in want]
+
+
+def test_host_lz4block_marks_every_magic(lib):
+    """The mark's test of 16 positions (``lz4tt_lz4block_hits``) against a
+    search of the bytes: magic at every offset of a chunk, across chunks,
+    back to back, cut by the end, and beside near misses."""
+    rng = np.random.default_rng(9)
+    buf = bytearray(rng.integers(0, 256, 4096, dtype=np.uint8).tobytes())
+    at = list(range(0, 16 * 24, 17)) + [600, 608, 616, 1000, 1001 + 8]
+    for p in at:
+        buf[p:p + 8] = b"LZ4Block"
+    for p in (2000, 2100):                  # one byte short of the magic
+        buf[p:p + 8] = b"LZ4Blocl" if p == 2000 else b"LZ4Bloc\x00"
+    buf[-5:] = b"LZ4Bl"                     # cut by the end
+    for length in (len(buf), len(buf) - 3, 4000 + 7):
+        data = bytes(buf[:length])
+        chunks = -(-length // 16)
+        hits = np.zeros(chunks, np.uint32)
+        lib.host_lz4block_hits(data, length, hits.ctypes.data, chunks)
+        got = [16 * c + r for c in range(chunks) for r in range(16)
+               if (int(hits[c]) >> r) & 1]
+        want = [p for p in range(length - 7) if data[p:p + 8] == b"LZ4Block"]
+        assert got == want

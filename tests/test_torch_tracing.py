@@ -68,7 +68,17 @@ def _call(name):
     comp, comp_lens, _ = codec.compress_fast_batch(src, lens, cap)
     if name == "decompress_safe_batch":
         return lambda: codec.decompress_safe_batch(comp, comp_lens, 700)
-    return lambda: sharded.frame_body_packed(src, lens, comp, comp_lens)
+    if name == "frame_body_packed":
+        return lambda: sharded.frame_body_packed(src, lens, comp, comp_lens)
+    if name == "block_stream_body_packed":
+        return lambda: sharded.block_stream_body_packed(src, lens, comp,
+                                                        comp_lens, 1024)
+    body, total = sharded.block_stream_body_packed(src, lens, comp, comp_lens,
+                                                   1024)
+    index = sharded.block_stream_index(body, total, 8)
+    if name == "block_stream_index":
+        return lambda: sharded.block_stream_index(body, total, 8)
+    return lambda: sharded.decompress_block_stream_batch(body, index, 1024)
 
 
 @pytest.mark.parametrize("name", sorted(set(chip_smoke.ENTRY_OF.values())))
