@@ -266,6 +266,9 @@ KERNELS = {  # Kernel.name -> (source, TPU kernel it replaces)
               "lz4_tpu/kernels/xxhash_pallas.py:156"),
     "xxh64": ("lz4_tpu_torch/csrc/xxh64.cu",
               "lz4_tpu/kernels/xxhash64_pallas.py:222"),
+    # K1's safe decode a CTA a row, for batches that leave the card room
+    "lz4_decode_smem": ("lz4_tpu_torch/csrc/lz4_decode.cu",
+                        "lz4_tpu/kernels/lz4_pallas.py:309"),
     # K1's second entry point: the fast contract of the pure-JAX
     # jax_codec.decompress_fast_batch, which has no Pallas kernel of its own
     "lz4_decode_fast": ("lz4_tpu_torch/csrc/lz4_decode.cu",
@@ -323,7 +326,9 @@ KERNELS = {  # Kernel.name -> (source, TPU kernel it replaces)
 MAIN_PATH = ("lz4_compress", "lz4_decode", "xxh32",   # roundtrip_step
              "frame_pack")
 TIER_PATH = ("lz4_compress", "lz4_decode", "xxh32", "xxh64", "lz4_decode_fast")
-STREAM_PATH = ("lz4_compress", "lz4_decode", "lz4_parse", "segment_decode",
+# a stream batch (STREAM_BATCH rows) fits the card in one round of K1's
+# CTA-a-row kernel, which decodes it
+STREAM_PATH = ("lz4_compress", "lz4_decode_smem", "lz4_parse", "segment_decode",
                "xxh32_stream", "xxh64_stream")
 HC_PATH = ("lz4_hc", "frame_pack", "xxh32_stream")   # tier, stream, CLI at -l 9
 XXH64_SEEDS = (0, (1 << 64) - 1, 0xCAFEBABE12345678)
@@ -336,6 +341,7 @@ OCCUPANCY = (("lz4_compress", "lz4tt_compress_occupancy"),
              ("xxh64", "lz4tt_xxh64_occupancy"),
              ("lz4_hc", "lz4tt_hc_occupancy"),
              ("lz4_decode", "lz4tt_decode_hist_occupancy"),
+             ("lz4_decode", "lz4tt_decode_smem_occupancy"),
              ("parallel_compress", "lz4tt_parallel_occupancy"),
              ("gather_decode", "lz4tt_gather_occupancy"),
              ("linked_decode", "lz4tt_linked_occupancy"),
@@ -596,6 +602,8 @@ def phase_edge_cases(dev) -> None:
         f"dest_len: {codes}")
 
     _short_sequence_cases(dev, rng)
+    _smem_edge_cases(dev, rng, layout.from_device_layout(comp, comp_lens),
+                     fuzz)
     _window_edge_cases(dev, rng)
     _linked_edge_cases(dev, rng)
 
@@ -714,6 +722,61 @@ def _short_sequence_cases(dev, rng) -> None:
             fail(f"K1 fast short sequences ({n} B): a block failed")
     log(f"K1 and K1 fast == plain and the expected bytes on {len(blocks)} "
         f"hand-built blocks ({', '.join(testing.SHORT_CASES)}); guard intact")
+
+
+def _smem_edge_cases(dev, rng, comp_blocks, fuzz) -> None:
+    """K1's two safe kernels on the same rows: K2's output of the edge
+    blocks, ``testing.far_match_blocks`` (matches 3,071 to 65,527 bytes
+    back) and fuzz, as many as the CTA-a-row kernel holds at once (the
+    wrapper takes it, the launch counts show), then one row more (the warp
+    kernel), at out_max 0, 1, 4096, 65535 and 65536: codes, lengths and
+    every byte of every row, errors' prefixes too, equal to the plain
+    version's, a guard behind every row intact."""
+    capacity = codec.smem_capacity(dev.index or 0)
+    specs = testing.far_match_blocks(rng)
+    far = [testing.encode_block(*b) for b in specs]
+    blocks = (comp_blocks + far + fuzz * (capacity // len(fuzz) + 1))
+    c, cl = layout.to_device_layout(blocks[:capacity + 1], device=dev)
+    plain_rows = len(comp_blocks) + len(far) + 64
+    for n, name in ((capacity, "lz4_decode_smem"), (capacity + 1,
+                                                     "lz4_decode")):
+        for out_max in (0, 1, 4096, 65535, 65536):
+            bufs = [torch.full((n, out_max + GUARD), GUARD_BYTE,
+                               dtype=torch.uint8, device=dev)
+                    for _ in range(2)]
+            before = build.launch_counts()
+            kern = codec.decompress_safe_batch(c[:n], cl[:n], out_max,
+                                               out=bufs[0])
+            ran = {k: v - before[k] for k, v in build.launch_counts().items()
+                   if v != before[k]}
+            if ran != {name: 1}:
+                fail(f"K1 at {n} rows, out_max={out_max}: launches {ran}")
+            rows = slice(0, n if out_max <= 4096 else min(n, plain_rows))
+            plain = codec.decompress_safe_plain(
+                c[rows], cl[rows], out_max, out=bufs[1][rows])
+            sync()
+            same = (torch.equal(kern[2][rows], plain[2])
+                    and torch.equal(bufs[0][rows], bufs[1][rows]))
+            ok = plain[2] == codec.OK
+            if not same or not torch.equal(kern[1][rows][ok], plain[1][ok]):
+                fail(f"{name} at {n} rows, out_max={out_max}: codes, "
+                     "lengths or bytes differ from the plain version")
+            if not bool((bufs[0][:, out_max:] == GUARD_BYTE).all()):
+                fail(f"{name} at {n} rows: wrote past out_max={out_max}")
+    want = [testing.expand_block(*b) for b in specs]
+    fc, fcl = layout.to_device_layout(far, device=dev)
+    out, out_lens, err = codec.decompress_safe_batch(fc, fcl, testing.WHOLE)
+    fits = [len(w) <= testing.WHOLE for w in want]
+    if [e == codec.OK for e in err.tolist()] != fits or \
+            [w for w, f in zip(want, fits) if f] != [
+                r for r, f in zip(layout.from_device_layout(out, out_lens),
+                                  fits) if f]:
+        fail("K1 a CTA a row: the far-match blocks did not decode to their "
+             "bytes")
+    log(f"K1's two safe kernels == plain at {capacity} rows (a CTA a row; "
+        f"its capacity) and {capacity + 1} (a warp a row), on K2's edge "
+        f"output, {len(far)} far-match blocks and fuzz, out_max 0, 1, 4096, "
+        f"65535, 65536, every byte of every row; guard intact")
 
 
 def _window_edge_cases(dev, rng) -> None:
@@ -2424,6 +2487,7 @@ def phase_hc(dev, main) -> list[dict]:
         f"host walls {walls} ms; every block decoded by K1 to its input; "
         f"compressed bytes (K6 level 9, K2) by kind: {sizes}")
 
+    smem_row = _smem_hc_row(src, kern)
     ms = _hc_timings(src, lens, kinds)
     stream = _hc_stream(dev, main, layout.from_device_layout(kern[0],
                                                              kern[1]))
@@ -2438,7 +2502,50 @@ def phase_hc(dev, main) -> list[dict]:
         lv: ms[f"level {lv}"] for lv in HC_LEVELS},
         "chain_floor_ms": ms["chain floor"], "tier_walls_ms": walls,
         "stream": stream})
-    return [row]
+    return [row, smem_row]
+
+
+def _smem_hc_row(src, kern) -> dict:
+    """K1 on the LZ4 rows (those K6 shrinks) of the first 512 main-path
+    rows at HC level 9, a read batch of the ``block64k_hc9`` cell: the
+    wrapper takes the CTA-a-row kernel (one launch), every row decodes to
+    its input, eight rows equal the plain version's; the kernel timed
+    beside the warp-a-row kernel on the same rows. Returns its row of the
+    ``kernels`` line."""
+    idx = torch.arange(512, device=src.device)
+    keep = idx[(kern[2][:512] == 0) & (kern[1][:512] < BLOCK_LEN)]
+    c, cl = kern[0][keep].contiguous(), kern[1][keep].contiguous()
+    n = c.shape[0]
+    before = build.launch_counts()
+    got = codec.decompress_safe_batch(c, cl, BLOCK_LEN)
+    ran = {k: v - before[k] for k, v in build.launch_counts().items()
+           if v != before[k]}
+    if ran != {"lz4_decode_smem": 1} or bool(got[2].any()) or not \
+            torch.equal(got[0][:, :BLOCK_LEN], src[keep][:, :BLOCK_LEN]):
+        fail(f"K1 on {n} HC-9 rows: launches {ran}, or a row did not decode "
+             "to its input")
+    sub = slice(0, n, n // 8)
+    plain, plain_ms = _time_plain(lambda: codec.decompress_safe_plain(
+        c[sub].contiguous(), cl[sub].contiguous(), BLOCK_LEN))
+    err = compare_codec(f"K1 a CTA a row, {n} HC-9 rows",
+                        tuple(t[sub] for t in got), plain, BLOCK_LEN)
+    ms = _time_kernel(lambda: codec.decompress_safe_batch(c, cl, BLOCK_LEN))
+    out, ol, e = (torch.empty_like(t) for t in got)
+    warp_ms = _time_kernel(lambda: codec.DECODE(
+        c.data_ptr(), c.stride(0), cl.data_ptr(), out.data_ptr(),
+        out.stride(0), BLOCK_LEN, ol.data_ptr(), e.data_ptr(), n,
+        torch.cuda.current_stream().cuda_stream, device=c.device.index))
+    if not (torch.equal(out[:, :BLOCK_LEN], got[0][:, :BLOCK_LEN])
+            and torch.equal(e, got[2])):
+        fail(f"K1 on {n} HC-9 rows: the warp kernel differs")
+    comp_bytes, in_bytes = int(cl.sum()), n * BLOCK_LEN
+    row = kernel_row("lz4_decode_smem", {"lz4_decode_smem": 1}, err, ms,
+                     plain_ms, comp_bytes + in_bytes + 12 * n, in_bytes,
+                     plain_rows=len(range(n)[sub]), rows=n)
+    row["warp_kernel_ms"] = warp_ms
+    log(f"K1 on {n} HC-9 rows: a CTA a row {ms:.3f} ms, a warp a row "
+        f"{warp_ms:.3f} ms")
+    return row
 
 
 def phase_frame(dev) -> dict:
@@ -3327,7 +3434,7 @@ def _parallel_stream(dev, raw: bytes, k7_blocks: list[bytes]) -> dict:
         fail(f"compress_stream(parallel) with K7 timed: the frame differs, "
              f"or {len(k7_ms)} launches")
     out["compress_stream(parallel) #3, K7 timed"]["k7_launch_ms"] = k7_ms
-    for engine, path in (("cuda", ("lz4_decode",)),
+    for engine, path in (("cuda", ("lz4_decode_smem",)),
                          ("segment", ("lz4_parse", "segment_decode"))):
         if call(f"decompress_stream({engine})",
                 lambda: decompress(want, engine), path) != raw:
@@ -3939,6 +4046,7 @@ def host_split(dev, main=None) -> dict:
 
 # the entry span each cell kernel's launch must lie in (``profiling.entry``)
 ENTRY_OF = {"decode_kernel": "decompress_safe_batch",
+            "decode_smem_kernel": "decompress_safe_batch",
             "compress_kernel": "compress_fast_batch",
             "hc_kernel": "compress_hc_batch",
             "pack_kernel": "frame_body_packed",

@@ -30,6 +30,19 @@
 // together. Writes are exactly the decoded bytes: nothing is written past
 // a run and later overwritten.
 //
+// lz4tt_decompress_safe_smem is the safe decode of lz4tt_decompress_safe
+// for a batch that leaves the card room, a CTA a row, whose dynamic shared
+// memory (about 65.6 KiB, three CTAs an SM) holds the row's whole output
+// (out_max <= 65,536) and four slots of queued copies. Every match reads
+// shared memory, however far back (a match past the ring's 3 KiB waits for
+// the row in device memory in the warp-a-row kernel), and the row is
+// written once, at the end, with 16-byte stores. Its two warps split the
+// row (lz4tt_split_row): warp 0's lane 0 walks the tokens and fills the
+// slots, warp 1 runs each slot's copies behind it, so the walk, the
+// serial part, never waits for a copy; named barriers 1-8 order the slots.
+// The wrapper takes it for batches of at most its resident CTAs
+// (lz4tt_decode_smem_occupancy) and the warp-a-row kernel for the rest.
+//
 // lz4tt_decompress_safe_hist is the safe decode with a history window a
 // row, the device counterpart of the native tpulz4_decompress_safe_ext
 // (lz4_tpu/native/src/tpulz4.cpp:1060-1202), which the JAX package runs on
@@ -84,6 +97,69 @@ __global__ void __launch_bounds__(32 * kWarpsPerCta, kCtasPerSm)
   }
 }
 
+// The CTA-a-row kernel's dynamic shared memory: the row's whole output,
+// then the slots.
+using SmemRing = Lz4ttWhole;
+constexpr int kSmemThreads = 64;
+constexpr int kSmemBytes =
+    SmemRing::kBytes + (int)((sizeof(Lz4ttSlot) * LZ4TT_SLOTS + 15) & ~(size_t)15);
+
+// The walker's and the copier's signals: slot s is full at named barrier
+// 1 + s, empty at 1 + LZ4TT_SLOTS + s, each met by both warps.
+// (__host__ __device__ for the body's templates; only the card runs it.)
+struct NamedPipe {
+  static LZ4TT_HD void sync(int id) {
+#ifdef __CUDA_ARCH__
+    asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
+#endif
+  }
+  static LZ4TT_HD void arrive(int id) {
+#ifdef __CUDA_ARCH__
+    asm volatile("bar.arrive %0, 64;" ::"r"(id) : "memory");
+#endif
+  }
+  LZ4TT_HD void wait_empty(const WarpTeam&, int s) const { sync(1 + LZ4TT_SLOTS + s); }
+  LZ4TT_HD void fill(const WarpTeam&, int s) const { arrive(1 + s); }
+  LZ4TT_HD void wait_full(const WarpTeam&, int s) const { sync(1 + s); }
+  LZ4TT_HD void empty(const WarpTeam&, int s) const { arrive(1 + LZ4TT_SLOTS + s); }
+};
+
+__global__ void __launch_bounds__(kSmemThreads)
+    decode_smem_kernel(const uint8_t* __restrict__ comp, int64_t comp_stride,
+                       const int32_t* __restrict__ lens, uint8_t* out,
+                       int64_t out_stride, int32_t out_max,
+                       int32_t* __restrict__ out_lens,
+                       int32_t* __restrict__ err) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  Lz4ttSlot* slots = reinterpret_cast<Lz4ttSlot*>(smem + SmemRing::kBytes);
+  const int64_t b = blockIdx.x;
+  const bool walker = threadIdx.x < 32;  // uniform across a warp
+  WarpTeam t;
+  int32_t len = 0;
+  int32_t e = 0;
+  lz4tt_split_row(t, walker, NamedPipe(), comp + b * comp_stride,
+                  comp_stride, lens[b], out + b * out_stride, out_max, smem,
+                  slots, &len, &e);
+  if (!walker && t.leader()) {
+    out_lens[b] = len;
+    err[b] = e;
+  }
+}
+
+// The CTA-a-row kernel's shared memory allowed once a card.
+cudaError_t prepare_smem() {
+  int dev;
+  return lz4tt_once_a_device([](int) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
+    if (e) return e;
+    return cudaFuncSetAttribute(decode_smem_kernel,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared);
+  }, &dev);
+}
+
 template <bool kFast, bool kHist>
 int launch(const void* comp, long long comp_stride, const void* lens, void* out,
            long long out_stride, int out_max, void* out_lens, void* err, int n,
@@ -131,6 +207,25 @@ extern "C" int lz4tt_decompress_fast(const void* comp, long long comp_stride,
                              dest_len, src_read, err, n, stream);
 }
 
+// lz4tt_decompress_safe's contract and arguments, a CTA a row, for
+// out_max <= 65,536 (else cudaErrorInvalidValue, nothing launched). Any n
+// is decoded; more rows than the card holds at once run in rounds.
+extern "C" int lz4tt_decompress_safe_smem(const void* comp,
+                                          long long comp_stride,
+                                          const void* comp_lens, void* out,
+                                          long long out_stride, int out_max,
+                                          void* out_lens, void* err, int n,
+                                          void* stream) {
+  if (out_max > SmemRing::kBytes) return (int)cudaErrorInvalidValue;
+  if (const cudaError_t e = prepare_smem()) return (int)e;
+  if (n > 0) {
+    decode_smem_kernel<<<n, kSmemThreads, kSmemBytes, (cudaStream_t)stream>>>(
+        (const uint8_t*)comp, comp_stride, (const int32_t*)comp_lens,
+        (uint8_t*)out, out_stride, out_max, (int32_t*)out_lens, (int32_t*)err);
+  }
+  return (int)cudaGetLastError();
+}
+
 // The safe contract with a history a row: row b's history is the
 // hist_lens[b] <= 65,536 bytes that end at hist + b * hist_stride (they
 // may lie just before the row's own output); comp_lens as in
@@ -157,4 +252,13 @@ extern "C" int lz4tt_decode_hist_occupancy(int* ctas_per_sm, int* threads) {
   *threads = 32 * kWarpsPerCta;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       ctas_per_sm, decode_kernel<false, true>, 32 * kWarpsPerCta, 0);
+}
+
+// The same for the CTA-a-row kernel: the rows it decodes in one round are
+// *ctas_per_sm times the SMs.
+extern "C" int lz4tt_decode_smem_occupancy(int* ctas_per_sm, int* threads) {
+  *threads = kSmemThreads;
+  if (const cudaError_t e = prepare_smem()) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, decode_smem_kernel, kSmemThreads, kSmemBytes);
 }

@@ -51,6 +51,14 @@
 // its scratch (shared memory on the card), writes the ring out to the row
 // (16-byte stores where the row allows), and copies longer runs and
 // matches with all its lanes.
+//
+// A block of at most LZ4TT_WHOLE bytes may instead keep its whole output in
+// the scratch (the ring Lz4ttWhole, in the CTA-a-row kernel's shared
+// memory): every match, at any distance, reads the scratch, and the row is
+// written once, when the block ends, with 16-byte stores. That kernel also
+// splits the row between two teams (lz4tt_split_row, at the end): one
+// walks, the other runs the copies behind it. The walk, its checks and the
+// bytes written are the same.
 #pragma once
 
 #include "lz4tt_common.cuh"
@@ -72,6 +80,8 @@ enum {
 // waits or that a copy of the same batch reads within LZ4TT_RING_NEAR, and
 // every byte farther back is in the row.
 enum { LZ4TT_RING_FLUSH = 2048, LZ4TT_RING_NEAR = 3072 };
+// The most output a block may have to keep all of it in the ring.
+enum { LZ4TT_WHOLE = 65536 };
 
 // The history of a block: the len bytes end[-len, 0), the output before
 // position 0. Output position p < 0 is end[p].
@@ -125,30 +135,37 @@ LZ4TT_HD int64_t lz4tt_read_len_ext(const uint8_t* comp, int32_t& s,
   return len + b;
 }
 
-// Where output position pos lives in the ring: the ring is offset like the
-// row's address, so a 16-byte aligned piece of the row is one of the ring.
-struct Lz4ttRing {
+// Where output position pos lives in a ring of kSize bytes: the ring is
+// offset like the row's address, so a 16-byte aligned piece of the row is
+// one of the ring. The ring of LZ4TT_WHOLE bytes holds a block's whole
+// output (kWhole): nothing goes to the row before the block ends.
+template <int kSize>
+struct Lz4ttRingOf {
+  static constexpr int32_t kBytes = kSize;
+  static constexpr bool kWhole = kSize == LZ4TT_WHOLE;
   uint8_t* buf;
   int32_t mis;  // the row's address mod 16
   LZ4TT_HD uint8_t& at(int32_t pos) const {
-    return buf[(pos + mis) & (LZ4TT_RING - 1)];
+    return buf[(pos + mis) & (kSize - 1)];
   }
   // 16 bytes from position pos (wrapping), by five aligned word loads
   LZ4TT_HD void load16(int32_t pos, uint32_t a[4]) const {
-    const int32_t i = (pos + mis) & (LZ4TT_RING - 1);
+    const int32_t i = (pos + mis) & (kSize - 1);
     const int32_t w = i & ~3;
     uint32_t v[5];
 #pragma unroll
-    for (int k = 0; k < 5; k++) v[k] = lz4tt_ld32(buf + ((w + 4 * k) & (LZ4TT_RING - 1)));
+    for (int k = 0; k < 5; k++) v[k] = lz4tt_ld32(buf + ((w + 4 * k) & (kSize - 1)));
 #pragma unroll
     for (int k = 0; k < 4; k++) a[k] = lz4tt_funnel_r(v[k], v[k + 1], 8 * (i & 3));
   }
 };
+using Lz4ttRing = Lz4ttRingOf<LZ4TT_RING>;
+using Lz4ttWhole = Lz4ttRingOf<LZ4TT_WHOLE>;
 
 // Ring bytes [f, e) to out[f, e) by the team: bytes up to the first
 // 16-byte aligned address, 16-byte stores, then the tail.
-template <class Team>
-LZ4TT_HD void lz4tt_ring_flush(const Team& t, const Lz4ttRing& r, uint8_t* out,
+template <class Team, class R>
+LZ4TT_HD void lz4tt_ring_flush(const Team& t, const R& r, uint8_t* out,
                                int32_t f, int32_t e) {
   if (e <= f) return;
   int32_t head = (16 - ((f + r.mis) & 15)) & 15;
@@ -162,13 +179,14 @@ LZ4TT_HD void lz4tt_ring_flush(const Team& t, const Lz4ttRing& r, uint8_t* out,
 }
 
 // A literal run or match of more than LZ4TT_LANE_COPY bytes by the team,
-// into the row and, for its last LZ4TT_RING bytes, the ring. A match reads
-// the row (written out before this job): byte j is period[j mod dist], so
-// every lane reads only bytes below d; dist 0 writes zeros.
+// into the row and, for its last LZ4TT_RING bytes, the ring (a whole ring:
+// into the ring alone). A match reads the row (written out before this
+// job; a whole ring: the ring): byte j is period[j mod dist], so every
+// lane reads only bytes below d; dist 0 writes zeros.
 // The literals are read eight a lane before they are written, so a long
 // run waits for memory once per eight steps, not once per step.
-template <class Team>
-LZ4TT_HD void lz4tt_team_literals(const Team& t, const Lz4ttRing& r,
+template <class Team, class R>
+LZ4TT_HD void lz4tt_team_literals(const Team& t, const R& r,
                                   uint8_t* out, int32_t d,
                                   const uint8_t* comp, int32_t s, int32_t n) {
   for (int32_t j0 = t.lane(); j0 < n; j0 += 8 * t.size()) {
@@ -182,21 +200,21 @@ LZ4TT_HD void lz4tt_team_literals(const Team& t, const Lz4ttRing& r,
     for (int k = 0; k < 8; k++) {
       const int32_t j = j0 + k * t.size();
       if (j < n) {
-        out[d + j] = v[k];
-        if (j >= n - LZ4TT_RING) r.at(d + j) = v[k];
+        if (!R::kWhole) out[d + j] = v[k];
+        if (R::kWhole || j >= n - LZ4TT_RING) r.at(d + j) = v[k];
       }
     }
   }
 }
 
-template <bool kHist = false, class Team>
-LZ4TT_HD void lz4tt_team_match(const Team& t, const Lz4ttRing& r, uint8_t* out,
+template <bool kHist = false, class Team, class R>
+LZ4TT_HD void lz4tt_team_match(const Team& t, const R& r, uint8_t* out,
                                int32_t d, int32_t dist, int32_t n,
                                const Lz4ttHist& h = Lz4ttHist{nullptr, 0}) {
   if (dist == 0) {
     for (int32_t j = t.lane(); j < n; j += t.size()) {
-      out[d + j] = 0;
-      if (j >= n - LZ4TT_RING) r.at(d + j) = 0;
+      if (!R::kWhole) out[d + j] = 0;
+      if (R::kWhole || j >= n - LZ4TT_RING) r.at(d + j) = 0;
     }
     return;
   }
@@ -205,9 +223,9 @@ LZ4TT_HD void lz4tt_team_match(const Team& t, const Lz4ttRing& r, uint8_t* out,
   const int32_t step = t.size() % dist;
   for (int32_t j = t.lane(); j < n; j += t.size()) {
     const int32_t q = p0 + k;
-    const uint8_t v = kHist && q < 0 ? h.end[q] : out[q];
-    out[d + j] = v;
-    if (j >= n - LZ4TT_RING) r.at(d + j) = v;
+    const uint8_t v = R::kWhole ? r.at(q) : kHist && q < 0 ? h.end[q] : out[q];
+    if (!R::kWhole) out[d + j] = v;
+    if (R::kWhole || j >= n - LZ4TT_RING) r.at(d + j) = v;
     k += step;
     if (k >= dist) k -= dist;
   }
@@ -216,13 +234,14 @@ LZ4TT_HD void lz4tt_team_match(const Team& t, const Lz4ttRing& r, uint8_t* out,
 // The match of distance dist and length n <= LZ4TT_LANE_COPY at d, by one
 // lane into the ring, 16 bytes at a time, all loads of a piece before its
 // stores: its source bytes (all below d) come from the ring when they lie
-// within LZ4TT_RING_NEAR, else from the row, which holds everything that
-// far back (see LZ4TT_RING_FLUSH), or before position 0 from the history. A match of period dist < 16 shorter
+// within LZ4TT_RING_NEAR (a whole ring: always), else from the row, which
+// holds everything that far back (see LZ4TT_RING_FLUSH), or before
+// position 0 from the history. A match of period dist < 16 shorter
 // than itself repeats the period from registers (byte j is byte j mod
 // dist); a longer period copies piece by piece, each piece reading bytes
 // an earlier one wrote. dist 0 writes zeros.
-template <bool kHist = false>
-LZ4TT_HD void lz4tt_lane_match(const Lz4ttRing& r, const uint8_t* out,
+template <bool kHist = false, class R>
+LZ4TT_HD void lz4tt_lane_match(const R& r, const uint8_t* out,
                                int32_t d, int32_t dist, int32_t n,
                                const Lz4ttHist& h = Lz4ttHist{nullptr, 0}) {
   uint32_t a[4] = {0u, 0u, 0u, 0u};
@@ -237,7 +256,7 @@ LZ4TT_HD void lz4tt_lane_match(const Lz4ttRing& r, const uint8_t* out,
   }
   for (int32_t c = 0; c < n; c += 16) {
     const int32_t m = n - c < 16 ? n - c : 16;
-    if (dist > LZ4TT_RING_NEAR)
+    if (!R::kWhole && dist > LZ4TT_RING_NEAR)
       lz4tt_load_window<kHist>(out, h, d - dist + c, m, a);
     else if (dist > 0)
       r.load16(d - dist + c, a);
@@ -251,7 +270,8 @@ LZ4TT_HD void lz4tt_lane_match(const Lz4ttRing& r, const uint8_t* out,
 
 // The literal run comp[s, s + n), 1 <= n <= LZ4TT_LANE_COPY, at d, by one
 // lane into the ring.
-LZ4TT_HD void lz4tt_lane_literals(const Lz4ttRing& r, int32_t d,
+template <class R>
+LZ4TT_HD void lz4tt_lane_literals(const R& r, int32_t d,
                                   const uint8_t* comp, int32_t s, int32_t n) {
   uint32_t a[4];
   for (int32_t c = 0; c < n; c += 16) {
@@ -434,8 +454,8 @@ LZ4TT_HD Lz4ttJob lz4tt_decode_walk(Lz4ttDecState& z, Lz4ttCopies& q,
 // The n queued copies, one a lane, in waves: a copy runs once every byte it
 // reads of the output lies below the first copy still waiting, so each
 // wave reads only what earlier waves (or batches) wrote.
-template <bool kHist = false, class Team>
-LZ4TT_HD void lz4tt_run_copies(const Team& t, const Lz4ttRing& r,
+template <bool kHist = false, class Team, class R>
+LZ4TT_HD void lz4tt_run_copies(const Team& t, const R& r,
                                const Lz4ttCopies& q, int32_t n,
                                const uint8_t* comp, const uint8_t* out,
                                const Lz4ttHist& h = Lz4ttHist{nullptr, 0}) {
@@ -466,9 +486,10 @@ LZ4TT_HD void lz4tt_run_copies(const Team& t, const Lz4ttRing& r,
   }
 }
 
-// ring: LZ4TT_RING bytes, 16-byte aligned, and q, both owned by this team.
-// With kHist, h is the block's history (the safe contract only).
-template <bool kFast, bool kHist = false, class Team>
+// ring: R::kBytes bytes (LZ4TT_RING, or LZ4TT_WHOLE >= dest_cap for a
+// whole ring), 16-byte aligned, and q, both owned by this team. With kHist,
+// h is the block's history (the safe contract only, a ring of LZ4TT_RING).
+template <bool kFast, bool kHist = false, class R = Lz4ttRing, class Team>
 LZ4TT_HD void lz4tt_decode_block(const Team& t, const uint8_t* comp,
                                  int32_t src_end, uint8_t* out,
                                  int32_t dest_cap, uint8_t* ring,
@@ -484,7 +505,8 @@ LZ4TT_HD void lz4tt_decode_block(const Team& t, const uint8_t* comp,
       *err = src_end == 1 && comp[0] == 0 ? LZ4TT_OK : LZ4TT_ERR_DEST_TOO_SMALL;
     return;
   }
-  const Lz4ttRing r = {ring, (int32_t)((uintptr_t)out & 15)};
+  static_assert(!(kHist && R::kWhole), "a whole ring has no room for a history");
+  const R r = {ring, (int32_t)((uintptr_t)out & 15)};
   const int32_t hist_len = kHist ? h.len : 0;
   if (kHist) {  // the ring's bytes before position 0: the history's tail
     const int32_t k = hist_len < LZ4TT_RING ? hist_len : LZ4TT_RING;
@@ -501,7 +523,9 @@ LZ4TT_HD void lz4tt_decode_block(const Team& t, const uint8_t* comp,
     t.sync();  // the queue the leader wrote
     lz4tt_run_copies<kHist>(t, r, q, j.n, comp, out, h);
     const int32_t d = j.a;
-    if (j.kind == LZ4TT_DEC_CONT) {
+    if (R::kWhole) {  // the row is written once, when the block ends
+      if (j.kind == LZ4TT_DEC_DONE) lz4tt_ring_flush(t, r, out, 0, d);
+    } else if (j.kind == LZ4TT_DEC_CONT) {
       if (d - f > LZ4TT_RING_FLUSH) {
         const int32_t e = d - ((d + r.mis) & 15);
         lz4tt_ring_flush(t, r, out, f, e);
@@ -538,7 +562,7 @@ LZ4TT_HD void lz4tt_decode_block(const Team& t, const uint8_t* comp,
 // bytes, whose first token check ends it, rather than returning here: on
 // an H100 (the fast read's 3,072 rows) K1 takes about 0.7 % longer with
 // this test than without it, and about 1.3 % with an early return.
-template <bool kFast, bool kHist = false, class Team>
+template <bool kFast, bool kHist = false, class R = Lz4ttRing, class Team>
 LZ4TT_HD void lz4tt_decode_row(const Team& t, const uint8_t* comp,
                                int64_t comp_stride, int32_t src_end,
                                uint8_t* out, int32_t dest_cap, uint8_t* ring,
@@ -552,6 +576,101 @@ LZ4TT_HD void lz4tt_decode_row(const Team& t, const uint8_t* comp,
     *err = LZ4TT_ERR_MALFORMED;
     return;
   }
-  lz4tt_decode_block<kFast, kHist>(t, comp, bad ? 0 : src_end, out, dest_cap,
-                                   ring, q, out_len, src_read, err, h);
+  lz4tt_decode_block<kFast, kHist, R>(t, comp, bad ? 0 : src_end, out,
+                                      dest_cap, ring, q, out_len, src_read,
+                                      err, h);
+}
+
+// The safe decode of one row with the walk decoupled from the copies (the
+// CTA-a-row kernel's): two teams share the row. The walker's leader walks
+// the tokens (lz4tt_decode_walk) and fills the LZ4TT_SLOTS slots in turn,
+// a batch of queued copies and its job each; the copier runs each slot's
+// copies and job, in order, into a whole ring (Lz4ttWhole: out_max <=
+// LZ4TT_WHOLE), and writes the row out when the walk ends. The walker
+// never waits for a copy, only for a slot to come free. The pipe P orders
+// the two: wait_empty(t, s) / fill(t, s) on the walker's side,
+// wait_full(t, s) / empty(t, s) on the copier's; every member of a team
+// calls them (named barriers on the card, semaphores in the host build).
+enum { LZ4TT_SLOTS = 4 };
+
+struct Lz4ttSlot {
+  Lz4ttCopies q;
+  Lz4ttJob j;
+};
+
+template <class Team, class P>
+LZ4TT_HD void lz4tt_split_walk(const Team& t, const P& p, Lz4ttSlot* slots,
+                               const uint8_t* comp, int32_t src_end,
+                               int32_t dest_cap) {
+  Lz4ttDecState z = {LZ4TT_DEC_TOKEN, 0, 0, 0, LZ4TT_OK};
+  int32_t i = 0;
+  for (;; i++) {
+    const int32_t s = i % LZ4TT_SLOTS;
+    if (i >= LZ4TT_SLOTS) p.wait_empty(t, s);
+    int32_t kind = 0;
+    if (t.leader()) {
+      slots[s].j = lz4tt_decode_walk<false>(z, slots[s].q, comp, src_end,
+                                            dest_cap);
+      kind = slots[s].j.kind;
+    }
+    kind = t.bcast(kind);
+    p.fill(t, s);
+    if (kind == LZ4TT_DEC_DONE) break;
+  }
+  // the copier empties every slot it took but the last: take those signals
+  for (int32_t k = i + 1; k < i + LZ4TT_SLOTS; k++)
+    if (k >= LZ4TT_SLOTS) p.wait_empty(t, k % LZ4TT_SLOTS);
+}
+
+template <class Team, class P>
+LZ4TT_HD void lz4tt_split_copy(const Team& t, const P& p, const Lz4ttWhole& r,
+                               const Lz4ttSlot* slots, const uint8_t* comp,
+                               uint8_t* out, int32_t* out_len, int32_t* err) {
+  for (int32_t i = 0;; i++) {
+    const int32_t s = i % LZ4TT_SLOTS;
+    p.wait_full(t, s);
+    const Lz4ttJob j = slots[s].j;
+    lz4tt_run_copies(t, r, slots[s].q, j.n, comp, out);
+    if (j.kind == LZ4TT_DEC_LIT)
+      lz4tt_team_literals(t, r, out, j.a, comp, j.b, j.c);
+    else if (j.kind == LZ4TT_DEC_MATCH)
+      lz4tt_team_match(t, r, out, j.a, j.b, j.c);
+    t.sync();  // the next batch and the write-out read what this one wrote
+    if (j.kind == LZ4TT_DEC_DONE) {
+      lz4tt_ring_flush(t, r, out, 0, j.a);
+      *out_len = j.a;
+      *err = j.c;
+      return;
+    }
+    p.empty(t, s);
+  }
+}
+
+// One row of the split decode in the safe contract, by the walker team
+// (walker) or the copier team: the row guard and the empty capacity of
+// lz4tt_decode_row and lz4tt_decode_block, then each team's part. ring:
+// LZ4TT_WHOLE bytes, 16-byte aligned; slots: LZ4TT_SLOTS; both shared by
+// the two teams. The copier sets *out_len and *err.
+template <class Team, class P>
+LZ4TT_HD void lz4tt_split_row(const Team& t, bool walker, const P& p,
+                              const uint8_t* comp, int64_t comp_stride,
+                              int32_t src_end, uint8_t* out, int32_t dest_cap,
+                              uint8_t* ring, Lz4ttSlot* slots,
+                              int32_t* out_len, int32_t* err) {
+  const bool bad = (uint64_t)(uint32_t)src_end > (uint64_t)comp_stride;
+  if (dest_cap == 0) {
+    if (!walker) {
+      *out_len = 0;
+      *err = bad ? LZ4TT_ERR_MALFORMED
+                 : src_end == 1 && comp[0] == 0 ? LZ4TT_OK
+                                                : LZ4TT_ERR_DEST_TOO_SMALL;
+    }
+    return;
+  }
+  if (walker) {
+    lz4tt_split_walk(t, p, slots, comp, bad ? 0 : src_end, dest_cap);
+  } else {
+    const Lz4ttWhole r = {ring, (int32_t)((uintptr_t)out & 15)};
+    lz4tt_split_copy(t, p, r, slots, comp, out, out_len, err);
+  }
 }

@@ -23,6 +23,16 @@ some sources::
     python -m lz4_tpu_torch.design_variants [lz4_compress lz4_decode segment_decode lz4_parse frame_pack xxh32 xxh64 lz4_hc parallel_compress gather_decode]
     python -m lz4_tpu_torch.design_variants linked_decode|--resolve|--dict-split|--walk-split
 
+K1 is also timed on ``HC9_SET`` (the LZ4 rows of 512 main-path rows at HC
+level 9, a read batch of the ``block64k_hc9`` cell), and its variants
+include the CTA-a-row kernel's (``lz4tt_decompress_safe_smem``): as
+shipped (a walker warp and a copier warp), with 2 or 8 slots, with a
+third, idle warp, without the four-token run right after literals, and
+with one warp walking and copying in turn, the row's whole output or the
+warp kernel's 4 KiB ring in shared memory.
+``--k1-crossover`` times both safe kernels at ``CROSSOVER_ROWS`` rows on
+the HC-9 and the fast LZ4 rows.
+
 ``--hc-split`` instead builds K6 with ``clock64`` counters in its first
 team's lane 0 and prints the cycles of each part of its searches: on one
 a4 row alone and on team 0 of 4,096 a4 rows, at level 9. ``--k7-split``
@@ -340,6 +350,33 @@ _STREAM_LAUNCH64 = """    xxh64_stream_kernel<<<1, kXxhThreads, lz4tt_xxh_smem(1
 _RING_H = "lz4tt_xxh_ring.cuh"
 _RING = "  LZ4TT_RING = 4096,"
 _NEAR = "enum { LZ4TT_RING_FLUSH = 2048, LZ4TT_RING_NEAR = 3072 };"
+# K1 a CTA a row: its ring and capacity check, its threads, the row's call,
+# the walk of its walker
+_SMEM_RING = "using SmemRing = Lz4ttWhole;"
+_SMEM_CHECK = "  if (out_max > SmemRing::kBytes) return (int)cudaErrorInvalidValue;\n"
+_SMEM_THREADS = "constexpr int kSmemThreads = 64;"
+_SMEM_SPLIT = """  lz4tt_split_row(t, walker, NamedPipe(), comp + b * comp_stride,
+                  comp_stride, lens[b], out + b * out_stride, out_max, smem,
+                  slots, &len, &e);
+  if (!walker && t.leader()) {"""
+# one warp walks and copies in turn (K1's body, lz4tt_decode_row, with the
+# CTA's ring and the first slot's queue)
+_SMEM_ONE_WARP = [
+    ("lz4_decode.cu", _SMEM_THREADS, "constexpr int kSmemThreads = 32;"),
+    ("lz4_decode.cu", _SMEM_SPLIT, """  int32_t read = 0;
+  lz4tt_decode_row<false, false, SmemRing>(
+      t, comp + b * comp_stride, comp_stride, lens[b], out + b * out_stride,
+      out_max, smem, slots[0].q, &len, &read, &e);
+  if (walker && t.leader()) {""")]
+# the four-token run tried only after a sequence without literals
+_PROBE_AFTER_LITERALS = [
+    ("lz4_decode.cuh", "  const int32_t d0 = d;\n",
+     "  const int32_t d0 = d;\n  bool probe = true;\n"),
+    ("lz4_decode.cuh", "      while (n <= LZ4TT_BATCH - 4 &&",
+     "      while (probe && n <= LZ4TT_BATCH - 4 &&"),
+    ("lz4_decode.cuh", "      s += n_lit;\n      d += n_lit;\n      if (last) continue;",
+     "      s += n_lit;\n      d += n_lit;\n      probe = n_lit == 0;\n"
+     "      if (last) continue;")]
 
 # the parser: its launch, the six zero tails, the kernel's call of the body
 _PARSE_LAUNCH = """    parse_kernel<<<grid, 32 * kWarpsPerCta, 0, (cudaStream_t)stream>>>("""
@@ -653,6 +690,28 @@ VARIANTS = {
         ("lz4_decode.cuh", _RING, "  LZ4TT_RING = 8192,"),
         ("lz4_decode.cuh", _NEAR,
          "enum { LZ4TT_RING_FLUSH = 4096, LZ4TT_RING_NEAR = 6144 };")]),
+    "K1 a CTA a row": ("lz4_decode", []),
+    "K1 a CTA a row, 2 slots": ("lz4_decode", [
+        ("lz4_decode.cuh", "enum { LZ4TT_SLOTS = 4 };",
+         "enum { LZ4TT_SLOTS = 2 };")]),
+    "K1 a CTA a row, 8 slots": ("lz4_decode", [
+        ("lz4_decode.cuh", "enum { LZ4TT_SLOTS = 4 };",
+         "enum { LZ4TT_SLOTS = 8 };")]),
+    "K1 a CTA a row, a third warp, idle": ("lz4_decode", [
+        ("lz4_decode.cu", _SMEM_THREADS, "constexpr int kSmemThreads = 96;"),
+        ("lz4_decode.cu", "  const bool walker = threadIdx.x < 32;",
+         "  if (threadIdx.x >= 64) return;\n"
+         "  const bool walker = threadIdx.x < 32;")]),
+    "K1 a CTA a row, no four-token run right after literals": (
+        "lz4_decode", _PROBE_AFTER_LITERALS),
+    "K1, no four-token run right after literals": ("lz4_decode",
+                                                   _PROBE_AFTER_LITERALS),
+    "K1 a CTA a row, one warp walking and copying": ("lz4_decode",
+                                                     _SMEM_ONE_WARP),
+    "K1 a CTA a row, one warp walking and copying, the 4 KiB ring": (
+        "lz4_decode", _SMEM_ONE_WARP + [
+            ("lz4_decode.cu", _SMEM_RING, "using SmemRing = Lz4ttRing;"),
+            ("lz4_decode.cu", _SMEM_CHECK, "")]),
     "K5": ("segment_decode", []),
     "K5, each window's tables loaded when it starts": ("segment_decode", [
         ("segment_decode.cuh",
@@ -850,6 +909,14 @@ SYMBOLS = {  # source -> (C entry point, its argtypes)
                       [_P, _I64, _I32] + [_P] * 6
                       + [_I32, _P, _I64, _I32, _I32, _P, _I32, _I32, _P]),
 }
+# variants timed through another entry point of their source than SYMBOLS'
+VARIANT_SYMBOLS = {name: "lz4tt_decompress_safe_smem" for name in VARIANTS
+                   if name.startswith("K1 a CTA a row")}
+# K1's extra set: the LZ4 rows (those HC shrinks) of the first 512 main-path
+# rows at level 9, as a read batch of the block64k_hc9 cell has them
+HC9_SET = "384 HC-9 rows"
+# K1's crossover (--k1-crossover): both kernels at these batch sizes
+CROSSOVER_ROWS = (128, 256, 384, 396, 397, 512, 1024, 3072)
 # the hash sources' launches, each timed: the one-shot entry point on the
 # 4096 rows and on one 16 MiB row, the update on the same 16 MiB
 HASH_SETS = ("4096 rows", "one 16 MiB row", "update, 16 MiB")
@@ -2024,6 +2091,18 @@ class _Rows:
                                     device=dev)
         self.hashes = {}
         self.hc = {}
+        self.hc9 = None
+
+    def hc9_rows(self):
+        """(comp, clens, raw rows) of ``HC9_SET``: the LZ4 rows of the
+        first 512 rows compressed by K6 at level 9."""
+        if self.hc9 is None:
+            src, lens = self.src[:512], self.lens[:512]
+            comp, clens, err = hc.compress_hc_batch(src, lens, self.cap, 9)
+            keep = torch.nonzero((err == 0) & (clens < lens)).flatten()
+            self.hc9 = (comp[keep].contiguous(), clens[keep].contiguous(),
+                        src[keep].contiguous())
+        return self.hc9
 
     def hc_sets(self) -> dict:
         """set name -> (level, rows, lens, the shipped K6's output) of the
@@ -2144,6 +2223,11 @@ def _calls(fn, source: str, rows: _Rows, idx, stream):
         if rc:
             raise RuntimeError(f"CUDA error {rc}")
 
+    if idx is HC9_SET:   # K1 alone takes it
+        a, la, raw = rows.hc9_rows()
+        return _codec_calls(launch, a, la, (raw, torch.full(
+            (a.shape[0],), BLOCK_LEN, dtype=torch.int32, device=dev)),
+            rows.src.shape[1], BLOCK_LEN, stream)
     n = idx.numel()
     if source == "parallel_compress":
         s, sl = rows.src[idx].contiguous(), rows.lens[idx].contiguous()
@@ -2245,23 +2329,84 @@ def _calls(fn, source: str, rows: _Rows, idx, stream):
     compress = source == "lz4_compress"
     a, la = (rows.src, rows.lens) if compress else (rows.comp, rows.clens)
     a, la = a[idx].contiguous(), la[idx].contiguous()
+    want = (rows.comp[idx], rows.clens[idx]) if compress else \
+        (rows.src[idx], rows.lens[idx])
     width = rows.comp.shape[1] if compress else rows.src.shape[1]
-    out = torch.zeros((n, width), dtype=torch.uint8, device=dev)
-    ol = torch.empty((n,), dtype=torch.int32, device=dev)
+    return _codec_calls(launch, a, la, want, width,
+                        rows.cap if compress else BLOCK_LEN, stream,
+                        guard=not compress)
+
+
+def _codec_calls(launch, a, la, want, width: int, w: int, stream,
+                 guard: bool = True):
+    """(call, check) of K2's or K1's safe entry point on rows ``a`` of
+    lengths ``la`` into rows of ``width`` bytes, capacity ``w``; ``want``
+    the output rows and lengths. With ``guard``, nothing may be written at
+    or past ``w``."""
+    n = a.shape[0]
+    out = torch.zeros((n, width), dtype=torch.uint8, device=a.device)
+    ol = torch.empty((n,), dtype=torch.int32, device=a.device)
     err = torch.empty_like(ol)
-    w = rows.cap if compress else BLOCK_LEN
 
     def call():
         launch(a.data_ptr(), a.stride(0), la.data_ptr(), out.data_ptr(),
                out.stride(0), w, ol.data_ptr(), err.data_ptr(), n, stream)
 
     def check():
+        if guard:
+            out.fill_(0xA5)
         call()
-        want = (rows.comp[idx], rows.clens[idx]) if compress else \
-            (rows.src[idx], rows.lens[idx])
         return not bool(err.any()) and torch.equal(ol, want[1]) and \
-            torch.equal(out[:, :w], want[0][:, :w])
+            torch.equal(out[:, :w], want[0][:, :w]) and \
+            (not guard or bool((out[:, w:] == 0xA5).all()))
     return call, check
+
+
+def k1_crossover() -> dict:
+    """K1's two safe kernels, the warp a row and the CTA a row, timed on
+    the same batches of ``CROSSOVER_ROWS`` rows: the LZ4 rows of the main
+    path's rows at HC level 9 (``HC9_SET``'s kind, about 3,072 of 4,096),
+    and its fast (K2) LZ4 rows, each taken in turn to the batch's size;
+    each output held to the raw rows. Returns mix -> rows -> kernel -> ms,
+    with the CTA-a-row kernel's resident CTAs."""
+    dev = torch.device("cuda")
+    src, lens = sharded.upload_blocks(
+        sharded.make_blocks(N_BLOCKS, BLOCK_LEN, SEED), dev)
+    cap = max_compressed_length(BLOCK_LEN)
+    capacity = codec.smem_capacity(dev.index or 0)
+    out = {"smem_capacity": capacity}
+    kernels = {"warp a row": codec.DECODE, "CTA a row": codec.DECODE_SMEM}
+    for mix, compress in (("hc9", lambda: hc.compress_hc_batch(src, lens, cap,
+                                                                9)),
+                          ("fast", lambda: codec.compress_fast_batch(
+                              src, lens, cap))):
+        comp, clens, err = compress()
+        keep = torch.nonzero((err == 0) & (clens < lens)).flatten()
+        out[mix] = {"lz4_rows": keep.numel()}
+        for n in CROSSOVER_ROWS:
+            pick = keep.repeat(-(-n // keep.numel()))[:n]
+            c, cl = comp[pick].contiguous(), clens[pick].contiguous()
+            raw = src[pick][:, :BLOCK_LEN]
+            o = torch.empty((n, src.shape[1]), dtype=torch.uint8, device=dev)
+            ol = torch.empty((n,), dtype=torch.int32, device=dev)
+            e = torch.empty_like(ol)
+            times = {}
+            for name, k in kernels.items():
+                def call(k=k):
+                    k(c.data_ptr(), c.stride(0), cl.data_ptr(), o.data_ptr(),
+                      o.stride(0), BLOCK_LEN, ol.data_ptr(), e.data_ptr(), n,
+                      torch.cuda.current_stream().cuda_stream,
+                      device=dev.index or 0)
+                o.zero_()
+                call()
+                if bool(e.any()) or not torch.equal(o[:, :BLOCK_LEN], raw):
+                    raise SystemExit(f"k1_crossover: {name} at {n} {mix} "
+                                     "rows differs from the raw rows")
+                times[name] = [_time(call) for _ in range(3)]
+            out[mix][n] = times
+            print(f"K1 crossover, {mix}, {n} rows: {json.dumps(times)}",
+                  flush=True)
+    return out
 
 
 def main(argv: list[str]) -> int:
@@ -2291,6 +2436,9 @@ def main(argv: list[str]) -> int:
     if argv == ["--walk-split"]:
         print(json.dumps(walk_split()))
         return 0
+    if argv == ["--k1-crossover"]:
+        print(json.dumps(k1_crossover()))
+        return 0
     dev = torch.device("cuda")
     libs = build_variants(set(argv) or set(SYMBOLS))
     rows = _Rows(dev)
@@ -2302,6 +2450,8 @@ def main(argv: list[str]) -> int:
             hashed = source in ("xxh32", "xxh64")
             sets = HASH_SETS if hashed else rows.hc_sets() \
                 if source == "lz4_hc" else rows.sets
+            if source == "lz4_decode":
+                sets = [HC9_SET, *sets]
             for set_name in sets:
                 reps = REPS
                 if hashed:
@@ -2315,10 +2465,11 @@ def main(argv: list[str]) -> int:
                     reps = HC_REPS
                 else:
                     symbol, argtypes = SYMBOLS[source]
-                    fn = getattr(lib, symbol)
+                    fn = getattr(lib, VARIANT_SYMBOLS.get(name, symbol))
                     fn.argtypes, fn.restype = argtypes, ctypes.c_int
-                    call, check = _calls(fn, source, rows,
-                                         rows.sets[set_name], stream)
+                    call, check = _calls(
+                        fn, source, rows, HC9_SET if set_name == HC9_SET
+                        else rows.sets[set_name], stream)
                 if not check():
                     raise SystemExit(f"design_variants: {name} differs from "
                                      f"the shipped kernel on {set_name}")

@@ -10,6 +10,13 @@ in the port's layout (``kernels/layout.py``). A CUDA tensor goes to the
 kernel; a CPU tensor goes to the plain version in this module. There is no
 fallback from one to the other.
 
+``decompress_safe_batch`` takes one of two kernels, from what it can see
+on the host (:func:`takes_smem_path`): a batch that leaves the card room,
+at most the CTAs the card holds at once of the CTA-a-row kernel with rows
+of at most 64 KiB out, runs it (``lz4tt_decompress_safe_smem``, each row's
+whole output in shared memory); any other batch runs the warp-a-row kernel
+(``lz4tt_decompress_safe``). Both keep the same contract, byte for byte.
+
 The decode wrappers check a batch's structure on the host and read nothing
 back (``layout.check_layout``): a row whose length lies outside ``[0, S]``
 (S the row stride of ``comp``) is that row's ``ERR_MALFORMED``, with out
@@ -46,6 +53,7 @@ from ..core.constants import (
     SKIP_STRENGTH,
 )
 from ..utils.profiling import entry, readback
+from . import build
 from .build import Kernel, Scratch
 from .layout import check_batch, check_layout, cuda_stream, row_stride
 
@@ -56,6 +64,9 @@ ERR_DEST_TOO_SMALL = 2
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 DECODE = Kernel("lz4_decode", "lz4_decode", "lz4tt_decompress_safe",
                 [_P, _I64, _P, _P, _I64, _I32, _P, _P, _I32, _P])
+DECODE_SMEM = Kernel("lz4_decode_smem", "lz4_decode",
+                     "lz4tt_decompress_safe_smem",
+                     [_P, _I64, _P, _P, _I64, _I32, _P, _P, _I32, _P])
 DECODE_FAST = Kernel("lz4_decode_fast", "lz4_decode", "lz4tt_decompress_fast",
                      [_P, _I64, _P, _P, _I64, _I32, _P, _P, _I32, _P])
 COMPRESS = Kernel("lz4_compress", "lz4_compress", "lz4tt_compress_fast",
@@ -71,6 +82,8 @@ COMPRESS_DICT = Kernel("lz4_compress_dict", "lz4_compress",
 # the most bytes of history or dictionary a row may have: the format's
 # 64 KiB window
 WINDOW = 1 << 16
+# the most output a row of the CTA-a-row decode keeps in shared memory
+SMEM_ROW = 1 << 16
 # the seeded hash table that every row of a shared dictionary starts from
 # (the 12-bit table's int32 entries), a card and stream
 SEED_WORDS = 1 << HASH_LOG
@@ -80,6 +93,22 @@ SEED = Scratch(torch.int32)
 # ---------------------------------------------------------------------------
 # safe decode
 # ---------------------------------------------------------------------------
+
+def takes_smem_path(n: int, out_max: int, capacity: int) -> bool:
+    """Whether a safe decode of ``n`` rows of at most ``out_max`` bytes
+    out runs the CTA-a-row kernel on a card that holds ``capacity`` of its
+    CTAs at once: when every row fits its shared memory and the batch fits
+    the card in one round. A larger batch fills the card with the
+    warp-a-row kernel, whose rows are resident all at once."""
+    return 0 < n <= capacity and out_max <= SMEM_ROW
+
+
+def smem_capacity(device: int) -> int:
+    """The CTA-a-row decode's CTAs card ``device`` holds at once (its
+    resident CTAs an SM times the SMs; queried once a card)."""
+    return build.resident_ctas("lz4_decode", "lz4tt_decode_smem_occupancy",
+                               device)
+
 
 @entry
 def decompress_safe_batch(comp: torch.Tensor, comp_lens: torch.Tensor,
@@ -106,7 +135,9 @@ def decompress_safe_batch(comp: torch.Tensor, comp_lens: torch.Tensor,
     n = comp.shape[0]
     out_lens = torch.empty((n,), dtype=torch.int32, device=comp.device)
     err = torch.empty((n,), dtype=torch.int32, device=comp.device)
-    DECODE(comp.data_ptr(), comp.stride(0), comp_lens.data_ptr(),
+    smem = takes_smem_path(n, out_max, smem_capacity(comp.device.index))
+    kernel = DECODE_SMEM if smem else DECODE
+    kernel(comp.data_ptr(), comp.stride(0), comp_lens.data_ptr(),
            out.data_ptr(), out.stride(0), out_max, out_lens.data_ptr(),
            err.data_ptr(), n, cuda_stream(comp),
            device=comp.device.index)

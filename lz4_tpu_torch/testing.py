@@ -497,6 +497,42 @@ def short_sequence_blocks(case: str, rng: np.random.Generator):
     return blocks
 
 
+# the most output a row of the CTA-a-row decode keeps (LZ4TT_WHOLE)
+WHOLE = 1 << 16
+# distances at the ring's edges and beyond it, for far_match_blocks
+FAR_DISTS = (RING_NEAR - 1, RING_NEAR, RING_NEAR + 1, RING - 1, RING,
+             RING + 1, 32768)
+
+
+def far_match_blocks(rng: np.random.Generator):
+    """``(sequences, tail)`` blocks of at most :data:`WHOLE` bytes out whose
+    matches reach far back: after a long literal run and short sequences,
+    matches at each of :data:`FAR_DISTS`, short (one lane's copy) and long
+    (the team's); then 64 KiB blocks whose last match copies from the
+    first byte, 65,524 and 65,527 bytes back, one of long
+    matches 31,000-54,500 back, and one that a match 65,535 back takes past
+    64 KiB (65,547 bytes out)."""
+    def rb(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    blocks = []
+    for dist in FAR_DISTS:
+        for n in (4, 17, 64, 100):
+            seqs = [(rb(40000), 7, 4)]
+            seqs += [(rb(int(rng.integers(0, 4))), int(rng.integers(1, 3000)),
+                      int(rng.integers(4, 17))) for _ in range(300)]
+            blocks.append((seqs + [(b"", dist, n), (rb(1), dist, n)], rb(8)))
+    blocks.append(([(rb(WHOLE - 12), WHOLE - 12, 4)], rb(8)))
+    # the last 5 bytes are literals, so a match starts at most 9 bytes
+    # before the end: 65,527 back is the farthest
+    blocks.append(([(rb(WHOLE - 33), 1, 4)] + [(b"", 1, 4)] * 5
+                   + [(b"", WHOLE - 9, 4)], rb(5)))
+    blocks.append(([(rb(32000), 31000, 1000), (rb(20000), 52000, 500),
+                    (rb(1000), 54500, 11000)], rb(36)))
+    blocks.append(([(rb(WHOLE - 1), WHOLE - 1, 4)], rb(8)))  # 65,547 B out
+    return blocks
+
+
 def run_block(n_run: int, bad_at: int | None = None,
               tail: bytes | None = b"tail!", lits: int = 0,
               mls: int = 15) -> bytes:

@@ -27,7 +27,8 @@ from lz4_tpu_torch.streams import compress_stream, decompress_stream
 pytestmark = pytest.mark.cuda
 
 EDGE_SIZES = (0, 5, 12, 13, 1000, 65536, 70000)
-TIER_KERNELS = ("lz4_compress", "lz4_decode", "lz4_decode_fast", "xxh32",
+# the tier's batches below are small: its safe decode runs K1 a CTA a row
+TIER_KERNELS = ("lz4_compress", "lz4_decode_smem", "lz4_decode_fast", "xxh32",
                 "xxh64")
 
 
@@ -80,6 +81,91 @@ def test_decode_kernel_matches_plain(cuda_device, out_max):
     if out_max == 70000:
         assert layout.from_device_layout(kern[0], kern[1])[:len(blocks)] == \
             blocks
+
+
+def _lz4_rows(device, n: int, mix: str):
+    """``n`` LZ4 rows (those that shrink), taken in turn, of 512 rows of
+    the seeded three-kind mix compressed at HC level 9 or by K2: (comp,
+    lens, the raw rows)."""
+    src, lens = sharded.upload_blocks(sharded.make_blocks(512, 65536, 7),
+                                      device)
+    cap = max_compressed_length(65536)
+    comp, clens, err = (hc.compress_hc_batch(src, lens, cap, 9) if mix == "hc9"
+                        else codec.compress_fast_batch(src, lens, cap))
+    keep = torch.nonzero((err == 0) & (clens < lens)).flatten()
+    pick = keep.repeat(-(-n // keep.numel()))[:n]
+    return (comp[pick].contiguous(), clens[pick].contiguous(),
+            src[pick][:, :65536])
+
+
+@pytest.mark.parametrize("mix", ["hc9", "fast"])
+@pytest.mark.parametrize("rows", ["one", "capacity", "capacity_plus_1",
+                                  "3072"])
+def test_safe_decode_paths_match_plain(cuda_device, rows, mix):
+    """``decompress_safe_batch`` at 1 row, the CTA-a-row kernel's capacity
+    (its resident CTAs on this card), one row more and 3,072 rows of HC-9
+    and fast 64 KiB blocks: the launch counts show one launch of the
+    kernel the path rule names (the CTA a row up to the capacity, the warp
+    a row past it); every row decodes to its input, eight rows equal the
+    plain version's, and the other kernel writes the same bytes."""
+    capacity = codec.smem_capacity(cuda_device.index or 0)
+    n = {"one": 1, "capacity": capacity, "capacity_plus_1": capacity + 1,
+         "3072": 3072}[rows]
+    c, cl, raw = _lz4_rows(cuda_device, n, mix)
+    kernel = codec.DECODE_SMEM if n <= capacity else codec.DECODE
+    other = codec.DECODE if kernel is codec.DECODE_SMEM else codec.DECODE_SMEM
+    out = torch.full((n, 65536 + 16), 0xA5, dtype=torch.uint8,
+                     device=cuda_device)
+    before = build.launch_counts()
+    got = codec.decompress_safe_batch(c, cl, 65536, out=out)
+    ran = {k: v - before[k] for k, v in build.launch_counts().items()
+           if v != before[k]}
+    assert ran == {kernel.name: 1}
+    assert got[2].tolist() == [codec.OK] * n
+    assert got[1].tolist() == [65536] * n
+    assert torch.equal(out[:, :65536], raw)
+    assert bool((out[:, 65536:] == 0xA5).all())
+    sub = slice(0, n, max(1, n // 8))
+    plain = codec.decompress_safe_plain(c[sub].contiguous(),
+                                        cl[sub].contiguous(), 65536)
+    _assert_codec_equal(tuple(t[sub] for t in got), plain)
+    again = torch.full_like(out, 0xA5)
+    ol, e = torch.empty_like(got[1]), torch.empty_like(got[2])
+    other(c.data_ptr(), c.stride(0), cl.data_ptr(), again.data_ptr(),
+          again.stride(0), 65536, ol.data_ptr(), e.data_ptr(), n,
+          torch.cuda.current_stream().cuda_stream,
+          device=cuda_device.index or 0)
+    assert torch.equal(again, out) and torch.equal(ol, got[1])
+    assert torch.equal(e, got[2])
+
+
+@pytest.mark.parametrize("out_max", [0, 1, 4096, 65535, 65536])
+def test_decode_smem_kernel_matches_plain(cuda_device, out_max):
+    """K1's CTA-a-row kernel (the wrapper takes it: fewer rows than it
+    holds) on K2's output of the edge blocks, ``testing.far_match_blocks``
+    and fuzz, into rows of 0xA5: codes, lengths of OK rows and every byte
+    of every row (errors' decoded prefixes too) equal the plain
+    version's; nothing written at or past ``out_max``."""
+    rng = np.random.default_rng(out_max + 3)
+    src, lens = layout.to_device_layout(testing.mixed_blocks(rng, EDGE_SIZES),
+                                        device=cuda_device)
+    comp, comp_lens, _ = codec.compress_fast_batch(
+        src, lens, max_compressed_length(70000))
+    comp_blocks = layout.from_device_layout(comp, comp_lens)
+    far = [testing.encode_block(*b) for b in testing.far_match_blocks(rng)]
+    c, cl = layout.to_device_layout(
+        comp_blocks + far + testing.fuzz_blocks(rng, comp_blocks, 128),
+        device=cuda_device)
+    assert c.shape[0] <= codec.smem_capacity(cuda_device.index or 0)
+    bufs = [torch.full((c.shape[0], out_max + 37), 0xA5, dtype=torch.uint8,
+                       device=cuda_device) for _ in range(2)]
+    before = codec.DECODE_SMEM.launches
+    kern = codec.decompress_safe_batch(c, cl, out_max, out=bufs[0])
+    assert codec.DECODE_SMEM.launches == before + 1
+    plain = codec.decompress_safe_plain(c, cl, out_max, out=bufs[1])
+    _assert_codec_equal(kern, plain, all_lens=False)
+    assert torch.equal(bufs[0], bufs[1])
+    assert bool((bufs[0][:, out_max:] == 0xA5).all())
 
 
 @pytest.mark.parametrize("empty", [False, True], ids=["cap", "cap0"])
@@ -233,7 +319,7 @@ def test_roundtrip_step_matches_cpu(cuda_device):
     build.reset_launch_counts()
     gpu = roundtrip_step(64, 65536, seed=5, device=cuda_device)
     counts = build.launch_counts()
-    assert [counts[k] for k in ("lz4_compress", "lz4_decode", "xxh32",
+    assert [counts[k] for k in ("lz4_compress", "lz4_decode_smem", "xxh32",
                                 "frame_pack")] == [1, 1, 1, 1]
     assert sum(counts.values()) == 4
     cpu = roundtrip_step(64, 65536, seed=5, device="cpu")
@@ -410,8 +496,8 @@ def test_stream_pipeline_on_the_card(cuda_device):
         decompress_stream(io.BytesIO(out.getvalue()), back, engine=engine)
         assert back.getvalue() == data
     counts = build.launch_counts()
-    for k in ("lz4_compress", "lz4_decode", "lz4_parse", "segment_decode",
-              "xxh32_stream", "frame_pack"):
+    for k in ("lz4_compress", "lz4_decode_smem", "lz4_parse",
+              "segment_decode", "xxh32_stream", "frame_pack"):
         assert counts[k] >= 1, k
 
 
@@ -650,8 +736,8 @@ def test_one_nccl_rank_matches_one_device(cuda_device, tmp_path):
         build.reset_launch_counts()
         st = dist.sharded_roundtrip_step(mesh, 64, 65536, seed=5)
         counts = build.launch_counts()
-        assert [counts[k] for k in ("lz4_compress", "lz4_decode", "xxh32",
-                                    "frame_pack")] == [1, 1, 1, 1]
+        assert [counts[k] for k in ("lz4_compress", "lz4_decode_smem",
+                                    "xxh32", "frame_pack")] == [1, 1, 1, 1]
         one = roundtrip_step(64, 65536, seed=5, device=cuda_device)
         assert bool(st.ok.all()) and torch.equal(st.hashes, one.hashes)
         assert torch.equal(st.offsets, one.offsets)
@@ -1324,7 +1410,7 @@ def test_read_backs_are_counted_and_launches_lie_in_their_entry_spans(
     spans, launches = chip_smoke._port_events(prof)
     assert chip_smoke.launches_in_entries(launches, spans) == {
         k: [1, 1] for k in ("compress_kernel", "hc_kernel", "pack_kernel",
-                            "decode_kernel")}
+                            "decode_smem_kernel")}
 
 
 # ---------------------------------------------------------------------------

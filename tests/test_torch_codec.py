@@ -283,3 +283,19 @@ def test_decode_reports_dest_too_small_and_empty_dest():
     assert codec.decompress_safe_batch(empty, elen, 0)[2].tolist() == \
         [codec.OK, codec.ERR_DEST_TOO_SMALL, codec.ERR_DEST_TOO_SMALL]
 
+
+
+# (rows, out_max, the card's resident CTAs of the CTA-a-row decode) -> it
+# runs; H100: 3 CTAs an SM x 132 SMs = 396
+@pytest.mark.parametrize("n, out_max, capacity, smem", [
+    (1, 65536, 396, True), (256, 65536, 396, True), (384, 65536, 396, True),
+    (396, 65536, 396, True), (397, 65536, 396, False),
+    (3072, 65536, 396, False), (1, 0, 396, True), (1, 1, 396, True),
+    (384, 65537, 396, False), (256, 4 << 20, 396, False),
+    (0, 65536, 396, False), (1, 65536, 0, False), (264, 65536, 264, True)])
+def test_safe_decode_path_rule(n, out_max, capacity, smem):
+    """``decompress_safe_batch`` takes the CTA-a-row kernel exactly when its
+    rows fit the shared memory (at most 64 KiB out) and the batch fits the
+    card in one round; from the batch's shape and the card's occupancy
+    alone."""
+    assert codec.takes_smem_path(n, out_max, capacity) is smem

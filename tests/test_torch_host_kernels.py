@@ -517,6 +517,120 @@ int host_decode_hist(const uint8_t* comp, long long comp_stride,
   }
   return rc;
 }
+// K1's safe body with each row's whole output in its scratch (the ring the
+// CTA-a-row kernel keeps in shared memory, poisoned before every row), one
+// block after the other, by a team of `lanes` (1: one lane; else host
+// threads); returns -1 if the lanes disagree on a block
+int host_decode_whole(const uint8_t* comp, long long comp_stride,
+                      const int32_t* comp_lens, uint8_t* out,
+                      long long out_stride, int out_max, int32_t* out_lens,
+                      int32_t* err, int n, int lanes) {
+  alignas(16) static uint8_t ring[LZ4TT_WHOLE];
+  static Lz4ttCopies q;
+  int rc = 0;
+  for (int b = 0; b < n; b++) {
+    memset(ring, 0x5A, sizeof ring);
+    int32_t len[32], read[32], e[32];
+    auto body = [&](const auto& t) {
+      lz4tt_decode_row<false, false, Lz4ttWhole>(
+          t, comp + b * comp_stride, comp_stride, comp_lens[b],
+          out + b * out_stride, out_max, ring, q, &len[t.lane()],
+          &read[t.lane()], &e[t.lane()]);
+    };
+    if (lanes == 1)
+      body(HostTeam());
+    else
+      run_team(lanes, body);
+    out_lens[b] = len[0];
+    err[b] = e[0];
+    for (int i = 1; i < lanes; i++)
+      if (len[i] != len[0] || e[i] != e[0]) rc = -1;
+  }
+  return rc;
+}
+int host_whole() { return LZ4TT_WHOLE; }
+}  // extern "C"
+// The split decode's pipe on the host: a semaphore a signal and slot; a
+// team's leader waits or posts, its barrier holds the rest.
+struct HostPipeState {
+  pthread_mutex_t mu;
+  pthread_cond_t cv;
+  int full[LZ4TT_SLOTS], empty[LZ4TT_SLOTS];
+};
+struct HostPipe {
+  HostPipeState* st;
+  template <class T>
+  void wait(const T& t, int* c) const {
+    if (t.leader()) {
+      pthread_mutex_lock(&st->mu);
+      while (*c == 0) pthread_cond_wait(&st->cv, &st->mu);
+      (*c)--;
+      pthread_mutex_unlock(&st->mu);
+    }
+    t.sync();
+  }
+  template <class T>
+  void post(const T& t, int* c) const {
+    t.sync();
+    if (t.leader()) {
+      pthread_mutex_lock(&st->mu);
+      (*c)++;
+      pthread_cond_broadcast(&st->cv);
+      pthread_mutex_unlock(&st->mu);
+    }
+  }
+  template <class T> void wait_empty(const T& t, int s) const { wait(t, &st->empty[s]); }
+  template <class T> void fill(const T& t, int s) const { post(t, &st->full[s]); }
+  template <class T> void wait_full(const T& t, int s) const { wait(t, &st->full[s]); }
+  template <class T> void empty(const T& t, int s) const { post(t, &st->empty[s]); }
+};
+extern "C" {
+// The CTA-a-row kernel's body (lz4tt_split_row), one block after the
+// other: the walker a host thread of its own, the copier a team of `lanes`
+// (1: one lane; else host threads) beside it, the ring poisoned before
+// every row; returns -1 if the copier's lanes disagree on a block or a
+// signal is left over
+int host_decode_split(const uint8_t* comp, long long comp_stride,
+                      const int32_t* comp_lens, uint8_t* out,
+                      long long out_stride, int out_max, int32_t* out_lens,
+                      int32_t* err, int n, int lanes) {
+  alignas(16) static uint8_t ring[LZ4TT_WHOLE];
+  static Lz4ttSlot slots[LZ4TT_SLOTS];
+  HostPipeState st = {};
+  pthread_mutex_init(&st.mu, nullptr);
+  pthread_cond_init(&st.cv, nullptr);
+  const HostPipe p = {&st};
+  int rc = 0;
+  for (int b = 0; b < n; b++) {
+    memset(ring, 0x5A, sizeof ring);
+    int32_t len[32], e[32];
+    auto row = [&](const auto& t, bool walker) {
+      lz4tt_split_row(t, walker, p, comp + b * comp_stride, comp_stride,
+                      comp_lens[b], out + b * out_stride, out_max, ring, slots,
+                      &len[t.lane()], &e[t.lane()]);
+    };
+    pthread_t walker;
+    auto walk = [&] { row(HostTeam(), true); };
+    pthread_create(&walker, nullptr, [](void* f) -> void* {
+      (*(decltype(walk)*)f)();
+      return nullptr;
+    }, &walk);
+    if (lanes == 1)
+      row(HostTeam(), false);
+    else
+      run_team(lanes, [&](const auto& t) { row(t, false); });
+    pthread_join(walker, nullptr);
+    out_lens[b] = len[0];
+    err[b] = e[0];
+    for (int i = 1; i < lanes; i++)
+      if (len[i] != len[0] || e[i] != e[0]) rc = -1;
+    for (int s = 0; s < LZ4TT_SLOTS; s++)
+      if (st.full[s] || st.empty[s]) rc = -1;
+  }
+  pthread_mutex_destroy(&st.mu);
+  pthread_cond_destroy(&st.cv);
+  return rc;
+}
 // K2's body with a dictionary a row (row b's: the dict_lens[b] bytes that
 // end at dict_end + b * dict_stride), as host_decode_hist runs K1's
 int host_compress_dict(const uint8_t* src, long long src_stride,
@@ -743,6 +857,9 @@ def lib(tmp_path_factory):
                             _I32, _I32]
     lib.host_decode_hist.argtypes = [_P, _I64, _P, _P, _I64, _I32, _P, _I64,
                                      _P, _P, _P, _I32, _I32]
+    lib.host_decode_whole.argtypes = [_P, _I64, _P, _P, _I64, _I32, _P, _P,
+                                      _I32, _I32]
+    lib.host_decode_split.argtypes = lib.host_decode_whole.argtypes
     lib.host_compress_dict.argtypes = [_P, _I64, _P, _P, _I64, _P, _P, _I64,
                                        _I32, _P, _P, _I32, _I32]
     lib.host_parse_sentinel.argtypes = [_P, _P, _I32, _I32, _I32]
@@ -916,6 +1033,95 @@ def test_host_decode_fast_matches_plain(lib, edge_batch, dest_len):
     ok_sizes = [i for i, n in enumerate(lens.tolist()) if n == dest_len]
     assert host[2][ok_sizes].tolist() == [codec.OK] * len(ok_sizes)
     assert host[1][ok_sizes].tolist() == comp_lens[ok_sizes].tolist()
+
+
+# --- K1 with each row's whole output in its scratch -------------------------
+
+# "split": the CTA-a-row kernel's body (lz4tt_split_row: a walker, and a
+# copier team behind it); "whole": K1's one-team body with a whole ring
+WHOLE_BODIES = ("split", "whole")
+
+
+def _host_whole(lib, body: str = "split", lanes: int = 1):
+    """K1's safe body with each row's whole output in its scratch (one of
+    ``WHOLE_BODIES``), called as :func:`_host_codec` calls a body; the
+    lanes must agree on every block."""
+    fn = lib.host_decode_split if body == "split" else lib.host_decode_whole
+
+    def call(*args):
+        assert fn(*args, lanes) == 0
+    return call
+
+
+def _whole_vs_plain(lib, c, cl, out_max, body="split", lanes=1,
+                    guard_width=37):
+    """A whole-output body and the plain version on rows of ``out_max`` +
+    ``guard_width`` bytes of 0xA5: codes, lengths of OK rows, and every
+    byte of every row alike (errors' decoded prefixes too); nothing
+    written at or past ``out_max``. Returns the body's result."""
+    assert lib.host_whole() == testing.WHOLE
+    n = c.shape[0]
+    guard = torch.full((n, out_max + guard_width), 0xA5, dtype=torch.uint8)
+    host = _host_codec(_host_whole(lib, body, lanes), c, cl, None, out_max,
+                       out=guard)
+    plain = codec.decompress_safe_plain(c, cl, out_max,
+                                        out=torch.full_like(guard, 0xA5))
+    _assert_same(host, plain, all_lens=False)
+    assert torch.equal(guard, plain[0])
+    assert bool((guard[:, out_max:] == 0xA5).all())
+    return host
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+@pytest.mark.parametrize("body", WHOLE_BODIES)
+@pytest.mark.parametrize("case", testing.SHORT_CASES + ("far",))
+def test_host_decode_whole_short_sequences(lib, case, body, lanes):
+    """The CTA-a-row kernel's body (the walk decoupled from the copies,
+    the copier a team of 1 or 32 host threads) and K1's one-team body with
+    the whole output in its scratch (at most 64 KiB), on the hand-built
+    blocks of the warp body's cases
+    (periods 1-40, null offsets, runs about 16, 32 and 64, the ring's
+    edge) and of ``far_match_blocks`` (matches 3,071-3,073, 4,095-4,097,
+    32,768 and up to 65,527 bytes back): against the plain version byte
+    for byte, the warp body and the
+    expected bytes; a block past 64 KiB fails alike on all three."""
+    rng = np.random.default_rng(len(case))
+    blocks = (testing.far_match_blocks(rng) if case == "far"
+              else testing.short_sequence_blocks(case, rng))
+    comp = [testing.encode_block(*b) for b in blocks]
+    want = [testing.expand_block(*b) for b in blocks]
+    c, cl = layout.to_device_layout(comp, device="cpu")
+    out_max = min(max(map(len, want)), testing.WHOLE)
+    host = _whole_vs_plain(lib, c, cl, out_max, body, lanes)
+    warp = _host_codec(lib.host_decode, c, cl, None, out_max,
+                       out=torch.full_like(host[0], 0xA5))
+    assert host[2].tolist() == warp[2].tolist()
+    assert torch.equal(host[0], warp[0])
+    fits = [len(w) <= out_max for w in want]
+    assert [e == codec.OK for e in host[2].tolist()] == fits
+    assert sum(fits) >= len(want) - 1
+    assert [host[0][i, :len(w)].numpy().tobytes()
+            for i, w in enumerate(want) if fits[i]] == \
+        [w for w, f in zip(want, fits) if f]
+
+
+@pytest.mark.parametrize("body", WHOLE_BODIES)
+@pytest.mark.parametrize("out_max", [0, 1, 4096, 65535, 65536])
+def test_host_decode_whole_matches_plain(lib, edge_batch, out_max, body):
+    """Both whole-output bodies on K2's output of the edge blocks (0 to
+    70,000 bytes) and their fuzz, at capacities from none to the 64 KiB
+    they hold, every row misaligned by the guard behind it: byte for byte
+    the plain version's."""
+    blocks, (src, lens) = edge_batch
+    comp, comp_lens, _ = codec.compress_fast_batch(
+        src, lens, max_compressed_length(70000))
+    comp_blocks = layout.from_device_layout(comp, comp_lens)
+    batch = comp_blocks + testing.fuzz_blocks(
+        np.random.default_rng(out_max + 7), comp_blocks, 128)
+    c, cl = layout.to_device_layout(batch, device="cpu")
+    host = _whole_vs_plain(lib, c, cl, out_max, body, guard_width=64)
+    fits = [i for i, b in enumerate(blocks) if len(b) <= out_max]
+    assert host[2][fits].tolist() == [codec.OK] * len(fits)
 
 
 @pytest.mark.parametrize("seed", [0, (1 << 64) - 1, 0xCAFEBABE12345678])
@@ -1622,10 +1828,11 @@ def test_host_decode_hist_zero_is_k1(lib, edge_batch):
 
 
 @pytest.mark.parametrize("empty", [False, True], ids=["cap", "cap0"])
-@pytest.mark.parametrize("name", testing.DECODERS)
+@pytest.mark.parametrize("name", testing.DECODERS + WHOLE_BODIES)
 def test_host_decode_lengths_outside_the_row(lib, name, empty):
-    """K1's row guard (``lz4tt_decode_row``) in the host build of each
-    entry point, with room for the blocks and with none (``dest_cap`` 0,
+    """K1's row guard (``lz4tt_decode_row``, ``lz4tt_split_row``) in the
+    host build of each entry point (and of the safe one's whole-output
+    bodies), with room for the blocks and with none (``dest_cap`` 0,
     where the body reads a row's first byte): rows whose length lies
     outside ``[0, S]`` (each of ``testing.BAD_LENGTHS``) are MALFORMED
     with length 0 and their rows untouched, and the other rows decode as
@@ -1644,9 +1851,11 @@ def test_host_decode_lengths_outside_the_row(lib, name, empty):
         host = _host_window_codec(lib.host_decode_hist, comp, bad, win, wl,
                                   None, cap, 1, out=guard)
     else:
-        fn = lib.host_decode if name == "safe" else lib.host_decode_fast
+        fn = {"safe": lib.host_decode, "fast": lib.host_decode_fast}.get(
+            name) or _host_whole(lib, name)
         host = _host_codec(fn, comp, bad, None, cap, out=guard)
-    plain = testing.decode_with(name, comp, bad, cap)
+    plain = testing.decode_with("safe" if name in WHOLE_BODIES else name,
+                                comp, bad, cap)
     _assert_same(host, plain, out_len=cap if name == "fast" else None)
     assert host[2][rows].tolist() == [codec.ERR_MALFORMED] * len(rows)
     assert host[1][rows].tolist() == [0] * len(rows)

@@ -22,7 +22,8 @@ from lz4_tpu_torch.utils import annotate, as_bytes, chunk_bytes, part, trace
 from lz4_tpu_torch.utils.buffers import read_into
 from lz4_tpu_torch.utils.profiling import TRACE_FILE
 from test_torch_host_kernels import (  # noqa: F401
-    _host_codec, _host_hc, _host_parallel, _host_parse, _ptr, lib)
+    _host_codec, _host_hc, _host_parallel, _host_parse, _host_whole, _ptr,
+    lib)
 
 
 def test_trace_and_annotate_write_a_chrome_trace(tmp_path):
@@ -145,7 +146,7 @@ def batches():
 
 @pytest.mark.parametrize("kernel", ["compress", "decode", "decode_fast",
                                     "xxh32", "xxh64", "parse", "pack", "hc",
-                                    "parallel"])
+                                    "parallel", "decode_smem"])
 def test_row_tails_change_no_kernel_output(lib, batches, kernel):  # noqa: F811
     (src, lens), (c, cl), (comp, comp_lens) = batches
 
@@ -160,6 +161,10 @@ def test_row_tails_change_no_kernel_output(lib, batches, kernel):  # noqa: F811
             fn = lib.host_decode if kernel == "decode" else lib.host_decode_fast
             return [_host_codec(fn, k, cl, layout.row_stride(m), m)
                     for m in (0, 1000, 65547)]
+        if kernel == "decode_smem":
+            return [_host_codec(_host_whole(lib, body), k, cl,
+                                layout.row_stride(m), m)
+                    for m in (0, 1000, 65536) for body in ("split", "whole")]
         if kernel in ("xxh32", "xxh64"):
             dtype = torch.int32 if kernel == "xxh32" else torch.int64
             out = []
