@@ -214,8 +214,7 @@ import torch
 import torch.distributed as tdist
 
 from lz4_tpu_torch import (
-    Lz4Factory, XXHashFactory, design_variants, dryrun_multigpu, formats,
-    testing)
+    Lz4Factory, XXHashFactory, dryrun_multigpu, formats, testing)
 from lz4_tpu_torch.__main__ import main as cli_main
 from lz4_tpu_torch.api import cuda_instances
 from lz4_tpu_torch.core import xxhash_ref
@@ -1052,19 +1051,6 @@ def _host_body(data: np.ndarray, comp: np.ndarray,
     return b"".join(parts)
 
 
-def _time_kernel(fn) -> float:
-    """Milliseconds per call of ``fn`` on the card (CUDA events)."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(TIMED_REPS):
-        fn()
-    end.record()
-    sync()
-    return start.elapsed_time(end) / TIMED_REPS
-
-
 def _time_plain(fn):
     sync()
     t0 = time.perf_counter()
@@ -1110,18 +1096,21 @@ def time_by_kind(src, lens, comp, clens) -> dict:
         idx = torch.nonzero(kinds == k).flatten()
         s, sl = src[idx].contiguous(), lens[idx].contiguous()
         c, cl = comp[idx].contiguous(), clens[idx].contiguous()
-        ms[f"K2 {name}"] = _time_kernel(
-            lambda: codec.compress_fast_batch(s, sl, cap))
-        ms[f"K1 {name}"] = _time_kernel(
-            lambda: codec.decompress_safe_batch(c, cl, BLOCK_LEN))
-        ms[f"K1 fast {name}"] = _time_kernel(
-            lambda: codec.decompress_fast_batch(c, cl, BLOCK_LEN))
+        ms[f"K2 {name}"] = testing.cuda_ms(
+            lambda: codec.compress_fast_batch(s, sl, cap), TIMED_REPS)
+        ms[f"K1 {name}"] = testing.cuda_ms(
+            lambda: codec.decompress_safe_batch(c, cl, BLOCK_LEN),
+            TIMED_REPS)
+        ms[f"K1 fast {name}"] = testing.cuda_ms(
+            lambda: codec.decompress_fast_batch(c, cl, BLOCK_LEN),
+            TIMED_REPS)
     a4 = torch.nonzero(kinds == 0).flatten()
     for rows in A4_ROWS:
         pick = a4.repeat(-(-rows // a4.numel()))[:rows]
         c, cl = comp[pick].contiguous(), clens[pick].contiguous()
-        ms[f"K1 {rows} a4 rows"] = _time_kernel(
-            lambda: codec.decompress_safe_batch(c, cl, BLOCK_LEN))
+        ms[f"K1 {rows} a4 rows"] = testing.cuda_ms(
+            lambda: codec.decompress_safe_batch(c, cl, BLOCK_LEN),
+            TIMED_REPS)
     counts = torch.bincount(kinds, minlength=3).tolist()
     log(f"by kind (rows {dict(zip(KIND_NAMES, counts))}), ms on the card: "
         + json.dumps(ms))
@@ -1209,7 +1198,8 @@ def phase_main_path(dev):
                         cap)
     if not (torch.equal(kern[1], st.comp_lens) and bool((kern[2] == 0).all())):
         fail("K2 main path: lengths or codes differ from the step's")
-    ms = _time_kernel(lambda: codec.compress_fast_batch(src, lens, cap))
+    ms = testing.cuda_ms(lambda: codec.compress_fast_batch(src, lens, cap),
+                         TIMED_REPS)
     rows.append(kernel_row("lz4_compress", launches, err, ms, plain_ms,
                            in_bytes + comp_bytes + 12 * n, in_bytes,
                            plain_rows=ssub.shape[0]))
@@ -1225,8 +1215,8 @@ def phase_main_path(dev):
                         BLOCK_LEN, all_lens=False)
     if not torch.equal(kern[0][:, :BLOCK_LEN], src[:, :BLOCK_LEN]):
         fail("K1 main path: decoded blocks differ from the input")
-    ms = _time_kernel(lambda: codec.decompress_safe_batch(comp, clens,
-                                                          BLOCK_LEN))
+    ms = testing.cuda_ms(lambda: codec.decompress_safe_batch(
+        comp, clens, BLOCK_LEN), TIMED_REPS)
     rows.append(kernel_row("lz4_decode", launches, err, ms, plain_ms,
                            comp_bytes + in_bytes + 12 * n, in_bytes,
                            plain_rows=csub.shape[0]))
@@ -1237,7 +1227,7 @@ def phase_main_path(dev):
     plain, plain_ms = _time_plain(lambda: xxhash.xxh32_plain(src, lens, 0))
     if not torch.equal(kern, plain) or not torch.equal(kern, st.hashes):
         fail("K3 main path: hashes differ from the plain version")
-    ms = _time_kernel(lambda: xxhash.xxh32_batch(src, lens, 0))
+    ms = testing.cuda_ms(lambda: xxhash.xxh32_batch(src, lens, 0), TIMED_REPS)
     rows.append(kernel_row("xxh32", launches, 0, ms, plain_ms,
                            in_bytes + 8 * n, in_bytes))
     rows[-1].update(_hash_batch_bounds(dev, 32, rows[-1], n))
@@ -1335,8 +1325,9 @@ def phase_lz4block(dev) -> list[dict]:
     if not torch.equal(body, sharded.block_stream_body_packed(
             src, lens, comp, comp_lens, L)[0]):
         fail("lz4block pack: differs when launched alone")
-    index_ms = _time_kernel(lambda: bs.block_stream_index(body, total, n + 1))
-    index_us = design_variants._kernel_times(
+    index_ms = testing.cuda_ms(
+        lambda: bs.block_stream_index(body, total, n + 1), TIMED_REPS)
+    index_us = testing.kernel_us(
         lambda: bs.block_stream_index(body, total, n + 1))
     hashes = xxhash.xxh32_rows(out, out_lens, bs.DEFAULT_SEED)
     decode_ms = _time_alone(
@@ -1466,7 +1457,8 @@ def phase_tier(dev, main) -> list[dict]:
         fail("tier hash64().hash_batch differs from the plain version")
     if not torch.equal(h32, xxhash.xxh32_plain(src, lens, SEED)):
         fail("tier hash32().hash_batch differs from the plain version")
-    ms = _time_kernel(lambda: xxhash.xxh64_batch(src, lens, seed64))
+    ms = testing.cuda_ms(lambda: xxhash.xxh64_batch(src, lens, seed64),
+                         TIMED_REPS)
     rows.append(kernel_row("xxh64", launches, 0, ms, plain_ms,
                            in_bytes + 12 * n, in_bytes))
     rows[-1].update(_hash_batch_bounds(dev, 64, rows[-1], n))
@@ -1491,8 +1483,8 @@ def phase_tier(dev, main) -> list[dict]:
             not torch.equal(kern[0][:, :BLOCK_LEN], src[:, :BLOCK_LEN]):
         fail("K1 fast main path: a block failed, read other than its "
              "compressed length or decoded to other bytes")
-    ms = _time_kernel(lambda: codec.decompress_fast_batch(comp_t, clens,
-                                                          BLOCK_LEN))
+    ms = testing.cuda_ms(lambda: codec.decompress_fast_batch(
+        comp_t, clens, BLOCK_LEN), TIMED_REPS)
     rows.append(kernel_row("lz4_decode_fast", launches, err, ms, plain_ms,
                            comp_bytes + in_bytes + 12 * n, in_bytes,
                            plain_rows=csub.shape[0]))
@@ -1786,15 +1778,16 @@ def _stream_rows(dev, main, launches) -> list[dict]:
         f"{peak / 2 ** 30:.3f} GiB above the {base / 2 ** 30:.3f} GiB held")
 
     _, plain_ms = compare_parse("parse main path", comp, clens, rows=sub)
-    ms = _time_kernel(lambda: sequences.parse_sequences(comp, clens))
+    ms = testing.cuda_ms(lambda: sequences.parse_sequences(comp, clens),
+                         TIMED_REPS)
     # compressed bytes + lengths in; tables, counts and totals out
     rows.append(kernel_row("lz4_parse", launches, 0, ms, plain_ms,
                            comp_bytes + 4 * n + 24 * n * s + 8 * n, in_bytes,
                            plain_rows=PLAIN_SEG_ROWS))
     _, plain_ms = compare_segments("K5 main path", comp, clens, n_seq, tables,
                                    BLOCK_LEN, rows=sub)
-    ms = _time_kernel(lambda: segment_decode.decompress_segments(
-        comp, clens, n_seq, tables, BLOCK_LEN))
+    ms = testing.cuda_ms(lambda: segment_decode.decompress_segments(
+        comp, clens, n_seq, tables, BLOCK_LEN), TIMED_REPS)
     # literal bytes, 24 B of table a sequence, lengths and counts in; the
     # rows and codes out
     rows.append(kernel_row("segment_decode", launches, 0, ms, plain_ms,
@@ -1806,8 +1799,9 @@ def _stream_rows(dev, main, launches) -> list[dict]:
         idx = torch.nonzero(kinds == k).flatten()
         args = (comp[idx].contiguous(), clens[idx].contiguous(),
                 n_seq[idx].contiguous(), tables[:, idx].contiguous())
-        by_kind[f"K5 {name}"] = _time_kernel(
-            lambda: segment_decode.decompress_segments(*args, BLOCK_LEN))
+        by_kind[f"K5 {name}"] = testing.cuda_ms(
+            lambda: segment_decode.decompress_segments(*args, BLOCK_LEN),
+            TIMED_REPS)
         del args
     log(f"K5 by kind, ms on the card: {json.dumps(by_kind)}")
     time_parse_by_kind(comp, clens)
@@ -1827,7 +1821,7 @@ def _stream_rows(dev, main, launches) -> list[dict]:
         _, plain_ms = _time_plain(lambda: absorb(plain.lanes, host_batch))
         if kern.lanes.cpu().tolist() != plain.lanes.tolist():
             fail(f"{name} main path: lanes differ from the plain version")
-        ms = _time_kernel(lambda: absorb(kern.lanes, batch))
+        ms = testing.cuda_ms(lambda: absorb(kern.lanes, batch), TIMED_REPS)
         # the batch's bytes and the lanes in, the lanes out
         rows.append(kernel_row(name, launches, 0, ms, plain_ms,
                                batch.numel() + 64, batch.numel(),
@@ -1859,12 +1853,12 @@ def time_parse_by_kind(comp, clens) -> dict:
         for rows in (STREAM_BATCH, idx.numel()):
             c = comp[idx[:rows]].contiguous()
             cl = clens[idx[:rows]].contiguous()
-            ms[f"parse {name} {rows} rows"] = _time_kernel(
-                lambda: sequences.parse_sequences(c, cl, s))
+            ms[f"parse {name} {rows} rows"] = testing.cuda_ms(
+                lambda: sequences.parse_sequences(c, cl, s), TIMED_REPS)
     for rows in (STREAM_BATCH, n):
-        ms[f"torch.zeros of {rows} rows' tables"] = _time_kernel(
+        ms[f"torch.zeros of {rows} rows' tables"] = testing.cuda_ms(
             lambda: torch.zeros((6, rows, s), dtype=torch.int32,
-                                device=comp.device))
+                                device=comp.device), TIMED_REPS)
     log(f"parse by kind (S = {s}), ms on the card: {json.dumps(ms)}")
     return ms
 
@@ -1874,8 +1868,8 @@ def time_pack(src, lens, comp, clens) -> dict:
     byte bound: each payload byte read once, the body written once, the
     lengths read."""
     n = src.shape[0]
-    ms = _time_kernel(lambda: sharded.frame_body_packed(src, lens, comp,
-                                                        clens))
+    ms = testing.cuda_ms(lambda: sharded.frame_body_packed(
+        src, lens, comp, clens), TIMED_REPS)
     total = int(sharded.frame_body_packed(src, lens, comp, clens)[1])
     nbytes = 2 * total + 4 * n
     out = {"pack_ms": ms, "pack_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -1895,21 +1889,24 @@ def _time_at_stream_sizes(src, lens, comp, clens) -> dict:
     tables, n_seq, _ = sequences.parse_sequences(c, cl)
     cap = max_compressed_length(BLOCK_LEN)
     chunk = src[:16, :BLOCK_LEN].contiguous().view(-1)
-    ms = {"lz4_compress": _time_kernel(
-              lambda: codec.compress_fast_batch(s, sl, cap)),
-          "lz4_decode": _time_kernel(
-              lambda: codec.decompress_safe_batch(c, cl, BLOCK_LEN)),
-          "lz4_parse": _time_kernel(lambda: sequences.parse_sequences(c, cl)),
-          "segment_decode": _time_kernel(
+    ms = {"lz4_compress": testing.cuda_ms(
+              lambda: codec.compress_fast_batch(s, sl, cap), TIMED_REPS),
+          "lz4_decode": testing.cuda_ms(
+              lambda: codec.decompress_safe_batch(c, cl, BLOCK_LEN),
+              TIMED_REPS),
+          "lz4_parse": testing.cuda_ms(
+              lambda: sequences.parse_sequences(c, cl), TIMED_REPS),
+          "segment_decode": testing.cuda_ms(
               lambda: segment_decode.decompress_segments(c, cl, n_seq, tables,
-                                                         BLOCK_LEN))}
+                                                         BLOCK_LEN),
+              TIMED_REPS)}
     for name, cls, absorb in (
             ("xxh32_stream 1 MiB", xxhash_stream.StreamState32,
              xxhash_stream.absorb32),
             ("xxh64_stream 1 MiB", xxhash_stream.StreamState64,
              xxhash_stream.absorb64)):
         lanes = cls(SEED, src.device).lanes
-        ms[name] = _time_kernel(lambda: absorb(lanes, chunk))
+        ms[name] = testing.cuda_ms(lambda: absorb(lanes, chunk), TIMED_REPS)
     log(f"at the stream path's sizes ({STREAM_BATCH} rows a batch, 1 MiB "
         f"updates), ms on the card: {json.dumps(ms)}")
     return ms
@@ -1933,7 +1930,7 @@ def _chain_bound(dev, bits: int, row: dict, n_stripes: int) -> dict:
         if chain(n_stripes, state.data_ptr(), stream):
             fail(f"lz4tt_xxh{bits}_chain: CUDA error at launch")
 
-    ms = _time_kernel(call)
+    ms = testing.cuda_ms(call, TIMED_REPS)
     for _ in range(40):                 # the card busy while nvidia-smi reads
         call()
     mhz = sm_clock_mhz()
@@ -2305,20 +2302,6 @@ def _hc_edge_cases(dev, pool) -> None:
         f"and at {n_tight} tight caps")
 
 
-def _time_hc(fn, reps: int = HC_REPS) -> float:
-    """Milliseconds per call of ``fn`` on the card (CUDA events), after one
-    untimed call."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    sync()
-    return start.elapsed_time(end) / reps
-
-
 def _hc_timings(src, lens, kinds) -> dict:
     """K6 at levels 1, 9 and 17 on all rows, at level 9 on the a4, text
     and random rows apart and on ``A4_ROWS`` a4 rows, and the chain floor:
@@ -2327,24 +2310,24 @@ def _hc_timings(src, lens, kinds) -> dict:
     cap = max_compressed_length(BLOCK_LEN)
     ms = {}
     for level in HC_LEVELS:
-        ms[f"level {level}"] = _time_hc(
-            lambda: hc.compress_hc_batch(src, lens, cap, level))
+        ms[f"level {level}"] = testing.cuda_ms(
+            lambda: hc.compress_hc_batch(src, lens, cap, level), HC_REPS)
     for k, name in enumerate(KIND_NAMES):
         idx = torch.nonzero(kinds == k).flatten()
         s, sl = src[idx].contiguous(), lens[idx].contiguous()
-        ms[f"level 9 {name}"] = _time_hc(
-            lambda: hc.compress_hc_batch(s, sl, cap, HC_LEVEL))
+        ms[f"level 9 {name}"] = testing.cuda_ms(
+            lambda: hc.compress_hc_batch(s, sl, cap, HC_LEVEL), HC_REPS)
     a4 = torch.nonzero(kinds == 0).flatten()
     for rows in A4_ROWS:
         pick = a4.repeat(-(-rows // a4.numel()))[:rows]
         s, sl = src[pick].contiguous(), lens[pick].contiguous()
-        ms[f"level 9 {rows} a4 rows"] = _time_hc(
-            lambda: hc.compress_hc_batch(s, sl, cap, HC_LEVEL))
+        ms[f"level 9 {rows} a4 rows"] = testing.cuda_ms(
+            lambda: hc.compress_hc_batch(s, sl, cap, HC_LEVEL), HC_REPS)
     alone = []
     for i in a4[:HC_FLOOR_ROWS].tolist():
         s, sl = src[i:i + 1].contiguous(), lens[i:i + 1].contiguous()
-        alone.append(_time_hc(
-            lambda: hc.compress_hc_batch(s, sl, cap, HC_LEVEL), reps=1))
+        alone.append(testing.cuda_ms(
+            lambda: hc.compress_hc_batch(s, sl, cap, HC_LEVEL), 1))
     ms["a4 rows alone"] = alone
     ms["chain floor"] = max(alone)
     log(f"K6 ms on the card: {json.dumps(ms)}")
@@ -2529,12 +2512,14 @@ def _smem_hc_row(src, kern) -> dict:
         c[sub].contiguous(), cl[sub].contiguous(), BLOCK_LEN))
     err = compare_codec(f"K1 a CTA a row, {n} HC-9 rows",
                         tuple(t[sub] for t in got), plain, BLOCK_LEN)
-    ms = _time_kernel(lambda: codec.decompress_safe_batch(c, cl, BLOCK_LEN))
+    ms = testing.cuda_ms(
+        lambda: codec.decompress_safe_batch(c, cl, BLOCK_LEN), TIMED_REPS)
     out, ol, e = (torch.empty_like(t) for t in got)
-    warp_ms = _time_kernel(lambda: codec.DECODE(
+    warp_ms = testing.cuda_ms(lambda: codec.DECODE(
         c.data_ptr(), c.stride(0), cl.data_ptr(), out.data_ptr(),
         out.stride(0), BLOCK_LEN, ol.data_ptr(), e.data_ptr(), n,
-        torch.cuda.current_stream().cuda_stream, device=c.device.index))
+        torch.cuda.current_stream().cuda_stream, device=c.device.index),
+        TIMED_REPS)
     if not (torch.equal(out[:, :BLOCK_LEN], got[0][:, :BLOCK_LEN])
             and torch.equal(e, got[2])):
         fail(f"K1 on {n} HC-9 rows: the warp kernel differs")
@@ -2593,7 +2578,7 @@ def phase_frame(dev) -> dict:
     one_row = {}
     for name, bits, fn in (("xxh32", 32, xxhash.xxh32_batch),
                            ("xxh64", 64, xxhash.xxh64_batch)):
-        ms = _time_kernel(lambda: fn(flat, n1, 0))
+        ms = testing.cuda_ms(lambda: fn(flat, n1, 0), TIMED_REPS)
         bound = (len(raw) + 16) / HBM_BYTES_PER_S * 1e3
         chain = _chain_bound(dev, bits, {"name": f"{name} n=1", "ms": ms},
                              len(raw) * 2 // bits)
@@ -2632,7 +2617,7 @@ def _time_alone(kernel, *args) -> float:
         if fn(*args):
             fail(f"{kernel.symbol}: CUDA error")
 
-    return _time_kernel(launch)
+    return testing.cuda_ms(launch, TIMED_REPS)
 
 
 def _card_frame(raw: bytes, bs: int, comps, dev, independent: bool):
@@ -2834,7 +2819,8 @@ def phase_formats(dev, card: str = "") -> tuple[list[dict], dict]:
         wl[sub].contiguous()))
     err = compare_codec("K2 dict, the formats batch",
                         tuple(t[sub] for t in kern), plain, cap)
-    ms = _time_kernel(lambda: codec.compress_dict_batch(src, lens, cap, win, wl))
+    ms = testing.cuda_ms(
+        lambda: codec.compress_dict_batch(src, lens, cap, win, wl), TIMED_REPS)
     in_bytes, comp_bytes = int(lens.sum()), int(kern[1].sum())
     rows = [kernel_row("lz4_compress_dict", total, err, ms, plain_ms,
                        in_bytes + wlen + comp_bytes + 16 * n, in_bytes,
@@ -2862,8 +2848,8 @@ def phase_formats(dev, card: str = "") -> tuple[list[dict], dict]:
                         all_lens=False)
     if not torch.equal(kern[0][:, :BLOCK_LEN], src[:, :BLOCK_LEN]):
         fail("K1 hist: the formats batch did not decode to its input")
-    ms = _time_kernel(lambda: codec.decompress_safe_hist_batch(
-        comp, clens, BLOCK_LEN, win, wl))
+    ms = testing.cuda_ms(lambda: codec.decompress_safe_hist_batch(
+        comp, clens, BLOCK_LEN, win, wl), TIMED_REPS)
     rows.append(kernel_row("lz4_decode_hist", total, err, ms, plain_ms,
                            comp_bytes + wlen + in_bytes + 16 * n, in_bytes,
                            plain_rows=FORMAT_PLAIN_ROWS, rows=n))
@@ -2881,10 +2867,10 @@ def phase_formats(dev, card: str = "") -> tuple[list[dict], dict]:
         f"{rows[1]['alone_ms']:.3f}")
     # the same rows without the window, for what the window costs
     c2, cl2, _ = codec.compress_fast_batch(src, lens, cap)
-    bare = {"K2": _time_kernel(lambda: codec.compress_fast_batch(src, lens,
-                                                                 cap)),
-            "K1": _time_kernel(lambda: codec.decompress_safe_batch(
-                c2, cl2, BLOCK_LEN))}
+    bare = {"K2": testing.cuda_ms(
+                lambda: codec.compress_fast_batch(src, lens, cap), TIMED_REPS),
+            "K1": testing.cuda_ms(lambda: codec.decompress_safe_batch(
+                c2, cl2, BLOCK_LEN), TIMED_REPS)}
     rows[0]["without_window_ms"] = bare["K2"]
     rows[1]["without_window_ms"] = bare["K1"]
     log(f"the formats batch without a window (K1 on K2's output), ms: "
@@ -2894,8 +2880,8 @@ def phase_formats(dev, card: str = "") -> tuple[list[dict], dict]:
     for k, name in enumerate(KIND_NAMES[:2]):
         i = int(np.flatnonzero(kinds == k)[0])
         c1, l1 = comp[i:i + 1].contiguous(), clens[i:i + 1].contiguous()
-        one[name] = _time_kernel(lambda: codec.decompress_safe_hist_batch(
-            c1, l1, BLOCK_LEN, win, wl[:1]))
+        one[name] = testing.cuda_ms(lambda: codec.decompress_safe_hist_batch(
+            c1, l1, BLOCK_LEN, win, wl[:1]), TIMED_REPS)
     rows[-1]["one_row_ms"] = one
     log(f"K1 hist on one row alone (CUDA events), ms: {one}")
     rows += _linked_kernels(dev, raw, linked, total, card)
@@ -2928,10 +2914,12 @@ def _dict_linked_rows(dev, raw: bytes, src, lens, cap) -> dict:
                                       dicts[sub], dl[sub].contiguous())
     compare_codec("K2 dict, the formats batch's linked rows",
                   tuple(t[sub] for t in kern), plain, cap)
-    got = {"linked_rows_ms": _time_kernel(
-               lambda: codec.compress_dict_batch(rows, lens, cap, dicts, dl)),
-           "linked_rows_copied_dicts_ms": _time_kernel(
-               lambda: codec.compress_dict_batch(rows, lens, cap, copies, dl))}
+    got = {"linked_rows_ms": testing.cuda_ms(
+               lambda: codec.compress_dict_batch(rows, lens, cap, dicts, dl),
+               TIMED_REPS),
+           "linked_rows_copied_dicts_ms": testing.cuda_ms(
+               lambda: codec.compress_dict_batch(rows, lens, cap, copies, dl),
+               TIMED_REPS)}
     log(f"K2 dict on the linked rows == plain on {FORMAT_PLAIN_ROWS} rows, "
         f"== with copied dictionaries; ms: {json.dumps(got)}")
     return got
@@ -2958,7 +2946,7 @@ def _linked_kernels(dev, raw: bytes, linked: dict, launches: dict,
     block cut beside it), the resolve (and its kernels' device times,
     ``torch.profiler``), the resolve's own peak memory, with its open
     nodes, list and rounds (its first design is timed by
-    ``python -m lz4_tpu_torch.design_variants --resolve``). Returns their
+    ``python3 design_variants.py --resolve``). Returns their
     rows of the ``kernels`` line, the 64 KiB batch's numbers as ``ms``,
     the 4 MiB batch's beside them."""
     win = torch.empty((0,), dtype=torch.uint8, device=dev)
@@ -3007,9 +2995,9 @@ def _linked_kernels(dev, raw: bytes, linked: dict, launches: dict,
                                                 linked_decode.CHUNK, whole)
             if not _walks_equal(call(), walk):
                 fail(f"linked walk at {bs}: differs from its {design} design")
-            designs[f"{design}_walk_ms"] = _time_kernel(call)
-        walk_ms = _time_kernel(lambda: linked_decode.walk_linked(
-            c, cl, flags, bs, width, host))
+            designs[f"{design}_walk_ms"] = testing.cuda_ms(call, TIMED_REPS)
+        walk_ms = testing.cuda_ms(lambda: linked_decode.walk_linked(
+            c, cl, flags, bs, width, host), TIMED_REPS)
         lay, n_chunks, n_tab = linked_decode.chunk_layout(*host, bs)
         lay = torch.from_numpy(lay).to(dev) if n_chunks > n else None
         scratch = linked_decode.SCRATCH.take(c, n_tab * 3 * linked_decode.CHUNK
@@ -3026,11 +3014,11 @@ def _linked_kernels(dev, raw: bytes, linked: dict, launches: dict,
             **designs,
             "walk_scratch_gib": linked_decode.SCRATCH.last_nbytes / 2 ** 30,
             "chunks": n_chunks,
-            "resolve_ms": _time_kernel(
-                lambda: linked_decode.resolve_linked(*args)),
+            "resolve_ms": testing.cuda_ms(
+                lambda: linked_decode.resolve_linked(*args), TIMED_REPS),
             # its kernels' device times (us a call; empty where the trace
             # has none)
-            "resolve_kernels_us": design_variants._kernel_times(
+            "resolve_kernels_us": testing.kernel_us(
                 lambda: linked_decode.resolve_linked(*args)),
             "resolve_peak_gib": peak_gib(
                 lambda: linked_decode.resolve_linked(*args)),
@@ -3264,8 +3252,8 @@ def _parallel_edge_cases(dev, rng) -> dict:
     bout, bl = parallel_compress.compress_parallel_batch(bsrc, blens, bcap)
     sync()
     peak = torch.cuda.max_memory_allocated() - base
-    ms = _time_kernel(lambda: parallel_compress.compress_parallel_batch(
-        bsrc, blens, bcap))
+    ms = testing.cuda_ms(lambda: parallel_compress.compress_parallel_batch(
+        bsrc, blens, bcap), TIMED_REPS)
     compare_parallel("K7 16 x 4 MiB", bsrc, blens, bcap)
     dec = codec.decompress_safe_batch(bout, bl, PARALLEL_BIG_ROW)
     if bool(dec[2].any()) or not torch.equal(dec[0][:, :PARALLEL_BIG_ROW],
@@ -3350,8 +3338,8 @@ def _k7_full_batch(dev, full: bytes, distinct: int) -> dict:
     out, out_lens = parallel_compress.compress_parallel_batch(src, lens, cap)
     sync()
     peak = torch.cuda.max_memory_allocated() - base
-    ms = _time_kernel(lambda: parallel_compress.compress_parallel_batch(
-        src, lens, cap))
+    ms = testing.cuda_ms(lambda: parallel_compress.compress_parallel_batch(
+        src, lens, cap), TIMED_REPS)
     copies = torch.arange(STREAM_BATCH, device=dev) % distinct
     if not (torch.equal(out, out[copies]) and
             torch.equal(out_lens, out_lens[copies])):
@@ -3535,10 +3523,11 @@ def phase_parallel(dev) -> list[dict]:
                                              src[:, :BLOCK_LEN]):
         fail("K7 main path: K1 did not decode every block to its input")
     del dec
-    ms = _time_kernel(lambda: parallel_compress.compress_parallel_batch(
-        src, lens, cap))
+    ms = testing.cuda_ms(lambda: parallel_compress.compress_parallel_batch(
+        src, lens, cap), TIMED_REPS)
     k2 = codec.compress_fast_batch(src, lens, cap)
-    k2_ms = _time_kernel(lambda: codec.compress_fast_batch(src, lens, cap))
+    k2_ms = testing.cuda_ms(
+        lambda: codec.compress_fast_batch(src, lens, cap), TIMED_REPS)
     sizes = {name: (int(comp_lens[kinds == k].sum()),
                     int(k2[1][kinds == k].sum()))
              for k, name in enumerate(KIND_NAMES)}
@@ -3590,13 +3579,13 @@ def phase_parallel(dev) -> list[dict]:
     for depth in (0, 1, 2, 3):
         compare_gather(f"K8 main path rows max_depth={depth}", csub, tsub,
                        BLOCK_LEN, depth)
-    k8_ms = _time_kernel(lambda: gather_decode.gather_decompress_batch(
-        c, *tables, BLOCK_LEN))
+    k8_ms = testing.cuda_ms(lambda: gather_decode.gather_decompress_batch(
+        c, *tables, BLOCK_LEN), TIMED_REPS)
     plain_seg = sequences.parse_sequences(c, cl)
-    k5_ms = _time_kernel(lambda: segment_decode.decompress_segments(
-        c, cl, plain_seg[1], plain_seg[0], BLOCK_LEN))
-    k1_ms = _time_kernel(lambda: codec.decompress_safe_batch(c, cl,
-                                                             BLOCK_LEN))
+    k5_ms = testing.cuda_ms(lambda: segment_decode.decompress_segments(
+        c, cl, plain_seg[1], plain_seg[0], BLOCK_LEN), TIMED_REPS)
+    k1_ms = testing.cuda_ms(
+        lambda: codec.decompress_safe_batch(c, cl, BLOCK_LEN), TIMED_REPS)
     del out, plain, plain_seg
     blocks = layout.from_device_layout(c, cl)
     build.reset_launch_counts()
@@ -3807,11 +3796,12 @@ def pack_parse_only(dev) -> None:
     for _ in range(2):
         time_pack(src, lens, comp, clens)
         time_parse_by_kind(comp, clens)
-        log(f"parse through its wrapper: {STREAM_BATCH} rows "
-            f"{_time_kernel(lambda: sequences.parse_sequences(c, cl)):.4f} "
-            f"ms, {N_BLOCKS} rows "
-            f"{_time_kernel(lambda: sequences.parse_sequences(comp, clens)):.4f}"
-            f" ms")
+        few = testing.cuda_ms(lambda: sequences.parse_sequences(c, cl),
+                              TIMED_REPS)
+        full = testing.cuda_ms(lambda: sequences.parse_sequences(comp, clens),
+                               TIMED_REPS)
+        log(f"parse through its wrapper: {STREAM_BATCH} rows {few:.4f} "
+            f"ms, {N_BLOCKS} rows {full:.4f} ms")
     tables, n_seq, _ = sequences.parse_sequences(comp, clens)
     kinds = torch.from_numpy(sharded.block_kinds(N_BLOCKS, SEED)).to(dev)
     live = torch.arange(tables.shape[2], device=dev) < n_seq[:, None]

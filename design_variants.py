@@ -16,12 +16,13 @@ on three launches: the one-shot entry point on the 4096 rows and on one
 MiB, a stream batch. K6 is timed at levels 1-6, 9 and 17 on the 4096
 rows (where the speculated walk starts to pay) and at levels 1, 9 and 17
 on 1, 132, 1,056 and 4,096 of their a4 rows (its slowest kind). Each
-variant's output is held against the shipped kernel's. Run from the root
-of a checkout, on a machine with a card, for all of them or those of
-some sources::
+variant's output is held against the shipped kernel's. A script beside
+the package, not part of it: run it from the root of a checkout, on a
+machine with a card, for all of them or those of some sources, or for
+one of the other modes below::
 
-    python -m lz4_tpu_torch.design_variants [lz4_compress lz4_decode segment_decode lz4_parse frame_pack xxh32 xxh64 lz4_hc parallel_compress gather_decode]
-    python -m lz4_tpu_torch.design_variants linked_decode|--resolve|--dict-split|--walk-split
+    python3 design_variants.py [lz4_compress lz4_decode segment_decode lz4_parse frame_pack xxh32 xxh64 lz4_hc parallel_compress gather_decode]
+    python3 design_variants.py linked_decode|--resolve|--dict-split|--walk-split|--hc-split|--k7-split|--k1-crossover
 
 K1 is also timed on ``HC9_SET`` (the LZ4 rows of 512 main-path rows at HC
 level 9, a read batch of the ``block64k_hc9`` cell), and its variants
@@ -62,10 +63,10 @@ import sys
 import numpy as np
 import torch
 
-from . import testing
-from .core.constants import max_compressed_length
-from .dist import sharded
-from .kernels import (
+from lz4_tpu_torch import testing
+from lz4_tpu_torch.core.constants import max_compressed_length
+from lz4_tpu_torch.dist import sharded
+from lz4_tpu_torch.kernels import (
     build, codec, gather_decode, hc, layout, linked_decode, parallel_compress,
     sequences, xxhash, xxhash_stream)
 
@@ -1216,8 +1217,8 @@ def dict_split() -> dict:
         for build_name, fn in fns.items():
             if build_name == "12-bit table":
                 if "no dictionary" in name:   # other bytes: timed only
-                    res[f"{build_name} ms"] = _time(
-                        _dict_call(fn, rows, case, stream)[0])
+                    res[f"{build_name} ms"] = testing.cuda_ms(
+                        _dict_call(fn, rows, case, stream)[0], REPS)
                 continue
             call, bufs = _dict_call(fn, rows, case, stream)
             split.lz4tt_split_read(counts, 1)
@@ -1232,7 +1233,7 @@ def dict_split() -> dict:
             if bool(bufs[2].any()) or not all(
                     torch.equal(x, y) for x, y in zip(bufs, want)):
                 raise SystemExit(f"design_variants: K2 dict differs on {name}")
-            res[f"{build_name} ms"] = _time(call)
+            res[f"{build_name} ms"] = testing.cuda_ms(call, REPS)
         out[name] = res
         print(f"K2 dict split, {name}: {json.dumps(res)}", flush=True)
     return out
@@ -1288,7 +1289,7 @@ def walk_split() -> dict:
                 def call():
                     if fn(*args):
                         raise RuntimeError("CUDA error")
-                got[name] = _time(call)
+                got[name] = testing.cuda_ms(call, REPS)
             out[f"{set_name}, chunks of {chunk}"] = got
             print(f"linked walk split, {set_name}, chunks of {chunk}: "
                   f"{json.dumps(got)}", flush=True)
@@ -1504,7 +1505,7 @@ def linked_variants() -> dict:
                     or not torch.equal(got[0][:, used], want[0][:, used]):
                 raise SystemExit(f"design_variants: {name} differs on "
                                  f"{set_name}")
-            res[set_name] = _time(call)
+            res[set_name] = testing.cuda_ms(call, REPS)
             print(f"linked walk, {name}, {set_name}: {res[set_name]:.3f} ms",
                   flush=True)
         out[name] = res
@@ -1759,28 +1760,6 @@ RESOLVE_BUILDS = {
 }
 
 
-def _kernel_times(call, reps: int = 5) -> dict:
-    """Device microseconds a call of each kernel ``call`` launches, from a
-    ``torch.profiler`` trace of ``reps`` calls (empty where the trace has
-    no device times)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0)
-        if us:
-            out[e.key[:60]] = us / reps
-    return out
-
-
 def _resolve_libs() -> dict:
     """The libraries of the first design's build (``"first design"``) and
     of each of ``RESOLVE_BUILDS``, built at once."""
@@ -1808,18 +1787,37 @@ def _resolve_libs() -> dict:
     return libs
 
 
-def _own_grid(lib):
-    """``lib``'s ``lz4tt_linked_resolve`` launching its cooperative kernel
-    on the CTAs its own build holds at once (its registers may differ
-    from the shipped build's)."""
+def _own_resolve(lib):
+    """``lib``'s ``lz4tt_linked_resolve`` called as
+    :func:`linked_decode.resolve_linked` calls the shipped one (room for
+    ``node_cap / LIST_SHARE`` open exits), its cooperative kernel on the
+    CTAs its own build holds at once (its registers may differ from the
+    shipped build's): a function of ``resolve_linked``'s arguments
+    returning (out, counters)."""
     ctas, threads = ctypes.c_int(), ctypes.c_int()
     if lib.lz4tt_linked_occupancy(ctypes.byref(ctas), ctypes.byref(threads)):
         raise RuntimeError("lz4tt_linked_occupancy: CUDA error")
     grid = ctas.value * torch.cuda.get_device_properties(
         torch.cuda.current_device()).multi_processor_count
 
-    def fn(*args):     # _resolve_cuda's arguments, the grid second to last
-        return lib.lz4tt_linked_resolve(*args[:-2], grid, args[-1])
+    def fn(comp, tables, n_seq, block_at, n_ok, n_nodes, window, node_cap):
+        dev = comp.device
+        list_cap = -(-node_cap // linked_decode.LIST_SHARE)
+        out = torch.empty((node_cap,), dtype=torch.uint8, device=dev)
+        off = torch.empty((node_cap,), dtype=torch.int16, device=dev)
+        scratch = torch.empty(
+            (linked_decode.resolve_scratch(node_cap, list_cap),),
+            dtype=torch.int32, device=dev)
+        counters = torch.empty((4,), dtype=torch.int32, device=dev)
+        if lib.lz4tt_linked_resolve(
+                comp.data_ptr(), comp.stride(0), tables.data_ptr(),
+                tables.shape[2], comp.shape[0], n_seq.data_ptr(),
+                block_at.data_ptr(), n_ok.data_ptr(), window.data_ptr(),
+                window.numel(), n_nodes.data_ptr(), node_cap, out.data_ptr(),
+                off.data_ptr(), scratch.data_ptr(), list_cap,
+                counters.data_ptr(), grid, layout.cuda_stream(comp)):
+            raise RuntimeError("lz4tt_linked_resolve: CUDA error")
+        return out, counters
     return fn
 
 
@@ -1919,18 +1917,17 @@ def resolve_variants() -> dict:
             "room node_cap / 64": lambda: linked_decode._resolve_cuda(
                 *args, -(-cap // 64))}
         for name in RESOLVE_BUILDS:
-            calls[name] = (lambda fn=_own_grid(libs[name]):
-                           linked_decode._resolve_cuda(*args, room, fn))
+            calls[name] = lambda fn=_own_resolve(libs[name]): fn(*args)
         for name, call in calls.items():
             check = RESOLVE_BUILDS[name][1] if name in RESOLVE_BUILDS else \
                 name != "first design: fill and gather"
             if check and not torch.equal(call()[0][:n], want[:n]):
                 raise SystemExit(f"design_variants: the resolve's {name} "
                                  f"differs on {set_name}")
-            res[name] = _time(call)
+            res[name] = testing.cuda_ms(call, REPS)
         for name in ("shipped", "first design", "room for every open exit"):
             res[f"peak GiB: {name}"] = _peak_gib(calls[name])
-        res["kernels (torch.profiler, us a call)"] = _kernel_times(
+        res["kernels (torch.profiler, us a call)"] = testing.kernel_us(
             calls["shipped"])
         out[set_name] = res
         print(f"linked resolve, {set_name}: {json.dumps(res)}", flush=True)
@@ -2052,18 +2049,6 @@ def build_variants(sources: set[str]) -> dict:
         out[name] = (source, so, [ln.split(":", 1)[1].strip()
                                   for ln in log.splitlines() if "Used" in ln])
     return out
-
-
-def _time(call, reps: int = REPS) -> float:
-    call()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        call()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 class _Rows:
@@ -2402,7 +2387,7 @@ def k1_crossover() -> dict:
                 if bool(e.any()) or not torch.equal(o[:, :BLOCK_LEN], raw):
                     raise SystemExit(f"k1_crossover: {name} at {n} {mix} "
                                      "rows differs from the raw rows")
-                times[name] = [_time(call) for _ in range(3)]
+                times[name] = [testing.cuda_ms(call, REPS) for _ in range(3)]
             out[mix][n] = times
             print(f"K1 crossover, {mix}, {n} rows: {json.dumps(times)}",
                   flush=True)
@@ -2473,7 +2458,7 @@ def main(argv: list[str]) -> int:
                 if not check():
                     raise SystemExit(f"design_variants: {name} differs from "
                                      f"the shipped kernel on {set_name}")
-                ms = _time(call, reps)
+                ms = testing.cuda_ms(call, reps)
                 result.setdefault(name, {"registers": regs}).setdefault(
                     set_name, []).append(ms)
                 print(f"round {rnd}: {name}, {set_name}: {ms:.3f} ms",

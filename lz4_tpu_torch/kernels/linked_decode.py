@@ -401,28 +401,23 @@ def resolve_linked(comp: torch.Tensor, tables: torch.Tensor,
 
 
 def _resolve_cuda(comp, tables, n_seq, block_at, n_ok, n_nodes, window,
-                  node_cap: int, list_cap: int, fn=RESOLVE):
+                  node_cap: int, list_cap: int):
     """:func:`resolve_linked`'s launches on the card with room for
     ``list_cap`` open exits at a time (``node_cap / LIST_SHARE`` on the
-    path; less takes the list in more chunks). ``fn``: another build of
-    the same C entry point (``design_variants``' edits), for timing."""
+    path; less takes the list in more chunks)."""
     dev = comp.device
     out = torch.empty((node_cap,), dtype=torch.uint8, device=dev)
     off = torch.empty((node_cap,), dtype=torch.int16, device=dev)
     scratch = torch.empty((resolve_scratch(node_cap, list_cap),),
                           dtype=torch.int32, device=dev)
     counters = torch.empty((4,), dtype=torch.int32, device=dev)
-    args = (comp.data_ptr(), comp.stride(0), tables.data_ptr(),
+    RESOLVE(comp.data_ptr(), comp.stride(0), tables.data_ptr(),
             tables.shape[2], comp.shape[0], n_seq.data_ptr(),
             block_at.data_ptr(), n_ok.data_ptr(), window.data_ptr(),
             window.numel(), n_nodes.data_ptr(), node_cap, out.data_ptr(),
             off.data_ptr(), scratch.data_ptr(), list_cap, counters.data_ptr(),
             resident_ctas("linked_decode", "lz4tt_linked_occupancy",
-                          dev.index), cuda_stream(comp))
-    if fn is RESOLVE:
-        RESOLVE(*args, device=dev.index)
-    elif fn(*args):
-        raise RuntimeError("lz4tt_linked_resolve: CUDA error")
+                          dev.index), cuda_stream(comp), device=dev.index)
     return out, counters
 
 

@@ -1,7 +1,8 @@
-"""Seeded inputs that hold the kernels against their plain versions.
+"""Seeded inputs that hold the kernels against their plain versions, and
+the card scripts' timers.
 
-Shared by the CPU tests and ``chip_smoke.py``; every generator takes a
-``numpy.random.Generator``.
+Shared by the CPU tests, ``chip_smoke.py`` and ``design_variants.py``;
+every generator takes a ``numpy.random.Generator``.
 """
 
 from __future__ import annotations
@@ -1115,3 +1116,46 @@ def lz4block_fault(case: str, rng: np.random.Generator) -> tuple[bytes, int]:
         del stream[-bs.HEADER_LENGTH:]
         at = 4
     return bytes(stream), at
+
+
+# ---------------------------------------------------------------------------
+# timing on the card
+# ---------------------------------------------------------------------------
+
+def cuda_ms(fn, reps: int) -> float:
+    """Milliseconds a call of ``fn`` on the card, by CUDA events around
+    ``reps`` calls after one untimed call."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_us(call, reps: int = 5) -> dict:
+    """Device microseconds a call of each kernel ``call`` launches, from a
+    ``torch.profiler`` trace of ``reps`` calls (empty where the trace has
+    no device times)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us:
+            out[e.key[:60]] = us / reps
+    return out

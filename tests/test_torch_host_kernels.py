@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from lz4_tpu_torch import design_variants, testing
+import design_variants
+from lz4_tpu_torch import testing
 from lz4_tpu_torch.core.constants import max_compressed_length
 from lz4_tpu_torch.dist import sharded
 from lz4_tpu_torch.kernels import (

@@ -80,7 +80,7 @@ def test_jax_layout_carry_across(jax_pad):
 
 def _port_files():
     files = sorted((REPO / "lz4_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "design_variants.py"]
 
 
 def test_port_files_cover_the_stream_pipeline_and_cli():

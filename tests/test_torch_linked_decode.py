@@ -16,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+import design_variants
 from lz4_tpu.formats import frame as jframe
-from lz4_tpu_torch import design_variants, testing
+from lz4_tpu_torch import testing
 from lz4_tpu_torch.core.constants import max_compressed_length
 from lz4_tpu_torch.core.errors import Lz4Error
 from lz4_tpu_torch.formats import frame as frame_mod

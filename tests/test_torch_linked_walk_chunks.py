@@ -108,7 +108,7 @@ extern "C" {
 // The chunked walk as lz4tt_linked_walk's four kernels run it: the tables
 // (one thread, or `lanes` host threads as a warp; with a ring of the last
 // tables when `ringed`, as the card's tables_kernel, without as the
-// look-back variant of design_variants.py), the hops a block, each chunk's walk (from the last
+// look-back variant of the repository root's design_variants.py), the hops a block, each chunk's walk (from the last
 // chunk to the first, as any order must do), the finish a block. res: int32[4][n] of n_seq, out_total,
 // code, reach; scratch: int32[n_tab * 3 * chunk + 5 * n_chunks], poisoned
 // by the caller.
