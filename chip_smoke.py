@@ -289,6 +289,9 @@ KERNELS = {  # Kernel.name -> (source, TPU kernel it replaces)
     # runs on its device
     "lz4_hc": ("lz4_tpu_torch/csrc/lz4_hc.cu",
                "lz4_tpu/kernels/jax_hc.py:479"),
+    # the same, a CTA a row, for a batch that leaves the card room
+    "lz4_hc_wide": ("lz4_tpu_torch/csrc/lz4_hc.cu",
+                    "lz4_tpu/kernels/jax_hc.py:479"),
     # not TPU kernels: the native history decode and dictionary compress
     # the JAX package runs on the host for linked and dictionary frames
     "lz4_decode_hist": ("lz4_tpu_torch/csrc/lz4_decode.cu",
@@ -329,7 +332,9 @@ TIER_PATH = ("lz4_compress", "lz4_decode", "xxh32", "xxh64", "lz4_decode_fast")
 # CTA-a-row kernel, which decodes it
 STREAM_PATH = ("lz4_compress", "lz4_decode_smem", "lz4_parse", "segment_decode",
                "xxh32_stream", "xxh64_stream")
-HC_PATH = ("lz4_hc", "frame_pack", "xxh32_stream")   # tier, stream, CLI at -l 9
+# the stream and CLI at -l 9: a stream batch fits the card in one round of
+# K6's wide kernel, which compresses it
+HC_PATH = ("lz4_hc_wide", "frame_pack", "xxh32_stream")
 XXH64_SEEDS = (0, (1 << 64) - 1, 0xCAFEBABE12345678)
 OCCUPANCY = (("lz4_compress", "lz4tt_compress_occupancy"),
              ("lz4_decode", "lz4tt_decode_occupancy"),
@@ -339,6 +344,7 @@ OCCUPANCY = (("lz4_compress", "lz4tt_compress_occupancy"),
              ("xxh32", "lz4tt_xxh32_occupancy"),
              ("xxh64", "lz4tt_xxh64_occupancy"),
              ("lz4_hc", "lz4tt_hc_occupancy"),
+             ("lz4_hc", "lz4tt_hc_wide_occupancy"),
              ("lz4_decode", "lz4tt_decode_hist_occupancy"),
              ("lz4_decode", "lz4tt_decode_smem_occupancy"),
              ("parallel_compress", "lz4tt_parallel_occupancy"),
@@ -349,6 +355,8 @@ KIND_NAMES = ("a4", "text", "random")    # sharded.block_kinds 0, 1, 2
 A4_ROWS = (132, 1056, 4096)              # one block an SM, 8, 31
 HC_LEVEL = 9                             # the default level
 HC_LEVELS = (1, 9, 17)
+HC_WIDE_LEVELS = (5, 9, 17)              # the wide kernel's edge cases
+HC_CELL_ROWS = 512                       # a block64k_hc9.write batch
 HC_PLAIN_ROWS = {1: 16, 9: 4}            # main-path rows of each kind
 HC_FLOOR_ROWS = 8                        # a4 rows timed alone
 HC_REPS = 2
@@ -2288,9 +2296,10 @@ def _hc_edge_cases(dev, pool) -> None:
         compare_hc(pool, f"K6 HC collision blocks, level {level}", coll,
                    clens, ccap, level)
     n_tight = 0
-    for level in (1, HC_LEVEL):
+    for level, picks in ((1, (2, 5, 9, 12, 20)), (5, (5, 12)),
+                         (HC_LEVEL, (2, 5, 9, 12, 20)), (17, (5, 12))):
         out_lens = hc.compress_hc_batch(edge, elens, ecap, level)[1]
-        for i in (2, 5, 9, 12, 20):
+        for i in picks:
             n = int(out_lens[i])
             for c in (n - 1, n, n + 1):
                 compare_hc(pool, f"K6 cap {c}, level {level}", edge, elens,
@@ -2299,7 +2308,52 @@ def _hc_edge_cases(dev, pool) -> None:
     log(f"K6 == plain on {src.shape[0]} edge blocks at levels {HC_LEVELS} "
         f"(and with row tails of {GUARD_BYTE:#x}), on {edge.shape[0]} HC "
         f"edge blocks and {coll.shape[0]} collision blocks at levels 1-17, "
-        f"and at {n_tight} tight caps")
+        f"and at {n_tight} tight caps (levels 5-17 through the wide kernel)")
+    _hc_wide_cases(dev, pool, src, lens, coll, clens, edge, elens)
+
+
+def _hc_wide_cases(dev, pool, src, lens, coll, clens, edge, elens) -> None:
+    """K6's wide kernel against its plain version at ``HC_WIDE_LEVELS`` on
+    the edge sizes' and the collision blocks' rows of at most 65,536 bytes
+    (one launch of it each), and at tight caps of the HC edge blocks; then
+    its rule at the card's capacity: that many rows run it, one row more
+    the warp kernel, each once, with the same rows out."""
+    def rows_of(s, sl):
+        idx = torch.nonzero(sl <= hc.INDEX_ROW).flatten()
+        return s[idx].contiguous(), sl[idx].contiguous()
+
+    n_cases = 0
+    for what, (s, sl) in (("edge sizes", rows_of(src, lens)),
+                          ("collision blocks", rows_of(coll, clens))):
+        cap = max_compressed_length(int(sl.max()))
+        for level in HC_WIDE_LEVELS:
+            before = (hc.HC.launches, hc.HC_WIDE.launches)
+            compare_hc(pool, f"K6 wide kernel, {what}, level {level}", s, sl,
+                       cap, level)
+            if (hc.HC.launches, hc.HC_WIDE.launches) != (before[0],
+                                                         before[1] + 1):
+                fail(f"K6 wide kernel, {what}, level {level}: launches "
+                     f"{before} -> {(hc.HC.launches, hc.HC_WIDE.launches)}")
+            n_cases += 1
+    ecap = max_compressed_length(int(elens.max()))
+    capacity = hc.wide_capacity(dev.index or 0)
+    n = capacity + 1
+    reps = torch.arange(n, device=dev) % edge.shape[0]
+    big, blens = edge[reps].contiguous(), elens[reps].contiguous()
+    want = hc.compress_hc_batch(edge, elens, ecap, HC_LEVEL)
+    for k, launched in ((capacity, (0, 1)), (n, (1, 0))):
+        before = (hc.HC.launches, hc.HC_WIDE.launches)
+        got = hc.compress_hc_batch(big[:k], blens[:k], ecap, HC_LEVEL)
+        after = (hc.HC.launches, hc.HC_WIDE.launches)
+        if (after[0] - before[0], after[1] - before[1]) != launched:
+            fail(f"K6 at {k} rows (capacity {capacity}): launches {before} "
+                 f"-> {after}, want {launched} more")
+        compare_codec(f"K6 at {k} rows", got, tuple(t[reps[:k]] for t in want),
+                      ecap)
+    log(f"K6's wide kernel == plain in {n_cases} batches of rows of at most "
+        f"65,536 bytes at levels {HC_WIDE_LEVELS}; {capacity} rows (its "
+        f"capacity) run it once, {n} rows the warp kernel once, the same "
+        f"rows out")
 
 
 def _hc_timings(src, lens, kinds) -> dict:
@@ -2323,15 +2377,39 @@ def _hc_timings(src, lens, kinds) -> dict:
         s, sl = src[pick].contiguous(), lens[pick].contiguous()
         ms[f"level 9 {rows} a4 rows"] = testing.cuda_ms(
             lambda: hc.compress_hc_batch(s, sl, cap, HC_LEVEL), HC_REPS)
-    alone = []
-    for i in a4[:HC_FLOOR_ROWS].tolist():
-        s, sl = src[i:i + 1].contiguous(), lens[i:i + 1].contiguous()
-        alone.append(testing.cuda_ms(
-            lambda: hc.compress_hc_batch(s, sl, cap, HC_LEVEL), 1))
-    ms["a4 rows alone"] = alone
-    ms["chain floor"] = max(alone)
-    log(f"K6 ms on the card: {json.dumps(ms)}")
+    # a block64k_hc9.write batch's size, by each kernel
+    s, sl = src[:HC_CELL_ROWS].contiguous(), lens[:HC_CELL_ROWS].contiguous()
+    ms[f"level 9 {HC_CELL_ROWS} rows"] = testing.cuda_ms(
+        lambda: hc.compress_hc_batch(s, sl, cap, HC_LEVEL), HC_REPS)
+    with _warp_kernel_only():
+        ms[f"level 9 {HC_CELL_ROWS} rows, warp kernel"] = testing.cuda_ms(
+            lambda: hc.compress_hc_batch(s, sl, cap, HC_LEVEL), HC_REPS)
+    for kernel in ("wide", "warp"):
+        alone = []
+        for i in a4[:HC_FLOOR_ROWS].tolist():
+            s, sl = src[i:i + 1].contiguous(), lens[i:i + 1].contiguous()
+            with (_warp_kernel_only() if kernel == "warp"
+                  else contextlib.nullcontext()):
+                alone.append(testing.cuda_ms(
+                    lambda: hc.compress_hc_batch(s, sl, cap, HC_LEVEL), 1))
+        suffix = "" if kernel == "wide" else ", warp kernel"
+        ms["a4 rows alone" + suffix] = alone
+        ms["chain floor" + suffix] = max(alone)
+    log(f"K6 ms on the card (the wide kernel where its rule takes it: at "
+        f"level 9 at most {hc.wide_capacity(src.device.index or 0)} rows): "
+        f"{json.dumps(ms)}")
     return ms
+
+
+@contextlib.contextmanager
+def _warp_kernel_only():
+    """``hc.compress_hc_batch`` with its rule held to the warp kernel."""
+    rule = hc.takes_wide_path
+    hc.takes_wide_path = lambda *args: False
+    try:
+        yield
+    finally:
+        hc.takes_wide_path = rule
 
 
 def _host_frame(raws: list[bytes], comps: list[bytes], dev) -> bytes:
@@ -2377,7 +2455,8 @@ def _hc_stream(dev, main, k6_blocks) -> dict:
             fail(f"{what}: the frame differs from the host's")
         out[what] = {"wall_ms": round(dt * 1e3, 1),
                      "MB/s": round(len(raw) / dt / 1e6, 2),
-                     "lz4_hc": counts["lz4_hc"]}
+                     "lz4_hc": counts["lz4_hc"],
+                     "lz4_hc_wide": counts["lz4_hc_wide"]}
         return counts
 
     for rnd in (1, 2):
@@ -2474,8 +2553,9 @@ def phase_hc(dev, main) -> list[dict]:
     ms = _hc_timings(src, lens, kinds)
     stream = _hc_stream(dev, main, layout.from_device_layout(kern[0],
                                                              kern[1]))
-    launches = {"lz4_hc": tier_launches["lz4_hc"] + sum(
-        v.get("lz4_hc", 0) for v in stream.values())}
+    launches = {name: tier_launches[name] + sum(
+        v.get(name, 0) for v in stream.values())
+        for name in ("lz4_hc", "lz4_hc_wide")}
     in_bytes = int(lens.sum())
     comp_bytes = int(kern[1].sum())
     row = kernel_row("lz4_hc", launches, 0, ms["level 9"],
@@ -2483,9 +2563,19 @@ def phase_hc(dev, main) -> list[dict]:
                      in_bytes, plain_rows=3 * HC_PLAIN_ROWS[HC_LEVEL])
     row.update({"level": HC_LEVEL, "ms_by_level": {
         lv: ms[f"level {lv}"] for lv in HC_LEVELS},
-        "chain_floor_ms": ms["chain floor"], "tier_walls_ms": walls,
-        "stream": stream})
-    return [row, smem_row]
+        "chain_floor_ms": ms["chain floor, warp kernel"],
+        "tier_walls_ms": walls, "stream": stream})
+    cell = slice(0, HC_CELL_ROWS)
+    cell_in = int(lens[cell].sum())
+    wide_row = kernel_row(
+        "lz4_hc_wide", launches, 0, ms[f"level 9 {HC_CELL_ROWS} rows"],
+        plain_s[HC_LEVEL] * 1e3,
+        cell_in + int(kern[1][cell].sum()) + 12 * HC_CELL_ROWS, cell_in,
+        plain_rows=3 * HC_PLAIN_ROWS[HC_LEVEL], rows=HC_CELL_ROWS)
+    wide_row.update({"level": HC_LEVEL, "chain_floor_ms": ms["chain floor"],
+                     "warp_kernel_ms": ms[f"level 9 {HC_CELL_ROWS} rows, "
+                                          "warp kernel"]})
+    return [row, wide_row, smem_row]
 
 
 def _smem_hc_row(src, kern) -> dict:
@@ -4039,6 +4129,7 @@ ENTRY_OF = {"decode_kernel": "decompress_safe_batch",
             "decode_smem_kernel": "decompress_safe_batch",
             "compress_kernel": "compress_fast_batch",
             "hc_kernel": "compress_hc_batch",
+            "hc_row_kernel": "compress_hc_batch",
             "pack_kernel": "frame_body_packed",
             "lz4block_pack_kernel": "block_stream_body_packed",
             "lz4block_mark_kernel": "block_stream_index",

@@ -23,6 +23,7 @@ one of the other modes below::
 
     python3 design_variants.py [lz4_compress lz4_decode segment_decode lz4_parse frame_pack xxh32 xxh64 lz4_hc parallel_compress gather_decode]
     python3 design_variants.py linked_decode|--resolve|--dict-split|--walk-split|--hc-split|--k7-split|--k1-crossover
+    python3 design_variants.py --hc-crossover [rows ...]
 
 K1 is also timed on ``HC9_SET`` (the LZ4 rows of 512 main-path rows at HC
 level 9, a read batch of the ``block64k_hc9`` cell), and its variants
@@ -34,9 +35,18 @@ warp kernel's 4 KiB ring in shared memory.
 ``--k1-crossover`` times both safe kernels at ``CROSSOVER_ROWS`` rows on
 the HC-9 and the fast LZ4 rows.
 
+K6's variants include its wide kernel (``lz4tt_compress_hc_wide``, a CTA
+a row, at the levels that speculate): as shipped, with 8 warps, and the
+control, one warp a row with a wave of four slices in flight.
+``--hc-crossover`` times the warp kernel and the wide builds at
+``HC_CROSSOVER_ROWS`` rows of a4 rows and of the ``block64k_hc9`` cell's
+mix, at level 9.
+
 ``--hc-split`` instead builds K6 with ``clock64`` counters in its first
 team's lane 0 and prints the cycles of each part of its searches: on one
-a4 row alone and on team 0 of 4,096 a4 rows, at level 9. ``--k7-split``
+a4 row alone and on team 0 of 4,096 a4 rows and of 512 rows of the cell's
+mix, at level 9, by the warp kernel, and by the wide kernel alone and at
+512 rows. ``--k7-split``
 does the same for the parts of K7's window kernel, in its first CTA's
 thread 0 over its windows, on the main path's rows; ``--dict-split`` for
 the parts of one row of K2 with a dictionary (the formats path's rows,
@@ -601,7 +611,7 @@ _HC_FIRST_SERIAL = """  // The first candidate as the serial loop probes it, its
     }
   }
   int32_t left = z.max_attempts - 1;
-  if (left == 0 || next < lo || next > off) return;
+  if (left == 0 || next < lo || next > off) return z.max_attempts - left;
   // the words after and before cur; the records' words serve while the
   // first forward word lies below match_limit
   const bool ahead = off + 2 * LZ4TT_MIN_MATCH <= z.match_limit;
@@ -644,6 +654,224 @@ _K7_SORT = """  bool over = true;
   for (int32_t k = r; k < 0; k += T) {"""
 _HC_GRID = "    const int grid = n < teams ? n : teams;"
 _HC_BOUNDS = "__global__ void __launch_bounds__(32, 32)"
+_HC_ROW_WARPS = "  LZ4TT_HC_ROW_WARPS = 4,"
+_HC_ROW_BOUNDS = "__global__ void __launch_bounds__(32 * kW, 16 / kW)"
+_HC_CREW_HINT = "    t.hint = (t.hint && t.row().warps() > 1"
+_HC_SLICE_HEAD = "LZ4TT_HD Lz4ttHcWave lz4tt_hc_slice("
+# the lead and its crew load the next wave's slices while a wave is
+# checked (a walk's first wave and one that follows a failed link excepted)
+_HC_WAVE_AHEAD = [
+    ("lz4_hc.cuh", """  // no slice is loaded ahead for a next wave: most walks end in one
+  Lz4ttHcRec x = lz4tt_hc_rec(z, q.r - lane);
+  for (;;) {""", """  Lz4ttHcRec x = lz4tt_hc_rec(z, q.r - lane), x2 = lz4tt_hc_rec(z, q.r - wave - lane);
+  for (;;) {"""),
+    ("lz4_hc.cuh", """    if (!failed) {  // every link held: c is the next wave's first
+      q.r -= wave;
+    } else {  // a link failed: speculate afresh from c
+      if (t.leader()) LZ4TT_HC_FOLLOWED();
+      q.r = z.rank()[c];
+    }
+    x = lz4tt_hc_rec(z, q.r - lane);
+  }""", """    if (!failed) {  // every link held: c is the next wave's first
+      q.r -= wave;
+      x = x2;
+    } else {  // a link failed: speculate afresh from c
+      if (t.leader()) LZ4TT_HC_FOLLOWED();
+      q.r = z.rank()[c];
+      x = lz4tt_hc_rec(z, q.r - lane);
+    }
+    x2 = lz4tt_hc_rec(z, q.r - wave - lane);
+  }"""),
+    ("lz4_hc.cuh", """  const int k = row.warp_id(), lane = w.lane(), size = w.size();
+  for (;;) {""", """  const int k = row.warp_id(), lane = w.lane(), size = w.size();
+  const int32_t wave = row.warps() * size;
+  int32_t ahead = -1;  // the wave's first record the slice x2 is of
+  Lz4ttHcRec x2 = {0u, 0u, 0u, -1, 0};
+  for (;;) {"""),
+    ("lz4_hc.cuh", """    const Lz4ttHcRec x = lz4tt_hc_rec(z, at - lane);
+    const int32_t succ""", """    const Lz4ttHcRec x = q.left < z.max_attempts && q.r == ahead
+                             ? x2 : lz4tt_hc_rec(z, at - lane);
+    const int32_t succ"""),
+    ("lz4_hc.cuh", """    if (lane == 0) row.waves()[k] = a;
+    row.sync();  // this warp's account is in""", """    if (lane == 0) row.waves()[k] = a;
+    ahead = q.r - wave;
+    x2 = lz4tt_hc_rec(z, at - wave - lane);
+    row.sync();  // this warp's account is in"""),
+]
+# the lead the warp whose place in its CTA is the CTA's slot on its SM
+# modulo the warps (%warpid of warp 0 over kW), so that the leads of an
+# SM's CTAs spread over its four schedulers; warp_id() and lane() count
+# from the lead
+_HC_CTA_IDS = """  LZ4TT_HD int lane() const {
+#ifdef __CUDA_ARCH__
+    return threadIdx.x;
+#else
+    return 0;
+#endif
+  }"""
+_HC_CTA_IDS_SLOTS = """  int lead_;
+  LZ4TT_HD int lane() const {
+#ifdef __CUDA_ARCH__
+    return warp_id() * 32 + (threadIdx.x & 31);
+#else
+    return 0;
+#endif
+  }
+  LZ4TT_HD int phys() const {
+#ifdef __CUDA_ARCH__
+    return threadIdx.x >> 5;
+#else
+    return 0;
+#endif
+  }"""
+_HC_CTA_INIT = """  t.waves_ = waves;
+"""
+_HC_CTA_INIT_SLOTS = """  t.waves_ = waves;
+  __shared__ int lead_s;
+  if (threadIdx.x == 0) {
+    unsigned wid;
+    asm volatile("mov.u32 %0, %%warpid;" : "=r"(wid));
+    lead_s = (int)(wid / kW % kW);
+  }
+  __syncthreads();
+  t.lead_ = lead_s;
+"""
+_HC_HEAD_AHEAD = """  if constexpr (lz4tt_hc_lead_v<Team>) lz4tt_hc_head_ahead(t, z, off);
+"""
+_HC_LEAD_WALK = """template <bool kWide, class Team>
+LZ4TT_HD int32_t lz4tt_hc_walk_lead("""
+# The wide kernel's control: one warp a row, a wave of four slices of 32
+# candidates, all loaded at once and checked one slice after the other in
+# registers (the shipped lead's walk stays in the source, renamed, unused)
+_HC_ONE_WARP_WALK = """// The control: one warp, a wave of four slices, all in flight at once.
+template <bool kWide, class Team>
+LZ4TT_HD int32_t lz4tt_hc_walk_lead(const Team& t, const Lz4ttHc& z, int32_t off,
+                                    uint32_t cur, int32_t c, int32_t rc,
+                                    int32_t lo, int32_t start_limit,
+                                    Lz4ttHcMatch& m) {
+  constexpr int kS = 4;
+  if (c < lo || c > off) return 0;
+  const uint8_t* src = z.src;
+  const Team& w = t;
+  const int lane = w.lane(), size = w.size();
+  const int32_t wave = kS * size;
+  const bool ahead = off + 2 * LZ4TT_MIN_MATCH <= z.match_limit;
+  const uint32_t cur_ahead = ahead ? lz4tt_read32(src, off + LZ4TT_MIN_MATCH) : 0u;
+  const uint32_t cur_back = kWide ? lz4tt_hc_word_in(src, off - 4, off) : 0u;
+  const int32_t back_max = off - start_limit > 0 ? off - start_limit : 0;
+  int32_t left = z.max_attempts;
+  int32_t r = rc >= 0 ? rc : z.rank()[c];
+  Lz4ttHcRec x[kS];
+#pragma unroll
+  for (int j = 0; j < kS; j++) x[j] = lz4tt_hc_rec(z, r - j * size - lane);
+  int32_t succ = lane + 1 == size ? lz4tt_hc_rec_pos(z, r - wave) : 0;
+  for (;;) {
+    bool failed = false, fail_in = false;
+    int32_t n_true = wave, c_next = -1, top_s = 0, top_b = 0;
+    uint32_t top = 0;
+#pragma unroll
+    for (int j = 0; j < kS; j++) {
+      if (failed) break;
+      const int32_t s = x[j].pos;
+      const bool in = s >= lo && s <= off;
+      int32_t next = -1, fwd = 0, bwd = 0;
+      bool more = false;
+      if (in) {
+        LZ4TT_HC_CHECK_COPY(x[j].delta, z.chain()[s & LZ4TT_HC_MASK]);
+        next = s - x[j].delta;
+        if (x[j].word == cur) {
+          const uint32_t d = x[j].ahead ^ cur_ahead;
+          fwd = LZ4TT_MIN_MATCH +
+                (ahead && d ? (lz4tt_ffs(d) - 1) >> 3
+                            : lz4tt_common_words(src, s + LZ4TT_MIN_MATCH,
+                                                 off + LZ4TT_MIN_MATCH,
+                                                 z.match_limit, ahead ? 4 : 0));
+          more = fwd == LZ4TT_MIN_MATCH + LZ4TT_SHORT_MATCH;
+          if (kWide) {
+            const uint32_t e = x[j].back ^ cur_back;
+            const int32_t most = s < back_max ? s : back_max;
+            bwd = e ? (31 - lz4tt_fls(e)) >> 3 : 4;
+            if (bwd > most) bwd = most;
+            if (bwd == 4) bwd = lz4tt_hc_back8(src, s, off, 0, start_limit, 4);
+            more = more || bwd == 8;
+          }
+        }
+      }
+      const int32_t after = w.shfl(s, lane + 1 < size ? lane + 1 : 0);
+      const int32_t first = w.shfl(x[j + 1 < kS ? j + 1 : j].pos, 0);
+      const int32_t nx = lane + 1 < size ? after : j + 1 < kS ? first : succ;
+      const bool holds = in && (next == nx || ((next < lo || next > off) &&
+                                               (nx < lo || nx > off)));
+      const unsigned fail = w.ballot(!holds), inside = w.ballot(in);
+      const int kf = fail ? lz4tt_ffs(fail) - 1 : size;
+      const bool kf_in = kf < size && ((inside >> kf) & 1u);
+      int32_t p = kf == size ? size : kf + (kf_in ? 1 : 0);
+      if (p > left - j * size) p = left - j * size;
+      if (lane >= p) {
+        fwd = bwd = 0;
+        more = false;
+      }
+      for (unsigned ms = w.ballot(more); ms; ms &= ms - 1) {
+        const int k = lz4tt_ffs(ms) - 1;
+        const int32_t sk = w.shfl(s, k);
+        const int32_t fk = w.shfl(fwd, k), bk = w.shfl(bwd, k);
+        int32_t f = 0, g = 0;
+        if (fk == LZ4TT_MIN_MATCH + LZ4TT_SHORT_MATCH)
+          f = lz4tt_common_bytes(w, src, sk + fk, off + fk, z.match_limit);
+        if (kWide && bk == 8)
+          g = lz4tt_hc_back_team(w, src, sk, off, 0, start_limit, 8) - 8;
+        if (lane == k) {
+          fwd += f;
+          bwd += g;
+        }
+      }
+      const int32_t len = fwd + bwd;
+      const uint32_t key = len > m.len
+          ? ((uint32_t)len << 8) | (uint32_t)(255 - j * size - lane) : 0u;
+      const uint32_t best = w.reduce_max(key);
+      if (best > top) {
+        const int wl = 255 - (int)(best & 255) - j * size;
+        top = best;
+        top_s = w.shfl(s, wl);
+        top_b = w.shfl(bwd, wl);
+      }
+      if (kf < size) {
+        failed = true;
+        fail_in = kf_in;
+        n_true = j * size + kf + (kf_in ? 1 : 0);
+        c_next = w.shfl(next, kf);
+      } else if (j + 1 == kS) {
+        c_next = w.shfl(next, size - 1);
+      }
+    }
+    bool last = failed && !fail_in;
+    if (n_true >= left) {
+      n_true = left;
+      last = true;
+    }
+    if (top) {
+      m.len = (int32_t)(top >> 8);
+      m.ref = top_s - top_b;
+      m.start = off - top_b;
+    }
+    if (last) return z.max_attempts - left + n_true;
+    left -= n_true;
+    c = c_next;
+    if (c < lo || c > off) return z.max_attempts - left;
+    if (!failed) {
+      r -= wave;
+    } else {
+      if (t.leader()) LZ4TT_HC_FOLLOWED();
+      r = z.rank()[c];
+    }
+#pragma unroll
+    for (int j = 0; j < kS; j++) x[j] = lz4tt_hc_rec(z, r - j * size - lane);
+    if (lane + 1 == size) succ = lz4tt_hc_rec_pos(z, r - wave);
+  }
+}
+
+template <bool kWide, class Team>
+LZ4TT_HD int32_t lz4tt_hc_walk_lead_shipped("""
 
 
 def _hc_teams_an_sm(k: int) -> str:
@@ -887,6 +1115,35 @@ VARIANTS = {
         ("lz4_hc.cu", _HC_GRID, _hc_teams_an_sm(8))]),
     "K6, at most 16 teams an SM": ("lz4_hc", [
         ("lz4_hc.cu", _HC_GRID, _hc_teams_an_sm(16))]),
+    "K6 a CTA a row": ("lz4_hc", []),
+    "K6 a CTA a row, 8 warps (64 registers, 4 CTAs an SM)": ("lz4_hc", [
+        ("lz4_hc.cuh", _HC_ROW_WARPS, "  LZ4TT_HC_ROW_WARPS = 8,"),
+        ("lz4_hc.cu", _HC_ROW_BOUNDS,
+         "__global__ void __launch_bounds__(32 * kW, 32 / kW)")]),
+    "K6 a CTA a row, one warp with four slices in flight (the control)": (
+        "lz4_hc", [
+            ("lz4_hc.cuh", _HC_ROW_WARPS, "  LZ4TT_HC_ROW_WARPS = 1,"),
+            ("lz4_hc.cuh", _HC_CREW_HINT, "    t.hint = (true"),
+            ("lz4_hc.cuh", _HC_LEAD_WALK, _HC_ONE_WARP_WALK)]),
+    "K6 a CTA a row, 64 registers (8 CTAs an SM)": ("lz4_hc", [
+        ("lz4_hc.cu", _HC_ROW_BOUNDS,
+         "__global__ void __launch_bounds__(32 * kW, 32 / kW)")]),
+    "K6 a CTA a row, the crew in every walk": ("lz4_hc", [
+        ("lz4_hc.cuh", _HC_CREW_HINT, "    t.hint = (t.row().warps() > 1")]),
+    "K6 a CTA a row, no head-table line prefetched": ("lz4_hc", [
+        ("lz4_hc.cuh", _HC_HEAD_AHEAD, "")]),
+    "K6 a CTA a row, the slices called, not inlined": ("lz4_hc", [
+        ("lz4_hc.cuh", _HC_SLICE_HEAD,
+         "__host__ __device__ __noinline__ Lz4ttHcWave lz4tt_hc_slice(")]),
+    "K6 a CTA a row, the lead walking alone (no crew)": ("lz4_hc", [
+        ("lz4_hc.cuh", _HC_CREW_HINT, "    t.hint = (false")]),
+    "K6 a CTA a row, the next wave's slices loaded ahead": (
+        "lz4_hc", _HC_WAVE_AHEAD),
+    "K6 a CTA a row, the lead warp by the CTA's warp slots": ("lz4_hc", [
+        ("lz4_hc.cu", _HC_CTA_IDS, _HC_CTA_IDS_SLOTS),
+        ("lz4_hc.cu", _HC_CTA_INIT, _HC_CTA_INIT_SLOTS),
+        ("lz4_hc.cu", "  LZ4TT_HD int warp_id() const { return lane() >> 5; }",
+         "  LZ4TT_HD int warp_id() const { return (phys() - lead_ + kW) % kW; }")]),
 }
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -913,6 +1170,16 @@ SYMBOLS = {  # source -> (C entry point, its argtypes)
 # variants timed through another entry point of their source than SYMBOLS'
 VARIANT_SYMBOLS = {name: "lz4tt_decompress_safe_smem" for name in VARIANTS
                    if name.startswith("K1 a CTA a row")}
+VARIANT_SYMBOLS.update({name: "lz4tt_compress_hc_wide" for name in VARIANTS
+                        if name.startswith("K6 a CTA a row")})
+# the wide K6 builds of --hc-crossover (the shipped one is hc.HC_WIDE)
+HC_WIDE_BUILDS = tuple(name for name in VARIANTS
+                       if name.startswith("K6 a CTA a row,"))
+# K6's crossover (--hc-crossover): both kernels at these batch sizes of a4
+# rows and of the cell's mix, and at the cell's of text and random rows
+HC_CROSSOVER_ROWS = (128, 256, 384, 512, 528, 1056, 2048, 4096)
+HC_CROSSOVER_SETS = {"a4": HC_CROSSOVER_ROWS, "mix": HC_CROSSOVER_ROWS,
+                     "text": (512,), "random": (512,)}
 # K1's extra set: the LZ4 rows (those HC shrinks) of the first 512 main-path
 # rows at level 9, as a read batch of the block64k_hc9 cell has them
 HC9_SET = "384 HC-9 rows"
@@ -1951,36 +2218,63 @@ def _nvcc_copy(d, edits, source: str):
                                 stderr=subprocess.STDOUT, text=True)
 
 
+def _cell_mix(rows: "_Rows", n: int, kind: str = "a4"):
+    """The first ``n`` main-path rows (the ``block64k_hc9`` cell's mix of
+    kinds) with the first row of ``kind`` first, so that team 0 takes it."""
+    kinds = sharded.block_kinds(N_BLOCKS, SEED)
+    first = int(np.flatnonzero(kinds == ("a4", "text", "random").index(kind))[0])
+    idx = [first] + [i for i in range(n + 1) if i != first][:n - 1]
+    return torch.tensor(idx, device=rows.src.device)
+
+
 def hc_split() -> dict:
     """Cycles of each part of K6's searches (``_SPLIT_PARTS``) at level 9
-    in the first team's lane 0: one a4 row alone, then team 0 of 4,096 a4
-    rows; each part's total cycles, calls and cycles a call."""
+    in the first team's lane 0: the warp kernel on one a4 row alone, on
+    team 0 of 4,096 a4 rows and of 512 rows of the cell's mix (an a4 or a
+    random row first); the wide kernel on the same a4 row alone and on the
+    same 512 rows; each part's total cycles, calls and cycles a call."""
     so, proc = _nvcc_copy(build.build_dir().parent / "variants" / "split",
                           _SPLIT_EDITS, "lz4_hc")
     log, _ = proc.communicate()
     if proc.returncode:
         raise build.KernelBuildError(log)
     lib = ctypes.CDLL(str(so))
-    fn = lib.lz4tt_compress_hc
-    fn.argtypes, fn.restype = SYMBOLS["lz4_hc"][1], ctypes.c_int
+    fns = {}
+    for kernel, symbol in (("warp", "lz4tt_compress_hc"),
+                           ("wide", "lz4tt_compress_hc_wide")):
+        fns[kernel] = getattr(lib, symbol)
+        fns[kernel].argtypes = SYMBOLS["lz4_hc"][1]
+        fns[kernel].restype = ctypes.c_int
     rows = _Rows(torch.device("cuda"))
     a4 = rows.sets["a4"]
-    teams = hc.resident_teams(rows.src.device.index or 0)
-    scratch = torch.empty((teams * hc.team_bytes(),), dtype=torch.uint8,
-                          device=rows.src.device)
+    dev = rows.src.device.index or 0
+    teams = {"warp": hc.resident_teams(dev), "wide": hc.wide_capacity(dev)}
+    scratch = torch.empty((max(teams.values()) * hc.team_bytes(),),
+                          dtype=torch.uint8, device=rows.src.device)
     stream = torch.cuda.current_stream().cuda_stream
     counts = (ctypes.c_ulonglong * 16)()
     out = {}
-    for name, pick in (("1 a4 row", a4[:1]),
-                       ("4096 a4 rows, team 0", a4.repeat(2)[:N_BLOCKS])):
+    mix, mix_random = _cell_mix(rows, 512), _cell_mix(rows, 512, "random")
+    for name, kernel, pick in (
+            ("1 a4 row", "warp", a4[:1]),
+            ("4096 a4 rows, team 0", "warp", a4.repeat(2)[:N_BLOCKS]),
+            ("512 rows of the cell's mix, team 0 (a4)", "warp", mix),
+            ("512 rows of the cell's mix, team 0 (random)", "warp",
+             mix_random),
+            ("wide kernel, 1 a4 row", "wide", a4[:1]),
+            ("wide kernel, 512 rows of the cell's mix, team 0 (a4)", "wide",
+             mix),
+            ("wide kernel, 512 rows of the cell's mix, team 0 (random)",
+             "wide", mix_random)):
         src, lens = rows.src[pick].contiguous(), rows.lens[pick].contiguous()
         want = hc.compress_hc_batch(src, lens, rows.cap, 9)
-        dest, out_lens, err = (torch.empty_like(x) for x in want)
+        dest, out_lens, err = (torch.zeros_like(x) for x in want)
         lib.lz4tt_split_read(counts, 1)
         n = src.shape[0]
-        if fn(src.data_ptr(), src.stride(0), lens.data_ptr(), dest.data_ptr(),
-              dest.stride(0), rows.cap, 9, scratch.data_ptr(), min(n, teams),
-              out_lens.data_ptr(), err.data_ptr(), n, stream):
+        if fns[kernel](src.data_ptr(), src.stride(0), lens.data_ptr(),
+                       dest.data_ptr(), dest.stride(0), rows.cap, 9,
+                       scratch.data_ptr(), min(n, teams[kernel]),
+                       out_lens.data_ptr(), err.data_ptr(), n, stream):
             raise RuntimeError("CUDA error")
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in
@@ -1991,6 +2285,86 @@ def hc_split() -> dict:
                             "a call": round(counts[i] / max(counts[i + 8], 1), 1)}
                      for i, part in enumerate(_SPLIT_PARTS)}
         print(f"K6 split, {name}: {json.dumps(out[name])}", flush=True)
+    return out
+
+
+def hc_crossover(only: list[int] | None = None) -> dict:
+    """K6's kernels at level 9 on the same batches of
+    ``HC_CROSSOVER_SETS``' rows: a4, text or random rows (the main path's,
+    taken in turn) and the cell's mix (the first main-path rows, an a4 row
+    first): the
+    warp kernel, the shipped wide kernel (``hc.HC_WIDE``) and the builds of
+    ``HC_WIDE_BUILDS``, each launched with its resident CTAs at most
+    (more rows take more rounds), each output held to the warp kernel's.
+    ``only``: these batch sizes of each set alone. Returns mix -> rows ->
+    kernel -> ms (three timings of two launches), with each kernel's
+    resident CTAs."""
+    dev = torch.device("cuda")
+    index = dev.index or 0
+    root = build.build_dir().parent / "variants"
+    procs = {name: _nvcc_copy(root / f"crossover{i}", VARIANTS[name][1],
+                              "lz4_hc")
+             for i, name in enumerate(HC_WIDE_BUILDS)}
+    symbol, argtypes = SYMBOLS["lz4_hc"]
+    fns = {"warp kernel": build.c_function("lz4_hc", symbol, argtypes, index),
+           "a CTA a row": build.c_function("lz4_hc", "lz4tt_compress_hc_wide",
+                                           argtypes, index)}
+    capacity = {"warp kernel": hc.resident_teams(index),
+                "a CTA a row": hc.wide_capacity(index)}
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise build.KernelBuildError(f"{name}:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        fns[name] = lib.lz4tt_compress_hc_wide
+        fns[name].argtypes, fns[name].restype = argtypes, ctypes.c_int
+        occ = lib.lz4tt_hc_wide_occupancy
+        ctas, threads = ctypes.c_int(0), ctypes.c_int(0)
+        occ.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        if occ(ctypes.byref(ctas), ctypes.byref(threads)):
+            raise RuntimeError(f"{name}: occupancy")
+        capacity[name] = ctas.value * sms
+    rows = _Rows(dev)
+    scratch = torch.empty((N_BLOCKS * hc.team_bytes(),), dtype=torch.uint8,
+                          device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {"capacity": capacity}
+    kinds = torch.from_numpy(sharded.block_kinds(N_BLOCKS, SEED)).to(dev)
+    for mix, sizes in HC_CROSSOVER_SETS.items():
+        out[mix] = {}
+        of_kind = torch.nonzero(kinds == ("a4", "text", "random").index(
+            mix)).flatten() if mix != "mix" else None
+        for n in [n for n in sizes if not only or n in only]:
+            pick = (of_kind.repeat(-(-n // of_kind.numel()))[:n]
+                    if of_kind is not None else _cell_mix(rows, n))
+            src, lens = rows.src[pick].contiguous(), rows.lens[pick].contiguous()
+            want = None
+            times = {}
+            for name, fn in fns.items():
+                dest = torch.zeros((n, layout.row_stride(rows.cap)),
+                                   dtype=torch.uint8, device=dev)
+                ol, err = (torch.empty((n,), dtype=torch.int32, device=dev)
+                           for _ in range(2))
+
+                def call(fn=fn, name=name):
+                    if fn(src.data_ptr(), src.stride(0), lens.data_ptr(),
+                          dest.data_ptr(), dest.stride(0), rows.cap, 9,
+                          scratch.data_ptr(), min(n, capacity[name]),
+                          ol.data_ptr(), err.data_ptr(), n, stream):
+                        raise RuntimeError(f"{name}: CUDA error")
+                call()
+                got = (dest, ol, err)
+                if want is None:
+                    want = tuple(x.clone() for x in got)
+                elif not all(torch.equal(x, y) for x, y in zip(got, want)):
+                    raise SystemExit(f"hc_crossover: {name} at {n} {mix} "
+                                     "rows differs from the warp kernel")
+                times[name] = [testing.cuda_ms(call, HC_REPS)
+                               for _ in range(3)]
+            out[mix][n] = times
+            print(f"K6 crossover, {mix}, {n} rows: {json.dumps(times)}",
+                  flush=True)
     return out
 
 
@@ -2424,6 +2798,9 @@ def main(argv: list[str]) -> int:
     if argv == ["--k1-crossover"]:
         print(json.dumps(k1_crossover()))
         return 0
+    if argv[:1] == ["--hc-crossover"]:
+        print(json.dumps(hc_crossover([int(n) for n in argv[1:]])))
+        return 0
     dev = torch.device("cuda")
     libs = build_variants(set(argv) or set(SYMBOLS))
     rows = _Rows(dev)
@@ -2438,13 +2815,16 @@ def main(argv: list[str]) -> int:
             if source == "lz4_decode":
                 sets = [HC9_SET, *sets]
             for set_name in sets:
+                if name in VARIANT_SYMBOLS and source == "lz4_hc" and \
+                        not hc.speculates(rows.hc_sets()[set_name][0]):
+                    continue        # the wide kernel takes no such level
                 reps = REPS
                 if hashed:
                     call, check = _hash_calls(lib, source, rows, set_name,
                                               stream)
                 elif source == "lz4_hc":
                     symbol, argtypes = SYMBOLS[source]
-                    fn = getattr(lib, symbol)
+                    fn = getattr(lib, VARIANT_SYMBOLS.get(name, symbol))
                     fn.argtypes, fn.restype = argtypes, ctypes.c_int
                     call, check = _hc_calls(fn, rows, set_name, stream)
                     reps = HC_REPS

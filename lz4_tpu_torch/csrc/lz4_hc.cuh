@@ -44,15 +44,28 @@
 // batch, and the bucket's last position of the batch writes the head.
 // That is the serial loop's result, whatever the repetition path wrote.
 // The search's head comes out of its last batch.
+//
+// A row's team of warps (the wide kernel's CTA) runs the same
+// body by its warp 0, the lead, as a warp team does; the other warps, its
+// crew, sort the bucket index with it (lz4tt_hc_index_row) and wait at the
+// row's barrier for the waves of a walk the lead asks for: a slice of 32
+// candidates a warp, all in flight at once (lz4tt_hc_walk_lead,
+// lz4tt_hc_crew). The lead asks for a walk while the row's walks run past
+// a slice, and walks alone, as a warp team does, while they do not.
 #pragma once
+
+#include <type_traits>
 
 #include "lz4_compress.cuh"  // lz4tt_put, lz4tt_copy, lz4tt_common_*
 
 // Hooks of the host build: a link that failed and was followed into the
-// window (the speculation's misses), and a record's chain copy read
-// against the chain slot it copies.
+// window (the speculation's misses), a record's chain copy read against
+// the chain slot it copies, and a wave a row's lead asks its crew for.
 #ifndef LZ4TT_HC_FOLLOWED
 #define LZ4TT_HC_FOLLOWED()
+#endif
+#ifndef LZ4TT_HC_ASKED
+#define LZ4TT_HC_ASKED()
 #endif
 #ifndef LZ4TT_HC_CHECK_COPY
 #define LZ4TT_HC_CHECK_COPY(copy, slot)
@@ -78,6 +91,13 @@ enum {
   // the index's counters: of the hash's low 8 bits, then its high 7
   LZ4TT_HC_LO = 256,
   LZ4TT_HC_COUNTS = LZ4TT_HC_LO + (1 << (LZ4TT_HC_HASH_LOG - 8)),
+  // the wide kernel's warps a CTA (lz4_hc.cu)
+  LZ4TT_HC_ROW_WARPS = 4,
+  // what the lead asks its crew for: the row's end, or a wave of the best
+  // search's walk or of the wider search's
+  LZ4TT_HC_ASK_END = 0,
+  LZ4TT_HC_ASK_BEST = 1,
+  LZ4TT_HC_ASK_WIDER = 2,
 };
 
 struct Lz4ttHcMatch {
@@ -91,6 +111,38 @@ LZ4TT_HD void lz4tt_hc_fix(Lz4ttHcMatch& m, int32_t c) {
   m.ref += c;
   m.len -= c;
 }
+
+// A wave of a walk as the lead asks its crew for it: the kind, the search
+// (cur at off, the window from lo, the backward length's limit), the
+// wave's first record r, the attempts left and the match's length so far.
+struct Lz4ttHcAsk {
+  int32_t kind, off, lo, start_limit, r, left, mlen;
+  uint32_t cur;
+};
+
+// One warp's account of its slice of a wave: its first lane whose link
+// fails (kf, the warp's size for none; in: that candidate lies in the
+// window), the true next there (at its last lane if none fails), and its
+// best candidate: key (len << 8 | 255 - its place in the wave; 0 for none
+// longer than the match so far), position and backward length.
+struct Lz4ttHcWave {
+  int32_t kf, in, next;
+  uint32_t key;
+  int32_t s, bwd;
+};
+
+// A row's team of warps (the wide kernel's CTA): its lane(), size(),
+// leader() and sync() (a barrier of all its lanes, called from any place
+// in the code) span all its warps; warp() is this lane's warp as a team of
+// its own, warp_id() its index, warps() their number (at most 8), ask()
+// and waves() the shared ask and accounts (a warp each), and lead() warp
+// 0's team. The lead's team is a warp team that also derives from
+// Lz4ttHcLead: row() is its row, and `hint` (mutable, false at first)
+// whether its last walk ran past a slice.
+struct Lz4ttHcLead {};
+
+template <class Team>
+constexpr bool lz4tt_hc_lead_v = std::is_base_of<Lz4ttHcLead, Team>::value;
 
 // One block's match finder: the tables and the bucket index in the team's
 // scratch, and the next position to insert.
@@ -150,6 +202,16 @@ LZ4TT_HD Lz4ttHcRec lz4tt_hc_rec(const Lz4ttHc& z, int32_t i) {
   uint32_t a[4];
   lz4tt_hc_load4(z.rec() + 4 * i, a);
   return {a[0], a[1], a[2], (int32_t)(a[3] >> 16), (int32_t)(a[3] & 0xFFFF)};
+}
+
+// Record i's position alone, or -1 for i < 0.
+LZ4TT_HD int32_t lz4tt_hc_rec_pos(const Lz4ttHc& z, int32_t i) {
+  if (i < 0) return -1;
+#ifdef __CUDA_ARCH__
+  return (int32_t)(__ldcg(z.rec() + 4 * i + 3) >> 16);
+#else
+  return (int32_t)(z.rec()[4 * i + 3] >> 16);
+#endif
 }
 
 // The chain delta of p into its slot, and into its record's copy.
@@ -229,9 +291,9 @@ LZ4TT_HD void lz4tt_hc_scan(const Team& t, uint32_t* cnt, int32_t k) {
 // histogram pass for both, and lanes of one digit are ranked by ballots.
 // The records' chain copies are written by the inserts.
 template <class Team>
-LZ4TT_HD void lz4tt_hc_index(const Team& t, const uint8_t* src, int32_t len,
-                             uint32_t* counts, uint32_t* tmp, uint16_t* rank,
-                             uint32_t* rec) {
+LZ4TT_HD void lz4tt_hc_index_warp(const Team& t, const uint8_t* src,
+                                  int32_t len, uint32_t* counts, uint32_t* tmp,
+                                  uint16_t* rank, uint32_t* rec) {
   const int lane = t.lane(), size = t.size();
   const int32_t n = len - (LZ4TT_MIN_MATCH - 1);
   uint32_t* lo = counts;
@@ -269,6 +331,96 @@ LZ4TT_HD void lz4tt_hc_index(const Team& t, const uint8_t* src, int32_t len,
     }
   }
   t.sync();
+}
+
+// The exclusive scan in place of a row's counters cnt[warp][digits], in
+// the order digit by digit and, within a digit, warp by warp: each lane a
+// run of that order; part holds a word a warp.
+template <class Row>
+LZ4TT_HD void lz4tt_hc_row_scan(const Row& t, uint32_t* cnt, int32_t digits,
+                                uint32_t* part) {
+  const auto w = t.warp();
+  const int nw = t.warps(), wi = t.warp_id();
+  const int32_t per = digits * nw / t.size(), at = t.lane() * per;
+  uint32_t sum = 0;
+  for (int32_t j = at; j < at + per; j++) sum += cnt[j % nw * digits + j / nw];
+  const uint32_t incl = (uint32_t)lz4tt_team_scan(w, (int32_t)sum);
+  if (w.lane() + 1 == w.size()) part[wi] = incl;
+  t.sync();
+  uint32_t run = incl - sum;
+  for (int v = 0; v < wi; v++) run += part[v];
+  for (int32_t j = at; j < at + per; j++) {
+    uint32_t& c = cnt[j % nw * digits + j / nw];
+    const uint32_t k = c;
+    c = run;
+    run += k;
+  }
+  t.sync();
+}
+
+// The bucket index by a row's warps, lz4tt_hc_index_warp's result: each
+// warp sorts a slice of the positions (whole steps of its size) with
+// counters of its own, counts[warp][256] of the low digit, then
+// counts[warp][128] of the high and a word a warp for the scans
+// (LZ4TT_HC_COUNTS + 1 words a warp); the scans order each digit's slots
+// warp by warp, so both passes stay stable. The high digit is counted on
+// each warp's slice of the first pass's output.
+template <class Row>
+LZ4TT_HD void lz4tt_hc_index_row(const Row& t, const uint8_t* src,
+                                 int32_t len, uint32_t* counts, uint32_t* tmp,
+                                 uint16_t* rank, uint32_t* rec) {
+  const auto w = t.warp();
+  const int lane = w.lane(), size = w.size(), nw = t.warps(), wi = t.warp_id();
+  const int32_t n = len - (LZ4TT_MIN_MATCH - 1);
+  const int32_t n_hi = LZ4TT_HC_COUNTS - LZ4TT_HC_LO;
+  uint32_t* lo = counts + wi * LZ4TT_HC_LO;
+  uint32_t* hi = counts + nw * LZ4TT_HC_LO + wi * n_hi;
+  uint32_t* part = counts + nw * LZ4TT_HC_COUNTS;
+  const int32_t per = ((n + nw - 1) / nw + size - 1) / size * size;
+  const int32_t a = wi * per < n ? wi * per : n;
+  const int32_t e = a + per < n ? a + per : n;
+  for (int32_t i = t.lane(); i < nw * LZ4TT_HC_COUNTS; i += t.size())
+    counts[i] = 0;
+  t.sync();
+  for (int32_t p = a + lane; p < e; p += size)
+    lz4tt_hc_count(&lo[lz4tt_hc_hash(lz4tt_read32(src, p)) % LZ4TT_HC_LO]);
+  t.sync();
+  lz4tt_hc_row_scan(t, counts, LZ4TT_HC_LO, part);
+  for (int32_t b = a; b < e; b += size) {
+    const int32_t p = b + lane;
+    const uint32_t h = p < e ? lz4tt_hc_hash(lz4tt_read32(src, p)) : 0u;
+    const int32_t slot = lz4tt_hc_place(w, lo, p < e, h % LZ4TT_HC_LO, 8);
+    if (p < e) tmp[slot] = (h / LZ4TT_HC_LO) << 16 | (uint32_t)p;
+  }
+  t.sync();
+  for (int32_t i = a + lane; i < e; i += size) lz4tt_hc_count(&hi[tmp[i] >> 16]);
+  t.sync();
+  lz4tt_hc_row_scan(t, counts + nw * LZ4TT_HC_LO, n_hi, part);
+  for (int32_t b = a; b < e; b += size) {
+    const int32_t i = b + lane;
+    const uint32_t v = i < e ? tmp[i] : 0u;
+    const int32_t p = (int32_t)(v & 0xFFFF);
+    const int32_t slot = lz4tt_hc_place(w, hi, i < e, v >> 16,
+                                        LZ4TT_HC_HASH_LOG - 8);
+    if (i < e) {
+      const uint32_t r[4] = {lz4tt_hc_word_in(src, p - 4, len),
+                             lz4tt_read32(src, p),
+                             lz4tt_hc_word_in(src, p + 4, len), (uint32_t)p << 16};
+      lz4tt_store16w((uint8_t*)(rec + 4 * slot), r);
+      rank[p] = (uint16_t)slot;
+    }
+  }
+  t.sync();
+}
+
+// The bucket index of src[0, len) by the team; a lead's row has sorted it
+// with all its warps before (lz4tt_hc_row_block).
+template <class Team>
+LZ4TT_HD void lz4tt_hc_index(const Team& t, const uint8_t* src, int32_t len,
+                             uint32_t* counts, uint32_t* tmp, uint16_t* rank,
+                             uint32_t* rec) {
+  if constexpr (!lz4tt_hc_lead_v<Team>)
+    lz4tt_hc_index_warp(t, src, len, counts, tmp, rank, rec);
 }
 
 // Length of the common prefix of src[o1..] and src[o2..] with o2 + count
@@ -361,12 +513,13 @@ LZ4TT_HD int32_t lz4tt_hc_insert(const Team& t, Lz4ttHc& z, int32_t off,
 // serial loop's result: at most max_attempts candidates, each in the
 // window [lo, off], in chain order (rc: c's rank, or -1 if unknown);
 // kWide: the wider search (a backward length too, no lower than
-// start_limit). m is the match so far.
+// start_limit). m is the match so far. Returns the true candidates walked.
 template <bool kWide, class Team>
-LZ4TT_HD void lz4tt_hc_walk(const Team& t, const Lz4ttHc& z, int32_t off,
-                            uint32_t cur, int32_t c, int32_t rc, int32_t lo,
-                            int32_t start_limit, Lz4ttHcMatch& m) {
-  if (c < lo || c > off) return;
+LZ4TT_HD int32_t lz4tt_hc_walk_warp(const Team& t, const Lz4ttHc& z, int32_t off,
+                                 uint32_t cur, int32_t c, int32_t rc,
+                                 int32_t lo, int32_t start_limit,
+                                 Lz4ttHcMatch& m) {
+  if (c < lo || c > off) return 0;
   const uint8_t* src = z.src;
   const int lane = t.lane(), size = t.size();
   // the words after and before cur; the records' words serve while the
@@ -454,10 +607,10 @@ LZ4TT_HD void lz4tt_hc_walk(const Team& t, const Lz4ttHc& z, int32_t off,
       m.ref = t.shfl(s, w) - back;
       m.start = off - back;
     }
-    if (last) return;
+    if (last) return z.max_attempts - left + p;
     left -= p;
     c = t.shfl(next, p - 1);  // the true next of the last true candidate
-    if (c < lo || c > off) return;
+    if (c < lo || c > off) return z.max_attempts - left;
     if (kf == size) {  // every link held: c is the next slice's first
       r -= size;
       x = x2;
@@ -470,11 +623,214 @@ LZ4TT_HD void lz4tt_hc_walk(const Team& t, const Lz4ttHc& z, int32_t off,
   }
 }
 
+// One warp's slice k of a wave of the walk q asks for: lane j's candidate
+// x is record q.r - 32k - j, the last lane's successor succ the position
+// of record q.r - 32k - 32, the next slice's first. Each lane measures its
+// candidate and checks its link as lz4tt_hc_walk_warp's lanes do; the
+// slice is cut at its first failing link and at the attempts left, the
+// candidates equal past the lanes' bytes finished by the warp in chain
+// order, and the rest reduced to the slice's account (on every lane).
+template <bool kWide, class Warp>
+LZ4TT_HD Lz4ttHcWave lz4tt_hc_slice(const Warp& w, const Lz4ttHc& z,
+                                    const Lz4ttHcAsk& q, int k,
+                                    const Lz4ttHcRec& x, int32_t succ) {
+  const uint8_t* src = z.src;
+  const int lane = w.lane(), size = w.size();
+  const int32_t off = q.off, lo = q.lo, start_limit = q.start_limit;
+  const bool ahead = off + 2 * LZ4TT_MIN_MATCH <= z.match_limit;
+  const uint32_t cur_ahead = ahead ? lz4tt_read32(src, off + LZ4TT_MIN_MATCH) : 0u;
+  const uint32_t cur_back = kWide ? lz4tt_hc_word_in(src, off - 4, off) : 0u;
+  const int32_t back_max = off - start_limit > 0 ? off - start_limit : 0;
+  const int32_t s = x.pos;
+  const bool in = s >= lo && s <= off;
+  int32_t next = -1, fwd = 0, bwd = 0;
+  bool more = false;
+  if (in) {
+    LZ4TT_HC_CHECK_COPY(x.delta, z.chain()[s & LZ4TT_HC_MASK]);
+    next = s - x.delta;
+    if (x.word == q.cur) {
+      const uint32_t d = x.ahead ^ cur_ahead;
+      fwd = LZ4TT_MIN_MATCH +
+            (ahead && d ? (lz4tt_ffs(d) - 1) >> 3
+                        : lz4tt_common_words(src, s + LZ4TT_MIN_MATCH,
+                                             off + LZ4TT_MIN_MATCH,
+                                             z.match_limit, ahead ? 4 : 0));
+      more = fwd == LZ4TT_MIN_MATCH + LZ4TT_SHORT_MATCH;
+      if (kWide) {
+        const uint32_t e = x.back ^ cur_back;
+        const int32_t most = s < back_max ? s : back_max;
+        bwd = e ? (31 - lz4tt_fls(e)) >> 3 : 4;
+        if (bwd > most) bwd = most;
+        if (bwd == 4) bwd = lz4tt_hc_back8(src, s, off, 0, start_limit, 4);
+        more = more || bwd == 8;
+      }
+    }
+  }
+  const int32_t after = w.shfl(s, lane + 1 < size ? lane + 1 : 0);
+  const int32_t nx = lane + 1 < size ? after : succ;
+  const bool holds = in && (next == nx || ((next < lo || next > off) &&
+                                           (nx < lo || nx > off)));
+  const unsigned fail = w.ballot(!holds), inside = w.ballot(in);
+  const int kf = fail ? lz4tt_ffs(fail) - 1 : size;
+  const bool kf_in = kf < size && ((inside >> kf) & 1u);
+  int32_t p = kf == size ? size : kf + (kf_in ? 1 : 0);
+  if (p > q.left - k * size) p = q.left - k * size;
+  if (lane >= p) {
+    fwd = bwd = 0;
+    more = false;
+  }
+  for (unsigned ms = w.ballot(more); ms; ms &= ms - 1) {
+    const int j = lz4tt_ffs(ms) - 1;
+    const int32_t sj = w.shfl(s, j);
+    const int32_t fj = w.shfl(fwd, j), bj = w.shfl(bwd, j);
+    int32_t f = 0, g = 0;
+    if (fj == LZ4TT_MIN_MATCH + LZ4TT_SHORT_MATCH)
+      f = lz4tt_common_bytes(w, src, sj + fj, off + fj, z.match_limit);
+    if (kWide && bj == 8)
+      g = lz4tt_hc_back_team(w, src, sj, off, 0, start_limit, 8) - 8;
+    if (lane == j) {
+      fwd += f;
+      bwd += g;
+    }
+  }
+  const int32_t len = fwd + bwd;
+  const uint32_t key =
+      len > q.mlen ? ((uint32_t)len << 8) | (uint32_t)(255 - k * size - lane)
+                   : 0u;
+  const uint32_t best = w.reduce_max(key);
+  const int wl = best ? 255 - (int)(best & 255) - k * size : 0;
+  return {kf, kf_in, w.shfl(next, kf < size ? kf : size - 1), best,
+          w.shfl(s, wl), w.shfl(bwd, wl)};
+}
+
+// The speculated walk by a row's lead and its crew, with
+// lz4tt_hc_walk_warp's result: a wave is a slice of candidates a warp of
+// the row, the crew's asked for at the row's barrier and their accounts
+// read after the next. In chain order, the first failing link ends the
+// wave's true candidates, the attempts left cut them, and the longest of
+// them, the earliest on a tie, replaces the match if strictly longer; a
+// failed link restarts the next wave from the true next. Returns the true
+// candidates walked.
+template <bool kWide, class Team>
+LZ4TT_HD int32_t lz4tt_hc_walk_lead(const Team& t, const Lz4ttHc& z,
+                                    int32_t off, uint32_t cur, int32_t c,
+                                    int32_t rc, int32_t lo,
+                                    int32_t start_limit, Lz4ttHcMatch& m) {
+  if (c < lo || c > off) return 0;
+  const auto& row = t.row();
+  const int lane = t.lane(), size = t.size(), nw = row.warps();
+  const int32_t wave = nw * size;
+  Lz4ttHcAsk q = {kWide ? LZ4TT_HC_ASK_WIDER : LZ4TT_HC_ASK_BEST, off, lo,
+                  start_limit, rc >= 0 ? rc : z.rank()[c], z.max_attempts,
+                  m.len, cur};
+  // no slice is loaded ahead for a next wave: most walks end in one
+  Lz4ttHcRec x = lz4tt_hc_rec(z, q.r - lane);
+  for (;;) {
+    if (t.leader()) {
+      *row.ask() = q;
+      LZ4TT_HC_ASKED();
+    }
+    row.sync();  // the crew takes the wave
+    const int32_t succ = lane + 1 == size ? lz4tt_hc_rec_pos(z, q.r - size) : 0;
+    Lz4ttHcWave e = lz4tt_hc_slice<kWide>(t, z, q, 0, x, succ);
+    row.sync();  // the crew's accounts are in
+    uint32_t top = e.key;
+    int32_t top_s = e.s, top_bwd = e.bwd;
+    int v = 0;
+    while (e.kf == size && v + 1 < nw) {
+      e = row.waves()[++v];
+      if (e.key > top) {
+        top = e.key;
+        top_s = e.s;
+        top_bwd = e.bwd;
+      }
+    }
+    const bool failed = e.kf < size;
+    int32_t n_true = failed ? v * size + e.kf + e.in : wave;
+    bool last = failed && !e.in;
+    if (n_true >= q.left) {
+      n_true = q.left;
+      last = true;
+    }
+    if (top) {
+      m.len = (int32_t)(top >> 8);
+      m.ref = top_s - top_bwd;
+      m.start = off - top_bwd;
+    }
+    if (last) return z.max_attempts - q.left + n_true;
+    q.left -= n_true;
+    q.mlen = m.len;
+    c = e.next;  // the true next of the last true candidate
+    if (c < lo || c > off) return z.max_attempts - q.left;
+    if (!failed) {  // every link held: c is the next wave's first
+      q.r -= wave;
+    } else {  // a link failed: speculate afresh from c
+      if (t.leader()) LZ4TT_HC_FOLLOWED();
+      q.r = z.rank()[c];
+    }
+    x = lz4tt_hc_rec(z, q.r - lane);
+  }
+}
+
+// The crew of a row's lead (its warps but 0), on one block: at each wave
+// the lead asks for, this warp's slice and its account; until the lead
+// ends the row.
+template <class Row>
+LZ4TT_HD void lz4tt_hc_crew(const Row& row, const Lz4ttHc& z) {
+  const auto w = row.warp();
+  const int k = row.warp_id(), lane = w.lane(), size = w.size();
+  for (;;) {
+    row.sync();  // the lead's ask is in
+    const Lz4ttHcAsk q = *row.ask();
+    if (q.kind == LZ4TT_HC_ASK_END) return;
+    const int32_t at = q.r - k * size;
+    const Lz4ttHcRec x = lz4tt_hc_rec(z, at - lane);
+    const int32_t succ = lane + 1 == size ? lz4tt_hc_rec_pos(z, at - size) : 0;
+    const Lz4ttHcWave a = q.kind == LZ4TT_HC_ASK_WIDER
+                              ? lz4tt_hc_slice<true>(w, z, q, k, x, succ)
+                              : lz4tt_hc_slice<false>(w, z, q, k, x, succ);
+    if (lane == 0) row.waves()[k] = a;
+    row.sync();  // this warp's account is in
+  }
+}
+
+// The speculated walk of the chain. A lead walks with its crew when its
+// last walk went past a slice (the row's walks run long), else as a warp
+// does: a short walk waits on no barrier.
+template <bool kWide, class Team>
+LZ4TT_HD void lz4tt_hc_walk(const Team& t, const Lz4ttHc& z, int32_t off,
+                            uint32_t cur, int32_t c, int32_t rc, int32_t lo,
+                            int32_t start_limit, Lz4ttHcMatch& m) {
+  if constexpr (lz4tt_hc_lead_v<Team>) {
+    t.hint = (t.hint && t.row().warps() > 1
+                  ? lz4tt_hc_walk_lead<kWide>(t, z, off, cur, c, rc, lo,
+                                              start_limit, m)
+                  : lz4tt_hc_walk_warp<kWide>(t, z, off, cur, c, rc, lo,
+                                              start_limit, m)) > t.size();
+  } else {
+    lz4tt_hc_walk_warp<kWide>(t, z, off, cur, c, rc, lo, start_limit, m);
+  }
+}
+
+// A lead's head-table line of the position 32 ahead, prefetched into L2
+// by its lane 0 at each best search: a row of few matches (incompressible
+// data) searches at every position, each search first waiting on that line.
+template <class Team>
+LZ4TT_HD void lz4tt_hc_head_ahead(const Team& t, const Lz4ttHc& z,
+                                  int32_t off) {
+#ifdef __CUDA_ARCH__
+  if (t.leader() && off + 32 + 4 <= z.match_limit)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(
+        z.ht() + lz4tt_hc_hash(lz4tt_read32(z.src, off + 32))));
+#endif
+}
+
 // insertAndFindBestMatch (jax_hc.py:66-152); a length of 0 is no match.
 template <class Team>
 LZ4TT_HD Lz4ttHcMatch lz4tt_hc_best(const Team& t, Lz4ttHc& z, int32_t off) {
   const uint8_t* src = z.src;
   const uint32_t cur = lz4tt_read32(src, off);
+  if constexpr (lz4tt_hc_lead_v<Team>) lz4tt_hc_head_ahead(t, z, off);
   const int32_t head = lz4tt_hc_insert(t, z, off, lz4tt_hc_hash(cur));
   int32_t ref = lz4tt_hc_head_pos(z, head);
   int32_t rref = z.spec && head != -1 ? (int32_t)((uint32_t)head >> 16) : -1;
@@ -721,7 +1077,8 @@ LZ4TT_HD bool lz4tt_hc_speculates(int32_t max_attempts) {
 // One block: src[0, src_len) compressed at max_attempts = 1 << (level - 1)
 // into dst[0, dest_cap), no write at or past dst_width; the tables lie in
 // the team's slice of scratch (LZ4TT_HC_TEAM_BYTES, 16-byte aligned), the
-// index's counters in counts (LZ4TT_HC_COUNTS words). *out_len is the
+// index's counters in counts (LZ4TT_HC_COUNTS words; LZ4TT_HC_COUNTS + 1 a
+// warp of the row for a lead's team). *out_len is the
 // output length, 0 on an error row. kSpec: the body of the levels that
 // speculate (lz4tt_hc_speculates); without it, none of the index's code
 // is compiled in (the card runs the two as two kernels, each with
@@ -779,3 +1136,33 @@ LZ4TT_HD void lz4tt_hc_block(const Team& t, const uint8_t* src, int32_t src_len,
     lz4tt_hc_block_as<false>(t, src, src_len, dst, dest_cap, dst_width,
                              max_attempts, scratch, counts, out_len, err);
 }
+
+// One block by a row's team (the wide kernel's CTA), at a level that
+// speculates, with lz4tt_hc_block's result: all its warps sort the index;
+// then its lead runs the block's body as a warp team does and ends the
+// row, and the crew takes the waves the lead asks for until then.
+template <class Row>
+LZ4TT_HD void lz4tt_hc_row_block(const Row& row, const uint8_t* src,
+                                 int32_t src_len, uint8_t* dst,
+                                 int32_t dest_cap, int64_t dst_width,
+                                 int32_t max_attempts, uint8_t* scratch,
+                                 uint32_t* counts, int32_t* out_len,
+                                 int32_t* err) {
+  const bool spec = src_len > LZ4TT_MIN_LENGTH && src_len <= LZ4TT_MAX_DISTANCE;
+  const Lz4ttHc z = {src, scratch, src_len - LZ4TT_LAST_LITERALS, max_attempts,
+                     spec, 0};
+  if (spec) {
+    uint32_t* tmp = (uint32_t*)scratch;
+    lz4tt_hc_index_row(row, src, src_len, counts, tmp, z.rank(), z.rec());
+  }
+  if (row.warp_id() == 0) {
+    const auto lead = row.lead();
+    lz4tt_hc_block_as<true>(lead, src, src_len, dst, dest_cap, dst_width,
+                            max_attempts, scratch, counts, out_len, err);
+    if (lead.leader()) row.ask()->kind = LZ4TT_HC_ASK_END;
+    row.sync();
+    return;
+  }
+  lz4tt_hc_crew(row, z);
+}
+

@@ -77,17 +77,18 @@ def check_rows(data: torch.Tensor, lens: torch.Tensor) -> None:
         raise ValueError("data and lengths must be on one device")
 
 
-def check_batch(data: torch.Tensor, lens: torch.Tensor) -> None:
+def check_batch(data: torch.Tensor, lens: torch.Tensor) -> int:
     """:func:`check_layout`, and lengths within ``[0, S]``, which the
-    kernels behind it trust. This reads the lengths back, so it waits for
-    the card."""
+    kernels behind it trust; returns the longest (0 for no rows). This
+    reads the lengths back, so it waits for the card."""
     check_layout(data, lens)
-    if lens.numel():
-        with readback("check_batch", lens):
-            lo, hi = torch.aminmax(lens)
-            bad = int(lo) < 0 or int(hi) > data.shape[1]
-        if bad:
-            raise ValueError(f"lengths must lie in [0, {data.shape[1]}]")
+    if not lens.numel():
+        return 0
+    with readback("check_batch", lens):
+        lo, hi = (int(x) for x in torch.aminmax(lens))
+    if lo < 0 or hi > data.shape[1]:
+        raise ValueError(f"lengths must lie in [0, {data.shape[1]}]")
+    return hi
 
 
 def cuda_stream(t: torch.Tensor | torch.device) -> int:

@@ -678,6 +678,83 @@ def test_hc_kernel_tight_dest_cap(cuda_device, dest_cap):
         assert bool(kern[2].any())
 
 
+def _index_rows(src, lens):
+    """The rows of a batch that the bucket index takes (at most 65,536
+    bytes): a batch the wide kernel takes at a level that speculates."""
+    idx = torch.nonzero(lens <= hc.INDEX_ROW).flatten()
+    return src[idx].contiguous(), lens[idx].contiguous()
+
+
+def _hc_launches():
+    return hc.HC.launches, hc.HC_WIDE.launches
+
+
+@pytest.mark.parametrize("level", [5, 9, 17])
+def test_hc_wide_kernel_matches_plain(cuda_device, level):
+    """K6's wide kernel (a CTA a row) against its plain version on the
+    rows of at most 65,536 bytes of the HC edge batch and of the collision
+    blocks (where the speculated walks' links fail): whole rows, one
+    launch of the wide kernel a batch."""
+    coll = layout.to_device_layout(
+        testing.hc_collision_blocks(np.random.default_rng(43)),
+        device=cuda_device)
+    for src, lens in (_index_rows(*_hc_batch(cuda_device)), _index_rows(*coll)):
+        cap = max_compressed_length(int(lens.max()))
+        warp, wide = _hc_launches()
+        kern = hc.compress_hc_batch(src, lens, cap, level)
+        assert _hc_launches() == (warp, wide + 1)
+        plain = hc.compress_hc_plain(src, lens, cap, level)
+        _assert_codec_equal(kern, plain)
+        assert torch.equal(kern[0], plain[0])
+
+
+@pytest.mark.parametrize("dest_cap", [0, 40, 300, 1000])
+def test_hc_wide_kernel_tight_dest_cap(cuda_device, dest_cap):
+    """The wide kernel at caps that some rows do not fit, at levels 5, 9
+    and 17: the same rows fail as in the plain version, with length 0."""
+    src, lens = _index_rows(*_hc_batch(cuda_device))
+    for level in (5, 9, 17):
+        warp, wide = _hc_launches()
+        kern = hc.compress_hc_batch(src, lens, dest_cap, level)
+        assert _hc_launches() == (warp, wide + 1)
+        _assert_codec_equal(kern, hc.compress_hc_plain(src, lens, dest_cap,
+                                                       level))
+        assert bool(kern[2].any())
+
+
+def test_hc_wide_path_at_its_capacity(cuda_device):
+    """A batch of as many rows as the card holds of the wide kernel's CTAs
+    runs it, one row more runs the warp kernel, each once, and both give
+    the plain version's rows; level 4 (a serial walk) and a row past
+    65,536 bytes run the warp kernel."""
+    rng = np.random.default_rng(45)
+    base = testing.hc_edge_blocks(rng) + [
+        testing.block_of(rng, k, 3000) for k in testing.HC_KINDS]
+    cap = max_compressed_length(max(len(b) for b in base))
+    capacity = hc.wide_capacity(cuda_device.index or 0)
+    n = capacity + 1
+    src, lens = layout.to_device_layout(
+        [base[i % len(base)] for i in range(n)], device=cuda_device)
+    bsrc, blens = layout.to_device_layout(base, device="cpu")
+    plain = hc.compress_hc_plain(bsrc, blens, cap, 9)
+    rows = torch.arange(n) % len(base)
+    want = tuple(t[rows].to(cuda_device) for t in plain)
+    for k, launched in ((capacity, (0, 1)), (n, (1, 0))):
+        warp, wide = _hc_launches()
+        kern = hc.compress_hc_batch(src[:k].contiguous(), lens[:k].contiguous(),
+                                    cap, 9)
+        assert _hc_launches() == (warp + launched[0], wide + launched[1])
+        _assert_codec_equal(kern, tuple(t[:k] for t in want))
+    for level, (s, sl) in ((4, (src[:8], lens[:8])),
+                           (9, layout.to_device_layout(
+                               [base[0], testing.block_of(rng, "text", 70000)],
+                               device=cuda_device))):
+        warp, wide = _hc_launches()
+        hc.compress_hc_batch(s.contiguous(), sl.contiguous(),
+                             max_compressed_length(70000), level)
+        assert _hc_launches() == (warp + 1, wide)
+
+
 def test_hc_on_the_card_never_runs_k2(cuda_device):
     """The tier's HC and the stream at an HC level run K6 and not K2, and
     give the CPU's bytes."""
@@ -690,7 +767,8 @@ def test_hc_on_the_card_never_runs_k2(cuda_device):
     out = io.BytesIO()
     compress_stream(io.BytesIO(data), out, level=9, batch_blocks=2)
     counts = build.launch_counts()
-    assert counts["lz4_hc"] >= 3 and counts["lz4_compress"] == 0
+    assert counts["lz4_hc"] + counts["lz4_hc_wide"] >= 3
+    assert counts["lz4_compress"] == 0
     assert got == Lz4Factory.cuda_instance("cpu").high_compressor(
         9).compress_batch(blocks)
     cpu = io.BytesIO()
@@ -1382,8 +1460,9 @@ def test_read_backs_are_counted_and_launches_lie_in_their_entry_spans(
     """The benchmark cells' four calls on the card: one read-back a
     compress call (``check_batch``) and one a frame body, counted by site,
     and none in the decode, as K1 checks each row's length; under
-    ``torch.profiler`` every K1, K2, K6 and pack launch lies inside the
-    entry span of the call that made it."""
+    ``torch.profiler`` every K1, K2, K6 (this batch fits the card in one
+    round of its wide kernel) and pack launch lies inside the entry span of
+    the call that made it."""
     import chip_smoke
     from lz4_tpu_torch.utils import profiling
 
@@ -1409,7 +1488,7 @@ def test_read_backs_are_counted_and_launches_lie_in_their_entry_spans(
         calls()
     spans, launches = chip_smoke._port_events(prof)
     assert chip_smoke.launches_in_entries(launches, spans) == {
-        k: [1, 1] for k in ("compress_kernel", "hc_kernel", "pack_kernel",
+        k: [1, 1] for k in ("compress_kernel", "hc_row_kernel", "pack_kernel",
                             "decode_smem_kernel")}
 
 

@@ -197,3 +197,25 @@ def test_stream_takes_the_packed_hc_path(monkeypatch):
     eng = get_engine("segment", 99, "cpu")
     assert eng.compress_packed.func is ci.compress_rows
     assert eng.compress_packed.keywords == {"level": 17}
+
+
+@pytest.mark.parametrize("level", range(1, 18))
+def test_wide_path_rule_by_level(level):
+    """K6's wide kernel takes a batch that fits the card in one round only
+    at the levels whose walks speculate (5-17; levels 1-4 walk serially),
+    and only when every row fits the bucket index (65,536 bytes)."""
+    cap = 1056
+    speculates = level >= 5
+    assert hc.speculates(level) == speculates
+    assert hc.takes_wide_path(512, level, 1 << 16, cap) == speculates
+    assert not hc.takes_wide_path(512, level, (1 << 16) + 1, cap)
+
+
+@pytest.mark.parametrize("n,wide", [(0, False), (1, True), (527, True),
+                                    (528, True), (529, False), (4096, False)])
+def test_wide_path_rule_by_rows(n, wide):
+    """At a capacity of 528 CTAs: no rows take no kernel's path, a batch
+    of at most the capacity the wide kernel's, one row more the warp
+    kernel's."""
+    assert hc.takes_wide_path(n, 9, 1 << 16, 528) == wide
+

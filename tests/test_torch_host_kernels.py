@@ -33,6 +33,9 @@ static long long hc_followed = 0;
 static int hc_copy_faults = 0;
 #define LZ4TT_HC_CHECK_COPY(copy, slot) \
   if ((copy) != (slot)) __atomic_add_fetch(&hc_copy_faults, 1, __ATOMIC_RELAXED)
+// and the waves a row's lead asked its crew for
+static long long hc_asked = 0;
+#define LZ4TT_HC_ASKED() __atomic_add_fetch(&hc_asked, 1, __ATOMIC_RELAXED)
 #include "block_stream.cuh"
 #include "frame_pack.cuh"
 #include "gather_decode.cuh"
@@ -45,15 +48,134 @@ static int hc_copy_faults = 0;
 #include "xxh32.cuh"
 #include "xxh64.cuh"
 #include <pthread.h>
+#include <cstdlib>
 #include <vector>
 
-// A team of n host threads that meet at a barrier for every collective, as
-// a warp's lanes do: it runs a body's multi-lane logic (the lane split,
-// ballots, shuffles, the queue) on the host. Nothing here models the
-// card's memory; the barrier orders all memory.
+// Lanes as fibers: every lane of a team on the calling thread, each on a
+// stack of its own. A lane that waits at a barrier yields to the next,
+// round robin, so a barrier costs a switch a lane (a few ns, the
+// callee-saved registers and the stack pointer) where a barrier of host
+// threads costs a wake-up a thread. x86-64 only.
+#if defined(__x86_64__)
+#define HOST_FIBERS 1
+extern "C" void host_fiber_switch(void** save_sp, void* next_sp);
+asm(R"(
+.text
+.globl host_fiber_switch
+.hidden host_fiber_switch
+.type host_fiber_switch,@function
+host_fiber_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+.size host_fiber_switch, .-host_fiber_switch
+)");
+
+struct Fibers {
+  static constexpr size_t kStack = 256 << 10;
+  int n = 0, cur = 0, live = 0;
+  std::vector<void*> sp;
+  std::vector<char*> stacks;
+  std::vector<char> done;
+  void* main_sp = nullptr;
+  void (*body)(void*, int) = nullptr;
+  void* arg = nullptr;
+  ~Fibers() {
+    for (char* p : stacks) free(p);
+  }
+};
+static thread_local Fibers* fibers_now = nullptr;
+
+// Switch from the current fiber to the next one not done (none: return).
+static void fiber_next(bool finished) {
+  Fibers& f = *fibers_now;
+  const int from = f.cur;
+  int to = from;
+  do {
+    to = (to + 1) % f.n;
+  } while (f.done[to] && to != from);
+  void* dead;
+  if (f.done[to]) {  // every fiber has finished
+    host_fiber_switch(&dead, f.main_sp);
+    return;
+  }
+  if (to == from) return;
+  f.cur = to;
+  host_fiber_switch(finished ? &dead : &f.sp[from], f.sp[to]);
+}
+
+static void fiber_entry() {
+  Fibers& f = *fibers_now;
+  f.body(f.arg, f.cur);
+  f.done[f.cur] = 1;
+  f.live--;
+  fiber_next(true);
+}
+
+// body(arg, lane) on n fibers of this thread, until all have returned.
+static void run_fibers(Fibers& f, int n, void (*body)(void*, int), void* arg) {
+  while ((int)f.stacks.size() < n) f.stacks.push_back((char*)malloc(Fibers::kStack));
+  f.n = f.live = n;
+  f.cur = 0;
+  f.body = body;
+  f.arg = arg;
+  f.sp.assign(n, nullptr);
+  f.done.assign(n, 0);
+  for (int i = 0; i < n; i++) {
+    // six zero registers, then fiber_entry as the return address, with the
+    // stack 16-byte aligned at the call it stands for
+    uintptr_t top = ((uintptr_t)f.stacks[i] + Fibers::kStack) & ~(uintptr_t)15;
+    void** frame = (void**)(top - 64);
+    for (int k = 0; k < 6; k++) frame[k] = nullptr;
+    frame[6] = (void*)&fiber_entry;
+    frame[7] = nullptr;
+    f.sp[i] = frame;
+  }
+  Fibers* before = fibers_now;
+  fibers_now = &f;
+  host_fiber_switch(&f.main_sp, f.sp[0]);
+  fibers_now = before;
+}
+#endif
+
+// A barrier of the fibers of one team.
+struct FiberBarrier {
+  int n = 0, count = 0;
+  unsigned gen = 0;
+  void wait() {
+#ifdef HOST_FIBERS
+    const unsigned g = gen;
+    if (++count == n) {
+      count = 0;
+      gen++;
+      return;
+    }
+    while (gen == g) fiber_next(false);
+#endif
+  }
+};
+
+// A team of n host threads (or fibers, where `fiber` is set) that meet at
+// a barrier for every collective, as a warp's lanes do: it runs a body's
+// multi-lane logic (the lane split, ballots, shuffles, the queue) on the
+// host. Nothing here models the card's memory; the barrier orders all
+// memory.
 struct ThreadTeamShared {
   pthread_barrier_t bar;
   int32_t slot[32];
+  FiberBarrier* fiber = nullptr;
 };
 struct ThreadTeam {
   ThreadTeamShared* sh;
@@ -61,7 +183,12 @@ struct ThreadTeam {
   int lane() const { return id; }
   int size() const { return n; }
   bool leader() const { return id == 0; }
-  void sync() const { pthread_barrier_wait(&sh->bar); }
+  void sync() const {
+    if (sh->fiber)
+      sh->fiber->wait();
+    else
+      pthread_barrier_wait(&sh->bar);
+  }
   unsigned ballot(bool p) const {
     sh->slot[id] = p;
     sync();
@@ -199,6 +326,81 @@ static void* hc_lane(void* arg) {
                  &j->err[l->id]);
   return nullptr;
 }
+
+// A row's team of `nw` warps of `nl` lanes each (fibers, or host threads
+// where there are none), as the wide kernel's CTA (a row's team): each warp
+// a ThreadTeam with a barrier of its own, the row's barrier over all of
+// them; warp 0's team is the lead's (HostLead).
+struct HostRowShared {
+  pthread_barrier_t bar;
+  ThreadTeamShared warp[8];
+  Lz4ttHcAsk ask;
+  Lz4ttHcWave waves[8];
+  FiberBarrier fibers[9];  // the warps', then the row's
+  FiberBarrier* fiber = nullptr;
+};
+struct HostRow;
+struct HostLead : ThreadTeam, Lz4ttHcLead {
+  const HostRow* row_;
+  mutable bool hint;
+  const HostRow& row() const { return *row_; }
+};
+struct HostRow {
+  HostRowShared* sh;
+  int id, nw, nl;
+  int lane() const { return id; }
+  int size() const { return nw * nl; }
+  bool leader() const { return id == 0; }
+  void sync() const {
+    if (sh->fiber)
+      sh->fiber->wait();
+    else
+      pthread_barrier_wait(&sh->bar);
+  }
+  ThreadTeam warp() const { return {&sh->warp[id / nl], id % nl, nl}; }
+  int warp_id() const { return id / nl; }
+  int warps() const { return nw; }
+  Lz4ttHcAsk* ask() const { return &sh->ask; }
+  Lz4ttHcWave* waves() const { return sh->waves; }
+  HostLead lead() const { return {{&sh->warp[0], id, nl}, {}, this, false}; }
+};
+
+// One block of K6's body by a row's team of host threads.
+struct HcRowJob {
+  const uint8_t* src;
+  int32_t len;
+  uint8_t* dst;
+  int32_t dest_cap;
+  long long dst_width;
+  int32_t attempts;
+  uint8_t* scratch;
+  uint32_t* counts;
+  HostRowShared* sh;
+  int nw, nl;
+  int32_t out_len[256], err[256];
+};
+struct HcRowLane {
+  HcRowJob* job;
+  int id;
+};
+static void hc_row_run(void* arg, int id) {
+  HcRowJob* j = (HcRowJob*)arg;
+  HostRow t;
+  t.sh = j->sh;
+  t.id = id;
+  t.nw = j->nw;
+  t.nl = j->nl;
+  lz4tt_hc_row_block(t, j->src, j->len, j->dst, j->dest_cap, j->dst_width,
+                     j->attempts, j->scratch, j->counts, &j->out_len[id],
+                     &j->err[id]);
+}
+#ifndef HOST_FIBERS
+static void* hc_row_lane(void* arg) {
+  HcRowLane* l = (HcRowLane*)arg;
+  hc_row_run(l->job, l->id);
+  return nullptr;
+}
+#endif
 
 // One block of a batch by a team of host threads, one job a launch of
 // host_team: the parser's body or the pack body.
@@ -486,6 +688,57 @@ int host_hc(const uint8_t* src, long long src_stride, const int32_t* src_lens,
   return rc;
 }
 int host_hc_team_bytes() { return LZ4TT_HC_TEAM_BYTES; }
+// The same by a row's team of `warps` warps of `lanes` lanes (the wide
+// kernel's CTA; at most 8 warps, lanes dividing 128) at a level that
+// speculates: fibers of this thread, or host threads where there are none;
+// returns -1 if the lead's lanes disagree on a block
+int host_hc_row(const uint8_t* src, long long src_stride,
+                const int32_t* src_lens, uint8_t* dst, long long dst_stride,
+                int dest_cap, int level, uint8_t* scratch, int32_t* out_lens,
+                int32_t* err, int n, int warps, int lanes) {
+  const int all = warps * lanes;
+  if (warps < 1 || warps > 8 || lanes < 1 || lanes > 32 || 128 % lanes ||
+      !lz4tt_hc_speculates(1 << (level - 1)))
+    return -2;
+  uint32_t counts[(LZ4TT_HC_COUNTS + 1) * 8];
+  HostRowShared sh;
+#ifdef HOST_FIBERS
+  Fibers fibers;
+  for (int w = 0; w <= warps; w++) sh.fibers[w].n = w < warps ? lanes : all;
+  for (int w = 0; w < warps; w++) sh.warp[w].fiber = &sh.fibers[w];
+  sh.fiber = &sh.fibers[warps];
+#else
+  pthread_barrier_init(&sh.bar, nullptr, all);
+  for (int w = 0; w < warps; w++)
+    pthread_barrier_init(&sh.warp[w].bar, nullptr, lanes);
+#endif
+  int rc = 0;
+  for (int b = 0; b < n && rc == 0; b++) {
+    HcRowJob job = {src + b * src_stride, src_lens[b], dst + b * dst_stride,
+                    dest_cap, dst_stride, 1 << (level - 1), scratch, counts,
+                    &sh, warps, lanes, {}, {}};
+#ifdef HOST_FIBERS
+    run_fibers(fibers, all, hc_row_run, &job);
+#else
+    std::vector<pthread_t> th(all);
+    std::vector<HcRowLane> ls(all);
+    for (int i = 0; i < all; i++) {
+      ls[i] = {&job, i};
+      pthread_create(&th[i], nullptr, hc_row_lane, &ls[i]);
+    }
+    for (int i = 0; i < all; i++) pthread_join(th[i], nullptr);
+#endif
+    out_lens[b] = job.out_len[0];
+    err[b] = job.err[0];
+    for (int i = 1; i < lanes; i++)  // the lead's lanes
+      if (job.out_len[i] != job.out_len[0] || job.err[i] != job.err[0]) rc = -1;
+  }
+#ifndef HOST_FIBERS
+  for (int w = 0; w < warps; w++) pthread_barrier_destroy(&sh.warp[w].bar);
+  pthread_barrier_destroy(&sh.bar);
+#endif
+  return rc;
+}
 // K1's body with a history a row (row b's: the hist_lens[b] bytes that end
 // at hist_end + b * hist_stride), one block after the other, by a team of
 // `lanes` (1: one lane; else host threads); returns -1 if the lanes
@@ -661,8 +914,10 @@ int host_compress_dict(const uint8_t* src, long long src_stride,
   return rc;
 }
 long long host_hc_followed() { return hc_followed; }
+long long host_hc_asked() { return hc_asked; }
 int host_hc_copy_faults() { return hc_copy_faults; }
 int host_hc_spec_attempts() { return LZ4TT_HC_SPEC_ATTEMPTS; }
+int host_hc_row_warps() { return LZ4TT_HC_ROW_WARPS; }
 // K5's body, one block after the other, by a team of `lanes` threads;
 // returns -1 if the lanes disagree on a block's code
 int host_segment_team(const uint8_t* comp, long long comp_stride,
@@ -856,6 +1111,7 @@ def lib(tmp_path_factory):
     lib.host_xxh64_stream.argtypes = [_P, _I64, _P]
     lib.host_hc.argtypes = [_P, _I64, _P, _P, _I64, _I32, _I32, _P, _P, _P,
                             _I32, _I32]
+    lib.host_hc_row.argtypes = lib.host_hc.argtypes + [_I32]
     lib.host_decode_hist.argtypes = [_P, _I64, _P, _P, _I64, _I32, _P, _I64,
                                      _P, _P, _P, _I32, _I32]
     lib.host_decode_whole.argtypes = [_P, _I64, _P, _P, _I64, _I32, _P, _P,
@@ -875,7 +1131,9 @@ def lib(tmp_path_factory):
     lib.host_lz4block_walk.argtypes = [_P, _I64, _I64, _I32, _I32, _P, _P]
     lib.host_lz4block_hits.argtypes = [_P, _I64, _P, _I32]
     lib.host_hc_followed.restype = ctypes.c_longlong
+    lib.host_hc_asked.restype = ctypes.c_longlong
     lib.host_hc_spec_attempts.restype = ctypes.c_int
+    lib.host_hc_row_warps.restype = ctypes.c_int
     return lib
 
 
@@ -1663,6 +1921,113 @@ def test_host_hc_collision_tight_caps(lib, lanes):
         for cap in (n - 1, n, n + 1):
             plain = hc.compress_hc_plain(src, lens, cap, level)
             _assert_same(_host_hc(lib, src, lens, cap, level, lanes), plain)
+
+
+def _host_hc_row(lib, src, lens, dest_cap, level, warps, lanes=32):
+    """K6's body at ``level`` by a row's team of ``warps`` warps of
+    ``lanes`` lanes (the wide kernel's CTA; fibers of one thread) over the
+    batch, one block after the other in one team's tables, poisoned first,
+    as :func:`_host_hc`."""
+    n = src.shape[0]
+    scratch = torch.full((lib.host_hc_team_bytes(),), 0x5A, dtype=torch.uint8)
+    out = torch.zeros((n, layout.row_stride(dest_cap)), dtype=torch.uint8)
+    out_lens = torch.full((n,), -7, dtype=torch.int32)
+    err = torch.full((n,), -7, dtype=torch.int32)
+    assert lib.host_hc_row(_ptr(src), src.stride(0), _ptr(lens), _ptr(out),
+                           out.stride(0), dest_cap, level, _ptr(scratch),
+                           _ptr(out_lens), _ptr(err), n, warps, lanes) == 0
+    assert lib.host_hc_copy_faults() == 0
+    return out, out_lens, err
+
+
+# the levels the wide kernel's body is held at on the host
+ROW_LEVELS = (5, 9, 12, 17)
+
+
+def test_host_hc_row_constants(lib):
+    """The wrapper's rule reads the header's constants: the fewest attempts
+    that speculate, and the wide kernel's warps (at most 8, the walk's
+    wave keys)."""
+    assert hc.SPEC_ATTEMPTS == lib.host_hc_spec_attempts()
+    assert 1 <= lib.host_hc_row_warps() <= 8
+
+
+@pytest.mark.parametrize("level", ROW_LEVELS)
+def test_host_hc_row_collision_blocks(lib, level):
+    """The wide kernel's body, its CTA as a row's team of the shipped
+    warps of 32 lanes, on the collision blocks (1,000 bytes to past 65,536)
+    against the plain version: whole rows, every lane agreeing, the
+    speculated walks' failed links followed, every chain copy read equal to
+    its slot."""
+    src, lens = _hc_collisions()
+    cap, plain = _hc_collisions_plain(level)
+    before = lib.host_hc_followed()
+    host = _host_hc_row(lib, src, lens, cap, level, lib.host_hc_row_warps())
+    _assert_same(host, plain)
+    assert torch.equal(host[0], plain[0])
+    assert lib.host_hc_followed() > before
+
+
+@functools.cache
+def _hc_rows_64k():
+    """A 65,536-byte row of each of the a4, text and random kinds: the
+    longest rows the wide kernel takes."""
+    rng = np.random.default_rng(44)
+    return layout.to_device_layout(
+        [testing.block_of(rng, k, 1 << 16)
+         for k in ("alphabet4", "text", "incompressible")], device="cpu")
+
+
+@pytest.mark.parametrize("level", ROW_LEVELS)
+def test_host_hc_row_64k_rows(lib, level):
+    """The same team on the 65,536-byte rows of ``testing.HC_BIG_SIZES``,
+    one of each of the a4, text and random kinds, against the plain
+    version: the a4 row's walks of some 120 candidates a search, which the
+    lead's crew takes (the waves it asked for) where a walk may go past a
+    slice (more than 32 attempts: levels 7 on)."""
+    src, lens = _hc_rows_64k()
+    cap = max_compressed_length(1 << 16)
+    plain = hc.compress_hc_plain(src, lens, cap, level)
+    before = lib.host_hc_asked()
+    _assert_same(_host_hc_row(lib, src, lens, cap, level,
+                              lib.host_hc_row_warps()), plain)
+    assert (lib.host_hc_asked() > before) == (1 << (level - 1) > 32)
+
+
+@pytest.mark.parametrize("warps,lanes", [(8, 32), (4, 4), (8, 2), (2, 1),
+                                         (1, 32)])
+def test_host_hc_row_team_shapes(lib, warps, lanes):
+    """Rows' teams of other shapes (8 warps; warps of fewer lanes, whose
+    small waves end most walks after several, across every warp edge) on
+    the small collision blocks and the HC edge blocks at levels 5, 9 and
+    17, against the plain version."""
+    src, lens = _hc_collisions()
+    idx = torch.nonzero(lens <= 1000).flatten()
+    for level in (5, 9, 17):
+        cap, plain = _hc_collisions_plain(level)
+        host = _host_hc_row(lib, src[idx].contiguous(), lens[idx].contiguous(),
+                            cap, level, warps, lanes)
+        _assert_same(host, tuple(x[idx] for x in plain))
+        ecap, eplain = _hc_plain(level)
+        esrc, elens = _hc_small()
+        _assert_same(_host_hc_row(lib, esrc, elens, ecap, level, warps, lanes),
+                     eplain)
+
+
+@pytest.mark.parametrize("warps", [4, 8])
+def test_host_hc_row_tight_caps(lib, warps):
+    """Caps of n - 1, n and n + 1 of each small collision block's output
+    at levels 5 and 9 by a row's team: the same rows fail as in the plain
+    version."""
+    src, lens = _hc_collisions()
+    idx = torch.nonzero(lens <= 1000).flatten()
+    src, lens = src[idx].contiguous(), lens[idx].contiguous()
+    for level in (5, 9):
+        n = int(_hc_collisions_plain(level)[1][1][idx].max())
+        for cap in (n - 1, n, n + 1):
+            plain = hc.compress_hc_plain(src, lens, cap, level)
+            _assert_same(_host_hc_row(lib, src, lens, cap, level, warps),
+                         plain)
 
 
 @pytest.mark.parametrize("level", range(3, 18))
